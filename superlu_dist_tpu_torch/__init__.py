@@ -1,0 +1,30 @@
+"""superlu_dist_tpu_torch — the PyTorch/CUDA port of the JAX package.
+
+A supernodal multifrontal sparse direct solver (the SuperLU_DIST
+capability set) for one NVIDIA Hopper GPU.  The host analysis (scaling,
+matching, ordering, symbolic factorization, plan) is numpy; the numeric
+factorization and the triangular solves run in PyTorch on the device,
+with the two irregular scatter kernels hand-written in CUDA
+(``numeric/kernels.py``, ``csrc/``).  The JAX package beside it
+(``superlu_dist_tpu/``) is the reference this port is held against; this
+package imports nothing of it.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+
+from superlu_dist_tpu_torch.drivers.gssvx import (LUFactorization, analyze,
+                                                  factorize_numeric, gssvx)
+from superlu_dist_tpu_torch.sparse.formats import SparseCSC, SparseCSR
+from superlu_dist_tpu_torch.utils.errors import (NumericBreakdownError,
+                                                 SingularMatrixError,
+                                                 SuperLUError)
+from superlu_dist_tpu_torch.utils.options import (ColPerm, Fact, IterRefine,
+                                                  Options, RowPerm)
+from superlu_dist_tpu_torch.utils.stats import Stats
+
+__all__ = [
+    "gssvx", "analyze", "factorize_numeric", "LUFactorization",
+    "Options", "Fact", "ColPerm", "RowPerm", "IterRefine", "Stats",
+    "SparseCSR", "SparseCSC",
+    "SuperLUError", "SingularMatrixError", "NumericBreakdownError",
+]

@@ -1,0 +1,220 @@
+"""Dense supernodal kernels: the batched partial factorization of fronts.
+
+Port of the JAX package's ``ops/dense.py`` (the reference's BLAS seam:
+pdgstrf2_trsm, SRC/pdgstrf2.c:140-318, and the Schur-complement GEMM,
+dSchCompUdt-2Ddynamic.c:566).  Fronts are padded to bucket sizes (M total,
+W pivot columns), with identity columns in the pivot-block padding so the
+unpivoted LU passes through them untouched.  Tiny pivots are replaced by
+±thresh exactly like the reference's GESP (pdgstrf2.c:218-232, option
+ReplaceTinyPivot), and counted.
+
+Layout of a factored front F (M×M, pivot width W, real sizes w ≤ W,
+u ≤ M−W):
+    F[:W, :W]   packed LU of the diagonal block (unit-lower L11 + U11)
+    F[W:, :W]   L21 = A21·U11⁻¹   (real data in rows W..W+u)
+    F[:W, W:]   U12 = L11⁻¹·A12
+    F[W:, W:]   Schur complement S = A22 − L21·U12 (scattered to the pool)
+
+The JAX package ``vmap``s a ``fori_loop`` over one front; here the batch
+is an explicit leading dimension and the column loop is a Python loop over
+tensors that lie on the device.  The triangular solves and GEMMs go to
+``torch.linalg.solve_triangular`` and ``torch.matmul``, as the JAX package
+leaves them to XLA; neither is a Pallas kernel there.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_PANEL_BLOCK = 128   # outer panel width of the blocked right-looking LU
+
+#: GEMM tiers the port runs.  Both are full float32/float64 products; the
+#: JAX package's reduced tiers (bf16, the tensorfloat "default") are not
+#: ported yet (ROADMAP.md).
+GEMM_TIERS = ("highest", "f32")
+
+
+def full_precision_matmul() -> None:
+    """Pin float32 products to full float32: no TF32 in cuBLAS matmuls or
+    cuDNN.  TF32 keeps about three decimal digits and would silently
+    change what the "highest" tier means; both flags are set explicitly
+    because cuDNN defaults to TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def check_gemm_tier(prec: str) -> str:
+    if prec not in GEMM_TIERS:
+        raise NotImplementedError(
+            f"GEMM tier {prec!r} is not ported yet; the port runs "
+            f"{GEMM_TIERS} (ROADMAP.md)")
+    return prec
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, prec: str = "highest"):
+    """One ladder-tier batched matmul: every Schur-update GEMM of the
+    factor path routes through here."""
+    check_gemm_tier(prec)
+    return torch.matmul(a, b)
+
+
+def _fix_pivot(piv: torch.Tensor, thresh: torch.Tensor):
+    """GESP tiny-pivot replacement: piv -> phase(piv)·thresh if
+    |piv| < thresh.  Returns (pivots, int32 tiny flags)."""
+    ap = piv.abs()
+    safe = torch.where(ap == 0, torch.ones_like(ap), ap)
+    unit = torch.where(ap == 0, torch.ones_like(piv), piv / safe)
+    tiny = ap < thresh
+    return torch.where(tiny, unit * thresh, piv), tiny.to(torch.int32)
+
+
+_UNROLL = 16         # panel width factored by the unrolled column loop
+
+
+def _lu_masked(a: torch.Tensor, thresh: torch.Tensor):
+    """Unpivoted LU of a batch of small blocks (B, k, k) with tiny-pivot
+    replacement, one rank-1 step per column (the JAX package's
+    ``_lu_masked``, with the same write-back arithmetic).  Returns
+    (packed LU, tiny (B, k) int32 per-column flags)."""
+    b, k, _ = a.shape
+    idx = torch.arange(k, device=a.device)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    flags = torch.zeros((b, k), dtype=torch.int32, device=a.device)
+    a = a.clone()
+    for i in range(k):
+        row_i = a[:, i, :].clone()
+        col_i = a[:, :, i].clone()
+        piv_raw = row_i[:, i]
+        piv, tiny = _fix_pivot(piv_raw, thresh)
+        below = idx > i
+        l = torch.where(below, col_i / piv[:, None], zero)
+        u = torch.where(below, row_i, zero)
+        a -= l[:, :, None] * u[:, None, :]
+        new_col = (torch.where(below, l, col_i)
+                   + (piv - piv_raw)[:, None] * (idx == i).to(a.dtype))
+        cur = a[:, :, i]
+        a[:, :, i] = cur + (new_col - cur)
+        flags[:, i] += tiny
+    return a, flags
+
+
+def lu_nopivot(a: torch.Tensor, thresh: torch.Tensor,
+               gemm_prec: str = "highest"):
+    """Blocked-recursive unpivoted LU of a batch (B, n, n) with tiny-pivot
+    replacement; the trailing update is one batched GEMM per recursion
+    level.  Returns (packed LU, tiny (B, n) int32 per-column flags)."""
+    n = a.shape[-1]
+    if n <= _UNROLL:
+        return _lu_masked(a, thresh)
+    h = max(_UNROLL, (n // 2 + _UNROLL - 1) // _UNROLL * _UNROLL)
+    h = min(h, n - 1)
+    f11, c1 = lu_nopivot(a[:, :h, :h], thresh, gemm_prec)
+    u12 = torch.linalg.solve_triangular(f11, a[:, :h, h:], upper=False,
+                                        unitriangular=True)
+    l21 = torch.linalg.solve_triangular(f11, a[:, h:, :h], upper=True,
+                                        left=False)
+    s = a[:, h:, h:] - gemm(l21, u12, gemm_prec)
+    f22, c2 = lu_nopivot(s, thresh, gemm_prec)
+    return (torch.cat([torch.cat([f11, u12], dim=2),
+                       torch.cat([l21, f22], dim=2)], dim=1),
+            torch.cat([c1, c2], dim=1))
+
+
+def _blocked_partial_factor(f: torch.Tensor, thresh: torch.Tensor, w: int,
+                            gemm_prec: str = "highest"):
+    """Right-looking blocked partial LU of a batch of fronts, in place.
+
+    f is (B, M, M); the leading w columns are eliminated.  Each PB-wide
+    panel is eliminated with masked rank-1 steps over the whole panel
+    width, then one unit-lower triangular solve gives the U rows right of
+    the panel and one (M, pa)×(pa, M) GEMM updates the trailing matrix —
+    the arithmetic of the JAX package's ``_blocked_partial_factor``
+    (ops/dense.py:253), with the padding columns (j ≥ w) skipped instead
+    of masked: a masked step there leaves every value unchanged.  The
+    trailing TRSM and GEMM run only over the columns right of the panel
+    and the rows below the active pivots, where the JAX version's masked
+    full-width products add exact zeros.
+
+    Returns (packed fronts (B, M, M) — f itself when no padding was
+    needed — and tiny flags (B, w) int32).
+    """
+    b, m, _ = f.shape
+    pb = min(_PANEL_BLOCK, -(-w // 16) * 16)
+    nsteps = -(-w // pb)
+    # shrink the panel so nsteps*pb hugs w (same rule as the JAX package)
+    pb = -(-(-(-w // nsteps)) // 16) * 16
+    nsteps = -(-w // pb)
+    m_ext = max(m, nsteps * pb)
+    a = f
+    if m_ext > m:
+        # zero padding; padded columns are never eliminated (j >= w) and
+        # padded rows stay zero throughout
+        a = torch.nn.functional.pad(f, (0, m_ext - m, 0, m_ext - m))
+    rows = torch.arange(m_ext, device=f.device)
+    cols_pb = torch.arange(pb, device=f.device)
+    flags = torch.zeros((b, w), dtype=torch.int32, device=f.device)
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    for p in range(nsteps):
+        j0 = p * pb
+        pa = min(pb, w - j0)                  # active pivots in this panel
+        panel = a[:, :, j0:j0 + pb]           # view: updates land in a
+        for jj in range(pa):
+            j = j0 + jj
+            col = panel[:, :, jj].clone()
+            rowj = panel[:, j, :].clone()
+            piv_raw = rowj[:, jj]
+            piv, tiny = _fix_pivot(piv_raw, thresh)
+            below = rows > j
+            l = torch.where(below, col / piv[:, None], zero)
+            urow = torch.where(cols_pb > jj, rowj, zero)
+            panel -= l[:, :, None] * urow[:, None, :]
+            # write the multipliers + fixed pivot back into column jj, with
+            # the JAX version's arithmetic (cur + (new - cur))
+            newcol = (torch.where(below, l, col)
+                      + (piv - piv_raw)[:, None] * (rows == j).to(f.dtype))
+            cur = panel[:, :, jj]
+            panel[:, :, jj] = cur + (newcol - cur)
+            flags[:, j] += tiny
+        c1 = j0 + pb
+        if c1 < m_ext:
+            # U rows: solve unit-L11 against the columns right of the panel
+            u12 = torch.linalg.solve_triangular(
+                a[:, j0:j0 + pa, j0:j0 + pa], a[:, j0:j0 + pa, c1:],
+                upper=False, unitriangular=True)
+            a[:, j0:j0 + pa, c1:] = u12
+            # trailing update: every non-pivot row below the active pivots
+            a[:, j0 + pa:, c1:] -= gemm(a[:, j0 + pa:, j0:j0 + pa], u12,
+                                        gemm_prec)
+    return a[:, :m, :m], flags
+
+
+def group_partial_factor(fronts: torch.Tensor, thresh: torch.Tensor, w: int,
+                         pivot: str = "blocked", gemm_prec: str = "highest"):
+    """Partial factorization of a batch of fronts (B, m, m).
+
+    pivot="blocked" (the main path) runs ``_blocked_partial_factor`` in
+    place where no padding is needed (the JAX version returns new
+    arrays); pivot="recursive" factors the pivot block with
+    ``lu_nopivot`` and then forms U12, L21 and the Schur block with two
+    triangular solves and one GEMM, as the JAX package's recursive path.
+
+    Returns (lpanel (B,m,w), upanel (B,w,u), schur (B,u,u), tiny (B,w)).
+    lpanel stacks the packed diagonal block (L11 unit-lower + U11) over
+    L21; upanel is U12.  The caller scatters the Schur block into the
+    update pool and keeps copies of the panels, so the eliminated A22 is
+    never stored (superlu_ddefs.h:97-183).
+    """
+    if pivot == "blocked":
+        packed, tiny = _blocked_partial_factor(fronts, thresh, w, gemm_prec)
+        return (packed[:, :, :w], packed[:, :w, w:], packed[:, w:, w:],
+                tiny)
+    if pivot != "recursive":
+        raise ValueError(f"pivot must be 'blocked' or 'recursive', "
+                         f"got {pivot!r}")
+    f11, tiny = lu_nopivot(fronts[:, :w, :w], thresh, gemm_prec)
+    u12 = torch.linalg.solve_triangular(f11, fronts[:, :w, w:], upper=False,
+                                        unitriangular=True)
+    l21 = torch.linalg.solve_triangular(f11, fronts[:, w:, :w], upper=True,
+                                        left=False)
+    s = fronts[:, w:, w:] - gemm(l21, u12, gemm_prec)
+    return torch.cat([f11, l21], dim=1), u12, s, tiny

@@ -1,0 +1,165 @@
+"""The port's scatter kernels (superlu_dist_tpu_torch/numeric/kernels.py)
+held against the JAX package: the plain PyTorch versions of the
+extend-add (K1) and the A-entry assembly (K2) must equal, bit for bit,
+both the JAX ``.at[]`` lowering (numeric/factor.py) and the Pallas
+kernels in interpret mode, sentinels and repeated parent slots included.
+On CPU tensors the wrappers take the plain versions; their CUDA path is
+covered by tests/test_torch_cuda.py on a card."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from superlu_dist_tpu.numeric.factor import extend_add_set
+from superlu_dist_tpu.numeric.pallas_kernels import (assemble_avals_pallas,
+                                                     extend_add_set_pallas)
+from superlu_dist_tpu_torch.numeric import kernels
+
+DTYPES = [np.float32, np.float64]
+
+
+def _extend_add_case(seed, dtype, repeated):
+    """A child set with every sentinel: an OOB pool offset, an OOB slot,
+    rel == m padding; with ``repeated`` several children share a parent
+    slot and the SAME targets, so the add order shows in the bits."""
+    rng = np.random.default_rng(seed)
+    m, ub, batch, pool_len = 12, 5, 3, 200
+    pool = rng.standard_normal(pool_len).astype(dtype)
+    f = rng.standard_normal((batch, m * m)).astype(dtype)
+    if repeated:
+        child_off = np.array([0, 25, 50, 75, 100, pool_len, 150])
+        child_slot = np.array([1, 0, 1, 1, 2, 1, batch])
+    else:
+        child_off = np.array([0, 25, 50, pool_len])
+        child_slot = np.array([1, 0, 1, batch])
+    nc = len(child_off)
+    rel = np.full((nc, ub), m, dtype=np.int64)
+    shared = rng.choice(m, size=4, replace=False)
+    for c in range(nc):
+        rel[c, :4] = (shared if repeated and child_slot[c] == 1
+                      else rng.choice(m, size=4, replace=False))
+    return f, pool, m, ub, child_off, child_slot, rel
+
+
+def _torch_extend_add(f, pool, m, ub, child_off, child_slot, rel):
+    ft = torch.from_numpy(f.copy())
+    kernels.extend_add_(ft, torch.from_numpy(pool), m, ub,
+                        torch.from_numpy(child_off), torch.from_numpy(child_slot),
+                        torch.from_numpy(rel))
+    return ft.numpy()
+
+
+@pytest.mark.parametrize("repeated", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_extend_add_plain_equals_jax(dtype, repeated):
+    f, pool, m, ub, off, slot, rel = _extend_add_case(3, dtype, repeated)
+    out = _torch_extend_add(f, pool, m, ub, off, slot, rel)
+    args = (jnp.asarray(f), jnp.asarray(pool), m, ub, jnp.asarray(off),
+            jnp.asarray(slot), jnp.asarray(rel))
+    ref = np.asarray(extend_add_set(*args))
+    pal = np.asarray(extend_add_set_pallas(*args, mode="interpret"))
+    assert out.dtype == dtype
+    assert np.array_equal(out.view(np.uint8), ref.view(np.uint8))
+    assert np.array_equal(out.view(np.uint8), pal.view(np.uint8))
+    assert not np.array_equal(out, f)          # the case does add something
+
+
+def test_extend_add_order_is_ascending():
+    """Two children adding onto one position in a float32 case where the
+    order changes the rounded sum: the plain version must match the
+    ascending order, not the reversed one."""
+    m, ub = 2, 1
+    f = np.array([[1.0, 0, 0, 0]], dtype=np.float32)
+    pool = np.array([2.0 ** 24, 2.0 - 2.0 ** 24], dtype=np.float32)
+    off, slot = np.array([0, 1]), np.array([0, 0])
+    rel = np.zeros((2, 1), dtype=np.int64)
+    out = _torch_extend_add(f, pool, m, ub, off, slot, rel)
+    # (1 + 2^24) rounds to 2^24 in float32, so ascending order gives 2;
+    # the reversed order would give 3
+    assert out[0, 0] == 2.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_assemble_plain_equals_jax(dtype):
+    rng = np.random.default_rng(4)
+    batch, m, n_avals, la = 4, 9, 50, 37
+    avals = rng.standard_normal(n_avals).astype(dtype)
+    f = rng.standard_normal((batch, m * m)).astype(dtype)
+    pairs = rng.choice(batch * m * m, size=30, replace=False)
+    a_slot = np.concatenate([pairs // (m * m), np.full(la - 30, batch)])
+    a_flat = np.concatenate([pairs % (m * m),
+                             np.zeros(la - 30, dtype=np.int64)])
+    a_src = np.concatenate([rng.integers(0, n_avals, 30),
+                            np.full(la - 30, n_avals)])
+    ft = torch.from_numpy(f.copy())
+    kernels.assemble_(ft, torch.from_numpy(avals), torch.from_numpy(a_slot),
+                      torch.from_numpy(a_flat), torch.from_numpy(a_src))
+    jf, jav = jnp.asarray(f), jnp.asarray(avals)
+    js, jfl, jsr = map(jnp.asarray, (a_slot, a_flat, a_src))
+    ref = np.asarray(jf.at[(js, jfl)].add(
+        jav.at[jsr].get(mode="fill", fill_value=0), mode="drop"))
+    pal = np.asarray(assemble_avals_pallas(jf, jav, js, jfl, jsr,
+                                           mode="interpret"))
+    out = ft.numpy()
+    assert np.array_equal(out.view(np.uint8), ref.view(np.uint8))
+    assert np.array_equal(out.view(np.uint8), pal.view(np.uint8))
+
+
+def test_assemble_src_out_of_range_reads_zero():
+    f = torch.ones((1, 4), dtype=torch.float64)
+    kernels.assemble_(f, torch.tensor([5.0], dtype=torch.float64),
+                      torch.tensor([0, 0]), torch.tensor([1, 2]),
+                      torch.tensor([0, 7]))
+    assert f.tolist() == [[1.0, 6.0, 1.0, 1.0]]
+
+
+def test_extend_add_on_a_plan_child_set():
+    """The largest child set of a real plan (poisson3d), on random fronts
+    and pool, against the JAX lowering."""
+    from superlu_dist_tpu.models.gallery import poisson3d
+    from superlu_dist_tpu.numeric.plan import build_plan
+    from superlu_dist_tpu.ordering.dispatch import get_perm_c
+    from superlu_dist_tpu.sparse.formats import symmetrize_pattern
+    from superlu_dist_tpu.symbolic.symbfact import symbolic_factorize
+    from superlu_dist_tpu.utils.options import Options
+    a = poisson3d(7)
+    sym = symmetrize_pattern(a)
+    plan = build_plan(symbolic_factorize(sym, get_perm_c(Options(), a, sym)))
+    grp, cs = max(((g, cs) for g in plan.groups for cs in g.children),
+                  key=lambda gc: len(gc[1].child_off) * gc[1].ub ** 2)
+    rng = np.random.default_rng(5)
+    f = rng.standard_normal((grp.batch, grp.m * grp.m))
+    pool = rng.standard_normal(plan.pool_size)
+    args = (f, pool, grp.m, cs.ub, cs.child_off.astype(np.int64),
+            cs.child_slot.astype(np.int64), cs.rel.astype(np.int64))
+    out = _torch_extend_add(*args)
+    ref = np.asarray(extend_add_set(*(jnp.asarray(x) if isinstance(
+        x, np.ndarray) else x for x in args)))
+    assert np.array_equal(out, ref)
+
+
+def test_cpu_wrappers_take_plain_and_count_nothing():
+    kernels.reset_launches()
+    f = torch.zeros((1, 4), dtype=torch.float32)
+    kernels.assemble_(f, torch.ones(1), torch.tensor([0]), torch.tensor([3]),
+                      torch.tensor([0]))
+    kernels.extend_add_(f, torch.ones(1), 2, 1, torch.tensor([0]),
+                        torch.tensor([0]), torch.tensor([[1]]))
+    assert f.tolist() == [[0.0, 0.0, 0.0, 2.0]]
+    assert kernels.LAUNCHES == {"extend_add": 0, "assemble": 0}
+
+
+@pytest.mark.parametrize("bad", ["dtype", "index", "shape"])
+def test_wrappers_reject_what_the_kernel_does_not_take(bad):
+    f = torch.zeros((1, 4), dtype=torch.float32)
+    pool = torch.ones(3, dtype=torch.float64 if bad == "dtype"
+                      else torch.float32)
+    idx = torch.tensor([0], dtype=torch.int32 if bad == "index"
+                       else torch.int64)
+    rel = torch.zeros((1, 2 if bad == "shape" else 1), dtype=torch.int64)
+    with pytest.raises((TypeError, ValueError)):
+        kernels.extend_add_(f, pool, 2, 1, idx, idx, rel)
+    with pytest.raises((TypeError, ValueError)):
+        kernels.assemble_(f if bad != "shape" else f.view(-1), pool, idx,
+                          idx, idx)
