@@ -5,17 +5,30 @@
 
 Phases, one result line each:
   1. card     — the card's name and power limit (nvidia-smi);
-  2. build    — compile the CUDA kernels from csrc/ with nvcc (sm_90a);
-  3. kernels  — each kernel against its plain PyTorch version on the card
-                (torch.equal) at the shapes of the n=110,592 plan's largest
-                child set / assembly group and on a small case full of
-                sentinels, with its time, bound, plain time and the time of
-                one library call as a yardstick;
+  2. build    — compile the CUDA kernel from csrc/ with nvcc (sm_90a);
+  3. maps     — the n=110,592 plan's index maps built and uploaded (host
+                seconds; the main path does this inside FACT);
+     kernels  — the front-assembly kernel against its plain PyTorch version
+                on the card (torch.equal) at two groups of the n=110,592
+                plan (the one with the most child pairs, the one holding
+                the set with the most children) and on a small group full
+                of sentinels, in float32 and float64; the standalone K1/K2
+                wrappers at the plan's largest child set / assembly group
+                and on sentinel cases; each with its time (ms: device time,
+                launches replayed in a CUDA graph; call_ms: call by call,
+                host included), bound, plain time and the time of one
+                library call as a yardstick;
   4. gssvx    — the main path: gssvx on poisson3d(48) (n=110,592) with
                 float32 factors on the card and float64 refinement, with
                 the kernels' launch counts over exactly that call;
-  5. check    — a small poisson3d factored through the kernels and through
-                the plain versions (identical fronts required), and a small
+  5. factor_stages — the same factorization synchronized at every stage
+                boundary of every group;
+  6. kernels_factor — one more factorization with CUDA events around every
+                front-assembly launch (no stage synchronize), then every
+                group, child set and assembly of the plan replayed alone
+                for the kernel / plain / library / bound sums;
+  7. check    — a small poisson3d factored through the kernel and through
+                the plain version (identical fronts required), and a small
                 solve against scipy's sparse direct solver in float64.
 
 Then a JSON line with one record per kernel, the card line again, and the
@@ -30,12 +43,18 @@ import time
 
 import numpy as np
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and
-#: float32 rate outside the tensor cores (the kernels' adds)
+#: H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
+#: float32 / float64 rates outside the tensor cores (the kernels' adds),
+#: by element size
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
+FLOPS_PER_S = {4: 67e12, 8: 34e12}
 NX = 48                  # poisson3d grid edge of the main path: n = 110,592
 SEED = 0
+KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+SOURCE = "superlu_dist_tpu_torch/csrc/front_assemble.cu"
+K1 = "superlu_dist_tpu/numeric/pallas_kernels.py:144"
+K2 = "superlu_dist_tpu/numeric/pallas_kernels.py:201"
 
 
 def say(phase, **fields):
@@ -49,11 +68,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=2):
     """Mean milliseconds of fn() on the card over reps calls (CUDA events,
-    after two warm-up calls)."""
+    after warm-up calls)."""
     import torch
-    for _ in range(2):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -66,33 +85,133 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def bound_ms(nbytes, nops):
+def graph_ms(fn, n=10, reps=5):
+    """Device milliseconds of one fn() call: n calls captured in one CUDA
+    graph and replayed reps times, so the host's per-call overhead (the
+    wrapper's Python, ctypes) drops out of the kernel's time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (reps * n)
+    del graph
+    return ms
+
+
+def bound(nbytes, nops, itemsize):
+    """(ms, "bytes" | "operations"): the least time of the work."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_FLOPS_PER_S * 1e3
+    t_ops = nops / FLOPS_PER_S[itemsize] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def extend_add_targets(f, pool, m, ub, off, slot, rel):
+def set_targets(batch, pool, m, ub, off, slot, rel):
     """Flat front targets and pool values of one child set (every pair
     the kernel adds), for the bound and the library yardstick."""
     import torch
-    live = (slot >= 0) & (slot < f.shape[0]) & (off >= 0) & (off < pool.numel())
+    live = (slot >= 0) & (slot < batch) & (off >= 0) & (off < pool.numel())
     off, slot, rel = off[live], slot[live], rel[live]
-    ii = torch.arange(ub, device=f.device)
+    ii = torch.arange(ub, device=pool.device)
     src = off[:, None, None] + ii[None, :, None] * ub + ii[None, None, :]
     ri, rj = rel[:, :, None], rel[:, None, :]
-    hit = (ri >= 0) & (ri < m) & (rj >= 0) & (rj < m) & (src < pool.numel())
+    hit = (ri >= 0) & (ri < m) & (rj >= 0) & (rj < m)
     dst = slot[:, None, None] * (m * m) + ri * m + rj
-    return dst[hit], pool[src[hit]]
+    src, dst = src[hit], dst[hit]
+    vals = pool[src.clamp(max=pool.numel() - 1)]
+    return dst, torch.where(src < pool.numel(), vals, 0), int(
+        (src < pool.numel()).sum())
 
 
-def measure_extend_add(grp, cs, pool, torch, kernels, gen, i64):
-    """K1 on one child set of the plan: kernel vs plain (torch.equal),
-    kernel / plain / library times and the byte bound."""
-    m, ub = grp.m, cs.ub
-    f = torch.randn((grp.batch, m * m), generator=gen, device="cuda",
-                    dtype=torch.float32)
-    ea = (m, ub, i64(cs.child_off), i64(cs.child_slot), i64(cs.rel))
+def assemble_targets(batch, m2, avals, a_slot, a_flat, a_src):
+    import torch
+    keep = (a_slot >= 0) & (a_slot < batch) & (a_flat >= 0) & (a_flat < m2)
+    src = a_src[keep]
+    ok = (src >= 0) & (src < avals.numel())
+    vals = torch.where(ok, avals[src.clamp(0, avals.numel() - 1)], 0)
+    return a_slot[keep] * m2 + a_flat[keep], vals, int(ok.sum())
+
+
+def front_targets(avals, pool, m, w, gm):
+    """Every (flat target, value) the front assembly adds into zeros —
+    identity, A entries, child pairs — and the values it reads."""
+    import torch
+    batch = gm.ws.shape[0]
+    k = torch.arange(m, device=pool.device)
+    diag = (k[None, :] >= gm.ws[:, None]) & (k[None, :] < w)
+    s, kk = torch.nonzero(diag, as_tuple=True)
+    dsts = [s * (m * m) + kk * (m + 1)]
+    vals = [torch.ones(s.numel(), dtype=pool.dtype, device=pool.device)]
+    d, v, n_a = assemble_targets(batch, m * m, avals, gm.a_slot, gm.a_flat,
+                                 gm.a_src)
+    dsts.append(d)
+    vals.append(v)
+    n_pool = 0
+    for ub, off, slot, rel in gm.children:
+        d, v, n = set_targets(batch, pool, m, ub, off, slot, rel)
+        dsts.append(d)
+        vals.append(v)
+        n_pool += n
+    return torch.cat(dsts), torch.cat(vals), n_a, n_pool
+
+
+def time_front(avals, pool, m, w, gm, kernels, reps=20, plain_reps=3,
+               lib_reps=10):
+    """front_assemble_ on one group: equality with the plain version and
+    kernel / plain / library times and the bound."""
+    import torch
+    out_k = kernels.front_assemble_(avals, pool, m, w, gm)
+    out_p = kernels.front_assemble_plain(avals, pool, m, w, gm)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max()) if out_k.numel() else 0.0
+    if not torch.equal(out_k, out_p):
+        raise AssertionError(f"front_assemble kernel != plain (max |d| {err})")
+    dst, vals, n_a, n_pool = front_targets(avals, pool, m, w, gm)
+    fm = gm.front
+    isz = pool.element_size()
+    batch = fm.batch
+    nbytes = (batch * m * m * isz + (n_pool + n_a) * isz + fm.nbytes
+              + gm.ws.numel() * 8)
+    b_ms, b_by = bound(nbytes, dst.numel(), isz)
+    del out_k, out_p
+
+    def library():
+        torch.zeros((batch, m * m), dtype=pool.dtype,
+                    device=pool.device).view(-1).index_put_(
+                        (dst,), vals, accumulate=True)
+    def call():
+        kernels.front_assemble_(avals, pool, m, w, gm)
+    return dict(
+        max_abs_err=err, ms=graph_ms(call, n=reps),
+        call_ms=cuda_ms(call, reps),
+        plain_ms=cuda_ms(lambda: kernels.front_assemble_plain(
+            avals, pool, m, w, gm), plain_reps, warm=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(library, lib_reps, warm=1),
+        shape=dict(batch=batch, m=m, w=w, sets=len(gm.children),
+                   children=[len(c[1]) for c in gm.children],
+                   max_children_at_a_slot=int(fm.ch_ptr.diff().max())
+                   if batch else 0, a=fm.n_a, pairs=n_pool, bytes=nbytes))
+
+
+def time_extend_add(f, pool, m, ub, off, slot, rel, kernels, reps=20,
+                    plain_reps=3, lib_reps=20):
+    """K1 on one child set: the wrapper against the plain version, and the
+    kernel's time on maps built once (the wrapper rebuilds them on the
+    host at every call; that is timed apart as wrapper_ms)."""
+    import torch
+    ea = (m, ub, off, slot, rel)
     out_k, out_p = f.clone(), f.clone()
     kernels.extend_add_(out_k, pool, *ea)
     kernels.extend_add_plain(out_p, pool, *ea)
@@ -100,86 +219,111 @@ def measure_extend_add(grp, cs, pool, torch, kernels, gen, i64):
     err = float((out_k - out_p).abs().max())
     if not torch.equal(out_k, out_p):
         raise AssertionError(f"extend_add kernel != plain (max |d| {err})")
-    dst, vals = extend_add_targets(f, pool, *ea)
-    n_pairs = int(dst.numel())
+    dst, vals, n_pool = set_targets(f.shape[0], pool, *ea)
     n_targets = int(torch.unique(dst).numel())
-    nbytes = (n_pairs * 4 + 2 * n_targets * 4 + cs.rel.size * 8
-              + 2 * len(cs.child_off) * 8)
-    b_ms, b_by = bound_ms(nbytes, n_pairs)
+    isz = f.element_size()
+    nbytes = (n_pool * isz + 2 * n_targets * isz + rel.numel() * 8
+              + 2 * off.numel() * 8)
+    b_ms, b_by = bound(nbytes, dst.numel(), isz)
+    maps = kernels.build_front_maps(
+        f.shape[0], m, pool.numel(), device=f.device, kind="extend_add",
+        children=[(ub, off.cpu().numpy(), slot.cpu().numpy(),
+                   rel.cpu().numpy())])
     work = f.clone()
     flat = work.view(-1)
+    def call():
+        kernels.launch_(work, maps, pool=pool)
     return dict(
-        name="extend_add", route="cuda",
-        source="superlu_dist_tpu_torch/csrc/extend_add.cu",
-        replaces="superlu_dist_tpu/numeric/pallas_kernels.py:144",
-        shape=dict(batch=grp.batch, m=m, ub=ub, children=len(cs.child_off),
-                   pairs=n_pairs, targets=n_targets),
-        max_abs_err=err,
-        ms=cuda_ms(lambda: kernels.extend_add_(work, pool, *ea), 20),
+        max_abs_err=err, ms=graph_ms(call, n=reps),
+        call_ms=cuda_ms(call, reps),
+        wrapper_ms=cuda_ms(lambda: kernels.extend_add_(work, pool, *ea), 3,
+                           warm=1),
         plain_ms=cuda_ms(lambda: kernels.extend_add_plain(work, pool, *ea),
-                         3),
+                         plain_reps, warm=1),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: flat.index_put_((dst,), vals,
-                                                   accumulate=True), 20))
+                                                   accumulate=True), lib_reps),
+        shape=dict(batch=f.shape[0], m=m, ub=ub, children=off.numel(),
+                   pairs=dst.numel(), targets=n_targets))
 
 
-def kernel_phase(plan, torch, kernels, gen):
-    """Phase 3: both kernels against their plain versions on the card.
-    K1 runs at the child set with the most work and, for the record only,
-    at the one with the most children."""
-    dev = torch.device("cuda")
-
-    def i64(x):
-        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int64),
-                               device=dev)
-
-    sets = [(g, c) for g in plan.groups for c in g.children]
-    largest = max(sets, key=lambda gc: len(gc[1].child_off) * gc[1].ub ** 2)
-    most = max(sets, key=lambda gc: len(gc[1].child_off))
-    agrp = max(plan.groups, key=lambda g: len(g.a_src))
-    f32 = torch.float32
-    pool = torch.randn(plan.pool_size, generator=gen, device=dev, dtype=f32)
-    avals = torch.randn(len(plan.pattern_indices), generator=gen, device=dev,
-                        dtype=f32)
-
-    # --- K1 at the largest child set, plus the sentinel case -----------
-    if not sentinel_extend_add(torch, kernels, gen):
-        raise AssertionError("extend_add kernel != plain on the sentinel case")
-    records = [measure_extend_add(*largest, pool, torch, kernels, gen, i64)]
-    say("kernels_extra", most_children=measure_extend_add(
-        *most, pool, torch, kernels, gen, i64))
-
-    # --- K2 at the largest assembly group, plus the sentinel case ------
-    m2 = agrp.m * agrp.m
-    f = torch.randn((agrp.batch, m2), generator=gen, device=dev, dtype=f32)
-    asm = (i64(agrp.a_slot), i64(agrp.a_flat), i64(agrp.a_src))
+def time_assemble(f, avals, a_slot, a_flat, a_src, kernels, reps=20,
+                  plain_reps=20, lib_reps=50):
+    """K2 on one group, as time_extend_add does K1."""
+    import torch
+    asm = (a_slot, a_flat, a_src)
     out_k, out_p = f.clone(), f.clone()
     kernels.assemble_(out_k, avals, *asm)
     kernels.assemble_plain(out_p, avals, *asm)
     torch.cuda.synchronize()
-    equal = torch.equal(out_k, out_p)
     err = float((out_k - out_p).abs().max())
-    if not (equal and sentinel_assemble(torch, kernels, gen)):
+    if not torch.equal(out_k, out_p):
         raise AssertionError(f"assemble kernel != plain (max |d| {err})")
-    n = len(agrp.a_src)
-    dst = asm[0] * m2 + asm[1]
-    vals = avals[asm[2]]
-    b_ms, b_by = bound_ms(n * 3 * 8 + n * 4 + 2 * n * 4, n)
+    batch, m2 = f.shape
+    m = int(round(m2 ** 0.5))
+    dst, vals, n_read = assemble_targets(batch, m2, avals, *asm)
+    n = a_src.numel()
+    isz = f.element_size()
+    b_ms, b_by = bound(n * 3 * 8 + n_read * isz + 2 * dst.numel() * isz,
+                       dst.numel(), isz)
+    maps = kernels.build_front_maps(
+        batch, m, 0, device=f.device, kind="assemble",
+        a=tuple(t.cpu().numpy() for t in asm))
     work = f.clone()
     flat = work.view(-1)
-    records.append(dict(
-        name="assemble", route="cuda",
-        source="superlu_dist_tpu_torch/csrc/assemble.cu",
-        replaces="superlu_dist_tpu/numeric/pallas_kernels.py:201",
-        shape=dict(batch=agrp.batch, m=agrp.m, entries=n),
-        max_abs_err=err,
-        ms=cuda_ms(lambda: kernels.assemble_(work, avals, *asm), 50),
+    def call():
+        kernels.launch_(work, maps, avals=avals)
+    return dict(
+        max_abs_err=err, ms=graph_ms(call, n=reps),
+        call_ms=cuda_ms(call, reps),
+        wrapper_ms=cuda_ms(lambda: kernels.assemble_(work, avals, *asm), 3,
+                           warm=1),
         plain_ms=cuda_ms(lambda: kernels.assemble_plain(work, avals, *asm),
-                         20),
+                         plain_reps, warm=1),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: flat.index_put_((dst,), vals,
-                                                   accumulate=True), 50)))
-    return records
+                                                   accumulate=True), lib_reps),
+        shape=dict(batch=batch, m=m, entries=n))
+
+
+def sentinel_group(torch, kernels, gen, dtype, m=150, batch=3,
+                   pool_len=6000, n_avals=400):
+    """A group with every sentinel (A entries dropped by slot and target
+    and reading past avals; children dropped by slot and offset, reading
+    past the pool, unsorted rel with m padding, two sets sharing slots and
+    positions), m not a multiple of 4 over several tiles.  Returns the
+    front_assemble_ arguments."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    tgt = rng.choice(batch * m * m, size=300, replace=False)
+    a_slot = np.concatenate([tgt // (m * m), [batch, 0]])
+    a_flat = np.concatenate([tgt % (m * m), [0, m * m]])
+    a_src = np.concatenate([rng.integers(0, n_avals + 20, 300), [0, 0]])
+    children = []
+    for ub, nc in ((20, 7), (7, 6)):
+        off = rng.integers(0, pool_len - ub * ub, nc)
+        off[0], off[1] = pool_len, pool_len - 30
+        slot = rng.integers(0, batch, nc)
+        slot[2] = batch
+        rel = np.full((nc, ub), m, dtype=np.int64)
+        for c in range(nc):
+            k = rng.integers(1, ub + 1)
+            rel[c, :k] = rng.choice(m, size=k, replace=False)
+            rng.shuffle(rel[c])
+        children.append((ub, off, slot, rel))
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
+    gm = kernels.GroupMaps(
+        ws=put([m // 3, 0, m - 5]), off=put(np.zeros(batch)),
+        a_slot=put(a_slot), a_flat=put(a_flat), a_src=put(a_src),
+        children=[(ub, put(o), put(s), put(r)) for ub, o, s, r in children],
+        front=kernels.build_front_maps(batch, m, pool_len,
+                                       a=(a_slot, a_flat, a_src),
+                                       children=children, device=dev))
+    avals = torch.randn(n_avals, generator=gen, device=dev, dtype=dtype)
+    pool = torch.randn(pool_len, generator=gen, device=dev, dtype=dtype)
+    return avals, pool, m, m - 2, gm
 
 
 def sentinel_extend_add(torch, kernels, gen):
@@ -230,6 +374,137 @@ def sentinel_assemble(torch, kernels, gen):
     return bool(ok)
 
 
+def kernel_phase(plan, maps, torch, kernels, gen):
+    """Phase 3: the kernel against its plain versions on the card.  Returns
+    the records of the final JSON line (front_assemble at the group with
+    the most child pairs, K1 at the largest child set, K2 at the largest
+    assembly group, all float32 — the main path's dtype)."""
+    dev = torch.device("cuda")
+
+    def i64(x):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int64),
+                               device=dev)
+
+    groups = list(zip(plan.groups, maps))
+    big = max(groups, key=lambda gg: gg[1].front.pairs)
+    most = max(groups, key=lambda gg: max(
+        [len(c.child_off) for c in gg[0].children] + [0]))
+    data = {}
+    for dt in (torch.float32, torch.float64):
+        data[dt] = (
+            torch.randn(len(plan.pattern_indices), generator=gen, device=dev,
+                        dtype=dt),
+            torch.randn(plan.pool_size, generator=gen, device=dev, dtype=dt))
+
+    # --- the fused kernel: sentinel case, then both main-path groups ----
+    records = []
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        rec = time_front(*sentinel_group(torch, kernels, gen, dt), kernels,
+                         reps=5)
+        say("kernels_extra", case=f"front_assemble sentinel {name}", **rec)
+        for which, (g, gm) in (("most_pairs", big), ("most_children", most)):
+            rec = time_front(*data[dt], g.m, g.w, gm, kernels)
+            if which == "most_pairs" and dt == torch.float32:
+                records.append(dict(
+                    name="front_assemble", route="cuda", source=SOURCE,
+                    replaces=f"{K1}, {K2}", **rec))
+            else:
+                say("kernels_extra", case=f"front_assemble {which} {name}",
+                    **rec)
+
+    # --- the standalone wrappers at the largest child set and assembly
+    # group, plus sentinels ----------------------------------------------
+    if not (sentinel_extend_add(torch, kernels, gen)
+            and sentinel_assemble(torch, kernels, gen)):
+        raise AssertionError("extend_add/assemble kernel != plain on the "
+                             "sentinel cases")
+    avals, pool = data[torch.float32]
+    sets = [(g, c) for g in plan.groups for c in g.children]
+    for which, (g, cs) in (
+            ("largest", max(sets, key=lambda gc: len(gc[1].child_off)
+                            * gc[1].ub ** 2)),
+            ("most_children", max(sets, key=lambda gc: len(gc[1].child_off)))):
+        f = torch.randn((g.batch, g.m * g.m), generator=gen, device=dev,
+                        dtype=torch.float32)
+        rec = time_extend_add(f, pool, g.m, cs.ub, i64(cs.child_off),
+                              i64(cs.child_slot), i64(cs.rel), kernels)
+        if which == "largest":
+            records.append(dict(name="extend_add", route="cuda", source=SOURCE,
+                                replaces=K1, **rec))
+        else:
+            say("kernels_extra", case="extend_add most_children", **rec)
+    agrp = max(plan.groups, key=lambda g: len(g.a_src))
+    f = torch.randn((agrp.batch, agrp.m * agrp.m), generator=gen, device=dev,
+                    dtype=torch.float32)
+    rec = time_assemble(f, avals, i64(agrp.a_slot), i64(agrp.a_flat),
+                        i64(agrp.a_src), kernels)
+    records.append(dict(name="assemble", route="cuda", source=SOURCE,
+                        replaces=K2, **rec))
+    return records
+
+
+def factor_sums(plan, maps, bvals, anorm, torch, factor, kernels, gen):
+    """Phase 6: (a) one factorization with CUDA events around every
+    front-assembly launch and no stage synchronize; (b) every group, child
+    set and assembly of the plan replayed alone — the kernel in a CUDA
+    graph (ms) and call by call (call_ms, the wrapper's host time
+    included), the plain version and the library call with CUDA events —
+    summed with the bounds (float32)."""
+    dev = torch.device("cuda")
+    events = []
+
+    def timed(avals, pool, m, w, gm):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        f = kernels.front_assemble_(avals, pool, m, w, gm)
+        e1.record()
+        events.append((e0, e1))
+        return f
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    factor.numeric_factorize(plan, bvals, anorm, dtype=torch.float32,
+                             device="cuda", scatter=timed)
+    torch.cuda.synchronize()
+    fact_s = time.perf_counter() - t0
+    in_factor = dict(ms=sum(a.elapsed_time(b) for a, b in events),
+                     launches=kernels.LAUNCHES["front_assemble"],
+                     fact_s=fact_s)
+
+    f32 = torch.float32
+    avals = torch.randn(len(plan.pattern_indices), generator=gen, device=dev,
+                        dtype=f32)
+    pool = torch.randn(plan.pool_size, generator=gen, device=dev, dtype=f32)
+    keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
+    sums = {k: dict.fromkeys(keys, 0.0) for k in
+            ("front_assemble", "extend_add", "assemble")}
+    counts = dict.fromkeys(sums, 0)
+
+    def add(name, rec):
+        for k in keys:
+            sums[name][k] += rec[k]
+        counts[name] += 1
+
+    for g, gm in zip(plan.groups, maps):
+        add("front_assemble", time_front(avals, pool, g.m, g.w, gm, kernels,
+                                         reps=5, plain_reps=1, lib_reps=2))
+        f = torch.randn((g.batch, g.m * g.m), generator=gen, device=dev,
+                        dtype=f32)
+        for ub, off, slot, rel in gm.children:
+            add("extend_add", time_extend_add(f, pool, g.m, ub, off, slot,
+                                              rel, kernels, reps=5,
+                                              plain_reps=1, lib_reps=2))
+        if gm.a_src.numel():
+            add("assemble", time_assemble(f, avals, gm.a_slot, gm.a_flat,
+                                          gm.a_src, kernels, reps=5,
+                                          plain_reps=1, lib_reps=2))
+        del f
+    in_factor["bound_ms"] = sums["front_assemble"]["bound_ms"]
+    return in_factor, {k: dict(units=counts[k], **v) for k, v in sums.items()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -261,7 +536,23 @@ def main():
     say("plan", n=plan.n, groups=len(plan.groups),
         supernodes=plan.sf.n_supernodes, pool=plan.pool_size,
         flops=plan.flops, analysis_s=time.perf_counter() - t0)
-    records = kernel_phase(plan, torch, kernels, gen)
+    # the plan's index maps, the kernel's included: host work once per
+    # plan, inside FACT on the main path
+    t0 = time.perf_counter()
+    maps = factor.upload_maps(plan, torch.device("cuda"))
+    torch.cuda.synchronize()
+    maps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for g in plan.groups:        # the kernel's part of that, host only
+        kernels.front_map_arrays(
+            g.batch, g.m, plan.pool_size, a=(g.a_slot, g.a_flat, g.a_src),
+            children=[(c.ub, c.child_off, c.child_slot, c.rel)
+                      for c in g.children])
+    say("maps", seconds=maps_s, kernel_maps_host_s=time.perf_counter() - t0,
+        kernel_map_bytes=sum(gm.front.nbytes for gm in maps),
+        pairs=sum(gm.front.pairs for gm in maps),
+        front_elements=sum(g.batch * g.m * g.m for g in plan.groups))
+    records = kernel_phase(plan, maps, torch, kernels, gen)
     for rec in records:
         say("kernels", **rec)
 
@@ -295,8 +586,11 @@ def main():
         berr_target=float(tols.berr_target(np.float64)), rel_residual=relres,
         rel_error=float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true)),
         max_memory_allocated=peak, launches=launches)
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    # the main path runs the fused kernel once per group, and neither
+    # standalone wrapper
+    if launches != {"front_assemble": len(lu.plan.groups), "extend_add": 0,
+                    "assemble": 0}:
+        raise AssertionError(f"launches on the main path: {launches}")
     if berr > tols.berr_target(np.float64):
         raise AssertionError(f"BERR {berr} above berr_target(float64)")
     for rec in records:
@@ -312,9 +606,18 @@ def main():
                              device="cuda", timings=timings)
     say("factor_stages", seconds=timings,
         total_s=time.perf_counter() - t0)
-    del lu0, plan, bvals0
 
-    # 5. kernels vs plain through the factorization, and a small solve
+    # 6. the scatter work of one whole factorization
+    in_factor, sums = factor_sums(plan, maps, bvals0, lu0.anorm, torch,
+                                  factor, kernels, gen)
+    say("kernels_factor", in_factorization=in_factor, replayed=sums,
+        groups=len(plan.groups))
+    if in_factor["launches"] != len(plan.groups):
+        raise AssertionError(f"{in_factor['launches']} front_assemble "
+                             f"launches for {len(plan.groups)} groups")
+    del lu0, plan, bvals0, maps
+
+    # 7. kernels vs plain through the factorization, and a small solve
     small = poisson3d(16)
     lus, bvals, _ = slt.analyze(slt.Options(), small, device="cuda")
     fk = factor.numeric_factorize(lus.plan, bvals, lus.anorm,
@@ -325,7 +628,7 @@ def main():
     same = all(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
                for k, p in zip(fk.fronts, fp.fronts))
     if not same:
-        raise AssertionError("fronts through the kernels != plain versions")
+        raise AssertionError("fronts through the kernel != plain version")
     import scipy.sparse
     import scipy.sparse.linalg
     tiny = poisson3d(12)
@@ -343,9 +646,7 @@ def main():
     if info != 0 or not agree:
         raise AssertionError("small solve disagrees with scipy")
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in KEYS} for r in records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

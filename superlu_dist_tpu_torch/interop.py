@@ -16,6 +16,7 @@ import torch
 from superlu_dist_tpu_torch.numeric.factor import NumericFactorization
 from superlu_dist_tpu_torch.numeric.plan import ChildSet, FactorPlan, Group
 from superlu_dist_tpu_torch.symbolic.symbfact import SymbolicFact
+from superlu_dist_tpu_torch.utils.options import resolve_device
 
 _I64 = np.int64
 
@@ -65,9 +66,11 @@ def plan_from_reference(plan) -> FactorPlan:
         bucket_set=tuple(plan.bucket_set))
 
 
-def factors_from_reference(numeric, device="cpu") -> NumericFactorization:
+def factors_from_reference(numeric, device="cuda") -> NumericFactorization:
     """A JAX-package NumericFactorization as the port's, with the fronts
-    copied onto ``device``."""
+    copied onto ``device`` (the card unless the caller asks for the CPU;
+    CUDA without a card raises)."""
+    device = resolve_device(device)
     fronts = [(torch.as_tensor(np.array(lp), device=device),
                torch.as_tensor(np.array(up), device=device))
               for lp, up in numeric.fronts]

@@ -2,16 +2,16 @@
 
 Port of the JAX package's ``numeric/factor.py`` together with the group
 loop of its streamed executor (``numeric/stream.py``): the plan's
-dispatch groups run in order, each as one ``group_step`` — identity
-padding, A-entry assembly (kernel K2), the extend-add of each child set
-(kernel K1), the batched blocked partial LU with GESP tiny-pivot
-replacement, and the Schur write-back to the update pool.
+dispatch groups run in order, each as one ``group_step`` — the front
+assembly (identity padding, A entries and the extend-add of every child
+set, one kernel launch: ``kernels.front_assemble_``), the batched blocked
+partial LU with GESP tiny-pivot replacement, and the Schur write-back to
+the update pool.
 
-Where the JAX version returns new arrays, this one updates the group's
-fronts and the pool in place: each group allocates its front batch once,
-the kernels add into it, the partial LU factors it in place, and the
-Schur block is copied into the pool, which lives on the device for the
-whole factorization.
+Where the JAX version returns new arrays, this one updates the pool in
+place: each group's front batch is built once by the assembly, the
+partial LU factors it in place, and the Schur block is copied into the
+pool, which lives on the device for the whole factorization.
 """
 
 from __future__ import annotations
@@ -23,46 +23,53 @@ import numpy as np
 import torch
 
 from superlu_dist_tpu_torch.numeric import kernels
+from superlu_dist_tpu_torch.numeric.kernels import GroupMaps
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan
 from superlu_dist_tpu_torch.ops.dense import (check_gemm_tier,
                                               full_precision_matmul,
                                               group_partial_factor)
 from superlu_dist_tpu_torch.utils.errors import NumericBreakdownError
+from superlu_dist_tpu_torch.utils.options import resolve_device
 
-#: the scatter kernels the main path runs; a caller may pass the plain
-#: versions instead to hold the kernels against them on the card
-KERNELS = (kernels.assemble_, kernels.extend_add_)
-PLAIN = (kernels.assemble_plain, kernels.extend_add_plain)
-
-
-@dataclasses.dataclass
-class GroupMaps:
-    """One group's index maps on the device (uploaded once per plan)."""
-
-    ws: torch.Tensor
-    off: torch.Tensor
-    a_slot: torch.Tensor
-    a_flat: torch.Tensor
-    a_src: torch.Tensor
-    children: list          # [(ub, child_off, child_slot, rel)]
+#: the front assembly the main path runs; a caller may pass the plain
+#: version instead to hold the kernel against it on the card
+KERNELS = kernels.front_assemble_
+PLAIN = kernels.front_assemble_plain
 
 
 def upload_maps(plan: FactorPlan, device: torch.device) -> list:
-    """The plan's index maps as int64 device tensors, cached on the plan
-    per device (the SamePattern reuse tier keeps them across
-    factorizations)."""
+    """The plan's index maps on the device — its own, int64, and the
+    front-assembly kernel's (``kernels.front_map_arrays``) — in one copy
+    per dtype, cached on the plan per device (the SamePattern reuse tier
+    keeps them across factorizations)."""
     cache = plan.__dict__.setdefault("_device_maps", {})
     maps = cache.get(str(device))
     if maps is None:
-        def put(x):
-            return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int64),
-                                   device=device)
-        maps = [GroupMaps(ws=put(g.ws), off=put(g.off), a_slot=put(g.a_slot),
-                          a_flat=put(g.a_flat), a_src=put(g.a_src),
-                          children=[(cs.ub, put(cs.child_off),
-                                     put(cs.child_slot), put(cs.rel))
-                                    for cs in g.children])
-                for g in plan.groups]
+        arrays, pairs = [], []
+        for g in plan.groups:
+            arrays += [np.asarray(x, dtype=np.int64) for x in (
+                g.ws, g.off, g.a_slot, g.a_flat, g.a_src,
+                *(x for cs in g.children
+                  for x in (cs.child_off, cs.child_slot, cs.rel)))]
+            front, n = kernels.front_map_arrays(
+                g.batch, g.m, plan.pool_size, a=(g.a_slot, g.a_flat, g.a_src),
+                children=[(cs.ub, cs.child_off, cs.child_slot, cs.rel)
+                          for cs in g.children])
+            arrays += front
+            pairs.append(n)
+        views = iter(kernels.upload(arrays, device))
+        maps = []
+        for g, n in zip(plan.groups, pairs):
+            ws, off, a_slot, a_flat, a_src = (next(views) for _ in range(5))
+            children = [(cs.ub, next(views), next(views), next(views))
+                        for cs in g.children]
+            front = kernels.FrontMaps("front_assemble", g.batch, g.m,
+                                      plan.pool_size,
+                                      *(next(views) for _ in range(6)),
+                                      pairs=n)
+            maps.append(GroupMaps(ws=ws, off=off, a_slot=a_slot,
+                                  a_flat=a_flat, a_src=a_src,
+                                  children=children, front=front))
         cache[str(device)] = maps
     return maps
 
@@ -76,13 +83,12 @@ def group_step(dims, avals, pool, thresh, maps: GroupMaps,
                gemm_prec="highest", scatter=KERNELS, timings=None):
     """One (level, bucket) group: assemble + factor + write back.
 
-    dims = (batch, m, w, u).  ``scatter`` is the (assembly, extend-add)
-    pair of in-place functions.  Writes the group's Schur blocks into
-    ``pool`` in place (slots with off == pool size have none) and returns
-    ((lpanel, upanel), tiny count as a 0-d device tensor).  ``timings``,
-    when a dict, accumulates seconds per stage, synchronizing the device
-    at each stage boundary."""
-    assemble, extend_add = scatter
+    dims = (batch, m, w, u).  ``scatter(avals, pool, m, w, maps)`` returns
+    the group's assembled (batch, m²) front batch.  Writes the group's
+    Schur blocks into ``pool`` in place (slots with off == pool size have
+    none) and returns ((lpanel, upanel), tiny count as a 0-d device
+    tensor).  ``timings``, when a dict, accumulates seconds per stage,
+    synchronizing the device at each stage boundary."""
     batch, m, w, u = dims
     dev = pool.device
     clock = [time.perf_counter()]
@@ -94,19 +100,8 @@ def group_step(dims, avals, pool, thresh, maps: GroupMaps,
             timings[name] = timings.get(name, 0.0) + t - clock[0]
             clock[0] = t
 
-    f = torch.zeros((batch, m * m), dtype=pool.dtype, device=dev)
-    # identity columns for pivot-block padding (cols ws..w), so padded
-    # batch slots (ws == 0) become identity fronts
-    k = torch.arange(m, device=dev)
-    diag_mask = (k[None, :] >= maps.ws[:, None]) & (k[None, :] < w)
-    f.view(batch, m, m).diagonal(dim1=1, dim2=2).add_(diag_mask.to(f.dtype))
-    lap("identity")
-    if maps.a_src.shape[0]:
-        assemble(f, avals, maps.a_slot, maps.a_flat, maps.a_src)
-    lap("assemble")
-    for ub, child_off, child_slot, rel in maps.children:
-        extend_add(f, pool, m, ub, child_off, child_slot, rel)
-    lap("extend_add")
+    f = scatter(avals, pool, m, w, maps)
+    lap("front_assemble")
     lpanel, upanel, schur, flags = group_partial_factor(
         f.view(batch, m, m), thresh, w, gemm_prec=gemm_prec)
     # identity-padding columns (col >= ws) are unit pivots — a thresh > 1
@@ -144,10 +139,12 @@ class NumericFactorization:
 
 def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       anorm: float, dtype=torch.float64,
-                      device="cpu", replace_tiny: bool = True,
+                      device="cuda", replace_tiny: bool = True,
                       check_finite: bool = True, gemm_prec: str = "highest",
                       scatter=KERNELS, timings=None) -> NumericFactorization:
-    """Factor with values aligned to plan.pattern_indices, on ``device``.
+    """Factor with values aligned to plan.pattern_indices, on ``device``
+    (the card unless the caller asks for the CPU; CUDA without a card
+    raises).
 
     anorm: ‖A‖ for the GESP tiny-pivot threshold sqrt(eps)·‖A‖
     (reference pdgstrf2.c:218 uses eps·‖A‖; the sqrt variant keeps half
@@ -160,7 +157,7 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     supernode.  ``scatter`` and ``timings`` are passed to every
     ``group_step``.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     plan.check_index_width()
     check_gemm_tier(gemm_prec)
     full_precision_matmul()

@@ -1,12 +1,17 @@
-"""The port's CUDA kernels on a card: each kernel against its plain
-PyTorch version (bit for bit), the factorization through the kernels
-against the one through the plain versions, and gssvx on the card.
+"""The port's CUDA kernel on a card: the front assembly and the two
+standalone wrappers (K1, K2) against their plain PyTorch versions (bit
+for bit), the factorization through the kernel against the one through
+the plain version, and gssvx on the card.
 
 These tests need an NVIDIA GPU and skip without one.  The JAX package is
 not installed beside the card, so run them without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +23,8 @@ from superlu_dist_tpu_torch.numeric import factor, kernels
 from superlu_dist_tpu_torch.utils import tols
 
 pytestmark = pytest.mark.cuda
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -74,6 +81,102 @@ def test_assemble_kernel_equals_plain(cuda, dtype):
     assert torch.equal(a, b)
 
 
+def _sentinel_group(rng, device, m=150, batch=3, pool_len=6000,
+                    n_avals=400):
+    """A group with every sentinel, in build mode: A entries dropped by
+    slot and by flat target and reading past avals; children dropped by
+    slot and by offset, reading past the pool, with unsorted rel and
+    m padding, in two sets whose children share slots and positions; m
+    not a multiple of 4, so the scalar path runs over several tiles."""
+    tgt = rng.choice(batch * m * m, size=300, replace=False)
+    a_slot = np.concatenate([tgt // (m * m), [batch, 0]])
+    a_flat = np.concatenate([tgt % (m * m), [0, m * m]])
+    a_src = np.concatenate([rng.integers(0, n_avals + 20, 300), [0, 0]])
+    children = []
+    for ub, nc in ((20, 7), (7, 6)):
+        off = rng.integers(0, pool_len - ub * ub, nc)
+        off[0] = pool_len                            # dropped child
+        off[1] = pool_len - 30                       # reads past the pool
+        slot = rng.integers(0, batch, nc)
+        slot[2] = batch                              # dropped child
+        rel = np.full((nc, ub), m, dtype=np.int64)
+        for c in range(nc):
+            k = rng.integers(1, ub + 1)
+            rel[c, :k] = rng.choice(m, size=k, replace=False)   # unsorted
+            rng.shuffle(rel[c])
+        children.append((ub, off, slot, rel))
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
+    ws = np.array([m // 3, 0, m - 5])
+    maps = kernels.GroupMaps(
+        ws=put(ws), off=put(np.zeros(batch)), a_slot=put(a_slot),
+        a_flat=put(a_flat), a_src=put(a_src),
+        children=[(ub, put(o), put(s), put(r)) for ub, o, s, r in children],
+        front=kernels.build_front_maps(batch, m, pool_len,
+                                       a=(a_slot, a_flat, a_src),
+                                       children=children, device=device))
+    return maps, m, m - 2, pool_len, n_avals
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_front_assemble_kernel_equals_plain(cuda, dtype):
+    """Every group of a plan with fronts over several tiles, and the
+    sentinel group: the kernel's front batch equals the plain one."""
+    rng = np.random.default_rng(3)
+    lu, bvals, _ = slt.analyze(slt.Options(), poisson3d(14), device=cuda)
+    plan = lu.plan
+    pool = torch.as_tensor(rng.standard_normal(plan.pool_size), dtype=dtype,
+                           device=cuda)
+    avals = torch.as_tensor(rng.standard_normal(len(bvals)), dtype=dtype,
+                            device=cuda)
+    cases = [(gm, g.m, g.w, pool, avals)
+             for g, gm in zip(plan.groups, factor.upload_maps(plan, cuda))]
+    maps, m, w, pool_len, n_avals = _sentinel_group(rng, cuda)
+    cases.append((maps, m, w,
+                  torch.as_tensor(rng.standard_normal(pool_len), dtype=dtype,
+                                  device=cuda),
+                  torch.as_tensor(rng.standard_normal(n_avals), dtype=dtype,
+                                  device=cuda)))
+    assert max(g.m for g in plan.groups) > 128
+    kernels.reset_launches()
+    for gm, m, w, pool, avals in cases:
+        a = kernels.front_assemble_(avals, pool, m, w, gm)
+        b = kernels.front_assemble_plain(avals, pool, m, w, gm)
+        assert torch.equal(a, b)
+    assert kernels.LAUNCHES["front_assemble"] == len(cases)
+
+
+def test_first_launch_of_a_process_under_a_full_tile(cuda):
+    """A fresh process whose first launch has a float32 tile under 48 KB
+    (m=112, 49 KB with the kernel's static shared memory) must raise the
+    kernel's shared-memory limit itself."""
+    code = """
+import numpy as np, torch
+from superlu_dist_tpu_torch.numeric import kernels
+m, dev = 112, torch.device("cuda")
+rel = np.arange(0, m, 3)[None, :]
+maps = kernels.build_front_maps(2, m, 2000, a=([1], [5], [0]),
+                                children=[(rel.shape[1], [0], [1], rel)],
+                                device=dev)
+gm = kernels.GroupMaps(
+    ws=torch.tensor([0, 3], device=dev), off=torch.zeros(2, device=dev),
+    a_slot=torch.tensor([1], device=dev), a_flat=torch.tensor([5], device=dev),
+    a_src=torch.tensor([0], device=dev),
+    children=[(rel.shape[1], torch.tensor([0], device=dev),
+               torch.tensor([1], device=dev), torch.as_tensor(rel, device=dev))],
+    front=maps)
+pool = torch.randn(2000, device=dev)
+avals = torch.ones(1, device=dev)
+a = kernels.front_assemble_(avals, pool, m, 40, gm)
+b = kernels.front_assemble_plain(avals, pool, m, 40, gm)
+torch.cuda.synchronize()
+assert torch.equal(a, b)
+"""
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=300)
+
+
 @pytest.mark.parametrize("make", [lambda: poisson3d(10),
                                   lambda: random_sparse(300, 0.02, seed=4)])
 def test_factor_through_kernels_equals_plain(cuda, make):
@@ -91,8 +194,9 @@ def test_gssvx_on_the_card(cuda):
     a = poisson3d(12)
     b = a.matvec(np.random.default_rng(2).standard_normal(a.n_rows))
     kernels.reset_launches()
-    x, lu, _, info = slt.gssvx(slt.Options(), a, b)
+    x, lu, _, info = slt.gssvx(slt.Options(), a, b, device=cuda)
     assert info == 0 and lu.numeric.dtype == torch.float32
     assert lu.numeric.device.type == "cuda"
-    assert min(kernels.LAUNCHES.values()) > 0
+    assert kernels.LAUNCHES == {"front_assemble": len(lu.plan.groups),
+                                "extend_add": 0, "assemble": 0}
     assert lu.berrs[-1] <= tols.berr_target(np.float64)

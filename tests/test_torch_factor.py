@@ -22,7 +22,8 @@ from superlu_dist_tpu.utils.options import Options as JaxOptions
 from superlu_dist_tpu.utils.options import RowPerm as JaxRowPerm
 
 import superlu_dist_tpu_torch as slt
-from superlu_dist_tpu_torch.interop import plan_from_reference
+from superlu_dist_tpu_torch.interop import (factors_from_reference,
+                                           plan_from_reference)
 from superlu_dist_tpu_torch.models import gallery
 from superlu_dist_tpu_torch.numeric.factor import numeric_factorize
 from superlu_dist_tpu_torch.utils import tols
@@ -118,3 +119,17 @@ def test_zero_pivot_without_replacement_reports_its_column():
     assert not out.finite and not ref.finite
     assert out.info_col == int(np.argsort(lu.sf.perm)[k])
     assert ref.info_col <= out.info_col
+
+
+def test_entry_points_ask_for_the_card(monkeypatch):
+    """Without device=, numeric_factorize and factors_from_reference run on
+    the card, so on a machine without one they raise; with device="cpu"
+    they run here."""
+    plan, vals, anorm = _reference("poisson3d_6")
+    ref = jax_factorize(plan, vals, anorm, dtype="float64", executor="fused")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        numeric_factorize(plan_from_reference(plan), vals, anorm)
+    with pytest.raises(RuntimeError, match="cuda"):
+        factors_from_reference(ref)
+    assert factors_from_reference(ref, device="cpu").device.type == "cpu"

@@ -2,9 +2,14 @@
 held against the JAX package: the plain PyTorch versions of the
 extend-add (K1) and the A-entry assembly (K2) must equal, bit for bit,
 both the JAX ``.at[]`` lowering (numeric/factor.py) and the Pallas
-kernels in interpret mode, sentinels and repeated parent slots included.
-On CPU tensors the wrappers take the plain versions; their CUDA path is
-covered by tests/test_torch_cuda.py on a card."""
+kernels in interpret mode, sentinels and repeated parent slots included;
+and the maps of the fused kernel (``build_front_maps``), walked tile by
+tile as csrc/front_assemble.cu walks them, must enumerate exactly the
+pairs of the child sets in the same per-position order.  On CPU tensors
+the wrappers take the plain versions; their CUDA path is covered by
+tests/test_torch_cuda.py on a card."""
+
+from collections import defaultdict
 
 import numpy as np
 import jax.numpy as jnp
@@ -147,7 +152,8 @@ def test_cpu_wrappers_take_plain_and_count_nothing():
     kernels.extend_add_(f, torch.ones(1), 2, 1, torch.tensor([0]),
                         torch.tensor([0]), torch.tensor([[1]]))
     assert f.tolist() == [[0.0, 0.0, 0.0, 2.0]]
-    assert kernels.LAUNCHES == {"extend_add": 0, "assemble": 0}
+    assert kernels.LAUNCHES == {"front_assemble": 0, "extend_add": 0,
+                                "assemble": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "index", "shape"])
@@ -163,3 +169,126 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         kernels.assemble_(f if bad != "shape" else f.view(-1), pool, idx,
                           idx, idx)
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel's maps
+# ---------------------------------------------------------------------------
+
+def _walk_maps(fm, tile_rows, tile_cols=128):
+    """What csrc/front_assemble.cu reads from its maps, tile by tile:
+    (slot, flat) -> [pool index, ...] in add order, and (slot, flat) -> src
+    of the A entries."""
+    a_bkt, a_ent, ch_ptr, ch_rec, rel, ch_bkt = (t.numpy()
+                                                 for t in fm.tensors())
+    m, b = fm.m, kernels.BUCKET
+    nb = -(-m // b)
+    seq, a = defaultdict(list), {}
+    for s in range(fm.batch):
+        for r0 in range(0, m, tile_rows):
+            for c0 in range(0, m, tile_cols):
+                th, tw = min(tile_rows, m - r0), min(tile_cols, m - c0)
+                bl, bh = r0 // b, -(-(r0 + th) // b)
+                cl, chh = c0 // b, -(-(c0 + tw) // b)
+                for e in range(a_bkt[s, bl], a_bkt[s, bh]):
+                    flat, src = a_ent[e]
+                    assert r0 <= flat // m < r0 + th
+                    if c0 <= flat % m < c0 + tw:
+                        assert (s, flat) not in a
+                        a[(s, int(flat))] = int(src)
+                for k in range(ch_ptr[s], ch_ptr[s + 1]):
+                    off, ub, start, bstart = ch_rec[k]
+                    bk = ch_bkt[bstart:bstart + nb + 1]
+                    ent = rel[start:]
+                    for i in range(bk[bl], bk[bh]):
+                        for j in range(bk[cl], bk[chh]):
+                            assert r0 <= ent[i, 0] < r0 + th
+                            assert c0 <= ent[j, 0] < c0 + tw
+                            seq[(s, int(ent[i, 0] * m + ent[j, 0]))].append(
+                                int(off + ent[i, 1] * ub + ent[j, 1]))
+    return seq, a
+
+
+def _pairs_of_sets(batch, m, pool_len, children):
+    """The same from the raw child sets, in set, child, i, j order."""
+    seq = defaultdict(list)
+    for ub, off, slot, rel in children:
+        for c in range(len(off)):
+            if not (0 <= slot[c] < batch and 0 <= off[c] < pool_len):
+                continue
+            for i in range(ub):
+                for j in range(ub):
+                    ri, rj = rel[c, i], rel[c, j]
+                    if 0 <= ri < m and 0 <= rj < m:
+                        seq[(int(slot[c]), int(ri * m + rj))].append(
+                            int(off[c] + i * ub + j))
+    return seq
+
+
+def _plan_groups(name):
+    from superlu_dist_tpu.drivers.gssvx import analyze as jax_analyze
+    from superlu_dist_tpu.models import gallery as jgal
+    from superlu_dist_tpu.utils.options import Options as JaxOptions
+    from superlu_dist_tpu_torch.interop import plan_from_reference
+    make = {"poisson2d_14": lambda: jgal.poisson2d(14),
+            "poisson3d_6": lambda: jgal.poisson3d(6),
+            "random_80": lambda: jgal.random_sparse(80, density=0.05, seed=3)}
+    plan = plan_from_reference(jax_analyze(JaxOptions(), make[name]())[0].plan)
+    return [(g.batch, g.m, plan.pool_size, (g.a_slot, g.a_flat, g.a_src),
+             [(cs.ub, cs.child_off, cs.child_slot, cs.rel)
+              for cs in g.children]) for g in plan.groups]
+
+
+def _sentinel_groups():
+    f, pool, m, ub, off, slot, rel = _extend_add_case(3, np.float64, True)
+    rng = np.random.default_rng(9)
+    rel = rel.copy()
+    for r in rel:
+        rng.shuffle(r)                       # unsorted, sentinels between
+    batch = f.shape[0]
+    tgt = rng.choice(batch * m * m, size=20, replace=False)
+    a = (np.concatenate([tgt // (m * m), [batch, -1, 0]]),
+         np.concatenate([tgt % (m * m), [0, 0, m * m]]),
+         np.arange(23))
+    return [(batch, m, len(pool), a, [(ub, off, slot, rel)])]
+
+
+@pytest.mark.parametrize("tile_rows", [128, 64])
+@pytest.mark.parametrize("case", ["poisson2d_14", "poisson3d_6", "random_80",
+                                  "sentinels"])
+def test_front_maps_enumerate_the_child_sets(case, tile_rows):
+    groups = _sentinel_groups() if case == "sentinels" else _plan_groups(case)
+    for batch, m, pool_len, a, children in groups:
+        fm = kernels.build_front_maps(batch, m, pool_len, a=a,
+                                      children=children)
+        seq, a_map = _walk_maps(fm, tile_rows)
+        ref = _pairs_of_sets(batch, m, pool_len, children)
+        assert seq == ref
+        assert fm.pairs == sum(map(len, ref.values()))
+        a_slot, a_flat, a_src = a
+        keep = ((a_slot >= 0) & (a_slot < batch) & (a_flat >= 0)
+                & (a_flat < m * m))
+        assert a_map == {(int(s), int(fl)): int(sr) for s, fl, sr in
+                         zip(a_slot[keep], a_flat[keep], a_src[keep])}
+
+
+def test_front_maps_refuse_repeated_targets():
+    rel = np.array([[1, 3, 1]])
+    with pytest.raises(ValueError, match="distinct"):
+        kernels.build_front_maps(1, 4, 9, children=[(3, [0], [0], rel)])
+    with pytest.raises(ValueError, match="unique"):
+        kernels.build_front_maps(2, 3, 0, a=([1, 0, 1], [4, 4, 4], [0, 1, 2]))
+
+
+def test_upload_packs_aligned_views():
+    """One copy per dtype; every view starts on a 16-byte boundary (the
+    kernel reads rel as 8-byte pairs) and holds its array."""
+    arrays = [np.arange(3, dtype=np.int64), np.arange(3, dtype=np.int32),
+              np.arange(10, dtype=np.int32).reshape(5, 2),
+              np.zeros((0, 4), np.int64), np.arange(7, dtype=np.int64)]
+    views = kernels.upload(arrays, "cpu")
+    for x, v in zip(arrays, views):
+        assert v.data_ptr() % 16 == 0 and v.is_contiguous()
+        assert np.array_equal(v.numpy(), x) and v.shape == x.shape
+    with pytest.raises(TypeError):
+        kernels.upload([np.zeros(2)], "cpu")
