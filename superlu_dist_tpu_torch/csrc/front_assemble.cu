@@ -32,11 +32,17 @@
 // Bound: bytes.  One write of every front element, one read of every pool
 // value and A value used and of every map entry, one add per pair.
 //
+// Types: float, double, and complex64 / complex128 as Cx<float> /
+// Cx<double>, whose add is two real adds, one per component (as torch's and
+// XLA's complex add), so the kernel equals the plain version bit for bit in
+// every type.
+//
 // Design (the Hopper counterpart of the TPU kernel's VMEM-resident front
-// block): one block per (slot, tile of kRows x kTileCols front positions).
-// The tile lives in dynamic shared memory (64 KB, so three blocks share an
-// SM); every add lands there, and the tile is written to f once, with
-// 16-byte stores where m allows.  One block owns each position, so there
+// block): one block per (slot, tile of kRows x kCols front positions).
+// The tile lives in dynamic shared memory (64 KB in every type, so three
+// blocks share an SM, and kBucket divides both of its sides); every add
+// lands there, and the tile is written to f once, with 16-byte stores
+// where m allows.  One block owns each position, so there
 // are no atomics.  A block visits only its own slot's children; the bucket
 // tables give the rows and the columns of a child that fall in the tile
 // with four loads and no search, read for a whole chunk of children at
@@ -54,30 +60,60 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// A complex number of R components (complex64: R = float, complex128:
+// R = double), laid out as torch stores one: real part, then imaginary.
+template <typename R>
+struct alignas(2 * sizeof(R)) Cx {
+  R x, y;
+  Cx() = default;
+  __host__ __device__ constexpr Cx(R re) : x(re), y(R(0)) {}
+  __host__ __device__ constexpr Cx(R re, R im) : x(re), y(im) {}
+};
+template <typename R>
+__device__ __forceinline__ Cx<R> operator+(Cx<R> a, Cx<R> b) {
+  return Cx<R>(a.x + b.x, a.y + b.y);
+}
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileCols = 128;
 constexpr int kBucket = 64;       // divides the tile's rows and columns
 constexpr int kWide = 8;          // pool loads in flight per thread for
 constexpr int kNarrow = 4;        // a large child / a small one
 constexpr int kChunk = 128;       // child records staged at a time
 
+// The tile (kRows x kCols, 64 KB) and the widest store (kVec elements,
+// 16 bytes) of each type.
 template <typename T>
 struct Shape;
 template <>
 struct Shape<float> {
-  static constexpr int kRows = 128;   // 128 x 128 x 4 B = 64 KB
-  static constexpr int kVec = 4;
+  static constexpr int kRows = 128, kCols = 128, kVec = 4;
 };
 template <>
 struct Shape<double> {
-  static constexpr int kRows = 64;    // 64 x 128 x 8 B = 64 KB
-  static constexpr int kVec = 2;
+  static constexpr int kRows = 64, kCols = 128, kVec = 2;
+};
+template <>
+struct Shape<Cx<float>> {
+  static constexpr int kRows = 64, kCols = 128, kVec = 2;
+};
+template <>
+struct Shape<Cx<double>> {
+  static constexpr int kRows = 64, kCols = 64, kVec = 1;
 };
 
-static_assert(kThreads >= kTileCols && kThreads >= Shape<float>::kRows,
-              "a thread stages at most one entry of a tile's slice");
+template <typename T>
+constexpr bool shape_ok() {
+  return Shape<T>::kRows * Shape<T>::kCols * sizeof(T) == 64 * 1024 &&
+         Shape<T>::kRows % kBucket == 0 && Shape<T>::kCols % kBucket == 0 &&
+         Shape<T>::kRows <= kThreads && Shape<T>::kCols <= kThreads &&
+         Shape<T>::kVec * sizeof(T) == 16;
+}
+// a thread stages at most one entry of a tile's row or column slice
+static_assert(shape_ok<float>() && shape_ok<double>() &&
+                  shape_ok<Cx<float>>() && shape_ok<Cx<double>>(),
+              "tile shapes");
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Pack {
@@ -182,6 +218,7 @@ front_assemble_kernel(T* __restrict__ f, const T* __restrict__ pool,
                       int64_t pool_len, int64_t n_avals, int64_t tiles_c,
                       int64_t n_tiles, int accumulate) {
   constexpr int kRows = Shape<T>::kRows;
+  constexpr int kTileCols = Shape<T>::kCols;
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);
   __shared__ int2 rows_s[2][kRows];
@@ -315,6 +352,7 @@ int launch_v(T* f, const T* pool, const T* avals, const int64_t* ws,
              int64_t m, int64_t w, int64_t pool_len, int64_t n_avals,
              int accumulate, cudaStream_t stream) {
   constexpr int kRows = Shape<T>::kRows;
+  constexpr int kTileCols = Shape<T>::kCols;
   const int64_t tiles_r = (m + kRows - 1) / kRows;
   const int64_t tiles_c = (m + kTileCols - 1) / kTileCols;
   const int64_t n_tiles = tiles_r * tiles_c;
@@ -372,29 +410,23 @@ int launch(T* f, const T* pool, const T* avals, const int64_t* ws,
 
 extern "C" {
 
-int slu_front_assemble_f32(float* f, const float* pool, const float* avals,
-                           const int64_t* ws, const int64_t* a_bkt,
-                           const int64_t* a_ent, const int64_t* ch_ptr,
-                           const int64_t* ch_rec, const int32_t* rel,
-                           const int32_t* ch_bkt, int64_t batch, int64_t m,
-                           int64_t w, int64_t pool_len, int64_t n_avals,
-                           int64_t accumulate, void* stream) {
-  return launch<float>(f, pool, avals, ws, a_bkt, a_ent, ch_ptr, ch_rec, rel,
-                       ch_bkt, batch, m, w, pool_len, n_avals, accumulate,
-                       stream);
-}
+#define SLU_FRONT_ASSEMBLE(NAME, T)                                          \
+  int NAME(T* f, const T* pool, const T* avals, const int64_t* ws,          \
+           const int64_t* a_bkt, const int64_t* a_ent,                      \
+           const int64_t* ch_ptr, const int64_t* ch_rec, const int32_t* rel, \
+           const int32_t* ch_bkt, int64_t batch, int64_t m, int64_t w,      \
+           int64_t pool_len, int64_t n_avals, int64_t accumulate,           \
+           void* stream) {                                                  \
+    return launch<T>(f, pool, avals, ws, a_bkt, a_ent, ch_ptr, ch_rec, rel, \
+                     ch_bkt, batch, m, w, pool_len, n_avals, accumulate,    \
+                     stream);                                               \
+  }
 
-int slu_front_assemble_f64(double* f, const double* pool,
-                           const double* avals, const int64_t* ws,
-                           const int64_t* a_bkt, const int64_t* a_ent,
-                           const int64_t* ch_ptr, const int64_t* ch_rec,
-                           const int32_t* rel, const int32_t* ch_bkt,
-                           int64_t batch, int64_t m, int64_t w,
-                           int64_t pool_len, int64_t n_avals,
-                           int64_t accumulate, void* stream) {
-  return launch<double>(f, pool, avals, ws, a_bkt, a_ent, ch_ptr, ch_rec, rel,
-                        ch_bkt, batch, m, w, pool_len, n_avals, accumulate,
-                        stream);
-}
+SLU_FRONT_ASSEMBLE(slu_front_assemble_f32, float)
+SLU_FRONT_ASSEMBLE(slu_front_assemble_f64, double)
+SLU_FRONT_ASSEMBLE(slu_front_assemble_c64, Cx<float>)
+SLU_FRONT_ASSEMBLE(slu_front_assemble_c128, Cx<double>)
+
+#undef SLU_FRONT_ASSEMBLE
 
 }  // extern "C"

@@ -113,3 +113,70 @@ def random_sparse(n: int, density: float = 0.01, seed: int = 0,
         dval = dval + np.sign(dval.real + (dval.real == 0)) * (4.0 * n * density + 4.0)
     vals = np.concatenate([vals, dval])
     return coo_to_csr(n, n, rows, cols, vals)
+
+
+def helmholtz_2d(nx: int, k: float = 5.0, dtype=np.complex128) -> SparseCSR:
+    """2-D Helmholtz operator −Δ − k² with a complex absorbing shift — an
+    indefinite complex test class (the z-path stressor).  dtype must be
+    complex (the absorbing shift is imaginary)."""
+    dtype = np.dtype(dtype)
+    if not np.issubdtype(dtype, np.complexfloating):
+        raise ValueError("helmholtz_2d needs a complex dtype "
+                         f"(absorbing shift), got {dtype}")
+    a = poisson2d(nx, dtype=np.float64)
+    vals = a.data.astype(dtype)
+    diag = a.indices == np.repeat(np.arange(a.n_rows), np.diff(a.indptr))
+    h2 = 1.0 / (nx + 1) ** 2
+    vals[diag] -= (k * k - 0.5j * k) * h2
+    out = SparseCSR(a.n_rows, a.n_cols, a.indptr, a.indices, vals)
+    out.grid_shape = a.grid_shape     # keep geometric-ND eligibility
+    return out
+
+
+def hilbert(n: int, dtype=np.float64) -> SparseCSR:
+    """Hilbert matrix H[i,j] = 1/(i+j+1) stored sparse — the classic
+    ill-conditioned class (κ₂ ~ e^{3.5n}): at n=8 already ~1.5e10, past
+    f32+IR's reach but inside f64's.  Escalation-ladder fodder."""
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    vals = (1.0 / (i + j + 1.0)).astype(dtype)
+    return coo_to_csr(n, n, i.ravel(), j.ravel(), vals.ravel())
+
+
+def rank_deficient_arrowhead(n: int, delta: float = 0.0, seed: int = 0,
+                             dtype=np.float64) -> SparseCSR:
+    """Arrowhead matrix whose last row is an exact linear combination of
+    rows 1 and 2 (delta=0: exactly singular, rank n−1) or a near one
+    (delta>0: smallest pivot ~delta, κ ~ ‖A‖/delta).  The dependence is a
+    row relation, so no diagonal re-scaling repairs it — the near-singular
+    stressor for the recovery ladder."""
+    if n < 4:
+        raise ValueError("rank_deficient_arrowhead needs n >= 4")
+    rng = np.random.default_rng(seed)
+    m = np.zeros((n, n), dtype=np.float64)
+    np.fill_diagonal(m, 1.0 + rng.random(n))
+    m[0, 1:] = 0.25 * (1.0 + rng.random(n - 1))   # arrow row
+    m[1:, 0] = 0.25 * (1.0 + rng.random(n - 1))   # arrow column
+    m[n - 1] = m[1] + m[2]                        # exact row dependence
+    m[n - 1, n - 1] += delta                      # near-singular escape
+    r, c = np.nonzero(m)
+    return coo_to_csr(n, n, r, c, m[r, c].astype(dtype))
+
+
+def zero_row_col(nx: int = 8, k: int | None = None, which: str = "row",
+                 dtype=np.float64) -> SparseCSR:
+    """2-D Poisson matrix with row (or column, or both) k numerically
+    zeroed — exactly singular with a structurally present but zero-valued
+    slice, the reference's dgsequ/pdgstrf info>0 test class."""
+    a = poisson2d(nx, dtype=dtype)
+    n = a.n_rows
+    if k is None:
+        k = n // 2
+    data = a.data.copy()
+    rows = np.repeat(np.arange(n), np.diff(a.indptr))
+    if which in ("row", "both"):
+        data[rows == k] = 0.0
+    if which in ("col", "both"):
+        data[a.indices == k] = 0.0
+    out = SparseCSR(a.n_rows, a.n_cols, a.indptr, a.indices, data)
+    out.grid_shape = a.grid_shape
+    return out

@@ -131,6 +131,7 @@ class NumericFactorization:
                               # (only possible with replace_tiny=False)
     info_col: int = -1        # first zero-pivot column (0-based, final
                               # labeling) when not finite
+    gemm_prec: str = "highest"   # the GEMM tier the factors ran at
 
     @property
     def device(self) -> torch.device:
@@ -144,7 +145,7 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       scatter=KERNELS, timings=None) -> NumericFactorization:
     """Factor with values aligned to plan.pattern_indices, on ``device``
     (the card unless the caller asks for the CPU; CUDA without a card
-    raises).
+    raises), in ``dtype``: float32, float64, complex64 or complex128.
 
     anorm: ‖A‖ for the GESP tiny-pivot threshold sqrt(eps)·‖A‖
     (reference pdgstrf2.c:218 uses eps·‖A‖; the sqrt variant keeps half
@@ -161,10 +162,13 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     plan.check_index_width()
     check_gemm_tier(gemm_prec)
     full_precision_matmul()
+    # the threshold is compared with |pivot|: a tensor of the real
+    # component type (torch.finfo of a complex type is its component's)
+    real_dtype = torch.empty((), dtype=dtype).real.dtype
     eps = torch.finfo(dtype).eps
     thresh = torch.tensor(
         np.sqrt(eps) * max(anorm, 1e-300) if replace_tiny else 0.0,
-        dtype=dtype, device=device)
+        dtype=real_dtype, device=device)
     avals = torch.as_tensor(np.asarray(pattern_values), device=device).to(dtype)
     maps = upload_maps(plan, device)
     pool = torch.zeros(plan.pool_size, dtype=dtype, device=device)
@@ -186,7 +190,8 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                                     where="numeric factorization")
     return NumericFactorization(plan=plan, fronts=fronts,
                                 tiny_pivots=int(tiny), dtype=dtype,
-                                finite=finite, info_col=info_col)
+                                finite=finite, info_col=info_col,
+                                gemm_prec=gemm_prec)
 
 
 def fronts_finite(fronts) -> bool:

@@ -14,9 +14,11 @@ group, on maps built once per plan on the host (``build_front_maps``):
   their JAX signatures, in place on ``f``: the same kernel in accumulate
   mode, on maps built from their arguments at each call.
 
-Beside each sits its plain PyTorch version.  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises — there is no
-fallback between the two.  Each launch adds one to ``LAUNCHES[name]``, so
+The kernel is built for float32, float64, complex64 and complex128; a
+complex add is two real adds, one per component, in the kernel as in
+torch.  Beside each sits its plain PyTorch version.  A CPU tensor takes
+the plain version; a CUDA tensor launches the kernel or raises — there is
+no fallback between the two.  Each launch adds one to ``LAUNCHES[name]``, so
 a run can show that it went through the kernel.  The kernel equals the
 plain versions bit for bit: every front position receives the same adds
 in the same order (identity, A entry, then the children in set order and
@@ -45,7 +47,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 BUCKET = 64            # csrc/front_assemble.cu kBucket
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: the kernel's instantiations (csrc/front_assemble.cu), by dtype
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex64: "c64", torch.complex128: "c128"}
 
 _lib = None
 _fns = {}              # dtype -> the library's launch function
@@ -129,7 +133,8 @@ def _on_cuda(values, index) -> bool:
         raise ValueError(f"inputs lie on several devices: {sorted(map(str, devs))}")
     if values[0].dtype not in _SUFFIX or any(v.dtype != values[0].dtype
                                              for v in values):
-        raise TypeError("the float inputs must share float32 or float64, got "
+        raise TypeError("the value inputs must share one of "
+                        f"{sorted(map(str, _SUFFIX))}, got "
                         f"{[v.dtype for v in values]}")
     if not all(v.is_contiguous() for v in values):
         raise ValueError("the float inputs must be contiguous")
@@ -315,8 +320,9 @@ def launch_(f, maps: FrontMaps, pool=None, avals=None, ws=None, w=0):
     dev = f.device
     if dev.type != "cuda" or f.dtype not in _SUFFIX \
             or not f.is_contiguous() or f.shape != (batch, m * m):
-        raise ValueError(f"f must be a contiguous float32/float64 CUDA "
-                         f"tensor of shape ({batch}, {m}*{m})")
+        raise ValueError(f"f must be a contiguous CUDA tensor of shape "
+                         f"({batch}, {m}*{m}) in one of "
+                         f"{sorted(map(str, _SUFFIX))}")
     if maps.device != dev or any(t is not None and t.device != dev
                                  for t in (pool, avals, ws)):
         raise ValueError("f, its inputs and the maps must share a device")

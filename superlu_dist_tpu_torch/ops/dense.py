@@ -51,6 +51,16 @@ def check_gemm_tier(prec: str) -> str:
     return prec
 
 
+def next_gemm_precision(tier: str) -> str | None:
+    """The next-higher tier that changes the arithmetic, or None at the
+    top — the escalation rung's step (drivers/gssvx._escalate).  Both
+    tiers the port runs are full-precision products, so there is no step
+    yet: the rung exists and stays inert until the reduced tiers are
+    ported (ROADMAP.md)."""
+    check_gemm_tier(tier)
+    return None
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, prec: str = "highest"):
     """One ladder-tier batched matmul: every Schur-update GEMM of the
     factor path routes through here."""
@@ -60,7 +70,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, prec: str = "highest"):
 
 def _fix_pivot(piv: torch.Tensor, thresh: torch.Tensor):
     """GESP tiny-pivot replacement: piv -> phase(piv)·thresh if
-    |piv| < thresh.  Returns (pivots, int32 tiny flags)."""
+    |piv| < thresh (thresh is of piv's real component type; a complex
+    pivot keeps its phase, a zero one becomes +thresh).  Returns
+    (pivots, int32 tiny flags)."""
     ap = piv.abs()
     safe = torch.where(ap == 0, torch.ones_like(ap), ap)
     unit = torch.where(ap == 0, torch.ones_like(piv), piv / safe)

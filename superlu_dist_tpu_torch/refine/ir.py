@@ -9,7 +9,9 @@ berr = max_i |r|_i / (|A|·|x| + |b|)_i reaches eps, stops improving by 2×
 
 On the card this is the half of the mixed-precision design that recovers
 f64 accuracy from f32 factors: the factorization runs in float32 on the
-device, the cheap SpMV residual is exact float64 on the host.
+device, the cheap SpMV residual is exact float64 on the host.  Complex
+systems refine with a complex residual (complex128 under a float64
+residual dtype, complex64 under SLU_SINGLE).
 """
 
 from __future__ import annotations
@@ -50,6 +52,23 @@ def _normalize_correction(dx, n: int, ncols: int) -> np.ndarray:
             f"correction solve returned shape {np.asarray(dx).shape}, "
             f"expected ({n}, {ncols})")
     return dx
+
+
+def request_berrs(a: SparseCSR, b: np.ndarray, x: np.ndarray,
+                  residual_dtype=np.float64) -> np.ndarray:
+    """Per-column componentwise backward errors of x against A·x = b: one
+    SpMV pair for all columns (the refactor canary's and the NOREFINE
+    gate's probe).  The residual is complex for complex data."""
+    b2 = b[:, None] if b.ndim == 1 else b
+    x2 = x[:, None] if x.ndim == 1 else x
+    r = (b2 - a.matvec(x2)).astype(np.promote_types(b2.dtype,
+                                                    residual_dtype))
+    out = np.empty(b2.shape[1])
+    for k in range(b2.shape[1]):
+        den = a.abs_matvec(np.abs(x2[:, k])) + np.abs(b2[:, k])
+        out[k] = componentwise_berr(r[:, k], den.real, a.nnz,
+                                    residual_dtype)
+    return out
 
 
 def iterative_refinement(a: SparseCSR, b: np.ndarray, x: np.ndarray,

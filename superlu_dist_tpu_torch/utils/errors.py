@@ -38,3 +38,61 @@ class NumericBreakdownError(SuperLUError):
         super().__init__(
             f"non-finite values detected{stage}{loc}; the system is "
             "numerically broken down (overflow or NaN input)")
+
+
+class PatternMismatchError(SuperLUError):
+    """A values-only refactorization (``drivers/gssvx.refactor``) was handed
+    a matrix whose sparsity pattern or shape differs from the one the
+    handle's symbolic structure was built on.  Re-running the symbolic
+    phase silently would break the refactor contract (no symbolic work,
+    the plan reused), so drift is a typed error: re-analyze with
+    ``Fact=DOFACT`` to factor the new pattern.  ``expected_digest`` and
+    ``got_digest`` are the sha256 pattern digests
+    (``drivers/gssvx.pattern_digest``) where both sides could compute one."""
+
+    def __init__(self, reason: str, expected_digest: str = "",
+                 got_digest: str = "", n: int = -1, nnz: int = -1):
+        self.reason = reason
+        self.expected_digest = expected_digest
+        self.got_digest = got_digest
+        self.n = int(n)
+        self.nnz = int(nnz)
+        dg = (f" (handle pattern {expected_digest[:12]}, "
+              f"got {got_digest[:12]})"
+              if expected_digest and got_digest else "")
+        super().__init__(
+            f"refactor refused: {reason}{dg} — a values-only refactor "
+            "requires the exact sparsity pattern the handle was analyzed "
+            "on; factor the new pattern with Fact=DOFACT instead")
+
+
+class RefactorRollbackError(SuperLUError):
+    """A refactorization was rolled back: the shadow factorization of the
+    new values broke down (NaN/Inf, singular) or missed its BERR canary
+    gate, so the handle keeps its previous factors.  ``stage`` names the
+    failing check (``factor`` / ``canary``), ``replica`` is -1 for the
+    handle-level refactor (the JAX package's fleet verb, which is not
+    ported, rolls replicas back: ``rolled_back``), ``berr`` /
+    ``berr_target`` the measured and required canary backward error when
+    the gate fired."""
+
+    def __init__(self, key, stage: str, replica: int = -1,
+                 rolled_back=(), cause: str = "", berr: float = -1.0,
+                 berr_target: float = -1.0):
+        self.key = key
+        self.stage = stage
+        self.replica = int(replica)
+        self.rolled_back = sorted(int(r) for r in rolled_back)
+        self.cause = cause
+        self.berr = float(berr)
+        self.berr_target = float(berr_target)
+        at = f" on replica {replica}" if replica >= 0 else ""
+        why = f": {cause}" if cause else ""
+        gate = (f" (berr {berr:.3e} > gate {berr_target:.3e})"
+                if berr >= 0.0 and berr_target >= 0.0 else "")
+        back = (f"; replica(s) {self.rolled_back} restored to the "
+                "previous factors" if self.rolled_back else "")
+        super().__init__(
+            f"refactor of handle {key!r} rolled back at the {stage} "
+            f"check{at}{why}{gate}{back} — the previous consistent "
+            "factorization keeps serving")

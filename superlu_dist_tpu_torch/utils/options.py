@@ -15,8 +15,7 @@ import torch
 
 
 class Fact(enum.Enum):
-    """Factorization reuse tiers (reference fact_t, superlu_defs.h:489-510).
-    The port runs DOFACT only."""
+    """Factorization reuse tiers (reference fact_t, superlu_defs.h:489-510)."""
 
     DOFACT = 0                      # factor from scratch
     SamePattern = 1                 # reuse column perm + symbolic + plan
@@ -55,6 +54,37 @@ class IterRefine(enum.Enum):
     SLU_DOUBLE = 2
 
 
+class Trans(enum.Enum):
+    """Which system is solved through the factors of A (reference
+    trans_t, superlu_defs.h:628-657): A·X = B, Aᵀ·X = B or Aᴴ·X = B."""
+
+    NOTRANS = 0
+    TRANS = 1
+    CONJ = 2
+
+
+@dataclasses.dataclass
+class RecoveryPolicy:
+    """Solver health and recovery (the pdgscon/pdgsrfs repair loop made
+    automatic), with the JAX package's defaults.
+
+    ``enabled`` drives the escalation ladder of drivers/gssvx.py: when
+    refinement stagnates above ``berr_target`` (None: 10·eps of the
+    residual dtype) the driver escalates the residual precision, the GEMM
+    tier, the factor precision, and finally refactors with equilibration
+    and MC64 forced on, recording every rung in the SolveReport (at most
+    ``max_rungs``).  ``sentinels`` arms the isfinite checks on the factors
+    and on the delivered solution.  ``condest`` says when rcond and ferr
+    are estimated: "always", "never", or "auto" (when the ladder fired,
+    tiny pivots were replaced, or refinement missed its target)."""
+
+    enabled: bool = True
+    sentinels: bool = True
+    condest: str = "auto"              # "always" | "auto" | "never"
+    berr_target: float | None = None   # None => 10·eps(residual dtype)
+    max_rungs: int = 3                 # ladder depth cap
+
+
 @dataclasses.dataclass
 class Options:
     """Runtime options (analog of superlu_dist_options_t).
@@ -71,9 +101,12 @@ class Options:
     row_perm: RowPerm = RowPerm.LargeDiag_MC64
     replace_tiny_pivot: bool = True
     iter_refine: IterRefine = IterRefine.SLU_DOUBLE
+    trans: Trans = Trans.NOTRANS
     relax: int = 20                   # NREL: amalgamate subtrees <= relax cols
     max_supernode: int = 256          # NSUP: cap supernode width
-    factor_dtype: str | None = None   # None => float32 on cuda, float64 on cpu
+    factor_dtype: str | None = None   # None => float32 on cuda, float64 on
+                                      # cpu; complex values take the
+                                      # complex type of that width
     ir_dtype: str = "float64"         # residual precision for refinement
     amalg_tol: float = 1.2            # fill-tolerant amalgamation flop growth
     bucket_growth: float = 1.5        # geometric padding of front buckets
@@ -82,6 +115,8 @@ class Options:
     sched_window: int = 8             # dataflow look-ahead, in levels
     sched_align: float = 1.1          # shape-key coalescing flop tolerance
     gemm_prec: str = "highest"        # Schur GEMM tier (ops/dense.gemm)
+    recovery: RecoveryPolicy = dataclasses.field(
+        default_factory=RecoveryPolicy)
     # user-supplied permutations for MY_PERMC / MY_PERMR
     user_perm_c: object = dataclasses.field(default=None, compare=False)
     user_perm_r: object = dataclasses.field(default=None, compare=False)
@@ -105,3 +140,28 @@ def default_factor_dtype(device: torch.device) -> torch.dtype:
     """float32 factors on the card (refined to f64 on the host), float64
     on the CPU — the JAX package's TPU/CPU split."""
     return torch.float32 if device.type == "cuda" else torch.float64
+
+
+#: factor dtypes the port runs, by name; complex values promote a real
+#: name to the complex type of its width (the JAX package's rule,
+#: drivers/gssvx.py:415-416)
+FACTOR_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+                 "complex64": torch.complex64, "complex128": torch.complex128}
+_COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+
+def resolve_factor_dtype(name: str | None, device: torch.device,
+                         cplx: bool = False) -> torch.dtype:
+    """The torch dtype of the factors: ``name`` (an Options.factor_dtype)
+    or the device's default, promoted to complex for complex values.
+    Raises NotImplementedError for a name the port does not run (df64,
+    the JAX package's emulated double, is not ported)."""
+    if name is None:
+        dt = default_factor_dtype(device)
+    elif str(name) in FACTOR_DTYPES:
+        dt = FACTOR_DTYPES[str(name)]
+    else:
+        raise NotImplementedError(
+            f"factor_dtype {name!r} is not ported; the port runs "
+            f"{sorted(FACTOR_DTYPES)} (ROADMAP.md)")
+    return _COMPLEX_OF.get(dt, dt) if cplx else dt

@@ -20,11 +20,73 @@ PHASES = (
 
 
 @dataclass
+class RungRecord:
+    """One escalation-ladder action (drivers/gssvx.py): what was tried,
+    why, and what it bought.  berr values are max-over-RHS componentwise
+    backward errors before/after the rung."""
+
+    name: str                     # "residual-precision" | "gemm-precision"
+                                  # | "hiprec-factors" | "refactor-rescale"
+    detail: str = ""              # e.g. the dtype escalated to
+    berr_before: float = float("inf")
+    berr_after: float = float("inf")
+    seconds: float = 0.0
+
+
+@dataclass
+class SolveReport:
+    """What the solve did to earn trust — the rcond/ferr/berr outputs of
+    the reference driver (pdgssvx.c's pdgscon + pdgsrfs reporting) plus
+    the recovery ladder's actions.  Attached to Stats.solve_report by
+    drivers/gssvx.gssvx."""
+
+    rcond: float | None = None    # Hager–Higham 1-norm estimate (pdgscon)
+    ferr: list | None = None      # per-RHS normwise forward-error bounds
+    berr: float | None = None     # final max-over-RHS backward error
+    berr_history: list = field(default_factory=list)
+    rungs: list = field(default_factory=list)     # RungRecord per escalation
+    tiny_pivots: int = 0          # ReplaceTinyPivot count for THIS solve
+    refine_steps: int = 0
+    target: float | None = None   # the berr convergence target applied
+    converged: bool = True        # final berr <= target (True w/o refine)
+    finite: bool = True           # solution passed the isfinite sentinel
+    factor_dtype: str = ""        # dtype of the factors the answer rests on
+    gemm_precision: str = ""      # GEMM tier those factors ran at
+    latency_ms: float | None = None  # driver solve latency (SOLVE + refine
+                                  # + ladder + condest), host clock
+
+    def summary(self) -> str:
+        parts = [f"factor dtype {self.factor_dtype}" if self.factor_dtype
+                 else ""]
+        if self.gemm_precision:
+            parts.append(f"gemm {self.gemm_precision}")
+        if self.rcond is not None:
+            parts.append(f"rcond {self.rcond:.3e}")
+        if self.berr is not None:
+            parts.append(f"berr {self.berr:.3e}")
+        if self.ferr:
+            parts.append(f"ferr {max(self.ferr):.3e}")
+        if self.latency_ms is not None:
+            parts.append(f"latency {self.latency_ms:.3f} ms")
+        if self.tiny_pivots:
+            parts.append(f"{self.tiny_pivots} tiny pivots replaced")
+        for r in self.rungs:
+            parts.append(f"rung {r.name}[{r.detail}] "
+                         f"berr {r.berr_before:.2e}->{r.berr_after:.2e}")
+        if not self.finite:
+            parts.append("NON-FINITE")
+        if not self.converged:
+            parts.append("NOT CONVERGED to target")
+        return "; ".join(p for p in parts if p)
+
+
+@dataclass
 class Stats:
     utime: dict = field(default_factory=lambda: {p: 0.0 for p in PHASES})
     ops: dict = field(default_factory=lambda: {p: 0.0 for p in PHASES})
     tiny_pivots: int = 0          # reference: stat->TinyPivots (pdgstrf2.c:226)
     refine_steps: int = 0         # reference: stat->RefineSteps
+    solve_report: object = None   # SolveReport of the last driver solve
 
     @contextlib.contextmanager
     def timer(self, phase: str):
@@ -56,4 +118,6 @@ class Stats:
             lines.append(f"    tiny pivots replaced: {self.tiny_pivots}")
         if self.refine_steps:
             lines.append(f"    refinement steps: {self.refine_steps}")
+        if self.solve_report is not None:
+            lines.append(f"    solve health: {self.solve_report.summary()}")
         return "\n".join(lines)

@@ -70,7 +70,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("options,error", [
-    (slt.Options(fact=slt.Fact.FACTORED), NotImplementedError),
+    (slt.Options(factor_dtype="df64"), NotImplementedError),
     (slt.Options(col_perm=slt.ColPerm.COLAMD), NotImplementedError),
     (slt.Options(row_perm=slt.RowPerm.LargeDiag_AWPM), NotImplementedError),
     (slt.Options(gemm_prec="bf16"), NotImplementedError),

@@ -272,6 +272,20 @@ def test_front_maps_enumerate_the_child_sets(case, tile_rows):
                          zip(a_slot[keep], a_flat[keep], a_src[keep])}
 
 
+@pytest.mark.parametrize("tile", [(64, 128), (64, 64)])
+@pytest.mark.parametrize("case", ["poisson3d_6", "sentinels"])
+def test_front_maps_walk_the_complex_tiles(case, tile):
+    """The complex64 (64 x 128) and complex128 (64 x 64) tiles of
+    csrc/front_assemble.cu read the same maps and enumerate the same pairs
+    in the same per-position order."""
+    groups = _sentinel_groups() if case == "sentinels" else _plan_groups(case)
+    for batch, m, pool_len, a, children in groups:
+        fm = kernels.build_front_maps(batch, m, pool_len, a=a,
+                                      children=children)
+        seq, _ = _walk_maps(fm, *tile)
+        assert seq == _pairs_of_sets(batch, m, pool_len, children)
+
+
 def test_front_maps_refuse_repeated_targets():
     rel = np.array([[1, 3, 1]])
     with pytest.raises(ValueError, match="distinct"):
