@@ -7,8 +7,16 @@ Phases, one result line each (the launch counts of every phase that
 drives the port are reset just before it and checked just after):
   1. card     — the card's name and power limit (nvidia-smi);
   2. build    — compile the CUDA kernel from csrc/ with nvcc (sm_90a);
-  3. maps     — the n=110,592 plan's index maps built and uploaded (host
-                seconds; the main path does this inside FACT);
+     native   — compile the native host-analysis library (native/
+                slu_host.cpp, g++) and hold each of its functions against
+                its Python twin on poisson3d(16) and random_sparse(2000):
+                etree, postorder, symbolic, mmd, colamd, the AᵀA pattern
+                equal, and the MC64 matching's diagonal product;
+  3. plan     — the default analysis of poisson3d(48) (n=110,592): its
+                backend, phase seconds and native calls, and its plan,
+                which must be the JAX package's default plan;
+     maps     — the plan's index maps built and uploaded (host seconds;
+                the main path does this inside FACT);
      kernels  — the front-assembly kernel against its plain PyTorch version
                 on the card (torch.equal) at two groups of the n=110,592
                 plan (the one with the most child pairs, the one holding
@@ -38,14 +46,19 @@ drives the port are reset just before it and checked just after):
   7. complex_dofact — gssvx from scratch on helmholtz_2d(333) (n=110,889);
   8. ladder   — the escalation ladder on a near-singular arrowhead and on
                 hilbert(8) with float32 factors;
+     orderings — DOFACT gssvx on random_sparse(2000) with ColPerm COLAMD,
+                ColPerm MMD_ATA and RowPerm LargeDiag_AWPM;
   9. check    — a small poisson3d factored through the kernel and through
                 the plain version (identical fronts required), and small
                 NOTRANS / TRANS / CONJ solves against scipy's sparse direct
                 solver in float64.
 
-Then a JSON line with one record per kernel, the card line again, and the
-last line {"ok": true, "device": {...}}.  Any failure raises and exits
-non-zero; without a CUDA device it exits non-zero before any result.
+Every DOFACT analysis runs in the native library; its calls are counted
+(native.CALLS, reset just before each such phase) and printed on the
+phase's line.  Then a JSON line with one record per kernel, the card
+line again, and the last line {"ok": true, "device": {...}}.  Any
+failure raises and exits non-zero; without a CUDA device it exits
+non-zero before any result.
 """
 
 import json
@@ -67,6 +80,11 @@ KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 SOURCE = "superlu_dist_tpu_torch/csrc/front_assemble.cu"
 K1 = "superlu_dist_tpu/numeric/pallas_kernels.py:144"
 K2 = "superlu_dist_tpu/numeric/pallas_kernels.py:201"
+ANALYSIS = ("EQUIL", "ROWPERM", "COLPERM", "ETREE", "SYMBFACT", "DIST")
+#: the JAX package's default plan of poisson3d(48), its native library on
+#: (its drivers/gssvx.py ``analyze(Options(), poisson3d(48))`` on the CPU);
+#: the port's default analysis must give the same
+JAX_PLAN = {"supernodes": 3858, "groups": 134, "flops": 161000016540.0}
 
 
 def say(phase, **fields):
@@ -548,6 +566,103 @@ def factor_sums(plan, maps, bvals, anorm, torch, factor, kernels, gen):
     return in_factor, {k: dict(units=counts[k], **v) for k, v in sums.items()}
 
 
+def expect_native(phase, native, *names):
+    """The native calls of the analysis just driven (counts reset just
+    before it): the matching, etree, postorder, symbolic and front
+    positions (the amalgamation runs only on more than one supernode), and
+    ``names``, each at least once, or raise."""
+    got = dict(native.CALLS)
+    need = ("etree", "postorder", "symbolic", "positions", *names)
+    missing = [k for k in need if not got[k]]
+    if missing or not (got["mc64"] or got["awpm"]):
+        raise AssertionError(f"{phase}: no native call of "
+                             f"{missing or 'a matching'}: {got}")
+    return {k: v for k, v in got.items() if v}
+
+
+def diag_log_product(a, row_order):
+    """Σ_j log|a[row_order[j], j]|: the objective of the maximum-product
+    matching."""
+    csc = a.tocsc()
+    cols = np.repeat(np.arange(a.n_cols), np.diff(csc.indptr))
+    hit = csc.indices == np.asarray(row_order)[cols]
+    if hit.sum() != a.n_cols:
+        raise AssertionError("the matching is not a perfect matching of A")
+    return float(np.log(np.abs(csc.data[hit])).sum())
+
+
+def native_phase():
+    """Phase 2b: the native host library on the card's host — its build
+    from the checkout's source (timed; a failure raises with the
+    compiler's output), then each function against its Python twin on
+    poisson3d(16) and random_sparse(2000): etree, postorder, the symbolic
+    structure (with amalgamation), mmd, colamd and the AᵀA pattern equal,
+    and the MC64 matching's log product equal to 1e-12 of Σ|log|a||."""
+    from superlu_dist_tpu_torch import native
+    from superlu_dist_tpu_torch.models.gallery import (poisson3d,
+                                                       random_sparse)
+    from superlu_dist_tpu_torch.ordering import colamd, etree
+    from superlu_dist_tpu_torch.ordering.minimum_degree import minimum_degree
+    from superlu_dist_tpu_torch.rowperm.matching import (
+        maximum_product_matching)
+    from superlu_dist_tpu_torch.sparse.formats import symmetrize_pattern
+    from superlu_dist_tpu_torch.symbolic.symbfact import symbolic_factorize
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.load()
+    build_s = time.perf_counter() - t0
+
+    def sf_arrays(sf):
+        return [sf.sn_start, sf.sn_parent, sf.sn_level, sf.perm,
+                np.int64([sf.nnz_L]), *sf.sn_rows]
+
+    cases = {}
+    for name, a in (("poisson3d_16", poisson3d(16)),
+                    ("random_2000", random_sparse(2000, density=0.003,
+                                                  seed=SEED))):
+        sym = symmetrize_pattern(a)
+        n = sym.n_rows
+        ip, ix = sym.indptr, sym.indices
+        dense = colamd.dense_row_threshold(n)
+        out = {}
+
+        def pair(label, fn, same=None):
+            t0 = time.perf_counter()
+            got = fn(True)
+            t1 = time.perf_counter()
+            want = fn(False)
+            t2 = time.perf_counter()
+            if same is None:
+                ok = len(got) == len(want) and all(
+                    np.array_equal(g, w) for g, w in zip(got, want))
+            else:
+                ok = same(got, want)
+            out[label] = dict(native_s=t1 - t0, python_s=t2 - t1)
+            if not ok:
+                raise AssertionError(f"native: {label} != its Python twin "
+                                     f"on {name}")
+
+        parent = etree.etree_symmetric(n, ip, ix)
+        pair("etree", lambda nat: [(native.etree if nat else
+                                    etree.etree_symmetric)(n, ip, ix)])
+        pair("postorder", lambda nat: [(native.postorder if nat else
+                                        etree.postorder)(parent)])
+        pair("symbolic", lambda nat: sf_arrays(symbolic_factorize(
+            sym, np.arange(n), native=nat)))
+        pair("mmd", lambda nat: [minimum_degree(n, ip, ix, native=nat)])
+        pair("colamd", lambda nat: [colamd.colamd_order(
+            n, n, a.indptr, a.indices, native=nat)])
+        pair("ata_pattern", lambda nat: list(colamd.ata_adjacency(
+            n, n, a.indptr, a.indices, dense_row=dense, native=nat)))
+        scale = float(np.abs(np.log(np.abs(a.data))).sum())
+        pair("mc64_product", lambda nat: diag_log_product(
+            a, maximum_product_matching(a, want_scalings=False,
+                                        native=nat)[0]),
+             same=lambda g, w: abs(g - w) <= 1e-12 * scale)
+        cases[name] = dict(n=n, nnz=a.nnz, **out)
+    say("native", library=str(lib), build_s=build_s, cases=cases)
+
+
 def expect_launches(phase, kernels, front_assemble):
     """The launch counts of the phase just driven (reset just before it):
     ``front_assemble`` launches of the fused kernel and none of the
@@ -569,10 +684,12 @@ def check_berr(phase, berr, target=None):
 
 
 def timed_gssvx(slt, kernels, options, a, b, **kw):
-    """gssvx with the launch counts reset just before it: (x, lu, stats,
-    seconds)."""
+    """gssvx with the launch and native-call counts reset just before it:
+    (x, lu, stats, seconds)."""
     import torch
+    from superlu_dist_tpu_torch import native
     kernels.reset_launches()
+    native.reset_calls()
     t0 = time.perf_counter()
     x, lu, stats, info = slt.gssvx(options, a, b, **kw)
     torch.cuda.synchronize()
@@ -754,6 +871,7 @@ def complex_phase(slt, a, lu, kernels, tols, torch):
 def complex_dofact_phase(slt, kernels, tols, torch):
     """Phase 7: gssvx from scratch on helmholtz_2d(333) (n = 110,889): the
     complex analysis, MC64 on complex values included, complex64 factors."""
+    from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import helmholtz_2d
     a = helmholtz_2d(333)
     rng = np.random.default_rng(SEED + 30)
@@ -762,10 +880,11 @@ def complex_dofact_phase(slt, kernels, tols, torch):
     x, lu, st, sec = timed_gssvx(slt, kernels, slt.Options(), a, b,
                                  device="cuda")
     launches = expect_launches("complex_dofact", kernels, len(lu.plan.groups))
+    calls = expect_native("complex_dofact", native, "mlnd")
     if lu.numeric.dtype != torch.complex64:
         raise AssertionError(f"complex_dofact factored {lu.numeric.dtype}")
     say("complex_dofact", n=a.n_rows, nnz=a.nnz, wall_s=sec,
-        phase_s=st.utime, groups=len(lu.plan.groups),
+        phase_s=st.utime, native_calls=calls, groups=len(lu.plan.groups),
         structural_flops=lu.plan.flops, berr=st.solve_report.berr,
         refine_steps=st.refine_steps, launches=launches,
         berr_target=float(tols.berr_target(np.float64)))
@@ -776,6 +895,7 @@ def ladder_phase(slt, kernels, tols, torch):
     """Phase 8: the escalation ladder on the card — float32 factors of the
     near-singular arrowhead must climb to float64 factors on the card and
     deliver BERR ≤ 10·eps64; float32 factors of hilbert(8) must converge."""
+    from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (
         hilbert, rank_deficient_arrowhead)
     out = {}
@@ -792,7 +912,9 @@ def ladder_phase(slt, kernels, tols, torch):
         raise AssertionError(f"arrowhead ladder: {rep.summary()}, "
                              f"{lu.numeric.dtype} on {lu.numeric.device}")
     out["arrowhead"] = dict(s=sec, rungs=names, berr=rep.berr,
-                            rcond=rep.rcond, summary=rep.summary())
+                            rcond=rep.rcond, summary=rep.summary(),
+                            native_calls=expect_native("ladder arrowhead",
+                                                       native))
     check_berr("ladder arrowhead", rep.berr,
                10 * float(np.finfo(np.float64).eps))
     a = hilbert(8)
@@ -804,8 +926,39 @@ def ladder_phase(slt, kernels, tols, torch):
         raise AssertionError(f"hilbert(8) did not converge: {rep.summary()}")
     out["hilbert8"] = dict(s=sec, rungs=[r.name for r in rep.rungs],
                            berr=rep.berr, target=rep.target,
-                           summary=rep.summary())
+                           summary=rep.summary(),
+                           native_calls=expect_native("ladder hilbert8",
+                                                      native))
     say("ladder", **out)
+
+
+def orderings_phase(slt, kernels, tols):
+    """Phase 8b: DOFACT gssvx on random_sparse(2000) on the card with the
+    native orderings and matching the default path does not take —
+    ColPerm COLAMD, ColPerm MMD_ATA, RowPerm LargeDiag_AWPM — each to
+    BERR ≤ berr_target(float64)."""
+    from superlu_dist_tpu_torch import native
+    from superlu_dist_tpu_torch.models.gallery import random_sparse
+    a = random_sparse(2000, density=0.003, seed=SEED)
+    b = a.matvec(np.random.default_rng(SEED + 50).standard_normal(a.n_rows))
+    out = {}
+    for case, kw, fn in (
+            ("COLAMD", dict(col_perm=slt.ColPerm.COLAMD), "colamd"),
+            ("MMD_ATA", dict(col_perm=slt.ColPerm.MMD_ATA), "ata_pattern"),
+            ("LargeDiag_AWPM", dict(row_perm=slt.RowPerm.LargeDiag_AWPM),
+             "awpm")):
+        x, lu, st, sec = timed_gssvx(slt, kernels, slt.Options(
+            factor_dtype="float32", **kw), a, b, device="cuda")
+        out[case] = dict(
+            s=sec, phase_s={p: st.utime[p] for p in ANALYSIS + ("FACT",)},
+            groups=len(lu.plan.groups), berr=st.solve_report.berr,
+            rungs=[r.name for r in st.solve_report.rungs],
+            native_calls=expect_native(f"orderings {case}", native, fn),
+            launches=expect_launches(f"orderings {case}", kernels,
+                                     len(lu.plan.groups)))
+        check_berr(f"orderings {case}", st.solve_report.berr)
+    say("orderings", n=a.n_rows, nnz=a.nnz,
+        berr_target=float(tols.berr_target(np.float64)), **out)
 
 
 def scipy_check(slt, a, trans, cplx, rng, tols):
@@ -813,19 +966,22 @@ def scipy_check(slt, a, trans, cplx, rng, tols):
     refinement) against scipy's sparse direct solver of op(A)."""
     import scipy.sparse
     import scipy.sparse.linalg
+    from superlu_dist_tpu_torch import native
     b = rng.standard_normal(a.n_rows)
     if cplx:
         b = b + 1j * rng.standard_normal(a.n_rows)
+    native.reset_calls()
     x, _, _, info = slt.gssvx(slt.Options(factor_dtype="float32",
                                           trans=getattr(slt.Trans, trans)),
                               a, b, device="cuda")
+    calls = expect_native(f"check {trans}", native)
     sp = scipy.sparse.csr_matrix((a.data, a.indices, a.indptr), shape=a.shape)
     op = {"NOTRANS": sp, "TRANS": sp.T, "CONJ": sp.conj().T}[trans]
     x_ref = scipy.sparse.linalg.spsolve(op.tocsc(), b)
     return dict(info=info, agrees=bool(info == 0 and np.allclose(
         x, x_ref, rtol=tols.DEVICE_VS_HOST_RTOL,
         atol=tols.DEVICE_VS_HOST_ATOL)),
-        max_abs_diff=float(np.abs(x - x_ref).max()))
+        max_abs_diff=float(np.abs(x - x_ref).max()), native_calls=calls)
 
 
 def main():
@@ -835,6 +991,7 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (convection_diffusion_2d,
                                                        poisson3d,
                                                        random_sparse)
@@ -851,16 +1008,27 @@ def main():
     lib = kernels.build()
     kernels._library()
     say("build", seconds=time.perf_counter() - t0, library=str(lib))
+    native_phase()
 
     # 3. kernels, at the shapes of the main path's plan
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     a = poisson3d(NX)
+    native.reset_calls()
     t0 = time.perf_counter()
-    lu0, bvals0, _ = slt.analyze(slt.Options(), a, device="cuda")
+    lu0, bvals0, st0 = slt.analyze(slt.Options(), a, device="cuda")
+    analysis_s = time.perf_counter() - t0
     plan = lu0.plan
-    say("plan", n=plan.n, groups=len(plan.groups),
-        supernodes=plan.sf.n_supernodes, pool=plan.pool_size,
-        flops=plan.flops, analysis_s=time.perf_counter() - t0)
+    got = {"supernodes": plan.sf.n_supernodes, "groups": len(plan.groups),
+           "flops": plan.flops}
+    say("plan", n=plan.n, backend="native" if lu0.options.native
+        else "python", phase_s={p: st0.utime[p] for p in ANALYSIS},
+        analysis_s=analysis_s, native_calls=expect_native("plan", native,
+                                                          "amalgamate",
+                                                          "mlnd"),
+        pool=plan.pool_size, jax_default_plan=JAX_PLAN, **got)
+    if got != JAX_PLAN:
+        raise AssertionError(f"the default plan {got} is not the JAX "
+                             f"package's {JAX_PLAN}")
     # the plan's index maps, the kernel's included: host work once per
     # plan, inside FACT on the main path
     t0 = time.perf_counter()
@@ -888,14 +1056,16 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    native.reset_calls()
     t0 = time.perf_counter()
     x, lu, stats, info = slt.gssvx(slt.Options(factor_dtype="float32"), a, b,
                                    device="cuda")
     wall = time.perf_counter() - t0
     groups = len(lu.plan.groups)
     # the main path runs the fused kernel once per group, and neither
-    # standalone wrapper
+    # standalone wrapper; its analysis runs in the native library
     launches = expect_launches("gssvx", kernels, groups)
+    calls = expect_native("gssvx", native, "amalgamate", "mlnd")
     peak = torch.cuda.max_memory_allocated()
     if info != 0 or x is None or x.shape != b.shape:
         raise AssertionError(f"gssvx failed: info={info}")
@@ -903,10 +1073,11 @@ def main():
         raise AssertionError("gssvx returned non-finite values")
     berr = lu.berrs[-1]
     relres = float(np.linalg.norm(b - a.matvec(x)) / np.linalg.norm(b))
-    analysis = sum(stats.utime[p] for p in ("EQUIL", "ROWPERM", "COLPERM",
-                                            "ETREE", "SYMBFACT", "DIST"))
+    analysis = sum(stats.utime[p] for p in ANALYSIS)
     say("gssvx", n=a.n_rows, nnz=a.nnz, info=info, wall_s=wall,
-        analysis_s=analysis, phase_s=stats.utime,
+        analysis_backend="native" if lu.options.native else "python",
+        analysis_s=analysis, phase_s=stats.utime, native_calls=calls,
+        supernodes=lu.sf.n_supernodes,
         factor_gflops=lu.plan.flops / stats.utime["FACT"] / 1e9,
         structural_flops=lu.plan.flops, groups=groups,
         tiny_pivots=stats.tiny_pivots, refine_steps=stats.refine_steps,
@@ -946,9 +1117,11 @@ def main():
                              f"launches for {len(plan.groups)} groups")
     del lu0, plan, bvals0, maps
 
-    # 7. complex analysis from scratch, 8. the escalation ladder
+    # 7. complex analysis from scratch, 8. the escalation ladder, 8b. the
+    # other native orderings and the approximate matching
     complex_dofact_phase(slt, kernels, tols, torch)
     ladder_phase(slt, kernels, tols, torch)
+    orderings_phase(slt, kernels, tols)
 
     # 9. kernels vs plain through the factorization, and small solves
     # against scipy in every direction

@@ -48,7 +48,8 @@ from superlu_dist_tpu_torch.refine.condest import (ESTIMATE_ERRORS,
 from superlu_dist_tpu_torch.refine.ir import (iterative_refinement,
                                               request_berrs)
 from superlu_dist_tpu_torch.rowperm.equil import gsequ, laqgs
-from superlu_dist_tpu_torch.rowperm.matching import maximum_product_matching
+from superlu_dist_tpu_torch.rowperm.matching import (
+    approximate_weight_matching, maximum_product_matching)
 from superlu_dist_tpu_torch.solve.device import DeviceSolver
 from superlu_dist_tpu_torch.sparse.formats import SparseCSR, symmetrize_pattern
 from superlu_dist_tpu_torch.symbolic.symbfact import (SymbolicFact,
@@ -235,8 +236,14 @@ def analyze(options: Options, a: SparseCSR, device="cuda",
             row_order, r1, c1 = lu.row_order, lu.r1, lu.c1
             a2 = a1.row_scale(r1).col_scale(c1).permute(perm_r=row_order)
         elif options.row_perm == RowPerm.LargeDiag_MC64:
-            row_order, r1, c1 = maximum_product_matching(a1)
+            row_order, r1, c1 = maximum_product_matching(
+                a1, native=options.native)
             a2 = a1.row_scale(r1).col_scale(c1).permute(perm_r=row_order)
+        elif options.row_perm == RowPerm.LargeDiag_AWPM:
+            # permutation only: AWPM gives no duals, so unit scalings
+            row_order = approximate_weight_matching(a1, native=options.native)
+            r1 = c1 = np.ones(n)
+            a2 = a1.permute(perm_r=row_order)
         elif options.row_perm == RowPerm.MY_PERMR:
             row_order = np.asarray(options.user_perm_r, dtype=np.int64)
             r1 = c1 = np.ones(n)
@@ -246,9 +253,7 @@ def analyze(options: Options, a: SparseCSR, device="cuda",
             r1 = c1 = np.ones(n)
             a2 = a1
         else:
-            raise NotImplementedError(
-                f"RowPerm.{options.row_perm.name} is not ported yet "
-                "(ROADMAP.md)")
+            raise SuperLUError(f"unsupported RowPerm {options.row_perm}")
 
     if (reuse_colperm and not reuse_symbolic and lu.sf is not None
             and np.array_equal(row_order, lu.row_order)):
@@ -268,7 +273,9 @@ def analyze(options: Options, a: SparseCSR, device="cuda",
         else:
             sf = symbolic_factorize(sym, col_order, relax=options.relax,
                                     max_supernode=options.max_supernode,
-                                    stats=stats, amalg_tol=options.amalg_tol)
+                                    stats=stats, amalg_tol=options.amalg_tol,
+                                    native=options.native,
+                                    nthreads=options.symb_threads)
     # phases are disjoint like the reference's PhaseType: the etree part
     # timed inside symbolic_factorize is carved out of SYMBFACT
     stats.utime["SYMBFACT"] -= stats.utime["ETREE"] - et0
@@ -281,7 +288,8 @@ def analyze(options: Options, a: SparseCSR, device="cuda",
                               growth=options.bucket_growth,
                               schedule=options.schedule,
                               window=options.sched_window,
-                              align=options.sched_align)
+                              align=options.sched_align,
+                              native=options.native)
         # nnz equality is not enough: a moved entry with an equal count
         # would gather values into wrong structural slots
         if sym.nnz != len(sf.value_perm) or (reuse_symbolic and not (

@@ -288,7 +288,7 @@ def upload(arrays, device) -> list:
 
 
 def build_front_maps(batch: int, m: int, pool_len: int, a=None, children=(),
-                     device="cpu", kind: str = "front_assemble") -> FrontMaps:
+                     *, device, kind: str = "front_assemble") -> FrontMaps:
     """The kernel's maps of one group on ``device``, from numpy index maps
     (``front_map_arrays``, then ``upload``)."""
     arrays, pairs = front_map_arrays(batch, m, pool_len, a, children)

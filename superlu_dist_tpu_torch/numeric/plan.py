@@ -42,6 +42,7 @@ import dataclasses
 
 import numpy as np
 
+from superlu_dist_tpu_torch import native as slu_host
 from superlu_dist_tpu_torch.symbolic.symbfact import SymbolicFact
 
 
@@ -448,7 +449,7 @@ def _dataflow_batches(sf: SymbolicFact, sn_W, sn_U, window: int) -> list:
 def build_plan(sf: SymbolicFact, min_bucket: int = 8,
                growth: float = 1.5, schedule: str = "dataflow",
                window: int = 8, align: float = 1.1, closed: bool = False,
-               max_keys: int = 6) -> FactorPlan:
+               max_keys: int = 6, native: bool = True) -> FactorPlan:
     """Precompute all index maps.  Pure numpy; cost is O(nnz(A) + nnz(L)).
 
     schedule selects the dispatch-group former: "dataflow" packs ready
@@ -464,7 +465,10 @@ def build_plan(sf: SymbolicFact, min_bucket: int = 8,
     closed additionally runs the shape-key CLOSURE pass
     (_close_shape_keys): the (W, U) key set is merged onto at most
     ``max_keys`` canonical ladder rungs.  The defaults are the JAX
-    package's knob defaults."""
+    package's knob defaults.
+
+    ``native`` answers the front-position queries in the native library
+    (slu_positions); False runs the numpy search, its twin."""
     if schedule not in ("level", "dataflow"):
         raise ValueError(f"schedule must be 'level' or 'dataflow', "
                          f"got {schedule!r}")
@@ -518,19 +522,22 @@ def build_plan(sf: SymbolicFact, min_bucket: int = 8,
     np.cumsum(us, out=rows_ptr[1:])
     rows_concat = (np.concatenate(sf.sn_rows) if ns
                    else np.empty(0, dtype=np.int64))
-    _fallback_keys = []          # built once, on the first below-pivot query
+    _twin_keys = []              # built once, on the twin's first query
 
     def positions_vec(s_arr: np.ndarray, x_arr: np.ndarray) -> np.ndarray:
+        if native:
+            return slu_host.positions(s_arr, x_arr, first, last, sn_W,
+                                      rows_ptr, rows_concat)
         inpiv = x_arr <= last[s_arr]
         pos = np.where(inpiv, x_arr - first[s_arr], 0)
         below = ~inpiv
         if below.any():
             sb = s_arr[below]
-            if not _fallback_keys:
-                _fallback_keys.append(
+            if not _twin_keys:
+                _twin_keys.append(
                     np.repeat(np.arange(ns, dtype=np.int64), us) * (n + 1)
                     + rows_concat)
-            idx = np.searchsorted(_fallback_keys[0],
+            idx = np.searchsorted(_twin_keys[0],
                                   sb * (n + 1) + x_arr[below])
             pos[below] = sn_W[sb] + (idx - rows_ptr[sb])
         return pos

@@ -4,8 +4,11 @@ Capability analog of the reference's MMD (genmmd_dist_, SRC/mmd.c, 1025 LoC
 of f2c'd Fortran) dispatched for ColPerm=MMD_AT_PLUS_A
 (SRC/get_perm_c.c:463-530).  This is a fresh implementation of exact-external-
 degree minimum degree on a quotient graph with element absorption — not a
-translation — in Python.  Intended for small/medium graphs and test
-leaves; large problems should use nested dissection (ordering.dissection).
+translation.  The native library's ``slu_mmd`` (same algorithm and
+tie-breaking, compiled) runs by default; the Python version here is the
+specification, run under ``native=False``.  Intended for small/medium
+graphs and test leaves; large problems should use nested dissection
+(ordering.dissection).
 """
 
 from __future__ import annotations
@@ -14,12 +17,17 @@ import heapq
 
 import numpy as np
 
+from superlu_dist_tpu_torch import native as slu_host
 
-def minimum_degree(n: int, indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
+
+def minimum_degree(n: int, indptr: np.ndarray, indices: np.ndarray,
+                   native: bool = True) -> np.ndarray:
     """Return an elimination order (order[k] = k-th pivot, old index).
 
     Input is the symmetric adjacency pattern (diagonal ignored).
     """
+    if native:
+        return slu_host.mmd(n, indptr, indices)
     adj = [set() for _ in range(n)]
     for i in range(n):
         for j in indices[indptr[i]:indptr[i + 1]]:

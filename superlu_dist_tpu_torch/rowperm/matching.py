@@ -6,7 +6,8 @@ RowPerm=LargeDiag_MC64: find a row permutation maximizing the product of
 diagonal magnitudes, plus row/col scalings (from the LP duals) that make the
 matched entries ±1 and all others ≤ 1 in magnitude.  This is
 successive-shortest-augmenting-path matching (sparse Hungarian/LAPJV with
-potentials) on costs c_ij = log(colmax_j / |a_ij|), in Python.
+potentials) on costs c_ij = log(colmax_j / |a_ij|): the native library's
+``slu_mc64`` by default, the Python twin below under ``native=False``.
 
 Like the reference (which runs MC64 serially on rank 0 and broadcasts,
 pdgssvx.c:812-833), this runs on the host.
@@ -18,18 +19,21 @@ import heapq
 
 import numpy as np
 
+from superlu_dist_tpu_torch import native as slu_host
 from superlu_dist_tpu_torch.sparse.formats import SparseCSC
 from superlu_dist_tpu_torch.utils.errors import SuperLUError
 
 
-def maximum_product_matching(a, want_scalings: bool = True):
+def maximum_product_matching(a, want_scalings: bool = True,
+                             native: bool = True):
     """Return (row_order, r, c).
 
     ``row_order[j]`` is the original row to place at position j, so that
     ``A[row_order, :]`` has the matched (maximum-product) entries on its
     diagonal.  ``r``/``c`` are the MC64 job=5 scaling vectors: with
     B = diag(r) · A · diag(c), every matched entry of B is ±1 (or unit
-    modulus, complex) and all entries have magnitude ≤ 1.
+    modulus, complex) and all entries have magnitude ≤ 1.  ``native``
+    selects the native library (the default) or the Python twin.
     """
     csc = a if isinstance(a, SparseCSC) else a.tocsc()
     n, m = csc.shape
@@ -43,6 +47,15 @@ def maximum_product_matching(a, want_scalings: bool = True):
     np.maximum.at(colmax, cols, absval)
     if np.any(colmax == 0):
         raise SuperLUError("structurally singular: empty column")
+
+    if native:
+        try:
+            col_match, u_n, v_n = slu_host.mc64(n, indptr, indices, absval)
+        except ValueError as e:
+            raise SuperLUError(f"structurally singular: {e}") from e
+        if not want_scalings:
+            return col_match, None, None
+        return (col_match,) + _scalings_from_duals(u_n, v_n, colmax)
 
     # costs: c_k = log(colmax_j) - log|a_k| >= 0; explicit zeros excluded
     with np.errstate(divide="ignore"):
@@ -118,9 +131,33 @@ def maximum_product_matching(a, want_scalings: bool = True):
     return (row_order,) + _scalings_from_duals(u, v, colmax)
 
 
+def approximate_weight_matching(a, native: bool = True) -> np.ndarray:
+    """AWPM row permutation — the CombBLAS HWPM analog
+    (SRC/d_c2cpp_GetHWPM.cpp, dHWPM_CombBLAS.hpp:40): a cheap approximate
+    maximum-weight perfect matching (greedy on weight-sorted edges +
+    max-cardinality augmentation), permutation only, no scalings.
+
+    Under ``native=False`` it is the exact MC64 matching of the Python
+    twin, without scalings (the JAX package's rule without its native
+    library: exact is a valid "approximation")."""
+    csc = a if isinstance(a, SparseCSC) else a.tocsc()
+    n, m = csc.shape
+    if n != m:
+        raise SuperLUError("matching requires a square matrix")
+    if not native:
+        row_order, _, _ = maximum_product_matching(csc, want_scalings=False,
+                                                   native=False)
+        return row_order
+    try:
+        return slu_host.awpm(n, csc.indptr, csc.indices, np.abs(csc.data))
+    except ValueError as e:
+        raise SuperLUError(f"structurally singular: {e}") from e
+
+
 def _scalings_from_duals(u: np.ndarray, v: np.ndarray, colmax: np.ndarray):
     """r_i = exp(v_i), c_j = exp(u_j)/colmax_j => matched |r_i a_ij c_j| = 1
-    (the MC64 job=5 scaling recovery)."""
+    (the MC64 job=5 scaling recovery, shared by the native and Python
+    matching paths)."""
     cap = 700.0                       # keep exp() finite
     r = np.exp(np.clip(v, -cap, cap))
     c = np.exp(np.clip(u - np.log(colmax), -cap, cap))

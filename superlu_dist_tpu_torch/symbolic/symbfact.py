@@ -32,6 +32,7 @@ import dataclasses
 
 import numpy as np
 
+from superlu_dist_tpu_torch import native as slu_host
 from superlu_dist_tpu_torch.sparse.formats import SparseCSR, invert_perm
 from superlu_dist_tpu_torch.ordering.etree import etree_symmetric, postorder
 
@@ -64,13 +65,22 @@ class SymbolicFact:
 
 def symbolic_factorize(sym_pattern: SparseCSR, order: np.ndarray,
                        relax: int = 20, max_supernode: int = 256,
-                       stats=None, amalg_tol: float = 1.2) -> SymbolicFact:
+                       stats=None, amalg_tol: float = 1.2,
+                       native: bool = True,
+                       nthreads: int = 1) -> SymbolicFact:
     """Symbolic phase on a symmetrized pattern with a fill-reducing order.
 
     Returns all structures in the final (order ∘ postorder) labeling.
     When `stats` is given, the etree+postorder step is timed into the ETREE
     phase (the reference times sp_colorder separately from symbfact,
     pdgssvx.c:1044-1073).
+
+    ``native`` runs etree, postorder, the supernode partition and the
+    amalgamation in the native library (the default); False runs the
+    Python twins.  nthreads > 1 uses the threaded native symbolic — the
+    symbfact_dist capability analog (SRC/psymbfact.c:140): identical
+    per-column fill, possibly different supernode chain merges at subtree
+    boundaries.
 
     amalg_tol > 1 enables fill-tolerant supernode amalgamation
     (amalgamate_supernodes); 0 disables.  The reference's zero-fill T2
@@ -87,8 +97,12 @@ def symbolic_factorize(sym_pattern: SparseCSR, order: np.ndarray,
     b0 = sym_pattern.permute(order, order)
     with (stats.timer("ETREE") if stats is not None
           else contextlib.nullcontext()):
-        parent0 = etree_symmetric(n, b0.indptr, b0.indices)
-        post = postorder(parent0)
+        if native:
+            parent0 = slu_host.etree(n, b0.indptr, b0.indices)
+            post = slu_host.postorder(parent0)
+        else:
+            parent0 = etree_symmetric(n, b0.indptr, b0.indices)
+            post = postorder(parent0)
     inv_post = invert_perm(post)
     perm = np.asarray(order, dtype=np.int64)[post]
     old_parents = parent0[post]
@@ -101,6 +115,16 @@ def symbolic_factorize(sym_pattern: SparseCSR, order: np.ndarray,
     indptr, indices, value_perm = b.indptr, b.indices, b.data
 
     # ---- supernode partition + row structures ------------------------------
+    if native:
+        sn_start, col_to_sn, sn_parent, sn_level, rows_ptr, rows_data = (
+            slu_host.symbolic(n, indptr, indices, parent, relax,
+                              max_supernode, nthreads=nthreads))
+        sn_rows = np.split(rows_data, rows_ptr[1:-1])
+        sf = _finish(n, perm, parent, sn_start, col_to_sn, sn_rows,
+                     sn_parent, sn_level, np.diff(rows_ptr), indptr, indices,
+                     value_perm)
+        return _amalg_if(sf, amalg_tol, max_supernode, native)
+
     sn_start, col_to_sn, sn_rows, sn_parent = build_supernodes_py(
         n, indptr, indices, parent, relax, max_supernode)
     sn_level = np.zeros(len(sn_rows), dtype=np.int64)
@@ -111,13 +135,14 @@ def symbolic_factorize(sym_pattern: SparseCSR, order: np.ndarray,
     us = np.array([len(r) for r in sn_rows], dtype=np.int64)
     sf = _finish(n, perm, parent, sn_start, col_to_sn, sn_rows, sn_parent,
                  sn_level, us, indptr, indices, value_perm)
-    return _amalg_if(sf, amalg_tol, max_supernode)
+    return _amalg_if(sf, amalg_tol, max_supernode, native)
 
 
 def build_supernodes_py(n, indptr, indices, parent, relax, max_supernode,
                         strict: bool = True):
     """Relaxed-leaf supernode partition + bottom-up row structures +
-    zero-fill chain merging.  Returns (sn_start,
+    zero-fill chain merging — the Python twin of the native symbolic_impl
+    (native/slu_host.cpp).  Returns (sn_start,
     col_to_sn, sn_rows, sn_parent); sn_parent is -1 for roots (columns
     whose structure is empty or leaves the n-column range).
 
@@ -212,9 +237,11 @@ def build_supernodes_py(n, indptr, indices, parent, relax, max_supernode,
     return sn_start, col_to_sn, sn_rows, sn_parent
 
 
-def _amalg_if(sf: SymbolicFact, tol, max_width: int) -> SymbolicFact:
+def _amalg_if(sf: SymbolicFact, tol, max_width: int,
+              native: bool) -> SymbolicFact:
     if tol and tol > 1.0 and sf.n_supernodes > 1:
-        return amalgamate_supernodes(sf, tol=float(tol), max_width=max_width)
+        return amalgamate_supernodes(sf, tol=float(tol), max_width=max_width,
+                                     native=native)
     return sf
 
 
@@ -228,7 +255,8 @@ def _front_flops(w, u):
 
 def amalgamate_supernodes(sf: SymbolicFact, tol: float = 1.2,
                           max_width: int = 1024, narrow: int = 64,
-                          hard_tol: float = 4.0) -> SymbolicFact:
+                          hard_tol: float = 4.0,
+                          native: bool = True) -> SymbolicFact:
     """Fill-tolerant supernode amalgamation (the classic multifrontal
     relaxation, applied over the whole tree rather than only at leaves as
     the reference's relax_snode does, SRC/symbfact.c:224).
@@ -249,11 +277,24 @@ def amalgamate_supernodes(sf: SymbolicFact, tol: float = 1.2,
 
     Motivation: on 3D Poisson with an ND order the unamalgamated median
     supernode width is 1, and padded batched fronts then execute many
-    times the structural flops.
+    times the structural flops.  ``native`` runs the native twin
+    (slu_amalgamate); False runs the Python version below.
     """
     ns = sf.n_supernodes
     start = sf.sn_start
     us0 = np.array([len(r) for r in sf.sn_rows], dtype=np.int64)
+    if native:
+        nat_ptr = np.zeros(ns + 1, dtype=np.int64)
+        np.cumsum(us0, out=nat_ptr[1:])
+        nat_data = (np.concatenate(sf.sn_rows) if ns
+                    else np.empty(0, dtype=np.int64))
+        (sn_start, col_to_sn_new, sn_parent, sn_level, rows_ptr,
+         rows_data) = slu_host.amalgamate(sf.n, start, nat_ptr, nat_data, tol,
+                                          max_width, narrow, hard_tol)
+        return _finish(sf.n, sf.perm, sf.parent, sn_start, col_to_sn_new,
+                       np.split(rows_data, rows_ptr[1:-1]), sn_parent,
+                       sn_level, np.diff(rows_ptr), sf.pattern_indptr,
+                       sf.pattern_indices, sf.value_perm)
     first = start[:-1].copy()
     end = start[1:].copy()              # exclusive end column; fixed
     rows_of = list(sf.sn_rows)

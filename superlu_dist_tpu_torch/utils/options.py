@@ -92,7 +92,9 @@ class Options:
     Defaults follow set_default_options_dist (SRC/util.c:376-401):
     Fact=DOFACT, Equil=YES, ColPerm=METIS_AT_PLUS_A, RowPerm=LargeDiag_MC64,
     ReplaceTinyPivot, IterRefine=DOUBLE, plus the JAX package's blocking
-    and scheduling defaults.
+    and scheduling defaults.  ``native``, ``symb_threads`` and
+    ``nd_threads`` take the place of the JAX package's SLU_TPU_NO_NATIVE,
+    SLU_TPU_SYMB_THREADS and SLU_TPU_ND_THREADS.
     """
 
     fact: Fact = Fact.DOFACT
@@ -115,6 +117,11 @@ class Options:
     sched_window: int = 8             # dataflow look-ahead, in levels
     sched_align: float = 1.1          # shape-key coalescing flop tolerance
     gemm_prec: str = "highest"        # Schur GEMM tier (ops/dense.gemm)
+    native: bool = True               # host analysis in the native library
+                                      # (native/); False runs the Python
+                                      # twins
+    symb_threads: int = 1             # threads of the native symbolic
+    nd_threads: int = 1               # threads of the native multilevel ND
     recovery: RecoveryPolicy = dataclasses.field(
         default_factory=RecoveryPolicy)
     # user-supplied permutations for MY_PERMC / MY_PERMR

@@ -76,13 +76,18 @@ def _jax_fronts(grp, avals, pool):
     return np.asarray(f)
 
 
-@pytest.mark.parametrize("name", ["helmholtz_12", "random_80"])
-def test_complex_host_path_matches_jax(name, monkeypatch):
+@pytest.mark.parametrize("name,native", [
+    pytest.param(name, native, id=name + ("-native" if native else ""))
+    for native in (False, True) for name in ("helmholtz_12", "random_80")])
+def test_complex_host_path_matches_jax(name, native, monkeypatch):
     """On complex values the port's transpose, SpMVs, equilibration and
-    Python MC64 (on the moduli) give the JAX package's results exactly
-    (its native library off: the port copies the Python twins)."""
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "_tried", True)
+    MC64 (on the moduli) give the JAX package's results exactly: the
+    Python MC64 against the JAX package with its native library off, the
+    native MC64 against the JAX package's native one."""
+    if not native:
+        monkeypatch.setattr(jax_native, "_lib", None)
+        monkeypatch.setattr(jax_native, "_tried", True)
+    assert jax_native.available() == native
     a, ja = PLANS[name](gallery), PLANS[name](jgal)
     assert a.data.dtype == ja.data.dtype == np.complex128
     t, jt = a.transpose(), ja.transpose()
@@ -98,7 +103,7 @@ def test_complex_host_path_matches_jax(name, monkeypatch):
     a1, equed = equil.laqgs(a, *scal)
     ja1, jequed = jax_equil.laqgs(ja, *scal)
     assert equed == jequed and np.array_equal(a1.data, ja1.data)
-    for got, want in zip(matching.maximum_product_matching(a1),
+    for got, want in zip(matching.maximum_product_matching(a1, native=native),
                          jax_matching.maximum_product_matching(ja1)):
         assert np.array_equal(got, want)
 

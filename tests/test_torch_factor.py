@@ -2,8 +2,9 @@
 package.
 
 * Analysis: with the JAX package's native host library switched off, its
-  Python twins and the port's copies must give the same symbolic
-  structure and the same plan, array for array.
+  Python twins and the port's copies (``Options(native=False)``) must give
+  the same symbolic structure and the same plan, array for array; with
+  both native libraries on, so must the default ``Options()``.
 * Factorization: on a plan carried over with ``plan_from_reference``, the
   port's L/U panels of every group agree in float64 with the JAX
   package's fused executor at the cross-schedule drift gate, with equal
@@ -44,14 +45,23 @@ def _reference(name):
     return lu.plan, bvals, lu.anorm
 
 
-@pytest.mark.parametrize("name", sorted(MATRICES))
-def test_analysis_matches_python_twins(name, monkeypatch):
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "_tried", True)
-    assert not jax_native.available()
+#: the Python twins (both native libraries off), under the matrix's name,
+#: then the native libraries of both packages
+ANALYSIS_CASES = ([pytest.param(name, False, id=name) for name in
+                   sorted(MATRICES)]
+                  + [pytest.param(name, True, id=f"{name}-native") for name
+                     in sorted(MATRICES)])
+
+
+@pytest.mark.parametrize("name,native", ANALYSIS_CASES)
+def test_analysis_matches_python_twins(name, native, monkeypatch):
+    if not native:
+        monkeypatch.setattr(jax_native, "_lib", None)
+        monkeypatch.setattr(jax_native, "_tried", True)
+    assert jax_native.available() == native
     ref_lu, ref_vals, _ = jax_analyze(JaxOptions(), MATRICES[name](jgal))
-    lu, vals, _ = slt.analyze(slt.Options(), MATRICES[name](gallery),
-                              device="cpu")
+    lu, vals, _ = slt.analyze(slt.Options(native=native),
+                              MATRICES[name](gallery), device="cpu")
     assert np.array_equal(vals, ref_vals)
     for field in ("perm", "sn_start", "sn_parent", "sn_level", "value_perm"):
         assert np.array_equal(getattr(lu.sf, field),

@@ -73,6 +73,6 @@ def test_front_assemble_plain_equals_jax(name, dtype):
 
 def test_launch_refuses_cpu_tensors():
     """No silent fallback: the kernel's launcher takes only CUDA tensors."""
-    maps = kernels.build_front_maps(1, 2, 0, a=([0], [3], [0]))
+    maps = kernels.build_front_maps(1, 2, 0, a=([0], [3], [0]), device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.launch_(torch.zeros((1, 4)), maps, avals=torch.ones(1))

@@ -71,8 +71,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("options,error", [
     (slt.Options(factor_dtype="df64"), NotImplementedError),
-    (slt.Options(col_perm=slt.ColPerm.COLAMD), NotImplementedError),
-    (slt.Options(row_perm=slt.RowPerm.LargeDiag_AWPM), NotImplementedError),
+    (slt.Options(gemm_prec="default"), NotImplementedError),
     (slt.Options(gemm_prec="bf16"), NotImplementedError),
 ])
 def test_unported_options_raise(options, error):

@@ -260,7 +260,7 @@ def test_front_maps_enumerate_the_child_sets(case, tile_rows):
     groups = _sentinel_groups() if case == "sentinels" else _plan_groups(case)
     for batch, m, pool_len, a, children in groups:
         fm = kernels.build_front_maps(batch, m, pool_len, a=a,
-                                      children=children)
+                                      children=children, device="cpu")
         seq, a_map = _walk_maps(fm, tile_rows)
         ref = _pairs_of_sets(batch, m, pool_len, children)
         assert seq == ref
@@ -281,7 +281,7 @@ def test_front_maps_walk_the_complex_tiles(case, tile):
     groups = _sentinel_groups() if case == "sentinels" else _plan_groups(case)
     for batch, m, pool_len, a, children in groups:
         fm = kernels.build_front_maps(batch, m, pool_len, a=a,
-                                      children=children)
+                                      children=children, device="cpu")
         seq, _ = _walk_maps(fm, *tile)
         assert seq == _pairs_of_sets(batch, m, pool_len, children)
 
@@ -289,9 +289,11 @@ def test_front_maps_walk_the_complex_tiles(case, tile):
 def test_front_maps_refuse_repeated_targets():
     rel = np.array([[1, 3, 1]])
     with pytest.raises(ValueError, match="distinct"):
-        kernels.build_front_maps(1, 4, 9, children=[(3, [0], [0], rel)])
+        kernels.build_front_maps(1, 4, 9, children=[(3, [0], [0], rel)],
+                                 device="cpu")
     with pytest.raises(ValueError, match="unique"):
-        kernels.build_front_maps(2, 3, 0, a=([1, 0, 1], [4, 4, 4], [0, 1, 2]))
+        kernels.build_front_maps(2, 3, 0, a=([1, 0, 1], [4, 4, 4], [0, 1, 2]),
+                                 device="cpu")
 
 
 def test_upload_packs_aligned_views():
