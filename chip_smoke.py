@@ -6,7 +6,7 @@
 Phases, one result line each (the launch counts of every phase that
 drives the port are reset just before it and checked just after):
   1. card     — the card's name and power limit (nvidia-smi);
-  2. build    — compile the CUDA kernel from csrc/ with nvcc (sm_90a);
+  2. build    — compile the CUDA kernels from csrc/ with nvcc (sm_90a);
      native   — compile the native host-analysis library (native/
                 slu_host.cpp, g++) and hold each of its functions against
                 its Python twin on poisson3d(16) and random_sparse(2000):
@@ -27,15 +27,28 @@ drives the port are reset just before it and checked just after):
                 assembly group and on sentinel cases; each with its time
                 (ms: device time, launches replayed in a CUDA graph;
                 call_ms: call by call, host included), bound, plain time
-                and the time of one library call as a yardstick;
-  4. gssvx    — the main path: gssvx on poisson3d(48) (n=110,592) with
-                float32 factors on the card and float64 refinement;
+                and the time of one library call as a yardstick; the
+                residual SpMV kernel (csr_spmv) against its plain twin at
+                the main path's operator in all four types (torch.equal),
+                timed beside torch.sparse.mm;
+  4. gssvx    — the main path: gssvx(Options()) on poisson3d(48)
+                (n=110,592): float32 factors at the default GEMM tier
+                (TF32) on the card, the dataflow solve schedule fused in
+                CUDA graphs, float64 refinement with its residual through
+                csr_spmv, the ladder when refinement misses;
      reuse    — on that handle: a FACTORED solve, a TRANS solve, refactor
                 on perturbed values (equal to a fresh factorization),
                 SamePattern_SameRowPerm, condest, the residual-precision
                 rung;
      complex  — a complex Helmholtz-type operator on the same pattern,
                 factored in complex64 on the same plan, and a CONJ solve;
+     solve    — on the main path's factors: the dataflow / level / factor
+                solve plans (the JAX package's 90 / 106 / 134 batches), and
+                nrhs 1, 16 and 1,500 fused and eager, with and without
+                DiagInv: SOLVE seconds, last_solve_stats, solver memory,
+                BERR after refinement;
+     gemm_tiers — gssvx on poisson3d(48) at the bf16 and f32 tiers beside
+                the main path's default: FACT, refine steps, rungs, BERR;
   5. factor_stages — the main path's factorization synchronized at every
                 stage boundary of every group;
   6. kernels_factor — one more factorization with CUDA events around every
@@ -44,8 +57,8 @@ drives the port are reset just before it and checked just after):
                 for the kernel / plain / library / bound sums (the front
                 assembly also in complex64 and complex128);
   7. complex_dofact — gssvx from scratch on helmholtz_2d(333) (n=110,889);
-  8. ladder   — the escalation ladder on a near-singular arrowhead and on
-                hilbert(8) with float32 factors;
+  8. ladder   — the escalation ladder (its gemm-precision rung live) on a
+                near-singular arrowhead and on hilbert(8), float32 factors;
      orderings — DOFACT gssvx on random_sparse(2000) with ColPerm COLAMD,
                 ColPerm MMD_ATA and RowPerm LargeDiag_AWPM;
   9. check    — a small poisson3d factored through the kernel and through
@@ -87,7 +100,12 @@ ANALYSIS = ("EQUIL", "ROWPERM", "COLPERM", "ETREE", "SYMBFACT", "DIST")
 JAX_PLAN = {"supernodes": 3858, "groups": 134, "flops": 161000016540.0}
 
 
+START = time.perf_counter()
+
+
 def say(phase, **fields):
+    """One result line; ``at_s`` is the script's elapsed seconds."""
+    fields["at_s"] = round(time.perf_counter() - START, 3)
     print(f"{phase}: " + json.dumps(fields), flush=True)
 
 
@@ -241,10 +259,11 @@ def time_front(avals, pool, m, w, gm, kernels, reps=20, plain_reps=3,
 
 
 def time_extend_add(f, pool, m, ub, off, slot, rel, kernels, reps=20,
-                    plain_reps=3, lib_reps=20):
+                    plain_reps=3, lib_reps=20, wrapper=True):
     """K1 on one child set: the wrapper against the plain version, and the
     kernel's time on maps built once (the wrapper rebuilds them on the
-    host at every call; that is timed apart as wrapper_ms)."""
+    host at every call; with ``wrapper`` that is timed apart as
+    wrapper_ms)."""
     import torch
     ea = (m, ub, off, slot, rel)
     out_k, out_p = f.clone(), f.clone()
@@ -268,11 +287,12 @@ def time_extend_add(f, pool, m, ub, off, slot, rel, kernels, reps=20,
     flat = work.view(-1)
     def call():
         kernels.launch_(work, maps, pool=pool)
+    extra = dict(wrapper_ms=cuda_ms(
+        lambda: kernels.extend_add_(work, pool, *ea), 3, warm=1)) if wrapper \
+        else {}
     return dict(
         max_abs_err=err, ms=graph_ms(call, n=reps),
-        call_ms=cuda_ms(call, reps),
-        wrapper_ms=cuda_ms(lambda: kernels.extend_add_(work, pool, *ea), 3,
-                           warm=1),
+        call_ms=cuda_ms(call, reps), **extra,
         plain_ms=cuda_ms(lambda: kernels.extend_add_plain(work, pool, *ea),
                          plain_reps, warm=1),
         bound_ms=b_ms, bound_by=b_by,
@@ -283,7 +303,7 @@ def time_extend_add(f, pool, m, ub, off, slot, rel, kernels, reps=20,
 
 
 def time_assemble(f, avals, a_slot, a_flat, a_src, kernels, reps=20,
-                  plain_reps=20, lib_reps=50):
+                  plain_reps=20, lib_reps=50, wrapper=True):
     """K2 on one group, as time_extend_add does K1."""
     import torch
     asm = (a_slot, a_flat, a_src)
@@ -308,11 +328,12 @@ def time_assemble(f, avals, a_slot, a_flat, a_src, kernels, reps=20,
     flat = work.view(-1)
     def call():
         kernels.launch_(work, maps, avals=avals)
+    extra = dict(wrapper_ms=cuda_ms(
+        lambda: kernels.assemble_(work, avals, *asm), 3, warm=1)) if wrapper \
+        else {}
     return dict(
         max_abs_err=err, ms=graph_ms(call, n=reps),
-        call_ms=cuda_ms(call, reps),
-        wrapper_ms=cuda_ms(lambda: kernels.assemble_(work, avals, *asm), 3,
-                           warm=1),
+        call_ms=cuda_ms(call, reps), **extra,
         plain_ms=cuda_ms(lambda: kernels.assemble_plain(work, avals, *asm),
                          plain_reps, warm=1),
         bound_ms=b_ms, bound_by=b_by,
@@ -542,11 +563,13 @@ def factor_sums(plan, maps, bvals, anorm, torch, factor, kernels, gen):
         for ub, off, slot, rel in gm.children:
             add("extend_add", time_extend_add(f, pool, g.m, ub, off, slot,
                                               rel, kernels, reps=5,
-                                              plain_reps=1, lib_reps=2))
+                                              plain_reps=1, lib_reps=2,
+                                              wrapper=False))
         if gm.a_src.numel():
             add("assemble", time_assemble(f, avals, gm.a_slot, gm.a_flat,
                                           gm.a_src, kernels, reps=5,
-                                          plain_reps=1, lib_reps=2))
+                                          plain_reps=1, lib_reps=2,
+                                          wrapper=False))
         del f
     in_factor["bound_ms"] = sums["front_assemble"]["bound_ms"]
     # the complex path runs the same plan: the front assembly of every
@@ -663,14 +686,27 @@ def native_phase():
     say("native", library=str(lib), build_s=build_s, cases=cases)
 
 
-def expect_launches(phase, kernels, front_assemble):
+def factorizations(report) -> int:
+    """The factorizations a gssvx call ran on its plan: one, plus one per
+    ladder rung that refactored the same skeleton (gemm-precision,
+    hiprec-factors).  A refactor-rescale rung re-analyses: raise."""
+    if any(r.name == "refactor-rescale" for r in report.rungs):
+        raise AssertionError(f"the ladder re-analysed: {report.summary()}")
+    return 1 + sum(r.name in ("gemm-precision", "hiprec-factors")
+                   and "info=" not in r.detail for r in report.rungs)
+
+
+def expect_launches(phase, kernels, front_assemble, spmv):
     """The launch counts of the phase just driven (reset just before it):
-    ``front_assemble`` launches of the fused kernel and none of the
-    standalone wrappers, or raise."""
+    ``front_assemble`` launches of the fused kernel, none of the standalone
+    wrappers, and residual SpMV launches when ``spmv`` (refinement on the
+    card: nnz >= 100,000), none otherwise; or raise."""
     got = dict(kernels.LAUNCHES)
     want = {"front_assemble": front_assemble, "extend_add": 0, "assemble": 0}
-    if got != want:
-        raise AssertionError(f"launches in {phase}: {got}, expected {want}")
+    if ({k: got[k] for k in want} != want
+            or bool(got["csr_spmv"]) != bool(spmv)):
+        raise AssertionError(f"launches in {phase}: {got}, expected {want} "
+                             f"and {'some' if spmv else 'no'} csr_spmv")
     return got
 
 
@@ -720,7 +756,8 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
         raise AssertionError("FACTORED ran a factorization")
     out["factored"] = dict(s=sec, berr=st.solve_report.berr,
                            refine_steps=st.refine_steps,
-                           launches=expect_launches("factored", kernels, 0))
+                           launches=expect_launches("factored", kernels, 0,
+                                                    True))
     check_berr("reuse factored", st.solve_report.berr)
 
     # 2. TRANS through the same factors: the residual is taken against Aᵀ
@@ -732,7 +769,7 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
         s=sec, berr=st.solve_report.berr, refine_steps=st.refine_steps,
         rel_residual_vs_At=float(np.linalg.norm(b2 - at.matvec(x))
                                  / np.linalg.norm(b2)),
-        launches=expect_launches("trans", kernels, 0))
+        launches=expect_launches("trans", kernels, 0, True))
     check_berr("reuse trans", st.solve_report.berr)
 
     # 3. refactor on new values (a.data · (1 + 0.05·u), u ~ U[-1, 1], seed 0)
@@ -744,14 +781,15 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
     st = slt.refactor(lu, a_new.data)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = expect_launches("refactor", kernels, groups)
+    launches = expect_launches("refactor", kernels, groups, False)
     skipped = {p: st.utime[p] for p in ("ROWPERM", "COLPERM", "SYMBFACT")}
     if any(skipped.values()):
         raise AssertionError(f"refactor ran analysis phases: {skipped}")
     _, bvals, _ = slt.analyze(slt.Options(
         fact=slt.Fact.SamePattern_SameRowPerm), a_new, device="cuda", lu=lu)
     fresh = factor.numeric_factorize(lu.plan, bvals, lu.anorm,
-                                     dtype=lu.numeric.dtype, device="cuda")
+                                     dtype=lu.numeric.dtype, device="cuda",
+                                     gemm_prec=lu.numeric.gemm_prec)
     equal = all(torch.equal(l1, l2) and torch.equal(u1, u2)
                 for (l1, u1), (l2, u2) in zip(lu.numeric.fronts,
                                               fresh.fronts))
@@ -780,7 +818,9 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
     out["same_row_perm"] = dict(
         s=sec, phase_s=st.utime, berr=st.solve_report.berr,
         refine_steps=st.refine_steps,
-        launches=expect_launches("same_row_perm", kernels, groups))
+        launches=expect_launches("same_row_perm", kernels,
+                                 groups * factorizations(st.solve_report),
+                                 True))
     check_berr("reuse same_row_perm", st.solve_report.berr)
     del lu4
 
@@ -794,7 +834,8 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
         raise AssertionError(f"condest gave {rep.summary()}")
     out["condest"] = dict(s=sec, rcond=rep.rcond, ferr=rep.ferr,
                           berr=rep.berr,
-                          launches=expect_launches("condest", kernels, 0))
+                          launches=expect_launches("condest", kernels, 0,
+                                                   True))
     check_berr("reuse condest", rep.berr)
 
     # 6. SLU_SINGLE against a float64-class target: the residual-precision
@@ -810,7 +851,7 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
         raise AssertionError(f"no residual-precision rung: {rep.summary()}")
     out["residual_precision"] = dict(
         s=sec, berr=rep.berr, rungs=names, berr_history=rep.berr_history,
-        launches=expect_launches("residual_precision", kernels, 0))
+        launches=expect_launches("residual_precision", kernels, 0, True))
     check_berr("reuse residual_precision", rep.berr, 1e-14)
     say("reuse", n=a.n_rows, groups=groups,
         berr_target=float(tols.berr_target(np.float64)), **out)
@@ -842,7 +883,8 @@ def complex_phase(slt, a, lu, kernels, tols, torch):
         slt, kernels, slt.Options(fact=slt.Fact.SamePattern_SameRowPerm,
                                   factor_dtype="float32"), ac, bc, lu=lu)
     peak = torch.cuda.max_memory_allocated()
-    launches = expect_launches("complex", kernels, groups)
+    launches = expect_launches("complex", kernels,
+                               groups * factorizations(st.solve_report), True)
     if luc.numeric.dtype != torch.complex64 or luc.plan is not lu.plan:
         raise AssertionError("the complex path did not factor complex64 on "
                              "the real handle's plan")
@@ -859,7 +901,7 @@ def complex_phase(slt, a, lu, kernels, tols, torch):
                                   trans=slt.Trans.CONJ), ac, b2, lu=luc)
     conj = dict(s=sec, berr=st.solve_report.berr,
                 refine_steps=st.refine_steps,
-                launches=expect_launches("complex conj", kernels, 0))
+                launches=expect_launches("complex conj", kernels, 0, True))
     check_berr("complex conj", st.solve_report.berr)
     say("complex", n=a.n_rows, dtype="complex64", fact_s=fact_s,
         complex_flops=flops, factor_gflops=flops / fact_s / 1e9,
@@ -879,12 +921,16 @@ def complex_dofact_phase(slt, kernels, tols, torch):
                  + 1j * rng.standard_normal(a.n_rows))
     x, lu, st, sec = timed_gssvx(slt, kernels, slt.Options(), a, b,
                                  device="cuda")
-    launches = expect_launches("complex_dofact", kernels, len(lu.plan.groups))
+    launches = expect_launches(
+        "complex_dofact", kernels,
+        len(lu.plan.groups) * factorizations(st.solve_report), True)
     calls = expect_native("complex_dofact", native, "mlnd")
     if lu.numeric.dtype != torch.complex64:
         raise AssertionError(f"complex_dofact factored {lu.numeric.dtype}")
     say("complex_dofact", n=a.n_rows, nnz=a.nnz, wall_s=sec,
         phase_s=st.utime, native_calls=calls, groups=len(lu.plan.groups),
+        rungs=[(r.name, r.detail) for r in st.solve_report.rungs],
+        answer_tier=st.solve_report.gemm_precision,
         structural_flops=lu.plan.flops, berr=st.solve_report.berr,
         refine_steps=st.refine_steps, launches=launches,
         berr_target=float(tols.berr_target(np.float64)))
@@ -893,8 +939,10 @@ def complex_dofact_phase(slt, kernels, tols, torch):
 
 def ladder_phase(slt, kernels, tols, torch):
     """Phase 8: the escalation ladder on the card — float32 factors of the
-    near-singular arrowhead must climb to float64 factors on the card and
-    deliver BERR ≤ 10·eps64; float32 factors of hilbert(8) must converge."""
+    near-singular arrowhead must climb the GEMM tier (default → f32, the
+    live gemm-precision rung) and then to float64 factors on the card and
+    deliver BERR ≤ 10·eps64; float32 factors of hilbert(8) must take the
+    gemm-precision rung and converge."""
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (
         hilbert, rank_deficient_arrowhead)
@@ -907,6 +955,7 @@ def ladder_phase(slt, kernels, tols, torch):
     rep = st.solve_report
     names = [r.name for r in rep.rungs]
     if not {"hiprec-factors", "refactor-rescale"} & set(names) \
+            or "gemm-precision" not in names \
             or lu.numeric.dtype != torch.float64 \
             or lu.numeric.device.type != "cuda":
         raise AssertionError(f"arrowhead ladder: {rep.summary()}, "
@@ -922,8 +971,9 @@ def ladder_phase(slt, kernels, tols, torch):
                                  slt.Options(factor_dtype="float32"), a,
                                  a.matvec(np.ones(8)), device="cuda")
     rep = st.solve_report
-    if not rep.converged:
-        raise AssertionError(f"hilbert(8) did not converge: {rep.summary()}")
+    if not rep.converged or "gemm-precision" not in [r.name
+                                                     for r in rep.rungs]:
+        raise AssertionError(f"hilbert(8): {rep.summary()}")
     out["hilbert8"] = dict(s=sec, rungs=[r.name for r in rep.rungs],
                            berr=rep.berr, target=rep.target,
                            summary=rep.summary(),
@@ -954,8 +1004,10 @@ def orderings_phase(slt, kernels, tols):
             groups=len(lu.plan.groups), berr=st.solve_report.berr,
             rungs=[r.name for r in st.solve_report.rungs],
             native_calls=expect_native(f"orderings {case}", native, fn),
-            launches=expect_launches(f"orderings {case}", kernels,
-                                     len(lu.plan.groups)))
+            launches=expect_launches(
+                f"orderings {case}", kernels,
+                len(lu.plan.groups) * factorizations(st.solve_report),
+                False))
         check_berr(f"orderings {case}", st.solve_report.berr)
     say("orderings", n=a.n_rows, nnz=a.nnz,
         berr_target=float(tols.berr_target(np.float64)), **out)
@@ -984,6 +1036,205 @@ def scipy_check(slt, a, trans, cplx, rng, tols):
         max_abs_diff=float(np.abs(x - x_ref).max()), native_calls=calls)
 
 
+SPMV_SOURCE = "superlu_dist_tpu_torch/csrc/csr_spmv.cu"
+SPMV_REPLACES = ("superlu_dist_tpu/parallel/dist.py:181 (XLA scatter-add; "
+                 "no Pallas kernel)")
+#: the JAX package's solve plans of its default plan of poisson3d(48) (its
+#: solve/plan.py build_solve_plan on the CPU): sweep batches per schedule
+JAX_SOLVE_BATCHES = {"dataflow": 90, "level": 106, "factor": 134}
+#: columns of the 1,500-column solve that the solve phase refines: 8 of
+#: each of its two chunks (1,024 + 476)
+SAMPLE_COLS = np.r_[0:8, 1492:1500]
+
+
+def spmv_phase(a, torch, kernels, dist, gen):
+    """The residual SpMV kernel against its plain twin on the card, at the
+    main path's operator (poisson3d(48), nnz 760,320) in float64 — the
+    refinement's type — and, on the complex Helmholtz-type values of the
+    same pattern, float32, complex64 and complex128, and on a small matrix
+    with empty rows and a row of length 1: torch.equal everywhere.  Returns
+    the float64 record of the final JSON line (the yardstick library call
+    is torch.sparse.mm on the same CSR tensor)."""
+    dev = torch.device("cuda")
+    ip = torch.as_tensor(a.indptr.astype(np.int64), device=dev)
+    ix = torch.as_tensor(a.indices.astype(np.int64), device=dev)
+    max_row = int(np.diff(a.indptr).max())
+    rng = np.random.default_rng(SEED + 70)
+    cvals = rng.standard_normal(a.nnz) + 1j * rng.standard_normal(a.nnz)
+    record = None
+    for dt in (torch.float64, torch.float32, torch.complex64,
+               torch.complex128):
+        v = torch.as_tensor(cvals if dt.is_complex else a.data,
+                            device=dev).to(dt)
+        for k in (1, 16):
+            x = torch.randn((a.n_cols, k), generator=gen, device=dev,
+                            dtype=dt)
+            y = dist.csr_spmv(ip, ix, v, x)
+            yp = dist.csr_spmv_plain(ip, ix, v, x, max_row)
+            torch.cuda.synchronize()
+            err = float((y - yp).abs().max())
+            if not torch.equal(y, yp):
+                raise AssertionError(f"csr_spmv {dt} k={k} != plain twin "
+                                     f"(max |d| {err})")
+            if dt != torch.float64 or k != 1:
+                say("kernels_extra", case=f"csr_spmv {str(dt)[6:]} k={k}",
+                    max_abs_err=err)
+                continue
+            isz = v.element_size()
+            nbytes = ((a.n_rows + 1) * 8 + a.nnz * 8 + a.nnz * isz
+                      + a.n_cols * k * isz + a.n_rows * k * isz)
+            b_ms, b_by = bound(nbytes, 2 * a.nnz * k, dt)
+            csr = torch.sparse_csr_tensor(ip, ix, v, size=(a.n_rows, a.n_cols))
+            lib = torch.sparse.mm(csr, x)
+            record = dict(
+                name="csr_spmv", route="cuda", source=SPMV_SOURCE,
+                replaces=SPMV_REPLACES, max_abs_err=err,
+                ms=graph_ms(lambda: dist.csr_spmv(ip, ix, v, x), n=20),
+                call_ms=cuda_ms(lambda: dist.csr_spmv(ip, ix, v, x), 20),
+                plain_ms=cuda_ms(lambda: dist.csr_spmv_plain(ip, ix, v, x,
+                                                             max_row), 5),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x), 20),
+                library_max_abs_diff=float((lib - y).abs().max()),
+                shape=dict(n=a.n_rows, nnz=a.nnz, k=k, bytes=nbytes))
+    # a small matrix: an empty first and last row, a row of length 1
+    small_ip = torch.tensor([0, 0, 1, 5, 9, 9], device=dev)
+    small_ix = torch.tensor([2, 0, 1, 2, 4, 4, 3, 2, 1], device=dev)
+    for dt in (torch.float32, torch.float64, torch.complex64,
+               torch.complex128):
+        v = torch.randn(9, generator=gen, device=dev, dtype=dt)
+        x = torch.randn((5, 3), generator=gen, device=dev, dtype=dt)
+        y = dist.csr_spmv(small_ip, small_ix, v, x)
+        if not (torch.equal(y, dist.csr_spmv_plain(small_ip, small_ix, v, x))
+                and not y[0].any() and not y[4].any()):
+            raise AssertionError(f"csr_spmv {dt} on the small matrix")
+    say("kernels", **record)
+    return record
+
+
+def solve_phase(lu, torch):
+    """The device solve on the main path's handle (refactored by the reuse
+    phase: its factors are those of ``lu.a``): the three schedules' plans
+    (the JAX package's batch counts), then nrhs 1, 16 and 1,500 (the last
+    chunked past the 1,024 cap) through fused (CUDA graph) and eager
+    sweeps, with and without DiagInv — SOLVE seconds (first call, with the
+    graph captures, and the next), last_solve_stats, the solver's memory,
+    the agreement with the main configuration (fused, no DiagInv), and the
+    BERR after refinement through the device residual: of every column of
+    the 1- and 16-column solves; of the 1,500-column solve, every column's
+    BERR before refinement and the refinement of columns 0-7 and
+    1,492-1,499 (8 of each chunk; all 1,500 columns take about 17 s a
+    refinement step on the card's host, 1.3 GB host copies).  The refinement
+    runs on the factored matrix M = P_σ·diag(R)·A·diag(C)·P_πᵀ itself,
+    whose componentwise BERR is A's (it is invariant under the scalings and
+    permutations), so the 1,500-column solves skip the host transforms."""
+    from superlu_dist_tpu_torch.parallel.dist import DeviceSpMV
+    from superlu_dist_tpu_torch.refine.ir import (componentwise_berr,
+                                                  iterative_refinement)
+    from superlu_dist_tpu_torch.solve.device import DeviceSolver
+    from superlu_dist_tpu_torch.solve.plan import build_solve_plan
+    plans = {s: build_solve_plan(lu.plan, schedule=s).schedule_stats(1)
+             for s in JAX_SOLVE_BATCHES}
+    say("solve_plans", **plans)
+    got = {s: st["n_groups"] for s, st in plans.items()}
+    if got != JAX_SOLVE_BATCHES:
+        raise AssertionError(f"solve batches {got}, the JAX package's "
+                             f"{JAX_SOLVE_BATCHES}")
+    main = lu.dev_solver
+    if (main.splan.schedule, len(main.splan.groups), main.fused) != (
+            "dataflow", JAX_SOLVE_BATCHES["dataflow"], True):
+        raise AssertionError("the main path's solver is not the fused "
+                             "dataflow schedule")
+    m_op = lu.a.row_scale(lu.R).col_scale(lu.C).permute(perm_r=lu.sigma,
+                                                        perm_c=lu.sf.perm)
+    spmv = DeviceSpMV(m_op, device="cuda")
+    rng = np.random.default_rng(SEED + 60)
+    n = m_op.n_rows
+    rhs = {k: spmv.matvec(rng.standard_normal((n, k))) for k in (1, 16, 1500)}
+    ref = {}
+    out = {}
+    for fused in (True, False):
+        for diag in (False, True):
+            name = ("fused" if fused else "eager") + ("+diaginv" if diag
+                                                       else "")
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            solver = DeviceSolver(lu.numeric, diag_inv=diag, fused=fused,
+                                  gemm_prec=lu.numeric.gemm_prec)
+            cases = {}
+            for k, d in rhs.items():
+                t0 = time.perf_counter()
+                solver.solve(d)
+                first = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                z = solver.solve(d)
+                steady = time.perf_counter() - t0
+                st = dict(solver.last_solve_stats)
+                if not st["finite"]:
+                    raise AssertionError(f"solve {name} k={k}: non-finite "
+                                         f"columns {st['nonfinite_cols']}")
+                case = dict(first_s=first, s=steady,
+                            stats={key: st[key] for key in (
+                                "nrhs", "padded_nrhs", "chunks",
+                                "padding_factor", "fused",
+                                "nonfinite_cols")})
+                if name == "fused":
+                    ref[k] = z
+                else:
+                    case["max_rel_diff_vs_fused"] = float(
+                        np.abs(z - ref[k]).max() / np.abs(ref[k]).max())
+                t0 = time.perf_counter()
+                if k == 1500:
+                    # every column's BERR before refinement, then the
+                    # refinement of 8 columns of each chunk
+                    r = d - spmv.matvec(z)
+                    den = spmv.abs_matvec(np.abs(z)) + np.abs(d)
+                    case["unrefined_berr_max"] = float(componentwise_berr(
+                        r, den, spmv.nnz).max())
+                    d, z = d[:, SAMPLE_COLS], z[:, SAMPLE_COLS]
+                _, berrs = iterative_refinement(spmv, d, z, solver.solve)
+                case.update(berr=berrs[-1], refine_steps=len(berrs),
+                            refine_s=time.perf_counter() - t0)
+                check_berr(f"solve {name} k={k}", berrs[-1])
+                cases[k] = case
+            torch.cuda.synchronize()
+            out[name] = dict(cases=cases, memory=solver.memory_stats(),
+                             allocated_bytes=torch.cuda.memory_allocated()
+                             - mem0)
+            del solver
+    say("solve", n=n, schedule="dataflow", batches=len(main.splan.groups),
+        gemm_prec=main.gemm_prec, main_solver_memory=main.memory_stats(),
+        **out)
+
+
+def gemm_tiers_phase(slt, a, lu, kernels, tols, default_run):
+    """gssvx on poisson3d(48) at the bf16 and f32 GEMM tiers on the main
+    path's analysis (SamePattern_SameRowPerm: same plan), beside the main
+    path's own run at the default tier (TF32): FACT seconds, refine steps,
+    rungs, the tier the answer rests on, BERR."""
+    rng = np.random.default_rng(SEED + 80)
+    b = a.matvec(rng.standard_normal(a.n_rows))
+    out = {"default": default_run}
+    for tier in ("bf16", "f32"):
+        x, lut, st, sec = timed_gssvx(
+            slt, kernels, slt.Options(fact=slt.Fact.SamePattern_SameRowPerm,
+                                      gemm_prec=tier), a, b, lu=lu)
+        rep = st.solve_report
+        if lut.plan is not lu.plan:
+            raise AssertionError("SamePattern_SameRowPerm rebuilt the plan")
+        out[tier] = dict(s=sec, fact_s=st.utime["FACT"],
+                         refine_s=st.utime["REFINE"],
+                         refine_steps=st.refine_steps,
+                         rungs=[(r.name, r.detail) for r in rep.rungs],
+                         answer_tier=rep.gemm_precision, berr=rep.berr,
+                         berr_history=rep.berr_history)
+        check_berr(f"gemm_tiers {tier}", rep.berr)
+        del lut
+    from superlu_dist_tpu_torch.ops import dense
+    say("gemm_tiers", n=a.n_rows, bf16_route=dense.BF16_ROUTE,
+        berr_target=float(tols.berr_target(np.float64)), **out)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -996,6 +1247,7 @@ def main():
                                                        poisson3d,
                                                        random_sparse)
     from superlu_dist_tpu_torch.numeric import factor, kernels
+    from superlu_dist_tpu_torch.parallel import dist
     from superlu_dist_tpu_torch.utils import tols
 
     # 1. card
@@ -1006,7 +1258,7 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     lib = kernels.build()
-    kernels._library()
+    kernels.library()
     say("build", seconds=time.perf_counter() - t0, library=str(lib))
     native_phase()
 
@@ -1048,6 +1300,7 @@ def main():
     records = kernel_phase(plan, maps, torch, kernels, gen)
     for rec in records:
         say("kernels", **rec)
+    records.append(spmv_phase(a, torch, kernels, dist, gen))
 
     # 4. the main path: gssvx on poisson3d(48), f32 factors, f64 refine
     rng = np.random.default_rng(SEED)
@@ -1058,20 +1311,25 @@ def main():
     kernels.reset_launches()
     native.reset_calls()
     t0 = time.perf_counter()
-    x, lu, stats, info = slt.gssvx(slt.Options(factor_dtype="float32"), a, b,
-                                   device="cuda")
+    x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     groups = len(lu.plan.groups)
-    # the main path runs the fused kernel once per group, and neither
-    # standalone wrapper; its analysis runs in the native library
-    launches = expect_launches("gssvx", kernels, groups)
+    # the main path runs the fused kernel once per group (and once more per
+    # group for each gemm-precision refactor of the ladder), neither
+    # standalone wrapper, and the residual kernel in every refinement
+    # step; its analysis runs in the native library
+    rep = stats.solve_report
+    rungs = rep.rungs
+    launches = expect_launches("gssvx", kernels, groups * factorizations(rep),
+                               True)
     calls = expect_native("gssvx", native, "amalgamate", "mlnd")
     peak = torch.cuda.max_memory_allocated()
     if info != 0 or x is None or x.shape != b.shape:
         raise AssertionError(f"gssvx failed: info={info}")
     if not np.all(np.isfinite(x)):
         raise AssertionError("gssvx returned non-finite values")
-    berr = lu.berrs[-1]
+    berr = rep.berr
     relres = float(np.linalg.norm(b - a.matvec(x)) / np.linalg.norm(b))
     analysis = sum(stats.utime[p] for p in ANALYSIS)
     say("gssvx", n=a.n_rows, nnz=a.nnz, info=info, wall_s=wall,
@@ -1081,12 +1339,29 @@ def main():
         factor_gflops=lu.plan.flops / stats.utime["FACT"] / 1e9,
         structural_flops=lu.plan.flops, groups=groups,
         tiny_pivots=stats.tiny_pivots, refine_steps=stats.refine_steps,
-        berr=berr, berr_history=lu.berrs,
+        berr=berr, berr_history=rep.berr_history,
         berr_target=float(tols.berr_target(np.float64)), rel_residual=relres,
         rel_error=float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true)),
         max_memory_allocated=peak, launches=launches,
-        solve_report=stats.solve_report.summary())
+        gemm_prec=lu.numeric.gemm_prec,
+        answer_tier=rep.gemm_precision,
+        rungs=[(r.name, r.detail, r.seconds) for r in rungs],
+        solve_schedule=lu.dev_solver.splan.schedule,
+        solve_batches=len(lu.dev_solver.splan.groups),
+        solve_fused=lu.dev_solver.fused,
+        solver_memory=lu.dev_solver.memory_stats(),
+        spmv_route="csr_spmv (card)" if launches["csr_spmv"] else "host",
+        solve_report=rep.summary())
     check_berr("gssvx", berr)
+    if lu.dev_solver.splan.schedule != "dataflow":
+        raise AssertionError("the main path did not solve on the dataflow "
+                             "schedule")
+    default_run = dict(s=wall, fact_s=stats.utime["FACT"],
+                       refine_s=stats.utime["REFINE"],
+                       refine_steps=stats.refine_steps,
+                       rungs=[(r.name, r.detail) for r in rungs],
+                       answer_tier=rep.gemm_precision,
+                       berr=berr, berr_history=rep.berr_history)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 
@@ -1095,6 +1370,10 @@ def main():
     reuse_phase(slt, a, lu, wall, stats.utime["FACT"], kernels, tols, torch,
                 factor)
     complex_phase(slt, a, lu, kernels, tols, torch)
+    # 4d. the device solve's schedules, buckets, graphs and DiagInv; 4e. the
+    # GEMM tiers on the main path's analysis
+    solve_phase(lu, torch)
+    gemm_tiers_phase(slt, a, lu, kernels, tols, default_run)
 
     # where the factor time goes: the same factorization (phase 3's
     # analysis is the same deterministic host work), synchronized at every

@@ -4,8 +4,9 @@ A supernodal multifrontal sparse direct solver (the SuperLU_DIST
 capability set) for one NVIDIA Hopper GPU.  The host analysis (scaling,
 matching, ordering, symbolic factorization, plan) is numpy; the numeric
 factorization and the triangular solves run in PyTorch on the device,
-with the front assembly hand-written in CUDA (``numeric/kernels.py``,
-``csrc/``), in real and complex types.  The JAX package beside it
+with the front assembly and the refinement's residual SpMV hand-written
+in CUDA (``numeric/kernels.py``, ``parallel/dist.py``, ``csrc/``), in real
+and complex types.  The JAX package beside it
 (``superlu_dist_tpu/``) is the reference this port is held against; this
 package imports nothing of it.
 

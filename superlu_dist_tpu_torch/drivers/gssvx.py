@@ -5,7 +5,8 @@ Port of the JAX package's single-process ``drivers/gssvx.py`` (the
 pdgssvx analog, SRC/pdgssvx.c:505): equilibrate → row-permute (maximum
 product matching with scalings) → column-order → symbolic → plan
 ("distribute") → numeric factor on the device → device triangular solve
-→ iterative refinement on the host → escalation ladder, with the
+(dataflow sweep schedule) → iterative refinement (its residual SpMV on
+the card for a large matrix) → escalation ladder, with the
 reference's Fact reuse tiers (superlu_defs.h:489-510):
 
   DOFACT                  — everything from scratch
@@ -42,6 +43,7 @@ from superlu_dist_tpu_torch.numeric.factor import (NumericFactorization,
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, build_plan
 from superlu_dist_tpu_torch.ops.dense import next_gemm_precision
 from superlu_dist_tpu_torch.ordering.dispatch import get_perm_c
+from superlu_dist_tpu_torch.parallel.dist import DeviceSpMV
 from superlu_dist_tpu_torch.refine.condest import (ESTIMATE_ERRORS,
                                                    condition_estimate,
                                                    ferr_estimate)
@@ -124,6 +126,9 @@ class LUFactorization:
     a_sym_indptr: np.ndarray = None    # symmetrized permuted pattern the
     a_sym_indices: np.ndarray = None   # symbolic factorization was built on
     dev_solver: DeviceSolver = None    # built at the first solve
+    dev_spmv: dict = None              # DeviceSpMV per (trans, residual
+                                       # dtype): (a.data it was built on,
+                                       # operator)
     pattern_digest: str = None         # identity latch of refactor
     plan_fp: str = None
 
@@ -179,7 +184,11 @@ class LUFactorization:
         if not self.numeric.finite:
             raise SingularMatrixError(self.numeric.info_col)
         if self.dev_solver is None:
-            self.dev_solver = DeviceSolver(self.numeric)
+            opts = self.options
+            self.dev_solver = DeviceSolver(
+                self.numeric, diag_inv=opts.diag_inv, fused="auto",
+                schedule=opts.solve_schedule, window=opts.solve_window,
+                align=opts.solve_align, gemm_prec=self.numeric.gemm_prec)
         return self.dev_solver
 
     def _solve_permuted(self, d: np.ndarray) -> np.ndarray:
@@ -416,8 +425,8 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
     rungs = max(int(options.recovery.max_rungs), 1)
     for rung in range(rungs):
         shadow = dataclasses.replace(lu, numeric=None, dev_solver=None,
-                                     berrs=None, a=a_new, anorm=anorm,
-                                     options=options)
+                                     dev_spmv=None, berrs=None, a=a_new,
+                                     anorm=anorm, options=options)
         try:
             info = factorize_numeric(shadow, bvals, stats)
         except SuperLUError as e:
@@ -433,7 +442,7 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
             raise rollback("canary", f"{type(e).__name__}: {e}") from e
         if finite and (berr_max <= 0 or berr <= berr_max):
             break
-        nxt = next_gemm_precision(options.gemm_prec)
+        nxt = next_gemm_precision(shadow.numeric.gemm_prec, lu.device)
         if not escalate or nxt is None or rung == rungs - 1:
             raise rollback(
                 "canary", "non-finite canary X" if not finite else
@@ -444,6 +453,7 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
     # numeric or the whole new one
     lu.numeric = shadow.numeric
     lu.dev_solver = None
+    lu.dev_spmv = None
     lu.berrs = None
     lu.a = a_new
     lu.anorm = anorm
@@ -544,7 +554,7 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
 
       1. residual-precision — same factors, float64 residual;
       1.5 gemm-precision    — refactor the same skeleton one GEMM tier up
-                              (inert until the reduced tiers are ported);
+                              per rung (ops/dense.next_gemm_precision);
       2. hiprec-factors     — refactor the same skeleton at the next
                               factor precision and refine through it;
       3. refactor-rescale   — full re-analysis with equilibration + MC64
@@ -602,7 +612,7 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
     # same skeleton one tier up per rung
     tier = lu.numeric.gemm_prec
     while not done and len(report.rungs) < recovery.max_rungs:
-        nxt = next_gemm_precision(tier)
+        nxt = next_gemm_precision(tier, lu.device)
         if nxt is None:
             break
         bvals = _permuted_values(lu)
@@ -610,7 +620,7 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
             break
         t0 = time.perf_counter()
         lu_prec = dataclasses.replace(
-            lu, numeric=None, dev_solver=None, berrs=None,
+            lu, numeric=None, dev_solver=None, dev_spmv=None, berrs=None,
             options=dataclasses.replace(options, gemm_prec=nxt))
         try:
             info_p = factorize_numeric(lu_prec, bvals, stats)
@@ -639,7 +649,7 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
         bvals = _permuted_values(lu)
         if bvals is not None:
             lu_esc = dataclasses.replace(
-                lu, numeric=None, dev_solver=None, berrs=None,
+                lu, numeric=None, dev_solver=None, dev_spmv=None, berrs=None,
                 options=dataclasses.replace(options, factor_dtype=esc,
                                             gemm_prec="highest"))
             try:
@@ -704,10 +714,38 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
     return cur_x, lu_eff, solve_fn, residual_dtype
 
 
+#: the least nnz for which refinement's residual runs on the card (the JAX
+#: package's rule, drivers/gssvx.py:1116-1145)
+DEVICE_SPMV_MIN_NNZ = 100_000
+
+
+def _refine_operator(lu: LUFactorization, a: SparseCSR, op: SparseCSR,
+                     trans: Trans, residual_dtype):
+    """The operator refinement takes its residual with: on the card, for
+    ``op.nnz >= DEVICE_SPMV_MIN_NNZ``, a :class:`DeviceSpMV` cached on the
+    handle per (trans, residual dtype) — a hit only while ``a.data`` is
+    the array it was built from, so FACTORED reuse with new values does
+    not refine against a stale upload; otherwise the host ``op``.  A
+    failed upload raises: there is no host fallback."""
+    if lu.device.type != "cuda" or op.nnz < DEVICE_SPMV_MIN_NNZ:
+        return op
+    key = (trans, str(np.dtype(residual_dtype)))
+    cache = lu.dev_spmv if lu.dev_spmv is not None else {}
+    hit = cache.get(key)
+    if hit is not None and hit[0] is a.data:
+        return hit[1]
+    spmv = DeviceSpMV(op, dtype=np.result_type(op.data.dtype, residual_dtype),
+                      device=lu.device)
+    cache[key] = (a.data, spmv)
+    lu.dev_spmv = cache
+    return spmv
+
+
 def _solve_and_refine(options: Options, a: SparseCSR, b: np.ndarray,
                       lu: LUFactorization, stats: Stats):
-    """Solve through the factors, refine with a float64 residual on the
-    host, run the ladder when refinement missed its target, estimate
+    """Solve through the factors, refine with a float64 residual (on the
+    card through ``_refine_operator`` for a large matrix, else on the
+    host), run the ladder when refinement missed its target, estimate
     rcond/ferr under ``options.recovery.condest``; the SolveReport lands
     on stats.solve_report."""
     t_req0 = time.perf_counter()
@@ -739,8 +777,9 @@ def _solve_and_refine(options: Options, a: SparseCSR, b: np.ndarray,
                           if options.iter_refine == IterRefine.SLU_SINGLE
                           else np.dtype(options.ir_dtype))
         with stats.timer("REFINE"):
-            x, berrs = iterative_refinement(op, b, x, solve_fn,
-                                            residual_dtype=residual_dtype)
+            x, berrs = iterative_refinement(
+                _refine_operator(lu, a, op, trans, residual_dtype), b, x,
+                solve_fn, residual_dtype=residual_dtype)
         stats.refine_steps += len(berrs)
         lu.berrs = berrs
         report.berr_history = list(berrs)
@@ -757,10 +796,11 @@ def _solve_and_refine(options: Options, a: SparseCSR, b: np.ndarray,
         report.refine_steps = len(report.berr_history)
         report.converged = (report.berr is not None
                             and report.berr <= target)
-    elif recovery.enabled and next_gemm_precision(lu.numeric.gemm_prec):
+    elif recovery.enabled and next_gemm_precision(lu.numeric.gemm_prec,
+                                                  lu.device):
         # NOREFINE at a reduced GEMM tier still owes a gated answer: one
         # BERR probe, and the ladder on a miss (armed only where the tier
-        # is a real gamble; both tiers the port runs are full precision)
+        # is a real gamble on this device: not the CPU's default tier)
         target = (recovery.berr_target if recovery.berr_target
                   else float(tols.berr_target(np.float64)))
         report.target = target

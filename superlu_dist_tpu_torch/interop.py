@@ -78,4 +78,5 @@ def factors_from_reference(numeric, device="cuda") -> NumericFactorization:
     return NumericFactorization(
         plan=plan_from_reference(numeric.plan), fronts=fronts,
         tiny_pivots=int(numeric.tiny_pivots), dtype=dtype,
-        finite=bool(numeric.finite), info_col=int(numeric.info_col))
+        finite=bool(numeric.finite), info_col=int(numeric.info_col),
+        gemm_prec=str(numeric.gemm_prec))

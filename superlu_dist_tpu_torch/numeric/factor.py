@@ -25,8 +25,7 @@ import torch
 from superlu_dist_tpu_torch.numeric import kernels
 from superlu_dist_tpu_torch.numeric.kernels import GroupMaps
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan
-from superlu_dist_tpu_torch.ops.dense import (check_gemm_tier,
-                                              full_precision_matmul,
+from superlu_dist_tpu_torch.ops.dense import (gemm_precision,
                                               group_partial_factor)
 from superlu_dist_tpu_torch.utils.errors import NumericBreakdownError
 from superlu_dist_tpu_torch.utils.options import resolve_device
@@ -80,7 +79,7 @@ def _sync(device: torch.device) -> None:
 
 
 def group_step(dims, avals, pool, thresh, maps: GroupMaps,
-               gemm_prec="highest", scatter=KERNELS, timings=None):
+               gemm_prec="default", scatter=KERNELS, timings=None):
     """One (level, bucket) group: assemble + factor + write back.
 
     dims = (batch, m, w, u).  ``scatter(avals, pool, m, w, maps)`` returns
@@ -131,7 +130,7 @@ class NumericFactorization:
                               # (only possible with replace_tiny=False)
     info_col: int = -1        # first zero-pivot column (0-based, final
                               # labeling) when not finite
-    gemm_prec: str = "highest"   # the GEMM tier the factors ran at
+    gemm_prec: str = "default"   # the GEMM tier the factors ran at
 
     @property
     def device(self) -> torch.device:
@@ -141,7 +140,7 @@ class NumericFactorization:
 def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       anorm: float, dtype=torch.float64,
                       device="cuda", replace_tiny: bool = True,
-                      check_finite: bool = True, gemm_prec: str = "highest",
+                      check_finite: bool = True, gemm_prec: str | None = None,
                       scatter=KERNELS, timings=None) -> NumericFactorization:
     """Factor with values aligned to plan.pattern_indices, on ``device``
     (the card unless the caller asks for the CPU; CUDA without a card
@@ -155,13 +154,13 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     pdgstrf.c:234-241).  check_finite arms the isfinite sentinel: with
     ReplaceTinyPivot active a NaN/Inf in the factors means overflow or NaN
     input, and NumericBreakdownError names the first contaminated
-    supernode.  ``scatter`` and ``timings`` are passed to every
-    ``group_step``.
+    supernode.  ``gemm_prec`` is the Schur GEMMs' ladder tier
+    (``ops/dense.gemm_precision``: None is "default", TF32 on the card).
+    ``scatter`` and ``timings`` are passed to every ``group_step``.
     """
     device = resolve_device(device)
     plan.check_index_width()
-    check_gemm_tier(gemm_prec)
-    full_precision_matmul()
+    gemm_prec = gemm_precision(gemm_prec)
     # the threshold is compared with |pivot|: a tensor of the real
     # component type (torch.finfo of a complex type is its component's)
     real_dtype = torch.empty((), dtype=dtype).real.dtype

@@ -38,8 +38,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-#: kernel launches since the last reset, per wrapper
-LAUNCHES = {"front_assemble": 0, "extend_add": 0, "assemble": 0}
+#: kernel launches since the last reset, per wrapper (``csr_spmv`` is the
+#: refinement residual's kernel, parallel/dist.py)
+LAUNCHES = {"front_assemble": 0, "extend_add": 0, "assemble": 0,
+            "csr_spmv": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: build outputs, keyed by a hash of the sources and flags (kept out of git)
@@ -108,8 +110,8 @@ def build() -> Path:
     return lib
 
 
-def _library():
-    """The loaded kernel library, built on first use."""
+def library():
+    """The loaded kernel library (every ``csrc/*.cu``), built on first use."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -342,7 +344,7 @@ def launch_(f, maps: FrontMaps, pool=None, avals=None, ws=None, w=0):
         return 0 if t is None else t.data_ptr()
 
     if _lib is None:
-        _library()
+        library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _fns[f.dtype](f.data_ptr(), p(pool), p(avals), p(ws), *maps.ptrs,
                        batch, m, w, pool_len,

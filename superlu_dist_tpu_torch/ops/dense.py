@@ -24,48 +24,143 @@ leaves them to XLA; neither is a Pallas kernel there.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _PANEL_BLOCK = 128   # outer panel width of the blocked right-looking LU
 
-#: GEMM tiers the port runs.  Both are full float32/float64 products; the
-#: JAX package's reduced tiers (bf16, the tensorfloat "default") are not
-#: ported yet (ROADMAP.md).
-GEMM_TIERS = ("highest", "f32")
+# ---------------------------------------------------------------------------
+# The GEMM precision ladder (the JAX package's ops/dense.py:62-155)
+#
+# Every Schur-update GEMM of the factor path, and the off-diagonal GEMMs
+# of the solve's blocked TRSM, run at one named tier, fastest and least
+# accurate first:
+#
+#   bf16     real inputs rounded to bfloat16, products accumulated in
+#            float32 (``bmm(..., out_dtype=float32)`` on the card)
+#   default  TF32 on the card: tensor-core inputs with float32
+#            accumulate (the JAX package's tensorfloat-analog tier)
+#   f32      IEEE float32 (float64 for float64 operands) products
+#   highest  the same products as f32 on the card and on the CPU
+#
+# The CPU has no TF32, so there default, f32 and highest are one
+# arithmetic.  A reduced tier is made safe by the gemm-precision rung of
+# the escalation ladder (drivers/gssvx._escalate): a BERR miss refactors
+# the same skeleton one tier up (``next_gemm_precision``).  The TF32
+# switch is set around each ``gemm`` call and restored afterwards, so no
+# other product of the process runs at TF32.
+# ---------------------------------------------------------------------------
+
+GEMM_PREC_LADDER = ("bf16", "default", "f32", "highest")
 
 
-def full_precision_matmul() -> None:
-    """Pin float32 products to full float32: no TF32 in cuBLAS matmuls or
-    cuDNN.  TF32 keeps about three decimal digits and would silently
-    change what the "highest" tier means; both flags are set explicitly
-    because cuDNN defaults to TF32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def gemm_precision(name: str | None = None) -> str:
+    """The GEMM tier an ``Options.gemm_prec`` value names: None or an
+    empty name resolves to the ladder default ``"default"`` (the JAX
+    package's resolution with no knob set).  Raises ValueError on a name
+    outside the ladder."""
+    if name is None or not str(name).strip():
+        return "default"
+    name = str(name).strip().lower()
+    if name not in GEMM_PREC_LADDER:
+        raise ValueError(f"gemm_prec={name!r} — expected one of "
+                         f"{list(GEMM_PREC_LADDER)}")
+    return name
 
 
-def check_gemm_tier(prec: str) -> str:
-    if prec not in GEMM_TIERS:
-        raise NotImplementedError(
-            f"GEMM tier {prec!r} is not ported yet; the port runs "
-            f"{GEMM_TIERS} (ROADMAP.md)")
+def next_gemm_precision(tier: str, device) -> str | None:
+    """The next-higher tier whose arithmetic differs on ``device``, or
+    None at the top: the escalation rung's step.  On the CPU only the
+    bfloat16 input rounding is a real boundary (bf16 → default, then
+    None); on the card bf16 → default (TF32) → f32, then None, because
+    f32 and highest are the same IEEE products there."""
+    tier = gemm_precision(tier)
+    on_card = torch.device(device).type == "cuda"
+    step = {"bf16": "default", "default": "f32" if on_card else None}
+    return step.get(tier)
+
+
+def resolve_gemm_tier(prec: str, dtype) -> str:
+    """The tier :func:`gemm` runs for ``dtype`` operands: complex operands
+    have no bfloat16 carrier, so ``bf16`` resolves to ``default`` for
+    them."""
+    prec = gemm_precision(prec)
+    if prec == "bf16" and dtype.is_complex:
+        return "default"
     return prec
 
 
-def next_gemm_precision(tier: str) -> str | None:
-    """The next-higher tier that changes the arithmetic, or None at the
-    top — the escalation rung's step (drivers/gssvx._escalate).  Both
-    tiers the port runs are full-precision products, so there is no step
-    yet: the rung exists and stays inert until the reduced tiers are
-    ported (ROADMAP.md)."""
-    check_gemm_tier(tier)
-    return None
+@contextlib.contextmanager
+def matmul_tf32(enabled: bool):
+    """Set the card's TF32 switch for float32 matmuls inside the block and
+    restore it afterwards (``fp32_precision`` where torch has it, else the
+    legacy ``allow_tf32``)."""
+    m = torch.backends.cuda.matmul
+    if hasattr(m, "fp32_precision"):
+        old = m.fp32_precision
+        m.fp32_precision = "tf32" if enabled else "ieee"
+        try:
+            yield
+        finally:
+            m.fp32_precision = old
+    else:
+        old = m.allow_tf32
+        m.allow_tf32 = bool(enabled)
+        try:
+            yield
+        finally:
+            m.allow_tf32 = old
+
+
+def _bmm_out_dtype() -> bool:
+    """True when torch has ``bmm(a, b, out_dtype=...)`` (a CUDA kernel:
+    bfloat16 inputs, float32 accumulate and output)."""
+    return any("bmm.dtype" in str(s) for s in
+               torch._C._jit_get_schemas_for_operator("aten::bmm"))
+
+
+#: how the bf16 tier multiplies on the card: "bmm_out_dtype" (one bf16
+#: GEMM with float32 output) or "rounded_f32" (bfloat16-rounded inputs
+#: multiplied as IEEE float32 — the products are exact there, so the
+#: contract is the same); fixed by the installed torch
+BF16_ROUTE = "bmm_out_dtype" if _bmm_out_dtype() else "rounded_f32"
+
+
+def _bf16_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bfloat16-rounded real inputs, float32 accumulate; float32 result."""
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.device.type == "cuda" and BF16_ROUTE == "bmm_out_dtype":
+        if ab.dim() != 3 or bb.dim() != 3:
+            raise ValueError("the bf16 tier takes batched (B, m, k) x "
+                             "(B, k, n) operands")
+        reduced = torch.backends.cuda.matmul
+        old = reduced.allow_bf16_reduced_precision_reduction
+        reduced.allow_bf16_reduced_precision_reduction = False
+        try:
+            return torch.bmm(ab, bb, out_dtype=torch.float32)
+        finally:
+            reduced.allow_bf16_reduced_precision_reduction = old
+    with matmul_tf32(False):
+        return torch.matmul(ab.float(), bb.float())
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, prec: str = "highest"):
     """One ladder-tier batched matmul: every Schur-update GEMM of the
-    factor path routes through here."""
-    check_gemm_tier(prec)
-    return torch.matmul(a, b)
+    factor path and the blocked TRSM's off-diagonal GEMMs route through
+    here.  The result has the operands' dtype; bf16 products accumulate
+    in float32 and are cast back (asserted real: complex bf16 resolves to
+    default)."""
+    out_dt = torch.promote_types(a.dtype, b.dtype)
+    tier = resolve_gemm_tier(prec, out_dt)
+    if tier == "bf16":
+        assert not out_dt.is_complex, \
+            "bf16 tier on complex operands must resolve to 'default'"
+        return _bf16_gemm(a, b).to(out_dt)
+    if a.device.type != "cuda":
+        return torch.matmul(a, b)
+    with matmul_tf32(tier == "default"):
+        return torch.matmul(a, b)
 
 
 def _fix_pivot(piv: torch.Tensor, thresh: torch.Tensor):

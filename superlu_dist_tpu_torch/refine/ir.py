@@ -9,7 +9,9 @@ berr = max_i |r|_i / (|A|·|x| + |b|)_i reaches eps, stops improving by 2×
 
 On the card this is the half of the mixed-precision design that recovers
 f64 accuracy from f32 factors: the factorization runs in float32 on the
-device, the cheap SpMV residual is exact float64 on the host.  Complex
+device, the cheap SpMV residual is float64 — on the host, or, for a large
+matrix, on the card through ``parallel/dist.DeviceSpMV`` (the driver
+picks the operator ``a``; both present matvec/abs_matvec/nnz).  Complex
 systems refine with a complex residual (complex128 under a float64
 residual dtype, complex64 under SLU_SINGLE).
 """
@@ -25,16 +27,18 @@ ITMAX = 20
 
 
 def componentwise_berr(r: np.ndarray, den: np.ndarray, nnz: int,
-                       residual_dtype=np.float64) -> float:
+                       residual_dtype=np.float64):
     """max_i |r_i| / den_i with the reference's underflow guard
     (pdgsrfs.c:225 / dgsrfs.f:214): denominators at or below
     safe1·safmin = (nnz+1)·safmin are bumped by that amount, so an
     exactly-zero row reports berr 0 instead of 0/0 while a *tiny*
-    denominator is not rounded up to 1 (which understates berr)."""
+    denominator is not rounded up to 1 (which understates berr).  For
+    (n, k) arrays: the k per-column values."""
     safmin = tols.safmin(residual_dtype)
     bump = (nnz + 1) * safmin
     den = np.where(den <= bump, den + bump, den)
-    return float(np.max(np.abs(r) / den))
+    out = np.max(np.abs(r) / den, axis=0)
+    return float(out) if np.ndim(out) == 0 else out
 
 
 def _normalize_correction(dx, n: int, ncols: int) -> np.ndarray:
@@ -103,12 +107,11 @@ def iterative_refinement(a: SparseCSR, b: np.ndarray, x: np.ndarray,
         # => f32): the refinement then cannot see — and so cannot correct —
         # anything below single eps, the reference's tier semantics
         r = (b2 - a.matvec(x2)).astype(work)
-        # componentwise backward error per rhs (pdgsrfs.c:213-231)
-        berr = np.empty(nrhs)
-        for k in range(nrhs):
-            den = (a.abs_matvec(np.abs(x2[:, k]))
-                   + np.abs(b2[:, k])).astype(x2.real.dtype)
-            berr[k] = componentwise_berr(r[:, k], den, a.nnz, residual_dtype)
+        # componentwise backward error per rhs (pdgsrfs.c:213-231), all
+        # columns in one |A|·|x| product (each column's sums as its own)
+        den = (a.abs_matvec(np.abs(x2)) + np.abs(b2)).astype(x2.real.dtype)
+        berr = np.asarray(componentwise_berr(r, den, a.nnz, residual_dtype),
+                          dtype=np.float64)
         berrs.append(berr.copy())
         active &= (berr > eps) & (berr < lstres / 2.0)
         if not active.any():

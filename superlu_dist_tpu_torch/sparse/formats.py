@@ -93,10 +93,16 @@ class SparseCSR:
         return out.reshape(out_shape)
 
     def abs_matvec(self, x: np.ndarray) -> np.ndarray:
-        """|A| @ x, used for the backward-error bound (pdgsrfs.c:213-231)."""
+        """|A| @ x (supports (n,) and (n, k)), used for the backward-error
+        bound (pdgsrfs.c:213-231)."""
+        x = np.asarray(x)
         rows = np.repeat(np.arange(self.n_rows), np.diff(self.indptr))
-        out = np.zeros(self.n_rows, dtype=np.result_type(self.data.real, x))
-        np.add.at(out, rows, np.abs(self.data) * x[self.indices])
+        absa = np.abs(self.data)
+        contrib = (absa[:, None] * x[self.indices] if x.ndim > 1
+                   else absa * x[self.indices])
+        out = np.zeros((self.n_rows,) + x.shape[1:],
+                       dtype=np.result_type(self.data.real, x))
+        np.add.at(out, rows, contrib)
         return out
 
     def tocsc(self) -> "SparseCSC":

@@ -94,7 +94,10 @@ class Options:
     ReplaceTinyPivot, IterRefine=DOUBLE, plus the JAX package's blocking
     and scheduling defaults.  ``native``, ``symb_threads`` and
     ``nd_threads`` take the place of the JAX package's SLU_TPU_NO_NATIVE,
-    SLU_TPU_SYMB_THREADS and SLU_TPU_ND_THREADS.
+    SLU_TPU_SYMB_THREADS and SLU_TPU_ND_THREADS; ``gemm_prec``,
+    ``solve_schedule``, ``solve_window`` and ``solve_align`` hold the
+    values its SLU_TPU_GEMM_PREC and SLU_TPU_SOLVE_* knobs resolve to when
+    unset.
     """
 
     fact: Fact = Fact.DOFACT
@@ -116,7 +119,16 @@ class Options:
     schedule: str = "dataflow"        # factor-group scheduler
     sched_window: int = 8             # dataflow look-ahead, in levels
     sched_align: float = 1.1          # shape-key coalescing flop tolerance
-    gemm_prec: str = "highest"        # Schur GEMM tier (ops/dense.gemm)
+    gemm_prec: str = "default"        # GEMM ladder tier (ops/dense.gemm):
+                                      # bf16 | default (TF32 on the card) |
+                                      # f32 | highest
+    diag_inv: bool = False            # DiagInv: solve the diagonal blocks
+                                      # by GEMMs with their inverses
+    solve_schedule: str = "dataflow"  # sweep schedule (solve/plan.py):
+                                      # dataflow | level | factor
+    solve_window: int = 0             # dataflow look-ahead of the solve
+                                      # (levels; 0 = unbounded)
+    solve_align: float = 1.25         # solve-side shape-key coalescing
     native: bool = True               # host analysis in the native library
                                       # (native/); False runs the Python
                                       # twins

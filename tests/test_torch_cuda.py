@@ -178,7 +178,8 @@ def test_gssvx_on_the_card(cuda):
     assert info == 0 and lu.numeric.dtype == torch.float32
     assert lu.numeric.device.type == "cuda"
     assert kernels.LAUNCHES == {"front_assemble": len(lu.plan.groups),
-                                "extend_add": 0, "assemble": 0}
+                                "extend_add": 0, "assemble": 0,
+                                "csr_spmv": 0}
     assert lu.berrs[-1] <= tols.berr_target(np.float64)
 
 
@@ -263,3 +264,113 @@ def test_refactor_on_the_card(cuda):
                                      dtype=lu.numeric.dtype, device=cuda)
     for (lk, uk), (lp, up) in zip(lu.numeric.fronts, fresh.fronts):
         assert torch.equal(lk, lp) and torch.equal(uk, up)
+
+
+# ---------------------------------------------------------------------------
+# the residual SpMV kernel, the fused (CUDA graph) solve, the GEMM tiers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_csr_spmv_kernel_equals_plain(cuda, dtype):
+    """Bit for bit, on a random matrix with empty rows (first and last)
+    and a row of length 1, for one and for five columns."""
+    from superlu_dist_tpu_torch.parallel import dist
+    rng = np.random.default_rng(11)
+    n = 300
+    counts = rng.integers(0, 9, n)
+    counts[0] = counts[-1] = 0
+    counts[7] = 1
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    indices = rng.integers(0, n, indptr[-1])
+    ip, ix = (torch.as_tensor(x, device=cuda) for x in (indptr, indices))
+    vals = _rand(rng, indptr[-1], dtype, cuda)
+    kernels.reset_launches()
+    for k in (1, 5):
+        x = _rand(rng, (n, k), dtype, cuda)
+        y = dist.csr_spmv(ip, ix, vals, x)
+        assert torch.equal(y, dist.csr_spmv_plain(ip, ix, vals, x))
+        assert not y[0].any() and not y[-1].any()
+        if not dtype.is_complex:    # one rounded product, as the kernel's
+            assert torch.equal(y[7], vals[indptr[7]] * x[indices[indptr[7]]])
+    assert kernels.LAUNCHES["csr_spmv"] == 2
+
+
+def _helmholtz3d(a, k=5.0):
+    nx = a.grid_shape[0]
+    vals = a.data.astype(np.complex128)
+    diag = a.indices == np.repeat(np.arange(a.n_rows), np.diff(a.indptr))
+    vals[diag] -= (k * k - 0.5j * k) / (nx + 1) ** 2
+    return slt.SparseCSR(a.n_rows, a.n_cols, a.indptr, a.indices, vals)
+
+
+@pytest.mark.parametrize("conj", [False, True])
+@pytest.mark.parametrize("nrhs", [1, 16])
+def test_fused_and_eager_sweeps_agree(cuda, nrhs, conj):
+    """poisson3d(16) (complex values for CONJ): the CUDA-graph sweeps and
+    the eager ones agree to the device-vs-host gate (lsum's atomics make
+    neither bitwise reproducible), in both directions, and a second
+    replay agrees with the first."""
+    from superlu_dist_tpu_torch.solve.device import DeviceSolver
+    a = poisson3d(16)
+    if conj:
+        a = _helmholtz3d(a)
+    lu, bvals, _ = slt.analyze(slt.Options(), a, device=cuda)
+    num = factor.numeric_factorize(lu.plan, bvals, lu.anorm,
+                                   dtype=torch.complex128 if conj
+                                   else torch.float64, device=cuda)
+    rng = np.random.default_rng(3)
+    d = rng.standard_normal((lu.n, nrhs))
+    if conj:
+        d = d + 1j * rng.standard_normal(d.shape)
+    fused = DeviceSolver(num, fused=True)
+    eager = DeviceSolver(num, fused=False)
+    assert fused.fused and not eager.fused
+    tol = dict(rtol=tols.DEVICE_VS_HOST_RTOL, atol=tols.DEVICE_VS_HOST_ATOL)
+    for solve in ((lambda s: s.solve(d)),
+                  (lambda s: s.solve_trans(d, conj=conj))):
+        want = solve(eager)
+        np.testing.assert_allclose(solve(fused), want, **tol)
+        np.testing.assert_allclose(solve(fused), want, **tol)   # replay
+    assert fused.memory_stats()["graphs"] == 4
+    assert fused.last_solve_stats["fused"]
+
+
+def test_gemm_default_tier_is_tf32_and_restores_the_switch(cuda):
+    from superlu_dist_tpu_torch.ops import dense
+    m = torch.backends.cuda.matmul
+    attr = "fp32_precision" if hasattr(m, "fp32_precision") else "allow_tf32"
+    before = getattr(m, attr)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((4, 256, 256), generator=g, device=cuda)
+    b = torch.randn((4, 256, 256), generator=g, device=cuda)
+    top = dense.gemm(a, b, "highest")
+    assert torch.equal(dense.gemm(a, b, "f32"), top)
+    assert getattr(m, attr) == before
+    low = dense.gemm(a, b, "default")
+    assert getattr(m, attr) == before
+    assert not torch.equal(low, top)
+    # TF32 keeps 10 mantissa bits of each input: ~1e-3 relative per product
+    assert torch.allclose(low, top, rtol=1e-2, atol=0.05)
+    bf = dense.gemm(a, b, "bf16")
+    assert bf.dtype == torch.float32 and not torch.equal(bf, low)
+    ab, bb = (t.to(torch.bfloat16).float() for t in (a, b))
+    torch.testing.assert_close(bf, dense.gemm(ab, bb, "highest"),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_gssvx_refines_through_the_device_spmv(cuda):
+    """poisson3d(25): nnz >= 100,000, so the residual runs through
+    csr_spmv; the operator is cached on the handle and reused by a
+    FACTORED solve on the same matrix data."""
+    a = poisson3d(25)
+    assert a.nnz >= 100_000
+    b = a.matvec(np.random.default_rng(4).standard_normal(a.n_rows))
+    kernels.reset_launches()
+    x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device=cuda)
+    assert info == 0 and stats.solve_report.berr <= tols.berr_target(
+        np.float64)
+    assert kernels.LAUNCHES["csr_spmv"] == 2 * stats.refine_steps
+    (op,) = [v[1] for v in lu.dev_spmv.values()]
+    assert lu.dev_solver.fused and lu.dev_solver.splan.schedule == "dataflow"
+    slt.gssvx(slt.Options(fact=slt.Fact.FACTORED), a, b, lu=lu)
+    assert [v[1] for v in lu.dev_spmv.values()] == [op]

@@ -71,10 +71,12 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("options,error", [
     (slt.Options(factor_dtype="df64"), NotImplementedError),
-    (slt.Options(gemm_prec="default"), NotImplementedError),
-    (slt.Options(gemm_prec="bf16"), NotImplementedError),
+    (slt.Options(gemm_prec="tf32"), ValueError),
+    (slt.Options(solve_schedule="wavefront"), ValueError),
 ])
 def test_unported_options_raise(options, error):
+    """An option the port does not run raises: an unported factor dtype
+    (df64), a GEMM tier or a solve schedule outside the JAX package's."""
     a = gallery.poisson2d(4)
     with pytest.raises(error):
         slt.gssvx(options, a, np.ones(a.n_rows), device="cpu")

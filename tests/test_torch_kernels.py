@@ -152,8 +152,12 @@ def test_cpu_wrappers_take_plain_and_count_nothing():
     kernels.extend_add_(f, torch.ones(1), 2, 1, torch.tensor([0]),
                         torch.tensor([0]), torch.tensor([[1]]))
     assert f.tolist() == [[0.0, 0.0, 0.0, 2.0]]
+    from superlu_dist_tpu_torch.parallel.dist import csr_spmv
+    y = csr_spmv(torch.tensor([0, 1]), torch.tensor([3]), torch.ones(1),
+                 f.view(4, 1))
+    assert y.tolist() == [[2.0]]
     assert kernels.LAUNCHES == {"front_assemble": 0, "extend_add": 0,
-                                "assemble": 0}
+                                "assemble": 0, "csr_spmv": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "index", "shape"])

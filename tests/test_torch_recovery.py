@@ -85,7 +85,7 @@ def test_report_fields_well_conditioned_defaults():
     assert rep.berr is not None and rep.berr <= rep.target
     assert rep.rungs == [] and rep.berr_history
     assert rep.rcond is None            # "auto": nothing to defend
-    assert rep.factor_dtype == "float64" and rep.gemm_precision == "highest"
+    assert rep.factor_dtype == "float64" and rep.gemm_precision == "default"
     assert "berr" in rep.summary()
     assert "solve health" in stats.report()
 
