@@ -36,6 +36,18 @@ drives the port are reset just before it and checked just after):
                 (TF32) on the card, the dataflow solve schedule fused in
                 CUDA graphs, float64 refinement with its residual through
                 csr_spmv, the ladder when refinement misses;
+     persist  — on that handle: save_lu, load_lu onto the card (fronts
+                torch.equal) and a FACTORED solve from the loaded handle;
+                the same skeleton factored under Options(deadline_s about
+                half the main FACT, ckpt_dir), stopped at a group boundary
+                0 < k < groups with its frontier on disk, and
+                gssvx(resume_from=) from it, whose fronts must be
+                torch.equal to the main handle's: bundle bytes, save / load
+                / flush seconds, k, the resumed FACT;
+     cli      — the main path's matrix written as a .mtx file and solved by
+                ``python -m superlu_dist_tpu_torch -f <file> --stats``
+                (``__main__.main`` in-process): rc 0, the reader's seconds,
+                the report's FACT / SOLVE / REFINE seconds and BERR;
      reuse    — on that handle: a FACTORED solve, a TRANS solve, refactor
                 on perturbed values (equal to a fresh factorization),
                 SamePattern_SameRowPerm, condest, the residual-precision
@@ -44,9 +56,10 @@ drives the port are reset just before it and checked just after):
                 factored in complex64 on the same plan, and a CONJ solve;
      solve    — on the main path's factors: the dataflow / level / factor
                 solve plans (the JAX package's 90 / 106 / 134 batches), and
-                nrhs 1, 16 and 1,500 fused and eager, with and without
-                DiagInv: SOLVE seconds, last_solve_stats, solver memory,
-                BERR after refinement;
+                nrhs 1 and 16 fused and eager, with and without DiagInv,
+                and 1,500 fused: SOLVE seconds, last_solve_stats, solver
+                memory, BERR after refinement; every solve repeated bit for
+                bit, the eager ones equal to the fused ones;
      gemm_tiers — gssvx on poisson3d(48) at the bf16 and f32 tiers beside
                 the main path's default: FACT, refine steps, rungs, BERR;
   5. factor_stages — the main path's factorization synchronized at every
@@ -55,7 +68,7 @@ drives the port are reset just before it and checked just after):
                 front-assembly launch (no stage synchronize), then every
                 group, child set and assembly of the plan replayed alone
                 for the kernel / plain / library / bound sums (the front
-                assembly also in complex64 and complex128);
+                assembly also in complex64, the complex path's type);
   7. complex_dofact — gssvx from scratch on helmholtz_2d(333) (n=110,889);
   8. ladder   — the escalation ladder (its gemm-precision rung live) on a
                 near-singular arrowhead and on hilbert(8), float32 factors;
@@ -75,6 +88,8 @@ non-zero before any result.
 """
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -573,8 +588,10 @@ def factor_sums(plan, maps, bvals, anorm, torch, factor, kernels, gen):
         del f
     in_factor["bound_ms"] = sums["front_assemble"]["bound_ms"]
     # the complex path runs the same plan: the front assembly of every
-    # group replayed alone in complex64 and complex128
-    for dt in (torch.complex64, torch.complex128):
+    # group replayed alone in complex64 (complex128 has no launch on the
+    # main path; its groups are held against the plain version in the
+    # kernels phase)
+    for dt in (torch.complex64,):
         name = f"front_assemble {str(dt).split('.')[-1]}"
         sums[name] = dict.fromkeys(keys, 0.0)
         counts[name] = 0
@@ -1115,11 +1132,13 @@ def spmv_phase(a, torch, kernels, dist, gen):
 def solve_phase(lu, torch):
     """The device solve on the main path's handle (refactored by the reuse
     phase: its factors are those of ``lu.a``): the three schedules' plans
-    (the JAX package's batch counts), then nrhs 1, 16 and 1,500 (the last
-    chunked past the 1,024 cap) through fused (CUDA graph) and eager
-    sweeps, with and without DiagInv — SOLVE seconds (first call, with the
-    graph captures, and the next), last_solve_stats, the solver's memory,
-    the agreement with the main configuration (fused, no DiagInv), and the
+    (the JAX package's batch counts), then nrhs 1 and 16 through fused
+    (CUDA graph) and eager sweeps, with and without DiagInv, and 1,500
+    (chunked past the 1,024 cap) through the fused sweeps only — SOLVE
+    seconds (first call, with the graph captures, and the next, which must
+    be bit for bit the first), last_solve_stats, the solver's memory, the
+    agreement with the main configuration (fused, no DiagInv: the eager
+    sweeps must equal it bit for bit), and the
     BERR after refinement through the device residual: of every column of
     the 1- and 16-column solves; of the 1,500-column solve, every column's
     BERR before refinement and the refinement of columns 0-7 and
@@ -1163,12 +1182,19 @@ def solve_phase(lu, torch):
                                   gemm_prec=lu.numeric.gemm_prec)
             cases = {}
             for k, d in rhs.items():
+                if k == 1500 and name != "fused":
+                    continue        # timing only: one configuration
                 t0 = time.perf_counter()
-                solver.solve(d)
+                z1 = solver.solve(d)
                 first = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 z = solver.solve(d)
                 steady = time.perf_counter() - t0
+                # the lsum scatter sums in a fixed order: a solve repeats
+                # bit for bit, and an eager one equals the fused one
+                if not np.array_equal(z1, z):
+                    raise AssertionError(f"solve {name} k={k}: two solves "
+                                         "on one handle differ")
                 st = dict(solver.last_solve_stats)
                 if not st["finite"]:
                     raise AssertionError(f"solve {name} k={k}: non-finite "
@@ -1183,6 +1209,10 @@ def solve_phase(lu, torch):
                 else:
                     case["max_rel_diff_vs_fused"] = float(
                         np.abs(z - ref[k]).max() / np.abs(ref[k]).max())
+                    case["equal_to_fused"] = bool(np.array_equal(z, ref[k]))
+                    if name == "eager" and not case["equal_to_fused"]:
+                        raise AssertionError(f"solve eager k={k} differs "
+                                             "from the fused solve")
                 t0 = time.perf_counter()
                 if k == 1500:
                     # every column's BERR before refinement, then the
@@ -1202,9 +1232,204 @@ def solve_phase(lu, torch):
                              allocated_bytes=torch.cuda.memory_allocated()
                              - mem0)
             del solver
+    # the lsum scatter's launches per forward sweep — one index_add_ per
+    # layer (scatter_layers), plus one gather where a row repeats — and the
+    # device time of the two replayed sweeps (nrhs 1, with and without
+    # DiagInv) beside the same graphs captured with the one-launch scatter
+    # of PR 5, whose float atomics race on repeated rows (timing only)
+    from superlu_dist_tpu_torch.solve import device as sdev
+    layered = [lay for *_, lay in main._groups if lay is not None]
+    scatter = dict(batches_with_repeats=len(layered),
+                   launches_per_sweep=len(main._groups) + sum(
+                       len(parts) for _, parts in layered))
+    layered_scatter = sdev._scatter_add
+
+    def atomic_scatter(lsum, rows, contrib, layers):
+        lsum.index_add_(0, rows.reshape(-1),
+                        contrib.reshape(-1, contrib.shape[-1]))
+
+    for label, fn in (("layered", layered_scatter),
+                      ("atomic_pr5", atomic_scatter),
+                      ("layered_again", layered_scatter)):
+        sdev._scatter_add = fn
+        try:
+            for diag in (False, True):
+                solver = DeviceSolver(lu.numeric, diag_inv=diag, fused=True,
+                                      gemm_prec=lu.numeric.gemm_prec)
+                solver.solve(rhs[1])
+
+                graphs = list(solver._graphs.values())   # fwd, bwd
+
+                def replay():
+                    for graph in graphs:
+                        graph.replay()
+
+                scatter[f"{label}{'+diaginv' if diag else ''}_ms"] = \
+                    cuda_ms(replay, 20)
+                del solver
+        finally:
+            sdev._scatter_add = layered_scatter
     say("solve", n=n, schedule="dataflow", batches=len(main.splan.groups),
         gemm_prec=main.gemm_prec, main_solver_memory=main.memory_stats(),
-        **out)
+        scatter=scatter, **out)
+
+
+def persist_phase(slt, a, b, lu, lu0, bvals0, fact_s, kernels, tols, torch,
+                  workdir):
+    """Phase 4a, on the main path's handle before anything refactors it:
+    save_lu, then load_lu onto the card (every front torch.equal) and a
+    FACTORED solve from the loaded handle; then the factorization of the
+    same skeleton under Options(deadline_s ≈ half the main FACT,
+    ckpt_dir), which must stop at a group boundary 0 < k < groups with
+    its frontier on disk (one retry with the deadline moved if k lands at
+    an end), and gssvx(resume_from=) from that frontier, whose every
+    front must be torch.equal to the main handle's (same plan, values and
+    tier) with stats.resume["groups"] == k.  Bundle bytes, save / load /
+    flush seconds and the launch counts of each step."""
+    import dataclasses
+    import shutil
+    from superlu_dist_tpu_torch.persist import checkpoint, serial
+    groups = len(lu.plan.groups)
+    out = {}
+
+    def equal_fronts(f1, f2):
+        return all(torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
+                   for p, q in zip(f1, f2)) and len(f1) == len(f2)
+
+    bundle = os.path.join(workdir, "handle")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    slt.save_lu(lu, bundle)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lu2 = slt.load_lu(bundle)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if lu2.device.type != "cuda" or not equal_fronts(lu.numeric.fronts,
+                                                     lu2.numeric.fronts):
+        raise AssertionError("load_lu(save_lu(lu)) fronts != the saved ones")
+    out["bundle"] = dict(bytes=serial.lu_meta(bundle)["nbytes"], save_s=save_s,
+                         load_s=load_s, fronts_equal=True,
+                         launches=expect_launches("persist save/load",
+                                                  kernels, 0, False))
+    x, _, st, sec = timed_gssvx(slt, kernels,
+                                slt.Options(fact=slt.Fact.FACTORED), a, b,
+                                lu=lu2)
+    if st.utime["FACT"] != 0:
+        raise AssertionError("the loaded handle's FACTORED solve factored")
+    out["factored_from_bundle"] = dict(
+        s=sec, berr=st.solve_report.berr, refine_steps=st.refine_steps,
+        launches=expect_launches("persist factored", kernels, 0, True))
+    check_berr("persist factored", st.solve_report.berr)
+    del lu2
+    shutil.rmtree(bundle)
+
+    # the deadline: the flush is timed around the checkpointer's own call
+    flushes = []
+    flush = checkpoint.FactorCheckpointer.flush
+
+    def timed_flush(self, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return flush(self, *args, **kw)
+        finally:
+            flushes.append(time.perf_counter() - t)
+
+    ck = os.path.join(workdir, "ck")
+    deadline_s, attempts = 0.5 * fact_s, []
+    checkpoint.FactorCheckpointer.flush = timed_flush
+    try:
+        for _ in range(2):
+            shutil.rmtree(ck, ignore_errors=True)
+            flushes.clear()
+            opts = slt.Options(deadline_s=deadline_s, ckpt_dir=ck)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                slt.factorize_numeric(dataclasses.replace(lu0, options=opts),
+                                      bvals0)
+                k, err = groups, None
+            except slt.DeadlineExceededError as e:
+                err = e
+                k = (checkpoint.peek(ck)["k"] if e.checkpoint_path else 0)
+            torch.cuda.synchronize()
+            attempts.append(dict(
+                deadline_s=deadline_s, k=k, s=time.perf_counter() - t0,
+                elapsed_s=err.elapsed_s if err else None,
+                flush_s=list(flushes),
+                launches=dict(kernels.LAUNCHES)))
+            if 0 < k < groups:
+                break
+            deadline_s *= 0.5 if k == groups else 2.0
+    finally:
+        checkpoint.FactorCheckpointer.flush = flush
+    if not 0 < k < groups or attempts[-1]["launches"]["front_assemble"] != k:
+        raise AssertionError(f"the deadline left no inner frontier: "
+                             f"{attempts}")
+    ck_bytes = sum(os.path.getsize(os.path.join(ck, f))
+                   for f in os.listdir(ck))
+    x, lur, st, sec = timed_gssvx(slt, kernels, slt.Options(), a, b,
+                                  device="cuda", resume_from=ck)
+    resumed = dict(s=sec, fact_s=st.utime["FACT"], resume=st.resume,
+                   rungs=[(r.name, r.detail) for r in st.solve_report.rungs],
+                   berr=st.solve_report.berr,
+                   launches=expect_launches(
+                       "persist resume", kernels,
+                       groups - k + groups * (factorizations(
+                           st.solve_report) - 1), True))
+    if st.resume.get("groups") != k or not equal_fronts(lur.numeric.fronts,
+                                                        lu.numeric.fronts):
+        raise AssertionError(f"the resume from frontier {k} is not bitwise "
+                             f"the uninterrupted factorization: {st.resume}")
+    check_berr("persist resume", st.solve_report.berr)
+    shutil.rmtree(ck)
+    say("persist", n=a.n_rows, groups=groups, k=k, checkpoint_bytes=ck_bytes,
+        deadline=attempts, resumed=resumed, fronts_equal=True, **out,
+        berr_target=float(tols.berr_target(np.float64)))
+
+
+def cli_phase(slt, a, kernels, tols, workdir):
+    """Phase 4b: the main path's matrix written as a Matrix Market file,
+    then ``python -m superlu_dist_tpu_torch -f <file> --stats`` in-process
+    (``__main__.main``): rc 0, the report's FACT / SOLVE / REFINE seconds
+    and the backward error, read from its output, at the float64 gate."""
+    import contextlib
+    import io
+    import re
+    from superlu_dist_tpu_torch.__main__ import main as cli_main
+    from superlu_dist_tpu_torch.io import write_matrix_market
+    path = os.path.join(workdir, f"poisson3d_{NX}.mtx")
+    t0 = time.perf_counter()
+    write_matrix_market(path, a)
+    write_s = time.perf_counter() - t0
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["-f", path, "--stats"])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    launches = dict(kernels.LAUNCHES)
+
+    def num(pattern):
+        m = re.search(pattern, text, re.M)
+        if not m:
+            raise AssertionError(f"cli: no {pattern!r} in {text}")
+        return float(m.group(1))
+
+    got = dict(rc=rc, wall_s=wall, write_s=write_s, file_bytes=os.path.getsize(
+        path), read_s=num(r"read in ([0-9.]+) s"),
+        phase_s={p: num(rf"^\s*{p}\s+time\s+([0-9.]+)")
+                 for p in ("FACT", "SOLVE", "REFINE")},
+        berr=num(r"backward error \(IR\)\s+([-+0-9.eE]+)"),
+        residual=num(r"residual \|\|b-Ax\|\|/\|\|b\|\|\s+([-+0-9.eE]+)"),
+        launches=launches, report=text.splitlines())
+    os.remove(path)
+    say("cli", n=a.n_rows, nnz=a.nnz, **got,
+        berr_target=float(tols.berr_target(np.float64)))
+    if rc != 0 or not launches["front_assemble"] or not launches["csr_spmv"]:
+        raise AssertionError(f"cli: rc {rc}, launches {launches}")
+    check_berr("cli", got["berr"])
 
 
 def gemm_tiers_phase(slt, a, lu, kernels, tols, default_run):
@@ -1365,12 +1590,25 @@ def main():
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 
-    # 4b. the reuse tiers and refactor on the main path's handle, 4c. the
+    # 4a. the handle saved, loaded and solved; a deadline-stopped
+    # factorization resumed; 4b. the file-driven CLI on the same matrix —
+    # under build/ in the checkout (bundles of 0.6-1.6 GB)
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        persist_phase(slt, a, b, lu, lu0, bvals0, stats.utime["FACT"],
+                      kernels, tols, torch, workdir)
+        cli_phase(slt, a, kernels, tols, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 4c. the reuse tiers and refactor on the main path's handle, 4d. the
     # complex path on its plan
     reuse_phase(slt, a, lu, wall, stats.utime["FACT"], kernels, tols, torch,
                 factor)
     complex_phase(slt, a, lu, kernels, tols, torch)
-    # 4d. the device solve's schedules, buckets, graphs and DiagInv; 4e. the
+    # 4e. the device solve's schedules, buckets, graphs and DiagInv; 4f. the
     # GEMM tiers on the main path's analysis
     solve_phase(lu, torch)
     gemm_tiers_phase(slt, a, lu, kernels, tols, default_run)

@@ -11,13 +11,23 @@ and complex types.  The JAX package beside it
 package imports nothing of it.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
+From the shell: ``python -m superlu_dist_tpu_torch -f matrix.mtx`` (the
+pddrive analog, ``__main__.py``).
 """
 
 from superlu_dist_tpu_torch.drivers.gssvx import (LUFactorization, analyze,
                                                   factorize_numeric, gssvx,
+                                                  gssvx_ABglobal, gssvx_dist,
                                                   refactor)
+from superlu_dist_tpu_torch.io.readers import read_matrix
+from superlu_dist_tpu_torch.persist.serial import load_lu, save_lu
 from superlu_dist_tpu_torch.sparse.formats import SparseCSC, SparseCSR
-from superlu_dist_tpu_torch.utils.errors import (NumericBreakdownError,
+from superlu_dist_tpu_torch.utils.errors import (CheckpointCorruptError,
+                                                 CheckpointError,
+                                                 CheckpointMismatchError,
+                                                 CheckpointVersionError,
+                                                 DeadlineExceededError,
+                                                 NumericBreakdownError,
                                                  PatternMismatchError,
                                                  RefactorRollbackError,
                                                  SingularMatrixError,
@@ -28,10 +38,13 @@ from superlu_dist_tpu_torch.utils.options import (ColPerm, Fact, IterRefine,
 from superlu_dist_tpu_torch.utils.stats import RungRecord, SolveReport, Stats
 
 __all__ = [
-    "gssvx", "analyze", "factorize_numeric", "refactor", "LUFactorization",
+    "gssvx", "gssvx_ABglobal", "gssvx_dist", "analyze", "factorize_numeric",
+    "refactor", "LUFactorization", "save_lu", "load_lu", "read_matrix",
     "Options", "Fact", "ColPerm", "RowPerm", "IterRefine", "Trans",
     "RecoveryPolicy", "Stats", "SolveReport", "RungRecord",
     "SparseCSR", "SparseCSC",
     "SuperLUError", "SingularMatrixError", "NumericBreakdownError",
-    "PatternMismatchError", "RefactorRollbackError",
+    "PatternMismatchError", "RefactorRollbackError", "DeadlineExceededError",
+    "CheckpointError", "CheckpointCorruptError", "CheckpointVersionError",
+    "CheckpointMismatchError",
 ]

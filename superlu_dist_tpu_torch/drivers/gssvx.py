@@ -32,18 +32,20 @@ A·x = b is solved as
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import time
 
 import numpy as np
 import torch
 
 from superlu_dist_tpu_torch.numeric.factor import (NumericFactorization,
-                                                   numeric_factorize)
+                                                   numeric_factorize,
+                                                   query_space)
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, build_plan
 from superlu_dist_tpu_torch.ops.dense import next_gemm_precision
 from superlu_dist_tpu_torch.ordering.dispatch import get_perm_c
-from superlu_dist_tpu_torch.parallel.dist import DeviceSpMV
+from superlu_dist_tpu_torch.parallel.dist import DeviceSpMV, gather_rows
+from superlu_dist_tpu_torch.persist.serial import (pattern_digest,
+                                                   plan_fingerprint)
 from superlu_dist_tpu_torch.refine.condest import (ESTIMATE_ERRORS,
                                                    condition_estimate,
                                                    ferr_estimate)
@@ -57,45 +59,19 @@ from superlu_dist_tpu_torch.sparse.formats import SparseCSR, symmetrize_pattern
 from superlu_dist_tpu_torch.symbolic.symbfact import (SymbolicFact,
                                                       symbolic_factorize)
 from superlu_dist_tpu_torch.utils import tols
-from superlu_dist_tpu_torch.utils.errors import (NumericBreakdownError,
+from superlu_dist_tpu_torch.utils.errors import (DeadlineExceededError,
+                                                 NumericBreakdownError,
                                                  PatternMismatchError,
                                                  RefactorRollbackError,
                                                  SingularMatrixError,
                                                  SuperLUError)
+from superlu_dist_tpu_torch.utils.deadline import Deadline
 from superlu_dist_tpu_torch.utils.options import (Fact, IterRefine, Options,
                                                   RowPerm, Trans,
+                                                  print_options,
                                                   resolve_device,
                                                   resolve_factor_dtype)
 from superlu_dist_tpu_torch.utils.stats import RungRecord, SolveReport, Stats
-
-
-def plan_fingerprint(plan: FactorPlan) -> str:
-    """Structural identity of a FactorPlan: group geometry, batch
-    membership, pool layout and assembly maps (the JAX package's
-    persist/serial.py:206, copied)."""
-    h = hashlib.sha256()
-    h.update(f"n={plan.n};pool={plan.pool_size};"
-             f"sched={plan.schedule};groups={len(plan.groups)};".encode())
-    for grp in plan.groups:
-        h.update(np.int64([grp.level, grp.m, grp.w, grp.u,
-                           grp.batch]).tobytes())
-        for x in (grp.sns, grp.ws, grp.off, grp.a_src):
-            h.update(np.ascontiguousarray(x, dtype=np.int64).tobytes())
-        for cs in grp.children:
-            h.update(np.int64([cs.ub]).tobytes())
-            h.update(np.ascontiguousarray(cs.child_off,
-                                          dtype=np.int64).tobytes())
-    return h.hexdigest()
-
-
-def pattern_digest(indptr, indices) -> str:
-    """Identity of a symmetrized-permuted sparsity pattern: sha256 over
-    the CSR structure arrays as int64 (the JAX package's
-    persist/serial.py:230, copied)."""
-    h = hashlib.sha256()
-    h.update(np.ascontiguousarray(indptr, dtype=np.int64).tobytes())
-    h.update(np.ascontiguousarray(indices, dtype=np.int64).tobytes())
-    return h.hexdigest()
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -318,26 +294,51 @@ def analyze(options: Options, a: SparseCSR, device="cuda",
 
 
 def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
-                      stats: Stats | None = None) -> int:
+                      stats: Stats | None = None,
+                      resume_from: str | None = None) -> int:
     """Numeric factorization (pdgssvx.c:1176 → pdgstrf) of an analyzed
     skeleton on its device, in ``options.factor_dtype`` (complex values
     take the complex type of that width).  Fills lu.numeric; returns info
-    (0, or the 1-based first zero-pivot column)."""
+    (0, or the 1-based first zero-pivot column).
+
+    Crash consistency (persist/): ``Options.ckpt_every`` or
+    ``Options.ckpt_dir`` arm mid-factor frontier checkpoints;
+    ``resume_from`` restarts from a durable checkpoint instead of from
+    scratch (recorded on ``stats.resume`` and as a SolveReport rung by the
+    solve tail); ``Options.deadline_s`` bounds the factor loop
+    (DeadlineExceededError, after the frontier is flushed)."""
     if stats is None:
         stats = Stats()
     options = lu.options
     dtype = resolve_factor_dtype(options.factor_dtype, lu.device,
                                  np.iscomplexobj(bvals))
+    deadline = Deadline(options.deadline_s) if options.deadline_s else None
     with stats.timer("FACT"):
         numeric = numeric_factorize(
             lu.plan, bvals, lu.anorm, dtype=dtype, device=lu.device,
             replace_tiny=options.replace_tiny_pivot,
             check_finite=options.recovery.sentinels,
-            gemm_prec=options.gemm_prec)
+            gemm_prec=options.gemm_prec,
+            ckpt_dir=options.ckpt_dir or None,
+            ckpt_every=options.ckpt_every, resume_from=resume_from,
+            deadline=deadline)
         if lu.device.type == "cuda":
             torch.cuda.synchronize(lu.device)
     stats.ops["FACT"] += lu.plan.flops
     stats.tiny_pivots += numeric.tiny_pivots
+    stats.sched = lu.plan.schedule_stats(
+        itemsize=torch.empty((), dtype=dtype).element_size())
+    # memory (the dQuerySpace_dist analog); on the card the peak is the
+    # allocator's own
+    space = query_space(numeric)
+    stats.for_lu_bytes = space["for_lu_bytes"]
+    stats.pool_bytes = space["pool_bytes"]
+    stats.observe_memory(torch.cuda.max_memory_allocated(lu.device)
+                         if lu.device.type == "cuda"
+                         else space["total_bytes"])
+    if numeric.resumed_groups:
+        stats.resume = {"groups": int(numeric.resumed_groups),
+                        "of": len(lu.plan.groups), "path": str(resume_from)}
     lu.numeric = numeric
     lu.dev_solver = None
     if not numeric.finite:
@@ -347,7 +348,7 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
 
 def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
              canary_b: np.ndarray = None, berr_max: float = 0.0,
-             escalate: bool = True) -> Stats:
+             escalate: bool = True, resume_from: str | None = None) -> Stats:
     """Values-only refactorization: the SamePattern_SameRowPerm tier as a
     verb on a handle.
 
@@ -367,7 +368,9 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
     otherwise the refactor raises :class:`RefactorRollbackError` and ``lu``
     is untouched.  On success ``lu`` serves the new factors (its
     ``numeric``/``a``/``anorm`` rebound, its solver rebuilt at the next
-    solve).  Returns ``stats``."""
+    solve).  ``resume_from`` names a factor checkpoint of these values on
+    this plan, from which the first factorization restarts; the options'
+    deadline bounds each factorization.  Returns ``stats``."""
     if stats is None:
         stats = Stats()
     if lu.sf is None or lu.plan is None or lu.numeric is None:
@@ -428,7 +431,11 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
                                      dev_spmv=None, berrs=None, a=a_new,
                                      anorm=anorm, options=options)
         try:
-            info = factorize_numeric(shadow, bvals, stats)
+            info = factorize_numeric(shadow, bvals, stats,
+                                     resume_from=resume_from if rung == 0
+                                     else None)
+        except DeadlineExceededError:
+            raise
         except SuperLUError as e:
             raise rollback("factor", f"{type(e).__name__}: {e}") from e
         if info != 0:
@@ -462,7 +469,8 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
 
 
 def gssvx(options: Options, a: SparseCSR, b: np.ndarray, device=None,
-          stats: Stats | None = None, lu: LUFactorization | None = None):
+          stats: Stats | None = None, lu: LUFactorization | None = None,
+          resume_from: str | None = None):
     """Solve A·X = B (or Aᵀ·X = B, Aᴴ·X = B under ``options.trans``).
     Returns (x, lu, stats, info).
 
@@ -476,12 +484,24 @@ def gssvx(options: Options, a: SparseCSR, b: np.ndarray, device=None,
     info = 0 on success, or the 1-based first zero-pivot column when
     ReplaceTinyPivot is off and U is exactly singular (x is None then).
     ``stats.solve_report`` tells what the solve did: BERR, rungs, rcond,
-    ferr."""
+    ferr.
+
+    ``resume_from`` names a factor checkpoint (persist/checkpoint.py),
+    written by a run that stopped mid-factorization under a deadline,
+    ``Options.ckpt_every`` or SIGTERM: the analysis re-runs (cheap,
+    deterministic), the checkpoint's plan fingerprint and value digest are
+    verified against it, and the factorization restarts from the durable
+    frontier — factors bit for bit equal to an uninterrupted run, recorded
+    on ``stats.resume`` and as a 'resume-from-checkpoint' rung.
+    ``options.print_stat`` prints the options banner first and the Stats
+    report last."""
     if device is None:
         device = lu.device if lu is not None else "cuda"
     device = resolve_device(device)
     if stats is None:
         stats = Stats()
+    if options.print_stat:
+        print(print_options(options))
     n = a.n_rows
     if a.n_cols != n:
         raise SuperLUError("A must be square")
@@ -491,12 +511,41 @@ def gssvx(options: Options, a: SparseCSR, b: np.ndarray, device=None,
     if options.fact == Fact.FACTORED:
         if lu is None or lu.numeric is None:
             raise SuperLUError("Fact=FACTORED requires a prior factorization")
-        return _solve_and_refine(options, a, b, lu, stats)
-    lu, bvals, stats = analyze(options, a, device=device, stats=stats, lu=lu)
-    info = factorize_numeric(lu, bvals, stats)
-    if info != 0:
-        return None, lu, stats, info
-    return _solve_and_refine(options, a, b, lu, stats)
+        out = _solve_and_refine(options, a, b, lu, stats)
+    else:
+        lu, bvals, stats = analyze(options, a, device=device, stats=stats,
+                                   lu=lu)
+        info = factorize_numeric(lu, bvals, stats, resume_from=resume_from)
+        out = ((None, lu, stats, info) if info != 0
+               else _solve_and_refine(options, a, b, lu, stats))
+    if options.print_stat:
+        stats.print()
+    return out
+
+
+def gssvx_ABglobal(options: Options, a: SparseCSR, b: np.ndarray,
+                   lu: LUFactorization | None = None,
+                   stats: Stats | None = None, device=None):
+    """pdgssvx_ABglobal analog (SRC/pdgssvx_ABglobal.c:472).  The
+    reference keeps two pipelines because its main driver takes a
+    distributed matrix and ABglobal a replicated one; here the host
+    analysis always sees the global matrix (the distributed input is
+    :func:`gssvx_dist`), so ABglobal is gssvx, kept as a named entry point
+    for API parity."""
+    return gssvx(options, a, b, device=device, stats=stats, lu=lu)
+
+
+def gssvx_dist(options: Options, parts, b: np.ndarray,
+               lu: LUFactorization | None = None,
+               stats: Stats | None = None, device=None):
+    """Solve from a distributed row-block matrix (the reference's primary
+    pdgssvx signature, NRformat_loc input, SRC/pdgssvx.c:505).  ``parts``
+    is a list of :class:`~superlu_dist_tpu_torch.parallel.dist.
+    DistributedCSR` row blocks; they are assembled on the host (the
+    dReDistribute_A role, SRC/pddistribute.c:61: one gather, since the
+    analysis is single-address-space) and solved by :func:`gssvx`."""
+    return gssvx(options, gather_rows(parts), b, device=device, stats=stats,
+                 lu=lu)
 
 
 def _adjoint_solver(lu: LUFactorization, trans: Trans, cplx: bool):
@@ -676,7 +725,7 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
             row_perm=RowPerm.LargeDiag_MC64, replace_tiny_pivot=True,
             factor_dtype=esc if esc is not None else options.factor_dtype,
             gemm_prec="highest", iter_refine=IterRefine.SLU_DOUBLE,
-            user_perm_r=None,
+            print_stat=False, user_perm_r=None,
             # no recursion: the ladder itself reads this sub-solve's report
             recovery=dataclasses.replace(recovery, enabled=False,
                                          condest="never", sentinels=False))
@@ -769,6 +818,14 @@ def _solve_and_refine(options: Options, a: SparseCSR, b: np.ndarray,
     report = SolveReport(factor_dtype=_dtype_name(lu.numeric.dtype),
                          tiny_pivots=lu.numeric.tiny_pivots,
                          gemm_precision=lu.numeric.gemm_prec)
+    if stats.resume:
+        # a factorization resumed from a durable checkpoint is a ladder
+        # action in its own right: the answer rests partly on restored
+        # state, and the report says where it came from
+        report.rungs.append(RungRecord(
+            name="resume-from-checkpoint",
+            detail=f"{stats.resume['groups']}/{stats.resume['of']} groups "
+                   f"from {stats.resume['path']}"))
     stats.solve_report = report
     recovery = options.recovery
     lu_final = lu

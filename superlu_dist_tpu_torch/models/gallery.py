@@ -180,3 +180,69 @@ def zero_row_col(nx: int = 8, k: int | None = None, which: str = "row",
     out = SparseCSR(a.n_rows, a.n_cols, a.indptr, a.indices, data)
     out.grid_shape = a.grid_shape
     return out
+
+
+def anisotropic_poisson_2d(nx: int, eps: float = 1e-3,
+                           dtype=np.float64) -> SparseCSR:
+    """Anisotropic diffusion −u_xx − eps·u_yy: strong directional
+    coupling makes the ordering/fill behavior very different from the
+    isotropic Laplacian (a standard stress class for fill-reducing
+    orderings)."""
+    idx = np.arange(nx * nx).reshape(nx, nx)
+    st = _Stencil(dtype)
+    st.add(idx, idx, 2.0 + 2.0 * eps)
+    st.add(idx[:, 1:], idx[:, :-1], -1.0)     # u_xx along rows
+    st.add(idx[:, :-1], idx[:, 1:], -1.0)
+    st.add(idx[1:, :], idx[:-1, :], -eps)     # eps * u_yy across rows
+    st.add(idx[:-1, :], idx[1:, :], -eps)
+    return st.build(nx * nx, (nx, nx))
+
+
+def random_geometric_3d(n: int, k: int = 12, seed: int = 0,
+                        dtype=np.float64) -> SparseCSR:
+    """Irregular FEM-like matrix: n points in the unit cube, each coupled
+    to its k nearest neighbors, SPD-shifted values.  The audikw_1-class
+    surrogate (BASELINE config 5): no grid structure, irregular degree
+    distribution — the stress class for general-graph nested dissection."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 3))
+    # k-NN via cell binning (no scipy dependency): ~O(n·k)
+    ncell = max(1, int(round(n ** (1.0 / 3.0) / 2)))
+    cell = np.minimum((pts * ncell).astype(np.int64), ncell - 1)
+    rows_l, cols_l = [], []
+    # search own + neighbor cells
+    from collections import defaultdict
+    buckets = defaultdict(list)
+    for i in range(n):
+        buckets[(int(cell[i, 0]), int(cell[i, 1]), int(cell[i, 2]))].append(i)
+    for i in range(n):
+        cx, cy, cz = (int(cell[i, 0]), int(cell[i, 1]), int(cell[i, 2]))
+        cand = []
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dz in (-1, 0, 1):
+                    cand.extend(buckets.get((cx + dx, cy + dy, cz + dz),
+                                            ()))
+        cand = np.asarray([c for c in cand if c != i])
+        if len(cand) == 0:
+            continue
+        d = np.sum((pts[cand] - pts[i]) ** 2, axis=1)
+        near = cand[np.argsort(d)[:k]]
+        rows_l.append(np.full(len(near), i))
+        cols_l.append(near)
+    rows = np.concatenate(rows_l)
+    cols = np.concatenate(cols_l)
+    # symmetrize pattern, SPD-ish values: off-diag -1, diag = degree + 1
+    rows, cols = (np.concatenate([rows, cols, np.arange(n)]),
+                  np.concatenate([cols, rows, np.arange(n)]))
+    vals = np.full(len(rows), -1.0, dtype=dtype)
+    vals[-n:] = 0.0
+    a = coo_to_csr(n, n, rows, cols, vals)    # dedups, sums dups
+    # clamp duplicate-summed off-diagonals back to -1, then set the
+    # diagonal to (number of off-diagonal entries + 1): strictly
+    # diagonally dominant, hence nonsingular
+    deg = np.diff(a.indptr)
+    diag_mask = a.indices == np.repeat(np.arange(n), deg)
+    a.data[~diag_mask] = np.maximum(a.data[~diag_mask], -1.0)
+    a.data[diag_mask] = deg.astype(a.data.dtype)  # deg includes the diag
+    return a

@@ -11,7 +11,9 @@ the update pool.
 Where the JAX version returns new arrays, this one updates the pool in
 place: each group's front batch is built once by the assembly, the
 partial LU factors it in place, and the Schur block is copied into the
-pool, which lives on the device for the whole factorization.
+pool, which lives on the device for the whole factorization.  So a
+checkpoint (persist/checkpoint.py) copies the pool only at a group
+boundary, from inside the loop.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from superlu_dist_tpu_torch.numeric.kernels import GroupMaps
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan
 from superlu_dist_tpu_torch.ops.dense import (gemm_precision,
                                               group_partial_factor)
-from superlu_dist_tpu_torch.utils.errors import NumericBreakdownError
+from superlu_dist_tpu_torch.utils.errors import (CheckpointMismatchError,
+                                                 NumericBreakdownError)
 from superlu_dist_tpu_torch.utils.options import resolve_device
 
 #: the front assembly the main path runs; a caller may pass the plain
@@ -131,16 +134,35 @@ class NumericFactorization:
     info_col: int = -1        # first zero-pivot column (0-based, final
                               # labeling) when not finite
     gemm_prec: str = "default"   # the GEMM tier the factors ran at
+    resumed_groups: int = 0   # groups spliced from a checkpoint (resume_from)
 
     @property
     def device(self) -> torch.device:
         return self.fronts[0][0].device if self.fronts else torch.device("cpu")
 
 
+def _apply_resume(resume, plan: FactorPlan, dtype, device):
+    """A verified ResumeState on the device: (fronts of the first k groups,
+    the pool at boundary k).  The pool must come back in the factor dtype
+    it was written in (the value digest covers the dtype; this guards the
+    array itself)."""
+    want = np.dtype(str(dtype).replace("torch.", ""))
+    if resume.pool.dtype != want or resume.pool.shape != (plan.pool_size,):
+        raise CheckpointMismatchError(
+            f"checkpoint pool at {resume.path!r} is {resume.pool.dtype} "
+            f"{resume.pool.shape}, this run needs {want} "
+            f"({plan.pool_size},)")
+    fronts = [tuple(torch.tensor(x, device=device) for x in pair)
+              for pair in resume.fronts]
+    return fronts, torch.tensor(resume.pool, device=device)
+
+
 def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       anorm: float, dtype=torch.float64,
                       device="cuda", replace_tiny: bool = True,
                       check_finite: bool = True, gemm_prec: str | None = None,
+                      ckpt_dir: str | None = None, ckpt_every: int = 0,
+                      resume_from: str | None = None, deadline=None,
                       scatter=KERNELS, timings=None) -> NumericFactorization:
     """Factor with values aligned to plan.pattern_indices, on ``device``
     (the card unless the caller asks for the CPU; CUDA without a card
@@ -156,41 +178,99 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     input, and NumericBreakdownError names the first contaminated
     supernode.  ``gemm_prec`` is the Schur GEMMs' ladder tier
     (``ops/dense.gemm_precision``: None is "default", TF32 on the card).
+
+    Crash consistency (persist/): ``ckpt_dir`` / ``ckpt_every`` arm a
+    FactorCheckpointer that flushes the completed-group frontier every
+    ``ckpt_every`` groups and on deadline, breakdown or SIGTERM;
+    ``resume_from`` loads a checkpoint, verifies its plan fingerprint and
+    value digest against this call's inputs, and restarts the group loop
+    at its frontier — factors bit for bit equal to an uninterrupted run.
+    ``deadline`` (a utils.deadline.Deadline) is polled before every group.
     ``scatter`` and ``timings`` are passed to every ``group_step``.
     """
     device = resolve_device(device)
     plan.check_index_width()
     gemm_prec = gemm_precision(gemm_prec)
     # the threshold is compared with |pivot|: a tensor of the real
-    # component type (torch.finfo of a complex type is its component's)
+    # component type (torch.finfo of a complex type is its component's);
+    # its float, rounded to that type, is what the value digest records
     real_dtype = torch.empty((), dtype=dtype).real.dtype
     eps = torch.finfo(dtype).eps
-    thresh = torch.tensor(
+    thresh_host = torch.tensor(
         np.sqrt(eps) * max(anorm, 1e-300) if replace_tiny else 0.0,
-        dtype=real_dtype, device=device)
+        dtype=real_dtype)
+    thresh_f = float(thresh_host)
+    thresh = thresh_host.to(device)
+    resume = None
+    if resume_from:
+        from superlu_dist_tpu_torch.persist.checkpoint import load_checkpoint
+        resume = load_checkpoint(resume_from, plan=plan,
+                                 pattern_values=pattern_values,
+                                 thresh=thresh_f, dtype=dtype,
+                                 gemm_prec=gemm_prec)
     avals = torch.as_tensor(np.asarray(pattern_values), device=device).to(dtype)
     maps = upload_maps(plan, device)
-    pool = torch.zeros(plan.pool_size, dtype=dtype, device=device)
-    fronts = []
     tiny = torch.zeros((), dtype=torch.int64, device=device)
-    for grp, gm in zip(plan.groups, maps):
-        packed, t = group_step((grp.batch, grp.m, grp.w, grp.u), avals, pool,
-                               thresh, gm, gemm_prec=gemm_prec,
-                               scatter=scatter, timings=timings)
-        fronts.append(packed)
-        tiny += t
-    del pool
-    finite, info_col = True, -1
-    if not replace_tiny:
-        finite, info_col = localize_singularity(plan, fronts)
-    elif check_finite and not fronts_finite(fronts):
-        sn, col = localize_nonfinite(plan, fronts)
-        raise NumericBreakdownError(supernode=sn, col=col,
-                                    where="numeric factorization")
+    start = tiny_resumed = 0
+    if resume is None:
+        pool = torch.zeros(plan.pool_size, dtype=dtype, device=device)
+        fronts = []
+    else:
+        fronts, pool = _apply_resume(resume, plan, dtype, device)
+        start, tiny_resumed = resume.k, resume.tiny
+    ckpt = None
+    if ckpt_dir or ckpt_every > 0:
+        from superlu_dist_tpu_torch.persist.checkpoint import (
+            FactorCheckpointer)
+        ckpt = FactorCheckpointer(ckpt_dir or ".slu_ckpt", plan,
+                                  pattern_values, thresh_f, dtype,
+                                  every=int(ckpt_every), gemm_prec=gemm_prec)
+        if resume is not None:
+            ckpt.seed(resume)
+    try:
+        for gi, (grp, gm) in enumerate(zip(plan.groups, maps)):
+            if gi < start:
+                continue
+            if deadline is not None:
+                # a group boundary: the latest noted frontier is the pool
+                # as it stands
+                deadline.poll(where="numeric factorization", on_expire=(
+                    None if ckpt is None
+                    else (lambda: ckpt.flush_latest("deadline"))))
+            packed, t = group_step((grp.batch, grp.m, grp.w, grp.u), avals,
+                                   pool, thresh, gm, gemm_prec=gemm_prec,
+                                   scatter=scatter, timings=timings)
+            fronts.append(packed)
+            tiny += t
+            if ckpt is not None:
+                ckpt.note(gi, fronts, pool, tiny)
+        del pool        # a checkpointer keeps its own reference
+        finite, info_col = True, -1
+        if not replace_tiny:
+            finite, info_col = localize_singularity(plan, fronts)
+        elif check_finite and not fronts_finite(fronts):
+            sn, col = localize_nonfinite(plan, fronts)
+            err = NumericBreakdownError(supernode=sn, col=col,
+                                        where="numeric factorization")
+            # the loop's end is a boundary: the frontier may include the
+            # contaminated group (crash consistency, not numerical
+            # validity — a resume reproduces the breakdown)
+            err.checkpoint_path = (ckpt.flush_latest("numeric-breakdown")
+                                   if ckpt is not None else None)
+            raise err
+    except BaseException:
+        if ckpt is not None:
+            # keep the flushed frontier on disk, but deregister: a later
+            # factorization's SIGTERM must not reach this one's refs
+            ckpt.complete(cleanup=False)
+        raise
+    if ckpt is not None:
+        ckpt.complete(cleanup=True)
     return NumericFactorization(plan=plan, fronts=fronts,
-                                tiny_pivots=int(tiny), dtype=dtype,
-                                finite=finite, info_col=info_col,
-                                gemm_prec=gemm_prec)
+                                tiny_pivots=int(tiny) + tiny_resumed,
+                                dtype=dtype, finite=finite, info_col=info_col,
+                                gemm_prec=gemm_prec,
+                                resumed_groups=start)
 
 
 def fronts_finite(fronts) -> bool:
@@ -250,3 +330,15 @@ def localize_singularity(plan: FactorPlan, fronts):
     if bad_cols:
         return False, min(bad_cols)
     return True, -1
+
+
+def query_space(numeric: NumericFactorization) -> dict:
+    """Memory held by the factorization — the dQuerySpace_dist analog
+    (SRC/dmemory_dist.c:73): packed-front (L+U) bytes plus the transient
+    Schur update pool."""
+    itemsize = torch.empty((), dtype=numeric.dtype).element_size()
+    front_b = sum(lp.numel() + up.numel() for lp, up in numeric.fronts) \
+        * itemsize
+    pool_b = int(numeric.plan.pool_size) * itemsize
+    return {"for_lu_bytes": front_b, "pool_bytes": pool_b,
+            "total_bytes": front_b + pool_b}

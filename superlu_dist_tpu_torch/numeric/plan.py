@@ -100,6 +100,14 @@ class FactorPlan:
     closed: bool = False           # shape-key set closed onto ladder rungs
     bucket_set: tuple = ()         # sorted distinct (W, U) keys over groups
 
+    def __getstate__(self):
+        # the device-map cache (numeric/factor.upload_maps) holds tensors on
+        # a device: a pickled plan (persist/serial.save_lu) leaves it out,
+        # and it is rebuilt at first use
+        state = dict(self.__dict__)
+        state.pop("_device_maps", None)
+        return state
+
     @property
     def n_levels(self) -> int:
         return int(self.sf.sn_level.max()) + 1 if len(self.sf.sn_level) else 0

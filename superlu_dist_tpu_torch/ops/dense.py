@@ -181,7 +181,7 @@ _UNROLL = 16         # panel width factored by the unrolled column loop
 def _lu_masked(a: torch.Tensor, thresh: torch.Tensor):
     """Unpivoted LU of a batch of small blocks (B, k, k) with tiny-pivot
     replacement, one rank-1 step per column (the JAX package's
-    ``_lu_masked``, with the same write-back arithmetic).  Returns
+    ``_lu_masked``; the multipliers are written directly).  Returns
     (packed LU, tiny (B, k) int32 per-column flags)."""
     b, k, _ = a.shape
     idx = torch.arange(k, device=a.device)
@@ -197,10 +197,10 @@ def _lu_masked(a: torch.Tensor, thresh: torch.Tensor):
         l = torch.where(below, col_i / piv[:, None], zero)
         u = torch.where(below, row_i, zero)
         a -= l[:, :, None] * u[:, None, :]
-        new_col = (torch.where(below, l, col_i)
-                   + (piv - piv_raw)[:, None] * (idx == i).to(a.dtype))
-        cur = a[:, :, i]
-        a[:, :, i] = cur + (new_col - cur)
+        # the multipliers are stored as computed (the JAX package's
+        # cur + (new − cur) loses eps·|pivot| of them, ROADMAP.md)
+        a[:, :, i] = (torch.where(below, l, col_i)
+                      + (piv - piv_raw)[:, None] * (idx == i).to(a.dtype))
         flags[:, i] += tiny
     return a, flags
 
@@ -275,12 +275,12 @@ def _blocked_partial_factor(f: torch.Tensor, thresh: torch.Tensor, w: int,
             l = torch.where(below, col / piv[:, None], zero)
             urow = torch.where(cols_pb > jj, rowj, zero)
             panel -= l[:, :, None] * urow[:, None, :]
-            # write the multipliers + fixed pivot back into column jj, with
-            # the JAX version's arithmetic (cur + (new - cur))
-            newcol = (torch.where(below, l, col)
-                      + (piv - piv_raw)[:, None] * (rows == j).to(f.dtype))
-            cur = panel[:, :, jj]
-            panel[:, :, jj] = cur + (newcol - cur)
+            # write the multipliers + fixed pivot into column jj as
+            # computed: the JAX version's cur + (new − cur) keeps only
+            # eps·|pivot| of a multiplier's relative accuracy (ROADMAP.md)
+            panel[:, :, jj] = (torch.where(below, l, col)
+                               + (piv - piv_raw)[:, None]
+                               * (rows == j).to(f.dtype))
             flags[:, j] += tiny
         c1 = j0 + pb
         if c1 < m_ext:

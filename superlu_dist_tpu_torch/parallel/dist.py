@@ -6,8 +6,10 @@ resident on the device, so iterative refinement's residual runs next to
 the factors instead of on the host.  The upload (pattern, values and
 |values|) happens once and is amortized over every refinement step and
 repeated solve (the pdgsmv_init / SOLVEstruct discipline,
-SRC/pdgsmv.c:31).  The rest of that JAX module (the distributed-input
-paths, the sharded SpMV) belongs to the multi-GPU slice.
+SRC/pdgsmv.c:31).  Beside it, the distributed-input format of that
+module: ``DistributedCSR`` (NRformat_loc) with ``distribute_rows`` and
+``gather_rows``, the input path of ``drivers/gssvx.gssvx_dist``.  The
+sharded SpMV belongs to the multi-GPU slice.
 
 The product is ``csr_spmv``: on a CUDA tensor the hand-written kernel
 ``csrc/csr_spmv.cu`` (one thread per output element, CSR order, every
@@ -20,6 +22,7 @@ fallback between them: a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -172,3 +175,101 @@ class DeviceSpMV:
     def abs_matvec(self, x: np.ndarray) -> np.ndarray:
         # |A|·x, NOT |A|·|x| — same contract as SparseCSR.abs_matvec
         return self._apply(self._avals, x)
+
+
+@dataclasses.dataclass
+class DistributedCSR:
+    """One rank's row block (the NRformat_loc analog, SRC/supermatrix.h:
+    175-188): m_loc local rows starting at global row fst_row, with local
+    row pointers and global column indices."""
+
+    n: int                 # global dimension
+    m_loc: int
+    fst_row: int
+    indptr: np.ndarray     # (m_loc+1,) local row pointers
+    indices: np.ndarray    # global column indices
+    data: np.ndarray
+
+    @property
+    def nnz_loc(self) -> int:
+        return int(self.indptr[-1])
+
+    def _rows(self) -> np.ndarray:
+        return np.repeat(np.arange(self.m_loc), np.diff(self.indptr))
+
+    def matvec_local(self, x_global: np.ndarray) -> np.ndarray:
+        """Local rows of A·x given the full x, (n,) or (n, nrhs)
+        (pdgsmv's compute phase)."""
+        rows = self._rows()
+        x = np.asarray(x_global)
+        if x.ndim > 1:
+            out = np.zeros((self.m_loc, x.shape[1]),
+                           dtype=np.result_type(self.data, x))
+            np.add.at(out, rows, self.data[:, None] * x[self.indices])
+            return out
+        contrib = self.data * x[self.indices]
+        if np.iscomplexobj(contrib):
+            return (np.bincount(rows, weights=contrib.real,
+                                minlength=self.m_loc)
+                    + 1j * np.bincount(rows, weights=contrib.imag,
+                                       minlength=self.m_loc))
+        return np.bincount(rows, weights=contrib, minlength=self.m_loc)
+
+    def abs_matvec_local(self, x: np.ndarray) -> np.ndarray:
+        """Local rows of |A|·x (the berr denominator in refinement)."""
+        contrib = np.abs(self.data) * np.asarray(x)[self.indices]
+        return np.bincount(self._rows(), weights=contrib,
+                           minlength=self.m_loc)
+
+    def matvec_trans_local(self, x_global: np.ndarray,
+                           conj: bool = False) -> np.ndarray:
+        """This rank's full-length contribution to op(A)·x, op = Aᵀ/Aᴴ:
+        out[j] += v̄·x[i] over local entries (i, j, v); the ranks' returns
+        sum to op(A)·x."""
+        vals = np.conj(self.data) if conj else self.data
+        contrib = vals * np.asarray(x_global)[self.fst_row + self._rows()]
+        out = np.zeros(self.n, dtype=np.result_type(contrib, np.float64))
+        np.add.at(out, self.indices, contrib)
+        return out
+
+    def abs_matvec_trans_local(self, x: np.ndarray) -> np.ndarray:
+        """Full-length contribution to |op(A)|·x (|Aᵀ| = |A|ᵀ = |Aᴴ|)."""
+        contrib = (np.abs(self.data)
+                   * np.asarray(x)[self.fst_row + self._rows()])
+        out = np.zeros(self.n)
+        np.add.at(out, self.indices, contrib)
+        return out
+
+
+def distribute_rows(a: SparseCSR, nparts: int) -> list[DistributedCSR]:
+    """Block-row partition of A (the dcreate_matrix scatter,
+    EXAMPLE/dcreate_matrix.c:66): part p gets rows [p·⌈n/P⌉, ...)."""
+    n = a.n_rows
+    step = -(-n // nparts)
+    out = []
+    for p in range(nparts):
+        lo = min(p * step, n)
+        hi = min(lo + step, n)
+        indptr = a.indptr[lo:hi + 1].astype(np.int64)
+        s, e = int(indptr[0]), int(indptr[-1])
+        out.append(DistributedCSR(
+            n=n, m_loc=hi - lo, fst_row=lo, indptr=indptr - s,
+            indices=a.indices[s:e].copy(), data=a.data[s:e].copy()))
+    return out
+
+
+def gather_rows(parts: list[DistributedCSR]) -> SparseCSR:
+    """Inverse of distribute_rows (pdCompRow_loc_to_CompCol_global
+    analog, SRC/pdutil.c)."""
+    parts = sorted(parts, key=lambda p: p.fst_row)
+    n = parts[0].n
+    indptr = [np.zeros(1, dtype=np.int64)]
+    indices, data = [], []
+    base = 0
+    for p in parts:
+        indptr.append(p.indptr[1:].astype(np.int64) + base)
+        base += p.nnz_loc
+        indices.append(p.indices)
+        data.append(p.data)
+    return SparseCSR(n, n, np.concatenate(indptr), np.concatenate(indices),
+                     np.concatenate(data))

@@ -9,8 +9,8 @@ segments, solves its diagonal triangles by recursive blocked TRSM
 (``_trsm``, leaf 64: the off-diagonal blocks become batched GEMMs at the
 solver's GEMM tier) or, with DiagInv, by one GEMM with the precomputed
 inverse, and scatter-adds the L21·y contributions into the lsum vector
-(``index_add_``); the factors never leave the device, only the
-right-hand side crosses.
+(``_scatter_add``, in slot order: ``scatter_layers``); the factors
+never leave the device, only the right-hand side crosses.
 
 Sweep batches come from the solve plan (dataflow by default): batches
 that coincide with a factor group alias its panel arrays; merged batches
@@ -23,9 +23,11 @@ cap (``_run_sweeps``).
 sweep: on the card each (sweep direction, nrhs bucket, trans/conj) is one
 ``torch.cuda.CUDAGraph``, captured on static (n+1, kb) buffers at first
 use and replayed; the closed bucket set bounds the number of graphs.
-The CPU runs the same bodies eagerly.  ``index_add_`` into lsum uses
-float atomics on the card, so a solve there is not bitwise reproducible:
-fused and eager sweeps agree to the device-vs-host gate, not bit for bit.
+The CPU runs the same bodies eagerly.  Every operation of a sweep is
+deterministic — the lsum scatter adds each row's contributions in slot
+order, and no two float atomics ever meet on an address — so on the card
+two solves on one handle are bit for bit equal, and so are a fused and
+an eager one.
 
 The transposed system (L·U)ᵀ·x = d (conjugated under ``conj``) runs
 through the same factors: Uᵀ leads, walking the batches bottom-up, then
@@ -80,7 +82,54 @@ def _trsm(a, b, lower, unit, trans, leaf, prec="highest"):
     return torch.cat([x1, x2], dim=1)
 
 
-def _fwd_body(lpanel, x, lsum, cols, rows, w, u, linv, leaf, prec):
+def scatter_layers(rows: np.ndarray, n: int):
+    """The fixed-order plan of one batch's lsum scatter.
+
+    ``rows`` (B, u) are the target rows of the batch's contributions, n the
+    dump row of padding.  Sibling fronts share ancestor rows, so a real
+    row can be hit by several slots.  Layer j holds the j-th hit of every
+    real row in slot order (and, in layer 0, every dump-row entry, all of
+    which add exact zeros): within a layer no real row repeats, so one
+    ``index_add_`` per layer adds each row at most once — no two atomics
+    meet on an address, and the sum runs in slot order, the CPU's order.
+    Returns None when no real row repeats (one launch on ``rows`` as they
+    are), else (perm, [(lo, hi, targets)]): the flat contributions
+    reordered by layer and each layer's span and target rows."""
+    flat = rows.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    srt = flat[order]
+    run_start = np.r_[0, np.nonzero(np.diff(srt))[0] + 1]
+    occ = np.empty(len(flat), dtype=np.int64)
+    occ[order] = np.arange(len(flat)) - np.repeat(
+        run_start, np.diff(np.r_[run_start, len(flat)]))
+    occ[flat == n] = 0
+    if occ.max(initial=0) == 0:
+        return None
+    perm, parts, lo = [], [], 0
+    for j in range(int(occ.max()) + 1):
+        pos = np.nonzero(occ == j)[0]
+        perm.append(pos)
+        parts.append((lo, lo + len(pos), flat[pos]))
+        lo += len(pos)
+    return np.concatenate(perm), parts
+
+
+def _scatter_add(lsum, rows, contrib, layers):
+    """lsum[rows] += contrib for a batch's (B, u, k) contributions, one
+    ``index_add_`` per layer of ``layers`` (``scatter_layers``, uploaded):
+    deterministic on the card — no real row is added twice in one launch,
+    so float atomics never race — and in slot order everywhere."""
+    c = contrib.reshape(-1, contrib.shape[-1])
+    if layers is None:
+        lsum.index_add_(0, rows.reshape(-1), c)
+        return
+    perm, parts = layers
+    c = c[perm]
+    for lo, hi, targets in parts:
+        lsum.index_add_(0, targets, c[lo:hi])
+
+
+def _fwd_body(lpanel, x, lsum, cols, rows, layers, w, u, linv, leaf, prec):
     """x[cols] <- L11⁻¹(x[cols] − lsum[cols]); lsum[rows] += L21·x[cols].
     With ``linv`` (DiagInv) the triangular solve is one GEMM with the
     precomputed inverse (pdgstrs.c:1252-1396)."""
@@ -91,9 +140,7 @@ def _fwd_body(lpanel, x, lsum, cols, rows, w, u, linv, leaf, prec):
         y = _trsm(lpanel[:, :w, :w], rhs, True, True, False, leaf, prec)
     x[cols] = y
     if u:
-        contrib = torch.matmul(lpanel[:, w:, :], y)     # (B, u, k)
-        lsum.index_add_(0, rows.reshape(-1),
-                        contrib.reshape(-1, contrib.shape[-1]))
+        _scatter_add(lsum, rows, torch.matmul(lpanel[:, w:, :], y), layers)
 
 
 def _bwd_body(lpanel, upanel, x, cols, rows, w, u, uinv, leaf, prec):
@@ -108,8 +155,8 @@ def _bwd_body(lpanel, upanel, x, cols, rows, w, u, uinv, leaf, prec):
     x[cols] = y
 
 
-def _fwd_body_trans(lpanel, upanel, x, lsum, cols, rows, w, u, conj, leaf,
-                    prec):
+def _fwd_body_trans(lpanel, upanel, x, lsum, cols, rows, layers, w, u, conj,
+                    leaf, prec):
     """Transposed forward sweep: x[cols] <- U11⁻ᵀ(x[cols] − lsum[cols]);
     lsum[rows] += U12ᵀ·x[cols].  Mᵀ = UᵀLᵀ, so Uᵀ (lower) leads — the
     trans_t path through the same factors (superlu_defs.h:628-657)."""
@@ -121,9 +168,7 @@ def _fwd_body_trans(lpanel, upanel, x, lsum, cols, rows, w, u, conj, leaf,
     x[cols] = y
     if u:
         u12 = upanel.conj() if conj else upanel         # (B, w, u)
-        contrib = torch.matmul(u12.mT, y)
-        lsum.index_add_(0, rows.reshape(-1),
-                        contrib.reshape(-1, contrib.shape[-1]))
+        _scatter_add(lsum, rows, torch.matmul(u12.mT, y), layers)
 
 
 def _bwd_body_trans(lpanel, x, cols, rows, w, u, conj, leaf, prec):
@@ -223,10 +268,16 @@ class DeviceSolver:
             for slot, s in enumerate(sg.sns):
                 r = sf.sn_rows[s]
                 rows[slot, :len(r)] = r
+            layers = scatter_layers(rows, self.n)
+            if layers is not None:
+                dev = self.device
+                layers = (torch.as_tensor(layers[0], device=dev),
+                          [(lo, hi, torch.as_tensor(t, device=dev))
+                           for lo, hi, t in layers[1]])
             self._groups.append(
                 (sg, torch.as_tensor(cols, dtype=torch.int64,
                                      device=self.device),
-                 torch.as_tensor(rows, device=self.device)))
+                 torch.as_tensor(rows, device=self.device), layers))
             if sg.reuse >= 0:
                 self.fronts.append(fact.fronts[sg.reuse])
             else:
@@ -280,7 +331,7 @@ class DeviceSolver:
                 with matmul_tf32(False):
                     self._invs_cached = [
                         _diag_inv(lp, sg.w, self.trsm_leaf, self.gemm_prec)
-                        for (sg, _, _), (lp, _) in zip(self._groups,
+                        for (sg, *_), (lp, _) in zip(self._groups,
                                                        self.fronts)]
             else:
                 self._invs_cached = [(None, None)] * len(self._groups)
@@ -317,12 +368,12 @@ class DeviceSolver:
             invs = self._invs
             if direction == "fwd":
                 lsum.zero_()
-                for ((sg, cols, rows), (lp, _)), (linv, _) in zip(batches,
-                                                                  invs):
-                    _fwd_body(lp, x, lsum, cols, rows, sg.w, sg.u, linv,
+                for ((sg, cols, rows, lay), (lp, _)), (linv, _) in zip(
+                        batches, invs):
+                    _fwd_body(lp, x, lsum, cols, rows, lay, sg.w, sg.u, linv,
                               leaf, prec)
             else:
-                for ((sg, cols, rows), (lp, up)), (_, uinv) in zip(
+                for ((sg, cols, rows, _), (lp, up)), (_, uinv) in zip(
                         reversed(batches), reversed(invs)):
                     _bwd_body(lp, up, x, cols, rows, sg.w, sg.u, uinv, leaf,
                               prec)
@@ -330,11 +381,11 @@ class DeviceSolver:
         conj = mode == "C"
         if direction == "fwd":
             lsum.zero_()
-            for (sg, cols, rows), (lp, up) in batches:
-                _fwd_body_trans(lp, up, x, lsum, cols, rows, sg.w, sg.u,
+            for (sg, cols, rows, lay), (lp, up) in batches:
+                _fwd_body_trans(lp, up, x, lsum, cols, rows, lay, sg.w, sg.u,
                                 conj, leaf, prec)
         else:
-            for (sg, cols, rows), (lp, _) in reversed(batches):
+            for (sg, cols, rows, _), (lp, _) in reversed(batches):
                 _bwd_body_trans(lp, x, cols, rows, sg.w, sg.u, conj, leaf,
                                 prec)
 

@@ -48,7 +48,7 @@ class PatternMismatchError(SuperLUError):
     the plan reused), so drift is a typed error: re-analyze with
     ``Fact=DOFACT`` to factor the new pattern.  ``expected_digest`` and
     ``got_digest`` are the sha256 pattern digests
-    (``drivers/gssvx.pattern_digest``) where both sides could compute one."""
+    (``persist/serial.pattern_digest``) where both sides could compute one."""
 
     def __init__(self, reason: str, expected_digest: str = "",
                  got_digest: str = "", n: int = -1, nnz: int = -1):
@@ -96,3 +96,57 @@ class RefactorRollbackError(SuperLUError):
             f"refactor of handle {key!r} rolled back at the {stage} "
             f"check{at}{why}{gate}{back} — the previous consistent "
             "factorization keeps serving")
+
+
+class DeadlineExceededError(SuperLUError):
+    """The cooperative deadline (``Options.deadline_s``) expired between
+    dispatch groups.  The factor loop writes a checkpoint of the
+    completed-group frontier first (when checkpointing is armed), so the
+    work done before cancellation is durable — ``checkpoint_path`` names it
+    and ``gssvx(resume_from=...)`` restarts from it.  ``expired_ranks`` is
+    0 for the single-process check (the multi-rank decision is not
+    ported)."""
+
+    def __init__(self, deadline_s: float, elapsed_s: float, where: str = "",
+                 checkpoint_path: str | None = None,
+                 expired_ranks: int = 0):
+        self.deadline_s = float(deadline_s)
+        self.elapsed_s = float(elapsed_s)
+        self.where = where
+        self.checkpoint_path = checkpoint_path
+        self.expired_ranks = int(expired_ranks)
+        stage = f" during {where}" if where else ""
+        ck = (f"; frontier checkpointed at {checkpoint_path}"
+              if checkpoint_path else "")
+        ranks = (f" ({expired_ranks} rank(s) over budget)"
+                 if expired_ranks else "")
+        super().__init__(
+            f"cooperative deadline of {deadline_s:.3f}s exceeded"
+            f"{stage} after {elapsed_s:.3f}s{ranks}{ck}")
+
+
+class CheckpointError(SuperLUError):
+    """A persisted bundle (LU handle or factor checkpoint) is unusable:
+    missing manifest, structural mismatch, or an unreadable artifact.
+    Subclasses distinguish the failure families so callers can decide
+    between 'refactor from scratch' and 'operator error'."""
+
+
+class CheckpointCorruptError(CheckpointError):
+    """Integrity failure: a per-array digest mismatch or a truncated
+    array file.  Raised instead of returning garbage factors — the
+    whole point of the manifest (persist/serial.py)."""
+
+
+class CheckpointVersionError(CheckpointError):
+    """The bundle's format version is not one this build can read
+    (persist.FORMAT_VERSION)."""
+
+
+class CheckpointMismatchError(CheckpointError):
+    """The checkpoint is internally consistent but belongs to a
+    DIFFERENT factorization — plan fingerprint, value digest, dtype,
+    threshold or GEMM tier differ from the run trying to resume — or the
+    bundle was written by another package whose structures this one does
+    not load.  Resuming would silently splice incompatible frontiers, so
+    this is a hard error."""

@@ -139,6 +139,44 @@ class Options:
     # user-supplied permutations for MY_PERMC / MY_PERMR
     user_perm_c: object = dataclasses.field(default=None, compare=False)
     user_perm_r: object = dataclasses.field(default=None, compare=False)
+    print_stat: bool = False          # print the options banner and the
+                                      # Stats report after each gssvx
+    # crash consistency (persist/): a cooperative factorization deadline
+    # in seconds, polled between dispatch groups (None = off), the
+    # checkpoint interval in completed groups (0 = off) and the
+    # checkpoint directory ("" = .slu_ckpt in the working directory)
+    deadline_s: float | None = None
+    ckpt_every: int = 0
+    ckpt_dir: str = ""
+
+    def __post_init__(self):
+        # the JAX package reads these from SLU_TPU_DEADLINE_S and
+        # SLU_TPU_CKPT_EVERY, where 0 means off
+        if not self.deadline_s:
+            self.deadline_s = None
+        elif self.deadline_s < 0:
+            raise ValueError(f"deadline_s must be positive or None, got "
+                             f"{self.deadline_s!r}")
+        if int(self.ckpt_every) < 0:
+            raise ValueError(f"ckpt_every must be >= 0, got "
+                             f"{self.ckpt_every!r}")
+
+
+def print_options(o: Options) -> str:
+    """print_options_dist analog (SRC/util.c:405-439)."""
+    lines = ["**************************************************",
+             ".. options:"]
+    for f in dataclasses.fields(o):
+        v = getattr(o, f.name)
+        if f.name in ("user_perm_c", "user_perm_r"):
+            # summarize, never dump an n-entry permutation into the banner
+            v = None if v is None else f"<perm len={len(v)}>"
+        elif f.name == "recovery":
+            v = (f"enabled={v.enabled} sentinels={v.sentinels} "
+                 f"condest={v.condest}")
+        lines.append(f"**    {f.name:<20s} {getattr(v, 'name', v)}")
+    lines.append("**************************************************")
+    return "\n".join(lines)
 
 
 def resolve_device(device) -> torch.device:

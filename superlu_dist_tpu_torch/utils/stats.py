@@ -87,6 +87,15 @@ class Stats:
     tiny_pivots: int = 0          # reference: stat->TinyPivots (pdgstrf2.c:226)
     refine_steps: int = 0         # reference: stat->RefineSteps
     solve_report: object = None   # SolveReport of the last driver solve
+    sched: dict = field(default_factory=dict)   # FactorPlan.schedule_stats
+                                  # of the last factorization
+    resume: dict = field(default_factory=dict)  # {"groups", "of", "path"}
+                                  # when FACT resumed from a checkpoint
+    for_lu_bytes: int = 0         # packed L+U fronts (query_space)
+    pool_bytes: int = 0           # the Schur update pool
+    current_memory_bytes: int = 0
+    peak_memory_bytes: int = 0    # on the card: torch.cuda.max_memory_
+                                  # allocated after FACT
 
     @contextlib.contextmanager
     def timer(self, phase: str):
@@ -100,13 +109,29 @@ class Stats:
             self.utime[phase] = (self.utime.get(phase, 0.0)
                                  + time.perf_counter() - t0)
 
+    def log_memory(self, nbytes: int):
+        """Analog of log_memory (SRC/util.c:914): delta accounting
+        (allocations positive, frees negative) with a running peak."""
+        self.current_memory_bytes += nbytes
+        self.peak_memory_bytes = max(self.peak_memory_bytes,
+                                     self.current_memory_bytes)
+
+    def observe_memory(self, nbytes: int):
+        """Replace the current gauge (a new factorization supersedes the
+        previous one's), keeping the peak across refactorizations on one
+        Stats."""
+        self.current_memory_bytes = nbytes
+        self.peak_memory_bytes = max(self.peak_memory_bytes, nbytes)
+
     def gflops(self, phase: str) -> float:
         t = self.utime.get(phase, 0.0)
         return (self.ops.get(phase, 0.0) / t / 1e9) if t > 0 else 0.0
 
     def report(self) -> str:
-        """PStatPrint analog (SRC/util.c:484-534): phase times + Mflops."""
-        lines = ["**** Time (seconds) ****"]
+        """PStatPrint analog (SRC/util.c:484-534): phase times + Mflops,
+        the dispatch schedule, resume, memory and solve-health blocks."""
+        lines = ["**************************************************",
+                 "**** Time (seconds) ****"]
         for p in PHASES:
             if self.utime.get(p, 0.0) > 0 or self.ops.get(p, 0.0) > 0:
                 lines.append(f"    {p:<10s} time {self.utime.get(p, 0.0):10.4f}")
@@ -114,10 +139,39 @@ class Stats:
             if self.ops.get(p, 0.0) > 0:
                 lines.append(f"    {p} flops {self.ops[p]:.6e}\t"
                              f"Mflops {self.gflops(p) * 1e3:10.2f}")
+        if self.sched:
+            # group count vs the level-lockstep partition, mean fronts per
+            # dispatch, padding, serial depth (numeric/plan.py)
+            s = self.sched
+            lines.append(
+                f"    schedule {s.get('schedule', '?'):<9s} "
+                f"groups {s.get('n_groups', 0):4d} "
+                f"(level {s.get('n_level_groups', 0)})  "
+                f"occupancy {s.get('occupancy', 0.0):6.2f}  "
+                f"padding {s.get('padding_factor', 0.0):5.2f}x  "
+                f"critical path {s.get('critical_path', 0)}"
+                + (f"  moved {s['bytes_moved'] / 1e6:8.1f} MB"
+                   if s.get("bytes_moved") else ""))
+        if self.resume:
+            lines.append(
+                f"    resumed  {self.resume.get('groups', 0)}/"
+                f"{self.resume.get('of', 0)} groups from checkpoint "
+                f"{self.resume.get('path', '?')}")
         if self.tiny_pivots:
             lines.append(f"    tiny pivots replaced: {self.tiny_pivots}")
         if self.refine_steps:
             lines.append(f"    refinement steps: {self.refine_steps}")
         if self.solve_report is not None:
             lines.append(f"    solve health: {self.solve_report.summary()}")
+        if self.for_lu_bytes:
+            # dQuerySpace_dist-style report (SRC/dmemory_dist.c:73)
+            lines.append(f"    L\\U storage {self.for_lu_bytes / 1e6:10.2f} MB"
+                         f"\tupdate pool {self.pool_bytes / 1e6:10.2f} MB")
+        if self.peak_memory_bytes:
+            lines.append(f"    peak device memory "
+                         f"{self.peak_memory_bytes / 1e6:10.2f} MB")
+        lines.append("**************************************************")
         return "\n".join(lines)
+
+    def print(self):
+        print(self.report())

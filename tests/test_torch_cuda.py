@@ -3,7 +3,9 @@ standalone wrappers (K1, K2) against their plain PyTorch versions (bit
 for bit) in float32, float64, complex64 and complex128, the factorization
 through the kernel against the one through the plain version (real and
 complex), gssvx on the card, transposed and conjugate solves on the card
-against the same solves on the CPU, and refactor on the card.
+against the same solves on the CPU, refactor on the card, solves that are
+bit for bit reproducible (fused and eager), and save_lu / load_lu and a
+deadline-stopped factorization resumed, on the card.
 
 These tests need an NVIDIA GPU and skip without one.  The JAX package is
 not installed beside the card, so run them without the repo's conftest:
@@ -303,21 +305,24 @@ def _helmholtz3d(a, k=5.0):
     return slt.SparseCSR(a.n_rows, a.n_cols, a.indptr, a.indices, vals)
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("conj", [False, True])
 @pytest.mark.parametrize("nrhs", [1, 16])
-def test_fused_and_eager_sweeps_agree(cuda, nrhs, conj):
-    """poisson3d(16) (complex values for CONJ): the CUDA-graph sweeps and
-    the eager ones agree to the device-vs-host gate (lsum's atomics make
-    neither bitwise reproducible), in both directions, and a second
-    replay agrees with the first."""
+def test_fused_and_eager_sweeps_agree(cuda, nrhs, conj, dtype):
+    """poisson3d(16) (complex values for CONJ): the lsum scatter sums in
+    a fixed order, so two fused (CUDA graph) solves on one handle are
+    bit for bit equal, two eager ones are, and the fused and eager sweeps
+    agree bit for bit too, in both directions."""
     from superlu_dist_tpu_torch.solve.device import DeviceSolver
     a = poisson3d(16)
     if conj:
         a = _helmholtz3d(a)
     lu, bvals, _ = slt.analyze(slt.Options(), a, device=cuda)
-    num = factor.numeric_factorize(lu.plan, bvals, lu.anorm,
-                                   dtype=torch.complex128 if conj
-                                   else torch.float64, device=cuda)
+    dt = {("float64", False): torch.float64, ("float32", False): torch.float32,
+          ("float64", True): torch.complex128,
+          ("float32", True): torch.complex64}[dtype, conj]
+    num = factor.numeric_factorize(lu.plan, bvals, lu.anorm, dtype=dt,
+                                   device=cuda)
     rng = np.random.default_rng(3)
     d = rng.standard_normal((lu.n, nrhs))
     if conj:
@@ -325,12 +330,13 @@ def test_fused_and_eager_sweeps_agree(cuda, nrhs, conj):
     fused = DeviceSolver(num, fused=True)
     eager = DeviceSolver(num, fused=False)
     assert fused.fused and not eager.fused
-    tol = dict(rtol=tols.DEVICE_VS_HOST_RTOL, atol=tols.DEVICE_VS_HOST_ATOL)
     for solve in ((lambda s: s.solve(d)),
                   (lambda s: s.solve_trans(d, conj=conj))):
         want = solve(eager)
-        np.testing.assert_allclose(solve(fused), want, **tol)
-        np.testing.assert_allclose(solve(fused), want, **tol)   # replay
+        assert np.array_equal(solve(eager), want)
+        got = solve(fused)
+        assert np.array_equal(solve(fused), got)        # replay
+        assert np.array_equal(got, want)
     assert fused.memory_stats()["graphs"] == 4
     assert fused.last_solve_stats["fused"]
 
@@ -374,3 +380,47 @@ def test_gssvx_refines_through_the_device_spmv(cuda):
     assert lu.dev_solver.fused and lu.dev_solver.splan.schedule == "dataflow"
     slt.gssvx(slt.Options(fact=slt.Fact.FACTORED), a, b, lu=lu)
     assert [v[1] for v in lu.dev_spmv.values()] == [op]
+
+
+def test_save_load_and_resume_on_the_card(cuda, tmp_path):
+    """poisson3d(12) on the card, float32 factors at the default tier:
+    save_lu/load_lu gives torch.equal fronts on the card and a FACTORED
+    solve at the float64 gate; a factorization stopped by a deadline at a
+    group boundary resumes to fronts torch.equal to the uninterrupted
+    ones (the same launches, the same cuBLAS calls)."""
+    from superlu_dist_tpu_torch.persist import checkpoint
+    from superlu_dist_tpu_torch.utils.deadline import Deadline
+
+    class Countdown(Deadline):
+        def __init__(self, n):
+            super().__init__(0.0)
+            self.n = n
+
+        def expired_local(self):
+            return self.polls > self.n
+
+    a = poisson3d(12)
+    b = a.matvec(np.random.default_rng(7).standard_normal(a.n_rows))
+    _, lu, _, info = slt.gssvx(slt.Options(), a, b, device=cuda)
+    assert info == 0 and lu.numeric.dtype == torch.float32
+    path = slt.save_lu(lu, str(tmp_path / "h"))
+    lu2 = slt.load_lu(path)
+    assert lu2.device.type == "cuda"
+    assert all(torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
+               for p, q in zip(lu.numeric.fronts, lu2.numeric.fronts))
+    _, _, st, info = slt.gssvx(slt.Options(fact=slt.Fact.FACTORED), a, b,
+                               lu=lu2)
+    assert info == 0 and st.solve_report.berr <= tols.berr_target(np.float64)
+    lu0, bvals, _ = slt.analyze(slt.Options(), a, device=cuda)
+    k = len(lu0.plan.groups) // 2
+    ck = str(tmp_path / "ck")
+    with pytest.raises(slt.DeadlineExceededError):
+        factor.numeric_factorize(lu0.plan, bvals, lu0.anorm,
+                                 dtype=torch.float32, device=cuda,
+                                 ckpt_dir=ck, deadline=Countdown(k))
+    assert checkpoint.peek(ck)["k"] == k
+    _, lu3, st3, info = slt.gssvx(slt.Options(), a, b, device=cuda,
+                                  resume_from=ck)
+    assert info == 0 and st3.resume["groups"] == k
+    assert all(torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
+               for p, q in zip(lu.numeric.fronts, lu3.numeric.fronts))

@@ -84,6 +84,8 @@ def test_unported_options_raise(options, error):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, superlu_dist_tpu_torch, superlu_dist_tpu_torch.interop;"
+            "import superlu_dist_tpu_torch.persist, superlu_dist_tpu_torch.io;"
+            "import superlu_dist_tpu_torch.__main__;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'superlu_dist_tpu')];"
             "assert not bad, bad")

@@ -164,3 +164,41 @@ def test_device_solve_through_the_driver(options):
     _close(x, xj)
     assert stats.solve_report.berr <= tols.berr_target(np.float64)
     assert lu.dev_solver.diag_inv == options.get("diag_inv", False)
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_lsum_scatter_layers_add_in_slot_order(name):
+    """Every sweep batch's lsum scatter: each contribution lands in
+    exactly one layer, no real row repeats within a layer (so the card's
+    index_add_ never has two atomics meet on an address), and the layered
+    scatter equals the JAX package's ``lsum.at[rows].add`` bit for bit on
+    the CPU (both add each row's hits in slot order)."""
+    import jax.numpy as jnp
+    import torch
+    from superlu_dist_tpu_torch.solve.device import (_scatter_add,
+                                                     scatter_layers)
+    lu, vals, _ = jax_analyze(JaxOptions(), MATRICES[name]())
+    ref = jax_factorize(lu.plan, vals, lu.anorm, dtype="float64",
+                        executor="fused")
+    solver = DeviceSolver(factors_from_reference(ref, device="cpu"))
+    rng = np.random.default_rng(5)
+    repeats = 0
+    for sg, _, rows, layers in solver._groups:
+        flat = rows.numpy().reshape(-1)
+        again = scatter_layers(rows.numpy(), solver.n)
+        assert (layers is None) == (again is None)
+        if layers is not None:
+            repeats += 1
+            perm, parts = again
+            assert np.array_equal(np.sort(perm), np.arange(len(flat)))
+            for lo, hi, targets in parts:
+                real = targets[targets < solver.n]
+                assert len(np.unique(real)) == len(real)
+                assert np.array_equal(targets, flat[perm[lo:hi]])
+        contrib = rng.standard_normal((sg.batch, sg.u, 3))
+        lsum = torch.as_tensor(rng.standard_normal((solver.n + 1, 3)))
+        want = jnp.asarray(lsum.numpy()).at[flat].add(
+            contrib.reshape(-1, 3))
+        _scatter_add(lsum, rows, torch.as_tensor(contrib), layers)
+        assert np.array_equal(lsum.numpy(), np.asarray(want))
+    assert repeats > 0 or name == "random_80"
