@@ -9,7 +9,7 @@ drives the port are reset just before it and checked just after):
   2. build    — compile the CUDA kernels from csrc/ with nvcc (sm_90a);
      native   — compile the native host-analysis library (native/
                 slu_host.cpp, g++) and hold each of its functions against
-                its Python twin on poisson3d(16) and random_sparse(2000):
+                its Python twin on poisson3d(12) and random_sparse(1000):
                 etree, postorder, symbolic, mmd, colamd, the AᵀA pattern
                 equal, and the MC64 matching's diagonal product;
   3. plan     — the default analysis of poisson3d(48) (n=110,592): its
@@ -56,19 +56,29 @@ drives the port are reset just before it and checked just after):
                 factored in complex64 on the same plan, and a CONJ solve;
      solve    — on the main path's factors: the dataflow / level / factor
                 solve plans (the JAX package's 90 / 106 / 134 batches), and
-                nrhs 1 and 16 fused and eager, with and without DiagInv,
-                and 1,500 fused: SOLVE seconds, last_solve_stats, solver
+                nrhs 1 and 16 fused and eager, with and without DiagInv:
+                SOLVE seconds, last_solve_stats, solver
                 memory, BERR after refinement; every solve repeated bit for
                 bit, the eager ones equal to the fused ones;
      gemm_tiers — gssvx on poisson3d(48) at the bf16 and f32 tiers beside
                 the main path's default: FACT, refine steps, rungs, BERR;
+     executors — Options.executor on the main path's plan: the stream; the
+                fused CUDA graph (warm-up, capture, instantiation, node
+                count, graph memory; replays bit for bit the stream, an
+                earlier handle untouched; refactor through the replay);
+                the host offload through gssvx (FACT, offload wait, peak
+                device memory beside the stream's, the host solve, BERR);
+     executors_small — on poisson3d(32): mega on a closed plan (one graph
+                per closed key), the host-share split and level waves
+                (bit for bit the stream), with their graphs' costs;
+                ``python3 chip_smoke.py executors [NX]`` runs the build,
+                gssvx and these two phases alone;
   5. factor_stages — the main path's factorization synchronized at every
                 stage boundary of every group;
   6. kernels_factor — one more factorization with CUDA events around every
                 front-assembly launch (no stage synchronize), then every
-                group, child set and assembly of the plan replayed alone
-                for the kernel / plain / library / bound sums (the front
-                assembly also in complex64, the complex path's type);
+                group of the plan replayed alone for the kernel / plain /
+                library / bound sums;
   7. complex_dofact — gssvx from scratch on helmholtz_2d(333) (n=110,889);
   8. ladder   — the escalation ladder (its gemm-precision rung live) on a
                 near-singular arrowhead and on hilbert(8), float32 factors;
@@ -274,11 +284,10 @@ def time_front(avals, pool, m, w, gm, kernels, reps=20, plain_reps=3,
 
 
 def time_extend_add(f, pool, m, ub, off, slot, rel, kernels, reps=20,
-                    plain_reps=3, lib_reps=20, wrapper=True):
+                    plain_reps=3, lib_reps=20):
     """K1 on one child set: the wrapper against the plain version, and the
     kernel's time on maps built once (the wrapper rebuilds them on the
-    host at every call; with ``wrapper`` that is timed apart as
-    wrapper_ms)."""
+    host at every call: timed apart as wrapper_ms)."""
     import torch
     ea = (m, ub, off, slot, rel)
     out_k, out_p = f.clone(), f.clone()
@@ -302,12 +311,11 @@ def time_extend_add(f, pool, m, ub, off, slot, rel, kernels, reps=20,
     flat = work.view(-1)
     def call():
         kernels.launch_(work, maps, pool=pool)
-    extra = dict(wrapper_ms=cuda_ms(
-        lambda: kernels.extend_add_(work, pool, *ea), 3, warm=1)) if wrapper \
-        else {}
     return dict(
         max_abs_err=err, ms=graph_ms(call, n=reps),
-        call_ms=cuda_ms(call, reps), **extra,
+        call_ms=cuda_ms(call, reps),
+        wrapper_ms=cuda_ms(lambda: kernels.extend_add_(work, pool, *ea), 3,
+                           warm=1),
         plain_ms=cuda_ms(lambda: kernels.extend_add_plain(work, pool, *ea),
                          plain_reps, warm=1),
         bound_ms=b_ms, bound_by=b_by,
@@ -318,7 +326,7 @@ def time_extend_add(f, pool, m, ub, off, slot, rel, kernels, reps=20,
 
 
 def time_assemble(f, avals, a_slot, a_flat, a_src, kernels, reps=20,
-                  plain_reps=20, lib_reps=50, wrapper=True):
+                  plain_reps=20, lib_reps=50):
     """K2 on one group, as time_extend_add does K1."""
     import torch
     asm = (a_slot, a_flat, a_src)
@@ -343,12 +351,11 @@ def time_assemble(f, avals, a_slot, a_flat, a_src, kernels, reps=20,
     flat = work.view(-1)
     def call():
         kernels.launch_(work, maps, avals=avals)
-    extra = dict(wrapper_ms=cuda_ms(
-        lambda: kernels.assemble_(work, avals, *asm), 3, warm=1)) if wrapper \
-        else {}
     return dict(
         max_abs_err=err, ms=graph_ms(call, n=reps),
-        call_ms=cuda_ms(call, reps), **extra,
+        call_ms=cuda_ms(call, reps),
+        wrapper_ms=cuda_ms(lambda: kernels.assemble_(work, avals, *asm), 3,
+                           warm=1),
         plain_ms=cuda_ms(lambda: kernels.assemble_plain(work, avals, *asm),
                          plain_reps, warm=1),
         bound_ms=b_ms, bound_by=b_by,
@@ -529,11 +536,14 @@ def kernel_phase(plan, maps, torch, kernels, gen):
 
 def factor_sums(plan, maps, bvals, anorm, torch, factor, kernels, gen):
     """Phase 6: (a) one factorization with CUDA events around every
-    front-assembly launch and no stage synchronize; (b) every group, child
-    set and assembly of the plan replayed alone — the kernel in a CUDA
-    graph (ms) and call by call (call_ms, the wrapper's host time
-    included), the plain version and the library call with CUDA events —
-    summed with the bounds (float32)."""
+    front-assembly launch and no stage synchronize; (b) every group of the
+    plan replayed alone — the kernel in a CUDA graph (ms) and call by call
+    (call_ms, the wrapper's host time included), the plain version and the
+    library call with CUDA events — summed with the bounds (float32).  (The
+    sums of the standalone K1 / K2 wrappers over every child set and
+    assembly, and of the front assembly in complex64, are timing only and
+    left the script in PR 7, for the benchmark; those wrappers and types
+    are still held against their plain versions in the kernels phase.)"""
     dev = torch.device("cuda")
     events = []
 
@@ -561,49 +571,15 @@ def factor_sums(plan, maps, bvals, anorm, torch, factor, kernels, gen):
                         dtype=f32)
     pool = torch.randn(plan.pool_size, generator=gen, device=dev, dtype=f32)
     keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
-    sums = {k: dict.fromkeys(keys, 0.0) for k in
-            ("front_assemble", "extend_add", "assemble")}
-    counts = dict.fromkeys(sums, 0)
-
-    def add(name, rec):
-        for k in keys:
-            sums[name][k] += rec[k]
-        counts[name] += 1
-
+    sums = dict.fromkeys(keys, 0.0)
     for g, gm in zip(plan.groups, maps):
-        add("front_assemble", time_front(avals, pool, g.m, g.w, gm, kernels,
-                                         reps=5, plain_reps=1, lib_reps=2))
-        f = torch.randn((g.batch, g.m * g.m), generator=gen, device=dev,
-                        dtype=f32)
-        for ub, off, slot, rel in gm.children:
-            add("extend_add", time_extend_add(f, pool, g.m, ub, off, slot,
-                                              rel, kernels, reps=5,
-                                              plain_reps=1, lib_reps=2,
-                                              wrapper=False))
-        if gm.a_src.numel():
-            add("assemble", time_assemble(f, avals, gm.a_slot, gm.a_flat,
-                                          gm.a_src, kernels, reps=5,
-                                          plain_reps=1, lib_reps=2,
-                                          wrapper=False))
-        del f
-    in_factor["bound_ms"] = sums["front_assemble"]["bound_ms"]
-    # the complex path runs the same plan: the front assembly of every
-    # group replayed alone in complex64 (complex128 has no launch on the
-    # main path; its groups are held against the plain version in the
-    # kernels phase)
-    for dt in (torch.complex64,):
-        name = f"front_assemble {str(dt).split('.')[-1]}"
-        sums[name] = dict.fromkeys(keys, 0.0)
-        counts[name] = 0
-        avals = torch.randn(len(plan.pattern_indices), generator=gen,
-                            device=dev, dtype=dt)
-        pool = torch.randn(plan.pool_size, generator=gen, device=dev,
-                           dtype=dt)
-        for g, gm in zip(plan.groups, maps):
-            add(name, time_front(avals, pool, g.m, g.w, gm, kernels, reps=3,
-                                 plain_reps=1, lib_reps=1))
-        del avals, pool
-    return in_factor, {k: dict(units=counts[k], **v) for k, v in sums.items()}
+        rec = time_front(avals, pool, g.m, g.w, gm, kernels, reps=5,
+                         plain_reps=1, lib_reps=2)
+        for k in keys:
+            sums[k] += rec[k]
+    in_factor["bound_ms"] = sums["bound_ms"]
+    return in_factor, {"front_assemble": dict(units=len(plan.groups),
+                                              **sums)}
 
 
 def expect_native(phase, native, *names):
@@ -635,9 +611,12 @@ def native_phase():
     """Phase 2b: the native host library on the card's host — its build
     from the checkout's source (timed; a failure raises with the
     compiler's output), then each function against its Python twin on
-    poisson3d(16) and random_sparse(2000): etree, postorder, the symbolic
+    poisson3d(12) and random_sparse(1000): etree, postorder, the symbolic
     structure (with amalgamation), mmd, colamd and the AᵀA pattern equal,
-    and the MC64 matching's log product equal to 1e-12 of Σ|log|a||."""
+    and the MC64 matching's log product equal to 1e-12 of Σ|log|a||.
+    (PRs 4-6 used poisson3d(16) and random_sparse(2000); the twins' 19 s
+    there bought no more than the CPU tests' comparison, and the script
+    needed the room in PR 7.)"""
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (poisson3d,
                                                        random_sparse)
@@ -657,8 +636,8 @@ def native_phase():
                 np.int64([sf.nnz_L]), *sf.sn_rows]
 
     cases = {}
-    for name, a in (("poisson3d_16", poisson3d(16)),
-                    ("random_2000", random_sparse(2000, density=0.003,
+    for name, a in (("poisson3d_12", poisson3d(12)),
+                    ("random_1000", random_sparse(1000, density=0.006,
                                                   seed=SEED))):
         sym = symmetrize_pattern(a)
         n = sym.n_rows
@@ -1059,9 +1038,9 @@ SPMV_REPLACES = ("superlu_dist_tpu/parallel/dist.py:181 (XLA scatter-add; "
 #: the JAX package's solve plans of its default plan of poisson3d(48) (its
 #: solve/plan.py build_solve_plan on the CPU): sweep batches per schedule
 JAX_SOLVE_BATCHES = {"dataflow": 90, "level": 106, "factor": 134}
-#: columns of the 1,500-column solve that the solve phase refines: 8 of
-#: each of its two chunks (1,024 + 476)
-SAMPLE_COLS = np.r_[0:8, 1492:1500]
+#: the column-chunked solve: CHUNK_COLS columns under an nrhs cap of
+#: CHUNK_CAP run as chunk_nrhs's 16 + 16 + 1 (buckets 16 and 1)
+CHUNK_COLS, CHUNK_CAP, CHUNK_CHUNKS = 33, 16, 3
 
 
 def spmv_phase(a, torch, kernels, dist, gen):
@@ -1133,20 +1112,20 @@ def solve_phase(lu, torch):
     """The device solve on the main path's handle (refactored by the reuse
     phase: its factors are those of ``lu.a``): the three schedules' plans
     (the JAX package's batch counts), then nrhs 1 and 16 through fused
-    (CUDA graph) and eager sweeps, with and without DiagInv, and 1,500
-    (chunked past the 1,024 cap) through the fused sweeps only — SOLVE
+    (CUDA graph) and eager sweeps, with and without DiagInv — SOLVE
     seconds (first call, with the graph captures, and the next, which must
     be bit for bit the first), last_solve_stats, the solver's memory, the
     agreement with the main configuration (fused, no DiagInv: the eager
-    sweeps must equal it bit for bit), and the
-    BERR after refinement through the device residual: of every column of
-    the 1- and 16-column solves; of the 1,500-column solve, every column's
-    BERR before refinement and the refinement of columns 0-7 and
-    1,492-1,499 (8 of each chunk; all 1,500 columns take about 17 s a
-    refinement step on the card's host, 1.3 GB host copies).  The refinement
-    runs on the factored matrix M = P_σ·diag(R)·A·diag(C)·P_πᵀ itself,
-    whose componentwise BERR is A's (it is invariant under the scalings and
-    permutations), so the 1,500-column solves skip the host transforms."""
+    sweeps must equal it bit for bit), and the BERR of every column after
+    refinement through the device residual.  The refinement runs on the
+    factored matrix M = P_σ·diag(R)·A·diag(C)·P_πᵀ itself, whose
+    componentwise BERR is A's (it is invariant under the scalings and
+    permutations).  The column-chunked solve: CHUNK_COLS columns on a
+    solver capped at CHUNK_CAP split into chunks of two nrhs buckets
+    (``chunk_nrhs``), fused and eager, bit for bit, every column's BERR
+    before refinement and every column refined (the nrhs-1,500 solve of
+    PRs 5-6 drove the same chunking at the 1,024 cap in about 17 s a
+    refinement step)."""
     from superlu_dist_tpu_torch.parallel.dist import DeviceSpMV
     from superlu_dist_tpu_torch.refine.ir import (componentwise_berr,
                                                   iterative_refinement)
@@ -1169,7 +1148,7 @@ def solve_phase(lu, torch):
     spmv = DeviceSpMV(m_op, device="cuda")
     rng = np.random.default_rng(SEED + 60)
     n = m_op.n_rows
-    rhs = {k: spmv.matvec(rng.standard_normal((n, k))) for k in (1, 16, 1500)}
+    rhs = {k: spmv.matvec(rng.standard_normal((n, k))) for k in (1, 16)}
     ref = {}
     out = {}
     for fused in (True, False):
@@ -1182,8 +1161,6 @@ def solve_phase(lu, torch):
                                   gemm_prec=lu.numeric.gemm_prec)
             cases = {}
             for k, d in rhs.items():
-                if k == 1500 and name != "fused":
-                    continue        # timing only: one configuration
                 t0 = time.perf_counter()
                 z1 = solver.solve(d)
                 first = time.perf_counter() - t0
@@ -1214,14 +1191,6 @@ def solve_phase(lu, torch):
                         raise AssertionError(f"solve eager k={k} differs "
                                              "from the fused solve")
                 t0 = time.perf_counter()
-                if k == 1500:
-                    # every column's BERR before refinement, then the
-                    # refinement of 8 columns of each chunk
-                    r = d - spmv.matvec(z)
-                    den = spmv.abs_matvec(np.abs(z)) + np.abs(d)
-                    case["unrefined_berr_max"] = float(componentwise_berr(
-                        r, den, spmv.nnz).max())
-                    d, z = d[:, SAMPLE_COLS], z[:, SAMPLE_COLS]
                 _, berrs = iterative_refinement(spmv, d, z, solver.solve)
                 case.update(berr=berrs[-1], refine_steps=len(berrs),
                             refine_s=time.perf_counter() - t0)
@@ -1232,6 +1201,44 @@ def solve_phase(lu, torch):
                              allocated_bytes=torch.cuda.memory_allocated()
                              - mem0)
             del solver
+    d = spmv.matvec(rng.standard_normal((n, CHUNK_COLS)))
+    chunked, zs = {}, {}
+    for fused in (True, False):
+        name = "fused" if fused else "eager"
+        solver = DeviceSolver(lu.numeric, fused=fused, nrhs_max=CHUNK_CAP,
+                              gemm_prec=lu.numeric.gemm_prec)
+        t0 = time.perf_counter()
+        z = solver.solve(d)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zs[name] = solver.solve(d)
+        steady = time.perf_counter() - t0
+        st = dict(solver.last_solve_stats)
+        if (not np.array_equal(z, zs[name]) or not st["finite"]
+                or st["chunks"] != CHUNK_CHUNKS):
+            raise AssertionError(f"chunked solve {name}: {st}, two solves "
+                                 f"equal {np.array_equal(z, zs[name])}")
+        chunked[name] = dict(first_s=first, s=steady, stats={
+            key: st[key] for key in ("nrhs", "padded_nrhs", "chunks",
+                                     "fused")})
+        if fused:
+            r = d - spmv.matvec(z)
+            den = spmv.abs_matvec(np.abs(z)) + np.abs(d)
+            t0 = time.perf_counter()
+            _, berrs = iterative_refinement(spmv, d, z, solver.solve)
+            chunked[name].update(
+                unrefined_berr_max=float(componentwise_berr(
+                    r, den, spmv.nnz).max()),
+                berr=berrs[-1], refine_steps=len(berrs),
+                refine_s=time.perf_counter() - t0)
+            check_berr("solve chunked", berrs[-1])
+        del solver
+    chunked["eager_equal_to_fused"] = bool(np.array_equal(zs["eager"],
+                                                          zs["fused"]))
+    out["chunked"] = chunked
+    if not chunked["eager_equal_to_fused"]:
+        raise AssertionError("the chunked eager solve differs from the "
+                             "fused one")
     # the lsum scatter's launches per forward sweep — one index_add_ per
     # layer (scatter_layers), plus one gather where a row repeats — and the
     # device time of the two replayed sweeps (nrhs 1, with and without
@@ -1460,12 +1467,328 @@ def gemm_tiers_phase(slt, a, lu, kernels, tols, default_run):
         berr_target=float(tols.berr_target(np.float64)), **out)
 
 
+def _fronts_equal(torch, f1, f2) -> bool:
+    return len(f1) == len(f2) and all(
+        torch.equal(l1.cpu(), l2.cpu()) and torch.equal(u1.cpu(), u2.cpu())
+        for (l1, u1), (l2, u2) in zip(f1, f2))
+
+
+def _drift(torch, tols, f1, f2) -> dict:
+    """f1 against f2: bit for bit, max |f1 - f2| / max |f2|, and every
+    element within SCHEDULE_DRIFT_RTOL / ATOL (float64 on the host)."""
+    num = den = 0.0
+    within = True
+    for (l1, u1), (l2, u2) in zip(f1, f2):
+        for x, y in ((l1, l2), (u1, u2)):
+            x, y = x.cpu().double(), y.cpu().double()
+            if x.numel():
+                num = max(num, float((x - y).abs().max()))
+                den = max(den, float(y.abs().max()))
+                within &= bool(torch.allclose(
+                    x, y, rtol=tols.SCHEDULE_DRIFT_RTOL,
+                    atol=tols.SCHEDULE_DRIFT_ATOL))
+    return dict(equal_to_stream=_fronts_equal(torch, f1, f2),
+                max_rel_diff_vs_stream=num / max(den, 1e-300),
+                within_schedule_drift=within)
+
+
+def _drift_ok(tols, rec, dtype) -> bool:
+    """A ``_drift`` record within its gate: every element within
+    SCHEDULE_DRIFT in float64; in float32 (TF32 tier) the normwise drift
+    at most TF32_DRIFT, which the record then carries."""
+    import torch
+    if dtype == torch.float64:
+        return rec["within_schedule_drift"]
+    rec["float32_gate"] = float(tols.TF32_DRIFT)
+    return rec["max_rel_diff_vs_stream"] <= tols.TF32_DRIFT
+
+
+def _timed_factor(torch, kernels, factor, plan, vals, anorm, dtype=None,
+                  **kw):
+    """numeric_factorize on the card (float32 unless ``dtype``) at the
+    default tier, with the launch counts reset just before it: (factors,
+    seconds to a synchronized end, peak device bytes above what was
+    allocated before, launches)."""
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    num = factor.numeric_factorize(plan, vals, anorm,
+                                   dtype=dtype or torch.float32,
+                                   device="cuda", **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return (num, sec, torch.cuda.max_memory_allocated() - base,
+            dict(kernels.LAUNCHES))
+
+
+def _expect_front_launches(phase, launches, want):
+    if launches["front_assemble"] != want or any(
+            launches[k] for k in ("extend_add", "assemble", "csr_spmv")):
+        raise AssertionError(f"launches in {phase}: {launches}, expected "
+                             f"{want} front_assemble and nothing else")
+    return launches["front_assemble"]
+
+
+def executors_phase(slt, a, lu, kernels, tols, torch, factor):
+    """Options.executor on the card.  At the main path's width (its handle
+    and plan, float32, default tier): the streamed executor; ``fused`` —
+    its first call (warm-up, capture, instantiation, replay), two replays
+    of the same values and one of new values, each bit for bit the stream
+    on the same values, the first call's fronts untouched by the later
+    replays, and refactor through the replay; the host offload
+    (``front_bytes_limit=0``) through gssvx: FACT, the offload wait, the
+    peak device memory above the resident handle beside the stream's, the
+    host solve and refinement and BERR.  Then on poisson3d(32): ``mega``
+    on a closed plan (one graph per closed key) and the host-share split,
+    each in float64 and float32 against the stream (``_drift_ok``), and
+    level waves (bit for bit the stream).  Launch counts: the warm-up's launches and one per
+    group for each replay."""
+    import dataclasses
+
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric.stream import (StreamExecutor,
+                                                       host_share_levels)
+    from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
+    from superlu_dist_tpu_torch.numeric.plan import bucket_rung
+    same_rows = slt.Options(fact=slt.Fact.SamePattern_SameRowPerm)
+    plan = lu.plan
+    groups = len(plan.groups)
+    keys = len({(g.batch, g.m, g.w, g.u) for g in plan.groups})
+    rng = np.random.default_rng(SEED + 90)
+    mats, vals = [], []
+    for scale in (0.0, 0.05, 0.05):
+        u = rng.uniform(-1.0, 1.0, a.nnz)
+        m = type(a)(a.n_rows, a.n_cols, a.indptr, a.indices,
+                    lu.a.data * (1.0 + scale * u))
+        skel, bv, _ = slt.analyze(same_rows, m, device="cuda", lu=lu)
+        mats.append(m)
+        vals.append((bv, skel.anorm))
+    out = {}
+
+    # the streamed executor on the first two sets of values
+    ref = []
+    for i in (0, 1):
+        num, sec, peak, launches = _timed_factor(
+            torch, kernels, factor, plan, *vals[i], executor="stream")
+        ref.append(num.fronts)
+        if i == 0:
+            out["stream"] = dict(fact_s=sec, peak_above_resident=peak,
+                                 launches=_expect_front_launches(
+                                     "stream", launches, groups))
+    # fused: capture at the first call, then replays
+    calls, fused_eq = [], []
+    for i in (0, 0, 1):
+        num, sec, peak, launches = _timed_factor(
+            torch, kernels, factor, plan, *vals[i], executor="fused")
+        calls.append(num)
+        fused_eq.append(_fronts_equal(torch, num.fronts, ref[i]))
+        rep = num.executor
+        first = len(calls) == 1
+        want = groups + (keys if first else 0)
+        rec = dict(s=sec, replay_s=rep["replay_s"],
+                   peak_above_resident=peak, equal_to_stream=fused_eq[-1],
+                   launches=_expect_front_launches("fused", launches, want))
+        if first:
+            rec.update({k: rep[k] for k in (
+                "warm_up_s", "capture_s", "instantiate_s", "nodes",
+                "graph_device_bytes", "graph_host_bytes", "clone_bytes")})
+        out[f"fused_call{len(calls)}"] = rec
+    replays_equal = _fronts_equal(torch, calls[0].fronts, calls[1].fronts)
+    old_untouched = _fronts_equal(torch, calls[0].fronts, ref[0])
+    out["fused_checks"] = dict(equal_to_stream=fused_eq,
+                               two_replays_equal=replays_equal,
+                               first_handle_untouched=old_untouched)
+    del calls, ref
+    # refactor through the replay: the handle's options ask for fused, the
+    # plan's cached executor (captured above) replays
+    hf = dataclasses.replace(lu, options=dataclasses.replace(
+        lu.options, executor="fused"), dev_solver=None, dev_spmv=None)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    st = slt.refactor(hf, mats[2].data)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    rlaunch = _expect_front_launches("fused refactor", kernels.LAUNCHES,
+                                     groups)
+    b3 = mats[2].matvec(rng.standard_normal(a.n_rows))
+    _, _, st2, sec2 = timed_gssvx(slt, kernels,
+                                  slt.Options(fact=slt.Fact.FACTORED),
+                                  mats[2], b3, lu=hf)
+    out["fused_refactor"] = dict(s=sec, fact_s=st.utime["FACT"],
+                                 executor=hf.numeric.executor["executor"],
+                                 launches=rlaunch, solve_s=sec2,
+                                 berr=st2.solve_report.berr)
+    check_berr("fused refactor", st2.solve_report.berr)
+    del hf
+    if not (all(fused_eq) and replays_equal and old_untouched):
+        say("executors", **out)
+        raise AssertionError("fused replays differ from the stream or "
+                             "touched an earlier handle")
+
+    # the host offload through gssvx: factors to host memory, host solve
+    b1 = mats[0].matvec(rng.standard_normal(a.n_rows))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    x, luo, st, sec = timed_gssvx(
+        slt, kernels, dataclasses.replace(same_rows, front_bytes_limit=0),
+        mats[0], b1, lu=lu)
+    rep, ex = st.solve_report, st.executor
+    launches = dict(kernels.LAUNCHES)
+    if (not luo.numeric.on_host or rep.solve_route != "host"
+            or rep.residual_route != "host" or launches["csr_spmv"]
+            or launches["front_assemble"] != groups):
+        raise AssertionError(f"offload: on_host={luo.numeric.on_host} "
+                             f"routes {rep.solve_route}/{rep.residual_route}"
+                             f" launches {launches}")
+    out["offload"] = dict(
+        s=sec, fact_s=st.utime["FACT"], offload_wait_s=ex["offload_wait_s"],
+        peak_above_resident=st.peak_memory_bytes - base,
+        stream_peak_above_resident=out["stream"]["peak_above_resident"],
+        host_solve_s=st.utime["SOLVE"], refine_s=st.utime["REFINE"],
+        refine_steps=st.refine_steps, berr=rep.berr,
+        solve_route=rep.solve_route, residual_route=rep.residual_route,
+        launches=launches["front_assemble"])
+    check_berr("offload", rep.berr)
+    del luo, x
+    say("executors", n=a.n_rows, groups=groups, shape_keys=keys, **out)
+
+    # poisson3d(32): mega on a closed plan, the host-share split, level
+    # waves; mega and the split in float64 held at the SCHEDULE_DRIFT gate
+    # (another cuBLAS algorithm for a padded batch, or the CPU's BLAS,
+    # reassociates the sums), in float32 at the TF32 tier normwise at
+    # TF32_DRIFT
+    a32 = poisson3d(32)
+    b32 = a32.matvec(rng.standard_normal(a32.n_rows))
+    small = {}
+    lu_c, bv_c, _ = slt.analyze(slt.Options(bucket_closed=True), a32,
+                                device="cuda")
+    pc = lu_c.plan
+    nkeys = len(pc.bucket_set)
+    small["mega"] = dict(closed=pc.closed, closed_keys=nkeys,
+                         groups=len(pc.groups))
+    for dt in (torch.float64, torch.float32):
+        s_num, s_sec, _, _ = _timed_factor(torch, kernels, factor, pc, bv_c,
+                                           lu_c.anorm, executor="stream",
+                                           dtype=dt)
+        megas = []
+        for i in (0, 1):
+            num, sec, _, launches = _timed_factor(
+                torch, kernels, factor, pc, bv_c, lu_c.anorm,
+                executor="mega", dtype=dt)
+            megas.append(dict(s=sec, launches=launches["front_assemble"],
+                              **_drift(torch, tols, num.fronts,
+                                       s_num.fronts)))
+        rep = num.executor
+        small["mega"][str(dt)[6:]] = dict(
+            stream_fact_s=s_sec, first=megas[0], replayed=megas[1],
+            **{k: rep[k] for k in ("graphs", "capture_s", "instantiate_s",
+                                   "nodes", "graph_device_bytes")})
+        if rep["graphs"] != nkeys or megas[1]["launches"] != len(pc.groups):
+            raise AssertionError(f"mega: {rep['graphs']} graphs for {nkeys}"
+                                 f" closed keys, launches {megas}")
+        if not all(_drift_ok(tols, c, dt)
+                   for c in megas):
+            raise AssertionError(f"mega drifts from the stream: {megas}")
+        del s_num, num
+    del lu_c, bv_c, pc
+
+    lu_d, bv_d, _ = slt.analyze(slt.Options(), a32, device="cuda")
+    pd = lu_d.plan
+    # the host share: the least threshold that puts the first level on
+    # the CPU
+    lv0 = max(bucket_rung(g.batch, lo=1, growth=2.0) * _front_flops(g.w, g.u)
+              for g in pd.groups if g.level == pd.groups[0].level)
+    cut = float(lv0) * 1.0001
+    small["host_share"] = dict(host_flops=cut,
+                               levels=len(host_share_levels(pd, cut)),
+                               host_tier="IEEE products on the CPU's BLAS")
+    for dt in (torch.float64, torch.float32):
+        s_num, s_sec, _, _ = _timed_factor(torch, kernels, factor, pd, bv_d,
+                                           lu_d.anorm, executor="stream",
+                                           dtype=dt)
+        x, luh, st, sec = timed_gssvx(
+            slt, kernels, dataclasses.replace(
+                same_rows, host_flops=cut, factor_dtype=str(dt)[6:]),
+            a32, b32, lu=lu_d)
+        hnum = luh.numeric
+        rec = dict(host_levels=hnum.host_levels,
+                   host_groups=st.executor["host_groups"],
+                   fact_s=st.utime["FACT"], stream_fact_s=s_sec,
+                   uploaded_front_bytes=luh.dev_solver.memory_stats()[
+                       "uploaded_front_bytes"], berr=st.solve_report.berr,
+                   launches=kernels.LAUNCHES["front_assemble"],
+                   device_groups=len(pd.groups) - st.executor["host_groups"],
+                   **_drift(torch, tols, hnum.fronts, s_num.fronts))
+        small["host_share"][str(dt)[6:]] = rec
+        check_berr("host share", st.solve_report.berr)
+        if hnum.host_levels < 1 or rec["launches"] != rec["device_groups"] \
+                or not _drift_ok(tols, rec, dt):
+            raise AssertionError(f"host share: {small['host_share']}")
+        del luh, x, hnum
+
+    real = torch.float32
+    s_num, s_sec, _, _ = _timed_factor(torch, kernels, factor, pd, bv_d,
+                                       lu_d.anorm, executor="stream")
+    thresh = torch.tensor(np.sqrt(torch.finfo(real).eps)
+                          * max(lu_d.anorm, 1e-300), dtype=real)
+    ex = StreamExecutor(pd, real, "cuda", granularity="level")
+    lev = []
+    for i in (0, 1):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr, tiny = ex(torch.as_tensor(bv_d), thresh)
+        torch.cuda.synchronize()
+        lev.append(dict(s=time.perf_counter() - t0,
+                        launches=kernels.LAUNCHES["front_assemble"],
+                        equal_to_stream=_fronts_equal(torch, fr,
+                                                      s_num.fronts)))
+    rep = ex.report()
+    small["level"] = dict(waves=len(ex.waves()), graphs=rep["graphs"],
+                          stream_fact_s=s_sec, first=lev[0], replayed=lev[1],
+                          **{k: rep[k] for k in ("warm_up_s", "capture_s",
+                                                 "instantiate_s", "nodes",
+                                                 "graph_device_bytes")})
+    say("executors_small", n=a32.n_rows, **small)
+    if not all(c["equal_to_stream"] for c in lev) or \
+            lev[1]["launches"] != len(pd.groups):
+        raise AssertionError(f"level waves: {lev}")
+
+
+def executors_only(nx: int) -> int:
+    """``python3 chip_smoke.py executors [NX]``: the build, gssvx on
+    poisson3d(NX) and the executors phases only (a quicker check of the
+    executors; the full script runs every phase)."""
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import factor, kernels
+    from superlu_dist_tpu_torch.utils import tols
+    card = card_line()
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    kernels.library()
+    a = poisson3d(nx)
+    b = a.matvec(np.random.default_rng(SEED).standard_normal(a.n_rows))
+    x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+    say("gssvx", n=a.n_rows, fact_s=stats.utime["FACT"],
+        berr=stats.solve_report.berr)
+    executors_phase(slt, a, lu, kernels, tols, torch, factor)
+    print(card)
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["executors"]:
+        return executors_only(int(sys.argv[2]) if len(sys.argv) > 2 else NX)
     import superlu_dist_tpu_torch as slt
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (convection_diffusion_2d,
@@ -1612,6 +1935,9 @@ def main():
     # GEMM tiers on the main path's analysis
     solve_phase(lu, torch)
     gemm_tiers_phase(slt, a, lu, kernels, tols, default_run)
+    # 4g. Options.executor: fused and mega CUDA graphs, host offload, the
+    # host-share split, level waves
+    executors_phase(slt, a, lu, kernels, tols, torch, factor)
 
     # where the factor time goes: the same factorization (phase 3's
     # analysis is the same deterministic host work), synchronized at every

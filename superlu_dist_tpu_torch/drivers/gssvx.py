@@ -55,6 +55,7 @@ from superlu_dist_tpu_torch.rowperm.equil import gsequ, laqgs
 from superlu_dist_tpu_torch.rowperm.matching import (
     approximate_weight_matching, maximum_product_matching)
 from superlu_dist_tpu_torch.solve.device import DeviceSolver
+from superlu_dist_tpu_torch.solve.trisolve import lu_solve, lu_solve_trans
 from superlu_dist_tpu_torch.sparse.formats import SparseCSR, symmetrize_pattern
 from superlu_dist_tpu_torch.symbolic.symbfact import (SymbolicFact,
                                                       symbolic_factorize)
@@ -167,11 +168,28 @@ class LUFactorization:
                 align=opts.solve_align, gemm_prec=self.numeric.gemm_prec)
         return self.dev_solver
 
+    @property
+    def solve_route(self) -> str:
+        """Where the solves run: "device" for factors on the card (or the
+        CPU device), "host" for factors the executor offloaded to host
+        memory (solve/trisolve.py, as the JAX driver routes them,
+        drivers/gssvx.py:180-187).  Placement, not a fallback: factors on
+        the card never take the host path."""
+        return "host" if self.numeric.on_host else "device"
+
     def _solve_permuted(self, d: np.ndarray) -> np.ndarray:
+        if self.solve_route == "host":
+            if not self.numeric.finite:
+                raise SingularMatrixError(self.numeric.info_col)
+            return lu_solve(self.numeric, d)
         return self._solver().solve(d)
 
     def _solve_permuted_trans(self, d: np.ndarray,
                               conj: bool = False) -> np.ndarray:
+        if self.solve_route == "host":
+            if not self.numeric.finite:
+                raise SingularMatrixError(self.numeric.info_col)
+            return lu_solve_trans(self.numeric, d, conj=conj)
         return self._solver().solve_trans(d, conj=conj)
 
 
@@ -274,6 +292,8 @@ def analyze(options: Options, a: SparseCSR, device="cuda",
                               schedule=options.schedule,
                               window=options.sched_window,
                               align=options.sched_align,
+                              closed=options.bucket_closed,
+                              max_keys=options.bucket_keys,
                               native=options.native)
         # nnz equality is not enough: a moved entry with an equal count
         # would gather values into wrong structural slots
@@ -306,7 +326,10 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
     ``resume_from`` restarts from a durable checkpoint instead of from
     scratch (recorded on ``stats.resume`` and as a SolveReport rung by the
     solve tail); ``Options.deadline_s`` bounds the factor loop
-    (DeadlineExceededError, after the frontier is flushed)."""
+    (DeadlineExceededError, after the frontier is flushed).
+    ``Options.executor`` and the stream knobs (``host_flops``,
+    ``front_bytes_limit``, ``offload_lag``) choose the executor
+    (numeric/factor.get_executor); what ran lands on ``stats.executor``."""
     if stats is None:
         stats = Stats()
     options = lu.options
@@ -321,7 +344,10 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
             gemm_prec=options.gemm_prec,
             ckpt_dir=options.ckpt_dir or None,
             ckpt_every=options.ckpt_every, resume_from=resume_from,
-            deadline=deadline)
+            deadline=deadline, executor=options.executor,
+            host_flops=options.host_flops,
+            front_bytes_limit=options.front_bytes_limit,
+            offload_lag=options.offload_lag)
         if lu.device.type == "cuda":
             torch.cuda.synchronize(lu.device)
     stats.ops["FACT"] += lu.plan.flops
@@ -339,6 +365,7 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
     if numeric.resumed_groups:
         stats.resume = {"groups": int(numeric.resumed_groups),
                         "of": len(lu.plan.groups), "path": str(resume_from)}
+    stats.executor = dict(numeric.executor)
     lu.numeric = numeric
     lu.dev_solver = None
     if not numeric.finite:
@@ -774,9 +801,12 @@ def _refine_operator(lu: LUFactorization, a: SparseCSR, op: SparseCSR,
     ``op.nnz >= DEVICE_SPMV_MIN_NNZ``, a :class:`DeviceSpMV` cached on the
     handle per (trans, residual dtype) — a hit only while ``a.data`` is
     the array it was built from, so FACTORED reuse with new values does
-    not refine against a stale upload; otherwise the host ``op``.  A
-    failed upload raises: there is no host fallback."""
-    if lu.device.type != "cuda" or op.nnz < DEVICE_SPMV_MIN_NNZ:
+    not refine against a stale upload; otherwise — and for factors
+    offloaded to host memory, which solve on the host (the JAX driver's
+    rule, drivers/gssvx.py:1122) — the host ``op``.  A failed upload
+    raises: there is no host fallback."""
+    if (lu.device.type != "cuda" or op.nnz < DEVICE_SPMV_MIN_NNZ
+            or lu.numeric.on_host):
         return op
     key = (trans, str(np.dtype(residual_dtype)))
     cache = lu.dev_spmv if lu.dev_spmv is not None else {}
@@ -817,7 +847,8 @@ def _solve_and_refine(options: Options, a: SparseCSR, b: np.ndarray,
 
     report = SolveReport(factor_dtype=_dtype_name(lu.numeric.dtype),
                          tiny_pivots=lu.numeric.tiny_pivots,
-                         gemm_precision=lu.numeric.gemm_prec)
+                         gemm_precision=lu.numeric.gemm_prec,
+                         solve_route=lu.solve_route)
     if stats.resume:
         # a factorization resumed from a durable checkpoint is a ladder
         # action in its own right: the answer rests partly on restored
@@ -834,9 +865,10 @@ def _solve_and_refine(options: Options, a: SparseCSR, b: np.ndarray,
                           if options.iter_refine == IterRefine.SLU_SINGLE
                           else np.dtype(options.ir_dtype))
         with stats.timer("REFINE"):
-            x, berrs = iterative_refinement(
-                _refine_operator(lu, a, op, trans, residual_dtype), b, x,
-                solve_fn, residual_dtype=residual_dtype)
+            ir_op = _refine_operator(lu, a, op, trans, residual_dtype)
+            report.residual_route = "host" if ir_op is op else "device"
+            x, berrs = iterative_refinement(ir_op, b, x, solve_fn,
+                                            residual_dtype=residual_dtype)
         stats.refine_steps += len(berrs)
         lu.berrs = berrs
         report.berr_history = list(berrs)

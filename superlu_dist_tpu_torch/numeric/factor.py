@@ -1,19 +1,26 @@
 """Multifrontal numeric factorization on the device.
 
-Port of the JAX package's ``numeric/factor.py`` together with the group
-loop of its streamed executor (``numeric/stream.py``): the plan's
-dispatch groups run in order, each as one ``group_step`` — the front
-assembly (identity padding, A entries and the extend-add of every child
-set, one kernel launch: ``kernels.front_assemble_``), the batched blocked
-partial LU with GESP tiny-pivot replacement, and the Schur write-back to
-the update pool.
+Port of the JAX package's ``numeric/factor.py``: the per-group step
+(``group_step``: the front assembly — identity padding, A entries and the
+extend-add of every child set, one kernel launch:
+``kernels.front_assemble_`` — the batched blocked partial LU with GESP
+tiny-pivot replacement, and the Schur write-back to the update pool), the
+factorization record, and the executor choice (``get_executor``):
+
+* ``stream`` (numeric/stream.py) — the group loop issued from the host,
+  with host offload of the factors, the host-share split and level
+  waves; the auto choice on the card;
+* ``fused`` (numeric/fused.py) — the whole group loop as one CUDA graph,
+  captured at the first call and replayed for each new set of values;
+  the auto choice on the CPU, where it is the same loop run eagerly;
+* ``mega`` (numeric/mega.py) — one CUDA graph per closed shape bucket,
+  fed per group through static, rung-padded tables.
 
 Where the JAX version returns new arrays, this one updates the pool in
 place: each group's front batch is built once by the assembly, the
 partial LU factors it in place, and the Schur block is copied into the
-pool, which lives on the device for the whole factorization.  So a
-checkpoint (persist/checkpoint.py) copies the pool only at a group
-boundary, from inside the loop.
+pool.  So a checkpoint (persist/checkpoint.py) copies the pool only at a
+group boundary, from inside the loop.
 """
 
 from __future__ import annotations
@@ -29,21 +36,23 @@ from superlu_dist_tpu_torch.numeric.kernels import GroupMaps
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan
 from superlu_dist_tpu_torch.ops.dense import (gemm_precision,
                                               group_partial_factor)
-from superlu_dist_tpu_torch.utils.errors import (CheckpointMismatchError,
-                                                 NumericBreakdownError)
-from superlu_dist_tpu_torch.utils.options import resolve_device
+from superlu_dist_tpu_torch.utils.errors import NumericBreakdownError
+from superlu_dist_tpu_torch.utils.options import EXECUTORS, resolve_device
 
 #: the front assembly the main path runs; a caller may pass the plain
 #: version instead to hold the kernel against it on the card
 KERNELS = kernels.front_assemble_
 PLAIN = kernels.front_assemble_plain
+#: the executors whose callables hold captured CUDA graphs on the card
+GRAPH_EXECUTORS = ("fused", "mega")
 
 
 def upload_maps(plan: FactorPlan, device: torch.device) -> list:
-    """The plan's index maps on the device — its own, int64, and the
-    front-assembly kernel's (``kernels.front_map_arrays``) — in one copy
-    per dtype, cached on the plan per device (the SamePattern reuse tier
-    keeps them across factorizations)."""
+    """The plan's index maps on the device — its own, int64, the
+    front-assembly kernel's (``kernels.front_map_arrays``) and the slots
+    written back to the pool — in one copy per dtype, cached on the plan
+    per device (the SamePattern reuse tier keeps them across
+    factorizations, and a captured CUDA graph holds their addresses)."""
     cache = plan.__dict__.setdefault("_device_maps", {})
     maps = cache.get(str(device))
     if maps is None:
@@ -58,6 +67,11 @@ def upload_maps(plan: FactorPlan, device: torch.device) -> list:
                 children=[(cs.ub, cs.child_off, cs.child_slot, cs.rel)
                           for cs in g.children])
             arrays += front
+            # the slots whose Schur block goes to the pool, found here so
+            # the write-back needs no mask on the device (a mask is a
+            # nonzero: a host sync, which a CUDA graph cannot hold)
+            arrays.append(np.flatnonzero(np.asarray(g.off)
+                                         < plan.pool_size).astype(np.int64))
             pairs.append(n)
         views = iter(kernels.upload(arrays, device))
         maps = []
@@ -69,9 +83,12 @@ def upload_maps(plan: FactorPlan, device: torch.device) -> list:
                                       plan.pool_size,
                                       *(next(views) for _ in range(6)),
                                       pairs=n)
+            keep = next(views)
             maps.append(GroupMaps(ws=ws, off=off, a_slot=a_slot,
                                   a_flat=a_flat, a_src=a_src,
-                                  children=children, front=front))
+                                  children=children, front=front,
+                                  keep=None if len(keep) == g.batch
+                                  else keep))
         cache[str(device)] = maps
     return maps
 
@@ -88,11 +105,17 @@ def group_step(dims, avals, pool, thresh, maps: GroupMaps,
     dims = (batch, m, w, u).  ``scatter(avals, pool, m, w, maps)`` returns
     the group's assembled (batch, m²) front batch.  Writes the group's
     Schur blocks into ``pool`` in place (slots with off == pool size have
-    none) and returns ((lpanel, upanel), tiny count as a 0-d device
-    tensor).  ``timings``, when a dict, accumulates seconds per stage,
-    synchronizing the device at each stage boundary."""
+    none; ``maps.keep`` lists the others, None when every slot has one)
+    and returns ((lpanel, upanel), tiny count as a 0-d device tensor).
+    Nothing here waits for the device, so a CUDA graph can hold the step.
+    ``timings``, when a dict, accumulates seconds per stage, synchronizing
+    the device at each stage boundary (refused while a graph captures)."""
     batch, m, w, u = dims
     dev = pool.device
+    if timings is not None and dev.type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        raise ValueError("timings synchronize the device: a CUDA graph "
+                         "capture cannot hold them")
     clock = [time.perf_counter()]
 
     def lap(name):
@@ -112,18 +135,41 @@ def group_step(dims, avals, pool, thresh, maps: GroupMaps,
     tiny = torch.where(real, flags, 0).sum()
     lap("partial_factor")
     if u > 0:
-        keep = maps.off < pool.shape[0]
-        dst = maps.off[keep, None] + torch.arange(u * u, device=dev)
-        pool[dst] = schur.reshape(batch, u * u)[keep]
+        vals = schur.reshape(batch, u * u)
+        off = maps.off
+        if maps.keep is not None:
+            vals, off = vals[maps.keep], off[maps.keep]
+        pool[off[:, None] + torch.arange(u * u, device=dev)] = vals
     packed = (lpanel.contiguous(), upanel.contiguous())
     lap("write_back")
     return packed, tiny
 
 
+def run_groups(plan: FactorPlan, lo: int, hi: int, maps, avals, pool,
+               thresh, gemm_prec="default", scatter=KERNELS, timings=None):
+    """Groups ``lo..hi-1`` of the plan, in order, on ``pool`` in place:
+    returns (their (lpanel, upanel) pairs, their tiny count as a 0-d
+    tensor).  The body of the fused executor (its graph holds all the
+    groups; on the CPU it runs eagerly) and of each level wave's graph;
+    nothing in it waits for the device."""
+    fronts = []
+    tiny = torch.zeros((), dtype=torch.int64, device=pool.device)
+    for gi in range(lo, hi):
+        grp = plan.groups[gi]
+        packed, t = group_step((grp.batch, grp.m, grp.w, grp.u), avals,
+                               pool, thresh, maps[gi], gemm_prec=gemm_prec,
+                               scatter=scatter, timings=timings)
+        fronts.append(packed)
+        tiny += t
+    return fronts, tiny
+
+
 @dataclasses.dataclass
 class NumericFactorization:
     """LU factors as packed front batches (the dLUstruct_t analog,
-    superlu_ddefs.h:186-191), on the device they were computed on."""
+    superlu_ddefs.h:186-191), on the device they were computed on — or in
+    host memory: all of them after an offload (``on_host``), the leading
+    levels' after a host-share split."""
 
     plan: FactorPlan
     fronts: list              # per group: (lpanel (B,M,w), upanel (B,w,u))
@@ -135,26 +181,95 @@ class NumericFactorization:
                               # labeling) when not finite
     gemm_prec: str = "default"   # the GEMM tier the factors ran at
     resumed_groups: int = 0   # groups spliced from a checkpoint (resume_from)
+    offload: str = "none"     # "host": the executor moved every front to
+                              # host memory as it was produced
+    host_levels: int = 0      # leading levels factored on the CPU (the
+                              # host-share split)
+    executor: dict = dataclasses.field(default_factory=dict)
+                              # what ran: the executor's report
+    host_fronts: list = None  # numpy copies for the host solve, pulled once
 
     @property
     def device(self) -> torch.device:
-        return self.fronts[0][0].device if self.fronts else torch.device("cpu")
+        """Where the factors' trailing (root) groups lie: the card for a
+        host-share split, the CPU for offloaded factors."""
+        return self.fronts[-1][0].device if self.fronts \
+            else torch.device("cpu")
+
+    @property
+    def on_host(self) -> bool:
+        """True when the executor moved every front to host memory
+        (offload): such factors are solved on the host
+        (solve/trisolve.py).  A host-share split leaves only the leading
+        levels' fronts on the CPU — a device factorization."""
+        return self.offload == "host" and bool(self.fronts)
+
+    def pull_to_host(self) -> list:
+        """The fronts as numpy arrays, pulled once (the dSolveInit analog,
+        SRC/pdutil.c:690: solve-side setup cached across solves)."""
+        if self.host_fronts is None:
+            self.host_fronts = [(lp.detach().cpu().numpy(),
+                                 up.detach().cpu().numpy())
+                                for lp, up in self.fronts]
+        return self.host_fronts
 
 
-def _apply_resume(resume, plan: FactorPlan, dtype, device):
-    """A verified ResumeState on the device: (fronts of the first k groups,
-    the pool at boundary k).  The pool must come back in the factor dtype
-    it was written in (the value digest covers the dtype; this guards the
-    array itself)."""
-    want = np.dtype(str(dtype).replace("torch.", ""))
-    if resume.pool.dtype != want or resume.pool.shape != (plan.pool_size,):
-        raise CheckpointMismatchError(
-            f"checkpoint pool at {resume.path!r} is {resume.pool.dtype} "
-            f"{resume.pool.shape}, this run needs {want} "
-            f"({plan.pool_size},)")
-    fronts = [tuple(torch.tensor(x, device=device) for x in pair)
-              for pair in resume.fronts]
-    return fronts, torch.tensor(resume.pool, device=device)
+def get_executor(plan: FactorPlan, dtype=torch.float64,
+                 executor: str = "auto", gemm_prec: str | None = None,
+                 device="cuda", *, host_flops: float = 0.0,
+                 front_bytes_limit: float = 6e9, offload_lag: int = 8,
+                 scatter=KERNELS):
+    """The executor of a plan, cached on the plan: refactor's shadow
+    handle and the SamePattern tiers share the plan, so they reuse the
+    executor — and a fused executor's captured graph.
+
+    ``executor``: "stream", "fused", "mega" or "auto", which is the JAX
+    package's rule (numeric/factor.py:391): fused on the CPU, stream on
+    the card.  The key holds the dtype, the executor, the GEMM tier, the
+    host-share threshold, the offload knobs, the device and the front
+    assembly (the kernel or its plain version).  The cache keeps one
+    fused or mega executor per device: a new one (another dtype, tier or
+    front assembly) drops the one before it, whose captured graphs hold
+    gigabytes — the fused graph of poisson3d(48) 2.94 GB of device memory
+    — and would otherwise pile up, one for each ladder rung at a new
+    tier.  Factors the dropped executor returned are its clones and
+    stay valid."""
+    if executor not in EXECUTORS:
+        raise ValueError(f"executor must be one of {EXECUTORS}, got "
+                         f"{executor!r}")
+    device = resolve_device(device)
+    if executor == "auto":
+        executor = "fused" if device.type == "cpu" else "stream"
+    gemm_prec = gemm_precision(gemm_prec)
+    stream_knobs = (float(host_flops), float(front_bytes_limit),
+                    int(offload_lag))
+    key = (str(dtype), executor, gemm_prec,
+           stream_knobs if executor != "fused" else None, str(device),
+           scatter)
+    cache = plan.__dict__.setdefault("_factor_fns", {})
+    fn = cache.get(key)
+    if fn is None:
+        if executor in GRAPH_EXECUTORS:
+            for k in [k for k in cache if k[1] in GRAPH_EXECUTORS
+                      and k[4] == str(device)]:
+                del cache[k]
+        if executor == "stream":
+            from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+            fn = StreamExecutor(plan, dtype, device, gemm_prec=gemm_prec,
+                                host_flops=host_flops,
+                                front_bytes_limit=front_bytes_limit,
+                                offload_lag=offload_lag, scatter=scatter)
+        elif executor == "mega":
+            from superlu_dist_tpu_torch.numeric.mega import MegaExecutor
+            fn = MegaExecutor(plan, dtype, device, gemm_prec=gemm_prec,
+                              front_bytes_limit=front_bytes_limit,
+                              offload_lag=offload_lag, scatter=scatter)
+        else:
+            from superlu_dist_tpu_torch.numeric.fused import FusedExecutor
+            fn = FusedExecutor(plan, dtype, device, gemm_prec=gemm_prec,
+                               scatter=scatter)
+        cache[key] = fn
+    return fn
 
 
 def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
@@ -163,7 +278,10 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       check_finite: bool = True, gemm_prec: str | None = None,
                       ckpt_dir: str | None = None, ckpt_every: int = 0,
                       resume_from: str | None = None, deadline=None,
-                      scatter=KERNELS, timings=None) -> NumericFactorization:
+                      scatter=KERNELS, timings=None, executor: str = "auto",
+                      host_flops: float = 0.0,
+                      front_bytes_limit: float = 6e9,
+                      offload_lag: int = 8) -> NumericFactorization:
     """Factor with values aligned to plan.pattern_indices, on ``device``
     (the card unless the caller asks for the CPU; CUDA without a card
     raises), in ``dtype``: float32, float64, complex64 or complex128.
@@ -179,14 +297,20 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     supernode.  ``gemm_prec`` is the Schur GEMMs' ladder tier
     (``ops/dense.gemm_precision``: None is "default", TF32 on the card).
 
-    Crash consistency (persist/): ``ckpt_dir`` / ``ckpt_every`` arm a
-    FactorCheckpointer that flushes the completed-group frontier every
-    ``ckpt_every`` groups and on deadline, breakdown or SIGTERM;
-    ``resume_from`` loads a checkpoint, verifies its plan fingerprint and
-    value digest against this call's inputs, and restarts the group loop
-    at its frontier — factors bit for bit equal to an uninterrupted run.
-    ``deadline`` (a utils.deadline.Deadline) is polled before every group.
-    ``scatter`` and ``timings`` are passed to every ``group_step``.
+    ``executor`` and the stream knobs (``host_flops``,
+    ``front_bytes_limit``, ``offload_lag``) choose how the groups run
+    (``get_executor``).  Crash consistency (persist/): ``ckpt_dir`` /
+    ``ckpt_every`` arm a FactorCheckpointer that flushes the
+    completed-group frontier every ``ckpt_every`` groups and on deadline,
+    breakdown or SIGTERM; ``resume_from`` loads a checkpoint, verifies its
+    plan fingerprint and value digest against this call's inputs, and
+    restarts the group loop at its frontier — factors bit for bit equal to
+    an uninterrupted run.  ``deadline`` (a utils.deadline.Deadline) is
+    polled before every group.  These need group boundaries, so arming any
+    of them turns "auto" and "fused" into "stream" (the JAX package's
+    rule, numeric/factor.py:509-510, which there leaves a deadline to one
+    poll before the fused program).  ``scatter`` is the front assembly of
+    every group; ``timings`` (stream only) accumulates per-stage seconds.
     """
     device = resolve_device(device)
     plan.check_index_width()
@@ -196,11 +320,18 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     # its float, rounded to that type, is what the value digest records
     real_dtype = torch.empty((), dtype=dtype).real.dtype
     eps = torch.finfo(dtype).eps
-    thresh_host = torch.tensor(
+    thresh = torch.tensor(
         np.sqrt(eps) * max(anorm, 1e-300) if replace_tiny else 0.0,
         dtype=real_dtype)
-    thresh_f = float(thresh_host)
-    thresh = thresh_host.to(device)
+    thresh_f = float(thresh)
+    want_ckpt = bool(ckpt_dir) or ckpt_every > 0
+    if (want_ckpt or resume_from or deadline is not None) \
+            and executor in ("auto", "fused"):
+        executor = "stream"
+    ex = get_executor(plan, dtype, executor, gemm_prec, device,
+                      host_flops=host_flops,
+                      front_bytes_limit=front_bytes_limit,
+                      offload_lag=offload_lag, scatter=scatter)
     resume = None
     if resume_from:
         from superlu_dist_tpu_torch.persist.checkpoint import load_checkpoint
@@ -208,18 +339,8 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                                  pattern_values=pattern_values,
                                  thresh=thresh_f, dtype=dtype,
                                  gemm_prec=gemm_prec)
-    avals = torch.as_tensor(np.asarray(pattern_values), device=device).to(dtype)
-    maps = upload_maps(plan, device)
-    tiny = torch.zeros((), dtype=torch.int64, device=device)
-    start = tiny_resumed = 0
-    if resume is None:
-        pool = torch.zeros(plan.pool_size, dtype=dtype, device=device)
-        fronts = []
-    else:
-        fronts, pool = _apply_resume(resume, plan, dtype, device)
-        start, tiny_resumed = resume.k, resume.tiny
     ckpt = None
-    if ckpt_dir or ckpt_every > 0:
+    if want_ckpt:
         from superlu_dist_tpu_torch.persist.checkpoint import (
             FactorCheckpointer)
         ckpt = FactorCheckpointer(ckpt_dir or ".slu_ckpt", plan,
@@ -227,24 +348,17 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                                   every=int(ckpt_every), gemm_prec=gemm_prec)
         if resume is not None:
             ckpt.seed(resume)
+    avals = torch.as_tensor(np.asarray(pattern_values)).to(dtype)
     try:
-        for gi, (grp, gm) in enumerate(zip(plan.groups, maps)):
-            if gi < start:
-                continue
-            if deadline is not None:
-                # a group boundary: the latest noted frontier is the pool
-                # as it stands
-                deadline.poll(where="numeric factorization", on_expire=(
-                    None if ckpt is None
-                    else (lambda: ckpt.flush_latest("deadline"))))
-            packed, t = group_step((grp.batch, grp.m, grp.w, grp.u), avals,
-                                   pool, thresh, gm, gemm_prec=gemm_prec,
-                                   scatter=scatter, timings=timings)
-            fronts.append(packed)
-            tiny += t
-            if ckpt is not None:
-                ckpt.note(gi, fronts, pool, tiny)
-        del pool        # a checkpointer keeps its own reference
+        if hasattr(ex, "checkpoint"):
+            ex.checkpoint, ex.resume, ex.deadline = ckpt, resume, deadline
+        try:
+            fronts, tiny = ex(avals, thresh, timings=timings)
+        finally:
+            if hasattr(ex, "checkpoint"):
+                # per-call hooks: a cached executor must not carry them
+                # into the next factorization
+                ex.checkpoint = ex.resume = ex.deadline = None
         finite, info_col = True, -1
         if not replace_tiny:
             finite, info_col = localize_singularity(plan, fronts)
@@ -267,20 +381,23 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     if ckpt is not None:
         ckpt.complete(cleanup=True)
     return NumericFactorization(plan=plan, fronts=fronts,
-                                tiny_pivots=int(tiny) + tiny_resumed,
-                                dtype=dtype, finite=finite, info_col=info_col,
+                                tiny_pivots=int(tiny), dtype=dtype,
+                                finite=finite, info_col=info_col,
                                 gemm_prec=gemm_prec,
-                                resumed_groups=start)
+                                resumed_groups=resume.k if resume else 0,
+                                offload=getattr(ex, "offload", "none"),
+                                host_levels=getattr(ex, "host_levels", 0),
+                                executor=ex.report())
 
 
 def fronts_finite(fronts) -> bool:
-    """Cheap isfinite sentinel over factored panels: reduced on the
-    device, one host transfer for all groups."""
-    if not fronts:
-        return True
-    flags = torch.stack([torch.isfinite(lp).all() & torch.isfinite(up).all()
-                         for lp, up in fronts])
-    return bool(flags.all())
+    """Cheap isfinite sentinel over factored panels: reduced where the
+    panels lie, one host transfer per device for all groups."""
+    flags = {}
+    for lp, up in fronts:
+        flags.setdefault(lp.device, []).append(
+            torch.isfinite(lp).all() & torch.isfinite(up).all())
+    return all(bool(torch.stack(f).all()) for f in flags.values())
 
 
 def _nonfinite_slots(lp, up) -> np.ndarray:

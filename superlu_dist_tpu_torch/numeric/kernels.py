@@ -310,6 +310,8 @@ class GroupMaps:
     a_src: torch.Tensor
     children: list          # [(ub, child_off, child_slot, rel)]
     front: FrontMaps
+    keep: torch.Tensor = None   # slots written back to the pool (None:
+                                # all of them)
 
 
 def launch_(f, maps: FrontMaps, pool=None, avals=None, ws=None, w=0):

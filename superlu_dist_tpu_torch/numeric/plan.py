@@ -101,11 +101,13 @@ class FactorPlan:
     bucket_set: tuple = ()         # sorted distinct (W, U) keys over groups
 
     def __getstate__(self):
-        # the device-map cache (numeric/factor.upload_maps) holds tensors on
-        # a device: a pickled plan (persist/serial.save_lu) leaves it out,
-        # and it is rebuilt at first use
+        # the device-map cache (numeric/factor.upload_maps) and the executor
+        # cache (numeric/factor.get_executor) hold tensors and graphs on a
+        # device: a pickled plan (persist/serial.save_lu) leaves them out,
+        # and they are rebuilt at first use
         state = dict(self.__dict__)
         state.pop("_device_maps", None)
+        state.pop("_factor_fns", None)
         return state
 
     @property

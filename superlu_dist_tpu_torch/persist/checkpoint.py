@@ -36,6 +36,7 @@ import signal
 import threading
 
 import numpy as np
+import torch
 
 from superlu_dist_tpu_torch.persist import serial
 from superlu_dist_tpu_torch.utils.errors import (CheckpointError,
@@ -119,6 +120,11 @@ class FactorCheckpointer:
         copied to the host here (synchronizing the device).  Returns the
         bundle path."""
         with self._lock:
+            if isinstance(pool, torch.Tensor) and pool.is_cuda:
+                # offloaded fronts are copied to host memory on a side
+                # stream: they are whole once the card is idle (and they
+                # are stored from where they lie, with no second copy)
+                torch.cuda.synchronize(pool.device)
             tiny_now = int(tiny) + self.tiny_base
             pool_np = serial.host_array(pool)
             while len(self._host) < k:

@@ -260,6 +260,14 @@ class DeviceSolver:
         self._groups = []
         self.fronts = []
         self.gathered_bytes = 0
+        # a host-share factorization (numeric/stream.py) leaves the leading
+        # levels' fronts on the CPU: upload them once, here (the factors'
+        # own record keeps them where they are)
+        src = [(lp.to(self.device), up.to(self.device))
+               for lp, up in fact.fronts]
+        self.uploaded_bytes = sum(
+            lp.numel() * lp.element_size() + up.numel() * up.element_size()
+            for (lp, up), (slp, _) in zip(fact.fronts, src) if slp is not lp)
         for sg in solve_plan.groups:
             k = np.arange(sg.w)
             cols = np.where(k[None, :] < sg.ws[:, None],
@@ -279,9 +287,9 @@ class DeviceSolver:
                                      device=self.device),
                  torch.as_tensor(rows, device=self.device), layers))
             if sg.reuse >= 0:
-                self.fronts.append(fact.fronts[sg.reuse])
+                self.fronts.append(src[sg.reuse])
             else:
-                lp, up = self._gather_panels(sg, fact.fronts, plan)
+                lp, up = self._gather_panels(sg, src, plan)
                 self.fronts.append((lp, up))
                 self.gathered_bytes += (lp.numel() * lp.element_size()
                                         + up.numel() * up.element_size())
@@ -353,6 +361,7 @@ class DeviceSolver:
         stacks, DiagInv blocks, the fused path's static buffers and its
         graph pool (reserved while capturing)."""
         return {"gathered_panel_bytes": self.gathered_bytes,
+                "uploaded_front_bytes": self.uploaded_bytes,
                 "diag_inv_bytes": self.diag_inv_bytes,
                 "buffer_bytes": self.buffer_bytes,
                 "graph_pool_bytes": self.graph_pool_bytes,

@@ -85,6 +85,11 @@ class RecoveryPolicy:
     max_rungs: int = 3                 # ladder depth cap
 
 
+#: the numeric executors the port runs (the JAX package's "spmd" tier is
+#: multi-device, not ported)
+EXECUTORS = ("auto", "stream", "fused", "mega")
+
+
 @dataclasses.dataclass
 class Options:
     """Runtime options (analog of superlu_dist_options_t).
@@ -148,6 +153,23 @@ class Options:
     deadline_s: float | None = None
     ckpt_every: int = 0
     ckpt_dir: str = ""
+    # the numeric executor (numeric/factor.get_executor) and its knobs,
+    # each at the value the JAX package's knob resolves to when unset
+    executor: str = "auto"            # SLU_TPU_EXECUTOR: auto | stream |
+                                      # fused | mega (auto: stream on the
+                                      # card, fused on the CPU)
+    bucket_closed: bool = False       # SLU_TPU_BUCKET_CLOSED: close the
+                                      # plan's shape keys (mega's plans)
+    bucket_keys: int = 6              # SLU_TPU_BUCKET_KEYS: the closed
+                                      # key budget
+    front_bytes_limit: float = 6e9    # SLU_TPU_FRONT_BYTES_LIMIT: padded
+                                      # front bytes above which the stream
+                                      # executor offloads factors to host
+    offload_lag: int = 8              # SLU_TPU_OFFLOAD_LAG: groups of
+                                      # device panels in flight to host
+    host_flops: float = 0.0           # SLU_TPU_HOST_FLOPS: leading levels
+                                      # cheaper than this run on the CPU
+                                      # (0 = off)
 
     def __post_init__(self):
         # the JAX package reads these from SLU_TPU_DEADLINE_S and
@@ -160,6 +182,11 @@ class Options:
         if int(self.ckpt_every) < 0:
             raise ValueError(f"ckpt_every must be >= 0, got "
                              f"{self.ckpt_every!r}")
+        if self.executor not in EXECUTORS:
+            raise ValueError(f"executor must be one of {EXECUTORS}, got "
+                             f"{self.executor!r}")
+        if int(self.offload_lag) < 0 or int(self.bucket_keys) < 1:
+            raise ValueError("offload_lag must be >= 0 and bucket_keys >= 1")
 
 
 def print_options(o: Options) -> str:

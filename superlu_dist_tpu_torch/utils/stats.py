@@ -52,6 +52,10 @@ class SolveReport:
     finite: bool = True           # solution passed the isfinite sentinel
     factor_dtype: str = ""        # dtype of the factors the answer rests on
     gemm_precision: str = ""      # GEMM tier those factors ran at
+    solve_route: str = ""         # "device", or "host" for factors the
+                                  # executor offloaded to host memory
+    residual_route: str = ""      # "device" (csr_spmv on the card) or
+                                  # "host" (the refinement residual)
     latency_ms: float | None = None  # driver solve latency (SOLVE + refine
                                   # + ladder + condest), host clock
 
@@ -60,6 +64,8 @@ class SolveReport:
                  else ""]
         if self.gemm_precision:
             parts.append(f"gemm {self.gemm_precision}")
+        if self.solve_route:
+            parts.append(f"solve on {self.solve_route}")
         if self.rcond is not None:
             parts.append(f"rcond {self.rcond:.3e}")
         if self.berr is not None:
@@ -96,6 +102,9 @@ class Stats:
     current_memory_bytes: int = 0
     peak_memory_bytes: int = 0    # on the card: torch.cuda.max_memory_
                                   # allocated after FACT
+    executor: dict = field(default_factory=dict)   # the executor's report
+                                  # of the last factorization (numeric/
+                                  # factor.get_executor)
 
     @contextlib.contextmanager
     def timer(self, phase: str):
@@ -152,6 +161,16 @@ class Stats:
                 f"critical path {s.get('critical_path', 0)}"
                 + (f"  moved {s['bytes_moved'] / 1e6:8.1f} MB"
                    if s.get("bytes_moved") else ""))
+        if self.executor:
+            e = self.executor
+            line = (f"    executor {e.get('executor', '?')}"
+                    f"  offload {e.get('offload', 'none')}"
+                    f" (wait {e.get('offload_wait_s', 0.0):.3f} s)"
+                    f"  host levels {e.get('host_levels', 0)}")
+            if e.get("graphs"):
+                line += (f"  graphs {e['graphs']}"
+                         f" (capture {e.get('capture_s', 0.0):.3f} s)")
+            lines.append(line)
         if self.resume:
             lines.append(
                 f"    resumed  {self.resume.get('groups', 0)}/"

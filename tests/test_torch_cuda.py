@@ -4,8 +4,10 @@ for bit) in float32, float64, complex64 and complex128, the factorization
 through the kernel against the one through the plain version (real and
 complex), gssvx on the card, transposed and conjugate solves on the card
 against the same solves on the CPU, refactor on the card, solves that are
-bit for bit reproducible (fused and eager), and save_lu / load_lu and a
-deadline-stopped factorization resumed, on the card.
+bit for bit reproducible (fused and eager), save_lu / load_lu and a
+deadline-stopped factorization resumed, and the executors (the fused and
+mega CUDA graphs, level waves, host offload, the host-share split), on
+the card.
 
 These tests need an NVIDIA GPU and skip without one.  The JAX package is
 not installed beside the card, so run them without the repo's conftest:
@@ -424,3 +426,218 @@ def test_save_load_and_resume_on_the_card(cuda, tmp_path):
     assert info == 0 and st3.resume["groups"] == k
     assert all(torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
                for p, q in zip(lu.numeric.fronts, lu3.numeric.fronts))
+
+
+# ---------------------------------------------------------------------------
+# the executors: fused and mega CUDA graphs, level waves, host offload and
+# the host-share split
+# ---------------------------------------------------------------------------
+
+def _equal(f1, f2):
+    return len(f1) == len(f2) and all(
+        torch.equal(l1.cpu(), l2.cpu()) and torch.equal(u1.cpu(), u2.cpu())
+        for (l1, u1), (l2, u2) in zip(f1, f2))
+
+
+def _within_drift(f1, f2):
+    return all(torch.allclose(x.cpu().double(), y.cpu().double(),
+                              rtol=tols.SCHEDULE_DRIFT_RTOL,
+                              atol=tols.SCHEDULE_DRIFT_ATOL)
+               for p, q in zip(f1, f2) for x, y in zip(p, q))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_replays_equal_the_stream(cuda, dtype):
+    """The fused graph's first call (warm-up, capture, replay) and a
+    second replay are bit for bit the eager stream's factors; the kernel's
+    launches count at each replay (one per group) and at the warm-up (one
+    per distinct shape key), not at the capture."""
+    a = poisson3d(12)
+    lu, bvals, _ = slt.analyze(slt.Options(), a, device=cuda)
+    plan = lu.plan
+    keys = len({(g.batch, g.m, g.w, g.u) for g in plan.groups})
+    ref = factor.numeric_factorize(plan, bvals, lu.anorm, dtype=dtype,
+                                   device=cuda, executor="stream")
+    out = []
+    for want in (len(plan.groups) + keys, len(plan.groups)):
+        kernels.reset_launches()
+        num = factor.numeric_factorize(plan, bvals, lu.anorm, dtype=dtype,
+                                       device=cuda, executor="fused")
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["front_assemble"] == want
+        assert num.tiny_pivots == ref.tiny_pivots
+        out.append(num)
+    assert _equal(out[0].fronts, ref.fronts)
+    assert _equal(out[1].fronts, out[0].fronts)
+    rep = out[1].executor
+    assert rep["executor"] == "fused" and rep["graphs"] == 1
+    assert rep["replays"] == 2 and rep["capture_s"] > 0
+    with pytest.raises(ValueError):
+        factor.numeric_factorize(plan, bvals, lu.anorm, dtype=dtype,
+                                 device=cuda, executor="fused", timings={})
+
+
+def test_refactor_through_the_replay_leaves_the_old_handle(cuda):
+    """refactor on a fused handle replays the plan's graph into a shadow:
+    the factors the old handle held (and a copy taken before) are
+    untouched by the replay, and the new factors are a fresh stream's."""
+    a = poisson3d(12)
+    b = a.matvec(np.random.default_rng(1).standard_normal(a.n_rows))
+    _, lu, _, info = slt.gssvx(slt.Options(executor="fused"), a, b,
+                               device=cuda)
+    assert info == 0 and lu.numeric.executor["executor"] == "fused"
+    old = lu.numeric
+    saved = [(lp.clone(), up.clone()) for lp, up in old.fronts]
+    vals = a.data * (1.0 + 0.05 * np.random.default_rng(0).uniform(
+        -1.0, 1.0, a.nnz))
+    kernels.reset_launches()
+    slt.refactor(lu, vals)
+    assert kernels.LAUNCHES["front_assemble"] == len(lu.plan.groups)
+    assert lu.numeric is not old and _equal(old.fronts, saved)
+    lu2, bvals, _ = slt.analyze(slt.Options(
+        fact=slt.Fact.SamePattern_SameRowPerm), type(a)(
+            a.n_rows, a.n_cols, a.indptr, a.indices, vals), device=cuda,
+        lu=lu)
+    fresh = factor.numeric_factorize(lu.plan, bvals, lu2.anorm,
+                                     dtype=lu.numeric.dtype, device=cuda,
+                                     executor="stream")
+    assert _equal(lu.numeric.fronts, fresh.fronts)
+
+
+def test_offload_lowers_the_peak_and_solves_on_the_host(cuda):
+    """Options(front_bytes_limit=0): every front is copied to pinned host
+    memory as it is produced, the peak device memory of the factorization
+    is below the stream's, and gssvx solves and refines on the host."""
+    a = poisson3d(16)
+    b = a.matvec(np.random.default_rng(4).standard_normal(a.n_rows))
+    lu, bvals, _ = slt.analyze(slt.Options(), a, device=cuda)
+    peaks = {}
+    for limit in (6e9, 0):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        num = factor.numeric_factorize(lu.plan, bvals, lu.anorm,
+                                       dtype=torch.float32, device=cuda,
+                                       executor="stream",
+                                       front_bytes_limit=limit)
+        torch.cuda.synchronize()
+        peaks[limit] = torch.cuda.max_memory_allocated() - base
+        if limit == 0:
+            assert num.on_host and num.offload == "host"
+            assert all(lp.device.type == "cpu" and lp.is_pinned()
+                       for lp, _ in num.fronts)
+            assert _equal(num.fronts, ref)
+        else:
+            ref = num.fronts
+        del num
+    assert peaks[0] < peaks[6e9]
+    kernels.reset_launches()
+    x, luo, st, info = slt.gssvx(slt.Options(
+        fact=slt.Fact.SamePattern_SameRowPerm, front_bytes_limit=0), a, b,
+        lu=lu)
+    rep = st.solve_report
+    assert info == 0 and luo.numeric.on_host and luo.dev_solver is None
+    assert rep.solve_route == rep.residual_route == "host"
+    assert st.executor["offload"] == "host"
+    assert kernels.LAUNCHES["csr_spmv"] == 0
+    assert rep.berr <= tols.berr_target(np.float64)
+
+
+def test_mega_graphs_are_the_closed_keys(cuda):
+    """mega on a closed plan: one graph per closed key, the kernel's
+    launches counted through the replays (one per group; the warm-up adds
+    one per bucket at the first call), factors within the schedule-drift
+    gate of the stream in float64 (another cuBLAS algorithm for a padded
+    batch may reassociate sums)."""
+    a = poisson3d(12)
+    lu, bvals, _ = slt.analyze(slt.Options(bucket_closed=True), a,
+                               device=cuda)
+    plan = lu.plan
+    assert plan.closed
+    ref = factor.numeric_factorize(plan, bvals, lu.anorm,
+                                   dtype=torch.float64, device=cuda,
+                                   executor="stream")
+    for want in (len(plan.groups) + len(plan.bucket_set), len(plan.groups)):
+        kernels.reset_launches()
+        num = factor.numeric_factorize(plan, bvals, lu.anorm,
+                                       dtype=torch.float64, device=cuda,
+                                       executor="mega")
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["front_assemble"] == want
+        assert _within_drift(num.fronts, ref.fronts)
+    assert num.executor["graphs"] == len(plan.bucket_set)
+
+
+def _normwise(f1, f2):
+    num = max(float((x.cpu().double() - y.cpu().double()).abs().max())
+              for p, q in zip(f1, f2) for x, y in zip(p, q) if x.numel())
+    den = max(float(y.cpu().double().abs().max())
+              for q in f2 for y in q if y.numel())
+    return num / den
+
+
+def test_mega_and_the_host_share_in_float32(cuda):
+    """float32 at the TF32 tier: mega's factors on a closed plan (padded
+    batches) and the host-share split's (the host levels' IEEE float32
+    products) within TF32_DRIFT of the stream's, normwise."""
+    from superlu_dist_tpu_torch.numeric.plan import bucket_rung
+    from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
+    a = poisson3d(12)
+    for closed in (True, False):
+        lu, bvals, _ = slt.analyze(slt.Options(bucket_closed=closed), a,
+                                   device=cuda)
+        plan = lu.plan
+        ref = factor.numeric_factorize(plan, bvals, lu.anorm,
+                                       dtype=torch.float32, device=cuda,
+                                       executor="stream")
+        if closed:
+            num = factor.numeric_factorize(plan, bvals, lu.anorm,
+                                           dtype=torch.float32, device=cuda,
+                                           executor="mega")
+            assert num.tiny_pivots == ref.tiny_pivots
+            assert _normwise(num.fronts, ref.fronts) <= tols.TF32_DRIFT
+            continue
+        lv0 = max(bucket_rung(g.batch, lo=1, growth=2.0)
+                  * _front_flops(g.w, g.u)
+                  for g in plan.groups if g.level == plan.groups[0].level)
+        num = factor.numeric_factorize(plan, bvals, lu.anorm,
+                                       dtype=torch.float32, device=cuda,
+                                       executor="stream",
+                                       host_flops=float(lv0) * 1.0001)
+        assert num.host_levels >= 1
+        assert _normwise(num.fronts, ref.fronts) <= tols.TF32_DRIFT
+
+
+def test_level_waves_and_the_host_share_on_the_card(cuda):
+    """Level waves (one graph per schedule wave) are bit for bit the
+    stream; the host-share split (leading levels on the CPU, float64) is
+    within the schedule-drift gate of it, and its DeviceSolver uploads the
+    host fronts once and solves to the BERR gate."""
+    from superlu_dist_tpu_torch.numeric.plan import bucket_rung
+    from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+    from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
+    a = poisson3d(12)
+    b = a.matvec(np.random.default_rng(6).standard_normal(a.n_rows))
+    lu, bvals, _ = slt.analyze(slt.Options(), a, device=cuda)
+    plan = lu.plan
+    ref = factor.numeric_factorize(plan, bvals, lu.anorm,
+                                   dtype=torch.float64, device=cuda,
+                                   executor="stream")
+    thresh = torch.tensor(np.sqrt(np.finfo(np.float64).eps) * lu.anorm)
+    ex = StreamExecutor(plan, torch.float64, cuda, granularity="level")
+    for _ in range(2):
+        fronts, tiny = ex(torch.as_tensor(bvals), thresh)
+        assert tiny == ref.tiny_pivots and _equal(fronts, ref.fronts)
+    assert ex.report()["graphs"] == len(ex.waves())
+    lv0 = max(bucket_rung(g.batch, lo=1, growth=2.0) * _front_flops(g.w, g.u)
+              for g in plan.groups if g.level == plan.groups[0].level)
+    x, luh, st, info = slt.gssvx(slt.Options(
+        fact=slt.Fact.SamePattern_SameRowPerm, factor_dtype="float64",
+        host_flops=float(lv0) * 1.0001), a, b, lu=lu)
+    num = luh.numeric
+    assert info == 0 and num.host_levels >= 1 and not num.on_host
+    assert num.fronts[0][0].device.type == "cpu"
+    assert num.device.type == "cuda" and _within_drift(num.fronts, ref.fronts)
+    assert luh.dev_solver.memory_stats()["uploaded_front_bytes"] > 0
+    assert st.solve_report.solve_route == "device"
+    assert st.solve_report.berr <= tols.berr_target(np.float64)

@@ -86,6 +86,10 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, superlu_dist_tpu_torch, superlu_dist_tpu_torch.interop;"
             "import superlu_dist_tpu_torch.persist, superlu_dist_tpu_torch.io;"
             "import superlu_dist_tpu_torch.__main__;"
+            "import superlu_dist_tpu_torch.numeric.stream,"
+            " superlu_dist_tpu_torch.numeric.fused,"
+            " superlu_dist_tpu_torch.numeric.mega,"
+            " superlu_dist_tpu_torch.solve.trisolve;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'superlu_dist_tpu')];"
             "assert not bad, bad")
