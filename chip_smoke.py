@@ -38,18 +38,31 @@ drives the port are reset just before it and checked just after):
                 csr_spmv, the ladder when refinement misses;
      persist  — on that handle: save_lu, load_lu onto the card (fronts
                 torch.equal) and a FACTORED solve from the loaded handle;
-                the same skeleton factored under Options(deadline_s about
-                half the main FACT, ckpt_dir), stopped at a group boundary
-                0 < k < groups with its frontier on disk, and
-                gssvx(resume_from=) from it, whose fronts must be
-                torch.equal to the main handle's: bundle bytes, save / load
-                / flush seconds, k, the resumed FACT;
-     cli      — the main path's matrix written as a .mtx file and solved by
+                then a gssvx handle of poisson3d(32) and its skeleton
+                factored under Options(deadline_s about half its FACT,
+                ckpt_dir), stopped at a group boundary 0 < k < groups with
+                its frontier on disk, and gssvx(resume_from=) from it,
+                whose fronts must be torch.equal to that handle's: bundle
+                bytes, save / load / flush seconds, k, the resumed FACT;
+     cli      — poisson3d(32) written as a .mtx file and solved by
                 ``python -m superlu_dist_tpu_torch -f <file> --stats``
                 (``__main__.main`` in-process): rc 0, the reader's seconds,
                 the report's FACT / SOLVE / REFINE seconds and BERR;
+     serve    — the serving tier on that handle and the persist bundle: a
+                SolveServer under 8 client threads and 256 seeded requests
+                (nrhs 1 / 4 / 16 / 40), cold and with its buckets warmed
+                (requests/s, p50/p99 latency, batches, batch fill, graph
+                captures; a seeded sample of batches against
+                lu.solve_factored, timed in stages); 16 requests
+                through the BERR gate (residuals through csr_spmv);
+                from_bundle bit for bit the live server, a poisoned column
+                isolated and a corrupted panel scrubbed (chaos);
+                SolveServer.refactor (one front_assemble launch per
+                group); a FleetRouter of two process replicas over the
+                poisson3d(48) and (32) bundles with one replica killed;
      reuse    — on that handle: a FACTORED solve, a TRANS solve, refactor
-                on perturbed values (equal to a fresh factorization),
+                on perturbed values (equal to a fresh factorization and
+                to the serve phase's SolveServer.refactor),
                 SamePattern_SameRowPerm, condest, the residual-precision
                 rung;
      complex  — a complex Helmholtz-type operator on the same pattern,
@@ -60,19 +73,23 @@ drives the port are reset just before it and checked just after):
                 SOLVE seconds, last_solve_stats, solver
                 memory, BERR after refinement; every solve repeated bit for
                 bit, the eager ones equal to the fused ones;
-     gemm_tiers — gssvx on poisson3d(48) at the bf16 and f32 tiers beside
-                the main path's default: FACT, refine steps, rungs, BERR;
-     executors — Options.executor on the main path's plan: the stream; the
-                fused CUDA graph (warm-up, capture, instantiation, node
-                count, graph memory; replays bit for bit the stream, an
-                earlier handle untouched; refactor through the replay);
-                the host offload through gssvx (FACT, offload wait, peak
-                device memory beside the stream's, the host solve, BERR);
-     executors_small — on poisson3d(32): mega on a closed plan (one graph
-                per closed key), the host-share split and level waves
-                (bit for bit the stream), with their graphs' costs;
+     gemm_tiers — gssvx on poisson3d(32) at the default, bf16 and f32
+                tiers: FACT, refine steps, rungs, BERR;
+     executors — Options.executor on the main path's plan: the stream;
+     executors_small — on poisson3d(32) (the persist phase's handle): the
+                host offload through gssvx
+                (FACT, offload wait, peak device memory beside the
+                stream's, the host solve, BERR), the fused CUDA graph (warm-up,
+                capture, instantiation, node count, graph memory; replays
+                bit for bit the stream, an earlier handle untouched;
+                refactor through the replay); on poisson3d(24) mega on
+                a closed plan (one graph per closed key), the host-share
+                split and level waves (bit for bit the stream), with their
+                graphs' costs;
                 ``python3 chip_smoke.py executors [NX]`` runs the build,
-                gssvx and these two phases alone;
+                gssvx and these two phases alone (``python3 chip_smoke.py
+                serve``: the build, gssvx, its bundle and the serve
+                phase);
   5. factor_stages — the main path's factorization synchronized at every
                 stage boundary of every group;
   6. kernels_factor — one more factorization with CUDA events around every
@@ -94,7 +111,9 @@ Every DOFACT analysis runs in the native library; its calls are counted
 phase's line.  Then a JSON line with one record per kernel, the card
 line again, and the last line {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA device it exits
-non-zero before any result.
+non-zero before any result.  ``python3 chip_smoke.py first_solve
+[LABEL]`` times the main path's gssvx and its first solve alone
+(``first_solve_only``).
 """
 
 import json
@@ -113,6 +132,8 @@ HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {"float32": 67e12, "float64": 34e12}
 NX = 48                  # poisson3d grid edge of the main path: n = 110,592
 SEED = 0
+SERVE_RESOLVE = 8        # cold serve batches re-solved and timed in stages
+FIRST_SOLVE_REPS = 6     # first solves (new solver, two captures) timed
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 SOURCE = "superlu_dist_tpu_torch/csrc/front_assemble.cu"
@@ -733,12 +754,14 @@ def timed_gssvx(slt, kernels, options, a, b, **kw):
 
 
 def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
-                factor):
-    """Phase 4b, at full width on the main path's handle: a FACTORED solve,
-    a TRANS solve, refactor (equal to a fresh factorization of the same
-    values on the same plan, no SYMBFACT/COLPERM), SamePattern_SameRowPerm
-    on the changed matrix, condest on the card, and the residual-precision
-    rung of the ladder.  One line; every BERR at its target."""
+                factor, served):
+    """Phase 4d, at full width on the main path's handle: a FACTORED solve,
+    a TRANS solve, refactor (no SYMBFACT/COLPERM; equal to a fresh
+    factorization of the same values on the same plan, and bit for bit the
+    serve phase's ``SolveServer.refactor`` of those values, ``served``),
+    SamePattern_SameRowPerm on the changed matrix, condest on the card, and
+    the residual-precision rung of the ladder.  One line; every BERR at its
+    target."""
     groups = len(lu.plan.groups)
     rng = np.random.default_rng(SEED + 10)
     out = {"dofact": dict(wall_s=dofact_s, fact_s=dofact_fact_s)}
@@ -786,12 +809,14 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
     fresh = factor.numeric_factorize(lu.plan, bvals, lu.anorm,
                                      dtype=lu.numeric.dtype, device="cuda",
                                      gemm_prec=lu.numeric.gemm_prec)
-    equal = all(torch.equal(l1, l2) and torch.equal(u1, u2)
-                for (l1, u1), (l2, u2) in zip(lu.numeric.fronts,
-                                              fresh.fronts))
+    equal = _fronts_equal(torch, lu.numeric.fronts, fresh.fronts)
     del fresh
     if not equal:
         raise AssertionError("refactor's factors != a fresh factorization")
+    equal_served = _fronts_equal(torch, lu.numeric.fronts, served.fronts)
+    if not equal_served:
+        raise AssertionError("SolveServer.refactor's factors != "
+                             "slt.refactor's")
     b3 = a_new.matvec(rng.standard_normal(a.n_rows))
     # the refactored handle's BERR: a FACTORED solve through its factors
     x, _, st2, sec2 = timed_gssvx(slt, kernels,
@@ -800,6 +825,7 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
     out["refactor"] = dict(s=sec, fact_s=st.utime["FACT"],
                            analysis_phases_s=skipped,
                            equals_fresh_factorization=equal,
+                           equals_server_refactor=equal_served,
                            launches=launches, solve_s=sec2,
                            berr=st2.solve_report.berr,
                            refine_steps=st2.refine_steps)
@@ -1281,18 +1307,20 @@ def solve_phase(lu, torch):
         scatter=scatter, **out)
 
 
-def persist_phase(slt, a, b, lu, lu0, bvals0, fact_s, kernels, tols, torch,
-                  workdir):
+def persist_phase(slt, a, b, lu, kernels, tols, torch, workdir):
     """Phase 4a, on the main path's handle before anything refactors it:
     save_lu, then load_lu onto the card (every front torch.equal) and a
-    FACTORED solve from the loaded handle; then the factorization of the
-    same skeleton under Options(deadline_s ≈ half the main FACT,
-    ckpt_dir), which must stop at a group boundary 0 < k < groups with
-    its frontier on disk (one retry with the deadline moved if k lands at
-    an end), and gssvx(resume_from=) from that frontier, whose every
-    front must be torch.equal to the main handle's (same plan, values and
-    tier) with stats.resume["groups"] == k.  Bundle bytes, save / load /
-    flush seconds and the launch counts of each step."""
+    FACTORED solve from the loaded handle; the bundle stays for the serve
+    phase.  Then, on poisson3d(32) (the main path's 48 until the serve
+    phase needed the time), a gssvx handle and the factorization of its
+    skeleton under Options(deadline_s ≈ half its FACT, ckpt_dir), which
+    must stop at a group boundary 0 < k < groups with its frontier on
+    disk (one retry with the deadline moved if k lands at an end), and
+    gssvx(resume_from=) from that frontier, whose every front must be
+    torch.equal to the handle's (same plan, values and tier) with
+    stats.resume["groups"] == k.  Bundle bytes, save / load / flush
+    seconds and the launch counts of each step.  Returns the bundle and
+    the poisson3d(32) matrix and handle."""
     import dataclasses
     import shutil
     from superlu_dist_tpu_torch.persist import checkpoint, serial
@@ -1329,9 +1357,17 @@ def persist_phase(slt, a, b, lu, lu0, bvals0, fact_s, kernels, tols, torch,
         launches=expect_launches("persist factored", kernels, 0, True))
     check_berr("persist factored", st.solve_report.berr)
     del lu2
-    shutil.rmtree(bundle)
 
-    # the deadline: the flush is timed around the checkpointer's own call
+    # the deadline and the resume, on poisson3d(32)
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    a = poisson3d(32)
+    b = a.matvec(np.random.default_rng(SEED + 30).standard_normal(a.n_rows))
+    _, lu, st, _ = timed_gssvx(slt, kernels, slt.Options(), a, b,
+                               device="cuda")
+    fact_s = st.utime["FACT"]
+    lu0, bvals0, _ = slt.analyze(slt.Options(), a, device="cuda")
+    groups = len(lu.plan.groups)
+    # the flush is timed around the checkpointer's own call
     flushes = []
     flush = checkpoint.FactorCheckpointer.flush
 
@@ -1390,13 +1426,378 @@ def persist_phase(slt, a, b, lu, lu0, bvals0, fact_s, kernels, tols, torch,
                              f"the uninterrupted factorization: {st.resume}")
     check_berr("persist resume", st.solve_report.berr)
     shutil.rmtree(ck)
-    say("persist", n=a.n_rows, groups=groups, k=k, checkpoint_bytes=ck_bytes,
+    say("persist", n=a.n_rows, groups=groups, fact_s=fact_s, k=k,
+        checkpoint_bytes=ck_bytes, bundle_path=bundle,
         deadline=attempts, resumed=resumed, fronts_equal=True, **out,
         berr_target=float(tols.berr_target(np.float64)))
+    return bundle, a, lu
+
+
+def _pct(vals, q):
+    return float(np.percentile(np.asarray(vals), q)) if len(vals) else None
+
+
+def _serve_round(srv, reqs, clients=8):
+    """Closed-loop traffic: ``clients`` threads each submit their share of
+    ``reqs`` one request at a time and wait for it.  Returns (X per
+    request, latency seconds per request, wall seconds)."""
+    import threading
+    xs, lat, errs = [None] * len(reqs), [None] * len(reqs), []
+
+    def client(idx):
+        try:
+            for i in idx:
+                t0 = time.perf_counter()
+                xs[i] = srv.solve(reqs[i], timeout=300)
+                lat[i] = time.perf_counter() - t0
+        except Exception as e:          # noqa: BLE001 — reported below
+            errs.append(e)
+
+    th = [threading.Thread(target=client, args=(range(c, len(reqs),
+                                                      clients),))
+          for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in th:
+        t.start()
+    for t in th:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errs or any(x is None for x in xs):
+        raise AssertionError(f"serve traffic failed: {errs[:3]}")
+    return xs, lat, wall
+
+
+def serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols, torch,
+                workdir):
+    """Phase 4c, the serving tier on the main path's handle (before the
+    reuse phase refactors it) and on the bundle the persist phase wrote:
+      * traffic — a SolveServer (batch cap 32, so the 40-column requests
+        split across batches) on a fresh solver of the handle; 8 client
+        threads, 256 seeded requests (nrhs 1 at 70 %, 4, 16 and 40 at
+        10 % each), first with the buckets cold (their graphs captured by
+        the traffic), then again after a warm-up of every bucket up to
+        the cap: requests/s, p50/p99 latency, batches, mean batch fill,
+        graph captures; every ticket's X its columns of the batch that
+        served it; SERVE_RESOLVE seeded cold batches re-solved through
+        lu.solve_factored at the same width, each within DEVICE_VS_HOST
+        (bit for bit in every run so far) and timed in stages (host
+        staging, device-solve, solve-d2h; the sweep replays alone);
+      * the BERR gate — 16 requests at berr_target(float64) through the
+        per-ticket IR rung, its residuals through csr_spmv: each
+        delivered at or under the gate;
+      * from_bundle — the bundle served bit for bit as the live handle on
+        a fixed backlog; under chaos (poison_rhs, corrupt_panel) a
+        poisoned column in a 16-column batch, its neighbours bit for bit
+        the clean batch, and one scrub (timed) catching the corrupted
+        panel;
+      * refactor — SolveServer.refactor on the reuse phase's values: one
+        front_assemble launch per group (its fronts are held against
+        slt.refactor's in the reuse phase);
+      * fleet — a FleetRouter of two process replicas over the
+        poisson3d(48) bundle and one of ``lu32`` (the persist phase's
+        poisson3d(32) handle ``a32``), one replica killed mid-stream:
+        every ticket delivered, bit for bit the parent's solve of the
+        same columns.
+    Returns the refactored numeric factorization."""
+    import dataclasses
+    from superlu_dist_tpu_torch.refine.ir import request_berrs
+    from superlu_dist_tpu_torch.serve import FleetRouter, SolveServer
+    from superlu_dist_tpu_torch.utils.errors import (FactorCorruptError,
+                                                     ServePoisonedError)
+    groups = len(lu.plan.groups)
+    n = a.n_rows
+    rng = np.random.default_rng(SEED + 20)
+    out = {}
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        # seconds of each part of the phase, in order
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def fresh(handle):
+        # the handle's factors with a solver (and graphs) of its own
+        num = dataclasses.replace(handle.numeric,
+                                  fronts=list(handle.numeric.fronts))
+        return dataclasses.replace(handle, numeric=num, dev_solver=None,
+                                   dev_spmv=None)
+
+    # --- traffic, cold then warm ---------------------------------------
+    widths = rng.choice([1, 4, 16, 40], size=256, p=[0.7, 0.1, 0.1, 0.1])
+    # uniform float32 values in [-1, 1) widened to float64 (a fraction of
+    # the normal generator's time for 1,567 columns of 110,592)
+    reqs = [(2 * rng.random((n, int(k)), dtype=np.float32) - 1)
+            .astype(np.float64) for k in widths]
+    part("requests")
+    h = fresh(lu)
+    srv = SolveServer(h, max_batch=32, max_wait_s=0.002)
+    # every batch the dispatcher solves, kept for the checks below
+    solved = {"cold": [], "warm": []}
+    serve_solve = srv._solve
+
+    def recorded(mat):
+        x = serve_solve(mat)
+        solved[round_name].append((mat, x))
+        return x
+
+    srv._solve = recorded
+    kernels.reset_launches()
+    rounds, served_x = {}, {}
+    for round_name in ("cold", "warm"):
+        name = round_name
+        if name == "warm":
+            t0 = time.perf_counter()
+            for kb in srv._bucket_set:
+                h.solve_factored(np.zeros((n, kb)))
+            warm_s = time.perf_counter() - t0
+        st0, g0 = srv.stats(), len(h._solver()._graphs)
+        xs, lat, wall = _serve_round(srv, reqs)
+        served_x[name] = xs
+        st1 = srv.stats()
+        batches = st1["batches"] - st0["batches"]
+        cols = st1["columns"] - st0["columns"]
+        rounds[name] = dict(
+            requests=len(reqs), columns=cols, wall_s=wall,
+            requests_per_s=len(reqs) / wall, columns_per_s=cols / wall,
+            p50_ms=1e3 * _pct(lat, 50), p99_ms=1e3 * _pct(lat, 99),
+            max_ms=1e3 * max(lat), batches=batches,
+            mean_batch_columns=cols / batches,
+            graph_captures=len(h._solver()._graphs) - g0)
+        if name == "warm":
+            rounds[name]["warm_up_s"] = warm_s
+    rounds["launches"] = expect_launches("serve traffic", kernels, 0, False)
+    part("traffic")
+    srv._solve = serve_solve
+    # a seeded sample of the cold round's batches re-solved through
+    # solve_factored on the handle's factors at the same width (float32
+    # factors: another width is another rounding), each timed in stages
+    # under a tracer: the host staging (scaling and permuting in and out)
+    # around the device-solve span, and its solve-d2h span; then the two
+    # sweep graphs of each sampled bucket replayed alone under CUDA
+    # events.  Every ticket's X of both rounds is held against its columns
+    # of the batches that served it.
+    from superlu_dist_tpu_torch.obs import trace
+    cold = solved["cold"]
+    pick = sorted(np.random.default_rng(SEED + 21).choice(
+        len(cold), size=min(SERVE_RESOLVE, len(cold)), replace=False))
+    tracer = trace.Tracer(os.path.join(workdir, "serve_trace.json"))
+    prev = trace.install(tracer)
+    err, bitwise, stages = 0.0, True, []
+    try:
+        for i in pick:
+            mat, x = cold[i]
+            e0 = len(tracer._events)
+            t0 = time.perf_counter()
+            ref = h.solve_factored(mat)
+            total = time.perf_counter() - t0
+            spans = {ev["name"]: ev for ev in tracer._events[e0:]}
+            dev = spans["device-solve"]
+            stages.append(dict(
+                columns=mat.shape[1], bucket=dev["args"]["padded_nrhs"],
+                total_ms=1e3 * total, device_solve_ms=dev["dur"] / 1e3,
+                d2h_ms=spans["solve-d2h"]["dur"] / 1e3,
+                staging_ms=1e3 * total - dev["dur"] / 1e3))
+            if not np.array_equal(x, ref):
+                bitwise = False
+                np.testing.assert_allclose(
+                    x, ref, rtol=tols.DEVICE_VS_HOST_RTOL,
+                    atol=tols.DEVICE_VS_HOST_ATOL)
+                err = max(err, float(np.abs(x - ref).max()))
+    finally:
+        trace.install(prev)
+        tracer.close()
+    solver = h._solver()
+    replay_ms = {}
+    for kb in sorted({st["bucket"] for st in stages}):
+        fwd, bwd = (solver._graphs[(d, "N", kb)] for d in ("fwd", "bwd"))
+        replay_ms[kb] = cuda_ms(lambda: (fwd.replay(), bwd.replay()), 5)
+    for name in ("cold", "warm"):
+        # each request column's (batch, column), then each run of a
+        # request's columns that one batch served compared as one block
+        col_at = {}
+        for bi, (mat, _) in enumerate(solved[name]):
+            for j in range(mat.shape[1]):
+                col_at[mat[:4, j].tobytes()] = (bi, j)
+        for b_req, x_req in zip(reqs, served_x[name]):
+            where = [col_at[b_req[:4, j].tobytes()]
+                     for j in range(b_req.shape[1])]
+            j = 0
+            while j < len(where):
+                bi, c0 = where[j]
+                k = j + 1
+                while k < len(where) and where[k] == (bi, c0 + k - j):
+                    k += 1
+                if not np.array_equal(x_req[:, j:k],
+                                      solved[name][bi][1][:, c0:c0 + k - j]):
+                    raise AssertionError(f"serve {name}: a ticket got "
+                                         "another column's X")
+                j = k
+    rounds["resolved_batches"] = len(pick)
+    rounds["max_abs_vs_solve_factored"] = err
+    rounds["resolved_bitwise_vs_solve_factored"] = bitwise
+    rounds["batch_stages"] = stages
+    rounds["sweep_replays_ms"] = replay_ms
+    rounds["buckets"] = list(srv._bucket_set)
+    out["traffic"] = rounds
+    part("verify")
+
+    # --- the fleet's replicas start now (spawned interpreters import torch
+    # meanwhile; a replica loads a bundle at its first ticket) -----------
+    b32 = os.path.join(workdir, "handle32")
+    slt.save_lu(lu32, b32)
+    os.environ["SLU_TPU_CHAOS"] = "kill_replica=0@batch=2"
+    t_fleet = time.perf_counter()
+    try:
+        fleet = FleetRouter({"p48": bundle, "p32": b32}, n_replicas=2,
+                            kind="process")
+    finally:
+        del os.environ["SLU_TPU_CHAOS"]
+    router_init_s = time.perf_counter() - t_fleet
+    part("bundle32_and_spawn")
+
+    # --- the BERR gate through csr_spmv ---------------------------------
+    gate = float(tols.berr_target(np.float64))
+    gsrv = SolveServer(h, berr_max=gate, a=a, max_wait_s=0.0, start=False)
+    bs = rng.standard_normal((n, 16))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tickets = [gsrv.submit(bs[:, j]) for j in range(16)]
+    gsrv.start()
+    gx = [t.result(300) for t in tickets]
+    gate_s = time.perf_counter() - t0
+    berrs = [float(request_berrs(a, bs[:, j], x)[0])
+             for j, x in enumerate(gx)]
+    out["berr_gate"] = dict(
+        requests=16, seconds=gate_s, gate=gate, max_berr=max(berrs),
+        refined=gsrv.stats()["refined"],
+        berr_before_max=max(t.rungs[0]["berr_before"] for t in tickets
+                            if t.rungs) if gsrv.stats()["refined"] else None,
+        operator=type(gsrv._berr_op).__name__,
+        launches=expect_launches("serve berr gate", kernels, 0, True))
+    gsrv.close()
+    part("berr_gate")
+    if max(berrs) > gate:
+        raise AssertionError(f"serve BERR gate delivered {max(berrs)} > "
+                             f"{gate}")
+
+    # --- from_bundle, poison and scrub under chaos ----------------------
+    backlog = [bs[:, :1], bs[:, 1:4], bs[:, 4:8]]
+    live = SolveServer(fresh(lu), start=False, max_batch=16,
+                       max_wait_s=0.05)
+    lt = [live.submit(b) for b in backlog]
+    live.start()
+    live_x = [t.result(120) for t in lt]
+    live.close()
+    os.environ["SLU_TPU_CHAOS"] = "poison_rhs=13,corrupt_panel=0"
+    try:
+        t0 = time.perf_counter()
+        bsrv = SolveServer.from_bundle(bundle, start=False, max_batch=16,
+                                       max_wait_s=0.05)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        lt = [bsrv.submit(b) for b in backlog]
+        bsrv.start()
+        loaded_x = [t.result(120) for t in lt]
+        same = all(np.array_equal(p, q) for p, q in zip(live_x, loaded_x))
+        if not same:
+            raise AssertionError("from_bundle served X != the live server")
+        clean16 = bsrv.lu.solve_factored(bs)
+        b16 = [bsrv.submit(bs[:, j]) for j in range(16)]
+        verdict = []
+        for j, t in enumerate(b16):
+            try:
+                x = t.result(120)
+                verdict.append(bool(np.array_equal(x, clean16[:, j])))
+            except ServePoisonedError as e:
+                verdict.append(("poisoned", e.columns, e.batch_columns))
+        pst = bsrv.stats()
+        if (verdict[5] != ("poisoned", [0], 16) or
+                not all(v is True for j, v in enumerate(verdict) if j != 5)
+                or pst["batches"] != 2):
+            raise AssertionError(f"poison isolation: {verdict} {pst}")
+        t0 = time.perf_counter()
+        try:
+            bsrv.scrub_now()
+            caught = None
+        except FactorCorruptError as e:
+            caught = e.groups
+        scrub_s = time.perf_counter() - t0
+        if caught != [0]:
+            raise AssertionError(f"the scrub did not catch the corrupted "
+                                 f"panel: {caught}")
+        bsrv.close()
+    finally:
+        del os.environ["SLU_TPU_CHAOS"]
+    out["bundle"] = dict(load_s=load_s, bitwise_live=same,
+                         poison=dict(batch_columns=16, poisoned=[5],
+                                     neighbours_bitwise=True),
+                         scrub_s=scrub_s, scrub_caught=caught,
+                         front_bytes=sum(
+                             lp.numel() * lp.element_size()
+                             + up.numel() * up.element_size()
+                             for lp, up in lu.numeric.fronts))
+    part("bundle_poison_scrub")
+
+    # --- refactor through the server ------------------------------------
+    u = np.random.default_rng(SEED).uniform(-1.0, 1.0, a.nnz)
+    vals = a.data * (1.0 + 0.05 * u)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv.refactor(vals)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    out["refactor"] = dict(s=ref_s, launches=expect_launches(
+        "serve refactor", kernels, groups, False))
+    served = srv.lu.numeric
+    xr = srv.solve(bs[:, :1], timeout=120)
+    if not np.all(np.isfinite(xr)):
+        raise AssertionError("the refactored server served non-finite X")
+    out["serve_stats"] = srv.stats()
+    srv.close()
+    part("refactor")
+
+    # --- the fleet of two process replicas, one killed mid-stream -------
+    mats = {"p48": (a, lu), "p32": (a32, lu32)}
+    fleet_reqs = []
+    for j in range(12):
+        key = ("p48", "p32")[j % 2]
+        fleet_reqs.append((key, rng.standard_normal(mats[key][0].n_rows)))
+    try:
+        t0 = time.perf_counter()
+        since_spawn = t0 - t_fleet
+        tickets = [fleet.submit(k, b) for k, b in fleet_reqs]
+        first = {}
+        fx = []
+        for (k, _), t in zip(fleet_reqs, tickets):
+            fx.append(t.result(300))
+            first.setdefault(k, time.perf_counter() - t0)
+        fleet_s = time.perf_counter() - t0
+        fst = fleet.stats()
+    finally:
+        fleet.close(timeout=30)
+    alive = [r._proc.is_alive() for r in fleet._replicas]
+    bit = [bool(np.array_equal(x, mats[k][1].solve_factored(b)))
+           for (k, b), x in zip(fleet_reqs, fx)]
+    if (fst["delivered"] != 12 or fst["errors"] or fst["failovers"] < 1
+            or not all(bit) or any(alive)):
+        raise AssertionError(f"fleet failover: {fst} bitwise={bit} "
+                             f"alive={alive}")
+    out["fleet"] = dict(
+        replicas=2, kind="process", tickets=12,
+        router_init_s=router_init_s, spawned_s_before_first_ticket=since_spawn,
+        first_x_s=first, seconds=fleet_s, delivered=fst["delivered"],
+        failovers=fst["failovers"], reroutes=fst["reroutes"],
+        replicas_failed=fst["replicas_failed"], bitwise=all(bit),
+        children_reaped=not any(alive))
+    part("fleet")
+    say("serve", n=n, groups=groups, seconds=parts, **out)
+    return served
 
 
 def cli_phase(slt, a, kernels, tols, workdir):
-    """Phase 4b: the main path's matrix written as a Matrix Market file,
+    """Phase 4b: a matrix (poisson3d(32); the main path's 48 until the
+    serve phase needed the time) written as a Matrix Market file,
     then ``python -m superlu_dist_tpu_torch -f <file> --stats`` in-process
     (``__main__.main``): rc 0, the report's FACT / SOLVE / REFINE seconds
     and the backward error, read from its output, at the float64 gate."""
@@ -1405,7 +1806,7 @@ def cli_phase(slt, a, kernels, tols, workdir):
     import re
     from superlu_dist_tpu_torch.__main__ import main as cli_main
     from superlu_dist_tpu_torch.io import write_matrix_market
-    path = os.path.join(workdir, f"poisson3d_{NX}.mtx")
+    path = os.path.join(workdir, f"matrix_n{a.n_rows}.mtx")
     t0 = time.perf_counter()
     write_matrix_market(path, a)
     write_s = time.perf_counter() - t0
@@ -1439,14 +1840,26 @@ def cli_phase(slt, a, kernels, tols, workdir):
     check_berr("cli", got["berr"])
 
 
-def gemm_tiers_phase(slt, a, lu, kernels, tols, default_run):
-    """gssvx on poisson3d(48) at the bf16 and f32 GEMM tiers on the main
-    path's analysis (SamePattern_SameRowPerm: same plan), beside the main
-    path's own run at the default tier (TF32): FACT seconds, refine steps,
-    rungs, the tier the answer rests on, BERR."""
+def gemm_tiers_phase(slt, kernels, tols):
+    """gssvx on poisson3d(32) (n = 32,768; the main path's 48 until the
+    serve phase needed the time) at the default GEMM tier (TF32), then at
+    the bf16 and f32 tiers on its analysis (SamePattern_SameRowPerm: same
+    plan): FACT seconds, refine steps, rungs, the tier the answer rests
+    on, BERR."""
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
     rng = np.random.default_rng(SEED + 80)
+    a = poisson3d(32)
     b = a.matvec(rng.standard_normal(a.n_rows))
-    out = {"default": default_run}
+    x, lu, st, sec = timed_gssvx(slt, kernels, slt.Options(), a, b,
+                                 device="cuda")
+    rep = st.solve_report
+    out = {"default": dict(s=sec, fact_s=st.utime["FACT"],
+                           refine_s=st.utime["REFINE"],
+                           refine_steps=st.refine_steps,
+                           rungs=[(r.name, r.detail) for r in rep.rungs],
+                           answer_tier=rep.gemm_precision, berr=rep.berr,
+                           berr_history=rep.berr_history)}
+    check_berr("gemm_tiers default", rep.berr)
     for tier in ("bf16", "f32"):
         x, lut, st, sec = timed_gssvx(
             slt, kernels, slt.Options(fact=slt.Fact.SamePattern_SameRowPerm,
@@ -1531,32 +1944,17 @@ def _expect_front_launches(phase, launches, want):
     return launches["front_assemble"]
 
 
-def executors_phase(slt, a, lu, kernels, tols, torch, factor):
-    """Options.executor on the card.  At the main path's width (its handle
-    and plan, float32, default tier): the streamed executor; ``fused`` —
-    its first call (warm-up, capture, instantiation, replay), two replays
-    of the same values and one of new values, each bit for bit the stream
-    on the same values, the first call's fronts untouched by the later
-    replays, and refactor through the replay; the host offload
-    (``front_bytes_limit=0``) through gssvx: FACT, the offload wait, the
-    peak device memory above the resident handle beside the stream's, the
-    host solve and refinement and BERR.  Then on poisson3d(32): ``mega``
-    on a closed plan (one graph per closed key) and the host-share split,
-    each in float64 and float32 against the stream (``_drift_ok``), and
-    level waves (bit for bit the stream).  Launch counts: the warm-up's launches and one per
-    group for each replay."""
+def fused_block(slt, a, lu, kernels, torch, factor, rng):
+    """The fused executor on ``lu``'s plan (float32, default tier): its
+    first call (warm-up, capture, instantiation, replay), two replays of
+    the same values and one of new values, each bit for bit the stream on
+    the same values, the first call's fronts untouched by the later
+    replays, and refactor through the replay.  Returns the record."""
     import dataclasses
-
-    from superlu_dist_tpu_torch.models.gallery import poisson3d
-    from superlu_dist_tpu_torch.numeric.stream import (StreamExecutor,
-                                                       host_share_levels)
-    from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
-    from superlu_dist_tpu_torch.numeric.plan import bucket_rung
     same_rows = slt.Options(fact=slt.Fact.SamePattern_SameRowPerm)
     plan = lu.plan
     groups = len(plan.groups)
     keys = len({(g.batch, g.m, g.w, g.u) for g in plan.groups})
-    rng = np.random.default_rng(SEED + 90)
     mats, vals = [], []
     for scale in (0.0, 0.05, 0.05):
         u = rng.uniform(-1.0, 1.0, a.nnz)
@@ -1565,18 +1963,15 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor):
         skel, bv, _ = slt.analyze(same_rows, m, device="cuda", lu=lu)
         mats.append(m)
         vals.append((bv, skel.anorm))
-    out = {}
-
-    # the streamed executor on the first two sets of values
+    out = dict(n=a.n_rows, groups=groups, shape_keys=keys)
     ref = []
     for i in (0, 1):
         num, sec, peak, launches = _timed_factor(
             torch, kernels, factor, plan, *vals[i], executor="stream")
         ref.append(num.fronts)
         if i == 0:
-            out["stream"] = dict(fact_s=sec, peak_above_resident=peak,
-                                 launches=_expect_front_launches(
-                                     "stream", launches, groups))
+            out["stream_fact_s"] = sec
+            out["stream_peak_above_resident"] = peak
     # fused: capture at the first call, then replays
     calls, fused_eq = [], []
     for i in (0, 0, 1):
@@ -1594,12 +1989,12 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor):
             rec.update({k: rep[k] for k in (
                 "warm_up_s", "capture_s", "instantiate_s", "nodes",
                 "graph_device_bytes", "graph_host_bytes", "clone_bytes")})
-        out[f"fused_call{len(calls)}"] = rec
+        out[f"call{len(calls)}"] = rec
     replays_equal = _fronts_equal(torch, calls[0].fronts, calls[1].fronts)
     old_untouched = _fronts_equal(torch, calls[0].fronts, ref[0])
-    out["fused_checks"] = dict(equal_to_stream=fused_eq,
-                               two_replays_equal=replays_equal,
-                               first_handle_untouched=old_untouched)
+    out["checks"] = dict(equal_to_stream=fused_eq,
+                         two_replays_equal=replays_equal,
+                         first_handle_untouched=old_untouched)
     del calls, ref
     # refactor through the replay: the handle's options ask for fused, the
     # plan's cached executor (captured above) replays
@@ -1616,25 +2011,33 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor):
     _, _, st2, sec2 = timed_gssvx(slt, kernels,
                                   slt.Options(fact=slt.Fact.FACTORED),
                                   mats[2], b3, lu=hf)
-    out["fused_refactor"] = dict(s=sec, fact_s=st.utime["FACT"],
-                                 executor=hf.numeric.executor["executor"],
-                                 launches=rlaunch, solve_s=sec2,
-                                 berr=st2.solve_report.berr)
+    out["refactor"] = dict(s=sec, fact_s=st.utime["FACT"],
+                           executor=hf.numeric.executor["executor"],
+                           launches=rlaunch, solve_s=sec2,
+                           berr=st2.solve_report.berr)
     check_berr("fused refactor", st2.solve_report.berr)
     del hf
     if not (all(fused_eq) and replays_equal and old_untouched):
-        say("executors", **out)
-        raise AssertionError("fused replays differ from the stream or "
-                             "touched an earlier handle")
+        raise AssertionError(f"fused replays differ from the stream or "
+                             f"touched an earlier handle: {out}")
+    return out
 
-    # the host offload through gssvx: factors to host memory, host solve
-    b1 = mats[0].matvec(rng.standard_normal(a.n_rows))
+
+def offload_block(slt, a, lu, kernels, torch, rng, stream_peak):
+    """The host offload (``front_bytes_limit=0``) through gssvx on ``lu``'s
+    analysis: FACT, the offload wait, the peak device memory above the
+    resident handle beside the stream's (``stream_peak``), the host solve
+    and refinement, BERR.  Returns the record."""
+    import dataclasses
+    same_rows = slt.Options(fact=slt.Fact.SamePattern_SameRowPerm)
+    groups = len(lu.plan.groups)
+    b1 = lu.a.matvec(rng.standard_normal(a.n_rows))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     x, luo, st, sec = timed_gssvx(
         slt, kernels, dataclasses.replace(same_rows, front_bytes_limit=0),
-        mats[0], b1, lu=lu)
+        lu.a, b1, lu=lu)
     rep, ex = st.solve_report, st.executor
     launches = dict(kernels.LAUNCHES)
     if (not luo.numeric.on_host or rep.solve_route != "host"
@@ -1643,27 +2046,73 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor):
         raise AssertionError(f"offload: on_host={luo.numeric.on_host} "
                              f"routes {rep.solve_route}/{rep.residual_route}"
                              f" launches {launches}")
-    out["offload"] = dict(
+    out = dict(
         s=sec, fact_s=st.utime["FACT"], offload_wait_s=ex["offload_wait_s"],
         peak_above_resident=st.peak_memory_bytes - base,
-        stream_peak_above_resident=out["stream"]["peak_above_resident"],
+        stream_peak_above_resident=stream_peak,
         host_solve_s=st.utime["SOLVE"], refine_s=st.utime["REFINE"],
         refine_steps=st.refine_steps, berr=rep.berr,
         solve_route=rep.solve_route, residual_route=rep.residual_route,
         launches=launches["front_assemble"])
     check_berr("offload", rep.berr)
     del luo, x
+    return out
+
+
+def executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32):
+    """Options.executor on the card.  At the main path's width (its handle
+    and plan, float32, default tier): the streamed executor.  Then on
+    poisson3d(32), ``a32`` and its gssvx handle ``lu32`` (the fused
+    graph's first call takes 18-21 s at 48; the offload ran at 48 too
+    until the serve phase needed the time): ``fused`` (``fused_block``),
+    the host offload (``offload_block``).  Then on poisson3d(24) (32
+    until the serve phase needed the time): ``mega`` on a closed plan
+    (one graph per closed key) and the host-share split, each in float64
+    and float32 against the stream (``_drift_ok``), and level waves (bit
+    for bit the stream).  Launch counts: the warm-up's launches and one
+    per group for each replay."""
+    import dataclasses
+
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric.stream import (StreamExecutor,
+                                                       host_share_levels)
+    from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
+    from superlu_dist_tpu_torch.numeric.plan import bucket_rung
+    same_rows = slt.Options(fact=slt.Fact.SamePattern_SameRowPerm)
+    plan = lu.plan
+    groups = len(plan.groups)
+    keys = len({(g.batch, g.m, g.w, g.u) for g in plan.groups})
+    rng = np.random.default_rng(SEED + 90)
+    skel, bv, _ = slt.analyze(same_rows, lu.a, device="cuda", lu=lu)
+    out = {}
+
+    # the streamed executor
+    num, sec, peak, launches = _timed_factor(
+        torch, kernels, factor, plan, bv, skel.anorm, executor="stream")
+    out["stream"] = dict(fact_s=sec, peak_above_resident=peak,
+                         launches=_expect_front_launches("stream", launches,
+                                                         groups))
+    del num
+
     say("executors", n=a.n_rows, groups=groups, shape_keys=keys, **out)
 
-    # poisson3d(32): mega on a closed plan, the host-share split, level
+    # poisson3d(32): the fused graph and the host offload
+    small = {}
+    small["fused"] = fused_block(slt, a32, lu32, kernels, torch, factor,
+                                 rng)
+    small["offload"] = offload_block(
+        slt, a32, lu32, kernels, torch, rng,
+        small["fused"]["stream_peak_above_resident"])
+
+    # poisson3d(24): mega on a closed plan, the host-share split, level
     # waves; mega and the split in float64 held at the SCHEDULE_DRIFT gate
     # (another cuBLAS algorithm for a padded batch, or the CPU's BLAS,
     # reassociates the sums), in float32 at the TF32 tier normwise at
     # TF32_DRIFT
-    a32 = poisson3d(32)
-    b32 = a32.matvec(rng.standard_normal(a32.n_rows))
-    small = {}
-    lu_c, bv_c, _ = slt.analyze(slt.Options(bucket_closed=True), a32,
+    a24 = poisson3d(24)
+    b24 = a24.matvec(rng.standard_normal(a24.n_rows))
+    small["n_mega_host_share_level"] = a24.n_rows
+    lu_c, bv_c, _ = slt.analyze(slt.Options(bucket_closed=True), a24,
                                 device="cuda")
     pc = lu_c.plan
     nkeys = len(pc.bucket_set)
@@ -1695,7 +2144,7 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor):
         del s_num, num
     del lu_c, bv_c, pc
 
-    lu_d, bv_d, _ = slt.analyze(slt.Options(), a32, device="cuda")
+    lu_d, bv_d, _ = slt.analyze(slt.Options(), a24, device="cuda")
     pd = lu_d.plan
     # the host share: the least threshold that puts the first level on
     # the CPU
@@ -1712,7 +2161,7 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor):
         x, luh, st, sec = timed_gssvx(
             slt, kernels, dataclasses.replace(
                 same_rows, host_flops=cut, factor_dtype=str(dt)[6:]),
-            a32, b32, lu=lu_d)
+            a24, b24, lu=lu_d)
         hnum = luh.numeric
         rec = dict(host_levels=hnum.host_levels,
                    host_groups=st.executor["host_groups"],
@@ -1758,6 +2207,134 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor):
         raise AssertionError(f"level waves: {lev}")
 
 
+def first_solve_only(label: str) -> int:
+    """``python3 chip_smoke.py first_solve [LABEL]``: the build, then gssvx
+    on poisson3d(48) twice (phase seconds and wall; the first in the
+    process is the main path's), then the handle's first solve — a new
+    DeviceSolver (panels gathered, DiagInv, two graph captures, the
+    replays) — FIRST_SOLVE_REPS times.  Each solve's DeviceSolver
+    construction and each capture are timed (synchronized) apart.  Where
+    the tree has ``ops.dense.MATH_LOCK``, the same first solve again with
+    captures in torch's global error mode, and with that lock taken away;
+    a LABEL ending in ``-global`` puts every capture of the process in the
+    global mode from the start.  It needs no more of the package than
+    gssvx, solve_factored and DeviceSolver, so a copy of this script
+    beside an older checkout times that checkout's path: run parent and
+    change alternately in one call to compare them."""
+    import contextlib
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.ops import dense
+    from superlu_dist_tpu_torch.solve import device as solve_device
+    card = card_line()
+    kernels.library()
+    marks = []
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                marks.append((name, time.perf_counter() - t0))
+        return wrapper
+
+    def split():
+        # the construction and capture seconds marked since the last call
+        rec = dict(construct_s=sum(t for n, t in marks if n == "construct"),
+                   captures_s=[t for n, t in marks if n == "capture"])
+        marks.clear()
+        return rec
+
+    solver_cls = solve_device.DeviceSolver
+    solver_cls.__init__ = timed("construct", solver_cls.__init__)
+    solver_cls._capture = timed("capture", solver_cls._capture)
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def global_mode(self, pool=None, capture_error_mode="global"):
+        return begin(self, pool=pool, capture_error_mode="global")
+
+    if label.endswith("-global"):
+        torch.cuda.CUDAGraph.capture_begin = global_mode
+    a = poisson3d(NX)
+    b = a.matvec(np.random.default_rng(SEED).standard_normal(a.n_rows))
+    out = {"label": label, "gssvx": []}
+    for _ in range(2):
+        _, lu, st, sec = timed_gssvx(slt, kernels, slt.Options(), a, b,
+                                     device="cuda")
+        out["gssvx"].append(dict(wall_s=sec, **st.utime, **split()))
+        del lu
+    _, lu, _, _ = timed_gssvx(slt, kernels, slt.Options(), a, b,
+                              device="cuda")
+    split()
+
+    def first_solves():
+        recs = []
+        for _ in range(FIRST_SOLVE_REPS):
+            lu.dev_solver = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lu.solve_factored(b)
+            torch.cuda.synchronize()
+            recs.append(dict(s=time.perf_counter() - t0, **split()))
+        return recs
+
+    out["first_solve"] = first_solves()
+    if hasattr(dense, "MATH_LOCK") and not label.endswith("-global"):
+        torch.cuda.CUDAGraph.capture_begin = global_mode
+        try:
+            out["first_solve_global_capture"] = first_solves()
+        finally:
+            torch.cuda.CUDAGraph.capture_begin = begin
+        lock, dense.MATH_LOCK = dense.MATH_LOCK, contextlib.nullcontext()
+        try:
+            out["first_solve_no_math_lock"] = first_solves()
+        finally:
+            dense.MATH_LOCK = lock
+    say("first_solve", n=a.n_rows, **out)
+    print(card)
+    return 0
+
+
+def serve_only() -> int:
+    """``python3 chip_smoke.py serve``: the build, gssvx on poisson3d(48),
+    its bundle and the serve phase only (a quicker check of the serving
+    tier; the full script runs every phase)."""
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.utils import tols
+    card = card_line()
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    kernels.library()
+    a = poisson3d(NX)
+    b = a.matvec(np.random.default_rng(SEED).standard_normal(a.n_rows))
+    x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+    say("gssvx", n=a.n_rows, fact_s=stats.utime["FACT"],
+        berr=stats.solve_report.berr)
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        bundle = os.path.join(workdir, "handle")
+        slt.save_lu(lu, bundle)
+        a32 = poisson3d(32)
+        _, lu32, _, _ = slt.gssvx(slt.Options(), a32, np.ones(a32.n_rows),
+                                  device="cuda")
+        serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols, torch,
+                    workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(card)
+    return 0
+
+
 def executors_only(nx: int) -> int:
     """``python3 chip_smoke.py executors [NX]``: the build, gssvx on
     poisson3d(NX) and the executors phases only (a quicker check of the
@@ -1776,7 +2353,10 @@ def executors_only(nx: int) -> int:
     x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
     say("gssvx", n=a.n_rows, fact_s=stats.utime["FACT"],
         berr=stats.solve_report.berr)
-    executors_phase(slt, a, lu, kernels, tols, torch, factor)
+    a32 = poisson3d(32)
+    _, lu32, _, _ = slt.gssvx(slt.Options(), a32, np.ones(a32.n_rows),
+                              device="cuda")
+    executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32)
     print(card)
     return 0
 
@@ -1789,6 +2369,10 @@ def main():
         return 2
     if sys.argv[1:2] == ["executors"]:
         return executors_only(int(sys.argv[2]) if len(sys.argv) > 2 else NX)
+    if sys.argv[1:2] == ["serve"]:
+        return serve_only()
+    if sys.argv[1:2] == ["first_solve"]:
+        return first_solve_only(sys.argv[2] if len(sys.argv) > 2 else "")
     import superlu_dist_tpu_torch as slt
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (convection_diffusion_2d,
@@ -1904,12 +2488,6 @@ def main():
     if lu.dev_solver.splan.schedule != "dataflow":
         raise AssertionError("the main path did not solve on the dataflow "
                              "schedule")
-    default_run = dict(s=wall, fact_s=stats.utime["FACT"],
-                       refine_s=stats.utime["REFINE"],
-                       refine_steps=stats.refine_steps,
-                       rungs=[(r.name, r.detail) for r in rungs],
-                       answer_tier=rep.gemm_precision,
-                       berr=berr, berr_history=rep.berr_history)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 
@@ -1920,24 +2498,29 @@ def main():
                            "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        persist_phase(slt, a, b, lu, lu0, bvals0, stats.utime["FACT"],
-                      kernels, tols, torch, workdir)
-        cli_phase(slt, a, kernels, tols, workdir)
+        bundle, a32, lu32 = persist_phase(slt, a, b, lu, kernels, tols,
+                                          torch, workdir)
+        cli_phase(slt, a32, kernels, tols, workdir)
+        # 4c. the serving tier on the handle and its bundle
+        served = serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols,
+                             torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # 4c. the reuse tiers and refactor on the main path's handle, 4d. the
+    # 4d. the reuse tiers and refactor on the main path's handle, 4e. the
     # complex path on its plan
     reuse_phase(slt, a, lu, wall, stats.utime["FACT"], kernels, tols, torch,
-                factor)
+                factor, served)
+    del served
     complex_phase(slt, a, lu, kernels, tols, torch)
-    # 4e. the device solve's schedules, buckets, graphs and DiagInv; 4f. the
+    # 4f. the device solve's schedules, buckets, graphs and DiagInv; 4g. the
     # GEMM tiers on the main path's analysis
     solve_phase(lu, torch)
-    gemm_tiers_phase(slt, a, lu, kernels, tols, default_run)
-    # 4g. Options.executor: fused and mega CUDA graphs, host offload, the
+    gemm_tiers_phase(slt, kernels, tols)
+    # 4h. Options.executor: fused and mega CUDA graphs, host offload, the
     # host-share split, level waves
-    executors_phase(slt, a, lu, kernels, tols, torch, factor)
+    executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32)
+    del lu32
 
     # where the factor time goes: the same factorization (phase 3's
     # analysis is the same deterministic host work), synchronized at every

@@ -12,7 +12,10 @@ package imports nothing of it.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 From the shell: ``python -m superlu_dist_tpu_torch -f matrix.mtx`` (the
-pddrive analog, ``__main__.py``).
+pddrive analog, ``__main__.py``).  A factored handle serves right-hand
+sides through ``serve/`` (``SolveServer``, ``HandleCache``,
+``FleetRouter``), observed through ``obs/`` (trace, metrics, flight
+recorder, SLO).
 """
 
 from superlu_dist_tpu_torch.drivers.gssvx import (LUFactorization, analyze,
@@ -21,15 +24,24 @@ from superlu_dist_tpu_torch.drivers.gssvx import (LUFactorization, analyze,
                                                   refactor)
 from superlu_dist_tpu_torch.io.readers import read_matrix
 from superlu_dist_tpu_torch.persist.serial import load_lu, save_lu
+from superlu_dist_tpu_torch.serve import FleetRouter, HandleCache, SolveServer
 from superlu_dist_tpu_torch.sparse.formats import SparseCSC, SparseCSR
 from superlu_dist_tpu_torch.utils.errors import (CheckpointCorruptError,
                                                  CheckpointError,
                                                  CheckpointMismatchError,
                                                  CheckpointVersionError,
                                                  DeadlineExceededError,
+                                                 DeployRollbackError,
+                                                 FactorCorruptError,
+                                                 LockOrderError,
                                                  NumericBreakdownError,
                                                  PatternMismatchError,
                                                  RefactorRollbackError,
+                                                 ReplicaFailureError,
+                                                 ServeDeadlineError,
+                                                 ServeOverloadError,
+                                                 ServePoisonedError,
+                                                 ServerClosedError,
                                                  SingularMatrixError,
                                                  SuperLUError)
 from superlu_dist_tpu_torch.utils.options import (ColPerm, Fact, IterRefine,
@@ -47,4 +59,8 @@ __all__ = [
     "PatternMismatchError", "RefactorRollbackError", "DeadlineExceededError",
     "CheckpointError", "CheckpointCorruptError", "CheckpointVersionError",
     "CheckpointMismatchError",
+    "SolveServer", "HandleCache", "FleetRouter",
+    "ServerClosedError", "ServeOverloadError", "ServeDeadlineError",
+    "ServePoisonedError", "FactorCorruptError", "ReplicaFailureError",
+    "DeployRollbackError", "LockOrderError",
 ]

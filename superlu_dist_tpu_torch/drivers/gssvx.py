@@ -32,6 +32,7 @@ A·x = b is solved as
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -41,6 +42,8 @@ from superlu_dist_tpu_torch.numeric.factor import (NumericFactorization,
                                                    numeric_factorize,
                                                    query_space)
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, build_plan
+from superlu_dist_tpu_torch.obs.flightrec import get_flightrec
+from superlu_dist_tpu_torch.obs.metrics import get_metrics
 from superlu_dist_tpu_torch.ops.dense import next_gemm_precision
 from superlu_dist_tpu_torch.ordering.dispatch import get_perm_c
 from superlu_dist_tpu_torch.parallel.dist import DeviceSpMV, gather_rows
@@ -59,6 +62,7 @@ from superlu_dist_tpu_torch.solve.trisolve import lu_solve, lu_solve_trans
 from superlu_dist_tpu_torch.sparse.formats import SparseCSR, symmetrize_pattern
 from superlu_dist_tpu_torch.symbolic.symbfact import (SymbolicFact,
                                                       symbolic_factorize)
+from superlu_dist_tpu_torch.testing.chaos import get_refactor_chaos
 from superlu_dist_tpu_torch.utils import tols
 from superlu_dist_tpu_torch.utils.errors import (DeadlineExceededError,
                                                  NumericBreakdownError,
@@ -73,6 +77,10 @@ from superlu_dist_tpu_torch.utils.options import (Fact, IterRefine, Options,
                                                   resolve_device,
                                                   resolve_factor_dtype)
 from superlu_dist_tpu_torch.utils.stats import RungRecord, SolveReport, Stats
+
+
+#: guards the lazy build of a handle's DeviceSolver
+_SOLVER_LOCK = threading.Lock()
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -160,13 +168,14 @@ class LUFactorization:
     def _solver(self) -> DeviceSolver:
         if not self.numeric.finite:
             raise SingularMatrixError(self.numeric.info_col)
-        if self.dev_solver is None:
-            opts = self.options
-            self.dev_solver = DeviceSolver(
-                self.numeric, diag_inv=opts.diag_inv, fused="auto",
-                schedule=opts.solve_schedule, window=opts.solve_window,
-                align=opts.solve_align, gemm_prec=self.numeric.gemm_prec)
-        return self.dev_solver
+        with _SOLVER_LOCK:      # two threads' first solves build one
+            if self.dev_solver is None:
+                opts = self.options
+                self.dev_solver = DeviceSolver(
+                    self.numeric, diag_inv=opts.diag_inv, fused="auto",
+                    schedule=opts.solve_schedule, window=opts.solve_window,
+                    align=opts.solve_align, gemm_prec=self.numeric.gemm_prec)
+            return self.dev_solver
 
     @property
     def solve_route(self) -> str:
@@ -354,6 +363,17 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
     stats.tiny_pivots += numeric.tiny_pivots
     stats.sched = lu.plan.schedule_stats(
         itemsize=torch.empty((), dtype=dtype).element_size())
+    m = get_metrics()
+    if m.enabled:
+        sched = stats.sched
+        m.inc("slu_factorizations_total", 1.0,
+              schedule=sched.get("schedule", "?"))
+        # which GEMM tier the factors ran at (a ladder rung or a refactor
+        # escalation increments it again)
+        m.inc("slu_gemm_precision_total", 1.0, tier=numeric.gemm_prec)
+        m.set("slu_schedule_groups", sched.get("n_groups", 0))
+        m.set("slu_schedule_occupancy", sched.get("occupancy", 0.0))
+        m.set("slu_schedule_critical_path", sched.get("critical_path", 0))
     # memory (the dQuerySpace_dist analog); on the card the peak is the
     # allocator's own
     space = query_space(numeric)
@@ -371,6 +391,11 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
     if not numeric.finite:
         return numeric.info_col + 1
     return 0
+
+
+# per-process refactor counter: the chaos harness's `kill_refactor@step=K`
+# spec is scoped to the Kth refactor of the victim process (0-based)
+_REFACTOR_SEQ = [0]
 
 
 def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
@@ -397,9 +422,20 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
     ``numeric``/``a``/``anorm`` rebound, its solver rebuilt at the next
     solve).  ``resume_from`` names a factor checkpoint of these values on
     this plan, from which the first factorization restarts; the options'
-    deadline bounds each factorization.  Returns ``stats``."""
+    deadline bounds each factorization.  Returns ``stats``.
+
+    The chaos harness's refactor specs (testing/chaos.py,
+    ``SLU_TPU_CHAOS``) act here: ``poison_values=S`` NaNs the new value
+    that assembles into supernode S, ``kill_refactor@step=K`` kills the
+    process mid-refactor on its Kth refactor; the metrics registry counts
+    refactors, rollbacks by stage and adoptions."""
     if stats is None:
         stats = Stats()
+    step = _REFACTOR_SEQ[0]
+    _REFACTOR_SEQ[0] += 1
+    m = get_metrics()
+    if m.enabled:
+        m.inc("slu_refactor_total", 1.0)
     if lu.sf is None or lu.plan is None or lu.numeric is None:
         raise SuperLUError(
             "refactor requires a factored handle (run gssvx, or analyze and "
@@ -443,10 +479,20 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
             n=lu.n, nnz=sym.nnz)
     bvals = sym.data[lu.sf.value_perm]
     anorm = a2.norm_max()
+    # chaos hooks, consulted once per refactor
+    monkey = get_refactor_chaos()
+    if monkey is not None:
+        bvals = monkey.poison_refactor_values(lu.plan, bvals)
+        if monkey.refactor_kill_due(step):
+            # mid-refactor: the new values are staged, nothing adopted —
+            # the previous handle (and any bundle on disk) must survive
+            monkey.kill_now()
     if canary_b is None:
         canary_b = np.ones(lu.n, dtype=np.asarray(a_new.data).dtype)
 
     def rollback(stage, cause="", berr=-1.0):
+        if m.enabled:
+            m.inc("slu_refactor_rollbacks_total", 1.0, stage=stage)
         return RefactorRollbackError(
             "handle", stage=stage, cause=cause, berr=berr,
             berr_target=berr_max if berr_max > 0 else -1.0)
@@ -482,6 +528,9 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
                 "canary", "non-finite canary X" if not finite else
                 "canary backward error above the gate", berr=berr)
         options = dataclasses.replace(options, gemm_prec=nxt)
+        if m.enabled:
+            m.inc("slu_recovery_rungs_total", 1.0,
+                  rung="refactor-gemm-precision", improved="pending")
 
     # adoption: single-field rebinds, so a solve holds either the whole old
     # numeric or the whole new one
@@ -492,6 +541,11 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
     lu.a = a_new
     lu.anorm = anorm
     lu.options = shadow.options
+    if m.enabled:
+        m.inc("slu_refactor_adopted_total", 1.0)
+    get_flightrec().event(
+        "refactor-adopted", cat="refactor", step=step,
+        pattern=expected_digest[:12] if expected_digest else "")
     return stats
 
 
@@ -646,6 +700,7 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
         cur_berr = float("inf")
     lu_eff = lu
     a_dtype = np.asarray(a.data).dtype
+    rungs0 = len(report.rungs)
 
     def attempt(name, detail, solve2, res_dtype, start_x):
         """Refine with ``solve2`` corrections; record; adopt on
@@ -787,6 +842,14 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
     # the factors the delivered answer rests on
     report.gemm_precision = lu_eff.numeric.gemm_prec
     report.factor_dtype = _dtype_name(lu_eff.numeric.dtype)
+    # serving metrics: one rung-transition counter per ladder action
+    # this solve took (labeled by rung and whether it was adopted)
+    m = get_metrics()
+    if m.enabled:
+        for r in report.rungs[rungs0:]:
+            m.inc("slu_recovery_rungs_total", 1.0, rung=r.name,
+                  improved=str(r.berr_after < r.berr_before).lower())
+            m.observe("slu_recovery_rung_seconds", r.seconds, rung=r.name)
     return cur_x, lu_eff, solve_fn, residual_dtype
 
 
@@ -795,8 +858,8 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
 DEVICE_SPMV_MIN_NNZ = 100_000
 
 
-def _refine_operator(lu: LUFactorization, a: SparseCSR, op: SparseCSR,
-                     trans: Trans, residual_dtype):
+def refine_operator(lu: LUFactorization, a: SparseCSR, op: SparseCSR,
+                    trans: Trans, residual_dtype):
     """The operator refinement takes its residual with: on the card, for
     ``op.nnz >= DEVICE_SPMV_MIN_NNZ``, a :class:`DeviceSpMV` cached on the
     handle per (trans, residual dtype) — a hit only while ``a.data`` is
@@ -823,7 +886,7 @@ def _refine_operator(lu: LUFactorization, a: SparseCSR, op: SparseCSR,
 def _solve_and_refine(options: Options, a: SparseCSR, b: np.ndarray,
                       lu: LUFactorization, stats: Stats):
     """Solve through the factors, refine with a float64 residual (on the
-    card through ``_refine_operator`` for a large matrix, else on the
+    card through ``refine_operator`` for a large matrix, else on the
     host), run the ladder when refinement missed its target, estimate
     rcond/ferr under ``options.recovery.condest``; the SolveReport lands
     on stats.solve_report."""
@@ -865,7 +928,7 @@ def _solve_and_refine(options: Options, a: SparseCSR, b: np.ndarray,
                           if options.iter_refine == IterRefine.SLU_SINGLE
                           else np.dtype(options.ir_dtype))
         with stats.timer("REFINE"):
-            ir_op = _refine_operator(lu, a, op, trans, residual_dtype)
+            ir_op = refine_operator(lu, a, op, trans, residual_dtype)
             report.residual_route = "host" if ir_op is op else "device"
             x, berrs = iterative_refinement(ir_op, b, x, solve_fn,
                                             residual_dtype=residual_dtype)

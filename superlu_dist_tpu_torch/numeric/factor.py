@@ -34,8 +34,10 @@ import torch
 from superlu_dist_tpu_torch.numeric import kernels
 from superlu_dist_tpu_torch.numeric.kernels import GroupMaps
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan
+from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.ops.dense import (gemm_precision,
                                               group_partial_factor)
+from superlu_dist_tpu_torch.testing.chaos import get_chaos
 from superlu_dist_tpu_torch.utils.errors import NumericBreakdownError
 from superlu_dist_tpu_torch.utils.options import EXECUTORS, resolve_device
 
@@ -324,6 +326,19 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
         np.sqrt(eps) * max(anorm, 1e-300) if replace_tiny else 0.0,
         dtype=real_dtype)
     thresh_f = float(thresh)
+    tracer = get_tracer()
+    if tracer.enabled:
+        # schedule telemetry: what the dispatch stream is shaped like (the
+        # block Stats.report prints)
+        tracer.complete("schedule", "phase", time.perf_counter(), 0.0,
+                        **plan.schedule_stats(
+                            itemsize=torch.empty((), dtype=dtype)
+                            .element_size()))
+    # failure-domain chaos injection (testing/chaos.py, SLU_TPU_CHAOS):
+    # None unless armed, so the production path pays one ``is None``
+    chaos = get_chaos()
+    if chaos is not None:
+        pattern_values = chaos.poke_nan(plan, pattern_values)
     want_ckpt = bool(ckpt_dir) or ckpt_every > 0
     if (want_ckpt or resume_from or deadline is not None) \
             and executor in ("auto", "fused"):
@@ -352,13 +367,14 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     try:
         if hasattr(ex, "checkpoint"):
             ex.checkpoint, ex.resume, ex.deadline = ckpt, resume, deadline
+            ex.chaos = chaos
         try:
             fronts, tiny = ex(avals, thresh, timings=timings)
         finally:
             if hasattr(ex, "checkpoint"):
                 # per-call hooks: a cached executor must not carry them
                 # into the next factorization
-                ex.checkpoint = ex.resume = ex.deadline = None
+                ex.checkpoint = ex.resume = ex.deadline = ex.chaos = None
         finite, info_col = True, -1
         if not replace_tiny:
             finite, info_col = localize_singularity(plan, fronts)

@@ -38,6 +38,7 @@ from superlu_dist_tpu_torch.numeric import kernels
 from superlu_dist_tpu_torch.numeric.factor import KERNELS
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan
 from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+from superlu_dist_tpu_torch.ops.dense import MATH_LOCK
 
 
 def _rss_bytes() -> int:
@@ -88,8 +89,12 @@ class Graph:
         reserved, rss = torch.cuda.memory_reserved(dev), _rss_bytes()
         counted = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            graph.capture_begin(pool=self.pool)
+        # serialized with every other capture and math-switch block
+        # (ops/dense.MATH_LOCK); thread-local mode leaves other threads
+        # free to use the card meanwhile
+        with MATH_LOCK, torch.cuda.stream(stream):
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
             try:
                 self.outputs = fn()
             except BaseException:

@@ -36,6 +36,7 @@ import torch
 from superlu_dist_tpu_torch.numeric import factor
 from superlu_dist_tpu_torch.numeric.factor import KERNELS, run_groups
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, bucket_rung
+from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.ops.dense import gemm_precision
 from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
 from superlu_dist_tpu_torch.utils.errors import (CheckpointMismatchError,
@@ -172,6 +173,8 @@ class StreamExecutor:
         self._n_host_groups = n
         self.host_levels = len({g.level for g in plan.groups[:n]})
         self.checkpoint = self.resume = self.deadline = None
+        # the chaos harness's injector (testing/chaos.py), per call
+        self.chaos = None
         self.last_offload_wait_seconds = 0.0
         self._waves = None         # level graphs: a Graph (None for a host
                                    # wave) per entry of waves()
@@ -238,20 +241,31 @@ class StreamExecutor:
             tiny = self._call_waves(av, avals_dev, th, thresh, pool, maps,
                                     hmaps, fronts, tiny, out, timings)
         else:
+            tracer = get_tracer()
             for gi in range(start, len(plan.groups)):
                 self._poll()
                 if gi == n_host and n_host:
                     # the end of the host share: the one move to the card
                     pool, tiny = pool.to(dev), tiny.to(dev)
                     av, th = avals_dev, thresh.to(dev)
+                if tracer.enabled:
+                    t0 = time.perf_counter()
                 (lp, up), t = self._step(gi, av, pool, th,
                                          hmaps if gi < n_host else maps,
                                          timings)
+                if tracer.enabled:
+                    # how long the group's launches took to issue (host
+                    # time; the launches run on asynchronously)
+                    tracer.complete(f"issue g{gi}", "dispatch", t0,
+                                    time.perf_counter() - t0, group=gi,
+                                    level=int(plan.groups[gi].level))
                 if out is not None:
                     lp, up = out.emit(gi, lp, up)
                 fronts.append((lp, up))
                 tiny += t
                 self._note(gi, fronts, pool, tiny)
+                if self.chaos is not None:
+                    self.chaos.on_group(gi)
         if out is not None:
             out.drain()
             self.last_offload_wait_seconds = out.wait_s

@@ -25,6 +25,7 @@ leaves them to XLA; neither is a Pallas kernel there.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -91,26 +92,37 @@ def resolve_gemm_tier(prec: str, dtype) -> str:
     return prec
 
 
+#: one process-wide reentrant lock over the card's math switches and
+#: every CUDA-graph capture.  torch's TF32 and bf16-reduction switches are
+#: process state, not thread state: a block that sets one and launches
+#: under it must not interleave with another thread's block (a serving
+#: dispatcher's solve and a refactor on another thread would otherwise
+#: trade tiers).  A capture holds it too, so captures are serialized and
+#: the switches cannot move while cuBLAS records its kernels.
+MATH_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def matmul_tf32(enabled: bool):
     """Set the card's TF32 switch for float32 matmuls inside the block and
     restore it afterwards (``fp32_precision`` where torch has it, else the
-    legacy ``allow_tf32``)."""
+    legacy ``allow_tf32``), holding :data:`MATH_LOCK` throughout."""
     m = torch.backends.cuda.matmul
-    if hasattr(m, "fp32_precision"):
-        old = m.fp32_precision
-        m.fp32_precision = "tf32" if enabled else "ieee"
-        try:
-            yield
-        finally:
-            m.fp32_precision = old
-    else:
-        old = m.allow_tf32
-        m.allow_tf32 = bool(enabled)
-        try:
-            yield
-        finally:
-            m.allow_tf32 = old
+    with MATH_LOCK:
+        if hasattr(m, "fp32_precision"):
+            old = m.fp32_precision
+            m.fp32_precision = "tf32" if enabled else "ieee"
+            try:
+                yield
+            finally:
+                m.fp32_precision = old
+        else:
+            old = m.allow_tf32
+            m.allow_tf32 = bool(enabled)
+            try:
+                yield
+            finally:
+                m.allow_tf32 = old
 
 
 def _bmm_out_dtype() -> bool:
@@ -135,12 +147,13 @@ def _bf16_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             raise ValueError("the bf16 tier takes batched (B, m, k) x "
                              "(B, k, n) operands")
         reduced = torch.backends.cuda.matmul
-        old = reduced.allow_bf16_reduced_precision_reduction
-        reduced.allow_bf16_reduced_precision_reduction = False
-        try:
-            return torch.bmm(ab, bb, out_dtype=torch.float32)
-        finally:
-            reduced.allow_bf16_reduced_precision_reduction = old
+        with MATH_LOCK:
+            old = reduced.allow_bf16_reduced_precision_reduction
+            reduced.allow_bf16_reduced_precision_reduction = False
+            try:
+                return torch.bmm(ab, bb, out_dtype=torch.float32)
+            finally:
+                reduced.allow_bf16_reduced_precision_reduction = old
     with matmul_tf32(False):
         return torch.matmul(ab.float(), bb.float())
 

@@ -75,6 +75,46 @@ def request_berrs(a: SparseCSR, b: np.ndarray, x: np.ndarray,
     return out
 
 
+def refine_ticket(a, b: np.ndarray, x: np.ndarray, solve_fn,
+                  berr_target: float, itmax: int = ITMAX,
+                  residual_dtype=np.float64):
+    """Per-ticket IR rung for the serving tier: refine ONE request's
+    columns through the factored solve until its componentwise berr
+    meets ``berr_target`` (or IR's own stopping rules fire), without
+    touching any other ticket of the micro-batch.  ``a`` is a
+    :class:`SparseCSR` or anything with its ``matvec`` / ``abs_matvec``
+    / ``nnz`` surface — on the card the server passes a
+    ``parallel.dist.DeviceSpMV``, so the residuals run through
+    ``csr_spmv``.
+
+    Returns ``(x_out, berr_before, berr_after, adopted)``.  The ladder's
+    adoption discipline applies: the refined iterate is returned only
+    when it strictly improved the worst column's berr; otherwise the
+    original x comes back unchanged (``adopted=False``) so a
+    non-converging refinement can never make a served answer worse."""
+    from superlu_dist_tpu_torch.obs.trace import get_tracer
+    with get_tracer().span("refine-ticket", cat="request",
+                           berr_target=berr_target) as sp:
+        berr_before = float(
+            request_berrs(a, b, x, residual_dtype=residual_dtype).max())
+        if berr_before <= berr_target:
+            sp.set(berr_before=berr_before, adopted=False)
+            return x, berr_before, berr_before, False
+        x_ref, _hist = iterative_refinement(
+            a, b, x, solve_fn, itmax=itmax,
+            residual_dtype=residual_dtype)
+        x_ref = np.asarray(x_ref).astype(np.asarray(x).dtype, copy=False)
+        berr_after = float(
+            request_berrs(a, b, x_ref,
+                          residual_dtype=residual_dtype).max())
+        adopted = berr_after < berr_before
+        sp.set(berr_before=berr_before, berr_after=berr_after,
+               adopted=adopted, iters=len(_hist))
+    if adopted:
+        return x_ref, berr_before, berr_after, True
+    return x, berr_before, berr_before, False
+
+
 def iterative_refinement(a: SparseCSR, b: np.ndarray, x: np.ndarray,
                          solve_fn, itmax: int = ITMAX,
                          residual_dtype=np.float64):

@@ -32,14 +32,29 @@ an eager one.
 The transposed system (L·U)ᵀ·x = d (conjugated under ``conj``) runs
 through the same factors: Uᵀ leads, walking the batches bottom-up, then
 Lᵀ walks them back down (``solve_trans``).
+
+Threads: one solver runs one solve at a time (its static buffers are
+shared by every solve of a bucket).  Captures hold ``ops.dense.
+MATH_LOCK`` and record in torch's ``thread_local`` capture mode, so
+other threads may use the card meanwhile (a serving dispatcher's
+replays, a scrubber's copies, a swap's upload); nothing is retried and
+nothing falls back to eager sweeps if a capture fails.  A solve opens
+the ``device-solve`` kernel span, its ``solve-d2h`` comm span and, for
+non-finite columns, a ``solve-probe`` verify span on the process tracer
+(obs/trace.py): host timestamps around the copy that already
+synchronizes.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
 
 from superlu_dist_tpu_torch.numeric.factor import NumericFactorization
+from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.ops.dense import gemm, gemm_precision, matmul_tf32
 from superlu_dist_tpu_torch.solve.plan import (SolvePlan, build_solve_plan,
                                                chunk_nrhs)
@@ -236,8 +251,14 @@ class DeviceSolver:
                  solve_plan: SolvePlan | None = None,
                  schedule: str = "dataflow", window: int = 0,
                  align: float = 1.25, trsm_leaf: int = 64,
-                 nrhs_max: int = 1024, nrhs_growth: float = 1.5,
+                 nrhs_max: int | None = None,
+                 nrhs_growth: float | None = None,
                  gemm_prec: str | None = None):
+        from superlu_dist_tpu_torch.utils.options import env_float, env_int
+        if nrhs_max is None:
+            nrhs_max = env_int("SLU_TPU_SOLVE_NRHS_MAX")
+        if nrhs_growth is None:
+            nrhs_growth = env_float("SLU_TPU_SOLVE_NRHS_GROWTH")
         self.fact = fact
         self.diag_inv = bool(diag_inv)
         self.trsm_leaf = int(trsm_leaf)
@@ -300,6 +321,8 @@ class DeviceSolver:
         self._graphs = {}
         self._pool = None
         self.graph_pool_bytes = 0
+        # one solve at a time on the static buffers
+        self._lock = threading.Lock()
 
     @staticmethod
     def _gather_panels(sg, src_fronts, plan):
@@ -417,7 +440,8 @@ class DeviceSolver:
         # segments are new, so the reserved bytes' growth is the graph's
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream):
-            graph.capture_begin(pool=self._pool)
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
             try:
                 self._sweep(direction, mode, x, lsum)
             finally:
@@ -446,36 +470,40 @@ class DeviceSolver:
         kb_total = sum(b for _, _, b in chunks)
         structural = self.splan.flops_per_rhs * k
         executed = self.splan.executed_flops_per_rhs * kb_total
+        padding = round(executed / max(structural, 1.0), 4)
         out = None
         nonfinite_cols = []
-        with matmul_tf32(False):
+        tracer = get_tracer()
+        d2h_s, d2h_bytes = 0.0, 0
+        with self._lock, tracer.span(
+                "device-solve", cat="kernel", n=self.n, nrhs=k,
+                padded_nrhs=kb_total, chunks=len(chunks), fused=self.fused,
+                n_groups=len(self._groups), schedule=self.splan.schedule,
+                solve_flops=structural, executed_flops=executed,
+                padding_factor=padding,
+                dtype=str(dt).replace("torch.", "")):
             for lo, hi, kb in chunks:
                 src = torch.as_tensor(np.ascontiguousarray(r2[:, lo:hi])).to(
                     device=self.device, dtype=dt)
                 if self.fused:
-                    if kb not in self._buffers:
-                        self._buffers[kb] = tuple(
-                            torch.zeros((self.n + 1, kb), dtype=dt,
-                                        device=self.device)
-                            for _ in range(2))
-                    if mode == "N":
-                        self._invs          # computed before any capture
-                    for direction in ("fwd", "bwd"):
-                        if (direction, mode, kb) not in self._graphs:
-                            self._capture(direction, mode, kb)
+                    self._ensure_graphs(mode, kb)
                     x = self._buffers[kb][0]
                     x.zero_()
                     x[:self.n, :hi - lo] = src
                     self._graphs[("fwd", mode, kb)].replay()
                     self._graphs[("bwd", mode, kb)].replay()
                 else:
-                    x = torch.zeros((self.n + 1, kb), dtype=dt,
-                                    device=self.device)
-                    x[:self.n, :hi - lo] = src
-                    lsum = torch.zeros_like(x)
-                    self._sweep("fwd", mode, x, lsum)
-                    self._sweep("bwd", mode, x, lsum)
+                    with matmul_tf32(False):
+                        x = torch.zeros((self.n + 1, kb), dtype=dt,
+                                        device=self.device)
+                        x[:self.n, :hi - lo] = src
+                        lsum = torch.zeros_like(x)
+                        self._sweep("fwd", mode, x, lsum)
+                        self._sweep("bwd", mode, x, lsum)
+                t0 = time.perf_counter()
                 res = x[:self.n, :hi - lo].cpu().numpy()
+                d2h_s += time.perf_counter() - t0
+                d2h_bytes += int(res.nbytes)
                 if out is None:
                     out = np.empty((self.n, k), dtype=res.dtype)
                 fin = np.isfinite(res).all(axis=0)
@@ -483,16 +511,44 @@ class DeviceSolver:
                     nonfinite_cols.extend(int(lo + j)
                                           for j in np.nonzero(~fin)[0])
                 out[:, lo:hi] = res
+            if tracer.enabled:
+                # the solution's copy to the host (the only factor-sized
+                # data that crosses per solve), timed where it already
+                # synchronizes
+                tracer.complete("solve-d2h", "comm",
+                                time.perf_counter() - d2h_s, d2h_s,
+                                op="d2h", bytes=d2h_bytes)
+        if nonfinite_cols and tracer.enabled:
+            tracer.complete("solve-probe", "verify", time.perf_counter(),
+                            0.0, nonfinite=len(nonfinite_cols))
         self.last_solve_stats = {
             "nrhs": k, "padded_nrhs": kb_total, "chunks": len(chunks),
             "solve_flops": structural, "executed_flops": executed,
-            "padding_factor": round(executed / max(structural, 1.0), 4),
+            "padding_factor": padding,
             "fused": self.fused, "finite": not nonfinite_cols,
             "nonfinite_cols": nonfinite_cols}
         if split:
             h = k // 2
             out = out[:, :h] + 1j * out[:, h:]
         return out[:, 0] if squeeze else out
+
+    def _ensure_graphs(self, mode: str, kb: int) -> None:
+        """Bucket kb's static buffers and its two sweep graphs for
+        ``mode``, captured at first use under ``MATH_LOCK`` (which
+        ``matmul_tf32`` holds; DiagInv's blocks are computed before any
+        capture)."""
+        need = [d for d in ("fwd", "bwd") if (d, mode, kb) not in self._graphs]
+        if not need:
+            return
+        with matmul_tf32(False):
+            if kb not in self._buffers:
+                self._buffers[kb] = tuple(
+                    torch.zeros((self.n + 1, kb), dtype=self.fact.dtype,
+                                device=self.device) for _ in range(2))
+            if mode == "N":
+                self._invs          # computed before any capture
+            for direction in need:
+                self._capture(direction, mode, kb)
 
     def solve(self, rhs: np.ndarray) -> np.ndarray:
         """rhs (n,) or (n, k) in permuted labeling -> solution of

@@ -4,7 +4,22 @@ The reference reports errors via ``info`` codes (<0: the -info-th argument
 was invalid, via pxerr_dist; >0: U(i,i) is exactly singular, pdgstrf.c:234-241)
 or aborts (ABORT, util_dist.h:27-34).  We use exceptions for argument errors
 and return ``info`` from drivers for singularity, matching pdgssvx semantics.
+The error classes that carry evidence dump the flight recorder
+(obs/flightrec.py) at construction, as the JAX package's do.
 """
+
+
+def _flight_dump(exc) -> None:
+    """Flight-recorder postmortem hook (obs/flightrec.py): the
+    structured breakdown/serving errors dump the telemetry ring at
+    CONSTRUCTION time, so the evidence lands on disk even when the
+    exception later dies inside a worker process or an over-broad caller
+    ``except``.  Must never interfere with raising the error itself."""
+    try:
+        from superlu_dist_tpu_torch.obs.flightrec import on_error
+        exc.flightrec_dump = on_error(exc)   # path, or None when off
+    except Exception:
+        exc.flightrec_dump = None
 
 
 class SuperLUError(Exception):
@@ -38,6 +53,7 @@ class NumericBreakdownError(SuperLUError):
         super().__init__(
             f"non-finite values detected{stage}{loc}; the system is "
             "numerically broken down (overflow or NaN input)")
+        _flight_dump(self)
 
 
 class PatternMismatchError(SuperLUError):
@@ -64,6 +80,7 @@ class PatternMismatchError(SuperLUError):
             f"refactor refused: {reason}{dg} — a values-only refactor "
             "requires the exact sparsity pattern the handle was analyzed "
             "on; factor the new pattern with Fact=DOFACT instead")
+        _flight_dump(self)
 
 
 class RefactorRollbackError(SuperLUError):
@@ -96,6 +113,7 @@ class RefactorRollbackError(SuperLUError):
             f"refactor of handle {key!r} rolled back at the {stage} "
             f"check{at}{why}{gate}{back} — the previous consistent "
             "factorization keeps serving")
+        _flight_dump(self)
 
 
 class DeadlineExceededError(SuperLUError):
@@ -123,6 +141,7 @@ class DeadlineExceededError(SuperLUError):
         super().__init__(
             f"cooperative deadline of {deadline_s:.3f}s exceeded"
             f"{stage} after {elapsed_s:.3f}s{ranks}{ck}")
+        _flight_dump(self)
 
 
 class CheckpointError(SuperLUError):
@@ -150,3 +169,219 @@ class CheckpointMismatchError(CheckpointError):
     bundle was written by another package whose structures this one does
     not load.  Resuming would silently splice incompatible frontiers, so
     this is a hard error."""
+
+
+class ServerClosedError(SuperLUError):
+    """A ``SolveServer`` request could not be served because the server
+    closed: either ``submit()`` was called after ``close()`` (the request
+    was never enqueued), or the request was still queued/undelivered when
+    the server shut down — ``close()`` delivers this to every undelivered
+    ticket deterministically, so a waiter can never hang on a server that
+    no longer exists (serve/server.py)."""
+
+
+class ServeOverloadError(SuperLUError):
+    """Admission control shed this request: accepting its columns would
+    push the pending queue past ``SLU_TPU_SERVE_QUEUE_MAX``, or the
+    server is in drain mode and rejects new work.  Raised AT SUBMIT —
+    the request never queues, so an overload degrades into fast
+    structured rejections instead of an unbounded queue whose every
+    entry eventually misses its deadline.  Retry with backoff, route to
+    another replica, or widen the cap."""
+
+    def __init__(self, columns: int, pending_cols: int, queue_max: int,
+                 reason: str = "queue_full"):
+        self.columns = int(columns)
+        self.pending_cols = int(pending_cols)
+        self.queue_max = int(queue_max)
+        self.reason = reason
+        why = ("server is draining (finishing in-flight work, rejecting "
+               "new requests)" if reason == "draining" else
+               f"queue holds {pending_cols} columns of a "
+               f"{queue_max}-column cap")
+        super().__init__(
+            f"solve request ({columns} column(s)) shed by admission "
+            f"control: {why}")
+
+
+class ServeDeadlineError(SuperLUError):
+    """The request's serving deadline (``SLU_TPU_SERVE_DEADLINE_MS``)
+    expired while its columns were still queued — the dispatcher (or the
+    waiting ticket itself, when the dispatcher is stalled) expired it
+    instead of serving an answer the caller has already abandoned.
+    Expired work is removed from the queue, so a backlog of dead
+    requests cannot starve live ones.
+
+    ``stages`` carries the ticket's per-stage timings (TicketContext
+    ``stages_ms()``, obs/slo.py) when request tracing is on, so the
+    flight-recorder postmortem names the stage that ate the budget.
+    The error is constructed UNDER server locks (the expiry paths), so
+    it performs no postmortem I/O at construction — callers invoke
+    :meth:`flight_postmortem` once outside the locks (no I/O under a
+    lock)."""
+
+    def __init__(self, deadline_s: float, waited_s: float, columns: int,
+                 stages: dict | None = None):
+        self.deadline_s = float(deadline_s)
+        self.waited_s = float(waited_s)
+        self.columns = int(columns)
+        self.ticket_stages = dict(stages) if stages else None
+        self.flightrec_dump = None
+        super().__init__(
+            f"solve request ({columns} column(s)) missed its "
+            f"{deadline_s:.3f}s serving deadline after {waited_s:.3f}s "
+            "in queue (shed, not served)")
+
+    def flight_postmortem(self):
+        """Dump the flight-recorder postmortem (with the ticket's stage
+        timings attached) — call OUTSIDE any server/router lock."""
+        _flight_dump(self)
+        return self.flightrec_dump
+
+
+class ServePoisonedError(SuperLUError):
+    """THIS request poisoned (or was poisoned inside) a serving
+    micro-batch: its column(s) produced non-finite results, or the batch
+    solve raised ``NumericBreakdownError`` and bisection pinned the
+    blame on them.  The healthy neighbors of the same micro-batch were
+    isolated and served bit-identically to an unpoisoned run — one bad
+    right-hand side costs only its own ticket (serve/server.py,
+    ``_isolate``).  ``columns`` are request-relative 0-based column
+    indices.  Dumps a flight-recorder postmortem at construction (the
+    poison scatter path constructs it outside the server lock);
+    ``stages`` attaches the ticket's per-stage timings (TicketContext
+    ``stages_ms()``, obs/slo.py) so the postmortem carries the span
+    chain."""
+
+    def __init__(self, columns, batch_columns: int = 0, where: str = "",
+                 stages: dict | None = None):
+        self.columns = sorted(int(c) for c in columns)
+        self.batch_columns = int(batch_columns)
+        self.where = where
+        self.ticket_stages = dict(stages) if stages else None
+        stage = f" during {where}" if where else ""
+        batch = (f" of a {batch_columns}-column micro-batch"
+                 if batch_columns else "")
+        super().__init__(
+            f"request column(s) {','.join(map(str, self.columns))} "
+            f"poisoned the solve{stage}{batch}: non-finite results "
+            "isolated to this ticket (healthy neighbors were re-served "
+            "unaffected)")
+        _flight_dump(self)
+
+
+class FactorCorruptError(SuperLUError):
+    """The factor-integrity scrubber (``SLU_TPU_SERVE_SCRUB_S``)
+    re-hashed the handle's resident panel stacks and found front
+    group(s) whose sha256 digest no longer matches the persist-bundle
+    (or construction-time) ground truth — silent data corruption in the
+    factors.  The handle is QUARANTINED: every queued and future request
+    fails with this error instead of being served garbage X, until
+    ``server.swap()`` installs a fresh handle.  Dumps a flight-recorder
+    postmortem at construction (``dump=False`` for the per-submit
+    re-raises of an already-reported quarantine)."""
+
+    def __init__(self, groups, source: str = "", dump: bool = True):
+        self.groups = sorted(int(g) for g in groups)
+        self.source = source
+        src = f" (digest baseline: {source})" if source else ""
+        super().__init__(
+            f"factor integrity scrub failed: front group(s) "
+            f"{','.join(map(str, self.groups))} no longer match their "
+            f"sha256 digests{src} — handle quarantined; swap in a fresh "
+            "factorization (server.swap) instead of serving corrupt X")
+        if dump:
+            _flight_dump(self)
+        else:
+            self.flightrec_dump = None
+
+
+class ReplicaFailureError(SuperLUError):
+    """The fleet router (serve/fleet.py) declared a serving replica
+    FAILED: its process died (``pid_alive`` — kill(pid,0) + the
+    zombie check), its worker crashed, or a factor-integrity
+    quarantine made it unroutable.  Every ticket the replica had
+    accepted but not yet delivered is RE-ROUTED to a healthy replica
+    under the same idempotent retry token, so a client observes
+    bitwise-identical X, never this error — unless zero healthy
+    replicas remain, in which case the undelivered tickets are handed
+    this error instead of a hang (the zero-loss failover contract).  Dumps a flight-recorder postmortem
+    at construction naming the dead replica and the re-routed ticket
+    set."""
+
+    def __init__(self, replica: int, tickets, cause: str = "",
+                 pid: int = -1, kind: str = "replica"):
+        self.replica = int(replica)
+        self.tickets = sorted(int(t) for t in tickets)
+        self.cause = cause
+        self.pid = int(pid)
+        self.kind = kind
+        why = f" ({cause})" if cause else ""
+        who = f" pid {pid}" if pid > 0 else ""
+        super().__init__(
+            f"fleet {kind} {replica}{who} declared failed{why}; "
+            f"{len(self.tickets)} undelivered ticket(s) "
+            f"{self.tickets} re-routed to healthy replicas under their "
+            "idempotent retry tokens (zero-loss failover — clients see "
+            "identical X, not this error, while healthy replicas "
+            "remain)")
+        _flight_dump(self)
+
+
+class DeployRollbackError(SuperLUError):
+    """A rolling deploy (``FleetRouter.deploy``) was ROLLED BACK: the
+    new bundle failed its load/scrub integrity verification or a canary
+    batch's quality gate (non-finite X, or componentwise berr past the
+    gate) on some replica, so every replica already swapped was
+    restored to the previous bundle and the fleet keeps serving the old
+    factors.  ``stage`` names the failing check (``load`` / ``scrub`` /
+    ``canary``), ``replica`` the replica it failed on, ``rolled_back``
+    the replicas that were restored.  Dumps a flight-recorder
+    postmortem at construction."""
+
+    def __init__(self, key, bundle: str, stage: str, replica: int = -1,
+                 rolled_back=(), cause: str = ""):
+        self.key = key
+        self.bundle = str(bundle)
+        self.stage = stage
+        self.replica = int(replica)
+        self.rolled_back = sorted(int(r) for r in rolled_back)
+        self.cause = cause
+        at = f" on replica {replica}" if replica >= 0 else ""
+        why = f": {cause}" if cause else ""
+        back = (f"; replica(s) {self.rolled_back} restored to the "
+                "previous bundle" if self.rolled_back else
+                "; no replica had swapped yet")
+        super().__init__(
+            f"rolling deploy of bundle {self.bundle!r} for handle "
+            f"{key!r} rolled back at the {stage} check{at}{why}{back} "
+            "— the fleet keeps serving the previous factors "
+            "(docs/SERVING.md fleet chapter)")
+        _flight_dump(self)
+
+
+class LockOrderError(SuperLUError):
+    """Lock-verify mode (``SLU_TPU_VERIFY_LOCKS=1``,
+    ``utils/lockwatch.py``) detected a lock-order
+    inversion: this thread is about to acquire ``inner`` while holding
+    ``outer``, but the global order graph already records ``inner`` held
+    while ``outer`` was acquired (at ``inverse_site``).  Two threads
+    entering that cycle from different ends freeze forever; with
+    verification on, the acquisition raises HERE — before blocking —
+    naming both acquisition sites.  Dumps a flight-recorder
+    postmortem at construction."""
+
+    def __init__(self, outer: str, inner: str, site: str,
+                 inverse_site: str):
+        self.outer = outer
+        self.inner = inner
+        self.site = site
+        self.inverse_site = inverse_site
+        super().__init__(
+            f"lock-order inversion (SLU109 runtime): acquiring "
+            f"`{inner}` while holding `{outer}` at {site}, but the "
+            f"inverse order `{inner}` -> `{outer}` was recorded at "
+            f"{inverse_site} — two threads entering this cycle from "
+            "different ends deadlock (this acquisition raised instead "
+            "of blocking; SLU_TPU_VERIFY_LOCKS=1)")
+        _flight_dump(self)

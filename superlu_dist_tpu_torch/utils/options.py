@@ -3,15 +3,260 @@
 Mirrors the reference's runtime option struct ``superlu_dist_options_t``
 (SRC/superlu_defs.h:628-657) and its defaults ``set_default_options_dist``
 (SRC/util.c:376-401).  The values are the defaults the JAX package
-resolves when no environment knob is set; the port has no knob registry.
+resolves when no environment knob is set.
+
+The environment-knob registry (``register_knob``, ``env_int`` /
+``env_float`` / ``env_str`` / ``env_flag``) is the JAX package's, with
+the knobs this package reads: the device solve's nrhs buckets, the
+serving tier (``SLU_TPU_SERVE_*``, ``SLU_TPU_FLEET_*``), observability
+(``SLU_TPU_TRACE``, ``SLU_TPU_METRICS``, ``SLU_TPU_FLIGHTREC*``,
+``SLU_TPU_SLO_*``), the chaos harness and the lock-order verifier.  Each
+has the JAX package's kind, default and meaning.  The solver's other
+choices are ``Options`` fields here, not knobs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Environment-knob registry — the single source of truth for every env var
+# this package reads.  Every read routes through env_int/env_float/env_str/
+# env_flag below, and SLU_TPU_STRICT_ENV=1 turns a typo'd SLU_TPU_* knob
+# name into a hard error instead of a silently-ignored setting.
+# ---------------------------------------------------------------------------
+
+
+class UnknownKnobError(KeyError):
+    """An env knob was read or set that the registry does not declare."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Knob:
+    name: str
+    kind: str            # "int" | "float" | "str" | "flag"
+    default: object
+    help: str
+    group: str = "solver"
+    choices: tuple | None = None
+
+
+KNOB_REGISTRY: dict[str, Knob] = {}
+
+
+def register_knob(name: str, kind: str, default, help: str,
+                  group: str = "solver", choices: tuple | None = None) -> None:
+    assert kind in ("int", "float", "str", "flag"), kind
+    KNOB_REGISTRY[name] = Knob(name, kind, default, help, group, choices)
+
+
+def _register_all() -> None:
+    r = register_knob
+    # --- device solve / serving tier (solve/device.py, serve/) -------------
+    r("SLU_TPU_SOLVE_NRHS_MAX", "int", 1024,
+      "largest nrhs bucket — the column-chunking cap that closes the "
+      "set of solve graphs", group="solve")
+    r("SLU_TPU_SOLVE_NRHS_GROWTH", "float", 1.5,
+      "geometric nrhs bucket growth past the power-of-two rungs "
+      "(rounded to multiples of 32)", group="solve")
+    r("SLU_TPU_SERVE_MAX_BATCH", "int", 0,
+      "SolveServer micro-batch column cap (0 = the nrhs bucket cap)",
+      group="serve")
+    r("SLU_TPU_SERVE_MAX_WAIT_MS", "float", 2.0,
+      "SolveServer coalescing window: how long the dispatcher holds the "
+      "oldest pending request open for co-batching before dispatching",
+      group="serve")
+    r("SLU_TPU_SERVE_QUEUE_MAX", "int", 0,
+      "SolveServer admission cap in pending COLUMNS: a submit that "
+      "would exceed it is shed with ServeOverloadError instead of "
+      "queueing (0 = unbounded)", group="serve")
+    r("SLU_TPU_SERVE_DEADLINE_MS", "float", 0.0,
+      "per-request serving deadline: columns still queued past it are "
+      "expired with ServeDeadlineError and removed from the queue "
+      "(0 = off)", group="serve")
+    r("SLU_TPU_SERVE_BERR_MAX", "float", 0.0,
+      "per-request componentwise-berr quality gate: a served ticket "
+      "whose berr exceeds it is routed through a per-ticket iterative-"
+      "refinement rung (refine/ir.refine_ticket) before delivery "
+      "(0 = off; needs the original matrix on the handle)",
+      group="serve")
+    r("SLU_TPU_SERVE_SCRUB_S", "float", 0.0,
+      "factor-integrity scrub period: a background thread re-hashes "
+      "the handle's panel stacks against their persist-bundle sha256 "
+      "digests every this-many seconds, quarantining the handle with "
+      "FactorCorruptError on mismatch (0 = off)", group="serve")
+    # --- serving fleet -----------------------------------------------------
+    r("SLU_TPU_FLEET_REPLICAS", "int", 2,
+      "FleetRouter default replica count (serve/fleet.py): how many "
+      "SolveServer replicas the routing front fans submits across",
+      group="fleet")
+    r("SLU_TPU_FLEET_KIND", "str", "thread",
+      "fleet replica isolation: in-process worker threads or spawned "
+      "worker processes behind the same interface", group="fleet",
+      choices=("thread", "process"))
+    r("SLU_TPU_FLEET_HANDLE_BYTES", "int", 0,
+      "per-replica resident-handle byte budget for the multi-handle "
+      "LRU cache (serve/handlecache.py, sized via the persist lu_meta "
+      "cheap peek): least-recently-used idle handles are evicted and "
+      "scrub-verified on reload (0 = unbounded)", group="fleet")
+    r("SLU_TPU_FLEET_QUEUE_MAX", "int", 0,
+      "fleet-level admission cap in undelivered COLUMNS across all "
+      "replicas: a submit past it is shed with ServeOverloadError "
+      "(reason fleet_queue_full) at the router, before any replica "
+      "queues it (0 = unbounded)", group="fleet")
+    r("SLU_TPU_FLEET_DEADLINE_MS", "float", 0.0,
+      "end-to-end per-ticket fleet deadline: a ticket undelivered past "
+      "it — queued, in flight, or mid-failover — is expired with "
+      "ServeDeadlineError by the health monitor or the waiting ticket "
+      "itself (0 = off)", group="fleet")
+    r("SLU_TPU_FLEET_HEALTH_S", "float", 0.05,
+      "fleet health-monitor poll period: replica process/thread "
+      "liveness (pid_alive), failover re-routing of undelivered "
+      "tickets, and deadline sweeps run on this cadence", group="fleet")
+    r("SLU_TPU_VERIFY_LOCKS", "flag", False,
+      "lock-order verify mode (utils/lockwatch.py): instrument every "
+      "make_lock/make_condition lock, record per-thread acquisition "
+      "stacks into a global order graph, and raise LockOrderError "
+      "naming both call sites on the first inversion instead of "
+      "deadlocking; feeds the slu_lock_hold_seconds histogram when "
+      "metrics are on", group="parallel")
+    # --- observability -----------------------------------------------------
+    r("SLU_TPU_TRACE", "str", "",
+      "structured span trace output path ('%p' expands to the pid)",
+      group="obs")
+    r("SLU_TPU_METRICS", "str", "",
+      "metrics registry: '1' enables; a path additionally dumps the "
+      "JSON/Prometheus export there at exit ('%p' expands to the pid)",
+      group="obs")
+    r("SLU_TPU_FLIGHTREC", "str", "",
+      "flight recorder: '1' enables (default flightrec-%p.json dump); "
+      "a path names the postmortem artifact ('%p' expands to the pid)",
+      group="obs")
+    r("SLU_TPU_FLIGHTREC_DEPTH", "int", 512,
+      "flight-recorder ring depth (events kept for the postmortem)",
+      group="obs")
+    r("SLU_TPU_SLO_P99_MS", "float", 0.0,
+      "global p99 latency SLO target in ms for the serving tier "
+      "(obs/slo.py SLOEvaluator, fleet health model; 0 = no SLO)",
+      group="obs")
+    r("SLU_TPU_SLO_TARGETS", "str", "",
+      "per-traffic-class p99 SLO overrides, 'class=ms,class=ms' "
+      "(classes: serve, fleet, driver, bench; overrides "
+      "SLU_TPU_SLO_P99_MS for the named class)", group="obs")
+    r("SLU_TPU_SLO_BUDGET", "float", 0.01,
+      "SLO error budget: provisioned fraction of requests allowed over "
+      "the p99 target; burn rate = over-target fraction / budget",
+      group="obs")
+    # --- env discipline ----------------------------------------------------
+    r("SLU_TPU_STRICT_ENV", "flag", False,
+      "raise on SLU_TPU_* env vars the registry does not declare")
+    # --- test / CI harness -------------------------------------------------
+    r("SLU_TPU_CHAOS", "str", "",
+      "failure-domain chaos-injection spec (testing/chaos.py, e.g. "
+      "'kill_group=5', 'nan_supernode=3', 'kill_refactor@step=0', "
+      "'poison_values=2'); empty = off", group="test")
+
+
+_register_all()
+
+_FLAG_FALSE = ("", "0", "false", "no", "off")
+_strict_checked = False
+
+
+def _check_strict_env() -> None:
+    """Under SLU_TPU_STRICT_ENV=1, an SLU_TPU_* env var the registry does
+    not declare raises (with a did-you-mean) instead of being silently
+    ignored.  Checked once, on the first registry read.  The JAX
+    package's own knobs count as undeclared here: this package reads
+    none of them."""
+    global _strict_checked
+    if _strict_checked:
+        return
+    _strict_checked = True
+    raw = os.environ.get("SLU_TPU_STRICT_ENV", "")
+    if raw.strip().lower() in _FLAG_FALSE:
+        return
+    unknown = sorted(k for k in os.environ
+                     if k.startswith("SLU_TPU_") and k not in KNOB_REGISTRY)
+    if unknown:
+        import difflib
+        hints = []
+        for k in unknown:
+            close = difflib.get_close_matches(k, KNOB_REGISTRY, n=1)
+            hints.append(f"{k}" + (f" (did you mean {close[0]}?)"
+                                   if close else ""))
+        raise UnknownKnobError(
+            "unknown SLU_TPU_* environment knob(s) under "
+            f"SLU_TPU_STRICT_ENV=1: {', '.join(hints)}")
+
+
+_UNSET = object()
+
+
+def _knob_raw(name: str, default):
+    if name not in KNOB_REGISTRY:
+        raise UnknownKnobError(
+            f"env knob {name!r} is not declared in the registry "
+            "(superlu_dist_tpu_torch/utils/options.py) — register it there")
+    _check_strict_env()
+    raw = os.environ.get(name)
+    d = KNOB_REGISTRY[name].default if default is _UNSET else default
+    return raw, d
+
+
+def env_int(name: str, default=_UNSET) -> int:
+    """Registered integer knob; unset or unparsable values yield the
+    default."""
+    raw, d = _knob_raw(name, default)
+    if raw is None:
+        return d
+    try:
+        return int(raw)
+    except ValueError:
+        return d
+
+
+def env_float(name: str, default=_UNSET) -> float:
+    raw, d = _knob_raw(name, default)
+    if raw is None:
+        return d
+    try:
+        return float(raw)
+    except ValueError:
+        return d
+
+
+def env_str(name: str, default=_UNSET) -> str:
+    raw, d = _knob_raw(name, default)
+    return d if raw is None else raw
+
+
+def env_flag(name: str, default=_UNSET) -> bool:
+    """Registered on/off knob: unset -> default; '', '0', 'false', 'no',
+    'off' (any case) -> False; anything else -> True."""
+    raw, d = _knob_raw(name, default)
+    if raw is None:
+        return bool(d)
+    return raw.strip().lower() not in _FLAG_FALSE
+
+
+def knob_table_md(groups: tuple | None = None) -> str:
+    """Markdown table of the registry."""
+    lines = ["| Knob | Kind | Default | Group | Meaning |",
+             "|---|---|---|---|---|"]
+    for k in sorted(KNOB_REGISTRY.values(),
+                    key=lambda k: (k.group, k.name)):
+        if groups is not None and k.group not in groups:
+            continue
+        extra = (f" ({'/'.join(map(str, k.choices))})" if k.choices else "")
+        lines.append(f"| `{k.name}` | {k.kind} | `{k.default}` | {k.group} "
+                     f"| {k.help}{extra} |")
+    return "\n".join(lines)
 
 
 class Fact(enum.Enum):

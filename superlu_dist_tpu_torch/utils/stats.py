@@ -110,10 +110,13 @@ class Stats:
     def timer(self, phase: str):
         """TIC/TOC analog (util_dist.h:135-141).  The caller synchronizes
         the device inside the timed region where the phase ends in
-        device work."""
+        device work.  Every enter also opens a ``phase`` span on the
+        process tracer (obs/trace.py; a no-op when tracing is off)."""
+        from superlu_dist_tpu_torch.obs.trace import get_tracer
         t0 = time.perf_counter()
         try:
-            yield
+            with get_tracer().span(phase, cat="phase"):
+                yield
         finally:
             self.utime[phase] = (self.utime.get(phase, 0.0)
                                  + time.perf_counter() - t0)

@@ -641,3 +641,135 @@ def test_level_waves_and_the_host_share_on_the_card(cuda):
     assert luh.dev_solver.memory_stats()["uploaded_front_bytes"] > 0
     assert st.solve_report.solve_route == "device"
     assert st.solve_report.berr <= tols.berr_target(np.float64)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card
+# ---------------------------------------------------------------------------
+
+def _bundle(a, path):
+    x, lu, st, info = slt.gssvx(
+        slt.Options(iter_refine=slt.IterRefine.NOREFINE), a,
+        np.ones(a.n_rows), device="cuda")
+    assert info == 0
+    slt.save_lu(lu, str(path))
+    return str(path)
+
+
+def test_thread_replicas_concurrent_with_scrub_and_swap(cuda, tmp_path):
+    """Two ThreadReplicas, each holding its own handle, serve concurrent
+    traffic at first-use buckets (every ticket captures or replays its
+    bucket's sweep graphs on its replica's dispatcher thread) while a
+    scrub copies every front of both handles to the host and a rolling
+    deploy swaps in a bundle of the same factors: no ticket errs, and
+    every X is bit for bit the single-threaded solve of the same columns
+    at the same width."""
+    import threading
+    from superlu_dist_tpu_torch.serve import FleetRouter
+    from superlu_dist_tpu_torch.serve.fleet import FLEET_SERVER_KW
+    mats = {"p24": poisson3d(24), "p20": poisson3d(20)}
+    paths = {k: _bundle(a, tmp_path / k) for k, a in mats.items()}
+    same = str(tmp_path / "p24_again")
+    import shutil
+    shutil.copytree(paths["p24"], same)
+    rng = np.random.default_rng(7)
+    widths = [1, 2, 3, 5, 8, 13, 16, 7, 1, 4]
+    work = [(k, rng.standard_normal((mats[k].n_rows, w)))
+            for w in widths for k in ("p24", "p20")]
+    # single-threaded references, one fresh handle per key
+    refs = {k: slt.load_lu(p) for k, p in paths.items()}
+    want = [refs[k].solve_factored(b) for k, b in work]
+    fleet = FleetRouter(paths, n_replicas=2, kind="thread", device="cuda",
+                        server_kw=dict(FLEET_SERVER_KW))
+    errs, got = [], [None] * len(work)
+    try:
+        # one key per replica: the first ticket of each key fixes it
+        for i in (0, 1):
+            got[i] = fleet.solve(work[i][0], work[i][1], timeout=300)
+
+        def client(idx):
+            try:
+                for i in idx:
+                    got[i] = fleet.solve(work[i][0], work[i][1],
+                                         timeout=300)
+            except Exception as e:          # noqa: BLE001
+                errs.append(e)
+
+        def scrubber():
+            try:
+                for r in fleet._replicas:
+                    for key in r._cache.resident():
+                        assert r._cache.get(key).scrub_now() == []
+            except Exception as e:          # noqa: BLE001
+                errs.append(e)
+
+        rest = list(range(2, len(work)))
+        th = [threading.Thread(target=client, args=(rest[j::3],))
+              for j in range(3)]
+        th.append(threading.Thread(target=scrubber))
+        th.append(threading.Thread(
+            target=lambda: fleet.deploy(same, key="p24")))
+        for t in th:
+            t.start()
+        for t in th:
+            t.join(600)
+        assert not errs, errs
+        assert fleet.stats()["errors"] == 0
+        assert fleet.stats()["deploys"] == 1
+        for i, (w, g) in enumerate(zip(want, got)):
+            assert g is not None and np.array_equal(w, g), i
+    finally:
+        fleet.close()
+
+
+def test_process_replica_killed_on_the_card_fails_over_bitwise(cuda,
+                                                               tmp_path,
+                                                               monkeypatch):
+    from superlu_dist_tpu_torch.serve import FleetRouter
+    a = poisson3d(16)
+    path = _bundle(a, tmp_path / "p16")
+    ref = slt.load_lu(path)
+    rng = np.random.default_rng(8)
+    bs = [rng.standard_normal(a.n_rows) for _ in range(6)]
+    want = [ref.solve_factored(b) for b in bs]
+    monkeypatch.setenv("SLU_TPU_CHAOS", "kill_replica=1@batch=1")
+    fleet = FleetRouter({"p16": path}, n_replicas=2, kind="process",
+                        device="cuda")
+    try:
+        assert all(r.device.type == "cuda" for r in fleet._replicas)
+        got = [t.result(300) for t in [fleet.submit("p16", b) for b in bs]]
+        st = fleet.stats()
+        assert st["errors"] == 0 and st["delivered"] == 6
+        assert st["failovers"] >= 1 and st["replicas_failed"] == [1]
+        for w, g in zip(want, got):
+            assert np.array_equal(w, g)
+    finally:
+        fleet.close(timeout=30)
+    assert not any(r._proc.is_alive() for r in fleet._replicas)
+
+
+def test_poison_isolation_bitwise_at_bucket_16(cuda):
+    from superlu_dist_tpu_torch.serve import SolveServer
+    from superlu_dist_tpu_torch.utils.errors import ServePoisonedError
+    a = poisson3d(20)
+    x, lu, st, info = slt.gssvx(slt.Options(), a, np.ones(a.n_rows),
+                                device="cuda")
+    rng = np.random.default_rng(9)
+    bs = a.matvec(rng.standard_normal((a.n_rows, 16)))
+    clean = lu.solve_factored(bs)             # one batch of width 16
+    bp = bs.copy()
+    bp[:, 11] = np.nan
+    srv = SolveServer(lu, start=False)
+    tickets = [srv.submit(bp[:, j]) for j in range(16)]
+    srv.start()
+    srv.flush()
+    for j, t in enumerate(tickets):
+        if j == 11:
+            with pytest.raises(ServePoisonedError) as ei:
+                t.result(120)
+            assert ei.value.columns == [0] and ei.value.batch_columns == 16
+        else:
+            assert np.array_equal(t.result(120), clean[:, j]), j
+    assert srv.stats()["batches"] == 1
+    assert lu.dev_solver.last_solve_stats["padded_nrhs"] == 16
+    srv.close()
