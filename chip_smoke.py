@@ -38,13 +38,13 @@ drives the port are reset just before it and checked just after):
                 csr_spmv, the ladder when refinement misses;
      persist  — on that handle: save_lu, load_lu onto the card (fronts
                 torch.equal) and a FACTORED solve from the loaded handle;
-                then a gssvx handle of poisson3d(32) and its skeleton
+                then a gssvx handle of poisson3d(25) and its skeleton
                 factored under Options(deadline_s about half its FACT,
                 ckpt_dir), stopped at a group boundary 0 < k < groups with
                 its frontier on disk, and gssvx(resume_from=) from it,
                 whose fronts must be torch.equal to that handle's: bundle
                 bytes, save / load / flush seconds, k, the resumed FACT;
-     cli      — poisson3d(32) written as a .mtx file and solved by
+     cli      — poisson3d(25) written as a .mtx file and solved by
                 ``python -m superlu_dist_tpu_torch -f <file> --stats``
                 (``__main__.main`` in-process): rc 0, the reader's seconds,
                 the report's FACT / SOLVE / REFINE seconds and BERR;
@@ -59,7 +59,25 @@ drives the port are reset just before it and checked just after):
                 isolated and a corrupted panel scrubbed (chaos);
                 SolveServer.refactor (one front_assemble launch per
                 group); a FleetRouter of two process replicas over the
-                poisson3d(48) and (32) bundles with one replica killed;
+                poisson3d(48) and (25) bundles with one replica killed;
+     pgssvx   — the distributed driver (parallel/pgssvx.py): block rows
+                of poisson3d(48) on 4 ranks, rank 0 this process on the
+                card, ranks 1-3 spawned CPU processes (started after the
+                native phase, so their imports overlap the phases
+                between): info, BERR, every peer's x bit for bit rank
+                0's, x within DEVICE_VS_HOST of gssvx's, front_assemble
+                launches = groups and no csr_spmv launch, the root's
+                analysis native; wall, gather, analysis, FACT, root SOLVE
+                and distributed refinement seconds, CommStats per op, the
+                StatsSummary balance, the peers' spawn-to-attach seconds,
+                the longest heartbeat gap; FACTORED with rank 0's handle
+                at nrhs 4 (no front_assemble launch); pgssvx_ft with
+                Options(ft="shrink") on poisson3d(24) and 3 ranks, rank 2
+                killed before its 6th collective: one FtEvent, x bit for
+                bit the undisturbed run's; no peer with a CUDA context,
+                no child process or shared-memory segment left
+                (``python3 chip_smoke.py pgssvx``: the build, gssvx and
+                this phase);
      reuse    — on that handle: a FACTORED solve, a TRANS solve, refactor
                 on perturbed values (equal to a fresh factorization and
                 to the serve phase's SolveServer.refactor),
@@ -73,16 +91,16 @@ drives the port are reset just before it and checked just after):
                 SOLVE seconds, last_solve_stats, solver
                 memory, BERR after refinement; every solve repeated bit for
                 bit, the eager ones equal to the fused ones;
-     gemm_tiers — gssvx on poisson3d(32) at the default, bf16 and f32
+     gemm_tiers — gssvx on poisson3d(25) at the default, bf16 and f32
                 tiers: FACT, refine steps, rungs, BERR;
      executors — Options.executor on the main path's plan: the stream;
-     executors_small — on poisson3d(32) (the persist phase's handle): the
+     executors_small — on poisson3d(25) (the persist phase's handle): the
                 host offload through gssvx
                 (FACT, offload wait, peak device memory beside the
                 stream's, the host solve, BERR), the fused CUDA graph (warm-up,
                 capture, instantiation, node count, graph memory; replays
                 bit for bit the stream, an earlier handle untouched;
-                refactor through the replay); on poisson3d(24) mega on
+                refactor through the replay); on poisson3d(16) mega on
                 a closed plan (one graph per closed key), the host-share
                 split and level waves (bit for bit the stream), with their
                 graphs' costs;
@@ -116,6 +134,7 @@ non-zero before any result.  ``python3 chip_smoke.py first_solve
 (``first_solve_only``).
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -131,6 +150,14 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {"float32": 67e12, "float64": 34e12}
 NX = 48                  # poisson3d grid edge of the main path: n = 110,592
+#: the depth-cut paths (PERF.md §4): the persist deadline and resume, cli,
+#: gemm_tiers, the fleet's second bundle, fused and the host offload run
+#: at NX_SMALL (48, then 32 before the serve and pgssvx phases needed the
+#: time; 25 keeps nnz = 105,625 above the 100,000 from which
+#: refinement's residual runs through csr_spmv); mega, the host share and
+#: level waves at NX_TINY (32, then 24 before)
+NX_SMALL = 25
+NX_TINY = 16
 SEED = 0
 SERVE_RESOLVE = 8        # cold serve batches re-solved and timed in stages
 FIRST_SOLVE_REPS = 6     # first solves (new solver, two captures) timed
@@ -879,6 +906,243 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
         berr_target=float(tols.berr_target(np.float64)), **out)
 
 
+#: the distributed phase: 4 ranks at the main path's width, the recovery
+#: on 3 ranks at poisson3d(24); the comm timeout the failure detector
+#: runs with, and the tree domain's slot length (doubles)
+PG_RANKS, PG_FT_RANKS, PG_FT_NX = 4, 3, 24
+PG_TIMEOUT_S = 2.0
+PG_MAX_LEN = 1 << 16
+
+
+def _pg_workdir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "pgssvx")
+
+
+def start_peers(slt):
+    """The pgssvx phase's peer ranks, spawned early so that their
+    ``import torch`` overlaps the phases before it: ranks 1-3 of the
+    main run and its FACTORED call on poisson3d(NX), ranks 1-2 of the two
+    recovery runs on poisson3d(PG_FT_NX) (rank 2 killed in the second).
+    Each builds its rows from a seeded recipe (``GallerySystem``: the
+    spawn ships a few bytes, not the matrix) and waits in
+    ``attach_tree`` until rank 0 (this process, on the card) forms the
+    domain.  Returns the phase's state."""
+    from superlu_dist_tpu_torch.testing.ranks import (GallerySystem, RankJob,
+                                                      spawn_peers)
+    # a dead peer surfaces as RankFailureError within about this timeout
+    os.environ["SLU_TPU_COMM_TIMEOUT_S"] = str(PG_TIMEOUT_S)
+    main_sys = GallerySystem("poisson3d", (NX,), seed=SEED)   # gssvx's b
+    fact_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 30, nrhs=4)
+    ft_sys = GallerySystem("poisson3d", (PG_FT_NX,), seed=SEED + 40)
+    tag = f"/slt_smoke_{os.getpid()}"
+    wd = _pg_workdir()
+    # the peers join when rank 0 forms the domain, minutes from now
+    main = RankJob("pgssvx", f"{tag}_main", PG_RANKS, slt.Options(),
+                   main_sys.a_rows, main_sys.b_rows, max_len=PG_MAX_LEN,
+                   attach_s=1200.0)
+    fact = RankJob("pgssvx", f"{tag}_fact", PG_RANKS,
+                   slt.Options(fact=slt.Fact.FACTORED), fact_sys.a_rows,
+                   fact_sys.b_rows, max_len=PG_MAX_LEN, reuse_lu=True)
+
+    def ft(name):
+        return RankJob("pgssvx_ft", f"{tag}_{name}", PG_FT_RANKS,
+                       slt.Options(ft="shrink", ckpt_every=8,
+                                   ckpt_dir=os.path.join(wd, name)),
+                       ft_sys.a_rows, ft_sys.b_rows, max_len=PG_MAX_LEN)
+    ref, chaos = ft("ref"), ft("chaos")
+    # rank 2 dies right before its 6th public collective: the broadcast
+    # of the root's result, while the root factors
+    victim = dataclasses.replace(
+        chaos, env={"SLU_TPU_CHAOS": "kill_rank=2,kill_op=6"})
+    jobs = {1: [main, fact, ref, chaos], 2: [main, fact, ref, victim],
+            3: [main, fact]}
+    t0 = time.perf_counter()
+    procs, results, spawned_at = spawn_peers(jobs)
+    return dict(procs=procs, results=results, spawned_at=spawned_at,
+                spawn_s=time.perf_counter() - t0, tag=tag, main=main,
+                fact=fact, ref=ref, chaos=chaos, nrhs_fact=4,
+                n_ft=PG_FT_NX ** 3)
+
+
+def _await(peers, ranks, name=None, timeout=600):
+    """The records of job ``name`` (or the last records, ``name=None``)
+    from ``ranks``, {rank: record}; others that arrive meanwhile wait in
+    the phase's stash for their own call."""
+    from superlu_dist_tpu_torch.testing.ranks import collect
+    stash = peers.setdefault("stash", [])
+
+    def mine(r):
+        return r.get("done") if name is None else r.get("name") == name
+    got = {r["rank"]: r for r in stash if mine(r)}
+    stash[:] = [r for r in stash if not mine(r)]
+    while set(got) != set(ranks):
+        (r,) = collect(peers["results"], 1, timeout, peers["procs"])
+        if mine(r):
+            got[r["rank"]] = r
+        else:
+            stash.append(r)
+    return got
+
+
+def pgssvx_phase(slt, a, x_main, peers, kernels, tols, torch):
+    """Phase 4d, the distributed driver: ``pgssvx`` over block rows of
+    poisson3d(48) on 4 ranks, rank 0 this process with device="cuda",
+    ranks 1-3 spawned CPU processes (``start_peers``), Options() (DOFACT,
+    float32 factors at the default tier, refinement distributed): info 0,
+    BERR <= berr_target(float64), every peer's x equal to rank 0's bit
+    for bit, x within DEVICE_VS_HOST of the main path's x (whose residual
+    ran through csr_spmv, this one on each rank's host rows),
+    front_assemble launches = groups × factorizations and no csr_spmv
+    launch, the root's analysis in the native library; then FACTORED
+    with rank 0's handle at nrhs 4 (no front_assemble launch, the same X
+    on every rank); then ``pgssvx_ft`` with Options(ft="shrink") on
+    poisson3d(24) and 3 ranks, undisturbed and with rank 2 killed
+    (SLU_TPU_CHAOS): the survivors finish with one FtEvent and x bit for
+    bit the undisturbed run's.  No peer may hold a CUDA context, and no
+    child process or shared-memory segment of the phase may be left."""
+    import multiprocessing as mp
+    from superlu_dist_tpu_torch import native
+    from superlu_dist_tpu_torch.testing.ranks import run_job, stop_peers
+    procs = peers["procs"]
+    target = float(tols.berr_target(np.float64))
+    out = {}
+    try:
+        # --- the main run ----------------------------------------------
+        kernels.reset_launches()
+        native.reset_calls()
+        t0 = time.perf_counter()
+        rec0 = run_job(peers["main"], 0, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if "error" in rec0:
+            raise AssertionError(f"pgssvx rank 0: {rec0['error']}")
+        lo = rec0["lu_out"]
+        lu, stats, rep = lo["lu"], lo["stats"], lo["solve_report"]
+        groups = len(lu.plan.groups)
+        hiprec = sum(r.name == "distributed-hiprec" for r in rep.rungs)
+        launches = expect_launches("pgssvx", kernels, groups * (1 + hiprec),
+                                   False)
+        calls = expect_native("pgssvx", native, "amalgamate", "mlnd")
+        peer_main = _await(peers, (1, 2, 3), peers["main"].name)
+        x = rec0["x"]
+        if rec0["info"] != 0 or x.shape != x_main.shape:
+            raise AssertionError(f"pgssvx: info {rec0['info']}")
+        check_berr("pgssvx", rep.berr, target)
+        for r, pr in sorted(peer_main.items()):
+            if "error" in pr or not np.array_equal(pr["x"], x):
+                raise AssertionError(f"pgssvx rank {r}: "
+                                     f"{pr.get('error', 'x != rank 0 x')}")
+        err = np.abs(x - x_main)
+        if not np.all(err <= tols.DEVICE_VS_HOST_ATOL
+                      + tols.DEVICE_VS_HOST_RTOL * np.abs(x_main)):
+            raise AssertionError(f"pgssvx x vs the main path's: max "
+                                 f"{err.max()}")
+        summary = lo["stats_summary"]
+        out["main"] = dict(
+            ranks=PG_RANKS, info=rec0["info"], wall_s=wall,
+            gather_s=lo["timings"]["gather_s"],
+            analysis_s=sum(stats.utime[p] for p in ANALYSIS),
+            fact_s=stats.utime["FACT"], root_solve_s=stats.utime["SOLVE"],
+            refine_s=lo["timings"]["refine_s"],
+            refine_steps=rep.refine_steps, berr=rep.berr,
+            berr_history=rep.berr_history, rungs=[r.name for r in rep.rungs],
+            max_abs_vs_main=float(err.max()), launches=launches,
+            native_calls=calls, groups=groups,
+            peers_bitwise_root=sorted(peer_main),
+            comm_root=stats.comm,
+            comm_all={op: dict(calls=d["calls"], bytes=d["bytes"],
+                               seconds_max=d["seconds"].max,
+                               balance=d["seconds"].balance)
+                      for op, d in summary.comm.items()},
+            balance={p: summary.balance(p) for p in ("FACT", "SOLVE")},
+            spawn_call_s=peers["spawn_s"],
+            spawn_to_attach_s={r: pr["attached_at"] - peers["spawned_at"]
+                               for r, pr in sorted(peer_main.items())},
+            peer_seconds={r: pr["seconds"]
+                          for r, pr in sorted(peer_main.items())},
+            beat_gap_s={0: rec0["beat_gap_s"],
+                        **{r: pr["beat_gap_s"]
+                           for r, pr in sorted(peer_main.items())}},
+            timeout_s=PG_TIMEOUT_S)
+
+        # --- FACTORED with rank 0's handle at nrhs 4 -------------------
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        recf = run_job(peers["fact"], 0, "cuda", lu=lu)
+        torch.cuda.synchronize()
+        fact_wall = time.perf_counter() - t0
+        if "error" in recf:
+            raise AssertionError(f"pgssvx FACTORED rank 0: {recf['error']}")
+        fl = expect_launches("pgssvx FACTORED", kernels, 0, False)
+        peer_fact = _await(peers, (1, 2, 3), peers["fact"].name)
+        xf, repf = recf["x"], recf["lu_out"]["solve_report"]
+        if recf["lu_out"]["lu"] is not lu or xf.shape != (
+                a.n_rows, peers["nrhs_fact"]):
+            raise AssertionError("pgssvx FACTORED did not reuse the handle")
+        check_berr("pgssvx FACTORED", repf.berr, target)
+        for r, pr in sorted(peer_fact.items()):
+            if "error" in pr or not np.array_equal(pr["x"], xf):
+                raise AssertionError(f"pgssvx FACTORED rank {r}: "
+                                     f"{pr.get('error', 'X != rank 0 X')}")
+        out["factored"] = dict(nrhs=4, wall_s=fact_wall, berr=repf.berr,
+                               refine_steps=repf.refine_steps,
+                               root_solve_s=recf["lu_out"]["stats"].utime[
+                                   "SOLVE"],
+                               refine_s=recf["lu_out"]["timings"][
+                                   "refine_s"],
+                               launches=fl)
+        del lu, stats, lo, rec0, recf
+
+        # --- recovery: undisturbed, then rank 2 killed ------------------
+        t0 = time.perf_counter()
+        ref0 = run_job(peers["ref"], 0, "cuda")
+        ref_s = time.perf_counter() - t0
+        peer_ref = _await(peers, (1, 2), peers["ref"].name)
+        t0 = time.perf_counter()
+        ch0 = run_job(peers["chaos"], 0, "cuda")
+        chaos_s = time.perf_counter() - t0
+        # rank 1 survives; rank 2 is killed and sends nothing more
+        peer_ch = _await(peers, (1,), peers["chaos"].name)
+        for name, rec in (("undisturbed", ref0), ("shrink", ch0)):
+            if "error" in rec or rec["info"] != 0:
+                raise AssertionError(f"pgssvx_ft {name} rank 0: "
+                                     f"{rec.get('error', rec.get('info'))}")
+        events = ch0["lu_out"].get("ft_events", [])
+        if len(events) != 1 or events[0].dead != [2]:
+            raise AssertionError(f"pgssvx_ft recorded {events}")
+        if not np.array_equal(ch0["x"], ref0["x"]):
+            raise AssertionError("the shrink recovery's x != the "
+                                 "undisturbed run's")
+        for r, pr in list(peer_ref.items()) + list(peer_ch.items()):
+            if "error" in pr or not np.array_equal(pr["x"], ref0["x"]):
+                raise AssertionError(f"pgssvx_ft rank {r}: "
+                                     f"{pr.get('error', 'x differs')}")
+        ev = events[0]
+        out["recovery"] = dict(
+            n=peers["n_ft"], ranks=PG_FT_RANKS,
+            undisturbed_s=ref_s, shrink_s=chaos_s, dead=ev.dead, op=ev.op,
+            failure_to_next_epoch_s=ev.seconds, resumed=ev.resumed,
+            berr=ch0["lu_out"]["solve_report"].berr,
+            rungs=[r.name for r in ch0["lu_out"]["solve_report"].rungs])
+        done = list(_await(peers, (1, 3)).values())
+    finally:
+        codes = stop_peers(procs, timeout=60)
+        shutil.rmtree(_pg_workdir(), ignore_errors=True)
+    # --- clean-up checks --------------------------------------------------
+    if codes != {1: 0, 2: -9, 3: 0}:
+        raise AssertionError(f"peer exit codes {codes}")
+    if any(r["cuda_initialized"] for r in done) or len(done) != 2:
+        raise AssertionError(f"a peer holds a CUDA context: {done}")
+    left = [p.name for p in mp.active_children()]
+    segs = [f for f in os.listdir("/dev/shm") if peers["tag"][1:] in f]
+    if left or segs:
+        raise AssertionError(f"left behind: processes {left}, "
+                             f"segments {segs}")
+    say("pgssvx", n=a.n_rows, peer_exit_codes=codes,
+        peers_cuda_initialized=False, children_left=0, segments_left=0,
+        **out)
+
 def helmholtz_3d(slt, a, k=5.0):
     """The complex Helmholtz-type operator on a 3-D Poisson pattern:
     helmholtz_2d's shift rule, diagonal −(k² − 0.5ik)h² with h = 1/(nx+1)."""
@@ -1311,8 +1575,9 @@ def persist_phase(slt, a, b, lu, kernels, tols, torch, workdir):
     """Phase 4a, on the main path's handle before anything refactors it:
     save_lu, then load_lu onto the card (every front torch.equal) and a
     FACTORED solve from the loaded handle; the bundle stays for the serve
-    phase.  Then, on poisson3d(32) (the main path's 48 until the serve
-    phase needed the time), a gssvx handle and the factorization of its
+    phase.  Then, on poisson3d(NX_SMALL) (the main path's 48 until the
+    serve phase needed the time, 32 until the pgssvx phase did), a gssvx
+    handle and the factorization of its
     skeleton under Options(deadline_s ≈ half its FACT, ckpt_dir), which
     must stop at a group boundary 0 < k < groups with its frontier on
     disk (one retry with the deadline moved if k lands at an end), and
@@ -1320,7 +1585,7 @@ def persist_phase(slt, a, b, lu, kernels, tols, torch, workdir):
     torch.equal to the handle's (same plan, values and tier) with
     stats.resume["groups"] == k.  Bundle bytes, save / load / flush
     seconds and the launch counts of each step.  Returns the bundle and
-    the poisson3d(32) matrix and handle."""
+    the poisson3d(NX_SMALL) matrix and handle."""
     import dataclasses
     import shutil
     from superlu_dist_tpu_torch.persist import checkpoint, serial
@@ -1358,9 +1623,9 @@ def persist_phase(slt, a, b, lu, kernels, tols, torch, workdir):
     check_berr("persist factored", st.solve_report.berr)
     del lu2
 
-    # the deadline and the resume, on poisson3d(32)
+    # the deadline and the resume, on poisson3d(NX_SMALL)
     from superlu_dist_tpu_torch.models.gallery import poisson3d
-    a = poisson3d(32)
+    a = poisson3d(NX_SMALL)
     b = a.matvec(np.random.default_rng(SEED + 30).standard_normal(a.n_rows))
     _, lu, st, _ = timed_gssvx(slt, kernels, slt.Options(), a, b,
                                device="cuda")
@@ -1467,7 +1732,7 @@ def _serve_round(srv, reqs, clients=8):
     return xs, lat, wall
 
 
-def serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols, torch,
+def serve_phase(slt, a, lu, bundle, a_sm, lu_sm, kernels, tols, torch,
                 workdir):
     """Phase 4c, the serving tier on the main path's handle (before the
     reuse phase refactors it) and on the bundle the persist phase wrote:
@@ -1494,8 +1759,8 @@ def serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols, torch,
         front_assemble launch per group (its fronts are held against
         slt.refactor's in the reuse phase);
       * fleet — a FleetRouter of two process replicas over the
-        poisson3d(48) bundle and one of ``lu32`` (the persist phase's
-        poisson3d(32) handle ``a32``), one replica killed mid-stream:
+        poisson3d(48) bundle and one of ``lu_sm`` (the persist phase's
+        poisson3d(NX_SMALL) handle ``a_sm``), one replica killed mid-stream:
         every ticket delivered, bit for bit the parent's solve of the
         same columns.
     Returns the refactored numeric factorization."""
@@ -1644,12 +1909,12 @@ def serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols, torch,
 
     # --- the fleet's replicas start now (spawned interpreters import torch
     # meanwhile; a replica loads a bundle at its first ticket) -----------
-    b32 = os.path.join(workdir, "handle32")
-    slt.save_lu(lu32, b32)
+    b_sm = os.path.join(workdir, "handle_sm")
+    slt.save_lu(lu_sm, b_sm)
     os.environ["SLU_TPU_CHAOS"] = "kill_replica=0@batch=2"
     t_fleet = time.perf_counter()
     try:
-        fleet = FleetRouter({"p48": bundle, "p32": b32}, n_replicas=2,
+        fleet = FleetRouter({"p48": bundle, "psm": b_sm}, n_replicas=2,
                             kind="process")
     finally:
         del os.environ["SLU_TPU_CHAOS"]
@@ -1758,10 +2023,10 @@ def serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols, torch,
     part("refactor")
 
     # --- the fleet of two process replicas, one killed mid-stream -------
-    mats = {"p48": (a, lu), "p32": (a32, lu32)}
+    mats = {"p48": (a, lu), "psm": (a_sm, lu_sm)}
     fleet_reqs = []
     for j in range(12):
-        key = ("p48", "p32")[j % 2]
+        key = ("p48", "psm")[j % 2]
         fleet_reqs.append((key, rng.standard_normal(mats[key][0].n_rows)))
     try:
         t0 = time.perf_counter()
@@ -1796,8 +2061,9 @@ def serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols, torch,
 
 
 def cli_phase(slt, a, kernels, tols, workdir):
-    """Phase 4b: a matrix (poisson3d(32); the main path's 48 until the
-    serve phase needed the time) written as a Matrix Market file,
+    """Phase 4b: a matrix (poisson3d(NX_SMALL); the main path's 48 until the
+    serve phase needed the time, 32 until the pgssvx phase did) written as
+    a Matrix Market file,
     then ``python -m superlu_dist_tpu_torch -f <file> --stats`` in-process
     (``__main__.main``): rc 0, the report's FACT / SOLVE / REFINE seconds
     and the backward error, read from its output, at the float64 gate."""
@@ -1841,14 +2107,14 @@ def cli_phase(slt, a, kernels, tols, workdir):
 
 
 def gemm_tiers_phase(slt, kernels, tols):
-    """gssvx on poisson3d(32) (n = 32,768; the main path's 48 until the
-    serve phase needed the time) at the default GEMM tier (TF32), then at
+    """gssvx on poisson3d(NX_SMALL) (the main path's 48 until the serve
+    phase needed the time, 32 until the pgssvx phase did) at the default GEMM tier (TF32), then at
     the bf16 and f32 tiers on its analysis (SamePattern_SameRowPerm: same
     plan): FACT seconds, refine steps, rungs, the tier the answer rests
     on, BERR."""
     from superlu_dist_tpu_torch.models.gallery import poisson3d
     rng = np.random.default_rng(SEED + 80)
-    a = poisson3d(32)
+    a = poisson3d(NX_SMALL)
     b = a.matvec(rng.standard_normal(a.n_rows))
     x, lu, st, sec = timed_gssvx(slt, kernels, slt.Options(), a, b,
                                  device="cuda")
@@ -2059,15 +2325,16 @@ def offload_block(slt, a, lu, kernels, torch, rng, stream_peak):
     return out
 
 
-def executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32):
+def executors_phase(slt, a, lu, kernels, tols, torch, factor, a_sm, lu_sm):
     """Options.executor on the card.  At the main path's width (its handle
     and plan, float32, default tier): the streamed executor.  Then on
-    poisson3d(32), ``a32`` and its gssvx handle ``lu32`` (the fused
+    poisson3d(NX_SMALL), ``a_sm`` and its gssvx handle ``lu_sm`` (the fused
     graph's first call takes 18-21 s at 48; the offload ran at 48 too
-    until the serve phase needed the time): ``fused`` (``fused_block``),
-    the host offload (``offload_block``).  Then on poisson3d(24) (32
-    until the serve phase needed the time): ``mega`` on a closed plan
-    (one graph per closed key) and the host-share split, each in float64
+    until the serve phase needed the time, both at 32 until the pgssvx
+    phase did): ``fused`` (``fused_block``), the host offload
+    (``offload_block``).  Then on poisson3d(NX_TINY) (32 until the serve
+    phase needed the time, 24 until the pgssvx phase did): ``mega`` on a
+    closed plan (one graph per closed key) and the host-share split, each in float64
     and float32 against the stream (``_drift_ok``), and level waves (bit
     for bit the stream).  Launch counts: the warm-up's launches and one
     per group for each replay."""
@@ -2096,23 +2363,23 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32):
 
     say("executors", n=a.n_rows, groups=groups, shape_keys=keys, **out)
 
-    # poisson3d(32): the fused graph and the host offload
+    # poisson3d(NX_SMALL): the fused graph and the host offload
     small = {}
-    small["fused"] = fused_block(slt, a32, lu32, kernels, torch, factor,
+    small["fused"] = fused_block(slt, a_sm, lu_sm, kernels, torch, factor,
                                  rng)
     small["offload"] = offload_block(
-        slt, a32, lu32, kernels, torch, rng,
+        slt, a_sm, lu_sm, kernels, torch, rng,
         small["fused"]["stream_peak_above_resident"])
 
-    # poisson3d(24): mega on a closed plan, the host-share split, level
+    # poisson3d(NX_TINY): mega on a closed plan, the host-share split, level
     # waves; mega and the split in float64 held at the SCHEDULE_DRIFT gate
     # (another cuBLAS algorithm for a padded batch, or the CPU's BLAS,
     # reassociates the sums), in float32 at the TF32 tier normwise at
     # TF32_DRIFT
-    a24 = poisson3d(24)
-    b24 = a24.matvec(rng.standard_normal(a24.n_rows))
-    small["n_mega_host_share_level"] = a24.n_rows
-    lu_c, bv_c, _ = slt.analyze(slt.Options(bucket_closed=True), a24,
+    a_tiny = poisson3d(NX_TINY)
+    b_tiny = a_tiny.matvec(rng.standard_normal(a_tiny.n_rows))
+    small["n_mega_host_share_level"] = a_tiny.n_rows
+    lu_c, bv_c, _ = slt.analyze(slt.Options(bucket_closed=True), a_tiny,
                                 device="cuda")
     pc = lu_c.plan
     nkeys = len(pc.bucket_set)
@@ -2144,7 +2411,7 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32):
         del s_num, num
     del lu_c, bv_c, pc
 
-    lu_d, bv_d, _ = slt.analyze(slt.Options(), a24, device="cuda")
+    lu_d, bv_d, _ = slt.analyze(slt.Options(), a_tiny, device="cuda")
     pd = lu_d.plan
     # the host share: the least threshold that puts the first level on
     # the CPU
@@ -2161,7 +2428,7 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32):
         x, luh, st, sec = timed_gssvx(
             slt, kernels, dataclasses.replace(
                 same_rows, host_flops=cut, factor_dtype=str(dt)[6:]),
-            a24, b24, lu=lu_d)
+            a_tiny, b_tiny, lu=lu_d)
         hnum = luh.numeric
         rec = dict(host_levels=hnum.host_levels,
                    host_groups=st.executor["host_groups"],
@@ -2201,7 +2468,7 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32):
                           **{k: rep[k] for k in ("warm_up_s", "capture_s",
                                                  "instantiate_s", "nodes",
                                                  "graph_device_bytes")})
-    say("executors_small", n=a32.n_rows, **small)
+    say("executors_small", n=a_sm.n_rows, **small)
     if not all(c["equal_to_stream"] for c in lev) or \
             lev[1]["launches"] != len(pd.groups):
         raise AssertionError(f"level waves: {lev}")
@@ -2324,13 +2591,38 @@ def serve_only() -> int:
     try:
         bundle = os.path.join(workdir, "handle")
         slt.save_lu(lu, bundle)
-        a32 = poisson3d(32)
-        _, lu32, _, _ = slt.gssvx(slt.Options(), a32, np.ones(a32.n_rows),
+        a_sm = poisson3d(NX_SMALL)
+        _, lu_sm, _, _ = slt.gssvx(slt.Options(), a_sm, np.ones(a_sm.n_rows),
                                   device="cuda")
-        serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols, torch,
+        serve_phase(slt, a, lu, bundle, a_sm, lu_sm, kernels, tols, torch,
                     workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    print(card)
+    return 0
+
+
+def pgssvx_only() -> int:
+    """``python3 chip_smoke.py pgssvx``: the build, gssvx on poisson3d(48)
+    and the pgssvx phase only (a quicker check of the distributed
+    driver; the full script runs every phase)."""
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.utils import tols
+    card = card_line()
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    a = poisson3d(NX)
+    peers = start_peers(slt)
+    kernels.library()
+    b = a.matvec(np.random.default_rng(SEED).standard_normal(a.n_rows))
+    x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+    say("gssvx", n=a.n_rows, fact_s=stats.utime["FACT"],
+        berr=stats.solve_report.berr)
+    del lu
+    pgssvx_phase(slt, a, x, peers, kernels, tols, torch)
     print(card)
     return 0
 
@@ -2353,10 +2645,10 @@ def executors_only(nx: int) -> int:
     x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
     say("gssvx", n=a.n_rows, fact_s=stats.utime["FACT"],
         berr=stats.solve_report.berr)
-    a32 = poisson3d(32)
-    _, lu32, _, _ = slt.gssvx(slt.Options(), a32, np.ones(a32.n_rows),
+    a_sm = poisson3d(NX_SMALL)
+    _, lu_sm, _, _ = slt.gssvx(slt.Options(), a_sm, np.ones(a_sm.n_rows),
                               device="cuda")
-    executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32)
+    executors_phase(slt, a, lu, kernels, tols, torch, factor, a_sm, lu_sm)
     print(card)
     return 0
 
@@ -2371,6 +2663,8 @@ def main():
         return executors_only(int(sys.argv[2]) if len(sys.argv) > 2 else NX)
     if sys.argv[1:2] == ["serve"]:
         return serve_only()
+    if sys.argv[1:2] == ["pgssvx"]:
+        return pgssvx_only()
     if sys.argv[1:2] == ["first_solve"]:
         return first_solve_only(sys.argv[2] if len(sys.argv) > 2 else "")
     import superlu_dist_tpu_torch as slt
@@ -2397,6 +2691,9 @@ def main():
     # 3. kernels, at the shapes of the main path's plan
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     a = poisson3d(NX)
+    # the distributed phase's peer ranks start now: their imports overlap
+    # the phases before it
+    peers = start_peers(slt)
     native.reset_calls()
     t0 = time.perf_counter()
     lu0, bvals0, st0 = slt.analyze(slt.Options(), a, device="cuda")
@@ -2498,16 +2795,19 @@ def main():
                            "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        bundle, a32, lu32 = persist_phase(slt, a, b, lu, kernels, tols,
+        bundle, a_sm, lu_sm = persist_phase(slt, a, b, lu, kernels, tols,
                                           torch, workdir)
-        cli_phase(slt, a32, kernels, tols, workdir)
+        cli_phase(slt, a_sm, kernels, tols, workdir)
         # 4c. the serving tier on the handle and its bundle
-        served = serve_phase(slt, a, lu, bundle, a32, lu32, kernels, tols,
+        served = serve_phase(slt, a, lu, bundle, a_sm, lu_sm, kernels, tols,
                              torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # 4d. the distributed driver: pgssvx on 4 ranks, rank 0 on the card
+    pgssvx_phase(slt, a, x, peers, kernels, tols, torch)
+    del peers
 
-    # 4d. the reuse tiers and refactor on the main path's handle, 4e. the
+    # 4e. the reuse tiers and refactor on the main path's handle, 4f. the
     # complex path on its plan
     reuse_phase(slt, a, lu, wall, stats.utime["FACT"], kernels, tols, torch,
                 factor, served)
@@ -2519,8 +2819,8 @@ def main():
     gemm_tiers_phase(slt, kernels, tols)
     # 4h. Options.executor: fused and mega CUDA graphs, host offload, the
     # host-share split, level waves
-    executors_phase(slt, a, lu, kernels, tols, torch, factor, a32, lu32)
-    del lu32
+    executors_phase(slt, a, lu, kernels, tols, torch, factor, a_sm, lu_sm)
+    del lu_sm
 
     # where the factor time goes: the same factorization (phase 3's
     # analysis is the same deterministic host work), synchronized at every

@@ -72,8 +72,8 @@ from superlu_dist_tpu_torch.utils.errors import (DeadlineExceededError,
                                                  SuperLUError)
 from superlu_dist_tpu_torch.utils.deadline import Deadline
 from superlu_dist_tpu_torch.utils.options import (Fact, IterRefine, Options,
-                                                  RowPerm, Trans,
-                                                  print_options,
+                                                  RowPerm, Trans, check_ft,
+                                                  env_int, print_options,
                                                   resolve_device,
                                                   resolve_factor_dtype)
 from superlu_dist_tpu_torch.utils.stats import RungRecord, SolveReport, Stats
@@ -324,7 +324,8 @@ def analyze(options: Options, a: SparseCSR, device="cuda",
 
 def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
                       stats: Stats | None = None,
-                      resume_from: str | None = None) -> int:
+                      resume_from: str | None = None,
+                      deadline_comm=None) -> int:
     """Numeric factorization (pdgssvx.c:1176 → pdgstrf) of an analyzed
     skeleton on its device, in ``options.factor_dtype`` (complex values
     take the complex type of that width).  Fills lu.numeric; returns info
@@ -335,7 +336,10 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
     ``resume_from`` restarts from a durable checkpoint instead of from
     scratch (recorded on ``stats.resume`` and as a SolveReport rung by the
     solve tail); ``Options.deadline_s`` bounds the factor loop
-    (DeadlineExceededError, after the frontier is flushed).
+    (DeadlineExceededError, after the frontier is flushed), with
+    ``deadline_comm`` (a TreeComm whose every rank runs this same group
+    loop) making the expiry a collective decision, one flag allreduce per
+    ``SLU_TPU_DEADLINE_POLL`` polls.
     ``Options.executor`` and the stream knobs (``host_flops``,
     ``front_bytes_limit``, ``offload_lag``) choose the executor
     (numeric/factor.get_executor); what ran lands on ``stats.executor``."""
@@ -344,7 +348,9 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
     options = lu.options
     dtype = resolve_factor_dtype(options.factor_dtype, lu.device,
                                  np.iscomplexobj(bvals))
-    deadline = Deadline(options.deadline_s) if options.deadline_s else None
+    deadline = (Deadline(options.deadline_s, comm=deadline_comm,
+                         poll_every=env_int("SLU_TPU_DEADLINE_POLL"))
+                if options.deadline_s else None)
     with stats.timer("FACT"):
         numeric = numeric_factorize(
             lu.plan, bvals, lu.anorm, dtype=dtype, device=lu.device,
@@ -583,6 +589,7 @@ def gssvx(options: Options, a: SparseCSR, b: np.ndarray, device=None,
         stats = Stats()
     if options.print_stat:
         print(print_options(options))
+    check_ft(options)
     n = a.n_rows
     if a.n_cols != n:
         raise SuperLUError("A must be square")

@@ -3,8 +3,10 @@
 The reference's host analysis is C (SRC/etree.c, symbfact.c,
 mc64ad_dist.c, get_perm_c.c); the port's is the C++ of ``slu_host.cpp``,
 the same source as the JAX package's library, so both packages analyse a
-matrix to the same bits.  It is compiled at first use with
-``g++ -O3 -std=c++17 -shared -fPIC -pthread`` into
+matrix to the same bits.  The same library holds the shared-memory tree
+collectives of the distributed driver (``slu_tree_*``, used by
+``parallel/treecomm.py``; not counted in ``CALLS``).  It is compiled at
+first use with ``g++ -O3 -std=c++17 -shared -fPIC -pthread ... -lrt`` into
 ``build/torch_host/<hash of source, compiler and flags>/libslu_host.so``
 at the root of the checkout: the build holds a file lock, so concurrent
 first uses (test workers, a script beside them) build once, and the
@@ -36,6 +38,9 @@ SRC = Path(__file__).resolve().with_name("slu_host.cpp")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_host"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+#: the tree collectives' shm_open lives in librt on glibc < 2.34 (a stub
+#: on newer glibc, so linking it always is safe)
+LD_LIBS = ("-lrt",)
 LIB_NAME = "libslu_host.so"
 
 #: calls into the library since the last reset, per entry point
@@ -68,6 +73,24 @@ _SIGNATURES = {
                                ctypes.POINTER(_I64)]),
     "slu_mlnd_mt": (None, [_i64, _I64, _I64, _i64, ctypes.c_uint64, _i64,
                            _I64]),
+    # the tree collectives (parallel/treecomm.py): the timed legs return
+    # 0, or 1 + the rank waited on at the timeout (1 + n_ranks: an
+    # unidentified child); post / peek are the wait-free agreement board
+    "slu_tree_attach": (ctypes.c_void_p, [ctypes.c_char_p, _i64, _i64, _i64,
+                                          _i64]),
+    "slu_tree_attach_shared": (ctypes.c_void_p, [ctypes.c_void_p, _i64]),
+    "slu_tree_detach": (None, [ctypes.c_void_p, ctypes.c_char_p, _i64]),
+    "slu_tree_bcast": (None, [ctypes.c_void_p, _i64, _F64, _i64]),
+    "slu_tree_reduce_sum": (None, [ctypes.c_void_p, _i64, _F64, _i64]),
+    "slu_tree_bcast_tw": (_i64, [ctypes.c_void_p, _i64, _F64, _i64, _f64]),
+    "slu_tree_reduce_sum_tw": (_i64, [ctypes.c_void_p, _i64, _F64, _i64,
+                                      _f64]),
+    "slu_tree_set_pid": (None, [ctypes.c_void_p, _i64]),
+    "slu_tree_get_pid": (_i64, [ctypes.c_void_p, _i64]),
+    "slu_tree_heartbeat": (None, [ctypes.c_void_p]),
+    "slu_tree_get_heartbeat": (_i64, [ctypes.c_void_p, _i64]),
+    "slu_tree_post": (_i64, [ctypes.c_void_p, _F64, _i64]),
+    "slu_tree_peek": (_i64, [ctypes.c_void_p, _i64, _F64, _i64]),
 }
 
 _lib = None
@@ -84,7 +107,7 @@ def build() -> Path:
     for this exact source, compiler and flags exists; return its path.
     Raises ``RuntimeError`` with the compiler's output when the build
     fails."""
-    digest = hashlib.sha256(repr((CXX, CXX_FLAGS)).encode())
+    digest = hashlib.sha256(repr((CXX, CXX_FLAGS, LD_LIBS)).encode())
     digest.update(SRC.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
     lib = out_dir / LIB_NAME
@@ -98,7 +121,7 @@ def build() -> Path:
         if lib.exists():            # built while this process waited
             return lib
         tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), str(SRC)]
+        cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), str(SRC), *LD_LIBS]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=600)

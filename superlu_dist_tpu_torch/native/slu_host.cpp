@@ -31,9 +31,15 @@
 // symbolic), slu_amalgamate, slu_positions (front positions of the plan),
 // slu_awpm (approximate-weight matching), slu_mmd, slu_colamd,
 // slu_ata_pattern (AᵀA for MMD_ATA) and slu_mlnd_mt (threaded ND).
+// After them, the shared-memory tree collectives of the JAX package's
+// library, kept identical so that a rank of either package can join the
+// other's domain: slu_tree_attach / _attach_shared / _detach, the
+// broadcast and sum-reduction (slu_tree_bcast(_tw), slu_tree_reduce_sum
+// (_tw)) and the failure detector's slots (slu_tree_set_pid / _get_pid,
+// _heartbeat / _get_heartbeat, _post / _peek).
 //
-// Build: g++ -O3 -std=c++17 -shared -fPIC -pthread (native/__init__.py
-// builds it at first use; no external deps).
+// Build: g++ -O3 -std=c++17 -shared -fPIC -pthread ... -lrt
+// (native/__init__.py builds it at first use; no external deps).
 
 #include <algorithm>
 #include <atomic>
@@ -1477,5 +1483,445 @@ void slu_mlnd(i64 n, const i64* indptr, const i64* indices, i64 leaf_size,
   slu_mlnd_mt(n, indptr, indices, leaf_size, seed, 1, order_out);
 }
 
+// ---------------------------------------------------------------------------
+// Async tree broadcast / reduction over shared memory — capability analog
+// of the reference's C++11 tree-collective engine (TreeBcast_slu.hpp,
+// TreeReduce_slu.hpp, TreeInterface.cpp) that drives the distributed
+// triangular solve.  Same topology rule: flat tree up to 8 ranks, binary
+// beyond (TreeBcast_slu.hpp:17-29).  The reference's transport is MPI
+// point-to-point; this host runtime uses a POSIX shared-memory segment
+// with per-rank sequence/ack counters — single-node multi-process
+// orchestration (parallel/treecomm.py), the host tier of the port's
+// distributed driver (parallel/pgssvx.py).
+//
+// Layout of the segment: header {n_ranks, max_len}, then per rank:
+//   seq  (atomic u64): last operation index this rank has published
+//   ack  (atomic u64): cumulative count of child reads of this rank's slot
+//   buf  (max_len doubles)
+// Each collective call site must be reached by every rank in the same
+// order (the usual collective contract); op indices are tracked per
+// attached handle.
+// ---------------------------------------------------------------------------
+}  // extern "C"
+
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <time.h>
+#include <unistd.h>
+
+namespace slu_tree {
+
+struct RankSlot {
+  std::atomic<uint64_t> seq;
+  std::atomic<uint64_t> ack;
+  // failure-detector slots: hb is a heartbeat epoch bumped by
+  // the owner's heartbeat thread; pid is the owning process, polled by
+  // peers with kill(pid, 0) so death is detected even when the
+  // heartbeat thread died WITH the process.  Both are pure telemetry —
+  // the collective protocol never reads them.
+  std::atomic<uint64_t> hb;
+  std::atomic<int64_t> pid;
+};
+
+struct Header {
+  i64 n_ranks;
+  i64 max_len;
+  std::atomic<uint64_t> ready;   // == kReadyMagic once fully initialized
+};
+
+constexpr uint64_t kReadyMagic = 0x51b17ee5c0113c7ull;
+
+struct Handle {
+  Header* hdr = nullptr;
+  RankSlot* slots = nullptr;   // n_ranks
+  double* bufs = nullptr;      // n_ranks * max_len
+  i64 rank = -1;
+  uint64_t op = 0;             // shared across bcast+reduce: every rank
+                               // reaches the collectives in the same order
+  uint64_t my_reads = 0;       // total reads ever promised on my slot
+  size_t map_len = 0;
+  void* base = nullptr;
+};
+
+inline size_t seg_size(i64 n_ranks, i64 max_len) {
+  return sizeof(Header) + (size_t)n_ranks * sizeof(RankSlot)
+         + (size_t)n_ranks * (size_t)max_len * sizeof(double);
+}
+
+// flat <= 8 ranks (every rank a direct child of the root), binary above —
+// expressed on the root-relative virtual rank v = (rank - root) mod n
+inline i64 parent_of(i64 v, i64 n) {
+  if (v == 0) return -1;
+  if (n <= 8) return 0;
+  return (v - 1) / 2;
+}
+
+inline void children_of(i64 v, i64 n, i64* out, i64* n_out) {
+  *n_out = 0;
+  if (n <= 8) {
+    if (v == 0)
+      for (i64 c = 1; c < n; ++c) out[(*n_out)++] = c;
+    return;
+  }
+  for (i64 c = 2 * v + 1; c <= 2 * v + 2 && c < n; ++c)
+    out[(*n_out)++] = c;
+}
+
+inline void backoff(int& spins) {
+  if (++spins < 1024) return;
+  ::usleep(50);
+}
+
+inline double mono_now() {
+  struct timespec ts;
+  ::clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (double)ts.tv_sec + 1e-9 * (double)ts.tv_nsec;
+}
+
+// Bounded spin-wait: a short hot-spin phase, then exponential-backoff
+// sleeps with jitter (decorrelates the ranks of a big tree hammering
+// the same cache lines) up to a monotonic deadline.  deadline <= 0
+// means unbounded — the legacy behavior of the untimed entry points.
+struct TimedWait {
+  double deadline;
+  int spins = 0;
+  useconds_t slp = 50;
+  uint64_t rng;
+  explicit TimedWait(double dl, uint64_t seed)
+      : deadline(dl), rng(seed * 2654435769ull + 1) {}
+  bool step() {
+    if (++spins < 512) return true;
+    if (deadline > 0 && mono_now() >= deadline) return false;
+    rng = rng * 6364136223846793005ull + 1442695040888963407ull;
+    useconds_t j = (useconds_t)((rng >> 33) % (uint64_t)(slp / 2 + 1));
+    ::usleep(slp / 2 + j);
+    if (slp < 4000) slp <<= 1;
+    return true;
+  }
+};
+
+}  // namespace slu_tree
+
+extern "C" {
+
+void* slu_tree_attach(const char* name, i64 n_ranks, i64 max_len,
+                      i64 rank, i64 create) {
+  using namespace slu_tree;
+  size_t len = seg_size(n_ranks, max_len);
+  int fd;
+  if (create) {
+    // a stale segment from a crashed run still carries ready==magic and
+    // old seq/ack values — unlink first and create exclusively, so
+    // attachers genuinely wait for THIS creator's initialization
+    ::shm_unlink(name);
+    fd = ::shm_open(name, O_CREAT | O_EXCL | O_RDWR, 0600);
+  } else {
+    fd = ::shm_open(name, O_RDWR, 0600);
+  }
+  if (fd < 0) return nullptr;
+  if (create) {
+    if (::ftruncate(fd, (off_t)len) != 0) {
+      ::close(fd);
+      return nullptr;
+    }
+  } else {
+    // creator may still be between shm_open and ftruncate: mapping a
+    // zero-length segment SIGBUSes on first touch.  Wait (bounded) for
+    // the segment to reach full size.
+    struct stat st;
+    int tries = 0;
+    while (::fstat(fd, &st) == 0 && (size_t)st.st_size < len) {
+      if (++tries > 100000) {       // ~10 s
+        ::close(fd);
+        return nullptr;
+      }
+      ::usleep(100);
+    }
+  }
+  void* base = ::mmap(nullptr, len, PROT_READ | PROT_WRITE, MAP_SHARED,
+                      fd, 0);
+  ::close(fd);
+  if (base == MAP_FAILED) return nullptr;
+  auto* h = new Handle;
+  h->base = base;
+  h->map_len = len;
+  h->hdr = (Header*)base;
+  h->slots = (RankSlot*)((char*)base + sizeof(Header));
+  h->bufs = (double*)((char*)base + sizeof(Header)
+                      + (size_t)n_ranks * sizeof(RankSlot));
+  h->rank = rank;
+  if (create) {
+    h->hdr->n_ranks = n_ranks;
+    h->hdr->max_len = max_len;
+    for (i64 r = 0; r < n_ranks; ++r) {
+      h->slots[r].seq.store(0, std::memory_order_relaxed);
+      h->slots[r].ack.store(0, std::memory_order_relaxed);
+    }
+    h->hdr->ready.store(kReadyMagic, std::memory_order_release);
+  } else {
+    // size alone is not enough: the creator may be preempted between
+    // ftruncate and the header stores — wait for the ready flag
+    int tries = 0;
+    while (h->hdr->ready.load(std::memory_order_acquire) != kReadyMagic) {
+      if (++tries > 100000) {       // ~10 s
+        ::munmap(base, len);
+        delete h;
+        return nullptr;
+      }
+      ::usleep(100);
+    }
+  }
+  return h;
+}
+
+void slu_tree_detach(void* vh, const char* name, i64 unlink_seg) {
+  using namespace slu_tree;
+  auto* h = (Handle*)vh;
+  if (!h) return;
+  if (h->base) ::munmap(h->base, h->map_len);
+  if (unlink_seg) ::shm_unlink(name);
+  delete h;
+}
+
+// In-process rank handle SHARING the creator's mapping (same virtual
+// addresses).  Two uses: threads standing in for ranks, and sanitizer
+// runs — TSAN's shadow memory is keyed by virtual address, so races in
+// the collective protocol are only visible when all "ranks" touch the
+// segment through one mapping.  The returned handle must be detached
+// with a null name and unlink_seg=0; it does not own the mapping.
+void* slu_tree_attach_shared(void* creator_handle, i64 rank) {
+  using namespace slu_tree;
+  auto* c = (Handle*)creator_handle;
+  if (!c) return nullptr;
+  auto* h = new Handle;
+  h->hdr = c->hdr;
+  h->slots = c->slots;
+  h->bufs = c->bufs;
+  h->rank = rank;
+  h->map_len = 0;
+  h->base = nullptr;   // not owned: detach skips munmap
+  return h;
+}
+
+// Broadcast buf (len doubles) from root to all ranks.  Every rank calls
+// with its own buf; non-roots receive into it.  Publish protocol: before
+// overwriting my slot I wait until every read promised by my PREVIOUS
+// publishes has been acked (cumulative counter), so a slow child can
+// still be copying op t while the tree races ahead to t+1 elsewhere.
+//
+// Timed variant (bounded wait): EVERY wait runs under one
+// monotonic deadline with exponential backoff + jitter; all waits
+// complete BEFORE any mutation (op bump, memcpy, ack, publish), so a
+// timeout is perfectly resumable — the caller consults the failure
+// detector and either retries this very op or raises.  Returns 0 on
+// success; on timeout, 1 + the rank being waited on, or 1 + n_ranks
+// when the stuck party is an unidentified child (cumulative ack drain).
+// timeout_s <= 0 waits forever (the legacy untimed behavior).
+i64 slu_tree_bcast_tw(void* vh, i64 root, double* buf, i64 len,
+                      double timeout_s) {
+  using namespace slu_tree;
+  auto* h = (Handle*)vh;
+  i64 n = h->hdr->n_ranks;
+  uint64_t op = h->op + 1;
+  if (n == 1) {
+    h->op = op;
+    return 0;
+  }
+  root = ((root % n) + n) % n;   // normalize (root=-1 idiom, bad input)
+  i64 v = (h->rank - root + n) % n;
+  i64 kids[8];
+  i64 n_kids = 0;
+  children_of(v, n, kids, &n_kids);
+  RankSlot& mine = h->slots[h->rank];
+  double* my_buf = h->bufs + (size_t)h->rank * h->hdr->max_len;
+  double dl = timeout_s > 0 ? mono_now() + timeout_s : 0.0;
+  TimedWait w(dl, (uint64_t)h->rank * 0x9e3779b9u + op);
+  // ---- wait phase (side-effect free) ---------------------------------
+  if (n_kids) {
+    while (mine.ack.load(std::memory_order_acquire) < h->my_reads)
+      if (!w.step()) return 1 + n;
+  }
+  i64 p_rank = -1;
+  if (v != 0) {
+    p_rank = (parent_of(v, n) + root) % n;
+    RankSlot& ps = h->slots[p_rank];
+    while (ps.seq.load(std::memory_order_acquire) < op)
+      if (!w.step()) return 1 + p_rank;
+  }
+  // ---- commit phase --------------------------------------------------
+  h->op = op;
+  if (v != 0) {
+    RankSlot& ps = h->slots[p_rank];
+    std::memcpy(buf, h->bufs + (size_t)p_rank * h->hdr->max_len,
+                (size_t)len * sizeof(double));
+    ps.ack.fetch_add(1, std::memory_order_acq_rel);
+  }
+  if (n_kids) {
+    std::memcpy(my_buf, buf, (size_t)len * sizeof(double));
+    mine.seq.store(op, std::memory_order_release);
+    h->my_reads += (uint64_t)n_kids;
+  }
+  return 0;
+}
+
+void slu_tree_bcast(void* vh, i64 root, double* buf, i64 len) {
+  slu_tree_bcast_tw(vh, root, buf, len, 0.0);
+}
+
+// Sum-reduce buf (len doubles) onto the root: on return the root's buf
+// holds the elementwise sum of every rank's input; other ranks' bufs are
+// clobbered with their subtree partial.  Timed contract identical to
+// slu_tree_bcast_tw: all waits (children present AND my previous
+// publishes acked) precede the first mutation — in particular the
+// child-partial accumulation into buf — so a timeout never leaves a
+// half-summed buffer behind.
+i64 slu_tree_reduce_sum_tw(void* vh, i64 root, double* buf, i64 len,
+                           double timeout_s) {
+  using namespace slu_tree;
+  auto* h = (Handle*)vh;
+  i64 n = h->hdr->n_ranks;
+  uint64_t op = h->op + 1;
+  if (n == 1) {
+    h->op = op;
+    return 0;
+  }
+  root = ((root % n) + n) % n;   // normalize (root=-1 idiom, bad input)
+  i64 v = (h->rank - root + n) % n;
+  i64 kids[8];
+  i64 n_kids = 0;
+  children_of(v, n, kids, &n_kids);
+  RankSlot& mine = h->slots[h->rank];
+  double* my_buf = h->bufs + (size_t)h->rank * h->hdr->max_len;
+  double dl = timeout_s > 0 ? mono_now() + timeout_s : 0.0;
+  TimedWait w(dl, (uint64_t)h->rank * 0x9e3779b9u + op);
+  // ---- wait phase (side-effect free) ---------------------------------
+  for (i64 c = 0; c < n_kids; ++c) {
+    i64 c_rank = (kids[c] + root) % n;
+    RankSlot& cs = h->slots[c_rank];
+    while (cs.seq.load(std::memory_order_acquire) < op)
+      if (!w.step()) return 1 + c_rank;
+  }
+  if (v != 0) {
+    while (mine.ack.load(std::memory_order_acquire) < h->my_reads)
+      if (!w.step()) return 1 + n;
+  }
+  // ---- commit phase --------------------------------------------------
+  h->op = op;
+  for (i64 c = 0; c < n_kids; ++c) {
+    i64 c_rank = (kids[c] + root) % n;
+    RankSlot& cs = h->slots[c_rank];
+    const double* cb = h->bufs + (size_t)c_rank * h->hdr->max_len;
+    for (i64 i = 0; i < len; ++i) buf[i] += cb[i];
+    cs.ack.fetch_add(1, std::memory_order_acq_rel);
+  }
+  if (v != 0) {                 // publish subtree partial for my parent
+    std::memcpy(my_buf, buf, (size_t)len * sizeof(double));
+    mine.seq.store(op, std::memory_order_release);
+    h->my_reads += 1;
+  }
+  return 0;
+}
+
+void slu_tree_reduce_sum(void* vh, i64 root, double* buf, i64 len) {
+  slu_tree_reduce_sum_tw(vh, root, buf, len, 0.0);
+}
+
+// ---------------------------------------------------------------------------
+// Failure-detector surface.  pid + heartbeat live in the
+// RankSlot of the COLLECTIVE domain; the post/peek pair implements the
+// wait-free bulletin board of the sibling ".ftx" agreement domain —
+// each rank writes only its OWN slot (seqlock versioning via the seq
+// counter, which the board domain never uses for collectives), peers
+// poll, and nothing ever blocks on a dead rank.
+// ---------------------------------------------------------------------------
+
+void slu_tree_set_pid(void* vh, i64 pid) {
+  using namespace slu_tree;
+  auto* h = (Handle*)vh;
+  h->slots[h->rank].pid.store(pid, std::memory_order_release);
+}
+
+i64 slu_tree_get_pid(void* vh, i64 rank) {
+  using namespace slu_tree;
+  auto* h = (Handle*)vh;
+  return h->slots[rank].pid.load(std::memory_order_acquire);
+}
+
+void slu_tree_heartbeat(void* vh) {
+  using namespace slu_tree;
+  auto* h = (Handle*)vh;
+  h->slots[h->rank].hb.fetch_add(1, std::memory_order_acq_rel);
+}
+
+i64 slu_tree_get_heartbeat(void* vh, i64 rank) {
+  using namespace slu_tree;
+  auto* h = (Handle*)vh;
+  return (i64)h->slots[rank].hb.load(std::memory_order_acquire);
+}
+
+// The seqlock payload is copied element-wise through relaxed atomic
+// u64 accesses (bit patterns of the doubles): a reader's speculative
+// copy RACES the writer's store by design — the version check discards
+// torn snapshots — but with plain loads that race is undefined
+// behavior and a true ThreadSanitizer report (the classic seqlock
+// pitfall).  Atomic accesses make the race defined (any value may be
+// read; the seq re-check rejects inconsistent ones) and keep a
+// ThreadSanitizer run meaningful for the REAL protocol bugs.  BOARD_LEN is 4 doubles — the per-element cost is noise.
+static_assert(sizeof(double) == sizeof(uint64_t), "seqlock payload");
+
+static inline void seqlock_store(double* dst, const double* src, i64 len) {
+  auto* d = reinterpret_cast<std::atomic<uint64_t>*>(dst);
+  for (i64 i = 0; i < len; ++i) {
+    uint64_t bits;
+    std::memcpy(&bits, src + i, sizeof bits);
+    d[i].store(bits, std::memory_order_relaxed);
+  }
+}
+
+static inline void seqlock_load(double* dst, const double* src, i64 len) {
+  auto* s = reinterpret_cast<const std::atomic<uint64_t>*>(src);
+  for (i64 i = 0; i < len; ++i) {
+    uint64_t bits = s[i].load(std::memory_order_relaxed);
+    std::memcpy(dst + i, &bits, sizeof bits);
+  }
+}
+
+// Publish len doubles into my board slot.  Odd seq = write in progress,
+// even = committed; returns the committed version (>= 2).
+i64 slu_tree_post(void* vh, double* buf, i64 len) {
+  using namespace slu_tree;
+  auto* h = (Handle*)vh;
+  RankSlot& mine = h->slots[h->rank];
+  double* my_buf = h->bufs + (size_t)h->rank * h->hdr->max_len;
+  uint64_t s = mine.seq.load(std::memory_order_relaxed) & ~1ull;
+  mine.seq.store(s + 1, std::memory_order_release);
+  std::atomic_thread_fence(std::memory_order_release);
+  seqlock_store(my_buf, buf, len);
+  mine.seq.store(s + 2, std::memory_order_release);
+  return (i64)(s + 2);
+}
+
+// Read rank's board slot into out.  Returns the committed version read
+// (0 = never posted, -1 = could not get a consistent snapshot — e.g.
+// the writer died mid-post; callers treat both as "no data").
+i64 slu_tree_peek(void* vh, i64 rank, double* out, i64 len) {
+  using namespace slu_tree;
+  auto* h = (Handle*)vh;
+  RankSlot& rs = h->slots[rank];
+  const double* rb = h->bufs + (size_t)rank * h->hdr->max_len;
+  for (int tries = 0; tries < 200; ++tries) {
+    uint64_t s1 = rs.seq.load(std::memory_order_acquire);
+    if (s1 == 0) return 0;
+    if (s1 & 1) {
+      ::usleep(20);
+      continue;
+    }
+    seqlock_load(out, rb, len);
+    std::atomic_thread_fence(std::memory_order_acquire);
+    if (rs.seq.load(std::memory_order_acquire) == s1) return (i64)s1;
+  }
+  return -1;
+}
 
 }  // extern "C"

@@ -5,10 +5,10 @@ serving fleet needs the orthogonal question answered continuously:
 counters and distributions that accumulate across thousands of solves
 and export to a scraper.  This module is that substrate: a
 zero-dependency registry of labeled counters, gauges, and fixed-bucket
-histograms with JSON and Prometheus-text exports.  Port of the JAX
-package's ``obs/metrics.py``; its cross-rank ``reduce(comm)`` belongs to
-the multi-GPU tier (ROADMAP.md Queue 1 item 8) and raises
-NotImplementedError here.
+histograms with JSON and Prometheus-text exports, and
+``Stats.reduce``-style cross-rank aggregation over a TreeComm
+(``reduce(comm)``, parallel/treecomm.py).  Port of the JAX package's
+``obs/metrics.py``.
 
 Wired producers: the driver (``drivers/gssvx.py`` — factorizations,
 GEMM tiers, schedule shape, ladder rung transitions, refactors), the
@@ -36,6 +36,8 @@ import atexit
 import json
 import os
 import threading
+
+import numpy as np
 
 from superlu_dist_tpu_torch.utils.lockwatch import make_lock
 
@@ -262,13 +264,47 @@ class Metrics:
         return "\n".join(lines) + ("\n" if lines else "")
 
     # ---- cross-rank aggregation ---------------------------------------
+    def _flat(self) -> dict:
+        """Scalar view for the collective reduction: counters and gauges
+        as-is, histograms flattened to _count/_sum."""
+        with self._lock:
+            out = {("counter",) + k: v for k, v in self._counters.items()}
+            out.update({("gauge",) + k: v
+                        for k, v in self._gauges.items()})
+            for k, h in self._hists.items():
+                out[("hist_count",) + k] = float(h[0])
+                out[("hist_sum",) + k] = float(h[1])
+        return out
+
     def reduce(self, comm) -> dict:
-        """Cross-rank metric aggregation over a communicator: the
-        multi-GPU tier's, not ported (ROADMAP.md Queue 1 item 8)."""
-        raise NotImplementedError(
-            "Metrics.reduce(comm) aggregates over a multi-rank "
-            "communicator, which belongs to the multi-GPU tier and is not "
-            "ported (ROADMAP.md Queue 1 item 8)")
+        """Cross-rank metric aggregation (the Stats.reduce discipline —
+        COLLECTIVE: every rank must call at the same point, with the
+        registry enabled on every rank).  Series sets may differ per
+        rank: the key union is agreed via one bcast_obj per rank (every
+        rank participates in every broadcast), then one matrix
+        sum-allreduce carries the aligned values, from which per-series
+        sum/min/max/avg over ranks are exact."""
+        local = self._flat()
+        keys = sorted(local)
+        all_keys = set(keys)
+        for r in range(comm.n_ranks):
+            got = comm.bcast_obj(keys if comm.rank == r else None, root=r)
+            all_keys.update(got)
+        ordered = sorted(all_keys)
+        vec = np.asarray([local.get(k, 0.0) for k in ordered],
+                         dtype=np.float64)
+        mat = np.zeros((comm.n_ranks, max(vec.size, 1)))
+        mat[comm.rank, :vec.size] = vec
+        mat = np.asarray(comm.allreduce_sum_any(mat)).reshape(
+            comm.n_ranks, -1)
+        out = {}
+        for j, k in enumerate(ordered):
+            col = mat[:, j]
+            kind, name, labels = k
+            out[f"{kind}:{_fmt((name, labels))}"] = {
+                "sum": float(col.sum()), "min": float(col.min()),
+                "max": float(col.max()), "avg": float(col.mean())}
+        return out
 
 
 # ---- process-global registry ----------------------------------------------

@@ -328,13 +328,18 @@ class LatencyAccounter:
 
     # ---- cross-rank aggregation ---------------------------------------
     def reduce(self, comm):
-        """Collective merge over a multi-rank communicator: the
-        multi-GPU tier's, not ported (ROADMAP.md Queue 1 item 8).
-        Process replicas merge through ``merge_snapshot``."""
-        raise NotImplementedError(
-            "LatencyAccounter.reduce(comm) needs a multi-rank "
-            "communicator, which belongs to the multi-GPU tier and is not "
-            "ported (ROADMAP.md Queue 1 item 8)")
+        """Collective fleet/rank-wide merge (the Stats.reduce fixed-
+        layout discipline): every rank contributes its snapshot via
+        bcast_obj, rank 0's accounter absorbs all of them, and the
+        merged summary is broadcast back.  COLLECTIVE — every rank must
+        call at the same point."""
+        for r in range(comm.n_ranks):
+            snap = comm.bcast_obj(
+                self.snapshot() if comm.rank == r else None, root=r)
+            if comm.rank == 0 and r != 0:
+                self.merge_snapshot(snap)
+        return comm.bcast_obj(
+            self.summary() if comm.rank == 0 else None, root=0)
 
 
 # ---- SLO evaluator ----------------------------------------------------------

@@ -79,6 +79,7 @@ from superlu_dist_tpu_torch.obs.slo import (NULL_TICKET, SLOEvaluator,
                                       TicketContext, get_accounter,
                                       parent_ref)
 from superlu_dist_tpu_torch.obs.trace import get_tracer
+from superlu_dist_tpu_torch.parallel.treecomm import pid_alive
 from superlu_dist_tpu_torch.serve.handlecache import HandleCache
 from superlu_dist_tpu_torch.serve.server import on_device
 from superlu_dist_tpu_torch.utils.errors import (
@@ -86,36 +87,6 @@ from superlu_dist_tpu_torch.utils.errors import (
     RefactorRollbackError, ReplicaFailureError, ServeDeadlineError,
     ServeOverloadError, ServerClosedError, SuperLUError)
 from superlu_dist_tpu_torch.utils.lockwatch import make_condition, make_lock
-
-def _is_zombie(pid: int) -> bool:
-    """True when /proc says the process is a zombie (Linux; False where
-    /proc is unavailable — there kill(pid, 0) alone decides)."""
-    try:
-        with open(f"/proc/{pid}/stat", "rb") as f:
-            data = f.read()
-        # field 3, after the parenthesized comm (which may contain spaces)
-        return data.rsplit(b")", 1)[1].split()[0] == b"Z"
-    except (OSError, IndexError):
-        return False
-
-
-def pid_alive(pid: int) -> bool:
-    """The process-liveness verdict (a copy of the JAX package's
-    ``parallel/treecomm.pid_alive``, whose module belongs to the
-    multi-GPU tier): ``kill(pid, 0)`` raising ``ProcessLookupError`` is
-    death, EPERM is alive, and an unreaped ZOMBIE counts as dead.  A pid
-    that is merely slow ALWAYS answers alive — slow-not-dead is decided
-    here, nowhere else."""
-    if pid <= 0:
-        return False
-    try:
-        os.kill(pid, 0)
-    except ProcessLookupError:
-        return False
-    except PermissionError:
-        return True
-    return not _is_zombie(pid)
-
 
 #: default SolveServer keywords for fleet-loaded handles: no coalescing
 #: window — one accepted ticket, one micro-batch (the determinism

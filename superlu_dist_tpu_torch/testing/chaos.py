@@ -8,10 +8,10 @@ replica killed, quarantined or slowed, a refactor killed or poisoned.
 Every injection is a deterministic function of the spec — no randomness
 races — so a chaos test either reproduces exactly or the code under test
 changed.  The rank-failure specs (``kill_rank``, ``kill_op``,
-``stall_rank``) parse as in the JAX package; the communicator whose
-collectives they hook belongs to the multi-GPU tier, which is not ported
-(nor is the JAX package's ``DyingTreeComm``, a rank that dies
-mid-protocol).
+``stall_rank``) are consumed by ``parallel/treecomm.TreeComm``, which
+binds each process's rank (:func:`bind_rank`) and calls
+:meth:`ChaosMonkey.on_collective` at every public collective;
+:class:`DyingTreeComm` is a rank that dies mid-protocol.
 
 Enable in a victim process via the registered env knob::
 
@@ -89,8 +89,11 @@ import threading
 import numpy as np
 import torch
 
+from superlu_dist_tpu_torch.parallel.treecomm import TreeComm
 from superlu_dist_tpu_torch.utils.deadline import Deadline
 
+#: exit code of a DyingTreeComm rank (distinct from a crash)
+RANK_DEATH_EXIT = 17
 #: exit code of a HangWatchdog abort
 HANG_EXIT = 3
 
@@ -103,7 +106,7 @@ class ChaosPlan:
     signal: str = "kill"      # "kill" (SIGKILL, the kill -9 domain) or
                               # "term" (SIGTERM — handlers run first)
     nan_supernode: int = -1   # poison this supernode's A-entries
-    # ---- rank-failure domain (parsed; the multi-GPU tier's) ------------
+    # ---- rank-failure domain (parallel/treecomm.TreeComm) -------------
     kill_rank: int = -1       # scope kill_group/kill_op to this rank
                               # (-1 = any rank, the single-process case)
     kill_op: int = -1         # die right before this public collective
@@ -523,16 +526,49 @@ def corrupt_file(path: str, mode: str = "flip", offset: int | None = None,
         raise ValueError(f"unknown corruption mode {mode!r}")
 
 
+class DyingTreeComm(TreeComm):
+    """A rank that dies mid-protocol: after ``die_after`` completed
+    public collectives the NEXT one ``os._exit``\\ s with
+    :data:`RANK_DEATH_EXIT` instead of participating — the simulated
+    rank-death failure domain.  With ``SLU_TPU_COMM_TIMEOUT_S`` armed
+    the peers' failure detector converts the abandoned collective into
+    :class:`RankFailureError` on every survivor; with bounded waits OFF
+    the peers hang, which is what :class:`HangWatchdog` exists to
+    bound."""
+
+    def __init__(self, *args, die_after: int = 0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._die_after = int(die_after)
+        self._public_ops = 0
+
+    def _maybe_die(self):
+        if self._public_ops >= self._die_after:
+            os._exit(RANK_DEATH_EXIT)
+        self._public_ops += 1
+
+    def bcast_any(self, arr, root=0):
+        self._maybe_die()
+        return super().bcast_any(arr, root=root)
+
+    def reduce_sum_any(self, arr, root=0):
+        self._maybe_die()
+        return super().reduce_sum_any(arr, root=root)
+
+    def allreduce_sum_any(self, arr, root=0):
+        self._maybe_die()
+        return super().allreduce_sum_any(arr, root=root)
+
+
 class CountdownDeadline(Deadline):
     """Deterministic deadline injection: 'expires' at the Nth poll
     instead of on the wall clock, so tests can cancel a factorization
     at an exact dispatch-group boundary (the group loop polls once per
-    group).  Everything else — checkpoint-first flush, the structured
-    raise — runs the production path.  The port's deadline is single
-    process: ``comm`` must be None (utils/deadline.py)."""
+    group).  Everything else — checkpoint-first flush, the collective
+    flag allreduce, the structured raise — runs the production path."""
 
-    def __init__(self, fire_after_polls: int, comm=None):
-        super().__init__(seconds=0.0, comm=comm)
+    def __init__(self, fire_after_polls: int, comm=None,
+                 poll_every: int = 1):
+        super().__init__(seconds=0.0, comm=comm, poll_every=poll_every)
         self.fire_after_polls = int(fire_after_polls)
 
     def expired_local(self) -> bool:

@@ -10,9 +10,13 @@ The environment-knob registry (``register_knob``, ``env_int`` /
 the knobs this package reads: the device solve's nrhs buckets, the
 serving tier (``SLU_TPU_SERVE_*``, ``SLU_TPU_FLEET_*``), observability
 (``SLU_TPU_TRACE``, ``SLU_TPU_METRICS``, ``SLU_TPU_FLIGHTREC*``,
-``SLU_TPU_SLO_*``), the chaos harness and the lock-order verifier.  Each
-has the JAX package's kind, default and meaning.  The solver's other
-choices are ``Options`` fields here, not knobs.
+``SLU_TPU_SLO_*``, ``SLU_TPU_STATS``), the chaos harness, the lock-order
+verifier and the distributed tier (``SLU_TPU_FAULTS``,
+``SLU_TPU_VERIFY_COLLECTIVES``, ``SLU_TPU_COMM_*``,
+``SLU_TPU_HEARTBEAT_S``, ``SLU_TPU_FT``, ``SLU_TPU_DEADLINE_POLL``).
+Each has the JAX package's kind, default and meaning.  The solver's
+other choices are ``Options`` fields here, not knobs, except ``ft``,
+which defaults to ``SLU_TPU_FT`` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -118,6 +122,42 @@ def _register_all() -> None:
       "fleet health-monitor poll period: replica process/thread "
       "liveness (pid_alive), failover re-routing of undelivered "
       "tickets, and deadline sweeps run on this cadence", group="fleet")
+    # --- distributed tier (parallel/treecomm.py, parallel/recover.py) ------
+    r("SLU_TPU_FAULTS", "str", "",
+      "fault-injection spec for TreeComm (e.g. 'drop=0.2,seed=7')",
+      group="parallel")
+    r("SLU_TPU_VERIFY_COLLECTIVES", "flag", False,
+      "TreeComm lockstep-verify mode: cross-check every collective's "
+      "(call-site, op, shape/dtype, seq) digest across ranks and raise "
+      "CollectiveMismatchError instead of deadlocking",
+      group="parallel")
+    r("SLU_TPU_COMM_TIMEOUT_S", "float", 0.0,
+      "bounded-wait collectives: every native tree leg's spin loop gets "
+      "this deadline (exponential backoff + jitter); on expiry the "
+      "failure detector is consulted — dead peer => RankFailureError on "
+      "every survivor, live peer => retry.  0 = unbounded",
+      group="parallel")
+    r("SLU_TPU_COMM_RETRIES", "int", 0,
+      "timed-out-but-peer-alive retry budget per collective leg; "
+      "exhausting it raises CommTimeoutError.  0 = unlimited (a slow "
+      "peer is waited out; only DEATH fails the collective)",
+      group="parallel")
+    r("SLU_TPU_HEARTBEAT_S", "float", 0.5,
+      "failure-detector heartbeat interval (epoch bumps in the shared "
+      "segment + heartbeat-age gauge); the thread only starts when "
+      "SLU_TPU_COMM_TIMEOUT_S > 0.  0 disables the thread (pid "
+      "liveness still detects death)", group="parallel")
+    r("SLU_TPU_FT", "str", "abort",
+      "rank-failure policy for fault-tolerant drivers "
+      "(parallel/recover.pgssvx_ft): abort = raise RankFailureError; "
+      "shrink = survivors re-partition and resume from the checkpoint "
+      "frontier; respawn = replacement processes take the dead ranks",
+      group="parallel", choices=("abort", "shrink", "respawn"))
+    r("SLU_TPU_DEADLINE_POLL", "int", 1,
+      "poll cadence of the collective deadline flag allreduce "
+      "(one exchange per N dispatch groups)", group="persist")
+    r("SLU_TPU_STATS", "flag", False,
+      "print the PStatPrint-analog report from any driver run", group="obs")
     r("SLU_TPU_VERIFY_LOCKS", "flag", False,
       "lock-order verify mode (utils/lockwatch.py): instrument every "
       "make_lock/make_condition lock, record per-thread acquisition "
@@ -415,6 +455,17 @@ class Options:
     host_flops: float = 0.0           # SLU_TPU_HOST_FLOPS: leading levels
                                       # cheaper than this run on the CPU
                                       # (0 = off)
+    # the mesh tier's distributed ordering + symbolic (ParSymbFact);
+    # parallel/pgssvx raises NotImplementedError for True (ROADMAP.md
+    # Queue 1 item 8)
+    par_symb_fact: bool = False
+    # what a declared-dead peer rank does to a fault-tolerant driver
+    # (parallel/recover.pgssvx_ft): "abort" re-raises RankFailureError,
+    # "shrink" resumes on the survivors, "respawn" replaces the dead rank
+    # with a fresh process.  Only the FT epoch loop consults it; the
+    # drivers validate it
+    ft: str = dataclasses.field(
+        default_factory=lambda: env_str("SLU_TPU_FT"))
 
     def __post_init__(self):
         # the JAX package reads these from SLU_TPU_DEADLINE_S and
@@ -432,6 +483,22 @@ class Options:
                              f"{self.executor!r}")
         if int(self.offload_lag) < 0 or int(self.bucket_keys) < 1:
             raise ValueError("offload_lag must be >= 0 and bucket_keys >= 1")
+
+
+#: the rank-failure policies of ``Options.ft``
+FT_MODES = ("abort", "shrink", "respawn")
+
+
+def check_ft(options) -> str:
+    """``options.ft`` (empty: "abort"), or SuperLUError for a typo — every
+    driver checks it, so a mistyped SLU_TPU_FT fails at once instead of
+    silently aborting the first real rank failure."""
+    ft = getattr(options, "ft", "abort") or "abort"
+    if ft not in FT_MODES:
+        from superlu_dist_tpu_torch.utils.errors import SuperLUError
+        raise SuperLUError(
+            f"Options.ft must be abort|shrink|respawn, got {ft!r}")
+    return ft
 
 
 def print_options(o: Options) -> str:

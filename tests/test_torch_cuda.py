@@ -16,6 +16,7 @@ not installed beside the card, so run them without the repo's conftest:
 """
 
 import dataclasses
+import gc
 import pathlib
 import subprocess
 import sys
@@ -513,6 +514,9 @@ def test_offload_lowers_the_peak_and_solves_on_the_host(cuda):
     lu, bvals, _ = slt.analyze(slt.Options(), a, device=cuda)
     peaks = {}
     for limit in (6e9, 0):
+        # garbage of earlier tests freed inside the window would hide
+        # part of this factorization's peak above the base
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -773,3 +777,47 @@ def test_poison_isolation_bitwise_at_bucket_16(cuda):
     assert srv.stats()["batches"] == 1
     assert lu.dev_solver.last_solve_stats["padded_nrhs"] == 16
     srv.close()
+
+
+def test_pgssvx_root_on_the_card_with_a_spawned_cpu_peer(cuda, monkeypatch):
+    """The distributed driver with rank 0 on the card and one spawned CPU
+    peer at poisson3d(12): both ranks get the same x, within
+    DEVICE_VS_HOST of a run whose root factors on the CPU (float64 there,
+    float32 at the default tier on the card, both refined to BERR ≤
+    berr_target(float64)), and the peer never creates a CUDA context."""
+    import os
+    from superlu_dist_tpu_torch.parallel.recover import (RowBlockSource,
+                                                         VectorBlockSource)
+    from superlu_dist_tpu_torch.testing.ranks import (RankJob, collect,
+                                                      run_job, spawn_peers,
+                                                      stop_peers)
+    monkeypatch.setenv("SLU_TPU_COMM_TIMEOUT_S", "2.0")
+    a = poisson3d(12)
+    b = a.matvec(np.random.default_rng(0).standard_normal(a.n_rows))
+    target = float(tols.berr_target(np.float64))
+    xs = {}
+    for device in ("cpu", "cuda"):
+        job = RankJob("pgssvx", f"/slt_cuda_pgx_{device}_{os.getpid()}", 2,
+                      slt.Options(), RowBlockSource(a), VectorBlockSource(b),
+                      max_len=a.n_rows)
+        kernels.reset_launches()
+        procs, results, _ = spawn_peers({1: [job]})
+        try:
+            rec0 = run_job(job, 0, device)
+            recs = collect(results, 2, 300, procs)
+        finally:
+            assert stop_peers(procs) == {1: 0}
+        assert "error" not in rec0 and rec0["info"] == 0, rec0.get("error")
+        assert rec0["lu_out"]["solve_report"].berr <= target
+        peer = [r for r in recs if not r.get("done")][0]
+        done = [r for r in recs if r.get("done")][0]
+        assert np.array_equal(peer["x"], rec0["x"])
+        assert not done["cuda_initialized"]
+        groups = len(rec0["lu_out"]["lu"].plan.groups)
+        want = groups if device == "cuda" else 0
+        assert kernels.LAUNCHES["front_assemble"] == want
+        assert kernels.LAUNCHES["csr_spmv"] == 0
+        xs[device] = rec0["x"]
+    np.testing.assert_allclose(xs["cuda"], xs["cpu"],
+                               rtol=tols.DEVICE_VS_HOST_RTOL,
+                               atol=tols.DEVICE_VS_HOST_ATOL)

@@ -129,8 +129,22 @@ def test_options_zero_deadline_is_off():
 
 
 def test_a_collective_deadline_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Deadline(1.0, comm=object())
+    """The collective deadline is ported now: with a comm, each poll
+    allreduces the expired flag, and the raise counts the ranks over
+    budget — one rank here, as the JAX package's over the same comm."""
+    from superlu_dist_tpu.parallel.treecomm import TreeComm as JTreeComm
+    from superlu_dist_tpu.utils.deadline import Deadline as JDeadline
+    from superlu_dist_tpu_torch.parallel.treecomm import TreeComm
+    got = []
+    for dcls, tcls in ((Deadline, TreeComm), (JDeadline, JTreeComm)):
+        with tcls(f"/slt_dl_{os.getpid()}", 1, 0, max_len=16) as tc:
+            d = dcls(0.0, comm=tc, poll_every=2)
+            d.poll("g0")              # off-cadence: no exchange, no raise
+            with pytest.raises(Exception) as ei:
+                d.poll("g1")
+            got.append((type(ei.value).__name__, ei.value.expired_ranks,
+                        ei.value.where, tc.seq))
+    assert got[0] == got[1] == ("DeadlineExceededError", 1, "g1", 1)
 
 
 _SIGTERM = r"""

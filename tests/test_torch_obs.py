@@ -237,8 +237,19 @@ def test_metrics_merge_snapshot_delta_equal_jax():
 def test_metrics_disabled_path_and_reduce(monkeypatch, tmp_path):
     assert not metrics.NULL_METRICS.enabled
     assert metrics.NULL_METRICS.snapshot() == {}
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        metrics.Metrics().reduce(comm=None)
+    assert metrics.NULL_METRICS.reduce(comm=None) == {}
+    # one rank: the reduction over a TreeComm is the registry itself, as
+    # the JAX package's (parallel/treecomm.py; several ranks:
+    # tests/test_torch_treecomm.py)
+    from superlu_dist_tpu.parallel.treecomm import TreeComm as JTreeComm
+    from superlu_dist_tpu_torch.parallel.treecomm import TreeComm
+    red = []
+    for mod, tcls in ((metrics, TreeComm), (jmetrics, JTreeComm)):
+        with tcls(f"/slt_obs_red_{os.getpid()}", 1, 0, max_len=64) as tc:
+            red.append(_drive_metrics(mod).reduce(tc))
+    assert red[0] == red[1]
+    assert red[0]["counter:slu_serve_requests_total"] == {
+        "sum": 3.0, "min": 3.0, "max": 3.0, "avg": 3.0}
     path = tmp_path / "m.json"
     monkeypatch.setenv("SLU_TPU_METRICS", str(path))
     metrics._reset()
@@ -449,8 +460,18 @@ def test_slo_accounter_and_evaluator_equal_jax():
     assert _drive_slo(slo) == _drive_slo(jslo)
     assert [slo.nrhs_bucket(k) for k in (1, 7, 8, 600, 5000)] == \
         [jslo.nrhs_bucket(k) for k in (1, 7, 8, 600, 5000)]
-    with pytest.raises(NotImplementedError):
-        slo.LatencyAccounter().reduce(comm=None)
+    # the collective merge over one rank returns the accounter's own
+    # summary, as the JAX package's
+    from superlu_dist_tpu.parallel.treecomm import TreeComm as JTreeComm
+    from superlu_dist_tpu_torch.parallel.treecomm import TreeComm
+    red = []
+    for mod, tcls in ((slo, TreeComm), (jslo, JTreeComm)):
+        acc = mod.LatencyAccounter()
+        for k, sec in ((1, 0.001), (4, 0.02), (70, 0.3)):
+            acc.observe(k, sec)
+        with tcls(f"/slt_slo_red_{os.getpid()}", 1, 0, max_len=64) as tc:
+            red.append((acc.reduce(tc), acc.summary()))
+    assert red[0] == red[1] and red[0][0] == red[0][1]
 
 
 def test_ticket_context_stages_sum():
