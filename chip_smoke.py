@@ -49,7 +49,7 @@ drives the port are reset just before it and checked just after):
                 (``__main__.main`` in-process): rc 0, the reader's seconds,
                 the report's FACT / SOLVE / REFINE seconds and BERR;
      serve    — the serving tier on that handle and the persist bundle: a
-                SolveServer under 8 client threads and 256 seeded requests
+                SolveServer under 8 client threads and 160 seeded requests
                 (nrhs 1 / 4 / 16 / 40), cold and with its buckets warmed
                 (requests/s, p50/p99 latency, batches, batch fill, graph
                 captures; a seeded sample of batches against
@@ -61,7 +61,7 @@ drives the port are reset just before it and checked just after):
                 group); a FleetRouter of two process replicas over the
                 poisson3d(48) and (25) bundles with one replica killed;
      pgssvx   — the distributed driver (parallel/pgssvx.py): block rows
-                of poisson3d(48) on 4 ranks, rank 0 this process on the
+                of poisson3d(25) on 4 ranks, rank 0 this process on the
                 card, ranks 1-3 spawned CPU processes (started after the
                 native phase, so their imports overlap the phases
                 between): info, BERR, every peer's x bit for bit rank
@@ -72,12 +72,30 @@ drives the port are reset just before it and checked just after):
                 StatsSummary balance, the peers' spawn-to-attach seconds,
                 the longest heartbeat gap; FACTORED with rank 0's handle
                 at nrhs 4 (no front_assemble launch); pgssvx_ft with
-                Options(ft="shrink") on poisson3d(24) and 3 ranks, rank 2
+                Options(ft="shrink") on poisson3d(16) and 3 ranks, rank 2
                 killed before its 6th collective: one FtEvent, x bit for
                 bit the undisturbed run's; no peer with a CUDA context,
                 no child process or shared-memory segment left
                 (``python3 chip_smoke.py pgssvx``: the build, gssvx and
                 this phase);
+     mesh     — the mesh tier (parallel/spmd.py, pgssvx(grid=)): block
+                rows of poisson3d(48) on a 1x2 grid, rank 0 this process
+                and rank 1 a process spawned after the native phase, both
+                on the card over gloo: backend, x within DEVICE_VS_HOST of
+                gssvx's, BERR, the tiny count gssvx's, each rank holding
+                only its own slots, the fronts gathered to slot order
+                within TF32_DRIFT of the stream's (or bit for bit),
+                front_assemble launches per rank = the groups where it
+                owns a slot, csr_spmv launches per rank = two a
+                refinement step (the residual and its denominator over
+                the rank's block rows, parallel/dist.ShardedSpMV), both
+                kernels bit for bit their plain versions at each rank's
+                shapes; per rank the analysis broadcast, FACT,
+                gather bytes and seconds, SOLVE, REFINE, peak memory; then
+                FACTORED at nrhs 4 on the sharded handles,
+                SamePattern_SameRowPerm on the values times 1.5 and
+                par_symb_fact=True on poisson3d(25) (``python3
+                chip_smoke.py mesh``: the build, gssvx and this phase);
      reuse    — on that handle: a FACTORED solve, a TRANS solve, refactor
                 on perturbed values (equal to a fresh factorization and
                 to the serve phase's SolveServer.refactor),
@@ -160,6 +178,7 @@ NX_SMALL = 25
 NX_TINY = 16
 SEED = 0
 SERVE_RESOLVE = 8        # cold serve batches re-solved and timed in stages
+SERVE_REQUESTS = 160     # requests of each serve round (256 until PR 10)
 FIRST_SOLVE_REPS = 6     # first solves (new solver, two captures) timed
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -906,10 +925,12 @@ def reuse_phase(slt, a, lu, dofact_s, dofact_fact_s, kernels, tols, torch,
         berr_target=float(tols.berr_target(np.float64)), **out)
 
 
-#: the distributed phase: 4 ranks at the main path's width, the recovery
-#: on 3 ranks at poisson3d(24); the comm timeout the failure detector
-#: runs with, and the tree domain's slot length (doubles)
-PG_RANKS, PG_FT_RANKS, PG_FT_NX = 4, 3, 24
+#: the distributed phase: 4 ranks at poisson3d(NX_SMALL) (the mesh phase
+#: carries the 48-wide distributed run), the recovery on 3 ranks at
+#: poisson3d(NX_TINY); the comm timeout the failure detector runs with, and
+#: the tree domain's slot length (doubles)
+PG_RANKS, PG_FT_RANKS, PG_FT_NX = 4, 3, NX_TINY
+PG_NX = NX_SMALL
 PG_TIMEOUT_S = 2.0
 PG_MAX_LEN = 1 << 16
 
@@ -922,8 +943,9 @@ def _pg_workdir():
 def start_peers(slt):
     """The pgssvx phase's peer ranks, spawned early so that their
     ``import torch`` overlaps the phases before it: ranks 1-3 of the
-    main run and its FACTORED call on poisson3d(NX), ranks 1-2 of the two
-    recovery runs on poisson3d(PG_FT_NX) (rank 2 killed in the second).
+    main run and its FACTORED call on poisson3d(PG_NX), ranks 1-2 of the
+    two recovery runs on poisson3d(PG_FT_NX) (rank 2 killed in the
+    second).
     Each builds its rows from a seeded recipe (``GallerySystem``: the
     spawn ships a few bytes, not the matrix) and waits in
     ``attach_tree`` until rank 0 (this process, on the card) forms the
@@ -932,8 +954,8 @@ def start_peers(slt):
                                                       spawn_peers)
     # a dead peer surfaces as RankFailureError within about this timeout
     os.environ["SLU_TPU_COMM_TIMEOUT_S"] = str(PG_TIMEOUT_S)
-    main_sys = GallerySystem("poisson3d", (NX,), seed=SEED)   # gssvx's b
-    fact_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 30, nrhs=4)
+    main_sys = GallerySystem("poisson3d", (PG_NX,), seed=SEED)
+    fact_sys = GallerySystem("poisson3d", (PG_NX,), seed=SEED + 30, nrhs=4)
     ft_sys = GallerySystem("poisson3d", (PG_FT_NX,), seed=SEED + 40)
     tag = f"/slt_smoke_{os.getpid()}"
     wd = _pg_workdir()
@@ -962,7 +984,7 @@ def start_peers(slt):
     return dict(procs=procs, results=results, spawned_at=spawned_at,
                 spawn_s=time.perf_counter() - t0, tag=tag, main=main,
                 fact=fact, ref=ref, chaos=chaos, nrhs_fact=4,
-                n_ft=PG_FT_NX ** 3)
+                n_ft=PG_FT_NX ** 3, main_sys=main_sys)
 
 
 def _await(peers, ranks, name=None, timeout=600):
@@ -985,19 +1007,20 @@ def _await(peers, ranks, name=None, timeout=600):
     return got
 
 
-def pgssvx_phase(slt, a, x_main, peers, kernels, tols, torch):
+def pgssvx_phase(slt, peers, kernels, tols, torch):
     """Phase 4d, the distributed driver: ``pgssvx`` over block rows of
-    poisson3d(48) on 4 ranks, rank 0 this process with device="cuda",
+    poisson3d(PG_NX) on 4 ranks, rank 0 this process with device="cuda",
     ranks 1-3 spawned CPU processes (``start_peers``), Options() (DOFACT,
     float32 factors at the default tier, refinement distributed): info 0,
     BERR <= berr_target(float64), every peer's x equal to rank 0's bit
-    for bit, x within DEVICE_VS_HOST of the main path's x (whose residual
-    ran through csr_spmv, this one on each rank's host rows),
+    for bit, x within DEVICE_VS_HOST of gssvx's x on the same system in
+    this run (whose residual ran through csr_spmv, this one on each
+    rank's host rows),
     front_assemble launches = groups × factorizations and no csr_spmv
     launch, the root's analysis in the native library; then FACTORED
     with rank 0's handle at nrhs 4 (no front_assemble launch, the same X
     on every rank); then ``pgssvx_ft`` with Options(ft="shrink") on
-    poisson3d(24) and 3 ranks, undisturbed and with rank 2 killed
+    poisson3d(PG_FT_NX) and 3 ranks, undisturbed and with rank 2 killed
     (SLU_TPU_CHAOS): the survivors finish with one FtEvent and x bit for
     bit the undisturbed run's.  No peer may hold a CUDA context, and no
     child process or shared-memory segment of the phase may be left."""
@@ -1007,6 +1030,11 @@ def pgssvx_phase(slt, a, x_main, peers, kernels, tols, torch):
     procs = peers["procs"]
     target = float(tols.berr_target(np.float64))
     out = {}
+    a = peers["main_sys"].matrix()
+    x_main, _, _, info = slt.gssvx(slt.Options(), a, peers["main_sys"].rhs(),
+                                   device="cuda")
+    if info != 0:
+        raise AssertionError(f"gssvx at the pgssvx phase's width: {info}")
     try:
         # --- the main run ----------------------------------------------
         kernels.reset_launches()
@@ -1134,7 +1162,9 @@ def pgssvx_phase(slt, a, x_main, peers, kernels, tols, torch):
         raise AssertionError(f"peer exit codes {codes}")
     if any(r["cuda_initialized"] for r in done) or len(done) != 2:
         raise AssertionError(f"a peer holds a CUDA context: {done}")
-    left = [p.name for p in mp.active_children()]
+    # the mesh phase's peer, started with these, runs on
+    left = [p.name for p in mp.active_children()
+            if p.pid not in peers.get("others", ())]
     segs = [f for f in os.listdir("/dev/shm") if peers["tag"][1:] in f]
     if left or segs:
         raise AssertionError(f"left behind: processes {left}, "
@@ -1142,6 +1172,248 @@ def pgssvx_phase(slt, a, x_main, peers, kernels, tols, torch):
     say("pgssvx", n=a.n_rows, peer_exit_codes=codes,
         peers_cuda_initialized=False, children_left=0, segments_left=0,
         **out)
+
+#: the mesh phase: a 1x2 grid, both ranks on the one card over gloo;
+#: its process group's timeout covers the peer's wait for rank 0 to
+#: reach the phase
+MESH_RANKS, MESH_TIMEOUT_S, MESH_SCALE = 2, 900.0, 1.5
+
+
+def start_mesh_peer(slt):
+    """The mesh phase's rank 1, spawned early (its ``import torch`` and
+    its CUDA context overlap the phases before it): a process of its own
+    on the same card, running four ``pgssvx(grid=)`` jobs of a 1x2 grid
+    in order — DOFACT on poisson3d(NX) (the main path's system, the
+    fronts gathered to slot order after it), FACTORED at nrhs 4 on its
+    sharded handle, SamePattern_SameRowPerm on the values times
+    MESH_SCALE, and Options(par_symb_fact=True) on poisson3d(NX_SMALL).
+    It joins the process group at its first job and waits there for
+    rank 0 (this process).  Returns the phase's state."""
+    from superlu_dist_tpu_torch.testing.ranks import (GallerySystem, RankJob,
+                                                      free_port, spawn_peers)
+    tag = f"/slt_mesh_{os.getpid()}"
+    main_sys = GallerySystem("poisson3d", (NX,), seed=SEED)   # gssvx's b
+    fact_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 60, nrhs=4)
+    ref_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 70,
+                            scale=MESH_SCALE)
+    psf_sys = GallerySystem("poisson3d", (NX_SMALL,), seed=SEED + 80)
+    main = RankJob("mesh", f"{tag}_main", MESH_RANKS, slt.Options(),
+                   main_sys.a_rows, main_sys.b_rows, max_len=PG_MAX_LEN,
+                   attach_s=1200.0, port=free_port(), device="cuda",
+                   gather=True, timeout_s=MESH_TIMEOUT_S)
+    fact = dataclasses.replace(
+        main, name=f"{tag}_fact", options=slt.Options(
+            fact=slt.Fact.FACTORED), a_source=fact_sys.a_rows,
+        b_source=fact_sys.b_rows, reuse_lu=True, gather=False)
+    ref = dataclasses.replace(
+        fact, name=f"{tag}_ref", options=slt.Options(
+            fact=slt.Fact.SamePattern_SameRowPerm), a_source=ref_sys.a_rows,
+        b_source=ref_sys.b_rows)
+    psf = dataclasses.replace(
+        fact, name=f"{tag}_psf", options=slt.Options(par_symb_fact=True),
+        a_source=psf_sys.a_rows, b_source=psf_sys.b_rows, reuse_lu=False)
+    t0 = time.perf_counter()
+    procs, results, spawned_at = spawn_peers({1: [main, fact, ref, psf]})
+    return dict(procs=procs, results=results, spawned_at=spawned_at,
+                spawn_s=time.perf_counter() - t0, tag=tag, main=main,
+                fact=fact, ref=ref, psf=psf, systems=dict(
+                    fact=fact_sys, ref=ref_sys, psf=psf_sys))
+
+
+def _mesh_rank(rec) -> dict:
+    """One rank's numbers of a mesh job: its seconds (analysis and its
+    broadcast, FACT, the grid's gathers, SOLVE, REFINE), gather bytes,
+    device memory, its share of the factors and its launches."""
+    t = rec["lu_out"].get("timings", {})
+    sh = rec.get("shard", {})
+    return dict(seconds=rec["seconds"], analysis_s=t.get("analysis_s"),
+                fact_s=t.get("fact_s"), gather_bytes=t.get("gather_bytes"),
+                gather_s=t.get("gather_s"), solve_s=t.get("solve_s"),
+                refine_s=t.get("refine_s"), base_bytes=t.get("base_bytes"),
+                peak_bytes=t.get("peak_bytes"),
+                route=rec["lu_out"]["solve_report"].residual_route,
+                front_bytes=sh.get("front_bytes"),
+                pivot_bytes=sh.get("pivot_bytes"),
+                owned_slots=sh.get("owned_slots"),
+                owned_groups=sh.get("owned_groups"),
+                local_flops=sh.get("local_flops"),
+                own_slots_only=sh.get("own_slots_only"),
+                front_assemble=rec.get("launches"),
+                csr_spmv=rec.get("spmv_launches"))
+
+
+def _mesh_check(name, rec0, peer, target, tols, x_ref=None):
+    """The checks every mesh job shares: no error on either rank, info 0,
+    the same x on both ranks bit for bit, BERR at the target, each rank
+    holding only its own slots, front_assemble launches = the groups
+    where the rank owns a slot (times the factorizations), the residuals
+    on the card with two csr_spmv launches a refinement step (at least,
+    after the hiprec rung), and x within DEVICE_VS_HOST of ``x_ref``."""
+    for r, rec in ((0, rec0), (1, peer)):
+        if "error" in rec or rec["info"] != 0:
+            raise AssertionError(f"mesh {name} rank {r}: "
+                                 f"{rec.get('error', rec.get('info'))}")
+        if not rec["shard"]["own_slots_only"]:
+            raise AssertionError(f"mesh {name}: rank {r} holds slots not "
+                                 "its own")
+    if not np.array_equal(rec0["x"], peer["x"]):
+        raise AssertionError(f"mesh {name}: rank 1's x != rank 0's")
+    rep = rec0["lu_out"]["solve_report"]
+    check_berr(f"mesh {name}", rep.berr, target)
+    if rep.residual_route != "device":
+        raise AssertionError(f"mesh {name}: residuals on the "
+                             f"{rep.residual_route}")
+    hiprec = sum(r.name == "distributed-hiprec" for r in rep.rungs)
+    spmv = 2 * rep.refine_steps
+    for r, rec in ((0, rec0), (1, peer)):
+        want = (rec["shard"]["owned_groups"] * (1 + hiprec)
+                if name != "factored" else 0)
+        if rec["launches"] != want:
+            raise AssertionError(f"mesh {name} rank {r}: {rec['launches']} "
+                                 f"front_assemble launches, expected {want}")
+        got = rec["spmv_launches"]
+        if got < spmv if hiprec else got != spmv:
+            raise AssertionError(f"mesh {name} rank {r}: {got} csr_spmv "
+                                 f"launches, expected {spmv} for "
+                                 f"{rep.refine_steps} refinement steps")
+    if x_ref is not None:
+        err = np.abs(rec0["x"] - x_ref)
+        if not np.all(err <= tols.DEVICE_VS_HOST_ATOL
+                      + tols.DEVICE_VS_HOST_RTOL * np.abs(x_ref)):
+            raise AssertionError(f"mesh {name}: x vs the single-card "
+                                 f"gssvx's: max {err.max()}")
+        return float(err.max())
+    return None
+
+
+def _drift_card(torch, f1, f2) -> dict:
+    """f1 against f2 on the card: bit for bit, and max |f1 - f2| / max
+    |f2| (in float64)."""
+    num = den = 0.0
+    equal = True
+    for (l1, u1), (l2, u2) in zip(f1, f2):
+        for x, y in ((l1, l2), (u1, u2)):
+            equal &= bool(torch.equal(x, y))
+            if x.numel():
+                num = max(num, float((x.double() - y.double()).abs().max()))
+                den = max(den, float(y.abs().max()))
+    return dict(equal_to_stream=equal and len(f1) == len(f2),
+                max_rel_diff_vs_stream=num / max(den, 1e-300))
+
+
+def mesh_phase(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
+               torch):
+    """Phase 4e, the mesh tier: ``pgssvx(grid=gridinit(1, 2))`` on block
+    rows of poisson3d(NX) in 2 rows blocks, rank 0 this process and rank
+    1 a spawned process (``start_mesh_peer``), both on the card over gloo,
+    Options() (float32 factors at the default TF32 tier).  Checks: x
+    within DEVICE_VS_HOST of the main path's gssvx x, BERR <=
+    berr_target(float64), the tiny-pivot count gssvx's, each rank
+    holding only its own slots (front bytes per rank printed), the
+    fronts gathered to slot order bit for bit the main path's stream
+    fronts or within TF32_DRIFT, front_assemble launches per rank = the
+    groups where it owns a slot, two csr_spmv launches per rank a
+    refinement step, and on each rank both kernels bit for bit their
+    plain versions at its local shapes.  Then FACTORED at nrhs 4 on
+    the sharded handles (no launch), SamePattern_SameRowPerm on the
+    values times MESH_SCALE (both against gssvx FACTORED on the main
+    path's handle) and par_symb_fact=True at NX_SMALL (against gssvx on
+    its system).  Prints per rank: the analysis
+    broadcast, FACT, gather bytes and seconds, SOLVE, REFINE and peak
+    device memory; and the backend."""
+    from superlu_dist_tpu_torch.parallel import mhboot
+    from superlu_dist_tpu_torch.testing.ranks import run_job, stop_peers
+    target = float(tols.berr_target(np.float64))
+    procs = peer["procs"]
+    out = {}
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec0 = run_job(peer["main"], 0, "cuda")
+        wall = time.perf_counter() - t0
+        if "error" in rec0:
+            raise AssertionError(f"mesh rank 0: {rec0['error']}")
+        p1 = _await(peer, (1,), peer["main"].name, timeout=900)[1]
+        err = _mesh_check("main", rec0, p1, target, tols, x_main)
+        lu = rec0["lu_out"]["lu"]
+        rep = rec0["lu_out"]["solve_report"]
+        if lu.numeric.tiny_pivots != tiny_main:
+            raise AssertionError(f"mesh tiny pivots {lu.numeric.tiny_pivots}"
+                                 f" != gssvx's {tiny_main}")
+        drift = _drift_card(torch, rec0.pop("fronts"),
+                            lu_main.numeric.fronts)
+        if not (drift["equal_to_stream"]
+                or drift["max_rel_diff_vs_stream"] <= tols.TF32_DRIFT):
+            raise AssertionError(f"mesh fronts vs the stream's: {drift}")
+        drift["gate"] = float(tols.TF32_DRIFT)
+        checks = {r: rec["kernel_vs_plain"] + [rec["spmv_vs_plain"]]
+                  for r, rec in ((0, rec0), (1, p1))}
+        if not all(c["equal"] for cs in checks.values() for c in cs):
+            raise AssertionError(f"mesh: a rank's kernel != plain: {checks}")
+        out["main"] = dict(
+            n=lu.n, groups=len(lu.plan.groups), wall_s=wall,
+            backend={0: rec0["backend"], 1: p1["backend"]},
+            berr=rep.berr, berr_history=rep.berr_history,
+            refine_steps=rep.refine_steps,
+            rungs=[r.name for r in rep.rungs],
+            tiny_pivots=lu.numeric.tiny_pivots,
+            max_abs_vs_main=err, fronts=drift,
+            kernel_vs_plain=checks,
+            ranks={0: _mesh_rank(rec0), 1: _mesh_rank(p1)},
+            comm={0: rec0["comm"], 1: p1["comm"]},
+            peer_spawn_to_attach_s=p1["attached_at"] - peer["spawned_at"],
+            executor=lu.numeric.executor)
+        del rec0
+
+        # --- FACTORED at nrhs 4, SamePattern_SameRowPerm, ParSymbFact ---
+        for name in ("fact", "ref", "psf"):
+            sysm = peer["systems"][name]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rec = run_job(peer[name], 0, "cuda",
+                          lu=lu if name != "psf" else None)
+            sec = time.perf_counter() - t0
+            if name == "ref":
+                del lu
+            if "error" in rec:
+                raise AssertionError(f"mesh {name} rank 0: {rec['error']}")
+            pr = _await(peer, (1,), peer[name].name, timeout=600)[1]
+            if name == "psf":
+                x_ref, _, _, _ = slt.gssvx(slt.Options(), sysm.matrix(),
+                                           sysm.rhs(), device="cuda")
+            else:
+                # on the main path's handle: A·x = B, and (s·A)·x = B as
+                # A·x = B / s
+                scale = MESH_SCALE if name == "ref" else 1.0
+                x_ref, _, _, _ = slt.gssvx(
+                    slt.Options(fact=slt.Fact.FACTORED), a_main,
+                    sysm.rhs() / scale, lu=lu_main)
+            label = "factored" if name == "fact" else name
+            e = _mesh_check(label, rec, pr, target, tols, x_ref)
+            rp = rec["lu_out"]["solve_report"]
+            out[label] = dict(wall_s=sec, berr=rp.berr,
+                              refine_steps=rp.refine_steps,
+                              max_abs_vs_gssvx=e,
+                              ranks={0: _mesh_rank(rec), 1: _mesh_rank(pr)})
+            if name == "psf":
+                out[label]["n"] = sysm.matrix().n_rows
+            del rec
+        done = _await(peer, (1,))[1]
+    finally:
+        codes = stop_peers(procs, timeout=60)
+        mhboot.shutdown()
+    if codes != {1: 0}:
+        raise AssertionError(f"mesh peer exit code {codes}")
+    import multiprocessing as mp
+    left = [p.name for p in mp.active_children()]
+    segs = [f for f in os.listdir("/dev/shm") if peer["tag"][1:] in f]
+    if left or segs:
+        raise AssertionError(f"mesh left behind: processes {left}, "
+                             f"segments {segs}")
+    say("mesh", ranks=MESH_RANKS, peer_cuda=done["cuda_initialized"],
+        children_left=0, segments_left=0, **out)
+
 
 def helmholtz_3d(slt, a, k=5.0):
     """The complex Helmholtz-type operator on a 3-D Poisson pattern:
@@ -1738,15 +2010,16 @@ def serve_phase(slt, a, lu, bundle, a_sm, lu_sm, kernels, tols, torch,
     reuse phase refactors it) and on the bundle the persist phase wrote:
       * traffic — a SolveServer (batch cap 32, so the 40-column requests
         split across batches) on a fresh solver of the handle; 8 client
-        threads, 256 seeded requests (nrhs 1 at 70 %, 4, 16 and 40 at
-        10 % each), first with the buckets cold (their graphs captured by
-        the traffic), then again after a warm-up of every bucket up to
-        the cap: requests/s, p50/p99 latency, batches, mean batch fill,
-        graph captures; every ticket's X its columns of the batch that
-        served it; SERVE_RESOLVE seeded cold batches re-solved through
-        lu.solve_factored at the same width, each within DEVICE_VS_HOST
-        (bit for bit in every run so far) and timed in stages (host
-        staging, device-solve, solve-d2h; the sweep replays alone);
+        threads, SERVE_REQUESTS seeded requests (nrhs 1 at 70 %, 4, 16
+        and 40 at 10 % each), first with the buckets cold (their graphs
+        captured by the traffic), then again after a warm-up of every
+        bucket up to the cap: requests/s, p50/p99 latency, batches, mean
+        batch fill, graph captures; every ticket's X its columns of the
+        batch that served it; SERVE_RESOLVE seeded cold batches re-solved
+        through lu.solve_factored at the same width, each within
+        DEVICE_VS_HOST (bit for bit in every run so far) and timed in
+        stages (host staging, device-solve, solve-d2h; the sweep replays
+        alone);
       * the BERR gate — 16 requests at berr_target(float64) through the
         per-ticket IR rung, its residuals through csr_spmv: each
         delivered at or under the gate;
@@ -1789,9 +2062,10 @@ def serve_phase(slt, a, lu, bundle, a_sm, lu_sm, kernels, tols, torch,
                                    dev_spmv=None)
 
     # --- traffic, cold then warm ---------------------------------------
-    widths = rng.choice([1, 4, 16, 40], size=256, p=[0.7, 0.1, 0.1, 0.1])
+    widths = rng.choice([1, 4, 16, 40], size=SERVE_REQUESTS,
+                        p=[0.7, 0.1, 0.1, 0.1])
     # uniform float32 values in [-1, 1) widened to float64 (a fraction of
-    # the normal generator's time for 1,567 columns of 110,592)
+    # the normal generator's time for the columns of 110,592)
     reqs = [(2 * rng.random((n, int(k)), dtype=np.float32) - 1)
             .astype(np.float64) for k in widths]
     part("requests")
@@ -2622,7 +2896,32 @@ def pgssvx_only() -> int:
     say("gssvx", n=a.n_rows, fact_s=stats.utime["FACT"],
         berr=stats.solve_report.berr)
     del lu
-    pgssvx_phase(slt, a, x, peers, kernels, tols, torch)
+    pgssvx_phase(slt, peers, kernels, tols, torch)
+    print(card)
+    return 0
+
+
+def mesh_only() -> int:
+    """``python3 chip_smoke.py mesh``: the build, gssvx on poisson3d(48)
+    and the mesh phase only (a quicker check of the mesh tier; the full
+    script runs every phase)."""
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.utils import tols
+    card = card_line()
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    kernels.library()
+    mesh_peer = start_mesh_peer(slt)
+    a = poisson3d(NX)
+    b = a.matvec(np.random.default_rng(SEED).standard_normal(a.n_rows))
+    x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+    say("gssvx", n=a.n_rows, fact_s=stats.utime["FACT"],
+        berr=stats.solve_report.berr, tiny_pivots=stats.tiny_pivots)
+    mesh_phase(slt, a, lu, x, stats.tiny_pivots, mesh_peer, kernels, tols,
+               torch)
     print(card)
     return 0
 
@@ -2665,6 +2964,8 @@ def main():
         return serve_only()
     if sys.argv[1:2] == ["pgssvx"]:
         return pgssvx_only()
+    if sys.argv[1:2] == ["mesh"]:
+        return mesh_only()
     if sys.argv[1:2] == ["first_solve"]:
         return first_solve_only(sys.argv[2] if len(sys.argv) > 2 else "")
     import superlu_dist_tpu_torch as slt
@@ -2691,9 +2992,11 @@ def main():
     # 3. kernels, at the shapes of the main path's plan
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     a = poisson3d(NX)
-    # the distributed phase's peer ranks start now: their imports overlap
-    # the phases before it
+    # the distributed and mesh phases' peer ranks start now: their imports
+    # (and the mesh peer's CUDA context) overlap the phases before them
     peers = start_peers(slt)
+    mesh_peer = start_mesh_peer(slt)
+    peers["others"] = {p.pid for p in mesh_peer["procs"].values()}
     native.reset_calls()
     t0 = time.perf_counter()
     lu0, bvals0, st0 = slt.analyze(slt.Options(), a, device="cuda")
@@ -2804,8 +3107,12 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # 4d. the distributed driver: pgssvx on 4 ranks, rank 0 on the card
-    pgssvx_phase(slt, a, x, peers, kernels, tols, torch)
+    pgssvx_phase(slt, peers, kernels, tols, torch)
     del peers
+    # 4e. the mesh tier: pgssvx(grid=) on a 1x2 grid, both ranks on the card
+    mesh_phase(slt, a, lu, x, stats.tiny_pivots, mesh_peer, kernels, tols,
+               torch)
+    del mesh_peer
 
     # 4e. the reuse tiers and refactor on the main path's handle, 4f. the
     # complex path on its plan

@@ -116,6 +116,10 @@ class LUFactorization:
                                        # operator)
     pattern_digest: str = None         # identity latch of refactor
     plan_fp: str = None
+    grid: object = None                # the process grid the factors are
+                                       # sharded over (parallel/grid.py;
+                                       # None off-grid): every solve is
+                                       # then collective
 
     def identity(self) -> tuple:
         """Latch and return ``(pattern_digest, plan_fingerprint)``: a
@@ -169,7 +173,17 @@ class LUFactorization:
         if not self.numeric.finite:
             raise SingularMatrixError(self.numeric.info_col)
         with _SOLVER_LOCK:      # two threads' first solves build one
-            if self.dev_solver is None:
+            if self.dev_solver is None and self.numeric.shard is not None:
+                # a sharded handle solves collectively on its grid (the
+                # reference's pdgstrs over the process grid,
+                # SRC/pdgstrs.c:838): no rank can solve alone
+                from superlu_dist_tpu_torch.parallel.spmd import SpmdSolver
+                opts = self.options
+                self.dev_solver = SpmdSolver(
+                    self.numeric, schedule=opts.solve_schedule,
+                    window=opts.solve_window, align=opts.solve_align,
+                    gemm_prec=self.numeric.gemm_prec)
+            elif self.dev_solver is None:
                 opts = self.options
                 self.dev_solver = DeviceSolver(
                     self.numeric, diag_inv=opts.diag_inv, fused="auto",
@@ -325,7 +339,7 @@ def analyze(options: Options, a: SparseCSR, device="cuda",
 def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
                       stats: Stats | None = None,
                       resume_from: str | None = None,
-                      deadline_comm=None) -> int:
+                      deadline_comm=None, grid=None) -> int:
     """Numeric factorization (pdgssvx.c:1176 → pdgstrf) of an analyzed
     skeleton on its device, in ``options.factor_dtype`` (complex values
     take the complex type of that width).  Fills lu.numeric; returns info
@@ -342,10 +356,29 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
     ``SLU_TPU_DEADLINE_POLL`` polls.
     ``Options.executor`` and the stream knobs (``host_flops``,
     ``front_bytes_limit``, ``offload_lag``) choose the executor
-    (numeric/factor.get_executor); what ran lands on ``stats.executor``."""
+    (numeric/factor.get_executor); what ran lands on ``stats.executor``.
+
+    ``grid`` (parallel/grid.ProcessGrid; default: the handle's own) of
+    several ranks makes this a COLLECTIVE: every rank enters it with the
+    same skeleton and values and keeps its own slots' panels (the spmd
+    executor, parallel/spmd.py); the handle keeps the grid, so its solves
+    are collective too.  Checkpoints are off under a grid (the JAX
+    driver's rule, drivers/gssvx.py:425: the pool is the ranks' joint
+    state); the deadline stays, polled through ``deadline_comm`` or else
+    the grid itself, so every rank raises together."""
     if stats is None:
         stats = Stats()
     options = lu.options
+    if grid is None:
+        grid = lu.grid
+    if grid is not None:
+        if resume_from:
+            raise SuperLUError("resume_from has no place on a grid: the "
+                               "factor pool is the ranks' joint state")
+        lu.grid = grid
+        lu.device = grid.device
+        if deadline_comm is None and grid.nproc > 1:
+            deadline_comm = grid
     dtype = resolve_factor_dtype(options.factor_dtype, lu.device,
                                  np.iscomplexobj(bvals))
     deadline = (Deadline(options.deadline_s, comm=deadline_comm,
@@ -357,12 +390,13 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
             replace_tiny=options.replace_tiny_pivot,
             check_finite=options.recovery.sentinels,
             gemm_prec=options.gemm_prec,
-            ckpt_dir=options.ckpt_dir or None,
-            ckpt_every=options.ckpt_every, resume_from=resume_from,
+            ckpt_dir=(options.ckpt_dir or None) if grid is None else None,
+            ckpt_every=options.ckpt_every if grid is None else 0,
+            resume_from=resume_from,
             deadline=deadline, executor=options.executor,
             host_flops=options.host_flops,
             front_bytes_limit=options.front_bytes_limit,
-            offload_lag=options.offload_lag)
+            offload_lag=options.offload_lag, grid=grid)
         if lu.device.type == "cuda":
             torch.cuda.synchronize(lu.device)
     stats.ops["FACT"] += lu.plan.flops
@@ -557,7 +591,7 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
 
 def gssvx(options: Options, a: SparseCSR, b: np.ndarray, device=None,
           stats: Stats | None = None, lu: LUFactorization | None = None,
-          resume_from: str | None = None):
+          resume_from: str | None = None, grid=None):
     """Solve A·X = B (or Aᵀ·X = B, Aᴴ·X = B under ``options.trans``).
     Returns (x, lu, stats, info).
 
@@ -581,7 +615,23 @@ def gssvx(options: Options, a: SparseCSR, b: np.ndarray, device=None,
     frontier — factors bit for bit equal to an uninterrupted run, recorded
     on ``stats.resume`` and as a 'resume-from-checkpoint' rung.
     ``options.print_stat`` prints the options banner first and the Stats
-    report last."""
+    report last.
+
+    ``grid`` (parallel/grid.ProcessGrid, the reference's gridinfo_t
+    argument) makes the call COLLECTIVE over the grid's ranks — one
+    process per device, so every rank calls gssvx with the same A and B:
+    each analyzes (deterministic host work), the factorization runs
+    sharded over the ranks (each keeps its own slots' panels) and every
+    solve, refinement and ladder rung runs on every rank on the same data,
+    with the same x everywhere.  ``device`` is then the grid's; a prior
+    handle ``lu`` brings its own grid."""
+    if grid is None and lu is not None:
+        grid = lu.grid
+    if grid is not None:
+        if device is not None and resolve_device(device) != grid.device:
+            raise SuperLUError(f"device {device} is not the grid rank's "
+                               f"{grid.device}")
+        device = grid.device
     if device is None:
         device = lu.device if lu is not None else "cuda"
     device = resolve_device(device)
@@ -603,7 +653,8 @@ def gssvx(options: Options, a: SparseCSR, b: np.ndarray, device=None,
     else:
         lu, bvals, stats = analyze(options, a, device=device, stats=stats,
                                    lu=lu)
-        info = factorize_numeric(lu, bvals, stats, resume_from=resume_from)
+        info = factorize_numeric(lu, bvals, stats, resume_from=resume_from,
+                                 grid=grid)
         out = ((None, lu, stats, info) if info != 0
                else _solve_and_refine(options, a, b, lu, stats))
     if options.print_stat:
@@ -820,7 +871,8 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
                                          condest="never", sentinels=False))
         err3 = ""
         try:
-            x3, lu3, stats3, info3 = gssvx(opts3, a, b, device=lu.device)
+            x3, lu3, stats3, info3 = gssvx(opts3, a, b, device=lu.device,
+                                           grid=lu.grid)
         except SuperLUError as e:
             x3, lu3, stats3, info3 = None, None, None, -1
             err3 = f" ({type(e).__name__})"

@@ -101,7 +101,8 @@ def _sync(device: torch.device) -> None:
 
 
 def group_step(dims, avals, pool, thresh, maps: GroupMaps,
-               gemm_prec="default", scatter=KERNELS, timings=None):
+               gemm_prec="default", scatter=KERNELS, timings=None,
+               write_back=True):
     """One (level, bucket) group: assemble + factor + write back.
 
     dims = (batch, m, w, u).  ``scatter(avals, pool, m, w, maps)`` returns
@@ -109,6 +110,10 @@ def group_step(dims, avals, pool, thresh, maps: GroupMaps,
     Schur blocks into ``pool`` in place (slots with off == pool size have
     none; ``maps.keep`` lists the others, None when every slot has one)
     and returns ((lpanel, upanel), tiny count as a 0-d device tensor).
+    With ``write_back=False`` the pool is left as it is and the Schur
+    blocks come back instead: ((lpanel, upanel), schur (batch, u²) or
+    None when u == 0, tiny) — the mesh tier (parallel/spmd.py) gathers
+    them from every rank and writes the pool in full slot order.
     Nothing here waits for the device, so a CUDA graph can hold the step.
     ``timings``, when a dict, accumulates seconds per stage, synchronizing
     the device at each stage boundary (refused while a graph captures)."""
@@ -136,6 +141,9 @@ def group_step(dims, avals, pool, thresh, maps: GroupMaps,
     real = torch.arange(w, device=dev)[None, :] < maps.ws[:, None]
     tiny = torch.where(real, flags, 0).sum()
     lap("partial_factor")
+    if not write_back:
+        return ((lpanel.contiguous(), upanel.contiguous()),
+                schur.reshape(batch, u * u) if u > 0 else None, tiny)
     if u > 0:
         vals = schur.reshape(batch, u * u)
         off = maps.off
@@ -190,6 +198,9 @@ class NumericFactorization:
     executor: dict = dataclasses.field(default_factory=dict)
                               # what ran: the executor's report
     host_fronts: list = None  # numpy copies for the host solve, pulled once
+    shard: object = None      # parallel.spmd.Shard when the factors are
+                              # sharded over a grid's ranks: ``fronts``
+                              # then holds this rank's slots only
 
     @property
     def device(self) -> torch.device:
@@ -208,7 +219,12 @@ class NumericFactorization:
 
     def pull_to_host(self) -> list:
         """The fronts as numpy arrays, pulled once (the dSolveInit analog,
-        SRC/pdutil.c:690: solve-side setup cached across solves)."""
+        SRC/pdutil.c:690: solve-side setup cached across solves).  Sharded
+        factors have no host copy: no rank holds them whole."""
+        if self.shard is not None:
+            raise ValueError("sharded factors are solved collectively on "
+                             "the grid (parallel/spmd.SpmdSolver), not on "
+                             "the host")
         if self.host_fronts is None:
             self.host_fronts = [(lp.detach().cpu().numpy(),
                                  up.detach().cpu().numpy())
@@ -216,46 +232,75 @@ class NumericFactorization:
         return self.host_fronts
 
 
+def resolve_executor(executor: str, device: torch.device, grid=None) -> str:
+    """The executor "auto" stands for, after the JAX package's rule
+    (numeric/factor.py:391-427): spmd under a grid of several ranks,
+    else fused on the CPU and stream on the card.  Under such a grid
+    only spmd runs (every rank holds its own slots: there is no other
+    mesh executor); off it, spmd resolves to stream, as the JAX package's
+    does without a mesh."""
+    if executor not in EXECUTORS:
+        raise ValueError(f"executor must be one of {EXECUTORS}, got "
+                         f"{executor!r}")
+    if grid is not None and grid.nproc > 1:
+        if executor not in ("auto", "spmd"):
+            raise ValueError(f"a grid of {grid.nproc} ranks runs the spmd "
+                             f"executor, not {executor!r}")
+        return "spmd"
+    if executor == "spmd":
+        return "stream"
+    if executor == "auto":
+        return "fused" if device.type == "cpu" else "stream"
+    return executor
+
+
 def get_executor(plan: FactorPlan, dtype=torch.float64,
                  executor: str = "auto", gemm_prec: str | None = None,
                  device="cuda", *, host_flops: float = 0.0,
                  front_bytes_limit: float = 6e9, offload_lag: int = 8,
-                 scatter=KERNELS):
+                 scatter=KERNELS, grid=None):
     """The executor of a plan, cached on the plan: refactor's shadow
     handle and the SamePattern tiers share the plan, so they reuse the
     executor — and a fused executor's captured graph.
 
-    ``executor``: "stream", "fused", "mega" or "auto", which is the JAX
-    package's rule (numeric/factor.py:391): fused on the CPU, stream on
-    the card.  The key holds the dtype, the executor, the GEMM tier, the
-    host-share threshold, the offload knobs, the device and the front
-    assembly (the kernel or its plain version).  The cache keeps one
-    fused or mega executor per device: a new one (another dtype, tier or
-    front assembly) drops the one before it, whose captured graphs hold
+    ``executor``: "stream", "fused", "mega", "spmd" or "auto"
+    (``resolve_executor``: spmd under a ``grid`` of several ranks, else
+    fused on the CPU and stream on the card).  "spmd" runs this rank's
+    share of every group on a ``grid`` of several ranks
+    (parallel/spmd.py); off one it is the stream.  The key holds the
+    dtype, the executor, the GEMM tier, the host-share threshold, the
+    offload knobs, the device, the front assembly (the kernel or its
+    plain version) and the grid.  The cache keeps one fused or mega
+    executor per device: a new one (another dtype, tier or front
+    assembly) drops the one before it, whose captured graphs hold
     gigabytes — the fused graph of poisson3d(48) 2.94 GB of device memory
     — and would otherwise pile up, one for each ladder rung at a new
-    tier.  Factors the dropped executor returned are its clones and
-    stay valid."""
-    if executor not in EXECUTORS:
-        raise ValueError(f"executor must be one of {EXECUTORS}, got "
-                         f"{executor!r}")
+    tier.  Likewise one spmd executor per device: a call on a new grid
+    (every ``pgssvx(grid=)`` job builds one) drops the one of the grid
+    before it, with its device maps.  Factors the dropped executor
+    returned are its clones and stay valid."""
     device = resolve_device(device)
-    if executor == "auto":
-        executor = "fused" if device.type == "cpu" else "stream"
+    executor = resolve_executor(executor, device, grid)
     gemm_prec = gemm_precision(gemm_prec)
     stream_knobs = (float(host_flops), float(front_bytes_limit),
                     int(offload_lag))
     key = (str(dtype), executor, gemm_prec,
-           stream_knobs if executor != "fused" else None, str(device),
-           scatter)
+           stream_knobs if executor not in ("fused", "spmd") else None,
+           str(device), scatter, id(grid) if executor == "spmd" else None)
     cache = plan.__dict__.setdefault("_factor_fns", {})
     fn = cache.get(key)
     if fn is None:
-        if executor in GRAPH_EXECUTORS:
-            for k in [k for k in cache if k[1] in GRAPH_EXECUTORS
-                      and k[4] == str(device)]:
-                del cache[k]
-        if executor == "stream":
+        group = GRAPH_EXECUTORS if executor in GRAPH_EXECUTORS else (
+            ("spmd",) if executor == "spmd" else ())
+        for k in [k for k in cache if k[1] in group
+                  and k[4] == str(device)]:
+            del cache[k]
+        if executor == "spmd":
+            from superlu_dist_tpu_torch.parallel.spmd import (
+                SpmdFactorExecutor)
+            fn = SpmdFactorExecutor(plan, dtype, device, grid,
+                                    gemm_prec=gemm_prec, scatter=scatter)
+        elif executor == "stream":
             from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
             fn = StreamExecutor(plan, dtype, device, gemm_prec=gemm_prec,
                                 host_flops=host_flops,
@@ -283,7 +328,8 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       scatter=KERNELS, timings=None, executor: str = "auto",
                       host_flops: float = 0.0,
                       front_bytes_limit: float = 6e9,
-                      offload_lag: int = 8) -> NumericFactorization:
+                      offload_lag: int = 8,
+                      grid=None) -> NumericFactorization:
     """Factor with values aligned to plan.pattern_indices, on ``device``
     (the card unless the caller asks for the CPU; CUDA without a card
     raises), in ``dtype``: float32, float64, complex64 or complex128.
@@ -312,8 +358,20 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     of them turns "auto" and "fused" into "stream" (the JAX package's
     rule, numeric/factor.py:509-510, which there leaves a deadline to one
     poll before the fused program).  ``scatter`` is the front assembly of
-    every group; ``timings`` (stream only) accumulates per-stage seconds.
+    every group; ``timings`` (stream and spmd) accumulates per-stage
+    seconds.
+
+    ``grid`` (parallel/grid.ProcessGrid) of several ranks runs the spmd
+    executor (parallel/spmd.py): a COLLECTIVE every rank of the grid
+    enters with the same plan and values, on its own device
+    (``grid.device``); each rank keeps its own slots' panels
+    (``NumericFactorization.shard``), the tiny count and the finite
+    sentinel are the grid's.  Checkpoints and resume are refused there
+    (the pool is the ranks' joint state); the deadline polls at every
+    group boundary.
     """
+    if grid is not None:
+        device = grid.device
     device = resolve_device(device)
     plan.check_index_width()
     gemm_prec = gemm_precision(gemm_prec)
@@ -340,13 +398,21 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     if chaos is not None:
         pattern_values = chaos.poke_nan(plan, pattern_values)
     want_ckpt = bool(ckpt_dir) or ckpt_every > 0
+    spmd = resolve_executor(executor, device, grid) == "spmd"
+    if spmd and (want_ckpt or resume_from):
+        raise ValueError("the spmd executor takes no checkpoint or resume: "
+                         "its pool is the grid's joint state")
     if (want_ckpt or resume_from or deadline is not None) \
-            and executor in ("auto", "fused"):
+            and executor in ("auto", "fused") and not spmd:
         executor = "stream"
     ex = get_executor(plan, dtype, executor, gemm_prec, device,
                       host_flops=host_flops,
                       front_bytes_limit=front_bytes_limit,
-                      offload_lag=offload_lag, scatter=scatter)
+                      offload_lag=offload_lag, scatter=scatter, grid=grid)
+    if spmd:
+        return _spmd_factorize(ex, plan, pattern_values, dtype, thresh,
+                               replace_tiny, check_finite, deadline, chaos,
+                               gemm_prec, timings)
     resume = None
     if resume_from:
         from superlu_dist_tpu_torch.persist.checkpoint import load_checkpoint
@@ -404,6 +470,35 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                                 offload=getattr(ex, "offload", "none"),
                                 host_levels=getattr(ex, "host_levels", 0),
                                 executor=ex.report())
+
+
+def _spmd_factorize(ex, plan, pattern_values, dtype, thresh, replace_tiny,
+                    check_finite, deadline, chaos, gemm_prec, timings):
+    """numeric_factorize's tail on the spmd executor: the collective
+    factorization, then the collective finite sentinel (a breakdown is
+    localized on the gathered fronts, the same on every rank)."""
+    from superlu_dist_tpu_torch.parallel.spmd import (gather_fronts,
+                                                      sharded_finite)
+    avals = torch.as_tensor(np.asarray(pattern_values)).to(dtype)
+    ex.deadline, ex.chaos = deadline, chaos
+    try:
+        fronts, tiny, shard = ex(avals, thresh, timings=timings)
+    finally:
+        ex.deadline = ex.chaos = None
+    numeric = NumericFactorization(plan=plan, fronts=fronts,
+                                   tiny_pivots=int(tiny), dtype=dtype,
+                                   gemm_prec=gemm_prec,
+                                   executor=ex.report(), shard=shard)
+    if not replace_tiny:
+        full = gather_fronts(numeric)
+        numeric.finite, numeric.info_col = localize_singularity(plan, full)
+    elif check_finite and not sharded_finite(numeric):
+        sn, col = localize_nonfinite(plan, gather_fronts(numeric))
+        err = NumericBreakdownError(supernode=sn, col=col,
+                                    where="numeric factorization")
+        err.checkpoint_path = None
+        raise err
+    return numeric
 
 
 def fronts_finite(fronts) -> bool:

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -86,6 +87,17 @@ def build() -> Path:
         return lib
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
+    # one build per directory at a time (the ranks of a grid on one host
+    # start together); the lock is the open file's, released when its
+    # holder exits
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():            # built while this process waited
+            return lib
+        return _compile(nvcc, srcs, out_dir, lib)
+
+
+def _compile(nvcc, srcs, out_dir, lib) -> Path:
     tag = f"{os.getpid()}"
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",

@@ -108,6 +108,8 @@ class FactorPlan:
         state = dict(self.__dict__)
         state.pop("_device_maps", None)
         state.pop("_factor_fns", None)
+        # the mesh tier's per-rank shares (parallel/spmd.local_plan)
+        state.pop("_spmd_local", None)
         return state
 
     @property

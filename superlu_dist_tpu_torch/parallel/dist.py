@@ -8,8 +8,9 @@ the factors instead of on the host.  The upload (pattern, values and
 repeated solve (the pdgsmv_init / SOLVEstruct discipline,
 SRC/pdgsmv.c:31).  Beside it, the distributed-input format of that
 module: ``DistributedCSR`` (NRformat_loc) with ``distribute_rows`` and
-``gather_rows``, the input path of ``drivers/gssvx.gssvx_dist``.  The
-sharded SpMV belongs to the multi-GPU slice.
+``gather_rows``, the input path of ``drivers/gssvx.gssvx_dist``, and
+``ShardedSpMV``, the mesh tier's residual operator (parallel/grid.py):
+each rank's block of rows through ``csr_spmv``, y gathered over the grid.
 
 The product is ``csr_spmv``: on a CUDA tensor the hand-written kernel
 ``csrc/csr_spmv.cu`` (one thread per output element, CSR order, every
@@ -175,6 +176,130 @@ class DeviceSpMV:
     def abs_matvec(self, x: np.ndarray) -> np.ndarray:
         # |A|·x, NOT |A|·|x| — same contract as SparseCSR.abs_matvec
         return self._apply(self._avals, x)
+
+
+class ShardedSpMV:
+    """Grid-sharded op(A)·x — the pdgsmv analog for refinement at scale
+    (port of the JAX package's ``ShardedSpMV``, parallel/dist.py:210),
+    and the mesh tier's residual operator (parallel/pgsrfs.py under
+    ``pgssvx(grid=)``).
+
+    Rank r of ``grid`` keeps a block of rows of A on its device
+    (``grid.device``): ``ShardedSpMV(a, grid)`` deals the whole A as
+    ``distribute_rows`` does (rows [r·⌈n/P⌉, (r+1)·⌈n/P⌉)), and
+    ``ShardedSpMV.from_rows(a_loc, grid)`` takes the rank's own block
+    rows, the block-row input of ``pgssvx(grid=)``.  A·x (``__call__``)
+    and |A|·x multiply the rank's rows through ``csr_spmv`` (the kernel
+    on the card, its plain twin on the CPU) and gather them in rank order
+    (``grid.gather_rows``).  Aᵀ·x, Aᴴ·x and |A|ᵀ·x multiply the rank's
+    block transposed (built at first use) by its rows of x and sum the
+    full-length products over the ranks (``grid.all_reduce_sum``).
+    Collective: every rank calls with the same x and gets the whole y.
+    Built once per pattern, reused across refinement steps (the
+    pdgsmv_init discipline, SRC/pdgsmv.c:31)."""
+
+    def __init__(self, a: SparseCSR, grid, dtype=None):
+        n = a.n_rows
+        step = -(-n // grid.nproc)
+        counts = [max(0, min(step, n - r * step)) for r in range(grid.nproc)]
+        lo = min(grid.rank * step, n)
+        hi = lo + counts[grid.rank]
+        s, e = int(a.indptr[lo]), int(a.indptr[hi])
+        self._setup(grid, n, lo, counts, a.indptr[lo:hi + 1] - s,
+                    a.indices[s:e], a.data[s:e], dtype)
+
+    @classmethod
+    def from_rows(cls, a_loc: DistributedCSR, grid, dtype=None):
+        """The operator over the ranks' own block rows — collective: the
+        blocks' (first row, rows) are gathered, and they must tile the
+        rows of A in rank order."""
+        me = torch.tensor([[a_loc.fst_row, a_loc.m_loc]], dtype=torch.int64)
+        if grid.backend == "nccl":
+            me = me.to(grid.device)
+        blocks = grid.all_gather(me).cpu().numpy()
+        starts = np.concatenate([[0], np.cumsum(blocks[:, 1])[:-1]])
+        if (not np.array_equal(blocks[:, 0], starts)
+                or int(blocks[:, 1].sum()) != a_loc.n):
+            raise ValueError(f"the ranks' block rows (first row, rows) "
+                             f"{blocks.tolist()} do not tile the {a_loc.n} "
+                             "rows of A in rank order")
+        self = cls.__new__(cls)
+        self._setup(grid, a_loc.n, a_loc.fst_row, blocks[:, 1].tolist(),
+                    a_loc.indptr, a_loc.indices, a_loc.data, dtype)
+        return self
+
+    def _setup(self, grid, n, lo, counts, indptr, indices, data, dtype):
+        self.grid, self.n, self._lo = grid, n, int(lo)
+        self._counts = [int(c) for c in counts]
+        self._rows = self._counts[grid.rank]
+        dtype = np.dtype(dtype or np.result_type(data.dtype, np.float64))
+        real = np.zeros(0, dtype).real.dtype
+        self._host = (np.asarray(indptr, dtype=np.int64),
+                      np.asarray(indices, dtype=np.int64),
+                      np.asarray(data).astype(dtype))
+        self._ops = {False: self._upload(*self._host, real)}
+        self._trans = None
+
+    def _upload(self, indptr, indices, data, real):
+        """(indptr, indices, values by dtype, |values| by dtype, longest
+        row) of a block on the grid's device."""
+        def put(arr):
+            return torch.as_tensor(np.ascontiguousarray(arr),
+                                   device=self.grid.device)
+        return (put(indptr), put(indices),
+                {_torch_dtype(data.dtype): put(data)},
+                {_torch_dtype(real): put(np.abs(data).astype(real))},
+                int(np.diff(indptr).max(initial=0)))
+
+    def _transposed(self):
+        """The rank's block transposed: n rows, one column per local row
+        (a column's entries in row order)."""
+        if self._trans is None:
+            indptr, indices, data = self._host
+            rows = np.repeat(np.arange(self._rows, dtype=np.int64),
+                             np.diff(indptr))
+            order = np.argsort(indices, kind="stable")
+            tptr = np.zeros(self.n + 1, dtype=np.int64)
+            np.cumsum(np.bincount(indices, minlength=self.n), out=tptr[1:])
+            self._trans = self._upload(tptr, rows[order], data[order],
+                                       np.zeros(0, data.dtype).real.dtype)
+        return self._trans
+
+    def _product(self, op, absolute, conj, x):
+        indptr, indices, vals, avals, max_row = op
+        table = avals if absolute else vals
+        base = next(iter(table.values()))
+        dt = torch.promote_types(base.dtype, _torch_dtype(x.dtype))
+        v = table.get(dt)
+        if v is None:
+            v = table[dt] = base.to(dt)
+        if conj and v.is_complex():
+            v = v.conj().resolve_conj()
+        xt = torch.as_tensor(np.ascontiguousarray(x),
+                             device=self.grid.device).to(dt)
+        return csr_spmv(indptr, indices, v, xt, max_row)
+
+    def apply(self, x: np.ndarray, trans=None, absolute: bool = False
+              ) -> np.ndarray:
+        """op(A)·x, or |op(A)|·x when ``absolute``, with op per ``trans``
+        (utils.options.Trans; None: NOTRANS) — collective."""
+        from superlu_dist_tpu_torch.utils.options import Trans
+        x = np.asarray(x)
+        squeeze = x.ndim == 1
+        x2 = x[:, None] if squeeze else x
+        if trans is None or trans == Trans.NOTRANS:
+            y = self._product(self._ops[False], absolute, False, x2)
+            y = self.grid.gather_rows(y, self._counts)
+        else:
+            y = self._product(self._transposed(), absolute,
+                              trans == Trans.CONJ,
+                              x2[self._lo:self._lo + self._rows])
+            y = self.grid.all_reduce_sum(y)
+        y = y.cpu().numpy()
+        return y[:, 0] if squeeze else y
+
+    def __call__(self, x: np.ndarray) -> np.ndarray:
+        return self.apply(x)
 
 
 @dataclasses.dataclass

@@ -8,8 +8,8 @@ in B's shape), transpose solves (options.trans, pdgssvx.c's Trans
 dispatch), and complex matrices (the pzgssvx twin — complex payloads ride
 the f64 tree as re/im passes).
 
-Port of the host-collective tier of the JAX package's
-``parallel/pgssvx.py``: the analysis and the factorization run where the
+Port of the JAX package's ``parallel/pgssvx.py``.  Without a grid (the
+host-collective tier) the analysis and the factorization run where the
 card is — on the root rank, through the single-process ``gssvx`` — so the
 distributed input is first assembled there, exactly like the reference's
 pdCompRow_loc_to_CompCol_global gather before serial preprocessing
@@ -18,9 +18,15 @@ tree collectives (parallel/treecomm.py); refinement then runs distributed
 (parallel/pgsrfs.py) so the residual work stays with the row owners —
 the reference's pdgsrfs/pdgsmv shape.  ``device`` (None: the card)
 matters only on the root: a rank that is not the root never touches
-``torch.cuda``.  The mesh tier (``grid=``, ``replicate_analysis``,
-``Options.par_symb_fact``: factors sharded over several devices) is not
-ported (ROADMAP.md Queue 1 item 8) and raises NotImplementedError.
+``torch.cuda``.
+
+With ``grid=`` (parallel/grid.ProcessGrid over the same processes) the
+mesh tier runs instead (``_pgssvx_mesh``): the root analyzes once and
+broadcasts the skeleton (or every rank analyzes, ``replicate_analysis``,
+or the ordering and symbolic run distributed, ``Options.par_symb_fact``:
+parallel/panalysis.py), then every rank factors its own slots on its
+device (parallel/spmd.py) and the solves and the refinement's corrections
+run collectively on the sharded factors: no rank ever holds them whole.
 
 Payloads larger than the tree domain's max_len stream through in chunks
 (TreeComm.bcast_any/reduce_sum_any); integer index arrays travel on the
@@ -44,7 +50,7 @@ import time
 
 import numpy as np
 
-from superlu_dist_tpu_torch.parallel.dist import DistributedCSR
+from superlu_dist_tpu_torch.parallel.dist import DistributedCSR, ShardedSpMV
 from superlu_dist_tpu_torch.parallel.treecomm import TreeComm
 from superlu_dist_tpu_torch.sparse.formats import SparseCSR
 from superlu_dist_tpu_torch.utils.errors import SuperLUError
@@ -53,15 +59,14 @@ from superlu_dist_tpu_torch.utils.errors import SuperLUError
 #: take complex128, utils/options.resolve_factor_dtype)
 HIPREC = "float64"
 
-_MESH_TIER = ("belongs to the mesh tier (factors sharded over several "
-              "devices), which is not ported (ROADMAP.md Queue 1 item 8)")
-
-
 def gather_distributed(tc: TreeComm, a_loc: DistributedCSR,
-                       root: int = 0) -> SparseCSR | None:
+                       root: int = 0,
+                       all_ranks: bool = False) -> SparseCSR | None:
     """Assemble the global CSR on `root` from every rank's block rows —
     the pdCompRow_loc_to_CompCol_global analog over tree collectives.
-    Returns the matrix on root, None elsewhere."""
+    Returns the matrix on root, None elsewhere.  all_ranks=True assembles
+    on EVERY rank (all-reduce instead of reduce): the analysis input of
+    the mesh tier's replicate_analysis."""
     n = a_loc.n
     # global nnz offsets: every rank's count, allreduced
     counts = np.zeros(tc.n_ranks)
@@ -71,23 +76,24 @@ def gather_distributed(tc: TreeComm, a_loc: DistributedCSR,
     offs[1:] = np.cumsum(counts).astype(np.int64)
     total = int(offs[-1])
     lo = int(offs[tc.rank])
+    _reduce = tc.allreduce_sum_any if all_ranks else tc.reduce_sum_any
 
     # row counts (for indptr) and flat index/value arrays, disjoint slots
     rowcnt = np.zeros(n)
     rowcnt[a_loc.fst_row:a_loc.fst_row + a_loc.m_loc] = \
         np.diff(a_loc.indptr)
-    rowcnt = tc.reduce_sum_any(rowcnt, root=root)
+    rowcnt = _reduce(rowcnt, root=root)
     idx = np.zeros(total)
     idx[lo:lo + a_loc.nnz_loc] = a_loc.indices
-    idx = tc.reduce_sum_any(idx, root=root)
+    idx = _reduce(idx, root=root)
     vdtype = (np.complex128 if np.issubdtype(np.asarray(a_loc.data).dtype,
                                              np.complexfloating)
               else np.float64)
     vals = np.zeros(total, dtype=vdtype)
     vals[lo:lo + a_loc.nnz_loc] = a_loc.data
-    vals = tc.reduce_sum_any(vals, root=root)
+    vals = _reduce(vals, root=root)
 
-    if tc.rank != root:
+    if not all_ranks and tc.rank != root:
         return None
     indptr = np.zeros(n + 1, dtype=np.int64)
     indptr[1:] = np.cumsum(rowcnt).astype(np.int64)
@@ -210,13 +216,27 @@ def pgssvx(tc: TreeComm, options, a_loc: DistributedCSR,
     The root gathers the rows, runs ``gssvx`` with NOREFINE on
     ``device`` (None: the card; ignored on the other ranks) and
     broadcasts x0; every rank then refines with ``pgsrfs``, its residual
-    computed over its own rows.  `grid`, `replicate_analysis` and
-    ``options.par_symb_fact`` select the mesh tier, which is not ported:
-    NotImplementedError on every rank, before any collective.
+    computed over its own rows.
+
+    `grid` (a parallel.grid.ProcessGrid whose ranks are this TreeComm's,
+    each on its own device, ``grid.device``) selects the mesh tier, the
+    distributed-factors tier: rank 0 gathers the rows and runs the host
+    analysis once, and broadcasts the analyzed skeleton (plan + symbolic
+    index maps + permuted values, O(nnz) data) — no other rank assembles
+    the matrix; ``replicate_analysis=True`` has every rank assemble and
+    analyze instead (the A/B reference), ``options.par_symb_fact`` runs
+    the ordering and symbolic distributed (parallel/panalysis.py).  Every
+    rank then factors its own block-cyclic slots of each group
+    (parallel/spmd.py), keeps them, and the solves and refinement
+    corrections run collectively on the sharded factors (the reference's
+    NR_loc-in, distributed-factors-out property, SRC/pdgssvx.c:505 /
+    pddistribute.c:322).  On that tier every rank has a handle, and
+    FACTORED needs every rank's.
 
     `lu_out`: optional dict; on return, lu_out["lu"] holds the root's
     LUFactorization handle (the reference's caller-owned LUstruct; only
-    the root has one) and lu_out["stats"] its Stats; on every rank
+    the root has one — on the mesh tier every rank's own) and
+    lu_out["stats"] its Stats; on every rank
     lu_out["stats_summary"] (the cross-rank StatsSummary),
     lu_out["solve_report"] (the distributed refinement's SolveReport)
     and lu_out["timings"] (this rank's gather and refinement seconds).
@@ -253,11 +273,11 @@ def pgssvx(tc: TreeComm, options, a_loc: DistributedCSR,
     from superlu_dist_tpu_torch.utils.options import (IterRefine, Trans,
                                                       check_ft)
 
-    if grid is not None or replicate_analysis or \
-            getattr(options, "par_symb_fact", False):
-        raise NotImplementedError(f"pgssvx's grid=, replicate_analysis and "
-                                  f"Options.par_symb_fact: {_MESH_TIER}")
     check_ft(options)
+    if grid is None and (replicate_analysis
+                         or getattr(options, "par_symb_fact", False)):
+        raise SuperLUError("replicate_analysis and Options.par_symb_fact "
+                           "choose the mesh tier's analysis: pass grid=")
     n = a_loc.n
     b_loc = np.asarray(b_loc)
     one_d = b_loc.ndim == 1
@@ -270,6 +290,20 @@ def pgssvx(tc: TreeComm, options, a_loc: DistributedCSR,
                                 np.complexfloating)
                   or np.issubdtype(b2.dtype, np.complexfloating))
     wdtype = np.complex128 if complex_in else np.float64
+
+    if grid is not None:
+        x, info, rep, can_escalate = _pgssvx_mesh(
+            tc, options, a_loc, b2, grid, one_d, wdtype, lu=lu,
+            lu_out=lu_out, replicate_analysis=replicate_analysis,
+            device=device)
+        x, info = _maybe_escalate_distributed(
+            tc, options, a_loc, b_loc, x, info, rep, lu_out,
+            can_escalate=can_escalate, grid=grid,
+            replicate_analysis=replicate_analysis)
+        # cross-rank stat reduction (collective; the escalation decision
+        # above is replicated, so every rank reaches this together)
+        _finish_stats(tc, lu_out)
+        return x, info
 
     t0 = time.perf_counter()
     a_root = gather_distributed(tc, a_loc, root=root)
@@ -342,11 +376,12 @@ def pgssvx(tc: TreeComm, options, a_loc: DistributedCSR,
 
 
 def _refine_tail(tc, options, a_loc, b2, x0, solve_fn, root, one_d, nrhs,
-                 lu_out=None):
+                 lu_out=None, collective_solve=False, spmv=None, stats=None):
     """Distributed refinement over the RHS columns; returns
     (x, info, SolveReport-or-None).  The report is identical on every
     rank (built from allreduced berr values), so callers may branch on
-    it collectively."""
+    it collectively.  ``spmv``: the mesh tier's residual operator
+    (``pgsrfs``)."""
     from superlu_dist_tpu_torch.parallel.pgsrfs import pgsrfs
     from superlu_dist_tpu_torch.utils.options import IterRefine, Trans
     rep = None
@@ -361,15 +396,19 @@ def _refine_tail(tc, options, a_loc, b2, x0, solve_fn, root, one_d, nrhs,
         for j in range(nrhs):
             so = {}
             cols.append(pgsrfs(tc, a_loc, b2[:, j], x0[:, j], solve_fn,
-                               root=root, trans=trans, stats_out=so))
+                               root=root, trans=trans,
+                               collective_solve=collective_solve,
+                               spmv=spmv, stats_out=so))
             rhs_stats.append(so)
         x = np.stack(cols, axis=1)
-        rep = _attach_distributed_report(options, rhs_stats, x,
-                                         lu_out=lu_out)
+        rep = _attach_distributed_report(
+            options, rhs_stats, x, lu_out=lu_out, stats=stats,
+            residual_route="host" if spmv is None else "device")
     return (x[:, 0] if one_d else x), 0, rep
 
 
-def _attach_distributed_report(options, rhs_stats, x, lu_out=None):
+def _attach_distributed_report(options, rhs_stats, x, lu_out=None,
+                               stats=None, residual_route="host"):
     """Build the SolveReport of a distributed refinement (every rank sees
     the same allreduced berr values, so every rank builds the same
     report) and attach it to the Stats handed back via lu_out."""
@@ -382,10 +421,11 @@ def _attach_distributed_report(options, rhs_stats, x, lu_out=None):
         berr_history=[b for s in rhs_stats for b in s.get("berrs", [])],
         target=target,
         finite=bool(np.all(np.isfinite(x))),
-        residual_route="host")
+        residual_route=residual_route)
     rep.refine_steps = sum(s.get("iters", 0) for s in rhs_stats)
     rep.converged = rep.berr is not None and rep.berr <= target
-    stats = lu_out.get("stats") if lu_out is not None else None
+    if stats is None and lu_out is not None:
+        stats = lu_out.get("stats")
     if stats is not None:
         # the root factorization's NOREFINE report carries the
         # factorization facts; the distributed refinement supersedes it
@@ -405,7 +445,8 @@ def _attach_distributed_report(options, rhs_stats, x, lu_out=None):
 
 def _maybe_escalate_distributed(tc, options, a_loc, b_loc, x, info, rep,
                                 lu_out, root=0, can_escalate=False,
-                                device=None):
+                                device=None, grid=None,
+                                replicate_analysis=False):
     """One collective escalation rung for the distributed driver: when
     the distributed refinement stagnated above the recovery target,
     rerun the whole flow at float64 factors.  Every input to the
@@ -413,7 +454,8 @@ def _maybe_escalate_distributed(tc, options, a_loc, b_loc, x, info, rep,
     broadcast ``can_escalate``: its factors were below float64) is
     replicated, so all ranks take the same branch — rank-divergent
     control flow here would strand peers in the collectives (which is
-    also why the decision must NOT depend on per-rank lu_out presence)."""
+    also why the decision must NOT depend on per-rank lu_out presence).
+    On the mesh tier (``grid``) the retry runs on the grid too."""
     from superlu_dist_tpu_torch.utils.options import Fact, IterRefine
     from superlu_dist_tpu_torch.utils.stats import RungRecord
 
@@ -428,7 +470,8 @@ def _maybe_escalate_distributed(tc, options, a_loc, b_loc, x, info, rep,
         recovery=dataclasses.replace(recovery, enabled=False))
     lu_out2 = {}
     x2, info2 = pgssvx(tc, opts2, a_loc, b_loc, root=root, lu_out=lu_out2,
-                       device=device)
+                       device=device, grid=grid,
+                       replicate_analysis=replicate_analysis)
     rep2 = lu_out2.get("solve_report")
     berr2 = rep2.berr if rep2 is not None and rep2.berr is not None \
         else float("inf")
@@ -446,3 +489,138 @@ def _maybe_escalate_distributed(tc, options, a_loc, b_loc, x, info, rep,
             lu_out["solve_report"] = rep
         return x2, info2
     return x, info
+
+
+def _gathered(grid) -> tuple:
+    """(bytes, seconds) the grid's gathers have moved so far."""
+    ops = [grid.comm.get(op, {}) for op in ("gather_rows", "all_gather")]
+    return (sum(o.get("bytes", 0) for o in ops),
+            sum(o.get("seconds", 0.0) for o in ops))
+
+
+def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
+                 lu_out=None, replicate_analysis=False, device=None):
+    """The distributed-factors tier (``pgssvx`` with a grid): rank 0
+    assembles the global analysis input and runs the host analysis ONCE,
+    then broadcasts the analyzed skeleton (symbolic + plan + transforms +
+    permuted values) over the tree — O(nnz) transfer instead of O(nnz)
+    redundant analysis work and graph memory on every rank, the wall the
+    reference's distributed symbolic was built to break
+    (SRC/psymbfact.c:140,228-242).  Every rank then factors its own slots
+    on its device and the solves run collectively
+    (parallel/spmd.py), so the off-diagonal factor panels stay sharded
+    over the ranks for their whole lifetime; the collective correction
+    solve also serves the distributed refinement (every rank calls it —
+    the pdgsrfs shape where pdgstrs is itself parallel,
+    SRC/pdgsrfs.c:205).
+
+    Returns (x, info, SolveReport or None, can_escalate) on every rank.
+    ``lu_out["timings"]`` holds this rank's seconds: the analysis and its
+    broadcast, FACT, the grid's gathers (bytes and seconds), SOLVE and
+    REFINE, and its device memory: allocated before the factorization
+    (``base_bytes``) and the peak from there (``peak_bytes``)."""
+    import torch
+    from superlu_dist_tpu_torch.drivers.gssvx import (_escalation_dtype,
+                                                      analyze,
+                                                      factorize_numeric)
+    from superlu_dist_tpu_torch.utils.options import (Fact, IterRefine,
+                                                      Trans, resolve_device)
+    from superlu_dist_tpu_torch.utils.stats import Stats
+
+    if tc.rank != grid.rank or tc.n_ranks != grid.nproc:
+        raise SuperLUError(
+            f"TreeComm rank {tc.rank}/{tc.n_ranks} is not grid rank "
+            f"{grid.rank}/{grid.nproc}: both must order the same processes")
+    if device is not None and resolve_device(device) != grid.device:
+        raise SuperLUError(f"device {device} is not the grid rank's "
+                           f"{grid.device}")
+    dev = grid.device
+    n = a_loc.n
+    nrhs = b2.shape[1]
+    timings = {}
+    t0 = time.perf_counter()
+    b_full = np.zeros((n, nrhs), dtype=wdtype)
+    b_full[a_loc.fst_row:a_loc.fst_row + a_loc.m_loc] = b2
+    b_full = tc.allreduce_sum_any(b_full, root=0)
+
+    # refinement runs distributed below (block rows stay with their
+    # owners), so the skeleton travels WITHOUT the global matrix: a
+    # non-root rank never materializes A, only the analysis products
+    opts0 = dataclasses.replace(options, iter_refine=IterRefine.NOREFINE)
+    stats = Stats()
+    fact = getattr(options, "fact", Fact.DOFACT)
+    if fact == Fact.FACTORED:
+        # solve-only on the existing sharded factors (every rank holds
+        # ITS handle from a prior call's lu_out — pdgssvx's Fact=
+        # FACTORED over the grid); the solves below are collective, so a
+        # missing handle must fail on EVERY rank, not strand the others
+        ok = np.zeros(1)
+        ok[0] = 1.0 if (lu is not None and lu.numeric is not None) else 0.0
+        ok = tc.allreduce_sum_any(ok)
+        if int(ok[0]) != tc.n_ranks:
+            raise SuperLUError(
+                "Fact=FACTORED requires EVERY rank's prior lu handle "
+                f"({int(ok[0])}/{tc.n_ranks} ranks have one)")
+        info_r = 0
+    elif replicate_analysis:
+        a_all = gather_distributed(tc, a_loc, all_ranks=True)
+        lu, bvals, _ = analyze(opts0, a_all, device=dev, stats=stats)
+        lu.a = None
+    elif getattr(opts0, "par_symb_fact", False):
+        # ParSymbFact: ordering + symbolic partitioned across the ranks
+        # themselves (the ParMETIS + psymbfact shape); root only
+        # assembles and plans
+        from superlu_dist_tpu_torch.parallel.panalysis import panalyze
+        lu, bvals = panalyze(tc, opts0, a_loc, stats=stats, device=dev)
+    else:
+        # `lu` (the root's prior handle) activates the SamePattern reuse
+        # tiers inside analyze
+        lu, bvals = root_analyze_bcast(tc, opts0, a_loc, stats, lu=lu,
+                                       device=dev)
+    timings["analysis_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings["base_bytes"] = torch.cuda.memory_allocated(dev)
+    gather0 = _gathered(grid)
+    if fact != Fact.FACTORED:
+        # deadline_comm=tc: Options.deadline_s expiry becomes a collective
+        # decision (a flag allreduce per poll inside the factor loop), so
+        # DeadlineExceededError raises on every rank together
+        lu.device = dev
+        info_r = factorize_numeric(lu, bvals, stats, grid=grid,
+                                   deadline_comm=tc)
+        timings["fact_s"] = stats.utime["FACT"]
+    if lu_out is not None:
+        lu_out["lu"] = lu
+        lu_out["stats"] = stats
+        lu_out["timings"] = timings
+    if info_r != 0:
+        return None, int(info_r), None, False
+    trans = getattr(options, "trans", Trans.NOTRANS)
+    if trans == Trans.NOTRANS:
+        solve_fn = lu.solve_factored
+    else:
+        solve_fn = (lambda r: lu.solve_factored_trans(
+            r, conj=trans == Trans.CONJ))
+    with stats.timer("SOLVE"):
+        x_r = solve_fn(b_full if nrhs > 1 else b_full[:, 0])
+    timings["solve_s"] = stats.utime["SOLVE"]
+    x0 = np.asarray(x_r, dtype=wdtype).reshape(n, nrhs)
+    t0 = time.perf_counter()
+    # collective_solve=True: every rank calls solve_fn (the sharded solve
+    # is a collective all ranks must enter), so no dx broadcast; the
+    # residuals run on the ranks' devices over their own block rows
+    spmv = (None if options.iter_refine == IterRefine.NOREFINE
+            else ShardedSpMV.from_rows(a_loc, grid))
+    x, info, rep = _refine_tail(tc, options, a_loc, b2, x0, solve_fn, 0,
+                                one_d, nrhs, lu_out=lu_out,
+                                collective_solve=True, spmv=spmv,
+                                stats=stats)
+    timings["refine_s"] = time.perf_counter() - t0
+    gather1 = _gathered(grid)
+    timings["gather_bytes"] = gather1[0] - gather0[0]
+    timings["gather_s"] = gather1[1] - gather0[1]
+    timings["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                             if dev.type == "cuda" else None)
+    return x, info, rep, _escalation_dtype(lu.numeric.dtype) is not None

@@ -215,6 +215,22 @@ def pgssvx_ft(name: str, n_ranks: int, rank: int, options, a_source,
     completed factor groups are never recomputed — and a recovered
     solve is bitwise-identical to an undisturbed one.
     """
+    from superlu_dist_tpu_torch.testing.chaos import bind_rank, bound_rank
+    # the epochs' chaos identity is this call's: the process leaves it
+    # with the identity it came with (a later server or factorization in
+    # the same process is not in a recovery epoch)
+    entry = bound_rank()
+    try:
+        return _ft_epochs(name, n_ranks, rank, options, a_source, b_source,
+                          max_len, lu_out, start_epoch, alive, max_epochs,
+                          device)
+    finally:
+        bind_rank(*entry)
+
+
+def _ft_epochs(name, n_ranks, rank, options, a_source, b_source, max_len,
+               lu_out, start_epoch, alive, max_epochs, device):
+    """pgssvx_ft's epoch loop."""
     mode = check_ft(options)
     alive = list(range(n_ranks)) if alive is None else list(alive)
     epoch = start_epoch

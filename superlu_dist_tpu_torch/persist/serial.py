@@ -361,6 +361,10 @@ def save_lu(lu, dirpath: str) -> str:
                               "(lu.numeric is None — run the "
                               "factorization first)")
     numeric = lu.numeric
+    if numeric.shard is not None:
+        raise CheckpointError("save_lu takes a whole factorization: this "
+                              "handle's factors are sharded over a grid's "
+                              "ranks (each holds its own slots)")
     os.makedirs(dirpath, exist_ok=True)
     entries: dict = {}
     arrays = {"dr": lu.dr, "dc": lu.dc, "r1": lu.r1, "c1": lu.c1,

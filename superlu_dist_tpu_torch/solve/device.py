@@ -227,6 +227,33 @@ def _pad_panels(lp, up, w0, u0, W, U):
     return lo, uo
 
 
+def sweep_maps(solve_plan: SolvePlan, sf, device) -> list:
+    """Per sweep batch of ``solve_plan``: (the batch, its pivot columns
+    (B, w) with the dump row n for padding, its contribution rows (B, u),
+    its lsum scatter layers) on ``device`` — what every sweep body reads
+    besides the panels."""
+    n = solve_plan.n
+    first = np.asarray(sf.sn_start[:-1])
+    out = []
+    for sg in solve_plan.groups:
+        k = np.arange(sg.w)
+        cols = np.where(k[None, :] < sg.ws[:, None],
+                        first[sg.sns][:, None] + k, n)
+        rows = np.full((sg.batch, sg.u), n, dtype=np.int64)
+        for slot, s in enumerate(sg.sns):
+            r = sf.sn_rows[s]
+            rows[slot, :len(r)] = r
+        layers = scatter_layers(rows, n)
+        if layers is not None:
+            layers = (torch.as_tensor(layers[0], device=device),
+                      [(lo, hi, torch.as_tensor(t, device=device))
+                       for lo, hi, t in layers[1]])
+        out.append((sg, torch.as_tensor(cols, dtype=torch.int64,
+                                        device=device),
+                    torch.as_tensor(rows, device=device), layers))
+    return out
+
+
 class DeviceSolver:
     """Solve (L·U)x = d on the factors' device, in the factor's permuted
     labeling.
@@ -276,9 +303,7 @@ class DeviceSolver:
             fused = len(solve_plan.groups) <= FUSE_MAX_BATCHES
         self.fused = bool(fused) and self.device.type == "cuda"
         self.last_solve_stats = None
-        sf = plan.sf
-        first = np.asarray(sf.sn_start[:-1])
-        self._groups = []
+        self._groups = sweep_maps(solve_plan, plan.sf, self.device)
         self.fronts = []
         self.gathered_bytes = 0
         # a host-share factorization (numeric/stream.py) leaves the leading
@@ -290,23 +315,6 @@ class DeviceSolver:
             lp.numel() * lp.element_size() + up.numel() * up.element_size()
             for (lp, up), (slp, _) in zip(fact.fronts, src) if slp is not lp)
         for sg in solve_plan.groups:
-            k = np.arange(sg.w)
-            cols = np.where(k[None, :] < sg.ws[:, None],
-                            first[sg.sns][:, None] + k, self.n)
-            rows = np.full((sg.batch, sg.u), self.n, dtype=np.int64)
-            for slot, s in enumerate(sg.sns):
-                r = sf.sn_rows[s]
-                rows[slot, :len(r)] = r
-            layers = scatter_layers(rows, self.n)
-            if layers is not None:
-                dev = self.device
-                layers = (torch.as_tensor(layers[0], device=dev),
-                          [(lo, hi, torch.as_tensor(t, device=dev))
-                           for lo, hi, t in layers[1]])
-            self._groups.append(
-                (sg, torch.as_tensor(cols, dtype=torch.int64,
-                                     device=self.device),
-                 torch.as_tensor(rows, device=self.device), layers))
             if sg.reuse >= 0:
                 self.fronts.append(src[sg.reuse])
             else:

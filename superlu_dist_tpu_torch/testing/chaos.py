@@ -231,6 +231,11 @@ def bind_rank(rank: int, epoch: int = 0) -> None:
     _BOUND["epoch"] = int(epoch)
 
 
+def bound_rank() -> tuple:
+    """The (rank, epoch) identity last bound (``bind_rank``)."""
+    return _BOUND["rank"], _BOUND["epoch"]
+
+
 class ChaosMonkey:
     """One factorization's injector (built from a ChaosPlan)."""
 

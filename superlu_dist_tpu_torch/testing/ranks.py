@@ -1,14 +1,17 @@
-"""Spawned CPU ranks for the distributed driver.
+"""Spawned ranks for the distributed drivers.
 
 A process that holds a CUDA context must not fork a rank, so the peers of
 a distributed run (parallel/pgssvx.py, parallel/recover.py) are started
 with ``multiprocessing.get_context("spawn")``: each imports the package
 afresh and runs :func:`peer_main` over its list of :class:`RankJob`\\ s,
-one result record per job on a queue.  A peer runs on the CPU
-(``device="cpu"``) and never touches ``torch.cuda``: its last record
-says whether a CUDA context exists in it.  The caller runs rank 0 itself
-with :func:`run_job` (on the card, or on the CPU), so the root's work and
-the peers' overlap as in a real run.
+one result record per job on a queue.  A peer of the host-collective
+tier runs on the CPU (``device="cpu"``) and never touches ``torch.cuda``;
+a rank of the mesh tier (``kind="mesh"``) joins a ``torch.distributed``
+process group (``parallel/mhboot.boot``) and runs on its job's device —
+the card when asked.  A peer's last record says whether a CUDA context
+exists in it.  The caller runs rank 0 itself with :func:`run_job` (on the
+card, or on the CPU), so the root's work and the peers' overlap as in a
+real run.
 
 Peers are daemons: if the caller dies or raises, they are terminated at
 its exit instead of holding it in a join.  :func:`stop_peers` joins (or
@@ -30,9 +33,14 @@ class RankJob:
     """One distributed call a rank takes part in.
 
     ``kind`` is "pgssvx" (one call on a domain the rank joins with
-    ``parallel/mhboot.attach_tree``), "pgssvx_ft" (the recovery epoch
-    loop, which forms its own domains) or "allreduce" (``ops``
-    allreduces of ``np.ones(4)`` on a joined domain: the failure
+    ``parallel/mhboot.attach_tree``), "mesh" (one ``pgssvx(grid=)`` call
+    on a 1×n_ranks grid on ``device``: the rank also joins the ``port``'s
+    process group once — it stays up for the peer's later mesh jobs —
+    with ``timeout_s``; ``gather`` all-gathers the fronts to slot order
+    afterwards and holds the kernel against its plain version at the
+    rank's shapes), "pgssvx_ft" (the
+    recovery epoch loop, which forms its own domains) or "allreduce"
+    (``ops`` allreduces of ``np.ones(4)`` on a joined domain: the failure
     detector's own scenarios).  ``a_source`` / ``b_source`` deal this
     rank's block rows (``parallel/recover.RowBlockSource`` /
     ``VectorBlockSource``).  ``env`` is set in the rank's environment
@@ -54,20 +62,26 @@ class RankJob:
     reuse_lu: bool = False
     ops: int = 0
     hold_s: float = 0.0
+    port: int = 0
+    device: str = "cpu"
+    gather: bool = False
+    timeout_s: float = 600.0
 
 
 class GallerySystem:
-    """A gallery matrix and a right-hand side B = A·X (X standard normal
-    from ``seed``; ``nrhs`` None: one column) named, not held: each
+    """A gallery matrix (its values times ``scale``) and a right-hand
+    side B = A·X (X standard normal from ``seed``; ``nrhs`` None: one
+    column) named, not held: each
     process builds them at first use, the same bits everywhere.  A
     rank's job then pickles to a few hundred bytes, so starting a peer
     does not wait on the pipe while the child imports the package to
     unpickle a matrix.  ``a_rows`` / ``b_rows`` are the block-row sources
     of ``parallel/recover`` (``RowBlockSource``' partition)."""
 
-    def __init__(self, name: str, args=(), seed: int = 0, nrhs=None):
+    def __init__(self, name: str, args=(), seed: int = 0, nrhs=None,
+                 scale: float = 1.0):
         self.name, self.args = name, tuple(args)
-        self.seed, self.nrhs = int(seed), nrhs
+        self.seed, self.nrhs, self.scale = int(seed), nrhs, float(scale)
         self._a = self._b = None
 
     def __getstate__(self):
@@ -80,7 +94,11 @@ class GallerySystem:
     def matrix(self):
         if self._a is None:
             from superlu_dist_tpu_torch.models import gallery
-            self._a = getattr(gallery, self.name)(*self.args)
+            a = getattr(gallery, self.name)(*self.args)
+            if self.scale != 1.0:      # new values on the same pattern
+                a = a.__class__(a.n_rows, a.n_cols, a.indptr, a.indices,
+                                a.data * self.scale)
+            self._a = a
         return self._a
 
     def rhs(self):
@@ -147,6 +165,8 @@ def run_job(job: RankJob, rank: int, device, lu=None) -> dict:
                                      else det.max_beat_gap_s)
             finally:
                 tc.close()
+        elif job.kind == "mesh":
+            x, info = _run_mesh(job, rank, device, lu, rec, lu_out)
         elif job.kind == "pgssvx_ft":
             x, info = pgssvx_ft(job.name, job.n_ranks, rank, job.options,
                                 job.a_source, job.b_source,
@@ -170,11 +190,136 @@ def run_job(job: RankJob, rank: int, device, lu=None) -> dict:
     return rec
 
 
+def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
+              lu_out: dict):
+    """One ``pgssvx(grid=)`` call as ``rank`` (run_job's "mesh" kind):
+    the rank's share of the sharded factors (``shard``: groups, owned
+    slots, front bytes, whether every group holds exactly the rank's own
+    slots), its front_assemble and csr_spmv launches and, with
+    ``job.gather``, its kernels against their plain versions at its own
+    shapes land on ``rec``."""
+    import torch
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.parallel.grid import gridinit
+    from superlu_dist_tpu_torch.parallel.mhboot import (attach_tree, boot,
+                                                        rank_devices)
+    from superlu_dist_tpu_torch.parallel.pgssvx import pgssvx
+    from superlu_dist_tpu_torch.parallel.spmd import gather_fronts
+    mine = rank_devices(job.n_ranks, device)[rank]
+    if mine.type == "cuda":           # the context, before any wait
+        torch.cuda.set_device(mine)
+        torch.empty(0, device=mine)
+    # the tree domain first: a peer polls for it every 50 ms until rank 0
+    # forms it, where a rendezvous client started early backs off for
+    # seconds between its connection attempts
+    tc = attach_tree(job.name, job.n_ranks, rank, max_len=job.max_len,
+                     retries=max(int(job.attach_s / 0.05), 1), delay=0.05)
+    try:
+        booted = boot(job.n_ranks, rank, job.port, device=device,
+                      timeout_s=job.timeout_s)
+        rec["backend"] = booted.backend
+        rec["attached_at"] = time.time()
+        grid = gridinit(1, job.n_ranks, device=booted.device, tc=tc)
+        a_loc = job.a_source(job.n_ranks, rank)
+        launches = dict(kernels.LAUNCHES)
+        x, info = pgssvx(tc, job.options, a_loc,
+                         job.b_source(job.n_ranks, rank),
+                         lu=lu if job.reuse_lu else None, lu_out=lu_out,
+                         grid=grid)
+        if grid.device.type == "cuda":
+            torch.cuda.synchronize(grid.device)
+        rec["launches"] = (kernels.LAUNCHES["front_assemble"]
+                           - launches["front_assemble"])
+        rec["spmv_launches"] = (kernels.LAUNCHES["csr_spmv"]
+                                - launches["csr_spmv"])
+        num = lu_out["lu"].numeric
+        rec["shard"] = shard_record(num, grid.nproc, grid.rank)
+        if job.gather:
+            rec["fronts"] = gather_fronts(num)
+            rec["kernel_vs_plain"] = local_kernel_check(num.plan, grid)
+            rec["spmv_vs_plain"] = local_spmv_check(a_loc, grid)
+        rec["comm"] = grid.comm_summary()
+    finally:
+        tc.close()
+    return x, info
+
+
+def local_kernel_check(plan, grid, groups: int = 2) -> list:
+    """The front assembly on this rank's share (``spmd.local_plan``) of
+    the ``groups`` groups with the most child pairs, on its device,
+    against the plain version on the same seeded pool and values: one
+    record per group (group, local batch, m, pairs, bit for bit)."""
+    import torch
+    from superlu_dist_tpu_torch.numeric import factor, kernels
+    from superlu_dist_tpu_torch.parallel.spmd import local_plan
+    share = local_plan(plan, grid.nproc, grid.rank)
+    maps = factor.upload_maps(share, grid.device)
+    order = sorted(range(len(maps)), key=lambda i: -maps[i].front.pairs)
+    gen = torch.Generator(device=grid.device).manual_seed(grid.rank)
+    pool = torch.randn(plan.pool_size, generator=gen, device=grid.device)
+    avals = torch.randn(len(plan.pattern_indices), generator=gen,
+                        device=grid.device)
+    out = []
+    for gi in [i for i in order if share.groups[i].batch][:groups]:
+        g = share.groups[gi]
+        f1 = kernels.front_assemble_(avals, pool, g.m, g.w, maps[gi])
+        f2 = kernels.front_assemble_plain(avals, pool, g.m, g.w, maps[gi])
+        out.append({"group": gi, "batch": g.batch, "m": g.m,
+                    "pairs": maps[gi].front.pairs,
+                    "equal": bool(torch.equal(f1, f2))})
+    return out
+
+
+def local_spmv_check(a_loc, grid) -> dict:
+    """The residual SpMV on this rank's block rows at the refinement's
+    shape (float64 or complex128, one column), on its device, against
+    the plain version on the same seeded x: rows, nnz, bit for bit."""
+    import torch
+    from superlu_dist_tpu_torch.parallel.dist import csr_spmv, csr_spmv_plain
+
+    def put(arr):
+        return torch.as_tensor(np.ascontiguousarray(arr), device=grid.device)
+    vals = np.asarray(a_loc.data)
+    v = put(vals.astype(np.result_type(vals.dtype, np.float64)))
+    gen = torch.Generator(device=grid.device).manual_seed(grid.rank)
+    x = torch.randn((a_loc.n, 1), generator=gen, dtype=v.dtype,
+                    device=grid.device)
+    ip, ix = put(a_loc.indptr.astype(np.int64)), put(
+        a_loc.indices.astype(np.int64))
+    max_row = int(np.diff(a_loc.indptr).max(initial=0))
+    y1 = csr_spmv(ip, ix, v, x, max_row)
+    y2 = csr_spmv_plain(ip, ix, v, x, max_row)
+    return {"rows": a_loc.m_loc, "nnz": a_loc.nnz_loc,
+            "equal": bool(torch.equal(y1, y2))}
+
+
+def shard_record(numeric, nd: int, rank: int) -> dict:
+    """What a rank holds of a sharded factorization: per group exactly
+    its own slots ``rank, rank + nd, ...`` (``own_slots_only``), their
+    panel bytes and flops, the pivot stacks' bytes and the groups where
+    it owns a slot."""
+    own = all(lp.shape[0] == len(range(rank, g.batch, nd))
+              and up.shape[0] == lp.shape[0]
+              for g, (lp, up) in zip(numeric.plan.groups, numeric.fronts))
+    fb = sum(lp.numel() * lp.element_size() + up.numel() * up.element_size()
+             for lp, up in numeric.fronts)
+    return {"groups": len(numeric.fronts),
+            "owned_groups": sum(1 for g in numeric.plan.groups
+                                if rank < g.batch),
+            "owned_slots": sum(len(range(rank, g.batch, nd))
+                               for g in numeric.plan.groups),
+            "front_bytes": fb,
+            "local_flops": numeric.executor.get("local_flops"),
+            "pivot_bytes": (numeric.shard.pivot_bytes
+                            if numeric.shard is not None else 0),
+            "own_slots_only": bool(own)}
+
+
 def _shippable(rec: dict) -> dict:
-    """A peer's record without its handle (factors never leave a rank):
-    lu_out keeps the report, the summary, the timings and the recovery
-    facts."""
-    out = dict(rec)
+    """A peer's record without its handle and gathered fronts (factors
+    never leave a rank): lu_out keeps the report, the summary, the
+    timings and the recovery facts."""
+    out = {k: v for k, v in rec.items() if k != "fronts"}
     lu_out = rec.get("lu_out", {})
     out["lu_out"] = {k: lu_out[k] for k in (
         "solve_report", "stats_summary", "timings", "ft_events",
@@ -183,17 +328,24 @@ def _shippable(rec: dict) -> dict:
 
 
 def peer_main(rank: int, jobs: list, results) -> None:
-    """A spawned peer's entry point: run ``jobs`` in order as ``rank`` on
-    the CPU, putting one record per job on ``results``, then a last
-    record ``{"rank", "done": True, "cuda_initialized", "started_at"}``."""
+    """A spawned peer's entry point: run ``jobs`` in order as ``rank`` —
+    on the CPU, a mesh job on its ``device`` — putting one record per job
+    on ``results``, then a last record ``{"rank", "done": True,
+    "cuda_initialized", "started_at"}``; a process group a mesh job
+    joined is left at the end."""
     started = time.time()
     import torch
+    from superlu_dist_tpu_torch.parallel.mhboot import shutdown
     lu = None
-    for i, job in enumerate(jobs):
-        rec = run_job(job, rank, "cpu", lu=lu)
-        lu = rec["lu_out"].get("lu", lu)
-        rec["job"] = i
-        results.put(_shippable(rec))
+    try:
+        for i, job in enumerate(jobs):
+            rec = run_job(job, rank,
+                          job.device if job.kind == "mesh" else "cpu", lu=lu)
+            lu = rec["lu_out"].get("lu", lu)
+            rec["job"] = i
+            results.put(_shippable(rec))
+    finally:
+        shutdown()
     results.put({"rank": rank, "done": True, "started_at": started,
                  "cuda_initialized": bool(torch.cuda.is_initialized())})
 
@@ -284,3 +436,72 @@ def stop_peers(procs: dict, timeout: float = 30.0) -> dict:
             p.terminate()
             p.join(5.0)
     return {r: p.exitcode for r, p in procs.items()}
+
+
+def mesh_main(rank: int, nd: int, port: int, shm: str, fn, args,
+              device, results, max_len: int, timeout_s: float,
+              env: dict) -> None:
+    """A spawned mesh rank's entry point (``run_mesh_ranks``): join the
+    process group and the tree domain, build the 1×nd grid on ``device``
+    and put ``{"rank", "out": fn(tc, grid, *args)}`` — or ``"error"``,
+    the traceback — on ``results``."""
+    import traceback
+    os.environ.update(env or {})
+    rec = {"rank": rank}
+    tc = None
+    from superlu_dist_tpu_torch.parallel.mhboot import (attach_tree, boot,
+                                                        shutdown)
+    try:
+        tc = attach_tree(shm, nd, rank, max_len=max_len, retries=2400,
+                         delay=0.05)
+        booted = boot(nd, rank, port, device=device, timeout_s=timeout_s)
+        from superlu_dist_tpu_torch.parallel.grid import gridinit
+        grid = gridinit(1, nd, device=booted.device, tc=tc)
+        rec["backend"] = booted.backend
+        rec["out"] = fn(tc, grid, *args)
+    except Exception:
+        rec["error"] = traceback.format_exc()
+    finally:
+        if tc is not None:
+            tc.close()
+        shutdown()
+    results.put(rec)
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh_ranks(nd: int, fn, *args, device="cpu", timeout: float = 300.0,
+                   max_len: int = 1 << 14, env: dict | None = None,
+                   timeout_s: float = 120.0) -> dict:
+    """Run ``fn(tc, grid, *args)`` on ``nd`` spawned mesh ranks (a gloo
+    process group on the CPU; ``device`` as ``parallel/mhboot.boot``
+    takes it) and return {rank: fn's result}.  ``fn`` must be importable
+    by name in the children.  Raises RuntimeError naming every rank that
+    raised, TimeoutError when a rank does not report in ``timeout``."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    shm = f"/slt_mesh_{os.getpid()}_{port}"
+    procs = {r: ctx.Process(target=mesh_main,
+                            args=(r, nd, port, shm, fn, args, device,
+                                  results, max_len, timeout_s, env),
+                            name=f"slu-mesh-r{r}", daemon=True)
+             for r in range(nd)}
+    for p in procs.values():
+        p.start()
+    try:
+        recs = collect(results, nd, timeout, procs)
+    finally:
+        stop_peers(procs)
+    errors = {r["rank"]: r["error"] for r in recs if "error" in r}
+    if errors:
+        raise RuntimeError("mesh ranks failed:\n" + "\n".join(
+            f"rank {r}:\n{e}" for r, e in sorted(errors.items())))
+    return {r["rank"]: r["out"] for r in recs}

@@ -370,9 +370,10 @@ class RecoveryPolicy:
     max_rungs: int = 3                 # ladder depth cap
 
 
-#: the numeric executors the port runs (the JAX package's "spmd" tier is
-#: multi-device, not ported)
-EXECUTORS = ("auto", "stream", "fused", "mega")
+#: the numeric executors the port runs ("spmd": the mesh tier,
+#: parallel/spmd.py — every rank of a grid of several ranks factors its
+#: own slots; off such a grid it resolves to "stream", the JAX rule)
+EXECUTORS = ("auto", "stream", "fused", "mega", "spmd")
 
 
 @dataclasses.dataclass
@@ -441,8 +442,9 @@ class Options:
     # the numeric executor (numeric/factor.get_executor) and its knobs,
     # each at the value the JAX package's knob resolves to when unset
     executor: str = "auto"            # SLU_TPU_EXECUTOR: auto | stream |
-                                      # fused | mega (auto: stream on the
-                                      # card, fused on the CPU)
+                                      # fused | mega | spmd (auto: spmd
+                                      # under a grid, else stream on the
+                                      # card and fused on the CPU)
     bucket_closed: bool = False       # SLU_TPU_BUCKET_CLOSED: close the
                                       # plan's shape keys (mega's plans)
     bucket_keys: int = 6              # SLU_TPU_BUCKET_KEYS: the closed
@@ -455,9 +457,8 @@ class Options:
     host_flops: float = 0.0           # SLU_TPU_HOST_FLOPS: leading levels
                                       # cheaper than this run on the CPU
                                       # (0 = off)
-    # the mesh tier's distributed ordering + symbolic (ParSymbFact);
-    # parallel/pgssvx raises NotImplementedError for True (ROADMAP.md
-    # Queue 1 item 8)
+    # the mesh tier's distributed ordering + symbolic (ParSymbFact,
+    # parallel/panalysis.py): read by pgssvx(grid=)
     par_symb_fact: bool = False
     # what a declared-dead peer rank does to a fault-tolerant driver
     # (parallel/recover.pgssvx_ft): "abort" re-raises RankFailureError,

@@ -821,3 +821,71 @@ def test_pgssvx_root_on_the_card_with_a_spawned_cpu_peer(cuda, monkeypatch):
     np.testing.assert_allclose(xs["cuda"], xs["cpu"],
                                rtol=tols.DEVICE_VS_HOST_RTOL,
                                atol=tols.DEVICE_VS_HOST_ATOL)
+
+
+def test_mesh_pgssvx_two_ranks_on_one_card(cuda):
+    """pgssvx(grid=) with both ranks of a 1×2 grid on the one card (gloo,
+    the gathers staged through host memory): the same x on both ranks,
+    within DEVICE_VS_HOST of the single-process CPU gssvx, BERR at the
+    float64 target, FACTORED on the sharded handles, each rank holding
+    only its own slots."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    spec = ("poisson3d", (12,), 0, None)
+    out = run_mesh_ranks(2, cases.pgssvx_flow, spec, {}, "root",
+                         device="cuda", timeout=600)
+    a, b = cases._system(spec)
+    x_cpu, _, _, _ = slt.gssvx(slt.Options(), a, b, device="cpu")
+    for r in range(2):
+        rec = out[r]
+        assert rec["info"] == 0 and rec["sharded"]
+        assert rec["route"] == "device"
+        assert rec["berr"] <= float(tols.berr_target(np.float64))
+        assert rec["shard"]["own_slots_only"]
+        np.testing.assert_array_equal(rec["x"], out[0]["x"])
+        np.testing.assert_allclose(rec["x"], x_cpu,
+                                   rtol=tols.DEVICE_VS_HOST_RTOL,
+                                   atol=tols.DEVICE_VS_HOST_ATOL)
+        assert rec["timings"]["peak_bytes"] > 0
+
+
+def test_sharded_spmv_on_the_card_equals_the_cpu_grid(cuda):
+    """The mesh refinement's residual operator with both ranks of a 1×2
+    grid on the card: every product (NOTRANS, TRANS, CONJ, and |op(A)|)
+    bit for bit the same grid's on the CPU (csr_spmv equals its plain
+    twin, and two ranks' sums add alike)."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    specs = [("convection_diffusion_2d", (30,), 0, None),
+             ("helmholtz_2d", (20,), 0, None)]
+    rng = np.random.default_rng(8)
+    xs = []
+    for spec in specs:
+        a, _ = cases._system(spec)
+        x = rng.standard_normal((a.n_rows, 1))
+        xs.append(x + 1j * x[::-1] if np.iscomplexobj(a.data) else x)
+    card = run_mesh_ranks(2, cases.sharded_spmv_ops, specs, xs,
+                          device="cuda", timeout=600)
+    cpu = run_mesh_ranks(2, cases.sharded_spmv_ops, specs, xs, timeout=300)
+    for name, _, _, _ in specs:
+        for key, y in cpu[0][name].items():
+            for r in range(2):
+                np.testing.assert_array_equal(card[r][name][key], y)
+
+
+def test_mesh_fronts_on_the_card_within_tf32_drift(cuda):
+    """The spmd fronts on the card, gathered to slot order, equal the
+    stream's bit for bit or lie within TF32_DRIFT (cuBLAS may take
+    another algorithm for a batch of B_loc slots), with one
+    front_assemble launch per group where the rank owns a slot."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    out = run_mesh_ranks(2, cases.spmd_drift_on_the_card,
+                         ("poisson3d", (14,), 0, None), device="cuda",
+                         timeout=600)
+    for r in range(2):
+        rec = out[r]
+        assert rec["equal"] or rec["drift"] <= tols.TF32_DRIFT, rec
+        assert rec["launches"] == rec["owned_groups"]
+        assert rec["tiny"][0] == rec["tiny"][1]
+        assert rec["shard"]["own_slots_only"]

@@ -162,8 +162,10 @@ def test_auto_rule_and_the_executor_cache():
                         host_flops=1e9) is not s
     assert get_executor(plan, torch.float64, "stream", "f32",
                         device="cpu") is not s
+    # spmd without a grid of several ranks: the stream (the JAX rule)
+    assert get_executor(plan, torch.float64, "spmd", device="cpu") is s
     with pytest.raises(ValueError):
-        get_executor(plan, torch.float64, "spmd", device="cpu")
+        get_executor(plan, torch.float64, "bogus", device="cpu")
     with pytest.raises(RuntimeError):
         if not torch.cuda.is_available():
             get_executor(plan, torch.float64, "auto")   # the card: raises
@@ -423,7 +425,8 @@ def test_gssvx_and_refactor_take_the_executor(executor):
 
 def test_options_validate_the_executor():
     with pytest.raises(ValueError):
-        slt.Options(executor="spmd")
+        slt.Options(executor="bogus")
+    assert slt.Options(executor="spmd").executor == "spmd"
     o = slt.Options()
     assert (o.executor, o.bucket_closed, o.bucket_keys, o.front_bytes_limit,
             o.offload_lag, o.host_flops) == ("auto", False, 6, 6e9, 8, 0.0)

@@ -10,13 +10,15 @@ pdgssvx-with-NR_loc-input analog) on the CPU.
 * The port at several ranks: thread ranks bit for bit one rank at
   NOTRANS (every peer's x the root's); one run of three spawned
   processes at poisson3d(8); a root-side exception raised on every rank
-  (bcast_result); the mesh tier's arguments refused.
+  (bcast_result); the mesh tier's arguments refused where they do not
+  fit.
 """
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 import superlu_dist_tpu as jslu
 from superlu_dist_tpu.models import gallery as jgal
@@ -226,17 +228,22 @@ def test_root_analyze_bcast_strips_the_matrix():
     np.testing.assert_array_equal(out[0][3], out[1][3])
 
 
-@pytest.mark.parametrize("kw", [{"grid": object()},
+@pytest.mark.parametrize("kw", [{"grid": "two-rank"},
                                 {"replicate_analysis": True},
                                 {"options": slt.Options(par_symb_fact=True)}],
                          ids=["grid", "replicate_analysis", "par_symb_fact"])
 def test_mesh_tier_arguments_raise(kw):
+    # the mesh tier runs (tests/test_torch_mesh.py); what it refuses,
+    # before any collective: a grid whose ranks are not the TreeComm's,
+    # and its analysis choices without a grid
+    from superlu_dist_tpu_torch.parallel.grid import ProcessGrid
     a = gallery.poisson2d(4)
     part = distribute_rows(a, 1)[0]
     opts = kw.pop("options", slt.Options())
+    if "grid" in kw:
+        kw["grid"] = ProcessGrid(1, 2, 0, torch.device("cpu"), "gloo")
     with TreeComm(f"/slt_mesh_{os.getpid()}", 1, 0, max_len=16) as tc:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 "
-                                                      "item 8"):
+        with pytest.raises(SuperLUError, match="grid"):
             pg.pgssvx(tc, opts, part, np.ones(part.m_loc), device="cpu",
                       **kw)
         assert tc.seq == 0                 # refused before any collective
