@@ -94,8 +94,17 @@ drives the port are reset just before it and checked just after):
                 gather bytes and seconds, SOLVE, REFINE, peak memory; then
                 FACTORED at nrhs 4 on the sharded handles,
                 SamePattern_SameRowPerm on the values times 1.5 and
-                par_symb_fact=True on poisson3d(25) (``python3
-                chip_smoke.py mesh``: the build, gssvx and this phase);
+                par_symb_fact=True on poisson3d(25); then the 2-D mesh
+                executor (parallel/mesh_stream.py) on the same two
+                processes: pgssvx(grid=gridinit(1, 2)) on poisson3d(48)
+                with Options(executor="stream", pool_partition=True),
+                the same checks, each rank holding only its own columns,
+                front_assemble on each rank's column share bit for bit
+                its plain version, and per rank the pool, exchange and
+                row-broadcast bytes, seconds and counts; FACTORED at
+                nrhs 4 and the SamePattern refactor on the 2-D handles
+                (``python3 chip_smoke.py mesh``: the build, gssvx and
+                this phase);
      reuse    — on that handle: a FACTORED solve, a TRANS solve, refactor
                 on perturbed values (equal to a fresh factorization and
                 to the serve phase's SolveServer.refactor),
@@ -1177,18 +1186,22 @@ def pgssvx_phase(slt, peers, kernels, tols, torch):
 #: its process group's timeout covers the peer's wait for rank 0 to
 #: reach the phase
 MESH_RANKS, MESH_TIMEOUT_S, MESH_SCALE = 2, 900.0, 1.5
+#: the mesh phase's 2-D run: the panel axis and the partitioned pool
+MESH_2D = dict(executor="stream", pool_partition=True)
 
 
 def start_mesh_peer(slt):
     """The mesh phase's rank 1, spawned early (its ``import torch`` and
     its CUDA context overlap the phases before it): a process of its own
-    on the same card, running four ``pgssvx(grid=)`` jobs of a 1x2 grid
-    in order — DOFACT on poisson3d(NX) (the main path's system, the
-    fronts gathered to slot order after it), FACTORED at nrhs 4 on its
-    sharded handle, SamePattern_SameRowPerm on the values times
-    MESH_SCALE, and Options(par_symb_fact=True) on poisson3d(NX_SMALL).
-    It joins the process group at its first job and waits there for
-    rank 0 (this process).  Returns the phase's state."""
+    on the same card, running seven ``pgssvx(grid=)`` jobs of a 1x2 grid
+    in order — on the spmd executor DOFACT on poisson3d(NX) (the main
+    path's system, the fronts gathered to slot order after it), FACTORED
+    at nrhs 4 on its sharded handle, SamePattern_SameRowPerm on the
+    values times MESH_SCALE and Options(par_symb_fact=True) on
+    poisson3d(NX_SMALL); then on the 2-D mesh executor (MESH_2D) the
+    same DOFACT, FACTORED and SamePattern_SameRowPerm.  It joins the
+    process group at its first job and waits there for rank 0 (this
+    process).  Returns the phase's state."""
     from superlu_dist_tpu_torch.testing.ranks import (GallerySystem, RankJob,
                                                       free_port, spawn_peers)
     tag = f"/slt_mesh_{os.getpid()}"
@@ -1212,12 +1225,23 @@ def start_mesh_peer(slt):
     psf = dataclasses.replace(
         fact, name=f"{tag}_psf", options=slt.Options(par_symb_fact=True),
         a_source=psf_sys.a_rows, b_source=psf_sys.b_rows, reuse_lu=False)
+    # the 2-D mesh executor on the same processes and process group
+    main2 = dataclasses.replace(main, name=f"{tag}_main2d",
+                                options=slt.Options(**MESH_2D))
+    fact2 = dataclasses.replace(fact, name=f"{tag}_fact2d",
+                                options=slt.Options(fact=slt.Fact.FACTORED,
+                                                    **MESH_2D))
+    ref2 = dataclasses.replace(ref, name=f"{tag}_ref2d", options=slt.Options(
+        fact=slt.Fact.SamePattern_SameRowPerm, **MESH_2D))
     t0 = time.perf_counter()
-    procs, results, spawned_at = spawn_peers({1: [main, fact, ref, psf]})
+    procs, results, spawned_at = spawn_peers(
+        {1: [main, fact, ref, psf, main2, fact2, ref2]})
     return dict(procs=procs, results=results, spawned_at=spawned_at,
                 spawn_s=time.perf_counter() - t0, tag=tag, main=main,
-                fact=fact, ref=ref, psf=psf, systems=dict(
-                    fact=fact_sys, ref=ref_sys, psf=psf_sys))
+                fact=fact, ref=ref, psf=psf, main2d=main2, fact2d=fact2,
+                ref2d=ref2, systems=dict(
+                    fact=fact_sys, ref=ref_sys, psf=psf_sys,
+                    fact2d=fact_sys, ref2d=ref_sys))
 
 
 def _mesh_rank(rec) -> dict:
@@ -1226,7 +1250,12 @@ def _mesh_rank(rec) -> dict:
     device memory, its share of the factors and its launches."""
     t = rec["lu_out"].get("timings", {})
     sh = rec.get("shard", {})
+    two_d = {k: t[k] for k in ("pool_bytes", "exchange_bytes", "exchange_s",
+                               "exchanges", "bcasts", "bcast_bytes",
+                               "bcast_s") if k in t}
     return dict(seconds=rec["seconds"], analysis_s=t.get("analysis_s"),
+                **two_d, own_cols_only=sh.get("own_cols_only"),
+                backend=rec.get("backend"),
                 fact_s=t.get("fact_s"), gather_bytes=t.get("gather_bytes"),
                 gather_s=t.get("gather_s"), solve_s=t.get("solve_s"),
                 refine_s=t.get("refine_s"), base_bytes=t.get("base_bytes"),
@@ -1245,17 +1274,19 @@ def _mesh_rank(rec) -> dict:
 def _mesh_check(name, rec0, peer, target, tols, x_ref=None):
     """The checks every mesh job shares: no error on either rank, info 0,
     the same x on both ranks bit for bit, BERR at the target, each rank
-    holding only its own slots, front_assemble launches = the groups
-    where the rank owns a slot (times the factorizations), the residuals
+    holding only its own slots (and on the 2-D executor only its own
+    columns), front_assemble launches = the groups where the rank
+    assembles (times the factorizations), the residuals
     on the card with two csr_spmv launches a refinement step (at least,
     after the hiprec rung), and x within DEVICE_VS_HOST of ``x_ref``."""
     for r, rec in ((0, rec0), (1, peer)):
         if "error" in rec or rec["info"] != 0:
             raise AssertionError(f"mesh {name} rank {r}: "
                                  f"{rec.get('error', rec.get('info'))}")
-        if not rec["shard"]["own_slots_only"]:
-            raise AssertionError(f"mesh {name}: rank {r} holds slots not "
-                                 "its own")
+        if not (rec["shard"]["own_slots_only"]
+                and rec["shard"]["own_cols_only"]):
+            raise AssertionError(f"mesh {name}: rank {r} holds slots or "
+                                 "columns not its own")
     if not np.array_equal(rec0["x"], peer["x"]):
         raise AssertionError(f"mesh {name}: rank 1's x != rank 0's")
     rep = rec0["lu_out"]["solve_report"]
@@ -1267,7 +1298,7 @@ def _mesh_check(name, rec0, peer, target, tols, x_ref=None):
     spmv = 2 * rep.refine_steps
     for r, rec in ((0, rec0), (1, peer)):
         want = (rec["shard"]["owned_groups"] * (1 + hiprec)
-                if name != "factored" else 0)
+                if not name.endswith("factored") else 0)
         if rec["launches"] != want:
             raise AssertionError(f"mesh {name} rank {r}: {rec['launches']} "
                                  f"front_assemble launches, expected {want}")
@@ -1318,9 +1349,11 @@ def mesh_phase(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
     the sharded handles (no launch), SamePattern_SameRowPerm on the
     values times MESH_SCALE (both against gssvx FACTORED on the main
     path's handle) and par_symb_fact=True at NX_SMALL (against gssvx on
-    its system).  Prints per rank: the analysis
-    broadcast, FACT, gather bytes and seconds, SOLVE, REFINE and peak
-    device memory; and the backend."""
+    its system).  Prints per rank: the analysis broadcast, FACT, gather
+    bytes and seconds, SOLVE, REFINE and peak device memory; and the
+    backend.  Then the 2-D run
+    (``_mesh2d_legs``), with FACTORED at nrhs 4 and the SamePattern
+    refactor on its handles."""
     from superlu_dist_tpu_torch.parallel import mhboot
     from superlu_dist_tpu_torch.testing.ranks import run_job, stop_peers
     target = float(tols.berr_target(np.float64))
@@ -1399,6 +1432,9 @@ def mesh_phase(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
             if name == "psf":
                 out[label]["n"] = sysm.matrix().n_rows
             del rec
+        out["mesh2d"] = _mesh2d_legs(slt, a_main, lu_main, x_main,
+                                     tiny_main, peer, kernels, tols, torch,
+                                     target)
         done = _await(peer, (1,))[1]
     finally:
         codes = stop_peers(procs, timeout=60)
@@ -1413,6 +1449,89 @@ def mesh_phase(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
                              f"segments {segs}")
     say("mesh", ranks=MESH_RANKS, peer_cuda=done["cuda_initialized"],
         children_left=0, segments_left=0, **out)
+
+
+def _mesh2d_legs(slt, a_main, lu_main, x_main, tiny_main, peer, kernels,
+                 tols, torch, target):
+    """The mesh phase's 2-D run (MESH_2D: the panel axis and the
+    partitioned pool): DOFACT on poisson3d(NX) with the checks of the
+    1-D run — x within DEVICE_VS_HOST of gssvx's, BERR, the tiny count,
+    the fronts gathered to slot order bit for bit the stream's or within
+    TF32_DRIFT, launches per rank, each rank's kernel bit for bit its
+    plain version on its column share — plus each rank holding only its
+    own columns, the executor the 2-D one, each rank's pool against the
+    plan's; then FACTORED at nrhs 4 and SamePattern_SameRowPerm on the 2-D
+    handles against gssvx FACTORED on the main path's handle."""
+    from superlu_dist_tpu_torch.testing.ranks import run_job
+    out = {}
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec0 = run_job(peer["main2d"], 0, "cuda")
+    wall = time.perf_counter() - t0
+    if "error" in rec0:
+        raise AssertionError(f"mesh 2d rank 0: {rec0['error']}")
+    p1 = _await(peer, (1,), peer["main2d"].name, timeout=900)[1]
+    err = _mesh_check("2d", rec0, p1, target, tols, x_main)
+    lu = rec0["lu_out"]["lu"]
+    rep = rec0["lu_out"]["solve_report"]
+    ex = lu.numeric.executor
+    if ex["executor"] != "mesh-stream" or not ex["pool_partition"] \
+            or (ex["nprow"], ex["npcol"]) != (1, MESH_RANKS):
+        raise AssertionError(f"mesh 2d ran {ex}")
+    if lu.numeric.tiny_pivots != tiny_main:
+        raise AssertionError(f"mesh 2d tiny pivots {lu.numeric.tiny_pivots}"
+                             f" != gssvx's {tiny_main}")
+    drift = _drift_card(torch, rec0.pop("fronts"), lu_main.numeric.fronts)
+    if not (drift["equal_to_stream"]
+            or drift["max_rel_diff_vs_stream"] <= tols.TF32_DRIFT):
+        raise AssertionError(f"mesh 2d fronts vs the stream's: {drift}")
+    drift["gate"] = float(tols.TF32_DRIFT)
+    checks = {r: rec["kernel_vs_plain"] + [rec["spmv_vs_plain"]]
+              for r, rec in ((0, rec0), (1, p1))}
+    if not all(c["equal"] for cs in checks.values() for c in cs):
+        raise AssertionError(f"mesh 2d: a rank's kernel != plain: {checks}")
+    item = torch.empty((), dtype=lu.numeric.dtype).element_size()
+    pools = {r: rec["lu_out"]["timings"]["pool_bytes"]
+             for r, rec in ((0, rec0), (1, p1))}
+    # each rank's pool holds only the Schur elements it extend-adds:
+    # together less than the one pool the stream and spmd keep per rank
+    if sum(pools.values()) >= lu.plan.pool_size * item:
+        raise AssertionError(f"mesh 2d pools {pools} not below the plan's "
+                             f"{lu.plan.pool_size * item} bytes")
+    out["main"] = dict(
+        n=lu.n, wall_s=wall, backend={0: rec0["backend"], 1: p1["backend"]},
+        berr=rep.berr, refine_steps=rep.refine_steps,
+        rungs=[r.name for r in rep.rungs],
+        tiny_pivots=lu.numeric.tiny_pivots, max_abs_vs_main=err,
+        fronts=drift, kernel_vs_plain=checks,
+        pool_bytes=pools, pool_bytes_sum=sum(pools.values()),
+        plan_pool_bytes=lu.plan.pool_size * item,
+        ranks={0: _mesh_rank(rec0), 1: _mesh_rank(p1)},
+        comm={0: rec0["comm"], 1: p1["comm"]}, executor=ex)
+    del rec0
+    for name in ("fact2d", "ref2d"):
+        sysm = peer["systems"][name]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rec = run_job(peer[name], 0, "cuda", lu=lu)
+        sec = time.perf_counter() - t0
+        if name == "ref2d":
+            del lu
+        if "error" in rec:
+            raise AssertionError(f"mesh {name} rank 0: {rec['error']}")
+        pr = _await(peer, (1,), peer[name].name, timeout=600)[1]
+        scale = MESH_SCALE if name == "ref2d" else 1.0
+        x_ref, _, _, _ = slt.gssvx(slt.Options(fact=slt.Fact.FACTORED),
+                                   a_main, sysm.rhs() / scale, lu=lu_main)
+        label = "2d factored" if name == "fact2d" else "2d ref"
+        e = _mesh_check(label, rec, pr, target, tols, x_ref)
+        rp = rec["lu_out"]["solve_report"]
+        out[name] = dict(wall_s=sec, berr=rp.berr,
+                         refine_steps=rp.refine_steps, max_abs_vs_gssvx=e,
+                         ranks={0: _mesh_rank(rec), 1: _mesh_rank(pr)})
+        del rec
+    return out
 
 
 def helmholtz_3d(slt, a, k=5.0):

@@ -5,29 +5,42 @@
 //   extend_add_set_pallas (_extend_add_kernel) — the extend-add of one
 //                                                child set;
 // together with the zero fill and the identity padding that
-// superlu_dist_tpu/numeric/factor.py:group_step runs around them.  For
-// every position of every front of the batch, in this order:
+// superlu_dist_tpu/numeric/factor.py:group_step runs around them.  A front
+// is m rows by mc columns: the whole m x m front (mc = m), or the column
+// share of one rank of the mesh tier's 2-D grid (parallel/mesh_stream.py),
+// whose local column c is global column ((c / pb) * np + p) * pb + c % pb
+// (panels of pb columns dealt block-cyclically over np process columns,
+// this rank's column p; np = 1 and p = 0 for a whole front).  For every
+// position of every front of the batch, in this order:
 //   1. start from +0.0 (build mode) or from f's value (accumulate mode);
-//   2. build mode: add 1.0 on the diagonal in columns [ws[slot], w);
+//   2. build mode: add 1.0 on the diagonal (row == global column) in
+//      columns [ws[slot], w);
 //   3. add avals[src] of the A entry that targets the position (targets
 //      are unique; a src outside [0, n_avals) adds +0.0);
-//   4. add pool[off + i*ub + j] of every child pair (i, j) that targets it,
-//      in the maps' child order — set order, then child order — with a
-//      read past pool_len adding 0.
+//   4. add pool[off + i*stride + k] of every child pair (row i, column k)
+//      that targets it, in the maps' child order — set order, then child
+//      order — with a read past pool_len adding 0.  For a whole front
+//      stride = ub and k = j; a column share reads either the whole pool
+//      (stride ub) or its own compacted pool (stride = the child's own
+//      column count).
 // x + 0.0 turns -0.0 into +0.0, so no add is skipped.
 //
 // Maps, built once per plan on the host (numeric/kernels.py
 // build_front_maps), with every sentinel already dropped:
 //   a_bkt  (batch, nb+1) int64: per slot, the first A entry whose flat
-//          target is >= b*kBucket*m (nb = ceil(m / kBucket));
+//          target (row * mc + column) is >= b*kBucket*mc
+//          (nb = ceil(m / kBucket));
 //   a_ent  (na, 2) int64: (flat target, src), sorted by slot, then flat;
 //   ch_ptr (batch+1) int64: each slot's run of child records;
-//   ch_rec (nch, 4) int64: (pool offset, row stride ub, first rel entry,
-//          first bucket entry), in the child order above;
-//   rel    (npos, 2) int32: a child's real (front position, child index)
-//          pairs, sorted by position;
-//   ch_bkt (sum nb+1) int32: per child, the first rel entry whose position
-//          is >= b*kBucket, relative to the child's first entry.
+//   ch_rec (nch, 6) int64: (pool offset, pool row stride, first row rel
+//          entry, first row bucket entry, first column rel entry, first
+//          column bucket entry), in the child order above;
+//   rel    (npos, 2) int32: a child's real (front row, child row) pairs,
+//          sorted by row, and its (local column, child column) pairs,
+//          sorted by column (a whole front's child shares one list);
+//   ch_bkt int32: per child, nb+1 row buckets (the first row entry whose
+//          row is >= b*kBucket, relative to the child's first entry) and
+//          nbc+1 column buckets (nbc = ceil(mc / kBucket)).
 //
 // Bound: bytes.  One write of every front element, one read of every pool
 // value and A value used and of every map entry, one add per pair.
@@ -164,19 +177,28 @@ __device__ __forceinline__ int next_hit(const int4* rng, int j, int n) {
 
 // This thread's entry of a child's row slice and of its column slice
 // (each slice is at most one tile side, so at most one entry a thread).
-__device__ __forceinline__ void slice_entries(const int2* ent, int4 rg,
+__device__ __forceinline__ void slice_entries(const int2* row_ent,
+                                              const int2* col_ent, int4 rg,
                                               int2* row_e, int2* col_e) {
   if (static_cast<int>(threadIdx.x) < rg.y - rg.x) {
-    *row_e = ent[rg.x + threadIdx.x];
+    *row_e = row_ent[rg.x + threadIdx.x];
   }
   if (static_cast<int>(threadIdx.x) < rg.w - rg.z) {
-    *col_e = ent[rg.z + threadIdx.x];
+    *col_e = col_ent[rg.z + threadIdx.x];
   }
+}
+
+// The global column of local column c of a column share.
+__device__ __forceinline__ int64_t global_col(int64_t c, int64_t pb,
+                                              int64_t np, int64_t p) {
+  if (np == 1) return c;
+  const int64_t b = c / pb;
+  return (b * np + p) * pb + (c - b * pb);
 }
 
 // Adds one child's staged nr x nc pairs into the tile, flat over the
 // block, U pool loads in flight per thread; a child index at or past lim
-// (the pool's end) reads 0.
+// (the pool's end) reads 0.  ub is the pool row stride.
 template <typename T, int U>
 __device__ __forceinline__ void add_pairs(T* tile, const int2* rs,
                                           const int2* cs, const T* src,
@@ -214,9 +236,10 @@ front_assemble_kernel(T* __restrict__ f, const T* __restrict__ pool,
                       const int64_t* __restrict__ ch_ptr,
                       const int64_t* __restrict__ ch_rec,
                       const int2* __restrict__ rel,
-                      const int* __restrict__ ch_bkt, int64_t m, int64_t w,
-                      int64_t pool_len, int64_t n_avals, int64_t tiles_c,
-                      int64_t n_tiles, int accumulate) {
+                      const int* __restrict__ ch_bkt, int64_t m, int64_t mc,
+                      int64_t w, int64_t pool_len, int64_t n_avals,
+                      int64_t col_pb, int64_t col_np, int64_t col_p,
+                      int64_t tiles_c, int64_t n_tiles, int accumulate) {
   constexpr int kRows = Shape<T>::kRows;
   constexpr int kTileCols = Shape<T>::kCols;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -225,6 +248,7 @@ front_assemble_kernel(T* __restrict__ f, const T* __restrict__ pool,
   __shared__ int2 cols_s[2][kTileCols];
   __shared__ int64_t k_off[kChunk];
   __shared__ int64_t k_rel[kChunk];
+  __shared__ int64_t k_relc[kChunk];
   __shared__ int k_ub[kChunk];
   __shared__ int4 k_rng[kChunk];
 
@@ -233,13 +257,13 @@ front_assemble_kernel(T* __restrict__ f, const T* __restrict__ pool,
   const int64_t r0 = (t / tiles_c) * kRows;
   const int64_t c0 = (t % tiles_c) * kTileCols;
   const int th = static_cast<int>(m - r0 < kRows ? m - r0 : kRows);
-  const int tw = static_cast<int>(m - c0 < kTileCols ? m - c0 : kTileCols);
+  const int tw = static_cast<int>(mc - c0 < kTileCols ? mc - c0 : kTileCols);
   const int64_t nb = (m + kBucket - 1) / kBucket;
   const int64_t b_lo = r0 / kBucket;                  // the tile's row
   const int64_t b_hi = (r0 + th + kBucket - 1) / kBucket;  // bucket range
   const int64_t bc_lo = c0 / kBucket;
   const int64_t bc_hi = (c0 + tw + kBucket - 1) / kBucket;
-  T* g = f + (s * m + r0) * m + c0;
+  T* g = f + (s * m + r0) * mc + c0;
 
   bool ready = !accumulate;
   if (!accumulate) {
@@ -249,10 +273,11 @@ front_assemble_kernel(T* __restrict__ f, const T* __restrict__ pool,
     for (Walk p(vw); p.r < th; p.step()) {
       Pack<T, V> z;
       const int64_t gr = r0 + p.r;
-      const int64_t gc = c0 + static_cast<int64_t>(p.c) * V;
+      const int64_t lc = c0 + static_cast<int64_t>(p.c) * V;
 #pragma unroll
       for (int k = 0; k < V; ++k) {
-        z.v[k] = (gr == gc + k && gr >= lo && gr < w) ? T(1) : T(0);
+        const int64_t gc = global_col(lc + k, col_pb, col_np, col_p);
+        z.v[k] = (gr == gc && gr >= lo && gr < w) ? T(1) : T(0);
       }
       reinterpret_cast<Pack<T, V>*>(tile + p.r * tw)[p.c] = z;
     }
@@ -264,14 +289,14 @@ front_assemble_kernel(T* __restrict__ f, const T* __restrict__ pool,
   const int64_t e1 = a_bkt[s * (nb + 1) + b_hi];
   if (e0 < e1) {
     if (!ready) {
-      copy_tile<T, V>(tile, g, m, th, tw, false);
+      copy_tile<T, V>(tile, g, mc, th, tw, false);
       ready = true;
       __syncthreads();
     }
     for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
       const int64_t flat = a_ent[2 * e];
-      const int64_t r = flat / m;
-      const int64_t c = flat - r * m;
+      const int64_t r = flat / mc;
+      const int64_t c = flat - r * mc;
       if (c >= c0 && c < c0 + tw) {
         const int64_t src = a_ent[2 * e + 1];
         const T v = (src >= 0 && src < n_avals) ? avals[src] : T(0);
@@ -295,23 +320,28 @@ front_assemble_kernel(T* __restrict__ f, const T* __restrict__ pool,
         static_cast<int>(k_end - k0 < kChunk ? k_end - k0 : kChunk);
     __syncthreads();                   // the previous chunk's table is read
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const int64_t* rec = ch_rec + 4 * (k0 + j);
+      const int64_t* rec = ch_rec + 6 * (k0 + j);
       const int* bk = ch_bkt + rec[3];
+      const int* bkc = ch_bkt + rec[5];
       k_off[j] = rec[0];
       k_rel[j] = rec[2];
+      k_relc[j] = rec[4];
       k_ub[j] = static_cast<int>(rec[1]);
-      k_rng[j] = make_int4(bk[b_lo], bk[b_hi], bk[bc_lo], bk[bc_hi]);
+      k_rng[j] = make_int4(bk[b_lo], bk[b_hi], bkc[bc_lo], bkc[bc_hi]);
     }
     __syncthreads();
     int j = next_hit(k_rng, 0, n);
     int2 row_e = make_int2(0, 0), col_e = make_int2(0, 0);
-    if (j < n) slice_entries(rel + k_rel[j], k_rng[j], &row_e, &col_e);
+    if (j < n) {
+      slice_entries(rel + k_rel[j], rel + k_relc[j], k_rng[j], &row_e,
+                    &col_e);
+    }
     while (j < n) {
       const int4 rg = k_rng[j];
       const int64_t off = k_off[j];
       const int64_t ub = k_ub[j];
       if (!ready) {
-        copy_tile<T, V>(tile, g, m, th, tw, false);   // the barrier below
+        copy_tile<T, V>(tile, g, mc, th, tw, false);  // the barrier below
         ready = true;                                 // covers the load
       }
       const int nr = rg.y - rg.x, nc = rg.w - rg.z;
@@ -321,7 +351,10 @@ front_assemble_kernel(T* __restrict__ f, const T* __restrict__ pool,
       if (static_cast<int>(threadIdx.x) < nc) cs[threadIdx.x] = col_e;
       __syncthreads();
       const int jn = next_hit(k_rng, j + 1, n);
-      if (jn < n) slice_entries(rel + k_rel[jn], k_rng[jn], &row_e, &col_e);
+      if (jn < n) {
+        slice_entries(rel + k_rel[jn], rel + k_relc[jn], k_rng[jn], &row_e,
+                      &col_e);
+      }
       // a large child keeps more loads in flight; a small one (a few rows
       // of a few entries) walks fewer dead steps with fewer
       if (nr * nc >= kWide * kThreads) {
@@ -340,7 +373,7 @@ front_assemble_kernel(T* __restrict__ f, const T* __restrict__ pool,
 
   if (ready) {
     __syncthreads();
-    copy_tile<T, V>(tile, g, m, th, tw, true);
+    copy_tile<T, V>(tile, g, mc, th, tw, true);
   }
 }
 
@@ -349,18 +382,19 @@ int launch_v(T* f, const T* pool, const T* avals, const int64_t* ws,
              const int64_t* a_bkt, const int64_t* a_ent,
              const int64_t* ch_ptr, const int64_t* ch_rec,
              const int32_t* rel, const int32_t* ch_bkt, int64_t batch,
-             int64_t m, int64_t w, int64_t pool_len, int64_t n_avals,
+             int64_t m, int64_t mc, int64_t w, int64_t pool_len,
+             int64_t n_avals, int64_t col_pb, int64_t col_np, int64_t col_p,
              int accumulate, cudaStream_t stream) {
   constexpr int kRows = Shape<T>::kRows;
   constexpr int kTileCols = Shape<T>::kCols;
   const int64_t tiles_r = (m + kRows - 1) / kRows;
-  const int64_t tiles_c = (m + kTileCols - 1) / kTileCols;
+  const int64_t tiles_c = (mc + kTileCols - 1) / kTileCols;
   const int64_t n_tiles = tiles_r * tiles_c;
   const int64_t blocks = batch * n_tiles;
   if (blocks <= 0) return 0;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t th = m < kRows ? m : kRows;
-  const int64_t tw = m < kTileCols ? m : kTileCols;
+  const int64_t tw = mc < kTileCols ? mc : kTileCols;
   const size_t smem = static_cast<size_t>(th * tw) * sizeof(T);
   auto kernel = front_assemble_kernel<T, V>;
   // a tile and the static shared memory beside it may pass the default
@@ -379,8 +413,8 @@ int launch_v(T* f, const T* pool, const T* avals, const int64_t* ws,
   }
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       f, pool, avals, ws, a_bkt, a_ent, ch_ptr, ch_rec,
-      reinterpret_cast<const int2*>(rel), ch_bkt, m, w, pool_len, n_avals,
-      tiles_c, n_tiles, accumulate);
+      reinterpret_cast<const int2*>(rel), ch_bkt, m, mc, w, pool_len,
+      n_avals, col_pb, col_np, col_p, tiles_c, n_tiles, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -388,22 +422,27 @@ template <typename T>
 int launch(T* f, const T* pool, const T* avals, const int64_t* ws,
            const int64_t* a_bkt, const int64_t* a_ent, const int64_t* ch_ptr,
            const int64_t* ch_rec, const int32_t* rel, const int32_t* ch_bkt,
-           int64_t batch, int64_t m, int64_t w, int64_t pool_len,
-           int64_t n_avals, int64_t accumulate, void* stream) {
+           int64_t batch, int64_t m, int64_t mc, int64_t w, int64_t pool_len,
+           int64_t n_avals, int64_t col_pb, int64_t col_np, int64_t col_p,
+           int64_t accumulate, void* stream) {
   constexpr int kV = Shape<T>::kVec;
-  // 16-byte rows need m % kV == 0 (then every tile row and every front row
+  if (col_pb < 1 || col_np < 1 || col_p < 0 || col_p >= col_np) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // 16-byte rows need mc % kV == 0 (then every tile row and every front row
   // starts on a 16-byte boundary) and a 16-byte aligned batch
-  const bool vec = m % kV == 0 &&
+  const bool vec = mc % kV == 0 &&
                    reinterpret_cast<uintptr_t>(f) % (sizeof(T) * kV) == 0;
   const auto st = static_cast<cudaStream_t>(stream);
   const int acc = accumulate ? 1 : 0;
   if (vec) {
     return launch_v<T, kV>(f, pool, avals, ws, a_bkt, a_ent, ch_ptr, ch_rec,
-                           rel, ch_bkt, batch, m, w, pool_len, n_avals, acc,
-                           st);
+                           rel, ch_bkt, batch, m, mc, w, pool_len, n_avals,
+                           col_pb, col_np, col_p, acc, st);
   }
   return launch_v<T, 1>(f, pool, avals, ws, a_bkt, a_ent, ch_ptr, ch_rec, rel,
-                        ch_bkt, batch, m, w, pool_len, n_avals, acc, st);
+                        ch_bkt, batch, m, mc, w, pool_len, n_avals, col_pb,
+                        col_np, col_p, acc, st);
 }
 
 }  // namespace
@@ -414,12 +453,13 @@ extern "C" {
   int NAME(T* f, const T* pool, const T* avals, const int64_t* ws,          \
            const int64_t* a_bkt, const int64_t* a_ent,                      \
            const int64_t* ch_ptr, const int64_t* ch_rec, const int32_t* rel, \
-           const int32_t* ch_bkt, int64_t batch, int64_t m, int64_t w,      \
-           int64_t pool_len, int64_t n_avals, int64_t accumulate,           \
+           const int32_t* ch_bkt, int64_t batch, int64_t m, int64_t mc,     \
+           int64_t w, int64_t pool_len, int64_t n_avals, int64_t col_pb,    \
+           int64_t col_np, int64_t col_p, int64_t accumulate,               \
            void* stream) {                                                  \
     return launch<T>(f, pool, avals, ws, a_bkt, a_ent, ch_ptr, ch_rec, rel, \
-                     ch_bkt, batch, m, w, pool_len, n_avals, accumulate,    \
-                     stream);                                               \
+                     ch_bkt, batch, m, mc, w, pool_len, n_avals, col_pb,    \
+                     col_np, col_p, accumulate, stream);                    \
   }
 
 SLU_FRONT_ASSEMBLE(slu_front_assemble_f32, float)

@@ -360,9 +360,12 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
 
     ``grid`` (parallel/grid.ProcessGrid; default: the handle's own) of
     several ranks makes this a COLLECTIVE: every rank enters it with the
-    same skeleton and values and keeps its own slots' panels (the spmd
-    executor, parallel/spmd.py); the handle keeps the grid, so its solves
-    are collective too.  Checkpoints are off under a grid (the JAX
+    same skeleton and values and keeps its own share of the panels (the
+    spmd executor, parallel/spmd.py, or with ``Options.executor="stream"``
+    or ``Options.pool_partition`` the 2-D mesh stream,
+    parallel/mesh_stream.py — the JAX driver passes pool_partition on
+    alike, drivers/gssvx.py:443); the handle keeps the grid, so its
+    solves are collective too.  Checkpoints are off under a grid (the JAX
     driver's rule, drivers/gssvx.py:425: the pool is the ranks' joint
     state); the deadline stays, polled through ``deadline_comm`` or else
     the grid itself, so every rank raises together."""
@@ -396,7 +399,8 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
             deadline=deadline, executor=options.executor,
             host_flops=options.host_flops,
             front_bytes_limit=options.front_bytes_limit,
-            offload_lag=options.offload_lag, grid=grid)
+            offload_lag=options.offload_lag, grid=grid,
+            pool_partition=getattr(options, "pool_partition", False))
         if lu.device.type == "cuda":
             torch.cuda.synchronize(lu.device)
     stats.ops["FACT"] += lu.plan.flops

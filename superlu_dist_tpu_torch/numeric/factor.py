@@ -14,7 +14,11 @@ factorization record, and the executor choice (``get_executor``):
   captured at the first call and replayed for each new set of values;
   the auto choice on the CPU, where it is the same loop run eagerly;
 * ``mega`` (numeric/mega.py) — one CUDA graph per closed shape bucket,
-  fed per group through static, rung-padded tables.
+  fed per group through static, rung-padded tables;
+* on a grid of several ranks, ``spmd`` (parallel/spmd.py: each rank its
+  own slots) or the 2-D mesh stream (parallel/mesh_stream.py: slots over
+  the process rows, each front's columns over the process columns, the
+  Schur pool partitioned with ``pool_partition``).
 
 Where the JAX version returns new arrays, this one updates the pool in
 place: each group's front batch is built once by the assembly, the
@@ -47,6 +51,8 @@ KERNELS = kernels.front_assemble_
 PLAIN = kernels.front_assemble_plain
 #: the executors whose callables hold captured CUDA graphs on the card
 GRAPH_EXECUTORS = ("fused", "mega")
+#: the executors of a grid of several ranks (one is kept per device)
+MESH_EXECUTORS = ("spmd", "mesh-stream")
 
 
 def upload_maps(plan: FactorPlan, device: torch.device) -> list:
@@ -232,20 +238,27 @@ class NumericFactorization:
         return self.host_fronts
 
 
-def resolve_executor(executor: str, device: torch.device, grid=None) -> str:
-    """The executor "auto" stands for, after the JAX package's rule
-    (numeric/factor.py:391-427): spmd under a grid of several ranks,
-    else fused on the CPU and stream on the card.  Under such a grid
-    only spmd runs (every rank holds its own slots: there is no other
-    mesh executor); off it, spmd resolves to stream, as the JAX package's
-    does without a mesh."""
+def resolve_executor(executor: str, device: torch.device, grid=None,
+                     pool_partition: bool = False) -> str:
+    """The executor ``executor`` stands for, after the JAX package's rule
+    (numeric/factor.py:391-427).  Under a grid of several ranks:
+    "stream", or any choice with ``pool_partition``, is the 2-D mesh
+    stream ("mesh-stream", parallel/mesh_stream.py — the JAX package's
+    GSPMD stream, which also takes a partitioned pool); "auto" and "spmd"
+    without it are "spmd" (the JAX package's auto picks its stream on a
+    multi-process mesh: the port keeps spmd, ROADMAP.md Queue 3); "fused"
+    and "mega" raise.  Off such a grid ``pool_partition`` is ignored (the
+    JAX ``pool_spec`` is None without a mesh), spmd resolves to stream,
+    and auto is fused on the CPU and stream on the card."""
     if executor not in EXECUTORS:
         raise ValueError(f"executor must be one of {EXECUTORS}, got "
                          f"{executor!r}")
     if grid is not None and grid.nproc > 1:
-        if executor not in ("auto", "spmd"):
+        if executor in GRAPH_EXECUTORS:
             raise ValueError(f"a grid of {grid.nproc} ranks runs the spmd "
-                             f"executor, not {executor!r}")
+                             f"or the 2-D stream executor, not {executor!r}")
+        if executor == "stream" or pool_partition:
+            return "mesh-stream"
         return "spmd"
     if executor == "spmd":
         return "stream"
@@ -258,7 +271,7 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
                  executor: str = "auto", gemm_prec: str | None = None,
                  device="cuda", *, host_flops: float = 0.0,
                  front_bytes_limit: float = 6e9, offload_lag: int = 8,
-                 scatter=KERNELS, grid=None):
+                 scatter=KERNELS, grid=None, pool_partition: bool = False):
     """The executor of a plan, cached on the plan: refactor's shadow
     handle and the SamePattern tiers share the plan, so they reuse the
     executor — and a fused executor's captured graph.
@@ -267,35 +280,46 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
     (``resolve_executor``: spmd under a ``grid`` of several ranks, else
     fused on the CPU and stream on the card).  "spmd" runs this rank's
     share of every group on a ``grid`` of several ranks
-    (parallel/spmd.py); off one it is the stream.  The key holds the
-    dtype, the executor, the GEMM tier, the host-share threshold, the
-    offload knobs, the device, the front assembly (the kernel or its
-    plain version) and the grid.  The cache keeps one fused or mega
-    executor per device: a new one (another dtype, tier or front
+    (parallel/spmd.py); off one it is the stream.  On such a grid
+    "stream" or ``pool_partition`` runs the 2-D mesh stream
+    (parallel/mesh_stream.py).  The key holds the dtype, the executor,
+    the GEMM tier, the host-share threshold, the offload knobs, the
+    device, the front assembly (the kernel or its plain version), the
+    grid, its shape and the pool partition.  The cache keeps one fused
+    or mega executor per device: a new one (another dtype, tier or front
     assembly) drops the one before it, whose captured graphs hold
     gigabytes — the fused graph of poisson3d(48) 2.94 GB of device memory
     — and would otherwise pile up, one for each ladder rung at a new
-    tier.  Likewise one spmd executor per device: a call on a new grid
-    (every ``pgssvx(grid=)`` job builds one) drops the one of the grid
-    before it, with its device maps.  Factors the dropped executor
+    tier.  Likewise one mesh executor (spmd or 2-D) per device: a call on
+    a new grid (every ``pgssvx(grid=)`` job builds one) drops the one of
+    the grid before it, with its device maps.  Factors the dropped executor
     returned are its clones and stay valid."""
     device = resolve_device(device)
-    executor = resolve_executor(executor, device, grid)
+    executor = resolve_executor(executor, device, grid, pool_partition)
     gemm_prec = gemm_precision(gemm_prec)
     stream_knobs = (float(host_flops), float(front_bytes_limit),
                     int(offload_lag))
+    mesh = executor in MESH_EXECUTORS
     key = (str(dtype), executor, gemm_prec,
-           stream_knobs if executor not in ("fused", "spmd") else None,
-           str(device), scatter, id(grid) if executor == "spmd" else None)
+           stream_knobs if executor in ("stream", "mega") else None,
+           str(device), scatter,
+           (id(grid), grid.nprow, grid.npcol, bool(pool_partition))
+           if mesh else None)
     cache = plan.__dict__.setdefault("_factor_fns", {})
     fn = cache.get(key)
     if fn is None:
         group = GRAPH_EXECUTORS if executor in GRAPH_EXECUTORS else (
-            ("spmd",) if executor == "spmd" else ())
+            MESH_EXECUTORS if mesh else ())
         for k in [k for k in cache if k[1] in group
                   and k[4] == str(device)]:
             del cache[k]
-        if executor == "spmd":
+        if executor == "mesh-stream":
+            from superlu_dist_tpu_torch.parallel.mesh_stream import (
+                MeshStreamExecutor)
+            fn = MeshStreamExecutor(plan, dtype, device, grid,
+                                    gemm_prec=gemm_prec, scatter=scatter,
+                                    pool_partition=pool_partition)
+        elif executor == "spmd":
             from superlu_dist_tpu_torch.parallel.spmd import (
                 SpmdFactorExecutor)
             fn = SpmdFactorExecutor(plan, dtype, device, grid,
@@ -329,7 +353,8 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       host_flops: float = 0.0,
                       front_bytes_limit: float = 6e9,
                       offload_lag: int = 8,
-                      grid=None) -> NumericFactorization:
+                      grid=None,
+                      pool_partition: bool = False) -> NumericFactorization:
     """Factor with values aligned to plan.pattern_indices, on ``device``
     (the card unless the caller asks for the CPU; CUDA without a card
     raises), in ``dtype``: float32, float64, complex64 or complex128.
@@ -362,13 +387,14 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     seconds.
 
     ``grid`` (parallel/grid.ProcessGrid) of several ranks runs the spmd
-    executor (parallel/spmd.py): a COLLECTIVE every rank of the grid
-    enters with the same plan and values, on its own device
-    (``grid.device``); each rank keeps its own slots' panels
+    executor (parallel/spmd.py) or, for "stream" or ``pool_partition``,
+    the 2-D mesh stream (parallel/mesh_stream.py): a COLLECTIVE every
+    rank of the grid enters with the same plan and values, on its own
+    device (``grid.device``); each rank keeps its own share of the panels
     (``NumericFactorization.shard``), the tiny count and the finite
     sentinel are the grid's.  Checkpoints and resume are refused there
     (the pool is the ranks' joint state); the deadline polls at every
-    group boundary.
+    group boundary.  ``pool_partition`` is ignored off such a grid.
     """
     if grid is not None:
         device = grid.device
@@ -398,9 +424,10 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     if chaos is not None:
         pattern_values = chaos.poke_nan(plan, pattern_values)
     want_ckpt = bool(ckpt_dir) or ckpt_every > 0
-    spmd = resolve_executor(executor, device, grid) == "spmd"
+    spmd = resolve_executor(executor, device, grid,
+                            pool_partition) in MESH_EXECUTORS
     if spmd and (want_ckpt or resume_from):
-        raise ValueError("the spmd executor takes no checkpoint or resume: "
+        raise ValueError("a mesh executor takes no checkpoint or resume: "
                          "its pool is the grid's joint state")
     if (want_ckpt or resume_from or deadline is not None) \
             and executor in ("auto", "fused") and not spmd:
@@ -408,7 +435,8 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     ex = get_executor(plan, dtype, executor, gemm_prec, device,
                       host_flops=host_flops,
                       front_bytes_limit=front_bytes_limit,
-                      offload_lag=offload_lag, scatter=scatter, grid=grid)
+                      offload_lag=offload_lag, scatter=scatter, grid=grid,
+                      pool_partition=pool_partition)
     if spmd:
         return _spmd_factorize(ex, plan, pattern_values, dtype, thresh,
                                replace_tiny, check_finite, deadline, chaos,
@@ -474,9 +502,10 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
 
 def _spmd_factorize(ex, plan, pattern_values, dtype, thresh, replace_tiny,
                     check_finite, deadline, chaos, gemm_prec, timings):
-    """numeric_factorize's tail on the spmd executor: the collective
-    factorization, then the collective finite sentinel (a breakdown is
-    localized on the gathered fronts, the same on every rank)."""
+    """numeric_factorize's tail on a mesh executor (spmd or 2-D): the
+    collective factorization, then the collective finite sentinel (a
+    breakdown is localized on the gathered fronts, the same on every
+    rank)."""
     from superlu_dist_tpu_torch.parallel.spmd import (gather_fronts,
                                                       sharded_finite)
     avals = torch.as_tensor(np.asarray(pattern_values)).to(dtype)
@@ -567,6 +596,8 @@ def query_space(numeric: NumericFactorization) -> dict:
     itemsize = torch.empty((), dtype=numeric.dtype).element_size()
     front_b = sum(lp.numel() + up.numel() for lp, up in numeric.fronts) \
         * itemsize
-    pool_b = int(numeric.plan.pool_size) * itemsize
+    shard = numeric.shard
+    pool_b = (shard.pool_bytes if shard is not None and shard.cols is not None
+              else int(numeric.plan.pool_size) * itemsize)
     return {"for_lu_bytes": front_b, "pool_bytes": pool_b,
             "total_bytes": front_b + pool_b}

@@ -9,7 +9,10 @@ first use by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, loaded with ``ctypes``), does all of it in one launch per
 group, on maps built once per plan on the host (``build_front_maps``):
 
-* ``front_assemble_`` — a group's whole front batch (build mode);
+* ``front_assemble_`` — a group's whole front batch (build mode), or
+  one rank's column share of it on the mesh tier's 2-D grid
+  (parallel/mesh_stream.py: (batch, m, mc) fronts of the rank's columns,
+  maps from ``front_map_arrays(..., cols=)``);
 * ``extend_add_`` / ``assemble_`` — the two TPU kernels' functions with
   their JAX signatures, in place on ``f``: the same kernel in accumulate
   mode, on maps built from their arguments at each call.
@@ -130,7 +133,7 @@ def library():
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         for dtype, sfx in _SUFFIX.items():
             fn = getattr(lib, f"slu_front_assemble_{sfx}")
-            fn.argtypes = [ptr] * 10 + [i64] * 6 + [ptr]
+            fn.argtypes = [ptr] * 10 + [i64] * 10 + [ptr]
             fn.restype = ctypes.c_int
             _fns[dtype] = fn
         _lib = lib
@@ -176,12 +179,20 @@ class FrontMaps:
     a_bkt: torch.Tensor     # (batch, nb+1) int64
     a_ent: torch.Tensor     # (na, 2) int64: flat target, src
     ch_ptr: torch.Tensor    # (batch+1,) int64
-    ch_rec: torch.Tensor    # (nch, 4) int64: off, ub, rel start, bkt start
+    ch_rec: torch.Tensor    # (nch, 6) int64: off, pool row stride, row rel
+                            # start, row bkt start, col rel start, col bkt
+                            # start
     rel: torch.Tensor       # (npos, 2) int32: front position, child index
-    ch_bkt: torch.Tensor    # (nch*(nb+1),) int32
+    ch_bkt: torch.Tensor    # int32: per child nb+1 row, nbc+1 col buckets
     pairs: int              # child pairs added (pool values read)
+    mc: int = None          # columns of a front (None: m, a whole front)
+    cols: tuple = (1, 1, 0)  # a column share's (pb, npcol, pcol): local
+                             # column c is global ((c // pb) · npcol +
+                             # pcol) · pb + c % pb
 
     def __post_init__(self):
+        if self.mc is None:
+            self.mc = self.m
         # the launch passes these on every call: take them once
         self.device = self.a_bkt.device
         self.ptrs = tuple(t.data_ptr() for t in self.tensors())
@@ -214,51 +225,106 @@ def _sorted_unique(key, rows, message):
     return key, rows
 
 
+def share_cols(m: int, cols, share) -> tuple:
+    """A column share's (pb, npcol, pcol) — the kernel's arithmetic for a
+    local column's global index — checked against its ascending global
+    columns ``cols`` of an m-column front; (1, 1, 0) for the whole front
+    (``cols`` None).  Raises ValueError when they disagree."""
+    if cols is None:
+        return (1, 1, 0)
+    pb, npcol, pcol = (int(x) for x in share)
+    c = np.arange(len(cols))
+    if not (pb >= 1 and 0 <= pcol < npcol and np.array_equal(
+            _i64(cols), ((c // pb) * npcol + pcol) * pb + c % pb)):
+        raise ValueError(f"columns {list(cols)[:8]}... are not the share "
+                         f"(pb={pb}, npcol={npcol}, pcol={pcol}): local "
+                         "column c is global ((c // pb) * npcol + pcol) * "
+                         "pb + c % pb")
+    return (pb, npcol, pcol)
+
+
 def front_map_arrays(batch: int, m: int, pool_len: int, a=None,
-                     children=()):
+                     children=(), cols=None):
     """The kernel's maps of one group as numpy arrays (a_bkt, a_ent,
     ch_ptr, ch_rec, rel, ch_bkt), and the number of child pairs.
 
-    ``a`` is (a_slot, a_flat, a_src) or None; ``children`` is a list of
-    child sets (ub, child_off, child_slot, rel) in set order.  A entries
-    with a slot outside [0, batch) or a flat target outside [0, m²), child
-    sets' children with a slot outside [0, batch) or an offset outside
-    [0, pool_len), and rel entries outside [0, m) are dropped here.  Raises
-    ValueError on repeated A targets or a child with a repeated position
-    (the kernel, like the TPU kernels, needs them distinct)."""
+    ``a`` is (a_slot, a_flat, a_src) or None (``a_flat`` = row·m +
+    column); ``children`` is a list of child sets in set order, each
+    (ub, child_off, child_slot, rel) — child c adds pool[off[c] + i·ub +
+    j] at (rel[c,i], rel[c,j]) — or, for a column share, (ub, child_off,
+    child_slot, rel, crel, stride): pool[off[c] + i·stride[c] + k] at
+    (rel[c,i], local column crel[c,k]).  ``cols`` (ascending global
+    columns; None: all m) makes the maps those of a column share, fronts
+    of mc = len(cols) columns: A entries outside it are dropped and the
+    rest renumbered.  A entries with a slot outside [0, batch) or a flat target
+    outside [0, m²), child sets' children with a slot outside [0, batch)
+    or an offset outside [0, pool_len), rel entries outside [0, m) and
+    crel entries outside [0, mc) are dropped here.  Raises ValueError on
+    repeated A targets or a child with a repeated position (the kernel,
+    like the TPU kernels, needs them distinct)."""
+    mc = m if cols is None else len(cols)
+    loc = None
+    if cols is not None:
+        loc = np.full(m + 1, -1, dtype=np.int64)
+        loc[_i64(cols)] = np.arange(mc)
     nb = -(-m // BUCKET)
     edges = np.minimum(np.arange(nb + 1, dtype=np.int64) * BUCKET, m)
+    nbc = -(-mc // BUCKET)
+    edges_c = np.minimum(np.arange(nbc + 1, dtype=np.int64) * BUCKET, mc)
 
     a_slot, a_flat, a_src = ((_i64(x).ravel() for x in a) if a is not None
                              else (np.zeros(0, np.int64),) * 3)
     keep = (a_slot >= 0) & (a_slot < batch) & (a_flat >= 0) & (a_flat < m * m)
     if not keep.all():
         a_slot, a_flat, a_src = a_slot[keep], a_flat[keep], a_src[keep]
-    key = a_slot * (m * m) + a_flat
+    if loc is not None:
+        lc = loc[a_flat % m]
+        own = lc >= 0
+        a_slot, a_src = a_slot[own], a_src[own]
+        a_flat = (a_flat[own] // m) * mc + lc[own]
+    key = a_slot * (m * mc) + a_flat
     key, a_ent = _sorted_unique(key, np.stack([a_flat, a_src], axis=1),
                                 "A-entry targets must be unique")
     a_bkt = np.searchsorted(key, np.arange(batch, dtype=np.int64)[:, None]
-                            * (m * m) + edges[None, :] * m)
+                            * (m * mc) + edges[None, :] * mc)
 
     recs, slots, rels, bkts = [], [], [], []
     n_rel = n_bkt = pairs = 0
-    for ub, off, slot, rel in children:
+    for child in children:
+        ub, off, slot, rel = child[:4]
         off, slot = _i64(off).ravel(), _i64(slot).ravel()
-        rel = _i64(rel).reshape(len(off), -1)
+        rel = _rows(rel, len(off))
         live = (slot >= 0) & (slot < batch) & (off >= 0) & (off < pool_len)
-        real = (rel >= 0) & (rel < m) & live[:, None]
-        ci, ii = np.nonzero(real)
-        pos = rel[real]
-        key, ent = _sorted_unique(ci * (m + 1) + pos, np.stack([pos, ii], 1),
-                                  "a child's rel positions must be distinct")
-        counts = np.bincount(ci, minlength=len(off))
-        has = np.nonzero(counts)[0]
-        start = np.searchsorted(key, has * (m + 1))
-        bk = (np.searchsorted(key, has[:, None] * (m + 1) + edges[None, :])
-              - start[:, None])
+        ci, ii, ent, has, start, bk, counts = _child_entries(rel, m, live,
+                                                             edges)
+        if len(child) > 4:
+            crel, stride = _rows(child[4], len(off)), _i64(child[5]).ravel()
+            _, _, ent_c, has_c, start_c, bk_c, counts_c = _child_entries(
+                crel, mc, live, edges_c)
+            both = np.intersect1d(has, has_c)
+            pick = np.searchsorted(has, both)
+            pick_c = np.searchsorted(has_c, both)
+            row_start, row_bk = start[pick], bk[pick]
+            col_start, col_bk = start_c[pick_c] + len(ent), bk_c[pick_c]
+            per = (nb + 1) + (nbc + 1)
+            bkt_at = n_bkt + np.arange(len(both)) * per
+            recs.append(np.stack([off[both], stride[both],
+                                  n_rel + row_start, bkt_at,
+                                  n_rel + col_start, bkt_at + nb + 1],
+                                 axis=1))
+            slots.append(slot[both])
+            rels.append(np.concatenate([ent, ent_c]))
+            bkts.append(np.concatenate([row_bk, col_bk], axis=1).ravel())
+            pairs += int((counts[both] * counts_c[both]).sum())
+            n_rel += len(ent) + len(ent_c)
+            n_bkt += len(both) * per
+            continue
         recs.append(np.stack([off[has], np.full(len(has), int(ub)),
                               n_rel + start,
-                              n_bkt + np.arange(len(has)) * (nb + 1)], axis=1))
+                              n_bkt + np.arange(len(has)) * (nb + 1),
+                              n_rel + start,
+                              n_bkt + np.arange(len(has)) * (nb + 1)],
+                             axis=1))
         slots.append(slot[has])
         rels.append(ent)
         bkts.append(bk.ravel())
@@ -268,13 +334,37 @@ def front_map_arrays(batch: int, m: int, pool_len: int, a=None,
     ch_slot = np.concatenate(slots) if slots else np.zeros(0, np.int64)
     order = np.argsort(ch_slot, kind="stable")
     ch_rec = (np.concatenate(recs)[order] if recs
-              else np.zeros((0, 4), np.int64))
+              else np.zeros((0, 6), np.int64))
     ch_ptr = np.searchsorted(ch_slot[order], np.arange(batch + 1))
 
     rel = np.concatenate(rels) if rels else np.zeros((0, 2), np.int64)
     ch_bkt = np.concatenate(bkts) if bkts else np.zeros(0, np.int64)
     return ([a_bkt, a_ent, ch_ptr, ch_rec, rel.astype(np.int32),
              ch_bkt.astype(np.int32)], pairs)
+
+
+def _rows(x, n):
+    """``x`` as an int64 (n, k) array (k = 0 for an empty one)."""
+    x = _i64(x)
+    return x.reshape(n, -1) if x.size else x.reshape(n, 0)
+
+
+def _child_entries(rel, m, live, edges):
+    """One child set's real (position, child index) entries along one
+    axis of m positions: (child of each entry, its index, the entries
+    sorted by child then position, the children with any, each one's
+    first entry, its bucket starts relative to that, entries per child)."""
+    real = (rel >= 0) & (rel < m) & live[:, None]
+    ci, ii = np.nonzero(real)
+    pos = rel[real]
+    key, ent = _sorted_unique(ci * (m + 1) + pos, np.stack([pos, ii], 1),
+                              "a child's rel positions must be distinct")
+    counts = np.bincount(ci, minlength=len(rel))
+    has = np.nonzero(counts)[0]
+    start = np.searchsorted(key, has * (m + 1))
+    bk = (np.searchsorted(key, has[:, None] * (m + 1) + edges[None, :])
+          - start[:, None])
+    return ci, ii, ent, has, start, bk, counts
 
 
 def upload(arrays, device) -> list:
@@ -302,12 +392,16 @@ def upload(arrays, device) -> list:
 
 
 def build_front_maps(batch: int, m: int, pool_len: int, a=None, children=(),
-                     *, device, kind: str = "front_assemble") -> FrontMaps:
+                     *, device, kind: str = "front_assemble",
+                     cols=None, share=None) -> FrontMaps:
     """The kernel's maps of one group on ``device``, from numpy index maps
-    (``front_map_arrays``, then ``upload``)."""
-    arrays, pairs = front_map_arrays(batch, m, pool_len, a, children)
+    (``front_map_arrays``, then ``upload``); ``cols`` a column share's
+    global columns, ``share`` its (pb, npcol, pcol) (``share_cols``)."""
+    arrays, pairs = front_map_arrays(batch, m, pool_len, a, children, cols)
     return FrontMaps(kind, int(batch), int(m), int(pool_len),
-                     *upload(arrays, device), pairs=pairs)
+                     *upload(arrays, device), pairs=pairs,
+                     mc=m if cols is None else len(cols),
+                     cols=share_cols(m, cols, share))
 
 
 @dataclasses.dataclass
@@ -320,24 +414,29 @@ class GroupMaps:
     a_slot: torch.Tensor
     a_flat: torch.Tensor
     a_src: torch.Tensor
-    children: list          # [(ub, child_off, child_slot, rel)]
+    children: list          # [(ub, child_off, child_slot, rel)], or for a
+                            # column share [(ub, off, slot, rel, crel,
+                            # stride)] (``front_map_arrays``)
     front: FrontMaps
     keep: torch.Tensor = None   # slots written back to the pool (None:
                                 # all of them)
+    gcol: torch.Tensor = None   # a column share's global columns (None:
+                                # the whole front; a_flat is row·mc + local
+                                # column)
 
 
 def launch_(f, maps: FrontMaps, pool=None, avals=None, ws=None, w=0):
     """Launch ``csrc/front_assemble.cu`` on prebuilt maps, into f
-    (batch, m²) on the card.  With ``ws`` (the slots' real pivot widths)
+    (batch, m·mc) on the card.  With ``ws`` (the slots' real pivot widths)
     the kernel builds the fronts from nothing (identity padding on columns
     [ws, w)); without it, it adds into f.  Counts one launch under
     ``LAUNCHES[maps.kind]``.  Raises on a refused launch."""
-    batch, m = maps.batch, maps.m
+    batch, m, mc = maps.batch, maps.m, maps.mc
     dev = f.device
     if dev.type != "cuda" or f.dtype not in _SUFFIX \
-            or not f.is_contiguous() or f.shape != (batch, m * m):
+            or not f.is_contiguous() or f.shape != (batch, m * mc):
         raise ValueError(f"f must be a contiguous CUDA tensor of shape "
-                         f"({batch}, {m}*{m}) in one of "
+                         f"({batch}, {m}*{mc}) in one of "
                          f"{sorted(map(str, _SUFFIX))}")
     if maps.device != dev or any(t is not None and t.device != dev
                                  for t in (pool, avals, ws)):
@@ -351,7 +450,7 @@ def launch_(f, maps: FrontMaps, pool=None, avals=None, ws=None, w=0):
                          f" values, not {pool_len}")
     if ws is not None and (ws.shape != (batch,) or ws.dtype != torch.int64):
         raise ValueError("ws must be (batch,) int64")
-    if batch == 0:
+    if batch == 0 or mc == 0:
         return f
 
     def p(t):
@@ -361,9 +460,9 @@ def launch_(f, maps: FrontMaps, pool=None, avals=None, ws=None, w=0):
         library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _fns[f.dtype](f.data_ptr(), p(pool), p(avals), p(ws), *maps.ptrs,
-                       batch, m, w, pool_len,
+                       batch, m, mc, w, pool_len,
                        0 if avals is None else avals.shape[0],
-                       int(ws is None), stream)
+                       *maps.cols, int(ws is None), stream)
     if rc != 0:
         raise RuntimeError(f"front_assemble kernel launch failed: CUDA error "
                            f"{rc}")
@@ -382,18 +481,30 @@ def _host(t):
 def front_assemble_plain(avals, pool, m, w, maps: GroupMaps):
     """Plain PyTorch front assembly of one group: zeros, the identity
     padding, the A entries (``assemble_plain``), then each child set in
-    order (``extend_add_plain``).  Returns the (batch, m²) front batch."""
+    order (``extend_add_plain``).  Returns the (batch, m²) front batch, or
+    for a column share (``maps.gcol``) the (batch, m·mc) batch of its
+    columns."""
     batch = maps.ws.shape[0]
-    f = torch.zeros((batch, m * m), dtype=pool.dtype, device=pool.device)
+    dev = pool.device
+    g = torch.arange(m, device=dev) if maps.gcol is None else maps.gcol
+    mc = g.shape[0]
+    f = torch.zeros((batch, m * mc), dtype=pool.dtype, device=dev)
     # identity columns for pivot-block padding (cols ws..w), so padded
-    # batch slots (ws == 0) become identity fronts
-    k = torch.arange(m, device=pool.device)
-    diag = (k[None, :] >= maps.ws[:, None]) & (k[None, :] < w)
-    f.view(batch, m, m).diagonal(dim1=1, dim2=2).add_(diag.to(f.dtype))
+    # batch slots (ws == 0) become identity fronts: row g[c] of local
+    # column c is its diagonal
+    diag = (g[None, :] >= maps.ws[:, None]) & (g[None, :] < w)
+    tgt = g * mc + torch.arange(mc, device=dev)
+    f[:, tgt] += diag.to(f.dtype)
     if maps.a_src.shape[0]:
         assemble_plain(f, avals, maps.a_slot, maps.a_flat, maps.a_src)
-    for ub, child_off, child_slot, rel in maps.children:
-        extend_add_plain(f, pool, m, ub, child_off, child_slot, rel)
+    for child in maps.children:
+        if len(child) == 4:
+            ub, off, cslot, rel = child
+            _extend_add_rounds(f, pool, m, mc, off, cslot, rel, rel, None,
+                               ub)
+        else:
+            ub, off, cslot, rel, crel, stride = child
+            _extend_add_rounds(f, pool, m, mc, off, cslot, rel, crel, stride)
     return f
 
 
@@ -414,7 +525,8 @@ def front_assemble_(avals, pool, m, w, maps: GroupMaps):
         raise ValueError(f"the maps were built for m={fm.m}, not {m}")
     if not _on_cuda((pool, avals), (maps.ws,)):
         return front_assemble_plain(avals, pool, m, w, maps)
-    f = torch.empty((fm.batch, m * m), dtype=pool.dtype, device=pool.device)
+    f = torch.empty((fm.batch, m * fm.mc), dtype=pool.dtype,
+                    device=pool.device)
     return launch_(f, fm, pool=pool, avals=avals, ws=maps.ws, w=w)
 
 
@@ -430,6 +542,16 @@ def extend_add_plain(f, pool, m, ub, child_off, child_slot, rel):
     writers to one position and the per-position order is ascending in
     the child index — the arithmetic of the kernel and of the JAX
     package's in-order ``.at[].add`` scatter."""
+    return _extend_add_rounds(f, pool, m, m, child_off, child_slot, rel, rel,
+                              None, ub)
+
+
+def _extend_add_rounds(f, pool, m, mc, child_off, child_slot, rel, crel,
+                       stride, ub=None):
+    """The rounds of ``extend_add_plain`` on (batch, m·mc) fronts: child c
+    adds pool[off[c] + i·stride[c] + k] at row rel[c, i], local column
+    crel[c, k] (``stride`` None: ub for every child, the whole front's
+    square blocks)."""
     batch = f.shape[0]
     pool_len = pool.shape[0]
     nc = child_off.shape[0]
@@ -442,20 +564,21 @@ def extend_add_plain(f, pool, m, ub, child_off, child_slot, rel):
     first = torch.searchsorted(sorted_slot, sorted_slot, right=False)
     rank = torch.empty(nc, dtype=torch.int64, device=dev)
     rank[order] = torch.arange(nc, device=dev) - first
-    ii = torch.arange(ub, device=dev)
+    ii = torch.arange(rel.shape[1], device=dev)
+    kk = torch.arange(crel.shape[1], device=dev)
     flat = f.view(-1)
     n_rounds = int(rank[live].max()) + 1 if bool(live.any()) else 0
     for k in range(n_rounds):
         cs = torch.nonzero(live & (rank == k)).squeeze(1)
-        src = (child_off[cs, None, None] + ii[None, :, None] * ub
-               + ii[None, None, :])
+        st = ub if stride is None else stride[cs, None, None]
+        src = (child_off[cs, None, None] + ii[None, :, None] * st
+               + kk[None, None, :])
         vals = torch.zeros(src.shape, dtype=f.dtype, device=dev)
         inr = src < pool_len
         vals[inr] = pool[src[inr]]
-        r = rel[cs]
-        ri, rj = r[:, :, None], r[:, None, :]
-        hit = (ri >= 0) & (ri < m) & (rj >= 0) & (rj < m)
-        dst = child_slot[cs, None, None] * (m * m) + ri * m + rj
+        ri, rj = rel[cs][:, :, None], crel[cs][:, None, :]
+        hit = (ri >= 0) & (ri < m) & (rj >= 0) & (rj < mc)
+        dst = child_slot[cs, None, None] * (m * mc) + ri * mc + rj
         dst, vals = dst[hit], vals[hit]
         flat[dst] = flat[dst] + vals
     return f

@@ -229,7 +229,8 @@ class MegaExecutor(StreamExecutor):
                 torch.zeros((b, nb1), **i64),
                 torch.zeros((max(size[1], 1), 2), **i64),
                 torch.zeros(b + 1, **i64),
-                torch.zeros((max(size[3], 1), 4), **i64),
+                torch.zeros((max(size[3], 1),
+                             arrays[gis[0]][3][3].shape[1]), **i64),
                 torch.zeros((max(size[4], 1), 2), **i32),
                 torch.zeros(max(size[5], 1), **i32),
                 pairs=max(arrays[gi][4] for gi in gis))

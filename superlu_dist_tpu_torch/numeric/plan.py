@@ -108,8 +108,10 @@ class FactorPlan:
         state = dict(self.__dict__)
         state.pop("_device_maps", None)
         state.pop("_factor_fns", None)
-        # the mesh tier's per-rank shares (parallel/spmd.local_plan)
+        # the mesh tier's per-rank shares (parallel/spmd.local_plan,
+        # parallel/layout2d.layout)
         state.pop("_spmd_local", None)
+        state.pop("_mesh2d_layout", None)
         return state
 
     @property

@@ -27,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import numpy as np
 import torch
 
 _PANEL_BLOCK = 128   # outer panel width of the blocked right-looking LU
@@ -240,30 +241,63 @@ def lu_nopivot(a: torch.Tensor, thresh: torch.Tensor,
             torch.cat([c1, c2], dim=1))
 
 
+def panel_width(w: int):
+    """(panel width pb, panel count) of the blocked partial LU over w
+    pivot columns: PB = 128 at most, shrunk so nsteps·pb hugs w in
+    multiples of 16 (the JAX package's rule).  The mesh tier's column map
+    (parallel/layout2d.py) deals columns in these panels."""
+    pb = min(_PANEL_BLOCK, -(-w // 16) * 16)
+    nsteps = -(-w // pb)
+    pb = -(-(-(-w // nsteps)) // 16) * 16
+    return pb, -(-w // pb)
+
+
+def _panel_columns(panel, rows, cols_pb, j0, pa, thresh, flags, zero):
+    """The column loop of one panel, in place: masked rank-1 steps over the
+    panel's pb columns for its pa active pivots j0 .. j0+pa-1 (``panel``
+    is a (B, M_ext, pb) view; ``rows`` the M_ext row indices, ``cols_pb``
+    the pb panel column indices).  Tiny pivots are replaced and flagged in
+    ``flags`` (B, w).  The one body of the single-process blocked LU and
+    of the mesh tier's panel owner (``panel_partial_factor``)."""
+    for jj in range(pa):
+        j = j0 + jj
+        col = panel[:, :, jj].clone()
+        rowj = panel[:, j, :].clone()
+        piv_raw = rowj[:, jj]
+        piv, tiny = _fix_pivot(piv_raw, thresh)
+        below = rows > j
+        l = torch.where(below, col / piv[:, None], zero)
+        urow = torch.where(cols_pb > jj, rowj, zero)
+        panel -= l[:, :, None] * urow[:, None, :]
+        # write the multipliers + fixed pivot into column jj as
+        # computed: the JAX version's cur + (new − cur) keeps only
+        # eps·|pivot| of a multiplier's relative accuracy (ROADMAP.md)
+        panel[:, :, jj] = (torch.where(below, l, col)
+                           + (piv - piv_raw)[:, None]
+                           * (rows == j).to(panel.dtype))
+        flags[:, j] += tiny
+
+
 def _blocked_partial_factor(f: torch.Tensor, thresh: torch.Tensor, w: int,
                             gemm_prec: str = "highest"):
     """Right-looking blocked partial LU of a batch of fronts, in place.
 
     f is (B, M, M); the leading w columns are eliminated.  Each PB-wide
     panel is eliminated with masked rank-1 steps over the whole panel
-    width, then one unit-lower triangular solve gives the U rows right of
-    the panel and one (M, pa)×(pa, M) GEMM updates the trailing matrix —
-    the arithmetic of the JAX package's ``_blocked_partial_factor``
-    (ops/dense.py:253), with the padding columns (j ≥ w) skipped instead
-    of masked: a masked step there leaves every value unchanged.  The
-    trailing TRSM and GEMM run only over the columns right of the panel
-    and the rows below the active pivots, where the JAX version's masked
-    full-width products add exact zeros.
+    width (``_panel_columns``), then one unit-lower triangular solve gives
+    the U rows right of the panel and one (M, pa)×(pa, M) GEMM updates the
+    trailing matrix — the arithmetic of the JAX package's
+    ``_blocked_partial_factor`` (ops/dense.py:253), with the padding
+    columns (j ≥ w) skipped instead of masked: a masked step there leaves
+    every value unchanged.  The trailing TRSM and GEMM run only over the
+    columns right of the panel and the rows below the active pivots, where
+    the JAX version's masked full-width products add exact zeros.
 
     Returns (packed fronts (B, M, M) — f itself when no padding was
     needed — and tiny flags (B, w) int32).
     """
     b, m, _ = f.shape
-    pb = min(_PANEL_BLOCK, -(-w // 16) * 16)
-    nsteps = -(-w // pb)
-    # shrink the panel so nsteps*pb hugs w (same rule as the JAX package)
-    pb = -(-(-(-w // nsteps)) // 16) * 16
-    nsteps = -(-w // pb)
+    pb, nsteps = panel_width(w)
     m_ext = max(m, nsteps * pb)
     a = f
     if m_ext > m:
@@ -277,24 +311,9 @@ def _blocked_partial_factor(f: torch.Tensor, thresh: torch.Tensor, w: int,
     for p in range(nsteps):
         j0 = p * pb
         pa = min(pb, w - j0)                  # active pivots in this panel
-        panel = a[:, :, j0:j0 + pb]           # view: updates land in a
-        for jj in range(pa):
-            j = j0 + jj
-            col = panel[:, :, jj].clone()
-            rowj = panel[:, j, :].clone()
-            piv_raw = rowj[:, jj]
-            piv, tiny = _fix_pivot(piv_raw, thresh)
-            below = rows > j
-            l = torch.where(below, col / piv[:, None], zero)
-            urow = torch.where(cols_pb > jj, rowj, zero)
-            panel -= l[:, :, None] * urow[:, None, :]
-            # write the multipliers + fixed pivot into column jj as
-            # computed: the JAX version's cur + (new − cur) keeps only
-            # eps·|pivot| of a multiplier's relative accuracy (ROADMAP.md)
-            panel[:, :, jj] = (torch.where(below, l, col)
-                               + (piv - piv_raw)[:, None]
-                               * (rows == j).to(f.dtype))
-            flags[:, j] += tiny
+        # a view: updates land in a
+        _panel_columns(a[:, :, j0:j0 + pb], rows, cols_pb, j0, pa, thresh,
+                       flags, zero)
         c1 = j0 + pb
         if c1 < m_ext:
             # U rows: solve unit-L11 against the columns right of the panel
@@ -306,6 +325,58 @@ def _blocked_partial_factor(f: torch.Tensor, thresh: torch.Tensor, w: int,
             a[:, j0 + pa:, c1:] -= gemm(a[:, j0 + pa:, j0:j0 + pa], u12,
                                         gemm_prec)
     return a[:, :m, :m], flags
+
+
+def panel_partial_factor(a: torch.Tensor, thresh: torch.Tensor, w: int,
+                         gcol: torch.Tensor, npcol: int, pcol: int,
+                         bcast=None, gemm_prec: str = "highest"):
+    """The blocked partial LU of ``_blocked_partial_factor`` over one
+    rank's column share of a batch of fronts, in place — the "panel" axis
+    of the mesh tier (parallel/mesh_stream.py).
+
+    ``a`` is (B, M_ext, k): every row of the padded front and the k
+    columns this rank owns, ascending, whose global indices are ``gcol``
+    (a host int64 array; panel p of ``panel_width(w)`` is owned by
+    process column p % npcol, and its pb columns are contiguous here).
+    Per panel: its owner runs the column loop (``_panel_columns``, the
+    single-process path's own body) and ``bcast(t, owner, shape)``
+    hands every rank of the row the factored panel's rows j0.. over its
+    pa active columns (``t`` the owner's (B, M_ext-j0, pa) view, None
+    elsewhere; None ``bcast``: a one-column grid); then every rank solves
+    the unit-lower L11 against its own columns right of the panel and
+    updates them with one GEMM at ``gemm_prec``.  With npcol = 1 these are
+    the single-process path's operations, in its order.
+
+    Returns the tiny flags (B, w) int32 of the pivots this rank owns
+    (zero elsewhere)."""
+    b, m_ext, _ = a.shape
+    pb, nsteps = panel_width(w)
+    dev = a.device
+    rows = torch.arange(m_ext, device=dev)
+    cols_pb = torch.arange(pb, device=dev)
+    flags = torch.zeros((b, w), dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=a.dtype, device=dev)
+    for p in range(nsteps):
+        j0 = p * pb
+        pa = min(pb, w - j0)
+        owner = p % npcol
+        mine = None
+        if owner == pcol:
+            k0 = (p // npcol) * pb
+            panel = a[:, :, k0:k0 + pb]
+            _panel_columns(panel, rows, cols_pb, j0, pa, thresh, flags, zero)
+            mine = panel[:, j0:, :pa]
+        lpan = mine if bcast is None else bcast(mine, owner,
+                                                (b, m_ext - j0, pa))
+        k1 = int(np.searchsorted(gcol, j0 + pb))
+        if k1 < a.shape[2]:
+            u12 = torch.linalg.solve_triangular(
+                lpan[:, :pa, :], a[:, j0:j0 + pa, k1:], upper=False,
+                unitriangular=True)
+            a[:, j0:j0 + pa, k1:] = u12
+            a[:, j0 + pa:, k1:] -= gemm(lpan[:, pa:, :], u12, gemm_prec)
+        del lpan
+    return flags
 
 
 def group_partial_factor(fronts: torch.Tensor, thresh: torch.Tensor, w: int,

@@ -9,22 +9,34 @@ Torch's idiom is one process per device, so here a grid is the world of
 a ``torch.distributed`` process group: every rank builds the same
 :class:`ProcessGrid` and calls the tier's entry points collectively.
 The grid wraps a ``DeviceMesh`` with the JAX package's axis names
-``("snode", "panel")``; the mesh tier (parallel/spmd.py) flattens it and
-deals the slots of every group block-cyclically over the flat rank order
-(slot j on rank ``j % nproc``).  The "panel" axis — the split of one
-front's columns over ranks — is not used by the port (ROADMAP.md).
+``("snode", "panel")``, laid out row-major as the JAX package lays out
+its devices (``reshape(nprow, npcol)``): rank r sits at process row
+``r // npcol`` and process column ``r % npcol``.  The "panel" axis is a
+process row (its sub-group: ``DeviceMesh.get_group("panel")``, the
+reference's row communicator), the "snode" axis a process column.  The
+1-D tier (parallel/spmd.py) flattens the grid and deals the slots of
+every group over the flat rank order; the 2-D tier
+(parallel/mesh_stream.py) deals slots over the process rows and each
+front's columns over the process columns.
 
 The collectives the tier needs are methods of the grid:
 :meth:`ProcessGrid.gather_rows` (every rank's rows, in rank order, one
 broadcast per rank that has some), :meth:`ProcessGrid.all_gather`
-(equal shapes), :meth:`ProcessGrid.all_reduce_sum` and, for numpy
-vectors, :meth:`ProcessGrid.allreduce_sum_any` (the TreeComm call a
-``utils.deadline.Deadline`` polls through).  Under gloo, card tensors are
+(equal shapes; over the world or one process column),
+:meth:`ProcessGrid.all_reduce_sum` and, for numpy vectors,
+:meth:`ProcessGrid.allreduce_sum_any` (the TreeComm call a
+``utils.deadline.Deadline`` polls through); and for the 2-D tier
+:meth:`ProcessGrid.bcast_row` (one process column's tensor to its row),
+:meth:`ProcessGrid.all_reduce_row` (a sum over the row in process-column
+order, the same bits on every rank of it) and :meth:`ProcessGrid.exchange`
+(variable-size all-to-all over the world).  Under gloo, card tensors are
 staged through page-locked host memory (gloo takes no CUDA tensor in
 ``all_gather``, and the staging is explicit for all of them); under NCCL
 they stay on the card.  ``comm`` counts each op's calls, bytes and
 seconds.  ``SLU_TPU_VERIFY_COLLECTIVES=1`` checks each collective's
-(op, shape, dtype, sequence) record across ranks first and raises
+(op, shape, dtype, sequence) record across the ranks of its
+communicator (the world, a row or a column, each with its own sequence)
+first — and an exchange's counts against its peers' — and raises
 :class:`~superlu_dist_tpu_torch.utils.errors.CollectiveMismatchError` on
 every rank instead of hanging.  A failed collective raises; nothing is
 retried on another backend.
@@ -40,7 +52,9 @@ import torch
 
 #: the mesh's axis names (the JAX package's registry, utils/meshreg.py)
 AXES = ("snode", "panel")
-_OPCODES = {"all_gather": 1, "all_reduce": 2, "gather_rows": 3}
+_OPCODES = {"all_gather": 1, "all_reduce": 2, "gather_rows": 3,
+            "bcast_row": 4, "all_reduce_row": 5, "exchange": 6,
+            "all_gather_col": 7}
 _DTYPES = {torch.float32: 1, torch.float64: 2, torch.complex64: 3,
            torch.complex128: 4, torch.int64: 5, torch.int32: 6}
 
@@ -60,11 +74,30 @@ class ProcessGrid:
                                  # rank, no process group)
     verify: bool = False         # SLU_TPU_VERIFY_COLLECTIVES
     comm: dict = dataclasses.field(default_factory=dict)
-    seq: int = 0
+    seq: dict = dataclasses.field(default_factory=dict)   # per communicator
 
     @property
     def nproc(self) -> int:
         return self.nprow * self.npcol
+
+    @property
+    def prow(self) -> int:
+        """This rank's process row (the row-major layout)."""
+        return self.rank // self.npcol
+
+    @property
+    def pcol(self) -> int:
+        """This rank's process column."""
+        return self.rank % self.npcol
+
+    def _group(self, axis):
+        """The process group of ``axis``: None (the world), "panel" (this
+        rank's process row) or "snode" (its process column)."""
+        return None if axis is None else self.mesh.get_group(axis)
+
+    def _members(self, axis) -> int:
+        return {None: self.nproc, "panel": self.npcol,
+                "snode": self.nprow}[axis]
 
     @property
     def staged(self) -> bool:
@@ -78,53 +111,192 @@ class ProcessGrid:
         rec["bytes"] += int(nbytes)
         rec["seconds"] += seconds
 
-    def _check(self, op, shape, dtype):
+    def _check(self, op, shape, dtype, axis=None):
         """The lockstep record exchange of verify mode: (seq, op, ndim,
-        shape, dtype) gathered from every rank, compared, raised on."""
-        import torch.distributed as dist
+        shape, dtype) gathered from every rank of ``axis``'s communicator
+        (its own sequence), compared, raised on."""
         shape = tuple(int(s) for s in shape)[:4]
         rec = torch.zeros(8, dtype=torch.float64)
-        rec[0], rec[1], rec[2] = self.seq, _OPCODES[op], len(shape)
+        rec[0], rec[1], rec[2] = self.seq.get(axis, 0), _OPCODES[op], \
+            len(shape)
         rec[3:3 + len(shape)] = torch.tensor(shape, dtype=torch.float64)
         rec[7] = _DTYPES.get(dtype, 0)
-        if self.backend == "nccl":
-            rec = rec.to(self.device)
-        parts = [torch.empty_like(rec) for _ in range(self.nproc)]
-        dist.all_gather(parts, rec)
-        self.seq += 1
-        mat = torch.stack(parts).cpu().numpy()
+        self.seq[axis] = self.seq.get(axis, 0) + 1
+        mat = self._gather_host(rec, axis)
         if (mat == mat[0]).all():
             return
+        self._mismatch(mat, axis)
+
+    def _gather_host(self, rec, axis=None) -> np.ndarray:
+        """A small float64 host vector from every rank of ``axis``'s
+        communicator, stacked in its rank order (verify mode's records)."""
+        import torch.distributed as dist
+        if self.backend == "nccl":
+            rec = rec.to(self.device)
+        parts = [torch.empty_like(rec) for _ in range(self._members(axis))]
+        dist.all_gather(parts, rec, group=self._group(axis))
+        return torch.stack(parts).cpu().numpy()
+
+    def _mismatch(self, mat, axis):
         from superlu_dist_tpu_torch.utils.errors import CollectiveMismatchError
         names = {v: k for k, v in _OPCODES.items()}
+        ranks = self._ranks(axis)
         raise CollectiveMismatchError(
-            [{"rank": r, "seq": int(m[0]), "op": names.get(int(m[1]), "?"),
+            [{"rank": ranks[i], "seq": int(m[0]),
+              "op": names.get(int(m[1]), "?"),
               "shape": tuple(int(s) for s in m[3:3 + int(m[2])]),
-              "dtype": int(m[7]), "site": "grid"}
-             for r, m in enumerate(mat)], rank=self.rank)
+              "dtype": int(m[7]), "site": "grid" if axis is None
+              else f"grid:{axis}"}
+             for i, m in enumerate(mat)], rank=self.rank)
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+    def _ranks(self, axis) -> list:
+        """The global ranks of ``axis``'s communicator, in its order."""
+        if axis is None:
+            return list(range(self.nproc))
+        if axis == "panel":
+            return [self.prow * self.npcol + c for c in range(self.npcol)]
+        return [r * self.npcol + self.pcol for r in range(self.nprow)]
+
+    def all_gather(self, t: torch.Tensor, axis=None) -> torch.Tensor:
         """Every rank's ``t`` (one shape on every rank) concatenated in
-        rank order along dim 0, on ``t``'s device."""
-        if self.nproc == 1:
+        rank order along dim 0, on ``t``'s device: over the world, or
+        over this rank's process column (``axis="snode"``, in process-row
+        order)."""
+        k = self._members(axis)
+        if k == 1:
+            return t
+        import torch.distributed as dist
+        op = "all_gather" if axis is None else "all_gather_col"
+        t0 = time.perf_counter()
+        if self.verify:
+            self._check(op, t.shape, t.dtype, axis)
+        src = t.contiguous()
+        group = self._group(axis)
+        if self.staged:
+            src = _pinned(src)
+            out = torch.empty((k * t.shape[0],) + tuple(t.shape[1:]),
+                              dtype=t.dtype, pin_memory=True)
+            dist.all_gather(list(out.chunk(k)), src, group=group)
+            out = out.to(t.device, non_blocking=True)
+        else:
+            parts = [torch.empty_like(src) for _ in range(k)]
+            dist.all_gather(parts, src, group=group)
+            out = torch.cat(parts)
+        self._note(op, out.numel() * out.element_size(),
+                   time.perf_counter() - t0)
+        return out
+
+    def bcast_row(self, t, src_pcol: int, shape, dtype) -> torch.Tensor:
+        """Process column ``src_pcol``'s tensor ``t`` (of ``shape`` and
+        ``dtype``; ignored elsewhere) on every rank of this process row,
+        on this rank's device: the source gets ``t`` itself back, the
+        others a new tensor.  A one-column grid returns ``t``."""
+        if self.npcol == 1:
+            return t
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        shape = tuple(int(x) for x in shape)
+        if self.verify:
+            self._check("bcast_row", shape + (int(src_pcol),), dtype,
+                        "panel")
+        src = self.prow * self.npcol + int(src_pcol)
+        group = self._group("panel")
+        if self.rank == src:
+            if tuple(t.shape) != shape or t.dtype != dtype:
+                raise ValueError(f"bcast_row: the source holds "
+                                 f"{tuple(t.shape)} {t.dtype}, the row "
+                                 f"expects {shape} {dtype}")
+            buf = t.contiguous()
+            if self.staged:
+                buf = _pinned(buf)
+            dist.broadcast(buf, src=src, group=group)
+            out = t
+        else:
+            if self.staged:
+                buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+            else:
+                buf = torch.empty(shape, dtype=dtype, device=self.device)
+            dist.broadcast(buf, src=src, group=group)
+            out = buf.to(self.device, non_blocking=True)
+        self._note("bcast_row", buf.numel() * buf.element_size(),
+                   time.perf_counter() - t0)
+        return out
+
+    def all_reduce_row(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` (one shape on every rank of the row) over this
+        process row, added in process-column order — the same bits on
+        every rank of the row, run to run.  A one-column grid returns
+        ``t``."""
+        if self.npcol == 1:
             return t
         import torch.distributed as dist
         t0 = time.perf_counter()
         if self.verify:
-            self._check("all_gather", t.shape, t.dtype)
+            self._check("all_reduce_row", t.shape, t.dtype, "panel")
         src = t.contiguous()
+        group = self._group("panel")
         if self.staged:
             src = _pinned(src)
-            out = torch.empty((self.nproc * t.shape[0],) + tuple(t.shape[1:]),
-                              dtype=t.dtype, pin_memory=True)
-            dist.all_gather(list(out.chunk(self.nproc)), src)
-            out = out.to(t.device, non_blocking=True)
+            parts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for _ in range(self.npcol)]
         else:
-            parts = [torch.empty_like(src) for _ in range(self.nproc)]
-            dist.all_gather(parts, src)
-            out = torch.cat(parts)
-        self._note("all_gather", out.numel() * out.element_size(),
+            parts = [torch.empty_like(src) for _ in range(self.npcol)]
+        dist.all_gather(parts, src, group=group)
+        if self.staged:
+            parts = [p.to(t.device, non_blocking=True) for p in parts]
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        self._note("all_reduce_row",
+                   self.npcol * src.numel() * src.element_size(),
                    time.perf_counter() - t0)
+        return out
+
+    def exchange(self, send: torch.Tensor, send_counts,
+                 recv_counts) -> torch.Tensor:
+        """Variable-size all-to-all over the world: ``send`` (1-D) holds
+        this rank's elements for rank 0, 1, ... in order, ``send_counts[d]``
+        of them for rank d; returns the ``sum(recv_counts)`` elements
+        received, rank 0's first, on ``send``'s device.  Every rank enters,
+        with empty legs where it has nothing to move."""
+        send_counts = [int(c) for c in send_counts]
+        recv_counts = [int(c) for c in recv_counts]
+        if send.dim() != 1 or send.shape[0] != sum(send_counts):
+            raise ValueError(f"exchange: send holds {tuple(send.shape)}, "
+                             f"the counts say {sum(send_counts)}")
+        if self.nproc == 1:
+            return send
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        if self.verify:
+            self._check("exchange", (self.nproc,), send.dtype)
+            counts = self._gather_host(torch.tensor(
+                send_counts + recv_counts, dtype=torch.float64))
+            sent, got = counts[:, :self.nproc], counts[:, self.nproc:]
+            if not np.array_equal(sent, got.T):
+                from superlu_dist_tpu_torch.utils.errors import (
+                    CollectiveMismatchError)
+                raise CollectiveMismatchError(
+                    [{"rank": r, "seq": self.seq.get(None, 0) - 1,
+                      "op": "exchange", "shape": tuple(int(c) for c in
+                                                      counts[r]),
+                      "dtype": _DTYPES.get(send.dtype, 0),
+                      "site": "grid:exchange counts"}
+                     for r in range(self.nproc)], rank=self.rank)
+        src = send.contiguous()
+        if self.staged:
+            src = _pinned(src)
+            out = torch.empty(sum(recv_counts), dtype=send.dtype,
+                              pin_memory=True)
+        else:
+            out = torch.empty(sum(recv_counts), dtype=send.dtype,
+                              device=send.device)
+        dist.all_to_all_single(out, src, output_split_sizes=recv_counts,
+                               input_split_sizes=send_counts)
+        if self.staged:
+            out = out.to(send.device, non_blocking=True)
+        self._note("exchange", (src.numel() + out.numel())
+                   * src.element_size(), time.perf_counter() - t0)
         return out
 
     def gather_rows(self, t: torch.Tensor, counts) -> torch.Tensor:

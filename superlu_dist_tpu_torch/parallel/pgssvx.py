@@ -492,8 +492,12 @@ def _maybe_escalate_distributed(tc, options, a_loc, b_loc, x, info, rep,
 
 
 def _gathered(grid) -> tuple:
-    """(bytes, seconds) the grid's gathers have moved so far."""
-    ops = [grid.comm.get(op, {}) for op in ("gather_rows", "all_gather")]
+    """(bytes, seconds) the grid's data collectives (gathers, and on the
+    2-D tier the exchanges, the row broadcasts and row sums) have moved
+    so far."""
+    ops = [grid.comm.get(op, {}) for op in (
+        "gather_rows", "all_gather", "all_gather_col", "exchange",
+        "bcast_row", "all_reduce_row")]
     return (sum(o.get("bytes", 0) for o in ops),
             sum(o.get("seconds", 0.0) for o in ops))
 
@@ -514,11 +518,19 @@ def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
     the pdgsrfs shape where pdgstrs is itself parallel,
     SRC/pdgsrfs.c:205).
 
+    ``Options(executor="stream")`` or ``Options(pool_partition=True)``
+    runs the 2-D mesh executor (parallel/mesh_stream.py) on an nprow ×
+    npcol grid: slots over the process rows, each front's columns over
+    the process columns, and with pool_partition each Schur element kept
+    only on the rank that extend-adds it.
+
     Returns (x, info, SolveReport or None, can_escalate) on every rank.
     ``lu_out["timings"]`` holds this rank's seconds: the analysis and its
-    broadcast, FACT, the grid's gathers (bytes and seconds), SOLVE and
-    REFINE, and its device memory: allocated before the factorization
-    (``base_bytes``) and the peak from there (``peak_bytes``)."""
+    broadcast, FACT, the grid's data collectives (bytes and seconds),
+    SOLVE and REFINE, and its device memory: allocated before the
+    factorization (``base_bytes``) and the peak from there
+    (``peak_bytes``); on the 2-D tier also its pool bytes and its
+    exchange and row-broadcast bytes, seconds and counts."""
     import torch
     from superlu_dist_tpu_torch.drivers.gssvx import (_escalation_dtype,
                                                       analyze,
@@ -591,6 +603,12 @@ def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
         info_r = factorize_numeric(lu, bvals, stats, grid=grid,
                                    deadline_comm=tc)
         timings["fact_s"] = stats.utime["FACT"]
+        # the 2-D executor's pool and its exchange and broadcast traffic
+        rep = lu.numeric.executor
+        for k in ("pool_bytes", "exchange_bytes", "exchange_s", "exchanges",
+                  "bcast_bytes", "bcast_s", "bcasts"):
+            if k in rep:
+                timings[k] = rep[k]
     if lu_out is not None:
         lu_out["lu"] = lu
         lu_out["stats"] = stats

@@ -29,6 +29,9 @@ SPMD fronts equal the single-process executors' bit for bit.  On the
 card cuBLAS may choose another algorithm for a batch of B_loc slots than
 for B slots; there the fronts are held to ``tols.TF32_DRIFT``.
 
+The 2-D tier (parallel/mesh_stream.py) shares this module's
+:class:`Shard` (with its column layout) and solver.
+
 The solver (:class:`SpmdSolver`) runs the pivot TRSM on the full batch on
 every rank (the gathered pivot stacks; the JAX package's reason: a
 batched triangular solve need not be batch-size invariant) and the
@@ -150,18 +153,35 @@ def local_plan(plan, nd: int, rank: int):
 @dataclasses.dataclass
 class Shard:
     """What one rank holds of a sharded factorization, beside its own
-    panels (``NumericFactorization.fronts``: per group (lpanel (c, m, w),
-    upanel (c, w, u)) of its c owned slots ``rank, rank + nd, ...``)."""
+    panels (``NumericFactorization.fronts``).  On the 1-D tier: per group
+    (lpanel (c, m, w), upanel (c, w, u)) of its c owned slots ``rank,
+    rank + nd, ...``.  On the 2-D tier (parallel/mesh_stream.py, ``cols``
+    set): per group its process row's slots ``prow, prow + nprow, ...``
+    and only its own columns — (L columns (c, m, kw), U12 columns (c, w,
+    ku)) at the global pivot columns ``cols[g][0]`` and Schur columns
+    ``cols[g][1]`` (0-based from w)."""
 
     grid: object              # parallel.grid.ProcessGrid
     nd: int
     rank: int
     pivots: list              # per group: (B, w, w) packed L11\\U11 of
                               # every slot, slot order (the full-batch TRSM)
+    nprow: int = None         # the 2-D tier's grid shape (None: 1-D)
+    npcol: int = 1
+    cols: list = None         # the 2-D tier's per-group own columns
+    pool_bytes: int = 0       # the 2-D tier's Schur pool on this rank
 
     @property
     def pivot_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.pivots)
+
+    def slots(self, batch: int, rank: int | None = None) -> np.ndarray:
+        """The slots of a group of ``batch`` a rank (default this one)
+        holds."""
+        r = self.rank if rank is None else rank
+        if self.cols is None:
+            return np.arange(r, batch, self.nd)
+        return np.arange(r // self.npcol, batch, self.nprow)
 
 
 class SpmdFactorExecutor:
@@ -334,12 +354,54 @@ def gather_fronts(numeric) -> list:
     shard = numeric.shard
     if shard is None:
         return list(numeric.fronts)
+    if shard.cols is not None:
+        return _gather_fronts_2d(numeric)
     out = []
     for grp, (lp, up) in zip(numeric.plan.groups, numeric.fronts):
         counts, g = _cyclic_counts(grp.batch, shard.nd)
         g = torch.as_tensor(g, device=lp.device)
         out.append((shard.grid.gather_rows(lp, counts)[g],
                     shard.grid.gather_rows(up, counts)[g]))
+    return out
+
+
+def _gather_fronts_2d(numeric) -> list:
+    """``gather_fronts`` of the 2-D tier: per group one gather of every
+    rank's L and U12 columns (flattened, rank order), put back at their
+    slots and global columns."""
+    from superlu_dist_tpu_torch.parallel.layout2d import front_cols
+    shard, grid = numeric.shard, numeric.shard.grid
+    out = []
+    for grp, (lp, up) in zip(numeric.plan.groups, numeric.fronts):
+        m, w, u, b = grp.m, grp.w, grp.u, grp.batch
+        dev = lp.device
+        own = [front_cols(m, w, shard.npcol, r % shard.npcol)
+               for r in range(shard.nd)]
+        shapes = []
+        for r in range(shard.nd):
+            _, _, gcol, mc = own[r]
+            kw = int(np.searchsorted(gcol, w))
+            shapes.append((len(shard.slots(b, r)), kw, mc - kw))
+        counts = [c * (m * kw + w * ku) for c, kw, ku in shapes]
+        flat = torch.cat([lp.reshape(-1), up.reshape(-1)])
+        full = grid.gather_rows(flat, counts)
+        lfull = torch.zeros((b, m, w), dtype=lp.dtype, device=dev)
+        ufull = torch.zeros((b, w, u), dtype=lp.dtype, device=dev)
+        at = 0
+        for r, (c, kw, ku) in enumerate(shapes):
+            gcol = own[r][2]
+            sl = torch.as_tensor(shard.slots(b, r), device=dev)
+            piece = full[at:at + c * m * kw].view(c, m, kw)
+            at += c * m * kw
+            if c and kw:
+                lfull[sl[:, None], :, torch.as_tensor(gcol[:kw], device=dev)
+                      [None, :]] = piece.permute(0, 2, 1)
+            piece = full[at:at + c * w * ku].view(c, w, ku)
+            at += c * w * ku
+            if c and ku:
+                ucols = torch.as_tensor(gcol[kw:kw + ku] - w, device=dev)
+                ufull[sl[:, None], :, ucols[None, :]] = piece.permute(0, 2, 1)
+        out.append((lfull, ufull))
     return out
 
 
@@ -379,7 +441,14 @@ class SpmdSolver(DeviceSolver):
     contribution GEMM on this rank's members only — a member's owner is
     the owner of its factor slot — then one all-gather of the per-member
     products, un-permuted to sweep order, and the replayed scatter.
-    DiagInv and CUDA graphs are off (the sweeps hold collectives)."""
+    DiagInv and CUDA graphs are off (the sweeps hold collectives).
+
+    On the 2-D tier (``Shard.cols``: parallel/mesh_stream.py) a member
+    belongs to its slot's process row, and a rank holds only its own
+    columns of the member's L21 and U12: each product is this rank's
+    column share of it, summed over the process row in process-column
+    order (``ProcessGrid.all_reduce_row``) and gathered over the process
+    rows — deterministic, but not the unsplit GEMM's bits."""
 
     def __init__(self, fact, schedule: str = "dataflow", window: int = 0,
                  align: float = 1.25, trsm_leaf: int = 64,
@@ -414,28 +483,17 @@ class SpmdSolver(DeviceSolver):
         self.fronts = []          # per sweep batch: (pivots (B, W, W),
         self._spmd = []           # this rank's L21 (c, U, W), U12 (c, W, U))
         self.gathered_bytes = 0
+        self.two_d = shard.cols is not None
         for sg in self.splan.groups:
+            if self.two_d:
+                self._add_batch_2d(sg, fact, shard)
+                continue
             src_g = np.asarray(sg.src_group, dtype=np.int64)
             src_s = np.asarray(sg.src_slot, dtype=np.int64)
             owner = src_s % nd
             mine = np.flatnonzero(owner == rank)
             # the full pivot stack, in member order
-            parts, i = [], 0
-            while i < sg.batch:
-                j = i
-                while j < sg.batch and src_g[j] == src_g[i]:
-                    j += 1
-                fg = plan.groups[int(src_g[i])]
-                piv = shard.pivots[int(src_g[i])]
-                sl = src_s[i:j]
-                if not (len(sl) == fg.batch
-                        and np.array_equal(sl, np.arange(fg.batch))):
-                    piv = piv[torch.as_tensor(sl, device=dev)]
-                if fg.w != sg.w:
-                    piv = _pad_pivots(piv, fg.w, sg.w)
-                parts.append(piv)
-                i = j
-            piv = parts[0] if len(parts) == 1 else torch.cat(parts)
+            piv = _full_pivots(sg, src_g, src_s, plan, shard, dev)
             if sg.u and sg.batch > 1:
                 piv = _panel_strided(piv)
             # this rank's members' panels, promoted like DeviceSolver's
@@ -476,6 +534,93 @@ class SpmdSolver(DeviceSolver):
         self.graph_pool_bytes = 0
         self._lock = threading.Lock()
 
+    def _add_batch_2d(self, sg, fact, shard):
+        """One sweep batch on the 2-D tier: the full pivot stack, and this
+        rank's members (its process row's) with only its own columns —
+        L21 (c, U, KW) at pivot columns ``lidx`` (c, KW) and U12 (c, W, KU)
+        at Schur columns ``uidx`` (c, KU), zero-padded to the widest
+        member, padding indices W and U (a zero row the products read,
+        a dump row they write)."""
+        plan, dev = fact.plan, self.device
+        src_g = np.asarray(sg.src_group, dtype=np.int64)
+        src_s = np.asarray(sg.src_slot, dtype=np.int64)
+        owner = src_s % shard.nprow
+        mine = np.flatnonzero(owner == self.grid.prow)
+        piv = _full_pivots(sg, src_g, src_s, plan, shard, dev)
+        W, U = sg.w, sg.u
+        kw = [len(shard.cols[g][0]) for g in src_g[mine]]
+        ku = [len(shard.cols[g][1]) for g in src_g[mine]]
+        KW, KU = max(kw, default=0), max(ku, default=0)
+        c = len(mine)
+        l21 = torch.zeros((c, U, KW), dtype=fact.dtype, device=dev)
+        u12 = torch.zeros((c, W, KU), dtype=fact.dtype, device=dev)
+        lidx = np.full((c, KW), W, dtype=np.int64)
+        uidx = np.full((c, KU), U, dtype=np.int64)
+        i = 0
+        while i < c:
+            g = int(src_g[mine[i]])
+            j = i
+            while j < c and src_g[mine[j]] == g:
+                j += 1
+            fg = plan.groups[g]
+            lp, up = fact.fronts[g]
+            loc = torch.as_tensor(src_s[mine[i:j]] // shard.nprow,
+                                  device=dev)
+            pc, uc = shard.cols[g]
+            l21[i:j, :fg.u, :len(pc)] = lp[loc][:, fg.w:, :]
+            u12[i:j, :fg.w, :len(uc)] = up[loc]
+            lidx[i:j, :len(pc)] = pc
+            uidx[i:j, :len(uc)] = uc
+            i = j
+        counts = np.bincount(owner, minlength=shard.nprow)
+        c_max = int(counts.max())
+        rank_in = np.empty(sg.batch, dtype=np.int64)
+        for d in range(shard.nprow):
+            ix = np.flatnonzero(owner == d)
+            rank_in[ix] = np.arange(len(ix))
+        if sg.u and sg.batch > 1:
+            piv = _panel_strided(piv)
+        self.fronts.append((piv, None))
+        self._spmd.append(dict(
+            l21=l21, u12=u12, c_max=c_max,
+            lidx=torch.as_tensor(lidx, device=dev),
+            uidx=torch.as_tensor(uidx, device=dev),
+            sel=torch.as_tensor(mine, device=dev),
+            perm=torch.as_tensor(owner * c_max + rank_in, device=dev)))
+        self.gathered_bytes += sum(t.numel() * t.element_size()
+                                   for t in (piv, l21, u12))
+
+    def _products_2d(self, i, kind, v, conj):
+        """The 2-D tier's products of sweep batch i, in member order: this
+        rank's share of its members' ``L21 @ v`` ("L"), ``U12 @ v`` ("U"),
+        ``U12ᵀ @ v`` ("Ut") or ``L21ᵀ @ v`` ("Lt") over its own columns,
+        summed over its process row in process-column order
+        (``ProcessGrid.all_reduce_row``), then gathered over the process
+        rows (``all_gather(axis="snode")``)."""
+        sp = self._spmd[i]
+        vs = v[sp["sel"]]
+        c, _, k = vs.shape
+        rows = torch.arange(c, device=vs.device)[:, None]
+        if kind in ("L", "U"):
+            mat = sp["l21"] if kind == "L" else sp["u12"]
+            idx = sp["lidx"] if kind == "L" else sp["uidx"]
+            ext = torch.cat([vs, vs.new_zeros((c, 1, k))], dim=1)
+            prod = _matmul(mat.conj() if conj else mat, ext[rows, idx],
+                           self._groups[i][0].batch)
+        else:
+            mat = (sp["u12"] if kind == "Ut" else sp["l21"]).mT
+            idx = sp["uidx"] if kind == "Ut" else sp["lidx"]
+            part = _matmul(mat.conj() if conj else mat, vs,
+                           self._groups[i][0].batch)
+            sg = self._groups[i][0]
+            r_out = sg.u if kind == "Ut" else sg.w
+            prod = vs.new_zeros((c, r_out + 1, k))
+            prod[rows, idx] = part
+            prod = prod[:, :r_out]
+        prod = self.grid.all_reduce_row(prod)
+        return self.grid.all_gather(_padded(prod, sp["c_max"]),
+                                    axis="snode")[sp["perm"]]
+
     def _products(self, i, mat, v):
         """``mat @ v`` over this rank's c members of sweep batch i,
         gathered from every rank in member order (B, r, k).  A batch of
@@ -491,6 +636,21 @@ class SpmdSolver(DeviceSolver):
             prod = torch.matmul(mat, v)
         return self.grid.all_gather(_padded(prod, sp["c_max"]))[sp["perm"]]
 
+    def _product(self, i, kind, v, conj):
+        """Sweep batch i's contribution product over the grid, in member
+        order: ``L21 @ v`` ("L"), ``U12 @ v`` ("U"), ``U12ᵀ @ v`` ("Ut")
+        or ``L21ᵀ @ v`` ("Lt"), the panel conjugated under ``conj``; ``v``
+        holds every member's operand."""
+        if self.two_d:
+            return self._products_2d(i, kind, v, conj)
+        sp = self._spmd[i]
+        mat = sp["l21"] if kind in ("L", "Lt") else sp["u12"]
+        if conj:
+            mat = mat.conj()
+        if kind in ("Ut", "Lt"):
+            mat = mat.mT
+        return self._products(i, mat, v[sp["sel"]])
+
     def _sweep(self, direction, mode, x, lsum):
         leaf, prec = self.trsm_leaf, self.gemm_prec
         batches = list(zip(range(len(self._groups)), self._groups,
@@ -499,29 +659,22 @@ class SpmdSolver(DeviceSolver):
         if direction == "fwd":
             lsum.zero_()
             for i, (sg, cols, rows, lay), (piv, _) in batches:
-                sp = self._spmd[i]
                 rhs = x[cols] - lsum[cols]
                 if mode == "N":
                     y = _trsm(piv, rhs, True, True, False, leaf, prec)
-                    mat = sp["l21"]
                 else:
                     y = _trsm(piv.conj() if conj else piv, rhs, False, False,
                               True, leaf, prec)
-                    mat = (sp["u12"].conj() if conj else sp["u12"]).mT
                 x[cols] = y
                 if sg.u:
-                    _scatter_add(lsum, rows,
-                                 self._products(i, mat, y[sp["sel"]]), lay)
+                    _scatter_add(lsum, rows, self._product(
+                        i, "L" if mode == "N" else "Ut", y, conj), lay)
             return
         for i, (sg, cols, rows, _), (piv, _) in reversed(batches):
-            sp = self._spmd[i]
             rhs = x[cols]
             if sg.u:
-                if mode == "N":
-                    mat = sp["u12"]
-                else:
-                    mat = (sp["l21"].conj() if conj else sp["l21"]).mT
-                rhs = rhs - self._products(i, mat, x[rows[sp["sel"]]])
+                rhs = rhs - self._product(
+                    i, "U" if mode == "N" else "Lt", x[rows], conj)
             if mode == "N":
                 y = _trsm(piv, rhs, False, False, False, leaf, prec)
             else:
@@ -536,6 +689,36 @@ class SpmdSolver(DeviceSolver):
             + sp["u12"].numel() * sp["u12"].element_size()
             for sp in self._spmd)
         return rep
+
+
+def _matmul(mat, v, batch):
+    """``mat @ v`` over a rank's members; a batch of one multiplies as two
+    (the second a zero slot) when the sweep batch has more (``_products``'
+    reason)."""
+    if mat.shape[0] == 1 and batch > 1:
+        return torch.matmul(_padded(mat, 2), _padded(v, 2))[:1]
+    return torch.matmul(mat, v)
+
+
+def _full_pivots(sg, src_g, src_s, plan, shard, dev):
+    """A sweep batch's full pivot stack (B, W, W) in member order, from the
+    factor groups' gathered pivot stacks, promoted keys identity-padded."""
+    parts, i = [], 0
+    while i < sg.batch:
+        j = i
+        while j < sg.batch and src_g[j] == src_g[i]:
+            j += 1
+        fg = plan.groups[int(src_g[i])]
+        piv = shard.pivots[int(src_g[i])]
+        sl = src_s[i:j]
+        if not (len(sl) == fg.batch
+                and np.array_equal(sl, np.arange(fg.batch))):
+            piv = piv[torch.as_tensor(sl, device=dev)]
+        if fg.w != sg.w:
+            piv = _pad_pivots(piv, fg.w, sg.w)
+        parts.append(piv)
+        i = j
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _panel_strided(piv):

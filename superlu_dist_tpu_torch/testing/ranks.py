@@ -34,7 +34,8 @@ class RankJob:
 
     ``kind`` is "pgssvx" (one call on a domain the rank joins with
     ``parallel/mhboot.attach_tree``), "mesh" (one ``pgssvx(grid=)`` call
-    on a 1×n_ranks grid on ``device``: the rank also joins the ``port``'s
+    on an nprow × (n_ranks/nprow) grid on ``device``: the rank also joins
+    the ``port``'s
     process group once — it stays up for the peer's later mesh jobs —
     with ``timeout_s``; ``gather`` all-gathers the fronts to slot order
     afterwards and holds the kernel against its plain version at the
@@ -66,6 +67,7 @@ class RankJob:
     device: str = "cpu"
     gather: bool = False
     timeout_s: float = 600.0
+    nprow: int = 1             # a mesh job's grid: nprow × n_ranks/nprow
 
 
 class GallerySystem:
@@ -219,7 +221,8 @@ def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
                       timeout_s=job.timeout_s)
         rec["backend"] = booted.backend
         rec["attached_at"] = time.time()
-        grid = gridinit(1, job.n_ranks, device=booted.device, tc=tc)
+        grid = gridinit(job.nprow, job.n_ranks // job.nprow,
+                        device=booted.device, tc=tc)
         a_loc = job.a_source(job.n_ranks, rank)
         launches = dict(kernels.LAUNCHES)
         x, info = pgssvx(tc, job.options, a_loc,
@@ -236,7 +239,10 @@ def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
         rec["shard"] = shard_record(num, grid.nproc, grid.rank)
         if job.gather:
             rec["fronts"] = gather_fronts(num)
-            rec["kernel_vs_plain"] = local_kernel_check(num.plan, grid)
+            rec["kernel_vs_plain"] = local_kernel_check(
+                num.plan, grid, pool_partition=num.shard.cols is not None
+                and num.executor.get("pool_partition", False),
+                two_d=num.shard.cols is not None)
             rec["spmv_vs_plain"] = local_spmv_check(a_loc, grid)
         rec["comm"] = grid.comm_summary()
     finally:
@@ -244,28 +250,47 @@ def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
     return x, info
 
 
-def local_kernel_check(plan, grid, groups: int = 2) -> list:
-    """The front assembly on this rank's share (``spmd.local_plan``) of
-    the ``groups`` groups with the most child pairs, on its device,
-    against the plain version on the same seeded pool and values: one
-    record per group (group, local batch, m, pairs, bit for bit)."""
+def local_kernel_check(plan, grid, groups: int = 2,
+                       pool_partition: bool = False,
+                       two_d: bool = False) -> list:
+    """The front assembly on this rank's share of the ``groups`` groups
+    with the most child pairs, on its device, against the plain version on
+    the same seeded pool and values: one record per group (group, local
+    batch, m, columns, pairs, bit for bit).  The share is the 1-D tier's
+    (``spmd.local_plan``) or, with ``two_d``, the 2-D tier's column share
+    (``layout2d.layout``, its own compacted pool with
+    ``pool_partition``)."""
     import torch
     from superlu_dist_tpu_torch.numeric import factor, kernels
-    from superlu_dist_tpu_torch.parallel.spmd import local_plan
-    share = local_plan(plan, grid.nproc, grid.rank)
-    maps = factor.upload_maps(share, grid.device)
-    order = sorted(range(len(maps)), key=lambda i: -maps[i].front.pairs)
     gen = torch.Generator(device=grid.device).manual_seed(grid.rank)
-    pool = torch.randn(plan.pool_size, generator=gen, device=grid.device)
+    if two_d:
+        from superlu_dist_tpu_torch.parallel.layout2d import layout
+        from superlu_dist_tpu_torch.parallel.mesh_stream import share_maps
+        lay = layout(plan, grid.nprow, grid.npcol, grid.rank,
+                     pool_partition)
+        shares = [gl.maps for gl in lay.groups]
+        live = [i for i, gl in enumerate(lay.groups)
+                if len(gl.slots) and gl.mc]
+        maps = {i: share_maps(lay.groups[i], grid.device) for i in live}
+        pool_len = lay.pool_len
+    else:
+        from superlu_dist_tpu_torch.parallel.spmd import local_plan
+        share = local_plan(plan, grid.nproc, grid.rank)
+        shares = share.groups
+        maps = dict(enumerate(factor.upload_maps(share, grid.device)))
+        live = [i for i in maps if shares[i].batch]
+        pool_len = plan.pool_size
+    order = sorted(live, key=lambda i: -maps[i].front.pairs)
+    pool = torch.randn(pool_len, generator=gen, device=grid.device)
     avals = torch.randn(len(plan.pattern_indices), generator=gen,
                         device=grid.device)
     out = []
-    for gi in [i for i in order if share.groups[i].batch][:groups]:
-        g = share.groups[gi]
+    for gi in order[:groups]:
+        g = shares[gi]
         f1 = kernels.front_assemble_(avals, pool, g.m, g.w, maps[gi])
         f2 = kernels.front_assemble_plain(avals, pool, g.m, g.w, maps[gi])
         out.append({"group": gi, "batch": g.batch, "m": g.m,
-                    "pairs": maps[gi].front.pairs,
+                    "mc": maps[gi].front.mc, "pairs": maps[gi].front.pairs,
                     "equal": bool(torch.equal(f1, f2))})
     return out
 
@@ -295,24 +320,43 @@ def local_spmv_check(a_loc, grid) -> dict:
 
 def shard_record(numeric, nd: int, rank: int) -> dict:
     """What a rank holds of a sharded factorization: per group exactly
-    its own slots ``rank, rank + nd, ...`` (``own_slots_only``), their
-    panel bytes and flops, the pivot stacks' bytes and the groups where
-    it owns a slot."""
-    own = all(lp.shape[0] == len(range(rank, g.batch, nd))
-              and up.shape[0] == lp.shape[0]
-              for g, (lp, up) in zip(numeric.plan.groups, numeric.fronts))
+    its own slots (``own_slots_only``: ``rank, rank + nd, ...`` on the
+    1-D tier, its process row's on the 2-D tier, and there only its own
+    columns — ``own_cols_only``), their panel bytes and flops, the pivot
+    stacks' bytes, the groups where it assembles (a slot, and on the 2-D
+    tier a column) and, on the 2-D tier, its pool."""
+    shard = numeric.shard
+    groups = numeric.plan.groups
+    two_d = shard is not None and shard.cols is not None
+    if two_d:
+        from superlu_dist_tpu_torch.parallel.layout2d import front_cols
+        slots = [shard.slots(g.batch) for g in groups]
+        own = [front_cols(g.m, g.w, shard.npcol, rank % shard.npcol)
+               for g in groups]
+        cols_ok = all(
+            np.array_equal(pc, gcol[:int(np.searchsorted(gcol, g.w))])
+            and np.array_equal(uc + g.w, gcol[len(pc):mc])
+            and lp.shape[2] == len(pc) and up.shape[2] == len(uc)
+            for g, (pc, uc), (_, _, gcol, mc), (lp, up)
+            in zip(groups, shard.cols, own, numeric.fronts))
+        assembled = sum(1 for s, o in zip(slots, own) if len(s) and o[3])
+    else:
+        slots = [np.arange(rank, g.batch, nd) for g in groups]
+        cols_ok = True
+        assembled = sum(1 for g in groups if rank < g.batch)
+    held = all(lp.shape[0] == len(s) and up.shape[0] == lp.shape[0]
+               for s, (lp, up) in zip(slots, numeric.fronts))
     fb = sum(lp.numel() * lp.element_size() + up.numel() * up.element_size()
              for lp, up in numeric.fronts)
     return {"groups": len(numeric.fronts),
-            "owned_groups": sum(1 for g in numeric.plan.groups
-                                if rank < g.batch),
-            "owned_slots": sum(len(range(rank, g.batch, nd))
-                               for g in numeric.plan.groups),
+            "owned_groups": assembled,
+            "owned_slots": int(sum(len(s) for s in slots)),
             "front_bytes": fb,
             "local_flops": numeric.executor.get("local_flops"),
-            "pivot_bytes": (numeric.shard.pivot_bytes
-                            if numeric.shard is not None else 0),
-            "own_slots_only": bool(own)}
+            "pivot_bytes": shard.pivot_bytes if shard is not None else 0,
+            "pool_bytes": shard.pool_bytes if two_d else None,
+            "own_slots_only": bool(held),
+            "own_cols_only": bool(cols_ok)}
 
 
 def _shippable(rec: dict) -> dict:
@@ -440,9 +484,10 @@ def stop_peers(procs: dict, timeout: float = 30.0) -> dict:
 
 def mesh_main(rank: int, nd: int, port: int, shm: str, fn, args,
               device, results, max_len: int, timeout_s: float,
-              env: dict) -> None:
+              env: dict, nprow: int = 1) -> None:
     """A spawned mesh rank's entry point (``run_mesh_ranks``): join the
-    process group and the tree domain, build the 1×nd grid on ``device``
+    process group and the tree domain, build the nprow × (nd/nprow) grid
+    on ``device``
     and put ``{"rank", "out": fn(tc, grid, *args)}`` — or ``"error"``,
     the traceback — on ``results``."""
     import traceback
@@ -456,7 +501,7 @@ def mesh_main(rank: int, nd: int, port: int, shm: str, fn, args,
                          delay=0.05)
         booted = boot(nd, rank, port, device=device, timeout_s=timeout_s)
         from superlu_dist_tpu_torch.parallel.grid import gridinit
-        grid = gridinit(1, nd, device=booted.device, tc=tc)
+        grid = gridinit(nprow, nd // nprow, device=booted.device, tc=tc)
         rec["backend"] = booted.backend
         rec["out"] = fn(tc, grid, *args)
     except Exception:
@@ -478,12 +523,15 @@ def free_port() -> int:
 
 def run_mesh_ranks(nd: int, fn, *args, device="cpu", timeout: float = 300.0,
                    max_len: int = 1 << 14, env: dict | None = None,
-                   timeout_s: float = 120.0) -> dict:
-    """Run ``fn(tc, grid, *args)`` on ``nd`` spawned mesh ranks (a gloo
-    process group on the CPU; ``device`` as ``parallel/mhboot.boot``
-    takes it) and return {rank: fn's result}.  ``fn`` must be importable
-    by name in the children.  Raises RuntimeError naming every rank that
-    raised, TimeoutError when a rank does not report in ``timeout``."""
+                   timeout_s: float = 120.0, nprow: int = 1) -> dict:
+    """Run ``fn(tc, grid, *args)`` on ``nd`` spawned mesh ranks of an
+    nprow × (nd/nprow) grid (a gloo process group on the CPU; ``device``
+    as ``parallel/mhboot.boot`` takes it) and return {rank: fn's result}.
+    ``fn`` must be importable by name in the children.  Raises
+    RuntimeError naming every rank that raised, TimeoutError when a rank
+    does not report in ``timeout``."""
+    if nd % nprow:
+        raise ValueError(f"{nd} ranks do not fill {nprow} process rows")
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
@@ -491,7 +539,7 @@ def run_mesh_ranks(nd: int, fn, *args, device="cpu", timeout: float = 300.0,
     shm = f"/slt_mesh_{os.getpid()}_{port}"
     procs = {r: ctx.Process(target=mesh_main,
                             args=(r, nd, port, shm, fn, args, device,
-                                  results, max_len, timeout_s, env),
+                                  results, max_len, timeout_s, env, nprow),
                             name=f"slu-mesh-r{r}", daemon=True)
              for r in range(nd)}
     for p in procs.values():

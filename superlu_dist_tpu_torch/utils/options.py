@@ -122,6 +122,9 @@ def _register_all() -> None:
       "fleet health-monitor poll period: replica process/thread "
       "liveness (pid_alive), failover re-routing of undelivered "
       "tickets, and deadline sweeps run on this cadence", group="fleet")
+    # --- the mesh tier's factor pool (parallel/mesh_stream.py) -------------
+    r("SLU_TPU_POOL_PARTITION", "flag", False,
+      "shard the Schur update pool across all mesh devices", group="numeric")
     # --- distributed tier (parallel/treecomm.py, parallel/recover.py) ------
     r("SLU_TPU_FAULTS", "str", "",
       "fault-injection spec for TreeComm (e.g. 'drop=0.2,seed=7')",
@@ -370,9 +373,10 @@ class RecoveryPolicy:
     max_rungs: int = 3                 # ladder depth cap
 
 
-#: the numeric executors the port runs ("spmd": the mesh tier,
+#: the numeric executors the port runs ("spmd": the 1-D mesh tier,
 #: parallel/spmd.py — every rank of a grid of several ranks factors its
-#: own slots; off such a grid it resolves to "stream", the JAX rule)
+#: own slots; off such a grid it resolves to "stream", the JAX rule; on
+#: such a grid "stream" is the 2-D mesh executor, parallel/mesh_stream.py)
 EXECUTORS = ("auto", "stream", "fused", "mega", "spmd")
 
 
@@ -444,7 +448,9 @@ class Options:
     executor: str = "auto"            # SLU_TPU_EXECUTOR: auto | stream |
                                       # fused | mega | spmd (auto: spmd
                                       # under a grid, else stream on the
-                                      # card and fused on the CPU)
+                                      # card and fused on the CPU; stream
+                                      # or pool_partition under a grid:
+                                      # the 2-D mesh executor)
     bucket_closed: bool = False       # SLU_TPU_BUCKET_CLOSED: close the
                                       # plan's shape keys (mega's plans)
     bucket_keys: int = 6              # SLU_TPU_BUCKET_KEYS: the closed
@@ -460,6 +466,13 @@ class Options:
     # the mesh tier's distributed ordering + symbolic (ParSymbFact,
     # parallel/panalysis.py): read by pgssvx(grid=)
     par_symb_fact: bool = False
+    # keep each Schur element only on the grid rank that extend-adds it
+    # (the 2-D mesh executor, parallel/mesh_stream.py: per-rank pool
+    # memory falls with the grid); ignored off a grid of several ranks,
+    # as the JAX package's pool_spec is without a mesh —
+    # SLU_TPU_POOL_PARTITION=1
+    pool_partition: bool = dataclasses.field(
+        default_factory=lambda: env_flag("SLU_TPU_POOL_PARTITION"))
     # what a declared-dead peer rank does to a fault-tolerant driver
     # (parallel/recover.pgssvx_ft): "abort" re-raises RankFailureError,
     # "shrink" resumes on the survivors, "respawn" replaces the dead rank

@@ -889,3 +889,86 @@ def test_mesh_fronts_on_the_card_within_tf32_drift(cuda):
         assert rec["launches"] == rec["owned_groups"]
         assert rec["tiny"][0] == rec["tiny"][1]
         assert rec["shard"]["own_slots_only"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("partition", [False, True])
+def test_front_assemble_column_share_equals_plain(cuda, dtype, partition):
+    """Every group's column share of every process column of 1×2 and 1×3
+    grids (parallel/layout2d.py), reading the replicated pool or the
+    rank's compacted one: the kernel's (c, m, mc) fronts equal the plain
+    version's bit for bit, one launch per share."""
+    from superlu_dist_tpu_torch.parallel.layout2d import layout
+    from superlu_dist_tpu_torch.parallel.mesh_stream import share_maps
+    rng = np.random.default_rng(5)
+    lu, bvals, _ = slt.analyze(slt.Options(), poisson3d(14), device=cuda)
+    plan = lu.plan
+    avals = _rand(rng, len(bvals), dtype, cuda)
+    kernels.reset_launches()
+    n = 0
+    for npcol in (2, 3):
+        for pcol in range(npcol):
+            lay = layout(plan, 1, npcol, pcol, partition)
+            pool = _rand(rng, lay.pool_len, dtype, cuda)
+            for g, gl in zip(plan.groups, lay.groups):
+                if not (len(gl.slots) and gl.mc):
+                    continue
+                gm = share_maps(gl, cuda)
+                a = kernels.front_assemble_(avals, pool, g.m, g.w, gm)
+                b = kernels.front_assemble_plain(avals, pool, g.m, g.w, gm)
+                assert a.shape == (len(gl.slots), g.m * gl.mc)
+                assert torch.equal(a, b)
+                n += 1
+    assert kernels.LAUNCHES["front_assemble"] == n > 0
+
+
+@pytest.mark.parametrize("partition", [False, True])
+def test_mesh2d_fronts_on_the_card_within_tf32_drift(cuda, partition):
+    """The 2-D mesh stream on a 1×2 grid, both ranks on the one card over
+    gloo, float32 at the default TF32 tier: the fronts gathered to slot
+    order equal the stream's on the card or lie within TF32_DRIFT, the
+    tiny count is the stream's, one front_assemble launch per group where
+    the rank assembles, each rank holding only its own slots and
+    columns."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    out = run_mesh_ranks(2, cases.mesh2d_drift_on_the_card,
+                         ("poisson3d", (14,), 0, None), partition,
+                         device="cuda", timeout=600)
+    for r in range(2):
+        rec = out[r]
+        assert rec["equal"] or rec["drift"] <= tols.TF32_DRIFT, rec
+        assert rec["launches"] == rec["owned_groups"]
+        assert rec["tiny"][0] == rec["tiny"][1]
+        assert rec["shard"]["own_slots_only"] and rec["shard"]["own_cols_only"]
+        assert rec["executor"]["executor"] == "mesh-stream"
+
+
+def test_mesh2d_pgssvx_two_ranks_on_one_card(cuda):
+    """pgssvx(grid=gridinit(1, 2), Options(executor="stream",
+    pool_partition=True)) with both ranks on the one card: the same x on
+    both ranks, within DEVICE_VS_HOST of the CPU gssvx, BERR at the
+    float64 target, FACTORED and the SamePattern refactor on the 2-D
+    handles, each rank's pool below the plan's."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    spec = ("poisson3d", (12,), 0, None)
+    out = run_mesh_ranks(2, cases.pgssvx_flow, spec,
+                         {"executor": "stream", "pool_partition": True},
+                         "root", device="cuda", timeout=600)
+    a, b = cases._system(spec)
+    x_cpu, _, _, _ = slt.gssvx(slt.Options(), a, b, device="cpu")
+    for r in range(2):
+        rec = out[r]
+        assert rec["info"] == 0 and rec["sharded"]
+        assert rec["route"] == "device"
+        assert rec["berr"] <= float(tols.berr_target(np.float64))
+        assert rec["shard"]["own_slots_only"] and rec["shard"]["own_cols_only"]
+        np.testing.assert_array_equal(rec["x"], out[0]["x"])
+        np.testing.assert_allclose(rec["x"], x_cpu,
+                                   rtol=tols.DEVICE_VS_HOST_RTOL,
+                                   atol=tols.DEVICE_VS_HOST_ATOL)
+        t = rec["timings"]
+        assert t["bcasts"] > 0 and t["exchange_bytes"] > 0
+    assert sum(out[r]["timings"]["pool_bytes"] for r in range(2)) \
+        < 2 * out[0]["pool_size_bytes"]

@@ -182,34 +182,36 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad):
 def _walk_maps(fm, tile_rows, tile_cols=128):
     """What csrc/front_assemble.cu reads from its maps, tile by tile:
     (slot, flat) -> [pool index, ...] in add order, and (slot, flat) -> src
-    of the A entries."""
+    of the A entries (flat = row·mc + local column; mc = m for a whole
+    front)."""
     a_bkt, a_ent, ch_ptr, ch_rec, rel, ch_bkt = (t.numpy()
                                                  for t in fm.tensors())
-    m, b = fm.m, kernels.BUCKET
-    nb = -(-m // b)
+    m, mc, b = fm.m, fm.mc, kernels.BUCKET
+    nb, nbc = -(-m // b), -(-mc // b)
     seq, a = defaultdict(list), {}
     for s in range(fm.batch):
         for r0 in range(0, m, tile_rows):
-            for c0 in range(0, m, tile_cols):
-                th, tw = min(tile_rows, m - r0), min(tile_cols, m - c0)
+            for c0 in range(0, mc, tile_cols):
+                th, tw = min(tile_rows, m - r0), min(tile_cols, mc - c0)
                 bl, bh = r0 // b, -(-(r0 + th) // b)
                 cl, chh = c0 // b, -(-(c0 + tw) // b)
                 for e in range(a_bkt[s, bl], a_bkt[s, bh]):
                     flat, src = a_ent[e]
-                    assert r0 <= flat // m < r0 + th
-                    if c0 <= flat % m < c0 + tw:
+                    assert r0 <= flat // mc < r0 + th
+                    if c0 <= flat % mc < c0 + tw:
                         assert (s, flat) not in a
                         a[(s, int(flat))] = int(src)
                 for k in range(ch_ptr[s], ch_ptr[s + 1]):
-                    off, ub, start, bstart = ch_rec[k]
+                    off, stride, start, bstart, cstart, cbstart = ch_rec[k]
                     bk = ch_bkt[bstart:bstart + nb + 1]
-                    ent = rel[start:]
+                    bkc = ch_bkt[cbstart:cbstart + nbc + 1]
+                    ent, ent_c = rel[start:], rel[cstart:]
                     for i in range(bk[bl], bk[bh]):
-                        for j in range(bk[cl], bk[chh]):
+                        for j in range(bkc[cl], bkc[chh]):
                             assert r0 <= ent[i, 0] < r0 + th
-                            assert c0 <= ent[j, 0] < c0 + tw
-                            seq[(s, int(ent[i, 0] * m + ent[j, 0]))].append(
-                                int(off + ent[i, 1] * ub + ent[j, 1]))
+                            assert c0 <= ent_c[j, 0] < c0 + tw
+                            seq[(s, int(ent[i, 0] * mc + ent_c[j, 0]))].append(
+                                int(off + ent[i, 1] * stride + ent_c[j, 1]))
     return seq, a
 
 
