@@ -105,6 +105,22 @@ drives the port are reset just before it and checked just after):
                 nrhs 4 and the SamePattern refactor on the 2-D handles
                 (``python3 chip_smoke.py mesh``: the build, gssvx and
                 this phase);
+     entry    — the reference's user entry points on the card: the C
+                client (bindings/test_capi.c over libslu_tpu_torch.so,
+                built with gcc into build/ and started after the native
+                phase, waiting in slu_tpu_init(NULL) for this phase)
+                factors poisson3d(48) through slu_tpu_factor_opts, solves
+                FACTORED at nrhs 1 and 4 (ldb > n), reads its statistics,
+                refactors poisson3d(25) at tier 2 and finalizes: exit 0,
+                x within DEVICE_VS_HOST of the main handle's solve of the
+                same b, A·x against b, BERR at the float64 target, and from
+                its metrics export (SLU_TPU_METRICS) 134 front_assemble
+                launches for its DOFACT and csr_spmv in its refinement;
+                its start, DOFACT, solve, refactor and finalize seconds;
+                then the 14 example drivers in this process (exit 0, the
+                residual line, front_assemble launches) and pdtest's 24
+                --quick runs at 1x1 (``python3 chip_smoke.py entry``: the
+                build, gssvx and this phase);
      reuse    — on that handle: a FACTORED solve, a TRANS solve, refactor
                 on perturbed values (equal to a fresh factorization and
                 to the serve phase's SolveServer.refactor),
@@ -770,11 +786,14 @@ def factorizations(report) -> int:
 
 def expect_launches(phase, kernels, front_assemble, spmv):
     """The launch counts of the phase just driven (reset just before it):
-    ``front_assemble`` launches of the fused kernel, none of the standalone
-    wrappers, and residual SpMV launches when ``spmv`` (refinement on the
-    card: nnz >= 100,000), none otherwise; or raise."""
+    ``front_assemble`` launches of the fused kernel (None: at least one),
+    none of the standalone wrappers, and residual SpMV launches when
+    ``spmv`` (refinement on the card: nnz >= 100,000), none otherwise; or
+    raise."""
     got = dict(kernels.LAUNCHES)
     want = {"front_assemble": front_assemble, "extend_add": 0, "assemble": 0}
+    if front_assemble is None:
+        want["front_assemble"] = max(got["front_assemble"], 1)
     if ({k: got[k] for k in want} != want
             or bool(got["csr_spmv"]) != bool(spmv)):
         raise AssertionError(f"launches in {phase}: {got}, expected {want} "
@@ -2867,6 +2886,210 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor, a_sm, lu_sm):
         raise AssertionError(f"level waves: {lev}")
 
 
+#: the examples the entry phase runs in-process on the card, and the
+#: residual line each prints (pddrive4 / pzdrive4 as one process)
+EXAMPLES = {
+    "pddrive": "[pddrive] residual",
+    "pddrive1": "[pddrive1 (FACTORED reuse)] residual",
+    "pddrive2": "[pddrive2 (SamePattern)] residual",
+    "pddrive3": "[pddrive3 (SamePattern_SameRowPerm)] residual",
+    "pddrive4": "[pddrive4 grid=None seed=1] residual",
+    "pzdrive": "[pzdrive] residual",
+    "pzdrive1": "[pzdrive1 (FACTORED)] residual",
+    "pzdrive2": "[pzdrive2 (SamePattern)] residual",
+    "pzdrive3": "[pzdrive3 (SamePattern_SameRowPerm)] residual",
+    "pzdrive4": "[pzdrive4 grid=None seed=1] residual",
+    "pddrive_ABglobal": "[pddrive_ABglobal] residual",
+    "pddrive_dist": "[pddrive_dist (NR_loc input)] residual",
+    "pddrive_df64": "[pddrive_df64] df64     raw-factor residual",
+    "pddrive_refactor": "[hilbert(24) step 3 (refactor)] residual",
+}
+
+
+def _entry_workdir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_entry")
+
+
+def start_capi_client():
+    """The entry phase's C client (superlu_dist_tpu_torch/bindings/
+    test_capi.c), built with gcc against libslu_tpu_torch.so and started
+    early, so that its interpreter start, ``import torch`` and CUDA
+    context overlap the phases before the entry phase: it runs
+    ``slu_tpu_init(NULL)`` (the card), then waits for the phase's go file
+    before it factors poisson3d(NX) and refactors poisson3d(NX_SMALL).
+    Its metrics export (SLU_TPU_METRICS) counts each API call's kernel
+    launches.  Returns the phase's state."""
+    import atexit
+    from superlu_dist_tpu_torch.bindings import build
+    t0 = time.perf_counter()
+    lib, exe = build.build()
+    build_s = time.perf_counter() - t0
+    wd = _entry_workdir()
+    shutil.rmtree(wd, ignore_errors=True)
+    os.makedirs(wd)
+    st = dict(lib=str(lib), exe=str(exe), build_s=build_s,
+              go=os.path.join(wd, "go"), out=os.path.join(wd, "x.bin"),
+              log=os.path.join(wd, "client.log"),
+              metrics=os.path.join(wd, "metrics.json"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, SLU_TPU_METRICS=st["metrics"],
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    st["log_fh"] = open(st["log"], "w")
+    st["started"] = time.perf_counter()
+    st["proc"] = subprocess.Popen(
+        [str(exe), "default", str(NX), st["out"], str(NX_SMALL), st["go"]],
+        stdout=st["log_fh"], stderr=subprocess.STDOUT,
+        stdin=subprocess.DEVNULL, env=env)
+    atexit.register(lambda p=st["proc"]: p.poll() is None and p.kill())
+    return st
+
+
+def _capi_fields(text, tag):
+    import re
+    m = re.search(tag + r" (.*)", text)
+    if m is None:
+        raise AssertionError(f"the C client printed no {tag} line:\n{text}")
+    return {k: float(v) for k, v in (kv.split("=") for kv in
+                                     m.group(1).split())}
+
+
+def entry_phase(slt, a, lu, client, kernels, tols, torch):
+    """The reference's user entry points on the card.  The C client
+    (``start_capi_client``, waiting since the native phase): DOFACT of
+    poisson3d(NX) through slu_tpu_factor_opts, FACTORED at nrhs 1 and 4
+    (ldb > n), statistics, a tier-2 refactor of poisson3d(NX_SMALL) and a
+    solve, finalize; its x held against the main handle's solve of the
+    same b (DEVICE_VS_HOST), A·x against b, its BERR at the float64
+    target, exit 0, and its kernel launches read from its metrics export:
+    one front_assemble launch per group of the plan for the DOFACT, none
+    of the standalone wrappers, csr_spmv in the refinement.  Then the 14
+    example drivers in this process on the card (exit 0, the residual
+    line, front_assemble launches and no others at n = 400), and pdtest's
+    --quick configurations at 1x1 on the card (every run passing)."""
+    import contextlib
+    import importlib
+    import io
+    from superlu_dist_tpu_torch.examples import pdtest
+    t_phase = time.perf_counter()
+    ready_s = time.perf_counter() - client["started"]
+    with open(client["go"], "w"):
+        pass
+    proc = client["proc"]
+    rc = proc.wait(timeout=600)
+    client["log_fh"].close()
+    wall = time.perf_counter() - t_phase
+    with open(client["log"]) as fh:
+        text = fh.read()
+    if rc != 0 or f"C API poisson3d({NX}) PASS" not in text:
+        raise AssertionError(f"the C client exited {rc}:\n{text[-4000:]}")
+    times = _capi_fields(text, "CAPI_TIMES")
+    stats = _capi_fields(text, "CAPI_STATS")
+    with open(client["out"], "rb") as fh:
+        raw = fh.read()
+    n = int(np.frombuffer(raw[:8], dtype=np.int64)[0])
+    b = np.frombuffer(raw[8:8 + 8 * n], dtype=np.float64)
+    x = np.frombuffer(raw[8 + 8 * n:8 + 16 * n], dtype=np.float64)
+    if n != a.n_rows or not np.all(np.isfinite(x)):
+        raise AssertionError(f"the C client's x: n={n}, finite "
+                             f"{bool(np.all(np.isfinite(x)))}")
+    relres = float(np.linalg.norm(b - a.matvec(x)) / np.linalg.norm(b))
+    x_ref, _, _, info = slt.gssvx(slt.Options(fact=slt.Fact.FACTORED), a, b,
+                                  lu=lu)
+    diff = float(np.max(np.abs(x - x_ref)))
+    close = np.allclose(x, x_ref, rtol=tols.DEVICE_VS_HOST_RTOL,
+                        atol=tols.DEVICE_VS_HOST_ATOL)
+    with open(client["metrics"]) as fh:
+        counters = json.load(fh)["counters"]
+
+    def launched(call, nn, kernel):
+        return int(counters.get(
+            f'slu_capi_kernel_launches_total{{call="{call}",'
+            f'kernel="{kernel}",n="{nn}"}}', 0))
+    groups = len(lu.plan.groups)
+    capi_launches = {
+        "dofact_front_assemble": launched("factor_opts", n, "front_assemble"),
+        "solve_csr_spmv": launched("solve_factored_opts", n, "csr_spmv"),
+        "refactor_front_assemble": launched("refactor", NX_SMALL ** 3,
+                                            "front_assemble"),
+        "standalone": sum(v for k, v in counters.items()
+                          if 'kernel="extend_add"' in k
+                          or 'kernel="assemble"' in k)}
+    say("entry_capi", client_build_s=client["build_s"], exit=rc,
+        waited_from_start_s=ready_s, wall_s=wall, seconds=times,
+        stats=stats, rel_residual=relres, max_abs_diff_vs_in_process=diff,
+        launches=capi_launches, groups=groups)
+    if info != 0 or not close or relres > tols.RESID_GATE:
+        raise AssertionError(f"the C client's x: in-process info {info}, "
+                             f"max |x - x_ref| {diff}, residual {relres}")
+    check_berr("entry_capi", stats["berr"])
+    if (capi_launches["dofact_front_assemble"] != groups
+            or not capi_launches["solve_csr_spmv"]
+            or not capi_launches["refactor_front_assemble"]
+            or capi_launches["standalone"]):
+        raise AssertionError(f"the C client's launches {capi_launches}, "
+                             f"expected {groups} for its DOFACT")
+
+    examples = {}
+    for name, line in EXAMPLES.items():
+        mod = importlib.import_module(f"superlu_dist_tpu_torch.examples.{name}")
+        kernels.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out = buf.getvalue()
+        if rc != 0 or line not in out:
+            raise AssertionError(f"example {name}: rc {rc}\n{out[-3000:]}")
+        got = expect_launches(f"example {name}", kernels, None, False)
+        examples[name] = {"s": sec, "front_assemble": got["front_assemble"]}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = pdtest.configs(pdtest.load_fixture("g20.rua")[0], None, [1, 3], 8,
+                         20, device="cuda")
+    pd_s = time.perf_counter() - t0
+    nrun = sum(r[3] for r in res)
+    nfail = sum(r[4] for r in res)
+    pd_launches = expect_launches("pdtest", kernels, None, False)
+    say("entry", examples=examples, pdtest={
+        "grid": "1x1", "nrun": nrun, "nfail": nfail, "s": pd_s,
+        "front_assemble": pd_launches["front_assemble"]},
+        phase_s=time.perf_counter() - t_phase)
+    if nrun != 24 or nfail:
+        raise AssertionError(f"pdtest --quick 1x1: {nfail} of {nrun} failed")
+    shutil.rmtree(_entry_workdir(), ignore_errors=True)
+
+
+def entry_only() -> int:
+    """``python3 chip_smoke.py entry``: the build, gssvx on poisson3d(48)
+    and the entry phase only (a quicker check of the C API, the examples
+    and pdtest; the full script runs every phase)."""
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.utils import tols
+    card = card_line()
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    kernels.library()
+    from superlu_dist_tpu_torch import native
+    native.load()
+    client = start_capi_client()
+    a = poisson3d(NX)
+    b = a.matvec(np.random.default_rng(SEED).standard_normal(a.n_rows))
+    x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+    say("gssvx", n=a.n_rows, fact_s=stats.utime["FACT"],
+        berr=stats.solve_report.berr, tiny_pivots=stats.tiny_pivots)
+    entry_phase(slt, a, lu, client, kernels, tols, torch)
+    print(card)
+    return 0
+
+
 def first_solve_only(label: str) -> int:
     """``python3 chip_smoke.py first_solve [LABEL]``: the build, then gssvx
     on poisson3d(48) twice (phase seconds and wall; the first in the
@@ -3085,6 +3308,8 @@ def main():
         return pgssvx_only()
     if sys.argv[1:2] == ["mesh"]:
         return mesh_only()
+    if sys.argv[1:2] == ["entry"]:
+        return entry_only()
     if sys.argv[1:2] == ["first_solve"]:
         return first_solve_only(sys.argv[2] if len(sys.argv) > 2 else "")
     import superlu_dist_tpu_torch as slt
@@ -3116,6 +3341,10 @@ def main():
     peers = start_peers(slt)
     mesh_peer = start_mesh_peer(slt)
     peers["others"] = {p.pid for p in mesh_peer["procs"].values()}
+    # the entry phase's C client starts now too (its interpreter, torch
+    # and CUDA context), and waits for that phase
+    capi_client = start_capi_client()
+    peers["others"].add(capi_client["proc"].pid)
     native.reset_calls()
     t0 = time.perf_counter()
     lu0, bvals0, st0 = slt.analyze(slt.Options(), a, device="cuda")
@@ -3232,6 +3461,11 @@ def main():
     mesh_phase(slt, a, lu, x, stats.tiny_pivots, mesh_peer, kernels, tols,
                torch)
     del mesh_peer
+    # 4f. the reference's user entry points: the C client on the card, the
+    # example drivers and pdtest's 1x1 sweep (before the reuse phase
+    # refactors the main handle on new values)
+    entry_phase(slt, a, lu, capi_client, kernels, tols, torch)
+    del capi_client
 
     # 4e. the reuse tiers and refactor on the main path's handle, 4f. the
     # complex path on its plan

@@ -267,6 +267,13 @@ def resolve_executor(executor: str, device: torch.device, grid=None,
     return executor
 
 
+def cached_executors(plan: FactorPlan) -> list:
+    """The executors cached on ``plan`` (``get_executor``'s cache), in
+    the order they were built: a refactor that reuses the plan builds
+    none, so a fused executor's graph is not captured again."""
+    return list(plan.__dict__.get("_factor_fns", {}).values())
+
+
 def get_executor(plan: FactorPlan, dtype=torch.float64,
                  executor: str = "auto", gemm_prec: str | None = None,
                  device="cuda", *, host_flops: float = 0.0,

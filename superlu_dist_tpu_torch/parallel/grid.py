@@ -5,15 +5,18 @@ The reference creates a Pr×Pc MPI grid with row/column sub-communicators
 (superlu_gridinit, SRC/superlu_grid.c:31-189).  Port of the JAX
 package's ``parallel/grid.py``, whose grid is a ``jax.sharding.Mesh``
 over the chips of one controller (or of a ``jax.distributed`` world).
-Torch's idiom is one process per device, so here a grid is the world of
-a ``torch.distributed`` process group: every rank builds the same
-:class:`ProcessGrid` and calls the tier's entry points collectively.
-The grid wraps a ``DeviceMesh`` with the JAX package's axis names
-``("snode", "panel")``, laid out row-major as the JAX package lays out
-its devices (``reshape(nprow, npcol)``): rank r sits at process row
-``r // npcol`` and process column ``r % npcol``.  The "panel" axis is a
-process row (its sub-group: ``DeviceMesh.get_group("panel")``, the
-reference's row communicator), the "snode" axis a process column.  The
+Torch's idiom is one process per device, so here a grid is a
+``torch.distributed`` process group: the world (:func:`gridinit`) or a
+sub-group of it (:func:`gridmap`, the reference's pddrive4 with two
+sub-grids); every rank of it builds the same :class:`ProcessGrid` and
+calls the tier's entry points collectively.  The grid keeps the JAX
+package's axis names ``("snode", "panel")``, laid out row-major as the
+JAX package lays out its devices (``reshape(nprow, npcol)``): grid rank r
+sits at process row ``r // npcol`` and process column ``r % npcol``.  The
+"panel" axis is a process row (its sub-group, the reference's row
+communicator), the "snode" axis a process column.  A grid's ranks are its
+own (0 .. nproc-1); its collectives run on its own groups and never touch
+a rank outside it.  The
 1-D tier (parallel/spmd.py) flattens the grid and deals the slots of
 every group over the flat rank order; the 2-D tier
 (parallel/mesh_stream.py) deals slots over the process rows and each
@@ -22,20 +25,20 @@ front's columns over the process columns.
 The collectives the tier needs are methods of the grid:
 :meth:`ProcessGrid.gather_rows` (every rank's rows, in rank order, one
 broadcast per rank that has some), :meth:`ProcessGrid.all_gather`
-(equal shapes; over the world or one process column),
+(equal shapes; over the grid or one process column),
 :meth:`ProcessGrid.all_reduce_sum` and, for numpy vectors,
 :meth:`ProcessGrid.allreduce_sum_any` (the TreeComm call a
 ``utils.deadline.Deadline`` polls through); and for the 2-D tier
 :meth:`ProcessGrid.bcast_row` (one process column's tensor to its row),
 :meth:`ProcessGrid.all_reduce_row` (a sum over the row in process-column
 order, the same bits on every rank of it) and :meth:`ProcessGrid.exchange`
-(variable-size all-to-all over the world).  Under gloo, card tensors are
+(variable-size all-to-all over the grid).  Under gloo, card tensors are
 staged through page-locked host memory (gloo takes no CUDA tensor in
 ``all_gather``, and the staging is explicit for all of them); under NCCL
 they stay on the card.  ``comm`` counts each op's calls, bytes and
 seconds.  ``SLU_TPU_VERIFY_COLLECTIVES=1`` checks each collective's
 (op, shape, dtype, sequence) record across the ranks of its
-communicator (the world, a row or a column, each with its own sequence)
+communicator (the grid, a row or a column, each with its own sequence)
 first — and an exchange's counts against its peers' — and raises
 :class:`~superlu_dist_tpu_torch.utils.errors.CollectiveMismatchError` on
 every rank instead of hanging.  A failed collective raises; nothing is
@@ -67,11 +70,15 @@ class ProcessGrid:
 
     nprow: int
     npcol: int
-    rank: int
+    rank: int                    # this rank in the grid (0 .. nproc-1)
     device: torch.device
     backend: str | None
-    mesh: object = None          # torch.distributed DeviceMesh (None: one
-                                 # rank, no process group)
+    group: object = None         # the grid's process group (None: the
+                                 # world's default group)
+    axis_groups: dict = dataclasses.field(default_factory=dict)
+                                 # "panel" / "snode": this rank's row /
+                                 # column group (only where it has 2+ ranks)
+    world_ranks: tuple = ()      # grid rank -> world rank
     verify: bool = False         # SLU_TPU_VERIFY_COLLECTIVES
     comm: dict = dataclasses.field(default_factory=dict)
     seq: dict = dataclasses.field(default_factory=dict)   # per communicator
@@ -91,9 +98,14 @@ class ProcessGrid:
         return self.rank % self.npcol
 
     def _group(self, axis):
-        """The process group of ``axis``: None (the world), "panel" (this
-        rank's process row) or "snode" (its process column)."""
-        return None if axis is None else self.mesh.get_group(axis)
+        """The process group of ``axis``: None (the whole grid), "panel"
+        (this rank's process row) or "snode" (its process column)."""
+        return self.group if axis is None else self.axis_groups[axis]
+
+    def _world(self, grid_rank: int) -> int:
+        """The world rank of grid rank ``grid_rank`` (torch's ``src=``
+        is a world rank even with ``group=``)."""
+        return self.world_ranks[grid_rank] if self.world_ranks else grid_rank
 
     def _members(self, axis) -> int:
         return {None: self.nproc, "panel": self.npcol,
@@ -150,7 +162,7 @@ class ProcessGrid:
              for i, m in enumerate(mat)], rank=self.rank)
 
     def _ranks(self, axis) -> list:
-        """The global ranks of ``axis``'s communicator, in its order."""
+        """The grid ranks of ``axis``'s communicator, in its order."""
         if axis is None:
             return list(range(self.nproc))
         if axis == "panel":
@@ -159,7 +171,7 @@ class ProcessGrid:
 
     def all_gather(self, t: torch.Tensor, axis=None) -> torch.Tensor:
         """Every rank's ``t`` (one shape on every rank) concatenated in
-        rank order along dim 0, on ``t``'s device: over the world, or
+        rank order along dim 0, on ``t``'s device: over the grid, or
         over this rank's process column (``axis="snode"``, in process-row
         order)."""
         k = self._members(axis)
@@ -209,14 +221,14 @@ class ProcessGrid:
             buf = t.contiguous()
             if self.staged:
                 buf = _pinned(buf)
-            dist.broadcast(buf, src=src, group=group)
+            dist.broadcast(buf, src=self._world(src), group=group)
             out = t
         else:
             if self.staged:
                 buf = torch.empty(shape, dtype=dtype, pin_memory=True)
             else:
                 buf = torch.empty(shape, dtype=dtype, device=self.device)
-            dist.broadcast(buf, src=src, group=group)
+            dist.broadcast(buf, src=self._world(src), group=group)
             out = buf.to(self.device, non_blocking=True)
         self._note("bcast_row", buf.numel() * buf.element_size(),
                    time.perf_counter() - t0)
@@ -254,7 +266,7 @@ class ProcessGrid:
 
     def exchange(self, send: torch.Tensor, send_counts,
                  recv_counts) -> torch.Tensor:
-        """Variable-size all-to-all over the world: ``send`` (1-D) holds
+        """Variable-size all-to-all over the grid: ``send`` (1-D) holds
         this rank's elements for rank 0, 1, ... in order, ``send_counts[d]``
         of them for rank d; returns the ``sum(recv_counts)`` elements
         received, rank 0's first, on ``send``'s device.  Every rank enters,
@@ -292,7 +304,8 @@ class ProcessGrid:
             out = torch.empty(sum(recv_counts), dtype=send.dtype,
                               device=send.device)
         dist.all_to_all_single(out, src, output_split_sizes=recv_counts,
-                               input_split_sizes=send_counts)
+                               input_split_sizes=send_counts,
+                               group=self.group)
         if self.staged:
             out = out.to(send.device, non_blocking=True)
         self._note("exchange", (src.numel() + out.numel())
@@ -331,7 +344,7 @@ class ProcessGrid:
                 buf = torch.empty((c,) + rest, dtype=t.dtype, pin_memory=True)
             else:
                 buf = torch.empty((c,) + rest, dtype=t.dtype, device=t.device)
-            dist.broadcast(buf, src=r)
+            dist.broadcast(buf, src=self._world(r), group=self.group)
             if r != self.rank:
                 out[at:at + c].copy_(buf, non_blocking=True)
             at += c
@@ -350,7 +363,7 @@ class ProcessGrid:
         out = t.detach().clone()
         if self.staged:
             out = out.cpu()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.group)
         if out.device != t.device:
             out = out.to(t.device)
         self._note("all_reduce", out.numel() * out.element_size(),
@@ -385,6 +398,48 @@ def _backend_of_world():
     return dist.get_backend(), dist.get_world_size(), dist.get_rank()
 
 
+def _grid_device(device) -> torch.device:
+    from superlu_dist_tpu_torch.utils.options import resolve_device
+    device = resolve_device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _make_grid(ranks: list, nprow: int, npcol: int, device, world: int,
+               rank: int, backend) -> ProcessGrid | None:
+    """The nprow×npcol grid over world ranks ``ranks`` (row-major), or
+    None on a rank outside it.  Every rank of the world calls this with
+    the same arguments: ``torch.distributed.new_group`` is collective
+    over the world even for a group that leaves the caller out.  The
+    grid's group (unless it is the world), then each process row's and
+    each process column's of two or more ranks, are made in one order on
+    every rank."""
+    import torch.distributed as dist
+    from superlu_dist_tpu_torch.utils.options import env_flag
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("an NCCL grid runs on the card")
+    need = nprow * npcol
+    group, axis_groups = None, {}
+    if world > 1:
+        if need != world:
+            group = dist.new_group(ranks)
+        layout = np.asarray(ranks).reshape(nprow, npcol)
+        for axis, members in (("panel", layout), ("snode", layout.T)):
+            if members.shape[1] < 2:
+                continue
+            for m in members:
+                g = dist.new_group([int(r) for r in m])
+                if rank in m:
+                    axis_groups[axis] = g
+    if rank not in ranks:
+        return None
+    return ProcessGrid(nprow, npcol, ranks.index(rank), device, backend,
+                       group=group, axis_groups=axis_groups,
+                       world_ranks=tuple(ranks),
+                       verify=env_flag("SLU_TPU_VERIFY_COLLECTIVES"))
+
+
 def gridinit(nprow: int, npcol: int, device=None, tc=None) -> ProcessGrid:
     """superlu_gridinit analog (SRC/superlu_grid.c:31): the nprow×npcol
     grid over the initialized ``torch.distributed`` world, whose size must
@@ -393,30 +448,17 @@ def gridinit(nprow: int, npcol: int, device=None, tc=None) -> ProcessGrid:
     ``cuda:<current>``; "cpu" on the CPU).  ``tc`` (a TreeComm of the same
     processes) is checked to order its ranks as the grid does: the host
     analysis travels on it and the device data on the process group."""
-    from superlu_dist_tpu_torch.utils.options import env_flag, resolve_device
     need = int(nprow) * int(npcol)
     if need < 1:
         raise ValueError(f"grid {nprow}x{npcol} is empty")
-    if device is None:
-        device = "cuda"
-    device = resolve_device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = _grid_device(device)
     backend, world, rank = _backend_of_world()
     if world != need:
         raise ValueError(
             f"grid {nprow}x{npcol} needs a torch.distributed world of {need} "
             f"ranks, have {world} (parallel/mhboot.boot joins one)")
-    if backend == "nccl" and device.type != "cuda":
-        raise ValueError("an NCCL grid runs on the card")
-    mesh = None
-    if world > 1:
-        from torch.distributed.device_mesh import DeviceMesh
-        mesh = DeviceMesh(device.type,
-                          torch.arange(need).reshape(int(nprow), int(npcol)),
-                          mesh_dim_names=AXES)
-    grid = ProcessGrid(int(nprow), int(npcol), rank, device, backend,
-                       mesh=mesh, verify=env_flag("SLU_TPU_VERIFY_COLLECTIVES"))
+    grid = _make_grid(list(range(need)), int(nprow), int(npcol), device,
+                      world, rank, backend)
     if tc is not None and (tc.rank != grid.rank or tc.n_ranks != need):
         raise ValueError(
             f"TreeComm rank {tc.rank}/{tc.n_ranks} differs from grid rank "
@@ -424,16 +466,25 @@ def gridinit(nprow: int, npcol: int, device=None, tc=None) -> ProcessGrid:
     return grid
 
 
-def gridmap(ranks, nprow: int, npcol: int, device=None) -> ProcessGrid:
-    """superlu_gridmap analog (SRC/superlu_grid.c:63): the grid from an
-    explicit rank list.  Under one process per device the list must be
-    the world in order (a grid over a subset of the world would need a
-    sub-group every rank creates); anything else raises."""
+def gridmap(ranks, nprow: int, npcol: int, device=None) -> ProcessGrid | None:
+    """superlu_gridmap analog (SRC/superlu_grid.c:63): the nprow×npcol grid
+    over the world ranks ``ranks`` (nprow·npcol of them, increasing: torch
+    numbers a sub-group's members in world order), laid out row-major.
+    COLLECTIVE over the world, as in the reference's pddrive4: every rank
+    calls it for every sub-grid, in the same order, and gets the grid back
+    where it is a member and None elsewhere (the reference marks a
+    non-member with ``iam >= nprow*npcol``).  The grid's rank, ``nproc``,
+    coordinates and collectives are the sub-grid's own."""
     ranks = [int(r) for r in ranks]
-    if ranks != list(range(int(nprow) * int(npcol))):
-        raise ValueError(f"gridmap takes the world's ranks in order, got "
-                         f"{ranks}")
-    return gridinit(nprow, npcol, device=device)
+    need = int(nprow) * int(npcol)
+    backend, world, rank = _backend_of_world()
+    if (need < 1 or len(ranks) != need or ranks != sorted(set(ranks))
+            or ranks[0] < 0 or ranks[-1] >= world):
+        raise ValueError(f"gridmap {nprow}x{npcol} takes {need} distinct "
+                         f"world ranks in increasing order below {world}, "
+                         f"got {ranks}")
+    return _make_grid(ranks, int(nprow), int(npcol), _grid_device(device),
+                      world, rank, backend)
 
 
 def gridinit_multihost(nprow: int, npcol: int,

@@ -406,7 +406,8 @@ class Options:
     max_supernode: int = 256          # NSUP: cap supernode width
     factor_dtype: str | None = None   # None => float32 on cuda, float64 on
                                       # cpu; complex values take the
-                                      # complex type of that width
+                                      # complex type of that width;
+                                      # "df64" runs float64
     ir_dtype: str = "float64"         # residual precision for refinement
     amalg_tol: float = 1.2            # fill-tolerant amalgamation flop growth
     bucket_growth: float = 1.5        # geometric padding of front buckets
@@ -557,21 +558,27 @@ def default_factor_dtype(device: torch.device) -> torch.dtype:
 #: drivers/gssvx.py:415-416)
 FACTOR_DTYPES = {"float32": torch.float32, "float64": torch.float64,
                  "complex64": torch.complex64, "complex128": torch.complex128}
+#: names the port runs as another dtype: the JAX package's "df64"
+#: (hi/lo float32 pairs, about 2^-48, for hardware without float64) runs
+#: as IEEE float64 (2^-53), which the card has in hardware
+FACTOR_DTYPE_ALIASES = {"df64": "float64"}
 _COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 
 def resolve_factor_dtype(name: str | None, device: torch.device,
                          cplx: bool = False) -> torch.dtype:
-    """The torch dtype of the factors: ``name`` (an Options.factor_dtype)
-    or the device's default, promoted to complex for complex values.
-    Raises NotImplementedError for a name the port does not run (df64,
-    the JAX package's emulated double, is not ported)."""
+    """The torch dtype of the factors: ``name`` (an Options.factor_dtype,
+    "df64" read as "float64") or the device's default, promoted to complex
+    for complex values.  Raises NotImplementedError for a name the port
+    does not run."""
     if name is None:
         dt = default_factor_dtype(device)
-    elif str(name) in FACTOR_DTYPES:
-        dt = FACTOR_DTYPES[str(name)]
     else:
-        raise NotImplementedError(
-            f"factor_dtype {name!r} is not ported; the port runs "
-            f"{sorted(FACTOR_DTYPES)} (ROADMAP.md)")
+        key = FACTOR_DTYPE_ALIASES.get(str(name), str(name))
+        if key not in FACTOR_DTYPES:
+            raise NotImplementedError(
+                f"factor_dtype {name!r} is not ported; the port runs "
+                f"{sorted(FACTOR_DTYPES) + sorted(FACTOR_DTYPE_ALIASES)} "
+                "(ROADMAP.md)")
+        dt = FACTOR_DTYPES[key]
     return _COMPLEX_OF.get(dt, dt) if cplx else dt

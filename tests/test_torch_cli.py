@@ -1,8 +1,8 @@
 """The port's command-line driver (``python -m superlu_dist_tpu_torch``,
 the pddrive / pdtest analog) on the CPU, beside the JAX package's CLI on
 the same matrix file: the solve and its PStatPrint-style report, TRANS
-with two right-hand sides, the pdtest-style sweep, an unported dtype
-(df64: rc 2, no traceback), and the card asked for by default."""
+with two right-hand sides, the pdtest-style sweep, df64 (native float64
+factors, rc 0), and the card asked for by default."""
 
 import pathlib
 import re
@@ -71,10 +71,13 @@ def test_cli_sweep_counts_like_the_jax_package(mtx_file, capsys):
 
 
 def test_cli_df64_exits_2_without_a_traceback(mtx_file, capsys):
-    assert main(["-f", mtx_file, "--device", "cpu", "--dtype", "df64"]) == 2
-    err = capsys.readouterr().err
-    assert "df64" in err and "not ported" in err
-    assert "Traceback" not in err
+    """``--dtype df64`` runs: the port factors in native float64 (the
+    JAX package's df64 is emulated double), rc 0, no traceback."""
+    assert main(["-f", mtx_file, "--device", "cpu", "--dtype", "df64",
+                 "--stats"]) == 0
+    cap = capsys.readouterr()
+    assert "factor dtype float64" in cap.out
+    assert "Traceback" not in cap.err
 
 
 def test_cli_float32_on_a_complex_file(tmp_path, capsys):

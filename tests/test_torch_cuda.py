@@ -7,7 +7,10 @@ against the same solves on the CPU, refactor on the card, solves that are
 bit for bit reproducible (fused and eager), save_lu / load_lu and a
 deadline-stopped factorization resumed, and the executors (the fused and
 mega CUDA graphs, level waves, host offload, the host-share split), on
-the card.
+the card; and the reference's user entry points there: the C client and
+the Fortran driver (where gfortran exists) over libslu_tpu_torch.so,
+every example driver, gridmap's two sub-grids with four ranks sharing the
+card, pdtest --quick, and factor_dtype="df64" bit for bit "float64".
 
 These tests need an NVIDIA GPU and skip without one.  The JAX package is
 not installed beside the card, so run them without the repo's conftest:
@@ -972,3 +975,141 @@ def test_mesh2d_pgssvx_two_ranks_on_one_card(cuda):
         assert t["bcasts"] > 0 and t["exchange_bytes"] > 0
     assert sum(out[r]["timings"]["pool_bytes"] for r in range(2)) \
         < 2 * out[0]["pool_size_bytes"]
+
+
+# ---- the reference's user entry points on the card --------------------------
+
+def _capi_client(*args, metrics=None):
+    import os
+    from superlu_dist_tpu_torch.bindings import build
+    lib, exe = build.build()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    if metrics is not None:
+        env["SLU_TPU_METRICS"] = str(metrics)
+    return subprocess.run([str(exe), *map(str, args)], capture_output=True,
+                          text=True, env=env, timeout=600,
+                          stdin=subprocess.DEVNULL)
+
+
+def test_capi_client_on_the_card(cuda, tmp_path):
+    """The C client with slu_tpu_init(NULL) (the card): poisson3d(12)
+    built in C, DOFACT, FACTORED at nrhs 1 and 4, a tier-2 refactor; x
+    within DEVICE_VS_HOST of the in-process gssvx on the card, one
+    front_assemble launch per group for its DOFACT (its metrics export),
+    exit 0 after slu_tpu_finalize; and the tridiagonal self-check."""
+    import json
+    out, metrics = tmp_path / "x.bin", tmp_path / "m.json"
+    res = _capi_client("default", 12, out, metrics=metrics)
+    assert res.returncode == 0, (res.stdout, res.stderr)
+    assert "C API poisson3d(12) PASS" in res.stdout
+    raw = out.read_bytes()
+    n = int(np.frombuffer(raw[:8], dtype=np.int64)[0])
+    b = np.frombuffer(raw[8:8 + 8 * n], dtype=np.float64)
+    x = np.frombuffer(raw[8 + 8 * n:], dtype=np.float64)
+    a = poisson3d(12)
+    x_ref, lu, _, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+    assert info == 0
+    np.testing.assert_allclose(x, x_ref, rtol=tols.DEVICE_VS_HOST_RTOL,
+                               atol=tols.DEVICE_VS_HOST_ATOL)
+    counters = json.loads(metrics.read_text())["counters"]
+    key = ('slu_capi_kernel_launches_total{call="factor_opts",'
+           f'kernel="front_assemble",n="{n}"}}')
+    assert counters[key] == len(lu.plan.groups)
+    res = _capi_client("default")
+    assert res.returncode == 0 and "C API PASS" in res.stdout, res.stdout
+
+
+def test_fortran_driver_on_the_card(cuda, tmp_path):
+    """f_pddrive.f90 over superlu_mod.f90 and libslu_tpu_torch.so, on the
+    card; compiled where gfortran exists."""
+    import os
+    import shutil
+    from superlu_dist_tpu_torch.bindings import build
+    gfortran = shutil.which("gfortran")
+    if gfortran is None:
+        pytest.skip("no gfortran on this machine")
+    lib, _ = build.build()
+    here = ROOT / "superlu_dist_tpu_torch" / "bindings"
+    exe = tmp_path / "f_pddrive"
+    r = subprocess.run([gfortran, "-o", str(exe), str(here / "superlu_mod.f90"),
+                        str(here / "f_pddrive.f90"), "-J", str(tmp_path),
+                        *build.link_flags(lib)], capture_output=True,
+                       text=True, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([str(exe)], capture_output=True, text=True, env=env,
+                       timeout=600, stdin=subprocess.DEVNULL)
+    assert r.returncode == 0 and "PASS" in r.stdout, (r.stdout, r.stderr)
+
+
+EXAMPLES = ["pddrive", "pddrive1", "pddrive2", "pddrive3", "pddrive4",
+            "pzdrive", "pzdrive1", "pzdrive2", "pzdrive3", "pzdrive4",
+            "pddrive_ABglobal", "pddrive_dist", "pddrive_df64",
+            "pddrive_refactor"]
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_on_the_card(cuda, name, capsys):
+    import importlib
+    mod = importlib.import_module(f"superlu_dist_tpu_torch.examples.{name}")
+    kernels.reset_launches()
+    assert mod.main(["--device", "cuda"]) == 0
+    assert "residual" in capsys.readouterr().out
+    assert kernels.LAUNCHES["front_assemble"] > 0
+
+
+@pytest.mark.parametrize("name", ["pddrive4", "pzdrive4"])
+def test_subgrid_examples_with_four_ranks_on_the_card(cuda, name, capsys):
+    import importlib
+    mod = importlib.import_module(f"superlu_dist_tpu_torch.examples.{name}")
+    assert mod.main(["--device", "cuda", "--nproc", "4"]) == 0
+    out = capsys.readouterr().out
+    assert f"[{name} grid=(2, 1) ranks=[2, 3] seed=1] residual" in out
+
+
+def test_subgrids_four_ranks_share_the_card(cuda):
+    """gridmap's two 2×1 sub-grids with four ranks on the one card (gloo):
+    each sub-grid's x bit for bit the other sub-grid's solve of the same
+    system alone, the same verified collectives, within DEVICE_VS_HOST of
+    the CPU gssvx."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    specs = [("poisson3d", (8,), 1, None), ("poisson3d", (9,), 2, None)]
+    out = run_mesh_ranks(4, cases.subgrids, specs, device="cuda",
+                         timeout=600,
+                         env={"SLU_TPU_VERIFY_COLLECTIVES": "1"})
+    np.testing.assert_array_equal(out[0]["x_alone"], out[2]["x"])
+    assert out[0]["seq_alone"] == out[2]["seq"]
+    for which in (0, 1):
+        a, b = cases._system(specs[which])
+        x_cpu, _, _, _ = slt.gssvx(slt.Options(), a, b, device="cpu")
+        np.testing.assert_allclose(out[2 * which]["x"], x_cpu,
+                                   rtol=tols.DEVICE_VS_HOST_RTOL,
+                                   atol=tols.DEVICE_VS_HOST_ATOL)
+
+
+def test_pdtest_quick_on_the_card(cuda, capsys):
+    """pdtest --quick on the card: 1x1 in this process, 1x2 with both
+    ranks on the card; every run passes."""
+    from superlu_dist_tpu_torch.examples import pdtest
+    assert pdtest.main(["--quick", "--device", "cuda"]) == 0
+    assert "passed the threshold (    48 tests run)" in \
+        capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_df64_on_the_card_is_float64_bit_for_bit(cuda, cplx):
+    a = helmholtz_2d(20) if cplx else poisson3d(10)
+    b = a.matvec(np.ones(a.n_rows))
+    got = {}
+    for dt in ("df64", "float64"):
+        x, lu, st, info = slt.gssvx(slt.Options(factor_dtype=dt), a, b,
+                                    device="cuda")
+        assert info == 0
+        got[dt] = (x, lu.numeric.dtype, st.solve_report.factor_dtype)
+    assert got["df64"][1] == got["float64"][1] == (
+        torch.complex128 if cplx else torch.float64)
+    assert got["df64"][2] == got["float64"][2]
+    np.testing.assert_array_equal(got["df64"][0], got["float64"][0])

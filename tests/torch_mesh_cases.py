@@ -414,3 +414,34 @@ def mismatched_row_collectives(tc, grid, case):
     except CollectiveMismatchError as e:
         return f"mismatch: {type(e).__name__}"
     return "no error"
+
+
+def subgrids(tc, grid, specs):
+    """Four world ranks split by ``gridmap`` into two 2×1 sub-grids, ranks
+    [0, 1] and [2, 3] (every rank makes both calls, in one order). Each
+    sub-grid solves its own system of ``specs`` with ``gssvx(grid=)`` at
+    the same time as the other; then sub-grid [0, 1] solves the second
+    system alone while [2, 3] waits. Returns this rank's grid rank, the
+    sub-grid's x, its verify sequence numbers and collective calls, and
+    on ranks 0 and 1 the second system's x solved alone."""
+    from superlu_dist_tpu_torch.parallel.grid import gridmap
+    grids = [gridmap([0, 1], 2, 1, device=grid.device),
+             gridmap([2, 3], 2, 1, device=grid.device)]
+    mine = [g for g in grids if g is not None]
+    which = [g is not None for g in grids].index(True)
+    sub = mine[0]
+    a, b = _system(specs[which])
+    x, lu, st, info = slt.gssvx(slt.Options(), a, b, grid=sub)
+    rec = dict(members=[g is not None for g in grids], n_grids=len(mine),
+               grid_rank=sub.rank, nproc=sub.nproc, info=info, x=x,
+               seq=dict(sub.seq), comm=sub.comm_summary(),
+               berr=st.solve_report.berr,
+               shard=shard_record(lu.numeric, sub.nproc, sub.rank))
+    tc.allreduce_sum_any(np.zeros(1))       # both sub-grids are done
+    if which == 0:
+        seq0 = dict(sub.seq)
+        a1, b1 = _system(specs[1])
+        x1, _, _, _ = slt.gssvx(slt.Options(), a1, b1, grid=sub)
+        rec["x_alone"] = x1
+        rec["seq_alone"] = {k: v - seq0.get(k, 0) for k, v in sub.seq.items()}
+    return rec
