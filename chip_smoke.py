@@ -49,7 +49,7 @@ drives the port are reset just before it and checked just after):
                 (``__main__.main`` in-process): rc 0, the reader's seconds,
                 the report's FACT / SOLVE / REFINE seconds and BERR;
      serve    — the serving tier on that handle and the persist bundle: a
-                SolveServer under 8 client threads and 160 seeded requests
+                SolveServer under 8 client threads and 64 seeded requests
                 (nrhs 1 / 4 / 16 / 40), cold and with its buckets warmed
                 (requests/s, p50/p99 latency, batches, batch fill, graph
                 captures; a seeded sample of batches against
@@ -92,9 +92,9 @@ drives the port are reset just before it and checked just after):
                 kernels bit for bit their plain versions at each rank's
                 shapes; per rank the analysis broadcast, FACT,
                 gather bytes and seconds, SOLVE, REFINE, peak memory; then
-                FACTORED at nrhs 4 on the sharded handles,
+                FACTORED at nrhs 1 on the sharded handles,
                 SamePattern_SameRowPerm on the values times 1.5 and
-                par_symb_fact=True on poisson3d(25); then the 2-D mesh
+                par_symb_fact=True on poisson3d(16); then the 2-D mesh
                 executor (parallel/mesh_stream.py) on the same two
                 processes: pgssvx(grid=gridinit(1, 2)) on poisson3d(48)
                 with Options(executor="stream", pool_partition=True),
@@ -102,9 +102,16 @@ drives the port are reset just before it and checked just after):
                 front_assemble on each rank's column share bit for bit
                 its plain version, and per rank the pool, exchange and
                 row-broadcast bytes, seconds and counts; FACTORED at
-                nrhs 4 and the SamePattern refactor on the 2-D handles
-                (``python3 chip_smoke.py mesh``: the build, gssvx and
-                this phase);
+                nrhs 1 and the SamePattern refactor on the 2-D handles;
+                then three grid legs on the same processes: host offload
+                over the partitioned pool (factors host-resident, the
+                device peak below the 2-D run's, the solves in host
+                memory; FACTORED at nrhs 4), and fused and mega as
+                segment graphs (captured at DOFACT, replayed by the
+                SamePattern refactor; fronts within TF32_DRIFT of the 2-D
+                run's; per rank segments, capture seconds, graph bytes,
+                launches) (``python3 chip_smoke.py mesh``: the build,
+                gssvx and this phase);
      entry    — the reference's user entry points on the card: the C
                 client (bindings/test_capi.c over libslu_tpu_torch.so,
                 built with gcc into build/ and started after the native
@@ -134,7 +141,7 @@ drives the port are reset just before it and checked just after):
                 SOLVE seconds, last_solve_stats, solver
                 memory, BERR after refinement; every solve repeated bit for
                 bit, the eager ones equal to the fused ones;
-     gemm_tiers — gssvx on poisson3d(25) at the default, bf16 and f32
+     gemm_tiers — gssvx on poisson3d(16) at the default, bf16 and f32
                 tiers: FACT, refine steps, rungs, BERR;
      executors — Options.executor on the main path's plan: the stream;
      executors_small — on poisson3d(25) (the persist phase's handle): the
@@ -157,7 +164,7 @@ drives the port are reset just before it and checked just after):
                 front-assembly launch (no stage synchronize), then every
                 group of the plan replayed alone for the kernel / plain /
                 library / bound sums;
-  7. complex_dofact — gssvx from scratch on helmholtz_2d(333) (n=110,889);
+  7. complex_dofact — gssvx from scratch on helmholtz_2d(250) (n=62,500);
   8. ladder   — the escalation ladder (its gemm-precision rung live) on a
                 near-singular arrowhead and on hilbert(8), float32 factors;
      orderings — DOFACT gssvx on random_sparse(2000) with ColPerm COLAMD,
@@ -183,6 +190,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -194,16 +202,16 @@ HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {"float32": 67e12, "float64": 34e12}
 NX = 48                  # poisson3d grid edge of the main path: n = 110,592
 #: the depth-cut paths (PERF.md §4): the persist deadline and resume, cli,
-#: gemm_tiers, the fleet's second bundle, fused and the host offload run
-#: at NX_SMALL (48, then 32 before the serve and pgssvx phases needed the
-#: time; 25 keeps nnz = 105,625 above the 100,000 from which
-#: refinement's residual runs through csr_spmv); mega, the host share and
-#: level waves at NX_TINY (32, then 24 before)
+#: the fleet's second bundle, fused and the host offload run at NX_SMALL
+#: (48, then 32 before the serve and pgssvx phases needed the time; 25
+#: keeps nnz = 105,625 above the 100,000 from which refinement's residual
+#: runs through csr_spmv); mega, the host share, level waves, gemm_tiers
+#: and the mesh phase's ParSymbFact at NX_TINY (32, then 24 before)
 NX_SMALL = 25
 NX_TINY = 16
 SEED = 0
 SERVE_RESOLVE = 8        # cold serve batches re-solved and timed in stages
-SERVE_REQUESTS = 160     # requests of each serve round (256 until PR 10)
+SERVE_REQUESTS = 64      # requests of each serve round (PERF.md §4)
 FIRST_SOLVE_REPS = 6     # first solves (new solver, two captures) timed
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1207,28 +1215,36 @@ def pgssvx_phase(slt, peers, kernels, tols, torch):
 MESH_RANKS, MESH_TIMEOUT_S, MESH_SCALE = 2, 900.0, 1.5
 #: the mesh phase's 2-D run: the panel axis and the partitioned pool
 MESH_2D = dict(executor="stream", pool_partition=True)
+#: the grid legs: host offload over the partitioned pool (the
+#: JAX config-4 recipe), fused and mega as segment graphs
+MESH_OFFLOAD = dict(pool_partition=True, front_bytes_limit=0)
+MESH_FUSED = dict(executor="fused", pool_partition=True)
+MESH_MEGA = dict(executor="mega")
 
 
 def start_mesh_peer(slt):
     """The mesh phase's rank 1, spawned early (its ``import torch`` and
     its CUDA context overlap the phases before it): a process of its own
-    on the same card, running seven ``pgssvx(grid=)`` jobs of a 1x2 grid
+    on the same card, running thirteen ``pgssvx(grid=)`` jobs of a 1x2 grid
     in order — on the spmd executor DOFACT on poisson3d(NX) (the main
     path's system, the fronts gathered to slot order after it), FACTORED
-    at nrhs 4 on its sharded handle, SamePattern_SameRowPerm on the
+    at nrhs 1 on its sharded handle, SamePattern_SameRowPerm on the
     values times MESH_SCALE and Options(par_symb_fact=True) on
-    poisson3d(NX_SMALL); then on the 2-D mesh executor (MESH_2D) the
-    same DOFACT, FACTORED and SamePattern_SameRowPerm.  It joins the
-    process group at its first job and waits there for rank 0 (this
-    process).  Returns the phase's state."""
+    poisson3d(NX_TINY); then on the 2-D mesh executor (MESH_2D) the
+    same DOFACT, FACTORED and SamePattern_SameRowPerm; then the grid legs:
+    MESH_OFFLOAD DOFACT and FACTORED at nrhs 4, MESH_FUSED and MESH_MEGA
+    each DOFACT and SamePattern_SameRowPerm.  It joins the process group
+    at its first job and waits there for rank 0 (this process).  Returns
+    the phase's state."""
     from superlu_dist_tpu_torch.testing.ranks import (GallerySystem, RankJob,
                                                       free_port, spawn_peers)
     tag = f"/slt_mesh_{os.getpid()}"
     main_sys = GallerySystem("poisson3d", (NX,), seed=SEED)   # gssvx's b
-    fact_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 60, nrhs=4)
+    fact_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 60)
+    fact4_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 60, nrhs=4)
     ref_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 70,
                             scale=MESH_SCALE)
-    psf_sys = GallerySystem("poisson3d", (NX_SMALL,), seed=SEED + 80)
+    psf_sys = GallerySystem("poisson3d", (NX_TINY,), seed=SEED + 80)
     main = RankJob("mesh", f"{tag}_main", MESH_RANKS, slt.Options(),
                    main_sys.a_rows, main_sys.b_rows, max_len=PG_MAX_LEN,
                    attach_s=1200.0, port=free_port(), device="cuda",
@@ -1252,15 +1268,30 @@ def start_mesh_peer(slt):
                                                     **MESH_2D))
     ref2 = dataclasses.replace(ref, name=f"{tag}_ref2d", options=slt.Options(
         fact=slt.Fact.SamePattern_SameRowPerm, **MESH_2D))
+    # the grid legs: offload (DOFACT, FACTORED at nrhs 4), fused and mega
+    # (DOFACT captures, SamePattern_SameRowPerm replays)
+    legs = {}
+    for leg, kw in (("off", MESH_OFFLOAD), ("fused", MESH_FUSED),
+                    ("mega", MESH_MEGA)):
+        legs[f"{leg}2d"] = dataclasses.replace(
+            main, name=f"{tag}_{leg}2d", options=slt.Options(**kw),
+            gather=leg != "off")
+        second = dataclasses.replace(
+            fact, a_source=fact4_sys.a_rows,
+            b_source=fact4_sys.b_rows) if leg == "off" else ref
+        legs[f"{leg}2d_{'fact' if leg == 'off' else 'ref'}"] = \
+            dataclasses.replace(second, name=f"{tag}_{leg}2d_2",
+                                options=slt.Options(fact=second.options.fact,
+                                                    **kw))
     t0 = time.perf_counter()
     procs, results, spawned_at = spawn_peers(
-        {1: [main, fact, ref, psf, main2, fact2, ref2]})
+        {1: [main, fact, ref, psf, main2, fact2, ref2, *legs.values()]})
     return dict(procs=procs, results=results, spawned_at=spawned_at,
                 spawn_s=time.perf_counter() - t0, tag=tag, main=main,
                 fact=fact, ref=ref, psf=psf, main2d=main2, fact2d=fact2,
-                ref2d=ref2, systems=dict(
+                ref2d=ref2, **legs, systems=dict(
                     fact=fact_sys, ref=ref_sys, psf=psf_sys,
-                    fact2d=fact_sys, ref2d=ref_sys))
+                    fact2d=fact_sys, ref2d=ref_sys, off2d_fact=fact4_sys))
 
 
 def _mesh_rank(rec) -> dict:
@@ -1271,7 +1302,11 @@ def _mesh_rank(rec) -> dict:
     sh = rec.get("shard", {})
     two_d = {k: t[k] for k in ("pool_bytes", "exchange_bytes", "exchange_s",
                                "exchanges", "bcasts", "bcast_bytes",
-                               "bcast_s") if k in t}
+                               "bcast_s", "offload", "offload_wait_s",
+                               "host_bytes", "segments", "capture_s",
+                               "graph_device_bytes", "closed_keys",
+                               "warm_up_launches")
+             if k in t}
     return dict(seconds=rec["seconds"], analysis_s=t.get("analysis_s"),
                 **two_d, own_cols_only=sh.get("own_cols_only"),
                 backend=rec.get("backend"),
@@ -1295,7 +1330,8 @@ def _mesh_check(name, rec0, peer, target, tols, x_ref=None):
     the same x on both ranks bit for bit, BERR at the target, each rank
     holding only its own slots (and on the 2-D executor only its own
     columns), front_assemble launches = the groups where the rank
-    assembles (times the factorizations), the residuals
+    assembles (times the factorizations; plus, at a graph executor's
+    capture, its warm-up's), the residuals
     on the card with two csr_spmv launches a refinement step (at least,
     after the hiprec rung), and x within DEVICE_VS_HOST of ``x_ref``."""
     for r, rec in ((0, rec0), (1, peer)):
@@ -1316,7 +1352,9 @@ def _mesh_check(name, rec0, peer, target, tols, x_ref=None):
     hiprec = sum(r.name == "distributed-hiprec" for r in rep.rungs)
     spmv = 2 * rep.refine_steps
     for r, rec in ((0, rec0), (1, peer)):
-        want = (rec["shard"]["owned_groups"] * (1 + hiprec)
+        # a graph executor's capturing call also launches in its warm-up
+        warm = rec["lu_out"].get("timings", {}).get("warm_up_launches", 0)
+        want = (rec["shard"]["owned_groups"] * (1 + hiprec) + warm
                 if not name.endswith("factored") else 0)
         if rec["launches"] != want:
             raise AssertionError(f"mesh {name} rank {r}: {rec['launches']} "
@@ -1364,14 +1402,14 @@ def mesh_phase(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
     fronts or within TF32_DRIFT, front_assemble launches per rank = the
     groups where it owns a slot, two csr_spmv launches per rank a
     refinement step, and on each rank both kernels bit for bit their
-    plain versions at its local shapes.  Then FACTORED at nrhs 4 on
+    plain versions at its local shapes.  Then FACTORED at nrhs 1 on
     the sharded handles (no launch), SamePattern_SameRowPerm on the
     values times MESH_SCALE (both against gssvx FACTORED on the main
-    path's handle) and par_symb_fact=True at NX_SMALL (against gssvx on
+    path's handle) and par_symb_fact=True at NX_TINY (against gssvx on
     its system).  Prints per rank: the analysis broadcast, FACT, gather
     bytes and seconds, SOLVE, REFINE and peak device memory; and the
     backend.  Then the 2-D run
-    (``_mesh2d_legs``), with FACTORED at nrhs 4 and the SamePattern
+    (``_mesh2d_legs``), with FACTORED at nrhs 1 and the SamePattern
     refactor on its handles."""
     from superlu_dist_tpu_torch.parallel import mhboot
     from superlu_dist_tpu_torch.testing.ranks import run_job, stop_peers
@@ -1418,7 +1456,7 @@ def mesh_phase(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
             executor=lu.numeric.executor)
         del rec0
 
-        # --- FACTORED at nrhs 4, SamePattern_SameRowPerm, ParSymbFact ---
+        # --- FACTORED at nrhs 1, SamePattern_SameRowPerm, ParSymbFact ---
         for name in ("fact", "ref", "psf"):
             sysm = peer["systems"][name]
             kernels.reset_launches()
@@ -1468,6 +1506,7 @@ def mesh_phase(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
                              f"segments {segs}")
     say("mesh", ranks=MESH_RANKS, peer_cuda=done["cuda_initialized"],
         children_left=0, segments_left=0, **out)
+    return out
 
 
 def _mesh2d_legs(slt, a_main, lu_main, x_main, tiny_main, peer, kernels,
@@ -1479,7 +1518,7 @@ def _mesh2d_legs(slt, a_main, lu_main, x_main, tiny_main, peer, kernels,
     TF32_DRIFT, launches per rank, each rank's kernel bit for bit its
     plain version on its column share — plus each rank holding only its
     own columns, the executor the 2-D one, each rank's pool against the
-    plan's; then FACTORED at nrhs 4 and SamePattern_SameRowPerm on the 2-D
+    plan's; then FACTORED at nrhs 1 and SamePattern_SameRowPerm on the 2-D
     handles against gssvx FACTORED on the main path's handle."""
     from superlu_dist_tpu_torch.testing.ranks import run_job
     out = {}
@@ -1501,7 +1540,8 @@ def _mesh2d_legs(slt, a_main, lu_main, x_main, tiny_main, peer, kernels,
     if lu.numeric.tiny_pivots != tiny_main:
         raise AssertionError(f"mesh 2d tiny pivots {lu.numeric.tiny_pivots}"
                              f" != gssvx's {tiny_main}")
-    drift = _drift_card(torch, rec0.pop("fronts"), lu_main.numeric.fronts)
+    fronts2d = rec0.pop("fronts")
+    drift = _drift_card(torch, fronts2d, lu_main.numeric.fronts)
     if not (drift["equal_to_stream"]
             or drift["max_rel_diff_vs_stream"] <= tols.TF32_DRIFT):
         raise AssertionError(f"mesh 2d fronts vs the stream's: {drift}")
@@ -1510,6 +1550,9 @@ def _mesh2d_legs(slt, a_main, lu_main, x_main, tiny_main, peer, kernels,
               for r, rec in ((0, rec0), (1, p1))}
     if not all(c["equal"] for cs in checks.values() for c in cs):
         raise AssertionError(f"mesh 2d: a rank's kernel != plain: {checks}")
+    # device memory above what each rank held before its FACT
+    peaks2d = {r: _mesh_rank(rec)["peak_bytes"] - _mesh_rank(rec)["base_bytes"]
+               for r, rec in ((0, rec0), (1, p1))}
     item = torch.empty((), dtype=lu.numeric.dtype).element_size()
     pools = {r: rec["lu_out"]["timings"]["pool_bytes"]
              for r, rec in ((0, rec0), (1, p1))}
@@ -1550,6 +1593,154 @@ def _mesh2d_legs(slt, a_main, lu_main, x_main, tiny_main, peer, kernels,
                          refine_steps=rp.refine_steps, max_abs_vs_gssvx=e,
                          ranks={0: _mesh_rank(rec), 1: _mesh_rank(pr)})
         del rec
+    out["legs"] = _grid_legs(slt, a_main, lu_main, x_main, tiny_main, peer,
+                             kernels, tols, torch, target, fronts2d, peaks2d)
+    return out
+
+
+def _leg_run(peer, name, lu=None):
+    """One grid leg's job on rank 0 (this process) and its record from
+    rank 1, with rank 0's wall seconds."""
+    from superlu_dist_tpu_torch.testing.ranks import run_job
+    t0 = time.perf_counter()
+    rec = run_job(peer[name], 0, "cuda", lu=lu)
+    sec = time.perf_counter() - t0
+    if "error" in rec:
+        raise AssertionError(f"mesh {name} rank 0: {rec['error']}")
+    return rec, _await(peer, (1,), peer[name].name, timeout=900)[1], sec
+
+
+def _grid_legs(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
+               torch, target, fronts2d, peaks2d):
+    """The grid legs after the 2-D run, on the same two processes, at
+    poisson3d(NX): (1) MESH_OFFLOAD — DOFACT with both ranks' factors
+    host-resident, each rank's device peak above what it held before its
+    FACT below the 2-D run's, x within
+    DEVICE_VS_HOST of gssvx's and BERR at the target, the solves in host
+    memory; then FACTORED at nrhs 4 on the offloaded handles; (2)
+    MESH_FUSED and (3) MESH_MEGA — DOFACT (the segment graphs captured)
+    with the fronts gathered to slot order within TF32_DRIFT of (or equal
+    to) the 2-D stream's of this run, the kernel bit for bit its plain
+    version on each rank's column share, then SamePattern_SameRowPerm on
+    the values times MESH_SCALE (the graphs replayed) against gssvx
+    FACTORED on the main path's handle.  Every job holds the mesh checks
+    (``_mesh_check``: launches per rank = the groups where it assembles,
+    inside the graphs on the graph legs).  Prints per rank the offload's
+    host bytes and wait, the graphs' segments, capture seconds, device
+    bytes, the replay's FACT seconds and the launches."""
+    out, launches = {}, {}
+    # (1) host offload over the partitioned pool
+    kernels.reset_launches()
+    rec0, p1, wall = _leg_run(peer, "off2d")
+    err = _mesh_check("2d offload", rec0, p1, target, tols, x_main)
+    lu = rec0["lu_out"]["lu"]
+    rep = rec0["lu_out"]["solve_report"]
+    ranks = {0: _mesh_rank(rec0), 1: _mesh_rank(p1)}
+    peaks = {r: ranks[r]["peak_bytes"] - ranks[r]["base_bytes"]
+             for r in (0, 1)}
+    out["offload"] = dict(wall_s=wall, berr=rep.berr,
+                          refine_steps=rep.refine_steps,
+                          solve_route=rep.solve_route, max_abs_vs_main=err,
+                          peak_above_base=peaks, peak_above_base_2d=peaks2d,
+                          ranks=ranks, executor=lu.numeric.executor)
+    say("mesh_grid_leg", leg="offload", **out["offload"])
+    for r, rec in ((0, rec0), (1, p1)):
+        if not rec["shard"]["on_host"] or ranks[r]["offload"] != "host" \
+                or not ranks[r]["host_bytes"]:
+            raise AssertionError(f"mesh 2d offload rank {r}: factors not "
+                                 f"host-resident ({ranks[r]})")
+        if peaks[r] >= peaks2d[r]:
+            raise AssertionError(f"mesh 2d offload rank {r}: device peak "
+                                 f"above base {peaks[r]} not below the 2-D "
+                                 f"run's {peaks2d[r]}")
+    if rep.solve_route != "host" or lu.numeric.tiny_pivots != tiny_main:
+        raise AssertionError(f"mesh 2d offload: solve on {rep.solve_route}, "
+                             f"tiny {lu.numeric.tiny_pivots} vs {tiny_main}")
+    del rec0
+    kernels.reset_launches()
+    rec, pr, wall = _leg_run(peer, "off2d_fact", lu=lu)
+    del lu
+    sysm = peer["systems"]["off2d_fact"]
+    x_ref, _, _, _ = slt.gssvx(slt.Options(fact=slt.Fact.FACTORED), a_main,
+                               sysm.rhs(), lu=lu_main)
+    e = _mesh_check("2d offload factored", rec, pr, target, tols, x_ref)
+    rp = rec["lu_out"]["solve_report"]
+    if rp.solve_route != "host":
+        raise AssertionError(f"mesh 2d offload factored: solve on "
+                             f"{rp.solve_route}")
+    out["offload_factored"] = dict(wall_s=wall, berr=rp.berr,
+                                   refine_steps=rp.refine_steps,
+                                   solve_route=rp.solve_route,
+                                   max_abs_vs_gssvx=e,
+                                   ranks={0: _mesh_rank(rec),
+                                          1: _mesh_rank(pr)})
+    say("mesh_grid_leg", leg="offload_factored", **out["offload_factored"])
+    del rec
+    # (2), (3): the segment graphs; both refactors solve (s·A)·x = B
+    sysm = peer["systems"]["ref2d"]
+    x_ref_ref, _, _, _ = slt.gssvx(slt.Options(fact=slt.Fact.FACTORED),
+                                   a_main, sysm.rhs() / MESH_SCALE,
+                                   lu=lu_main)
+    for leg, want in (("fused", "mesh-fused"), ("mega", "mesh-mega")):
+        kernels.reset_launches()
+        rec0, p1, wall = _leg_run(peer, f"{leg}2d")
+        err = _mesh_check(f"2d {leg}", rec0, p1, target, tols, x_main)
+        lu = rec0["lu_out"]["lu"]
+        rep = rec0["lu_out"]["solve_report"]
+        ex = lu.numeric.executor
+        if ex["executor"] != want or not ex.get("segments"):
+            raise AssertionError(f"mesh 2d {leg} ran {ex}")
+        if lu.numeric.tiny_pivots != tiny_main:
+            raise AssertionError(f"mesh 2d {leg} tiny pivots "
+                                 f"{lu.numeric.tiny_pivots} != {tiny_main}")
+        drift = _drift_card(torch, rec0.pop("fronts"), fronts2d)
+        if not (drift["equal_to_stream"]
+                or drift["max_rel_diff_vs_stream"] <= tols.TF32_DRIFT):
+            raise AssertionError(f"mesh 2d {leg} fronts vs the 2-D "
+                                 f"stream's: {drift}")
+        drift = {("equal_to_2d" if k.startswith("equal") else
+                  "max_rel_diff_vs_2d"): v for k, v in drift.items()}
+        drift["gate"] = float(tols.TF32_DRIFT)
+        checks = {r: rec["kernel_vs_plain"]
+                  for r, rec in ((0, rec0), (1, p1))}
+        if not all(c["equal"] for cs in checks.values() for c in cs):
+            raise AssertionError(f"mesh 2d {leg}: a rank's kernel != "
+                                 f"plain: {checks}")
+        first = {0: _mesh_rank(rec0), 1: _mesh_rank(p1)}
+        del rec0
+        kernels.reset_launches()
+        rec, pr, wall2 = _leg_run(peer, f"{leg}2d_ref", lu=lu)
+        del lu
+        e = _mesh_check(f"2d {leg} ref", rec, pr, target, tols, x_ref_ref)
+        second = {0: _mesh_rank(rec), 1: _mesh_rank(pr)}
+        ex2 = rec["lu_out"]["lu"].numeric.executor
+        if ex2.get("replays", 0) < 2 * ex2.get("segments", 1) \
+                or ex2.get("capture_s") != ex.get("capture_s"):
+            raise AssertionError(f"mesh 2d {leg} ref did not replay the "
+                                 f"DOFACT's graphs: {ex2}")
+        out[leg] = dict(
+            wall_s=wall, berr=rep.berr, refine_steps=rep.refine_steps,
+            max_abs_vs_main=err, fronts=drift, kernel_vs_plain=checks,
+            ranks={r: dict(segments=first[r].get("segments"),
+                           closed_keys=first[r].get("closed_keys"),
+                           capture_s=first[r].get("capture_s"),
+                           graph_device_bytes=first[r].get(
+                               "graph_device_bytes"),
+                           capture_fact_s=first[r]["fact_s"],
+                           replay_fact_s=second[r]["fact_s"],
+                           launches_capture=first[r]["front_assemble"],
+                           warm_up_launches=first[r].get(
+                               "warm_up_launches"),
+                           launches_replay=second[r]["front_assemble"],
+                           peak_bytes=first[r]["peak_bytes"])
+                   for r in (0, 1)},
+            ref=dict(wall_s=wall2, berr=rec["lu_out"]["solve_report"].berr,
+                     max_abs_vs_gssvx=e), executor=ex)
+        say("mesh_grid_leg", leg=leg, **out[leg])
+        launches[leg] = {r: [first[r]["front_assemble"],
+                             second[r]["front_assemble"]] for r in (0, 1)}
+        del rec
+    out["graph_launches"] = launches
     return out
 
 
@@ -1607,11 +1798,13 @@ def complex_phase(slt, a, lu, kernels, tols, torch):
 
 
 def complex_dofact_phase(slt, kernels, tols, torch):
-    """Phase 7: gssvx from scratch on helmholtz_2d(333) (n = 110,889): the
-    complex analysis, MC64 on complex values included, complex64 factors."""
+    """Phase 7: gssvx from scratch on helmholtz_2d(250) (n = 62,500): the
+    complex analysis, MC64 on complex values included, complex64 factors
+    (at 333, n = 110,889, until the grid legs needed the time; PERF.md
+    §4)."""
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import helmholtz_2d
-    a = helmholtz_2d(333)
+    a = helmholtz_2d(250)
     rng = np.random.default_rng(SEED + 30)
     b = a.matvec(rng.standard_normal(a.n_rows)
                  + 1j * rng.standard_normal(a.n_rows))
@@ -2519,14 +2712,15 @@ def cli_phase(slt, a, kernels, tols, workdir):
 
 
 def gemm_tiers_phase(slt, kernels, tols):
-    """gssvx on poisson3d(NX_SMALL) (the main path's 48 until the serve
-    phase needed the time, 32 until the pgssvx phase did) at the default GEMM tier (TF32), then at
+    """gssvx on poisson3d(NX_TINY) (the main path's 48 until the serve
+    phase needed the time, 32 until the pgssvx phase did, 25 until the
+    grid legs did) at the default GEMM tier (TF32), then at
     the bf16 and f32 tiers on its analysis (SamePattern_SameRowPerm: same
     plan): FACT seconds, refine steps, rungs, the tier the answer rests
     on, BERR."""
     from superlu_dist_tpu_torch.models.gallery import poisson3d
     rng = np.random.default_rng(SEED + 80)
-    a = poisson3d(NX_SMALL)
+    a = poisson3d(NX_TINY)
     b = a.matvec(rng.standard_normal(a.n_rows))
     x, lu, st, sec = timed_gssvx(slt, kernels, slt.Options(), a, b,
                                  device="cuda")
@@ -3326,11 +3520,24 @@ def main():
     say("card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    # 2. build
+    # 2. build: the host library's g++ beside the kernels' nvcc
     t0 = time.perf_counter()
+    host_build = {}
+
+    def build_host():
+        t = time.perf_counter()
+        try:
+            native.build()
+        except BaseException as e:      # re-raised by native_phase's build
+            host_build["error"] = e
+        host_build["s"] = time.perf_counter() - t
+    builder = threading.Thread(target=build_host)
+    builder.start()
     lib = kernels.build()
     kernels.library()
-    say("build", seconds=time.perf_counter() - t0, library=str(lib))
+    builder.join()
+    say("build", seconds=time.perf_counter() - t0, library=str(lib),
+        host_library_s=host_build["s"])
     native_phase()
 
     # 3. kernels, at the shapes of the main path's plan
@@ -3458,8 +3665,12 @@ def main():
     pgssvx_phase(slt, peers, kernels, tols, torch)
     del peers
     # 4e. the mesh tier: pgssvx(grid=) on a 1x2 grid, both ranks on the card
-    mesh_phase(slt, a, lu, x, stats.tiny_pivots, mesh_peer, kernels, tols,
-               torch)
+    meshed = mesh_phase(slt, a, lu, x, stats.tiny_pivots, mesh_peer, kernels,
+                        tols, torch)
+    # the front assembly's launches inside the grid's segment graphs (per
+    # leg, per rank: the capturing DOFACT, the replaying refactor)
+    records[0]["grid_graph_launches"] = meshed["mesh2d"]["legs"][
+        "graph_launches"]
     del mesh_peer
     # 4f. the reference's user entry points: the C client on the card, the
     # example drivers and pdtest's 1x1 sweep (before the reuse phase
@@ -3535,7 +3746,9 @@ def main():
         raise AssertionError(f"a small solve disagrees with scipy: "
                              f"{scipy_checks}")
 
-    print(json.dumps({"kernels": [{k: r[k] for k in KEYS} for r in records]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in KEYS + ("grid_graph_launches",) if k in r}
+        for r in records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

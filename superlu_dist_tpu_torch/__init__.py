@@ -46,13 +46,15 @@ from superlu_dist_tpu_torch.utils.errors import (CheckpointCorruptError,
                                                  SuperLUError)
 from superlu_dist_tpu_torch.utils.options import (ColPerm, Fact, IterRefine,
                                                   Options, RecoveryPolicy,
-                                                  RowPerm, Trans)
+                                                  RowPerm, Trans, YesNo,
+                                                  set_default_options)
 from superlu_dist_tpu_torch.utils.stats import RungRecord, SolveReport, Stats
 
 __all__ = [
     "gssvx", "gssvx_ABglobal", "gssvx_dist", "analyze", "factorize_numeric",
     "refactor", "LUFactorization", "save_lu", "load_lu", "read_matrix",
-    "Options", "Fact", "ColPerm", "RowPerm", "IterRefine", "Trans",
+    "Options", "Fact", "ColPerm", "RowPerm", "IterRefine", "Trans", "YesNo",
+    "set_default_options", "get_version_number", "__version__",
     "RecoveryPolicy", "Stats", "SolveReport", "RungRecord",
     "SparseCSR", "SparseCSC",
     "SuperLUError", "SingularMatrixError", "NumericBreakdownError",
@@ -64,3 +66,12 @@ __all__ = [
     "ServePoisonedError", "FactorCorruptError", "ReplicaFailureError",
     "DeployRollbackError", "LockOrderError",
 ]
+
+__version__ = "0.1.0"
+
+
+def get_version_number():
+    """Analog of superlu_dist_GetVersionNumber (superlu_dist_version.c):
+    (major, minor, bugfix) of ``__version__``, the JAX package's."""
+    major, minor, bugfix = (int(x) for x in __version__.split("."))
+    return major, minor, bugfix

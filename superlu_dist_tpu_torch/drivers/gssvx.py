@@ -196,12 +196,18 @@ class LUFactorization:
         """Where the solves run: "device" for factors on the card (or the
         CPU device), "host" for factors the executor offloaded to host
         memory (solve/trisolve.py, as the JAX driver routes them,
-        drivers/gssvx.py:180-187).  Placement, not a fallback: factors on
-        the card never take the host path."""
+        drivers/gssvx.py:180-187; sharded ones collectively in host
+        memory, parallel/spmd.SpmdSolver).  Placement, not a fallback:
+        factors on the card never take the host path."""
         return "host" if self.numeric.on_host else "device"
 
+    def _host_solve(self) -> bool:
+        """The host triangular solve of factors one process holds whole
+        (sharded ones solve through ``_solver`` wherever they lie)."""
+        return self.solve_route == "host" and self.numeric.shard is None
+
     def _solve_permuted(self, d: np.ndarray) -> np.ndarray:
-        if self.solve_route == "host":
+        if self._host_solve():
             if not self.numeric.finite:
                 raise SingularMatrixError(self.numeric.info_col)
             return lu_solve(self.numeric, d)
@@ -209,7 +215,7 @@ class LUFactorization:
 
     def _solve_permuted_trans(self, d: np.ndarray,
                               conj: bool = False) -> np.ndarray:
-        if self.solve_route == "host":
+        if self._host_solve():
             if not self.numeric.finite:
                 raise SingularMatrixError(self.numeric.info_col)
             return lu_solve_trans(self.numeric, d, conj=conj)
@@ -929,10 +935,11 @@ def refine_operator(lu: LUFactorization, a: SparseCSR, op: SparseCSR,
     the array it was built from, so FACTORED reuse with new values does
     not refine against a stale upload; otherwise — and for factors
     offloaded to host memory, which solve on the host (the JAX driver's
-    rule, drivers/gssvx.py:1122) — the host ``op``.  A failed upload
+    rule, drivers/gssvx.py:1122) — the host ``op``.  Sharded factors
+    offloaded on a grid keep the residual on the card.  A failed upload
     raises: there is no host fallback."""
     if (lu.device.type != "cuda" or op.nnz < DEVICE_SPMV_MIN_NNZ
-            or lu.numeric.on_host):
+            or (lu.numeric.on_host and lu.numeric.shard is None)):
         return op
     key = (trans, str(np.dtype(residual_dtype)))
     cache = lu.dev_spmv if lu.dev_spmv is not None else {}

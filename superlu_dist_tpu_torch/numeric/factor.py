@@ -18,7 +18,8 @@ factorization record, and the executor choice (``get_executor``):
 * on a grid of several ranks, ``spmd`` (parallel/spmd.py: each rank its
   own slots) or the 2-D mesh stream (parallel/mesh_stream.py: slots over
   the process rows, each front's columns over the process columns, the
-  Schur pool partitioned with ``pool_partition``).
+  Schur pool partitioned with ``pool_partition``), with ``fused`` and
+  ``mega`` its segment graphs (parallel/mesh_graphs.py).
 
 Where the JAX version returns new arrays, this one updates the pool in
 place: each group's front batch is built once by the assembly, the
@@ -52,7 +53,9 @@ PLAIN = kernels.front_assemble_plain
 #: the executors whose callables hold captured CUDA graphs on the card
 GRAPH_EXECUTORS = ("fused", "mega")
 #: the executors of a grid of several ranks (one is kept per device)
-MESH_EXECUTORS = ("spmd", "mesh-stream")
+MESH_EXECUTORS = ("spmd", "mesh-stream", "mesh-fused", "mesh-mega")
+#: the executors whose cache key holds the offload knobs
+OFFLOAD_EXECUTORS = ("stream", "mega", "spmd", "mesh-stream", "mesh-mega")
 
 
 def upload_maps(plan: FactorPlan, device: torch.device) -> list:
@@ -219,8 +222,9 @@ class NumericFactorization:
     def on_host(self) -> bool:
         """True when the executor moved every front to host memory
         (offload): such factors are solved on the host
-        (solve/trisolve.py).  A host-share split leaves only the leading
-        levels' fronts on the CPU — a device factorization."""
+        (solve/trisolve.py; sharded ones collectively in host memory,
+        parallel/spmd.SpmdSolver).  A host-share split leaves only the
+        leading levels' fronts on the CPU — a device factorization."""
         return self.offload == "host" and bool(self.fronts)
 
     def pull_to_host(self) -> list:
@@ -241,22 +245,25 @@ class NumericFactorization:
 def resolve_executor(executor: str, device: torch.device, grid=None,
                      pool_partition: bool = False) -> str:
     """The executor ``executor`` stands for, after the JAX package's rule
-    (numeric/factor.py:391-427).  Under a grid of several ranks:
-    "stream", or any choice with ``pool_partition``, is the 2-D mesh
-    stream ("mesh-stream", parallel/mesh_stream.py — the JAX package's
-    GSPMD stream, which also takes a partitioned pool); "auto" and "spmd"
+    (numeric/factor.py:391-427).  Under a grid of several ranks: "fused"
+    and "mega" are the 2-D executor's segment graphs ("mesh-fused",
+    "mesh-mega", parallel/mesh_graphs.py — the JAX package builds both
+    over a mesh, factor.py:240-388 and mega.py:75-97); "stream", or
+    "auto" or "spmd" with ``pool_partition``, is the 2-D mesh stream
+    ("mesh-stream", parallel/mesh_stream.py — the JAX package's GSPMD
+    stream, which also takes a partitioned pool); "auto" and "spmd"
     without it are "spmd" (the JAX package's auto picks its stream on a
-    multi-process mesh: the port keeps spmd, ROADMAP.md Queue 3); "fused"
-    and "mega" raise.  Off such a grid ``pool_partition`` is ignored (the
-    JAX ``pool_spec`` is None without a mesh), spmd resolves to stream,
-    and auto is fused on the CPU and stream on the card."""
+    multi-process mesh: the port keeps spmd, ROADMAP.md Queue 3).  The
+    three 2-D executors take ``pool_partition``.  Off such a grid
+    ``pool_partition`` is ignored (the JAX ``pool_spec`` is None without
+    a mesh), spmd resolves to stream, and auto is fused on the CPU and
+    stream on the card."""
     if executor not in EXECUTORS:
         raise ValueError(f"executor must be one of {EXECUTORS}, got "
                          f"{executor!r}")
     if grid is not None and grid.nproc > 1:
         if executor in GRAPH_EXECUTORS:
-            raise ValueError(f"a grid of {grid.nproc} ranks runs the spmd "
-                             f"or the 2-D stream executor, not {executor!r}")
+            return "mesh-" + executor
         if executor == "stream" or pool_partition:
             return "mesh-stream"
         return "spmd"
@@ -289,10 +296,12 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
     share of every group on a ``grid`` of several ranks
     (parallel/spmd.py); off one it is the stream.  On such a grid
     "stream" or ``pool_partition`` runs the 2-D mesh stream
-    (parallel/mesh_stream.py).  The key holds the dtype, the executor,
-    the GEMM tier, the host-share threshold, the offload knobs, the
-    device, the front assembly (the kernel or its plain version), the
-    grid, its shape and the pool partition.  The cache keeps one fused
+    (parallel/mesh_stream.py), "fused" and "mega" its segment graphs
+    (parallel/mesh_graphs.py).  The key holds the dtype, the executor,
+    the GEMM tier, the host-share threshold and the offload knobs (for
+    every executor that offloads: the grid's too), the device, the front
+    assembly (the kernel or its plain version), the grid, its shape and
+    the pool partition.  The cache keeps one fused
     or mega executor per device: a new one (another dtype, tier or front
     assembly) drops the one before it, whose captured graphs hold
     gigabytes — the fused graph of poisson3d(48) 2.94 GB of device memory
@@ -308,7 +317,7 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
                     int(offload_lag))
     mesh = executor in MESH_EXECUTORS
     key = (str(dtype), executor, gemm_prec,
-           stream_knobs if executor in ("stream", "mega") else None,
+           stream_knobs if executor in OFFLOAD_EXECUTORS else None,
            str(device), scatter,
            (id(grid), grid.nprow, grid.npcol, bool(pool_partition))
            if mesh else None)
@@ -320,17 +329,31 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
         for k in [k for k in cache if k[1] in group
                   and k[4] == str(device)]:
             del cache[k]
+        offload = dict(offload="auto", front_bytes_limit=front_bytes_limit,
+                       offload_lag=offload_lag)
         if executor == "mesh-stream":
             from superlu_dist_tpu_torch.parallel.mesh_stream import (
                 MeshStreamExecutor)
             fn = MeshStreamExecutor(plan, dtype, device, grid,
                                     gemm_prec=gemm_prec, scatter=scatter,
-                                    pool_partition=pool_partition)
+                                    pool_partition=pool_partition, **offload)
+        elif executor in ("mesh-fused", "mesh-mega"):
+            from superlu_dist_tpu_torch.parallel import mesh_graphs
+            if executor == "mesh-fused":
+                fn = mesh_graphs.MeshFusedExecutor(
+                    plan, dtype, device, grid, gemm_prec=gemm_prec,
+                    scatter=scatter, pool_partition=pool_partition)
+            else:
+                fn = mesh_graphs.MeshMegaExecutor(
+                    plan, dtype, device, grid, gemm_prec=gemm_prec,
+                    scatter=scatter, pool_partition=pool_partition,
+                    **offload)
         elif executor == "spmd":
             from superlu_dist_tpu_torch.parallel.spmd import (
                 SpmdFactorExecutor)
             fn = SpmdFactorExecutor(plan, dtype, device, grid,
-                                    gemm_prec=gemm_prec, scatter=scatter)
+                                    gemm_prec=gemm_prec, scatter=scatter,
+                                    **offload)
         elif executor == "stream":
             from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
             fn = StreamExecutor(plan, dtype, device, gemm_prec=gemm_prec,
@@ -439,6 +462,10 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     if (want_ckpt or resume_from or deadline is not None) \
             and executor in ("auto", "fused") and not spmd:
         executor = "stream"
+    if deadline is not None and spmd and executor == "fused":
+        # the grid's rule as the single card's: a deadline polls at group
+        # boundaries, which the fused graphs run through
+        executor = "stream"
     ex = get_executor(plan, dtype, executor, gemm_prec, device,
                       host_flops=host_flops,
                       front_bytes_limit=front_bytes_limit,
@@ -524,6 +551,7 @@ def _spmd_factorize(ex, plan, pattern_values, dtype, thresh, replace_tiny,
     numeric = NumericFactorization(plan=plan, fronts=fronts,
                                    tiny_pivots=int(tiny), dtype=dtype,
                                    gemm_prec=gemm_prec,
+                                   offload=getattr(ex, "offload", "none"),
                                    executor=ex.report(), shard=shard)
     if not replace_tiny:
         full = gather_fronts(numeric)
@@ -594,6 +622,11 @@ def localize_singularity(plan: FactorPlan, fronts):
     if bad_cols:
         return False, min(bad_cols)
     return True, -1
+
+
+def factor_flops(plan: FactorPlan) -> float:
+    """Flop count for stats (the ops[FACT] analog, SRC/util.c:513)."""
+    return plan.flops
 
 
 def query_space(numeric: NumericFactorization) -> dict:

@@ -175,6 +175,7 @@ class FusedExecutor(StreamExecutor):
     host share: the JAX package's fused program has neither."""
 
     name = "fused"
+    progress_waves = False
 
     def __init__(self, plan: FactorPlan, dtype=torch.float64, device="cuda",
                  gemm_prec: str | None = None, scatter=KERNELS):

@@ -28,6 +28,7 @@ group boundary (every wave boundary under "level").
 
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
@@ -41,9 +42,21 @@ from superlu_dist_tpu_torch.ops.dense import gemm_precision
 from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
 from superlu_dist_tpu_torch.utils.errors import (CheckpointMismatchError,
                                                  SuperLUError)
-from superlu_dist_tpu_torch.utils.options import resolve_device
+from superlu_dist_tpu_torch.utils.options import env_int, resolve_device
 
 CPU = torch.device("cpu")
+
+
+def progress_every() -> int:
+    """``SLU_TPU_PROGRESS``: K > 0 prints a line to stderr every K groups
+    issued (0: silent), as the JAX stream does (stream.py:515-519)."""
+    return max(env_int("SLU_TPU_PROGRESS"), 0)
+
+
+def progress_line(gi: int, n: int, t0: float) -> None:
+    """The JAX stream's progress line (stream.py:571-574)."""
+    print(f"[stream] issuing group {gi}/{n} "
+          f"(+{time.perf_counter() - t0:.1f}s)", file=sys.stderr, flush=True)
 
 
 def padded_front_bytes(plan: FactorPlan, dtype) -> int:
@@ -52,6 +65,30 @@ def padded_front_bytes(plan: FactorPlan, dtype) -> int:
     itemsize = torch.empty((), dtype=dtype).element_size()
     return sum(bucket_rung(g.batch, lo=1, growth=2.0)
                * (g.m * g.w + g.w * g.u) for g in plan.groups) * itemsize
+
+
+def offload_sizes(plan: FactorPlan) -> list:
+    """Elements of each group's (lpanel, upanel) pair: the single-card
+    executors' offload arena."""
+    return [g.batch * g.m * g.w + g.batch * g.w * g.u for g in plan.groups]
+
+
+def auto_offload(plan: FactorPlan, dtype, device, front_bytes_limit: float,
+                 grid: bool = False) -> str:
+    """What ``offload="auto"`` resolves to: "host" when the plan's
+    :func:`padded_front_bytes` exceed ``front_bytes_limit`` — on the card
+    (the JAX rule, stream.py:218-226), and on a grid of several ranks on
+    any device (the grid's rule: one Options offloads alike on the card
+    and on the CPU ranks its tests run), else "none"."""
+    big = padded_front_bytes(plan, dtype) > front_bytes_limit
+    return "host" if big and (grid or device.type == "cuda") else "none"
+
+
+def check_offload(offload: str) -> str:
+    if offload not in ("none", "host"):
+        raise ValueError(f"offload must be 'auto', 'none' or 'host', "
+                         f"got {offload!r}")
+    return offload
 
 
 def host_share_levels(plan: FactorPlan, host_flops: float) -> set:
@@ -73,15 +110,16 @@ def host_share_levels(plan: FactorPlan, host_flops: float) -> set:
 
 class _Offload:
     """Copies of one call's factored panels into host memory: one arena
-    (pinned on the card) for the whole plan, each group's copy on a side
-    stream after an event on the compute stream, at most ``lag`` groups in
-    flight; ``wait_s`` is the host time spent waiting for them."""
+    (pinned on the card) holding ``sizes[i]`` elements for item i (a
+    group's panels), each item's copy on a side stream after an event on
+    the compute stream, at most ``lag`` items in flight; ``wait_s`` is the
+    host time spent waiting for them.  The single-card executors size it
+    from the plan (:func:`offload_sizes`), the grid's from a rank's share
+    (parallel/mesh_stream.py)."""
 
-    def __init__(self, plan: FactorPlan, dtype, device, lag: int):
+    def __init__(self, sizes, dtype, device, lag: int):
         self.device, self.lag = device, int(lag)
-        sizes = [g.batch * g.m * g.w + g.batch * g.w * g.u
-                 for g in plan.groups]
-        self.offsets = np.concatenate([[0], np.cumsum(sizes)])
+        self.offsets = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])
         cuda = device.type == "cuda"
         self.arena = torch.empty(int(self.offsets[-1]), dtype=dtype,
                                  pin_memory=cuda)
@@ -89,31 +127,40 @@ class _Offload:
         self.pending = []          # events of copies in flight
         self.wait_s = 0.0
 
-    def emit(self, gi: int, lp: torch.Tensor, up: torch.Tensor):
-        """Group ``gi``'s panels in host memory (views of the arena; on the
+    @property
+    def nbytes(self) -> int:
+        return self.arena.numel() * self.arena.element_size()
+
+    def emit(self, i: int, *tensors):
+        """Item ``i``'s tensors in host memory (views of the arena; on the
         card still being copied until the call ends or the lag forces the
         wait)."""
-        at = int(self.offsets[gi])
-        hl = self.arena[at:at + lp.numel()].view(lp.shape)
-        hu = self.arena[at + lp.numel():at + lp.numel()
-                        + up.numel()].view(up.shape)
+        at = int(self.offsets[i])
+        host = []
+        for t in tensors:
+            host.append(self.arena[at:at + t.numel()].view(t.shape))
+            at += t.numel()
+        if at > int(self.offsets[i + 1]):
+            raise ValueError(f"offload item {i}: {at - int(self.offsets[i])} "
+                             f"elements, the arena holds "
+                             f"{int(self.offsets[i + 1] - self.offsets[i])}")
         if self.stream is None:
-            hl.copy_(lp)
-            hu.copy_(up)
-            return hl, hu
+            for h, t in zip(host, tensors):
+                h.copy_(t)
+            return tuple(host)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
-            hl.copy_(lp, non_blocking=True)
-            hu.copy_(up, non_blocking=True)
+            for h, t in zip(host, tensors):
+                h.copy_(t, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self.stream)
-        # the device panels must outlive the copy that reads them
-        lp.record_stream(self.stream)
-        up.record_stream(self.stream)
+        # the device tensors must outlive the copy that reads them
+        for t in tensors:
+            t.record_stream(self.stream)
         self.pending.append(ev)
         while len(self.pending) > self.lag:
             self._wait(self.pending.pop(0))
-        return hl, hu
+        return tuple(host)
 
     def _wait(self, ev) -> None:
         t0 = time.perf_counter()
@@ -141,6 +188,9 @@ class StreamExecutor:
     on the CPU, where it equals "group" bit for bit)."""
 
     name = "stream"
+    #: level waves print a progress line each (the fused executor's one
+    #: wave does not: the JAX fused program prints none)
+    progress_waves = True
 
     def __init__(self, plan: FactorPlan, dtype=torch.float64, device="cuda",
                  gemm_prec: str | None = None, offload: str = "auto",
@@ -157,13 +207,9 @@ class StreamExecutor:
                              f"got {granularity!r}")
         self.granularity = granularity
         if offload == "auto":
-            offload = ("host" if self.device.type == "cuda"
-                       and padded_front_bytes(plan, dtype)
-                       > front_bytes_limit else "none")
-        if offload not in ("none", "host"):
-            raise ValueError(f"offload must be 'auto', 'none' or 'host', "
-                             f"got {offload!r}")
-        self.offload = offload
+            offload = auto_offload(plan, dtype, self.device,
+                                   front_bytes_limit)
+        self.offload = check_offload(offload)
         self.offload_lag = int(offload_lag)
         levels = host_share_levels(plan, host_flops)
         # the host share is the leading run of groups on those levels
@@ -217,7 +263,8 @@ class StreamExecutor:
             raise SuperLUError(
                 "checkpoint resume needs granularity='group' and no "
                 "host-share split — refactor from scratch")
-        out = (_Offload(plan, self.dtype, dev, self.offload_lag)
+        out = (_Offload(offload_sizes(plan), self.dtype, dev,
+                        self.offload_lag)
                if self.offload == "host" else None)
         # the host share starts on the CPU; the pool moves to the card once
         here = CPU if n_host else dev
@@ -237,13 +284,18 @@ class StreamExecutor:
             fronts, pool = self._apply_resume(resume)
             start = resume.k
             tiny = torch.zeros((), dtype=torch.int64, device=dev)
+        progress = progress_every()
         if self.granularity == "level":
             tiny = self._call_waves(av, avals_dev, th, thresh, pool, maps,
-                                    hmaps, fronts, tiny, out, timings)
+                                    hmaps, fronts, tiny, out, timings,
+                                    progress)
         else:
             tracer = get_tracer()
+            t_issue0 = time.perf_counter()
             for gi in range(start, len(plan.groups)):
                 self._poll()
+                if progress and gi % progress == 0:
+                    progress_line(gi, len(plan.groups), t_issue0)
                 if gi == n_host and n_host:
                     # the end of the host share: the one move to the card
                     pool, tiny = pool.to(dev), tiny.to(dev)
@@ -322,7 +374,7 @@ class StreamExecutor:
         return out
 
     def _call_waves(self, av, avals_dev, th, thresh, pool, maps, hmaps,
-                    fronts, tiny, out, timings):
+                    fronts, tiny, out, timings, progress=0):
         """Level granularity: the host share's waves eagerly on the CPU,
         then every device wave — on the card, its CUDA graph replayed on
         the executor's static inputs and pool.  ``graph_stats`` gets the
@@ -348,6 +400,9 @@ class StreamExecutor:
         for (lo, hi), graph in zip(self.waves(), self._waves
                                    or [None] * len(self.waves())):
             self._poll()
+            if progress and self.progress_waves:
+                print(f"[stream] issuing level {plan.groups[lo].level} "
+                      f"({hi - lo} groups)", file=sys.stderr, flush=True)
             if lo == n_host and n_host:
                 if graphs:
                     s_pool.copy_(pool)

@@ -349,6 +349,26 @@ def panel_partial_factor(a: torch.Tensor, thresh: torch.Tensor, w: int,
 
     Returns the tiny flags (B, w) int32 of the pivots this rank owns
     (zero elsewhere)."""
+    steps = panel_steps(a, thresh, w, gcol, npcol, pcol, gemm_prec,
+                        bcast is not None)
+    try:
+        req = next(steps)
+        while True:
+            req = steps.send(bcast(*req))
+    except StopIteration as done:
+        return done.value
+
+
+def panel_steps(a: torch.Tensor, thresh: torch.Tensor, w: int,
+                gcol: torch.Tensor, npcol: int, pcol: int,
+                gemm_prec: str = "highest", broadcast: bool = True):
+    """``panel_partial_factor`` as a generator: where the function calls
+    ``bcast(t, owner, shape)``, this yields ``(t, owner, shape)`` and
+    takes the broadcast panel back through ``send`` (``broadcast=False``:
+    a one-column grid, which yields nothing).  Its caller runs each
+    broadcast — eagerly, or between two captured CUDA graphs
+    (parallel/mesh_graphs.py): the launches between two yields are
+    rank-local.  Returns (``StopIteration.value``) the tiny flags."""
     b, m_ext, _ = a.shape
     pb, nsteps = panel_width(w)
     dev = a.device
@@ -366,8 +386,8 @@ def panel_partial_factor(a: torch.Tensor, thresh: torch.Tensor, w: int,
             panel = a[:, :, k0:k0 + pb]
             _panel_columns(panel, rows, cols_pb, j0, pa, thresh, flags, zero)
             mine = panel[:, j0:, :pa]
-        lpan = mine if bcast is None else bcast(mine, owner,
-                                                (b, m_ext - j0, pa))
+        lpan = (yield (mine, owner, (b, m_ext - j0, pa))) if broadcast \
+            else mine
         k1 = int(np.searchsorted(gcol, j0 + pb))
         if k1 < a.shape[2]:
             u12 = torch.linalg.solve_triangular(

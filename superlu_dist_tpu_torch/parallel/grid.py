@@ -82,6 +82,10 @@ class ProcessGrid:
     verify: bool = False         # SLU_TPU_VERIFY_COLLECTIVES
     comm: dict = dataclasses.field(default_factory=dict)
     seq: dict = dataclasses.field(default_factory=dict)   # per communicator
+    host_groups: dict = dataclasses.field(default_factory=dict)
+                                 # an NCCL grid's gloo twins of its groups
+                                 # (None: the grid's, "panel", "snode"),
+                                 # for host tensors (:meth:`host`)
 
     @property
     def nproc(self) -> int:
@@ -110,6 +114,25 @@ class ProcessGrid:
     def _members(self, axis) -> int:
         return {None: self.nproc, "panel": self.npcol,
                 "snode": self.nprow}[axis]
+
+    def host(self) -> "ProcessGrid":
+        """This grid for host tensors: the same ranks on the CPU over
+        gloo — the grid's own groups when they are gloo, else the gloo
+        groups made beside them when the grid was (``_make_grid``).  The
+        solver of factors offloaded to host memory runs on it
+        (parallel/spmd.SpmdSolver); it shares the grid's ``comm`` and
+        ``seq`` records."""
+        if self.device.type == "cpu":
+            return self
+        group, axes = self.group, self.axis_groups
+        if self.backend == "nccl":
+            group = self.host_groups[None]
+            axes = {k: v for k, v in self.host_groups.items()
+                    if k is not None}
+        return dataclasses.replace(
+            self, device=torch.device("cpu"),
+            backend="gloo" if self.backend == "nccl" else self.backend,
+            group=group, axis_groups=axes, host_groups={})
 
     @property
     def staged(self) -> bool:
@@ -198,11 +221,15 @@ class ProcessGrid:
                    time.perf_counter() - t0)
         return out
 
-    def bcast_row(self, t, src_pcol: int, shape, dtype) -> torch.Tensor:
+    def bcast_row(self, t, src_pcol: int, shape, dtype,
+                  out=None) -> torch.Tensor:
         """Process column ``src_pcol``'s tensor ``t`` (of ``shape`` and
         ``dtype``; ignored elsewhere) on every rank of this process row,
         on this rank's device: the source gets ``t`` itself back, the
-        others a new tensor.  A one-column grid returns ``t``."""
+        others a new tensor — or ``out`` (of ``shape``, on this rank's
+        device), written in place: the static buffer a captured CUDA
+        graph reads (parallel/mesh_graphs.py).  A one-column grid returns
+        ``t``."""
         if self.npcol == 1:
             return t
         import torch.distributed as dist
@@ -226,10 +253,15 @@ class ProcessGrid:
         else:
             if self.staged:
                 buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+            elif out is not None:
+                buf = out
             else:
                 buf = torch.empty(shape, dtype=dtype, device=self.device)
             dist.broadcast(buf, src=self._world(src), group=group)
-            out = buf.to(self.device, non_blocking=True)
+            if out is None:
+                out = buf.to(self.device, non_blocking=True)
+            elif buf is not out:
+                out.copy_(buf, non_blocking=True)
         self._note("bcast_row", buf.numel() * buf.element_size(),
                    time.perf_counter() - t0)
         return out
@@ -265,12 +297,13 @@ class ProcessGrid:
         return out
 
     def exchange(self, send: torch.Tensor, send_counts,
-                 recv_counts) -> torch.Tensor:
+                 recv_counts, out=None) -> torch.Tensor:
         """Variable-size all-to-all over the grid: ``send`` (1-D) holds
         this rank's elements for rank 0, 1, ... in order, ``send_counts[d]``
         of them for rank d; returns the ``sum(recv_counts)`` elements
-        received, rank 0's first, on ``send``'s device.  Every rank enters,
-        with empty legs where it has nothing to move."""
+        received, rank 0's first, on ``send``'s device — written into the
+        front of ``out`` (1-D, on that device) when given.  Every rank
+        enters, with empty legs where it has nothing to move."""
         send_counts = [int(c) for c in send_counts]
         recv_counts = [int(c) for c in recv_counts]
         if send.dim() != 1 or send.shape[0] != sum(send_counts):
@@ -280,6 +313,10 @@ class ProcessGrid:
             return send
         import torch.distributed as dist
         t0 = time.perf_counter()
+        total = sum(recv_counts)
+        if out is not None and out.shape[0] < total:
+            raise ValueError(f"exchange: out holds {out.shape[0]} elements, "
+                             f"{total} arrive")
         if self.verify:
             self._check("exchange", (self.nproc,), send.dtype)
             counts = self._gather_host(torch.tensor(
@@ -298,19 +335,23 @@ class ProcessGrid:
         src = send.contiguous()
         if self.staged:
             src = _pinned(src)
-            out = torch.empty(sum(recv_counts), dtype=send.dtype,
-                              pin_memory=True)
+            got = torch.empty(total, dtype=send.dtype, pin_memory=True)
+        elif out is not None:
+            got = out[:total]
         else:
-            out = torch.empty(sum(recv_counts), dtype=send.dtype,
-                              device=send.device)
-        dist.all_to_all_single(out, src, output_split_sizes=recv_counts,
+            got = torch.empty(total, dtype=send.dtype, device=send.device)
+        dist.all_to_all_single(got, src, output_split_sizes=recv_counts,
                                input_split_sizes=send_counts,
                                group=self.group)
         if self.staged:
-            out = out.to(send.device, non_blocking=True)
-        self._note("exchange", (src.numel() + out.numel())
+            if out is None:
+                got = got.to(send.device, non_blocking=True)
+            else:
+                out[:total].copy_(got, non_blocking=True)
+                got = out[:total]
+        self._note("exchange", (src.numel() + got.numel())
                    * src.element_size(), time.perf_counter() - t0)
-        return out
+        return got
 
     def gather_rows(self, t: torch.Tensor, counts) -> torch.Tensor:
         """Every rank's rows in rank order along dim 0, rank r giving
@@ -420,24 +461,31 @@ def _make_grid(ranks: list, nprow: int, npcol: int, device, world: int,
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("an NCCL grid runs on the card")
     need = nprow * npcol
-    group, axis_groups = None, {}
+    group, axis_groups, host_groups = None, {}, {}
     if world > 1:
+        layout = np.asarray(ranks).reshape(nprow, npcol)
+
+        def axes(out, **kw):
+            for axis, members in (("panel", layout), ("snode", layout.T)):
+                if members.shape[1] < 2:
+                    continue
+                for m in members:
+                    g = dist.new_group([int(r) for r in m], **kw)
+                    if rank in m:
+                        out[axis] = g
         if need != world:
             group = dist.new_group(ranks)
-        layout = np.asarray(ranks).reshape(nprow, npcol)
-        for axis, members in (("panel", layout), ("snode", layout.T)):
-            if members.shape[1] < 2:
-                continue
-            for m in members:
-                g = dist.new_group([int(r) for r in m])
-                if rank in m:
-                    axis_groups[axis] = g
+        axes(axis_groups)
+        if backend == "nccl":
+            host_groups[None] = dist.new_group(ranks, backend="gloo")
+            axes(host_groups, backend="gloo")
     if rank not in ranks:
         return None
     return ProcessGrid(nprow, npcol, ranks.index(rank), device, backend,
                        group=group, axis_groups=axis_groups,
                        world_ranks=tuple(ranks),
-                       verify=env_flag("SLU_TPU_VERIFY_COLLECTIVES"))
+                       verify=env_flag("SLU_TPU_VERIFY_COLLECTIVES"),
+                       host_groups=host_groups)
 
 
 def gridinit(nprow: int, npcol: int, device=None, tc=None) -> ProcessGrid:

@@ -25,7 +25,15 @@ Each rank keeps its own slots' own columns: L columns (c, m, kw) and U12
 columns (c, w, ku) (``NumericFactorization.fronts``), the panel
 broadcasts are dropped after each group.  The tiny count is summed over
 the grid at the end; the deadline is polled collectively at every group
-boundary.
+boundary.  With ``offload`` the rank's columns and the group's pivot
+stack go to pinned host memory as each group completes (the JAX
+stream's offload under a mesh, stream.py:165-226), and the solver runs
+there (parallel/spmd.SpmdSolver).
+
+Each group is a program (``MeshStreamExecutor._group``, a generator)
+that yields at its collectives; this module runs it eagerly, and
+parallel/mesh_graphs.py captures the launches between its yields as
+CUDA graphs (the grid's fused and mega executors).
 
 Bits: every front position receives the same adds in the same order
 with either pool, so the partitioned and replicated pools give the same
@@ -51,12 +59,17 @@ from superlu_dist_tpu_torch.parallel.layout2d import (expand, front_cols,
                                                       layout)
 
 
-def share_maps(gl, device) -> object:
+def share_maps(gl, device, batch=None) -> object:
     """The device maps of one group share (``layout2d.GroupLayout``): the
     plain version's (``kernels.GroupMaps`` with ``gcol``) and the
-    kernel's (``kernels.FrontMaps`` of the column share)."""
+    kernel's (``kernels.FrontMaps`` of the column share).  ``batch``
+    (default: the share's slots) pads the slots with identity fronts
+    (``ws`` 0), as the grid's mega executor runs them."""
     from superlu_dist_tpu_torch.numeric import kernels
     sm = gl.maps
+    batch = sm.batch if batch is None else int(batch)
+    ws = np.zeros(batch, dtype=np.int64)
+    ws[:sm.batch] = sm.ws
 
     def put(x):
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int64),
@@ -64,13 +77,13 @@ def share_maps(gl, device) -> object:
     children = [(ub, put(off), put(slot), put(rel), put(crel), put(stride))
                 for ub, off, slot, rel, crel, stride in sm.children]
     front = kernels.build_front_maps(
-        sm.batch, sm.m, sm.pool_len,
+        batch, sm.m, sm.pool_len,
         a=(sm.a_slot, sm.a_flat_global, sm.a_src),
         children=[tuple(np.asarray(x) if i else x for i, x in enumerate(c))
                   for c in sm.children],
         device=device, cols=sm.own, share=sm.share)
     return kernels.GroupMaps(
-        ws=put(sm.ws), off=put(np.zeros(sm.batch)), a_slot=put(sm.a_slot),
+        ws=put(ws), off=put(np.zeros(batch)), a_slot=put(sm.a_slot),
         a_flat=put(sm.a_flat), a_src=put(sm.a_src), children=children,
         front=front, gcol=put(sm.own))
 
@@ -121,6 +134,29 @@ def _put(target, segs, buf, pairs, local, dev):
             local[expand(frm, frm["total"], dev)[0]]
 
 
+class Exchange:
+    """A group's exchange, as a group program (``MeshStreamExecutor.
+    _group``) yields it: the send buffer (its first ``gl.send.total``
+    elements go out) and the group's layout, whose counts it takes."""
+
+    __slots__ = ("send", "gl")
+
+    def __init__(self, send, gl):
+        self.send, self.gl = send, gl
+
+
+def drive(program, collective):
+    """Run a group program to its end, each request it yields — a panel
+    broadcast ``(t, owner, shape)`` or an :class:`Exchange` — answered
+    by ``collective(request)``; returns what the program returns."""
+    try:
+        req = next(program)
+        while True:
+            req = program.send(collective(req))
+    except StopIteration as done:
+        return done.value
+
+
 class MeshStreamExecutor:
     """The factorization of ``plan`` on this rank of an nprow × npcol
     ``grid`` (module docstring).
@@ -128,14 +164,30 @@ class MeshStreamExecutor:
     ``ex(avals, thresh, timings=None)`` returns (this rank's fronts, the
     tiny count summed over the grid, a ``spmd.Shard`` carrying the column
     layout).  ``deadline`` and ``chaos`` are per-call hooks; checkpoints
-    and resume have no place here (the pool is the ranks' joint
-    state)."""
+    and resume have no place here (the pool is the ranks' joint state).
+
+    ``offload`` (the JAX stream's, stream.py:165-226): "host" copies each
+    group's own L and U12 columns and its pivot stack to pinned host
+    memory as the group completes, on a side stream, at most
+    ``offload_lag`` groups in flight (``numeric/stream._Offload``, sized
+    from this rank's share); "auto" does so when the plan's padded front
+    bytes exceed ``front_bytes_limit`` (``numeric/stream.auto_offload``,
+    on any device on a grid); "none" keeps them on the device.
+
+    Each group runs as a program (:meth:`_group`, a generator) that
+    yields at its collectives — every panel broadcast of
+    ``ops.dense.panel_steps`` and the exchange — and :func:`drive` runs
+    them eagerly here; the graph executors (parallel/mesh_graphs.py)
+    capture the rank-local launches between two yields as CUDA graphs."""
 
     name = "mesh-stream"
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
-                 scatter=None, pool_partition=False):
+                 scatter=None, pool_partition=False, offload="none",
+                 front_bytes_limit=6e9, offload_lag=8):
         from superlu_dist_tpu_torch.numeric import factor
+        from superlu_dist_tpu_torch.numeric.stream import (auto_offload,
+                                                           check_offload)
         from superlu_dist_tpu_torch.ops.dense import gemm_precision
         plan.check_index_width()
         if grid.device != device:
@@ -162,21 +214,33 @@ class MeshStreamExecutor:
             g.batch * share_ops(g.w, *front_cols(g.m, g.w, grid.npcol,
                                                  pc)[1:3], grid.npcol, pc)
             for g in plan.groups for pc in range(grid.npcol)))
+        if offload == "auto":
+            offload = auto_offload(plan, dtype, device, front_bytes_limit,
+                                   grid=True)
+        self.offload = check_offload(offload)
+        self.offload_lag = int(offload_lag)
         self.deadline = self.chaos = None
         self.checkpoint = self.resume = None
-        self.offload, self.host_levels = "none", 0
+        self.host_levels = 0
         self.last_dispatch_seconds = 0.0
+        self.last_offload_wait_seconds = 0.0
+        self.host_bytes = 0
         self.last_comm = {}
+        self._timings = None
         self._dev = None
 
     def _device_state(self):
         """Per group on the device, built at the first call: the share's
-        maps, its slots' real pivot widths and the exchange's segments."""
+        maps, its slots' real pivot widths and the exchange's segments
+        (the state a group program reads: ``rows`` local slots, the pivot
+        stack's ``piv_len`` elements)."""
         if self._dev is None:
             dev = self.device
             self._dev = [dict(maps=share_maps(gl, dev)
                               if len(gl.slots) and gl.mc else None,
                               ws=torch.as_tensor(gl.maps.ws, device=dev),
+                              rows=len(gl.slots),
+                              piv_len=grp.batch * grp.w * grp.w,
                               send=_segments(gl.send, dev),
                               piv=_segments(gl.recv_piv, dev),
                               pool=_segments(gl.recv_pool, dev),
@@ -184,7 +248,8 @@ class MeshStreamExecutor:
                                         for x in gl.self_piv],
                               self_pool=[_segments(x, dev)
                                          for x in gl.self_pool])
-                         for gl in self.layout.groups]
+                         for grp, gl in zip(self.plan.groups,
+                                            self.layout.groups)]
         return self._dev
 
     @property
@@ -192,98 +257,177 @@ class MeshStreamExecutor:
         return self.layout.pool_len * torch.empty(
             (), dtype=self.dtype).element_size()
 
-    def _exchange(self, gl, st, a, grp, pool):
-        """Group ``grp``'s exchange (module docstring, step 3): writes the
-        received Schur columns into ``pool`` and returns the (B, w, w)
-        pivot stack.  This rank's own leg is copied on the device."""
-        dev, w = self.device, grp.w
+    def offload_sizes(self) -> list:
+        """Elements this rank offloads per group: its own L columns
+        (c, m, kw), U12 columns (c, w, ku) and the group's pivot stack
+        (B, w, w)."""
+        return [len(gl.slots) * (grp.m * gl.kw + grp.w * (gl.mc - gl.kw))
+                + grp.batch * grp.w * grp.w
+                for grp, gl in zip(self.plan.groups, self.layout.groups)]
+
+    # ---- one group --------------------------------------------------------
+
+    def _lap(self, name, clock):
+        if self._timings is None:
+            return clock
+        return _lap(self._timings, name, clock, self.device)
+
+    def _group(self, gi, st, bufs):
+        """Group ``gi``'s program on state ``st`` (``_device_state``'s
+        record, or a mega bucket's) and the call's buffers ``bufs``
+        (avals, the pool — ``kpool`` what the assembly reads, ``pool``
+        what the exchange writes — thresh, tiny): the column-share
+        assembly, the partial LU over the rank's columns (yielding each
+        panel broadcast), the exchange (yielded), then the received
+        pivot and Schur columns put in place.  Returns (L columns, U12
+        columns, the flat pivot buffer) of the state's ``rows`` slots
+        (``_finish`` cuts them to the group's own)."""
+        from superlu_dist_tpu_torch.ops.dense import panel_steps
+        grp, gl = self.plan.groups[gi], self.layout.groups[gi]
+        grid, dev = self.grid, self.device
+        w, m = grp.w, grp.m
+        c = st["rows"]
+        clock = time.perf_counter()
+        if st["maps"] is not None:
+            f = self.scatter(bufs.avals, bufs.kpool, m, w, st["maps"]).view(
+                c, m, gl.mc)
+        else:
+            f = torch.zeros((c, m, gl.mc), dtype=self.dtype, device=dev)
+        a = f
+        if gl.m_ext > m or gl.mc_ext > gl.mc:
+            a = torch.nn.functional.pad(
+                f, (0, gl.mc_ext - gl.mc, 0, gl.m_ext - m))
+        clock = self._lap("front_assemble", clock)
+        if c:
+            flags = yield from panel_steps(
+                a, bufs.thresh, w, gl.gcol, grid.npcol, grid.pcol,
+                self.gemm_prec, grid.npcol > 1)
+            # identity-padding columns are unit pivots (group_step)
+            real = torch.arange(w, device=dev)[None, :] < st["ws"][:, None]
+            bufs.tiny += torch.where(real, flags, 0).sum()
+        clock = self._lap("partial_factor", clock)
         flat = a.reshape(-1)
-        send = flat[expand(st["send"], gl.send.total, dev)[0]] \
-            if gl.send.total else a.new_empty(0)
-        got = self.grid.exchange(send, gl.send_counts, gl.recv_counts)
-        piv = torch.empty((grp.batch, w, w), dtype=self.dtype, device=dev)
-        _put(piv.view(-1), st["piv"], got, st["self_piv"], flat, dev)
-        _put(pool, st["pool"], got, st["self_pool"], flat, dev)
-        return piv
+        send = flat[expand(st["send"], st["send"]["total"], dev)[0]] \
+            if st["send"]["total"] else a.new_empty(0)
+        got = yield Exchange(send, gl)
+        piv = torch.empty(st["piv_len"], dtype=self.dtype, device=dev)
+        _put(piv, st["piv"], got, st["self_piv"], flat, dev)
+        _put(bufs.pool, st["pool"], got, st["self_pool"], flat, dev)
+        out = (a[:, :m, :gl.kw].contiguous(),
+               a[:, :w, gl.kw:gl.mc].contiguous(), piv)
+        self._lap("exchange", clock)
+        return out
+
+    def _collective(self, req, out=None):
+        """One request of a group program, run now: a panel broadcast
+        over the process row or the exchange (into ``out`` when given)."""
+        if isinstance(req, Exchange):
+            gl = req.gl
+            return self.grid.exchange(req.send[:gl.send.total],
+                                      gl.send_counts, gl.recv_counts,
+                                      out=out)
+        t, owner, shape = req
+        return self.grid.bcast_row(t, owner, shape, self.dtype, out=out)
+
+    def _pool_len(self) -> int:
+        """The pool's elements (the mega executor's has a dump element
+        past the rank's pool)."""
+        return self.layout.pool_len
+
+    def _buffers(self, avals, thresh):
+        """The call's avals, pool, thresh and tiny count (new ones each
+        call; the graph executors keep static ones)."""
+        import types
+        dev = self.device
+        pool = torch.zeros(self._pool_len(), dtype=self.dtype, device=dev)
+        return types.SimpleNamespace(
+            avals=avals.to(device=dev, dtype=self.dtype), pool=pool,
+            kpool=pool[:self.layout.pool_len], thresh=thresh.to(dev),
+            tiny=torch.zeros((), dtype=torch.int64, device=dev))
+
+    def _run_group(self, gi, bufs):
+        """Group ``gi`` of this call: its program driven eagerly."""
+        return self._finish(gi, *drive(
+            self._group(gi, self._device_state()[gi], bufs),
+            self._collective))
+
+    def _finish(self, gi, lp, up, piv, clone=False):
+        """A group program's outputs cut to group ``gi``'s own slots and
+        pivot stack (B, w, w) — cloned out of a graph's static outputs
+        with ``clone``."""
+        grp = self.plan.groups[gi]
+        c, n = len(self.layout.groups[gi].slots), grp.batch * grp.w * grp.w
+        out = (lp[:c], up[:c], piv[:n].view(grp.batch, grp.w, grp.w))
+        return tuple(t.clone() for t in out) if clone else out
+
+    def _begin(self, timings):
+        """The call's start: per-call checks of the executor."""
+        self._timings = timings
+
+    # ---- the call ---------------------------------------------------------
 
     def __call__(self, avals, thresh, timings=None):
-        from superlu_dist_tpu_torch.ops.dense import panel_partial_factor
+        from superlu_dist_tpu_torch.numeric.stream import (_Offload,
+                                                           progress_every,
+                                                           progress_line)
         from superlu_dist_tpu_torch.parallel.spmd import Shard
         if self.checkpoint is not None or self.resume is not None:
-            raise ValueError("the 2-D mesh executor takes no checkpoint or "
-                             "resume: the pool is the ranks' joint state")
+            raise ValueError(f"the {self.name} executor takes no checkpoint "
+                             f"or resume: the pool is the ranks' joint state")
         plan, dev, grid = self.plan, self.device, self.grid
-        states = self._device_state()
-        avals = avals.to(device=dev, dtype=self.dtype)
-        thresh = thresh.to(dev)
-        pool = torch.zeros(self.layout.pool_len, dtype=self.dtype,
-                           device=dev)
-        tiny = torch.zeros((), dtype=torch.int64, device=dev)
+        self._begin(timings)
+        bufs = self._buffers(avals, thresh)
+        out = (_Offload(self.offload_sizes(), self.dtype, dev,
+                        self.offload_lag)
+               if self.offload == "host" else None)
         fronts, pivots = [], []
         comm0 = {op: dict(rec) for op, rec in grid.comm.items()}
         tracer = get_tracer()
+        progress = progress_every()
         t_start = time.perf_counter()
-
-        def bcast(t, owner, shape):
-            return grid.bcast_row(t, owner, shape, self.dtype)
-
-        for gi, (grp, gl, st) in enumerate(zip(plan.groups,
-                                               self.layout.groups, states)):
-            if self.deadline is not None:
-                self.deadline.poll(where="numeric factorization (mesh)")
-            w, m = grp.w, grp.m
-            c = len(gl.slots)
-            if tracer.enabled:
-                t0 = time.perf_counter()
-            clock = time.perf_counter()
-            if c and gl.mc:
-                f = self.scatter(avals, pool, m, w, st["maps"]).view(
-                    c, m, gl.mc)
-            else:
-                f = torch.zeros((c, m, gl.mc), dtype=self.dtype, device=dev)
-            a = f
-            if gl.m_ext > m or gl.mc_ext > gl.mc:
-                a = torch.nn.functional.pad(
-                    f, (0, gl.mc_ext - gl.mc, 0, gl.m_ext - m))
-            if timings is not None:
-                clock = _lap(timings, "front_assemble", clock, dev)
-            if c:
-                flags = panel_partial_factor(
-                    a, thresh, w, gl.gcol, grid.npcol, grid.pcol, bcast,
-                    self.gemm_prec)
-                # identity-padding columns are unit pivots (group_step)
-                real = torch.arange(w, device=dev)[None, :] \
-                    < st["ws"][:, None]
-                tiny += torch.where(real, flags, 0).sum()
-            if timings is not None:
-                clock = _lap(timings, "partial_factor", clock, dev)
-            pivots.append(self._exchange(gl, st, a, grp, pool))
-            fronts.append((a[:, :m, :gl.kw].contiguous(),
-                           a[:, :w, gl.kw:gl.mc].contiguous()))
-            del a, f
-            if timings is not None:
-                clock = _lap(timings, "exchange", clock, dev)
-            if tracer.enabled:
-                tracer.complete(f"issue g{gi}", "dispatch", t0,
-                                time.perf_counter() - t0, group=gi,
-                                level=int(grp.level), owned=int(c),
-                                columns=int(gl.mc))
-            if self.chaos is not None:
-                self.chaos.on_group(gi)
-        tiny_total = int(grid.all_reduce_sum(tiny))
+        try:
+            for gi, (grp, gl) in enumerate(zip(plan.groups,
+                                               self.layout.groups)):
+                if self.deadline is not None:
+                    self.deadline.poll(where="numeric factorization (mesh)")
+                if progress and gi % progress == 0:
+                    progress_line(gi, len(plan.groups), t_start)
+                if tracer.enabled:
+                    t0 = time.perf_counter()
+                lp, up, piv = self._run_group(gi, bufs)
+                if out is not None:
+                    lp, up, piv = out.emit(gi, lp, up, piv)
+                fronts.append((lp, up))
+                pivots.append(piv)
+                if tracer.enabled:
+                    tracer.complete(f"issue g{gi}", "dispatch", t0,
+                                    time.perf_counter() - t0, group=gi,
+                                    level=int(grp.level),
+                                    owned=int(len(gl.slots)),
+                                    columns=int(gl.mc))
+                if self.chaos is not None:
+                    self.chaos.on_group(gi)
+            if out is not None:
+                out.drain()
+        finally:
+            self._timings = None
+        if out is not None:
+            self.last_offload_wait_seconds = out.wait_s
+            self.host_bytes = out.nbytes
+        tiny_total = int(grid.all_reduce_sum(bufs.tiny))
         self.last_dispatch_seconds = time.perf_counter() - t_start
         self.last_comm = {op: {k: rec[k] - comm0.get(op, {}).get(k, 0)
                                for k in ("calls", "bytes", "seconds")}
                           for op, rec in grid.comm.items()}
         if tracer.enabled:
-            tracer.complete("issue mesh-stream", "dispatch", t_start,
+            tracer.complete(f"issue {self.name}", "dispatch", t_start,
                             self.last_dispatch_seconds,
                             groups=len(plan.groups), n_devices=self.nd,
                             rank=self.rank)
             if tracer.profiling:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
-                tracer.complete("factor-mesh-stream", "kernel", t_start,
+                tracer.complete(f"factor-{self.name}", "kernel", t_start,
                                 time.perf_counter() - t_start,
                                 n_groups=len(plan.groups), aggregate=True,
                                 executed_flops=self.executed_flops,
@@ -300,7 +444,10 @@ class MeshStreamExecutor:
         ex = self.last_comm.get("exchange", {})
         bc = self.last_comm.get("bcast_row", {})
         return {"executor": self.name, "granularity": "group",
-                "offload": "none", "host_levels": 0, "host_groups": 0,
+                "offload": self.offload,
+                "offload_wait_s": self.last_offload_wait_seconds,
+                "host_bytes": self.host_bytes,
+                "host_levels": 0, "host_groups": 0,
                 "nd": self.nd, "rank": self.rank,
                 "nprow": self.grid.nprow, "npcol": self.grid.npcol,
                 "backend": self.grid.backend,

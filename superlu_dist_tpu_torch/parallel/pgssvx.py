@@ -180,7 +180,9 @@ def root_analyze_bcast(tc: TreeComm, options, a_loc: DistributedCSR,
     copies (restored on root afterwards — they only serve future
     SamePattern reuse checks there).  Returns (lu, bvals) on every
     rank; the skeleton records the root's ``device`` (None: the card),
-    and no rank touches it here."""
+    and no rank touches it here.  Where the root's analysis reused the
+    prior handle's plan (the SamePattern tiers), a rank with its own
+    prior handle keeps that handle's plan and symbolic structure."""
     from superlu_dist_tpu_torch.drivers.gssvx import analyze
 
     a_root = gather_distributed(tc, a_loc, root=0)
@@ -190,14 +192,20 @@ def root_analyze_bcast(tc: TreeComm, options, a_loc: DistributedCSR,
         lu2, bvals, _ = analyze(options, a_root,
                                 device="cuda" if device is None else device,
                                 lu=lu, stats=stats)
+        reused = lu is not None and lu2.plan is lu.plan
         lu2.a = None
         box["sym"] = (lu2.a_sym_indptr, lu2.a_sym_indices)
         lu2.a_sym_indptr = lu2.a_sym_indices = None
-        return lu2, bvals
+        return lu2, bvals, reused
 
-    lu2, bvals = bcast_result(tc, _analyze)
+    lu2, bvals, reused = bcast_result(tc, _analyze)
     if tc.rank == 0:
         lu2.a_sym_indptr, lu2.a_sym_indices = box["sym"]
+    elif reused and lu is not None:
+        # the root reused its structure: so does this rank, keeping its
+        # own plan object — the executors cached on it (a grid graph
+        # executor's captured segments) serve the refactor
+        lu2.plan, lu2.sf = lu.plan, lu.sf
     return lu2, bvals
 
 
@@ -530,7 +538,11 @@ def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
     SOLVE and REFINE, and its device memory: allocated before the
     factorization (``base_bytes``) and the peak from there
     (``peak_bytes``); on the 2-D tier also its pool bytes and its
-    exchange and row-broadcast bytes, seconds and counts."""
+    exchange and row-broadcast bytes, seconds and counts; the offload's
+    mode, wait seconds and this rank's host bytes; and on the segment
+    graphs (``Options(executor="fused"/"mega")``) their count, capture
+    seconds and device bytes and the front_assemble launches of the
+    call's warm-up (at the capture)."""
     import torch
     from superlu_dist_tpu_torch.drivers.gssvx import (_escalation_dtype,
                                                       analyze,
@@ -603,10 +615,14 @@ def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
         info_r = factorize_numeric(lu, bvals, stats, grid=grid,
                                    deadline_comm=tc)
         timings["fact_s"] = stats.utime["FACT"]
-        # the 2-D executor's pool and its exchange and broadcast traffic
+        # the 2-D executor's pool and its exchange and broadcast traffic,
+        # the offload (its mode, wait and this rank's host bytes) and the
+        # segment graphs (their count, capture seconds and device bytes)
         rep = lu.numeric.executor
         for k in ("pool_bytes", "exchange_bytes", "exchange_s", "exchanges",
-                  "bcast_bytes", "bcast_s", "bcasts"):
+                  "bcast_bytes", "bcast_s", "bcasts", "offload",
+                  "offload_wait_s", "host_bytes", "segments", "capture_s",
+                  "graph_device_bytes", "closed_keys", "warm_up_launches"):
             if k in rep:
                 timings[k] = rep[k]
     if lu_out is not None:
@@ -635,6 +651,10 @@ def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
                                 one_d, nrhs, lu_out=lu_out,
                                 collective_solve=True, spmv=spmv,
                                 stats=stats)
+    if rep is not None:
+        # where the collective solves ran: host memory for offloaded
+        # factors (parallel/spmd.SpmdSolver on the grid's host view)
+        rep.solve_route = lu.solve_route
     timings["refine_s"] = time.perf_counter() - t0
     gather1 = _gathered(grid)
     timings["gather_bytes"] = gather1[0] - gather0[0]

@@ -193,13 +193,19 @@ class SpmdFactorExecutor:
     ``ex(avals, thresh, timings=None)`` returns (this rank's fronts, the
     tiny count summed over the ranks, a :class:`Shard`).  ``deadline`` and
     ``chaos`` are per-call hooks (as on the stream executor); checkpoints
-    and resume have no place here (the pool is the ranks' joint state)."""
+    and resume have no place here (the pool is the ranks' joint state).
+    ``offload`` as on the 2-D executor (parallel/mesh_stream.py): "host"
+    copies each group's own panels and its pivot stack to pinned host
+    memory as the group completes."""
 
     name = "spmd"
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
-                 scatter=None):
+                 scatter=None, offload="none", front_bytes_limit=6e9,
+                 offload_lag=8):
         from superlu_dist_tpu_torch.numeric import factor
+        from superlu_dist_tpu_torch.numeric.stream import (auto_offload,
+                                                           check_offload)
         from superlu_dist_tpu_torch.ops.dense import gemm_precision
         from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
         plan.check_index_width()
@@ -221,12 +227,26 @@ class SpmdFactorExecutor:
         self.local_flops = float(sum(
             len(range(self.rank, g.batch, self.nd)) * _front_flops(g.w, g.u)
             for g in plan.groups))
+        if offload == "auto":
+            offload = auto_offload(plan, dtype, device, front_bytes_limit,
+                                   grid=True)
+        self.offload = check_offload(offload)
+        self.offload_lag = int(offload_lag)
         self.deadline = self.chaos = None
         self.checkpoint = self.resume = None
-        self.offload, self.host_levels = "none", 0
+        self.host_levels = 0
         self.last_dispatch_seconds = 0.0
+        self.last_offload_wait_seconds = 0.0
+        self.host_bytes = 0
         self.last_gather = {"bytes": 0, "seconds": 0.0, "calls": 0}
         self._write = None
+
+    def offload_sizes(self) -> list:
+        """Elements this rank offloads per group: its own slots' panels
+        and the group's pivot stack."""
+        return [len(range(self.rank, g.batch, self.nd)) * (g.m * g.w
+                                                           + g.w * g.u)
+                + g.batch * g.w * g.w for g in self.plan.groups]
 
     def _write_maps(self):
         """Per group: (the slots with a Schur block, their pool offsets)
@@ -246,6 +266,9 @@ class SpmdFactorExecutor:
 
     def __call__(self, avals, thresh, timings=None):
         from superlu_dist_tpu_torch.numeric import factor
+        from superlu_dist_tpu_torch.numeric.stream import (_Offload,
+                                                           progress_every,
+                                                           progress_line)
         if self.checkpoint is not None or self.resume is not None:
             raise ValueError("the spmd executor takes no checkpoint or "
                              "resume: the pool is the ranks' joint state")
@@ -261,10 +284,16 @@ class SpmdFactorExecutor:
         comm0 = dict(grid.comm.get("gather_rows", {"bytes": 0, "seconds": 0.0,
                                                    "calls": 0}))
         tracer = get_tracer()
+        out = (_Offload(self.offload_sizes(), self.dtype, dev,
+                        self.offload_lag)
+               if self.offload == "host" else None)
+        progress = progress_every()
         t_start = time.perf_counter()
         for gi, grp in enumerate(plan.groups):
             if self.deadline is not None:
                 self.deadline.poll(where="numeric factorization (spmd)")
+            if progress and gi % progress == 0:
+                progress_line(gi, len(plan.groups), t_start)
             w, u, m = grp.w, grp.u, grp.m
             count = maps[gi].ws.shape[0]
             if tracer.enabled:
@@ -286,8 +315,7 @@ class SpmdFactorExecutor:
             t1 = time.perf_counter()
             full = grid.gather_rows(payload, self._counts[gi])
             full = full[self._unperm[gi]]
-            pivots.append(full[:, :w * w].reshape(grp.batch, w, w)
-                          .contiguous())
+            piv = full[:, :w * w].reshape(grp.batch, w, w).contiguous()
             if writes[gi] is not None:
                 keep, off = writes[gi]
                 pool[off[:, None] + torch.arange(u * u, device=dev)] = \
@@ -297,13 +325,20 @@ class SpmdFactorExecutor:
                     torch.cuda.synchronize(dev)
                 timings["gather"] = (timings.get("gather", 0.0)
                                      + time.perf_counter() - t1)
+            if out is not None:
+                lp, up, piv = out.emit(gi, lp, up, piv)
             fronts.append((lp, up))
+            pivots.append(piv)
             if tracer.enabled:
                 tracer.complete(f"issue g{gi}", "dispatch", t0,
                                 time.perf_counter() - t0, group=gi,
                                 level=int(grp.level), owned=int(count))
             if self.chaos is not None:
                 self.chaos.on_group(gi)
+        if out is not None:
+            out.drain()
+            self.last_offload_wait_seconds = out.wait_s
+            self.host_bytes = out.nbytes
         tiny_total = int(grid.all_reduce_sum(tiny))
         self.last_dispatch_seconds = time.perf_counter() - t_start
         comm1 = grid.comm.get("gather_rows", comm0)
@@ -327,7 +362,10 @@ class SpmdFactorExecutor:
 
     def report(self) -> dict:
         return {"executor": self.name, "granularity": "group",
-                "offload": "none", "host_levels": 0, "host_groups": 0,
+                "offload": self.offload,
+                "offload_wait_s": self.last_offload_wait_seconds,
+                "host_bytes": self.host_bytes,
+                "host_levels": 0, "host_groups": 0,
                 "nd": self.nd, "rank": self.rank,
                 "backend": self.grid.backend,
                 "owned_groups": sum(
@@ -442,6 +480,10 @@ class SpmdSolver(DeviceSolver):
     the owner of its factor slot — then one all-gather of the per-member
     products, un-permuted to sweep order, and the replayed scatter.
     DiagInv and CUDA graphs are off (the sweeps hold collectives).
+    Factors offloaded to host memory (``fact.on_host``) are solved there,
+    collectively, on the grid's host view (``ProcessGrid.host``: its gloo
+    groups) — the JAX driver's rule that offloaded factors solve on the
+    host (drivers/gssvx.py:180-187), without uploading them again.
 
     On the 2-D tier (``Shard.cols``: parallel/mesh_stream.py) a member
     belongs to its slot's process row, and a rank holds only its own
@@ -465,7 +507,11 @@ class SpmdSolver(DeviceSolver):
             nrhs_max = env_int("SLU_TPU_SOLVE_NRHS_MAX")
         if nrhs_growth is None:
             nrhs_growth = env_float("SLU_TPU_SOLVE_NRHS_GROWTH")
-        self.fact, self.grid = fact, shard.grid
+        # factors offloaded to host memory are solved where they lie:
+        # the sweeps' row sums and gathers run on host tensors over the
+        # grid's gloo groups (ProcessGrid.host), nothing is uploaded again
+        self.fact = fact
+        self.grid = shard.grid.host() if fact.on_host else shard.grid
         self.nd, self.rank = shard.nd, shard.rank
         self.diag_inv = False
         self.trsm_leaf = int(trsm_leaf)
@@ -475,7 +521,7 @@ class SpmdSolver(DeviceSolver):
                                       align=align, nrhs_max=nrhs_max,
                                       nrhs_growth=nrhs_growth)
         self.n = plan.n
-        self.device = dev = shard.grid.device
+        self.device = dev = self.grid.device
         self.fused = False
         self.last_solve_stats = None
         self._groups = sweep_maps(self.splan, plan.sf, dev)

@@ -192,6 +192,10 @@ def run_job(job: RankJob, rank: int, device, lu=None) -> dict:
     return rec
 
 
+#: the grids of this process's mesh jobs, per (port, nprow, ranks, device)
+_GRIDS = {}
+
+
 def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
               lu_out: dict):
     """One ``pgssvx(grid=)`` call as ``rank`` (run_job's "mesh" kind):
@@ -221,8 +225,19 @@ def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
                       timeout_s=job.timeout_s)
         rec["backend"] = booted.backend
         rec["attached_at"] = time.time()
-        grid = gridinit(job.nprow, job.n_ranks // job.nprow,
-                        device=booted.device, tc=tc)
+        # one grid per shape for the process's mesh jobs: a later job on
+        # the same grid finds the executors (and a graph executor's
+        # captured segments) cached on a reused plan; its traffic records
+        # start afresh each job
+        key = (job.port, job.nprow, job.n_ranks, str(booted.device))
+        grid = _GRIDS.get(key)
+        if grid is None:
+            grid = _GRIDS[key] = gridinit(job.nprow, job.n_ranks // job.nprow,
+                                          device=booted.device, tc=tc)
+        elif tc.rank != grid.rank or tc.n_ranks != grid.nproc:
+            raise ValueError(f"TreeComm rank {tc.rank}/{tc.n_ranks} differs "
+                             f"from grid rank {grid.rank}/{grid.nproc}")
+        grid.comm.clear()
         a_loc = job.a_source(job.n_ranks, rank)
         launches = dict(kernels.LAUNCHES)
         x, info = pgssvx(tc, job.options, a_loc,
@@ -324,7 +339,8 @@ def shard_record(numeric, nd: int, rank: int) -> dict:
     1-D tier, its process row's on the 2-D tier, and there only its own
     columns — ``own_cols_only``), their panel bytes and flops, the pivot
     stacks' bytes, the groups where it assembles (a slot, and on the 2-D
-    tier a column) and, on the 2-D tier, its pool."""
+    tier a column), on the 2-D tier its pool, and whether its factors
+    were offloaded to host memory."""
     shard = numeric.shard
     groups = numeric.plan.groups
     two_d = shard is not None and shard.cols is not None
@@ -356,7 +372,8 @@ def shard_record(numeric, nd: int, rank: int) -> dict:
             "pivot_bytes": shard.pivot_bytes if shard is not None else 0,
             "pool_bytes": shard.pool_bytes if two_d else None,
             "own_slots_only": bool(held),
-            "own_cols_only": bool(cols_ok)}
+            "own_cols_only": bool(cols_ok),
+            "on_host": bool(numeric.on_host)}
 
 
 def _shippable(rec: dict) -> dict:

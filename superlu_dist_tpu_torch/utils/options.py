@@ -13,7 +13,9 @@ serving tier (``SLU_TPU_SERVE_*``, ``SLU_TPU_FLEET_*``), observability
 ``SLU_TPU_SLO_*``, ``SLU_TPU_STATS``), the chaos harness, the lock-order
 verifier and the distributed tier (``SLU_TPU_FAULTS``,
 ``SLU_TPU_VERIFY_COLLECTIVES``, ``SLU_TPU_COMM_*``,
-``SLU_TPU_HEARTBEAT_S``, ``SLU_TPU_FT``, ``SLU_TPU_DEADLINE_POLL``).
+``SLU_TPU_HEARTBEAT_S``, ``SLU_TPU_FT``, ``SLU_TPU_DEADLINE_POLL``),
+the stream's progress lines (``SLU_TPU_PROGRESS``) and the MFU
+denominator (``SLU_TPU_PEAK_GFLOPS``, utils/peaks.py).
 Each has the JAX package's kind, default and meaning.  The solver's
 other choices are ``Options`` fields here, not knobs, except ``ft``,
 which defaults to ``SLU_TPU_FT`` as in the JAX package.
@@ -34,6 +36,11 @@ import torch
 # env_flag below, and SLU_TPU_STRICT_ENV=1 turns a typo'd SLU_TPU_* knob
 # name into a hard error instead of a silently-ignored setting.
 # ---------------------------------------------------------------------------
+
+
+class YesNo(enum.Enum):
+    NO = 0
+    YES = 1
 
 
 class UnknownKnobError(KeyError):
@@ -172,6 +179,13 @@ def _register_all() -> None:
     r("SLU_TPU_TRACE", "str", "",
       "structured span trace output path ('%p' expands to the pid)",
       group="obs")
+    r("SLU_TPU_PROGRESS", "int", 0,
+      "log every K groups/levels issued (0=silent)", group="obs")
+    r("SLU_TPU_PEAK_GFLOPS", "float", 0.0,
+      "peak GFLOP/s override for the MFU denominator; 0 = auto-detect "
+      "from the per-card, per-GEMM-tier peak table (utils/peaks.py — "
+      "H100 data-sheet figures, anything else calibrated with a "
+      "one-shot micro-GEMM)", group="obs")
     r("SLU_TPU_METRICS", "str", "",
       "metrics registry: '1' enables; a path additionally dumps the "
       "JSON/Prometheus export there at exit ('%p' expands to the pid)",
@@ -514,6 +528,12 @@ def check_ft(options) -> str:
         raise SuperLUError(
             f"Options.ft must be abort|shrink|respawn, got {ft!r}")
     return ft
+
+
+def set_default_options() -> Options:
+    """Analog of set_default_options_dist (SRC/util.c:376): the JAX
+    package's plain constructor alias (utils/options.py:843)."""
+    return Options()
 
 
 def print_options(o: Options) -> str:

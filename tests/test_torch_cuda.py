@@ -7,7 +7,8 @@ against the same solves on the CPU, refactor on the card, solves that are
 bit for bit reproducible (fused and eager), save_lu / load_lu and a
 deadline-stopped factorization resumed, and the executors (the fused and
 mega CUDA graphs, level waves, host offload, the host-share split), on
-the card; and the reference's user entry points there: the C client and
+the card; the grid's segment graphs (fused, mega) and its host offload
+with two ranks on the card; and the reference's user entry points there: the C client and
 the Fortran driver (where gfortran exists) over libslu_tpu_torch.so,
 every example driver, gridmap's two sub-grids with four ranks sharing the
 card, pdtest --quick, and factor_dtype="df64" bit for bit "float64".
@@ -975,6 +976,56 @@ def test_mesh2d_pgssvx_two_ranks_on_one_card(cuda):
         assert t["bcasts"] > 0 and t["exchange_bytes"] > 0
     assert sum(out[r]["timings"]["pool_bytes"] for r in range(2)) \
         < 2 * out[0]["pool_size_bytes"]
+
+
+@pytest.mark.parametrize("executor", ["fused", "mega"])
+def test_grid_graphs_capture_and_replay_on_one_card(cuda, executor):
+    """Options(executor="fused"/"mega") on a 1×2 grid, both ranks on the
+    one card over gloo, float32 at the default tier: the segment graphs
+    captured at the first call and replayed by two more, the replays'
+    fronts bit for bit equal, the first call's the 2-D stream's or within
+    TF32_DRIFT, one front_assemble launch per group where the rank
+    assembles at every call (inside the graphs), and at the first call
+    also one per warmed-up group shape."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    out = run_mesh_ranks(2, cases.grid_graphs_on_the_card,
+                         ("poisson3d", (14,), 0, None), executor,
+                         device="cuda", timeout=900)
+    for r in range(2):
+        rec = out[r]
+        assert rec["replays_equal"] and rec["first_equals_replay"], rec
+        assert rec["equal"] or rec["drift"] <= tols.TF32_DRIFT, rec
+        assert len(set(rec["tiny"])) == 1, rec["tiny"]
+        ex = rec["executor"]
+        assert ex["executor"] == "mesh-" + executor
+        assert ex["segments"] > 0 and ex["replays"] >= 2 * ex["segments"]
+        warm = rec["warm_up_launches"]
+        assert 0 < warm <= rec["owned_groups"]
+        assert rec["launches"] == [rec["owned_groups"] + warm,
+                                   rec["owned_groups"],
+                                   rec["owned_groups"]]
+
+
+def test_offloaded_grid_factors_lie_in_pinned_host_memory(cuda):
+    """front_bytes_limit=0 on a 1×2 grid on one card: every rank's fronts
+    and pivot stacks in pinned host memory, bit for bit the non-offloaded
+    run's, a lower device peak, and the solve in host memory within
+    TF32_DRIFT (normwise) of the device factors' solve, whose GEMMs run at
+    the TF32 tier."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    out = run_mesh_ranks(2, cases.grid_offload_on_the_card,
+                         ("poisson3d", (14,), 0, None), device="cuda",
+                         timeout=600)
+    for r in range(2):
+        rec = out[r]
+        assert rec["on_host"] and rec["pinned"] and rec["pivots_pinned"]
+        assert rec["equal"], r
+        assert rec["peaks"][1] < rec["peaks"][0], rec["peaks"]
+        assert rec["solver_device"] == "cpu"
+        assert rec["x_rel"] <= tols.TF32_DRIFT, rec["x_rel"]
+        assert rec["executor"]["offload"] == "host"
 
 
 # ---- the reference's user entry points on the card --------------------------

@@ -20,7 +20,8 @@ on, held against the port's stream and the JAX package in this process:
 * (the drivers on the 2-D grid: tests/test_torch_mesh2d_drivers.py)
 * the grid's row and exchange collectives, their lockstep verification,
   ``Options.pool_partition`` / ``SLU_TPU_POOL_PARTITION`` and the
-  executor routing of ``resolve_executor``.
+  executor routing of ``resolve_executor`` (fused and mega on a grid:
+  tests/test_torch_mesh_graphs.py).
 """
 
 import os
@@ -377,16 +378,11 @@ class _Grid:
     ("stream", False, "mesh-stream"), ("stream", True, "mesh-stream"),
     ("auto", True, "mesh-stream"), ("spmd", True, "mesh-stream"),
     ("auto", False, "spmd"), ("spmd", False, "spmd"),
-    ("fused", False, None), ("mega", True, None)])
+    ("fused", False, "mesh-fused"), ("mega", True, "mesh-mega")])
 def test_resolve_executor_on_a_grid(executor, partition, want):
     grid = _Grid(1, 2)
     dev = torch.device("cpu")
-    if want is None:
-        with pytest.raises(ValueError, match="runs the spmd or the 2-D"):
-            factor.resolve_executor(executor, dev, grid, partition)
-    else:
-        assert factor.resolve_executor(executor, dev, grid,
-                                       partition) == want
+    assert factor.resolve_executor(executor, dev, grid, partition) == want
 
 
 @pytest.mark.parametrize("executor", ["auto", "stream", "spmd", "fused"])

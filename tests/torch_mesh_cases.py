@@ -101,6 +101,8 @@ def pgssvx_flow(tc, grid, spec, opts_kw, mode):
     rec = dict(x=x, info=info, berr=out["solve_report"].berr,
                rungs=[r.name for r in out["solve_report"].rungs],
                route=out["solve_report"].residual_route,
+               solve_route=out["solve_report"].solve_route,
+               on_host=lu.numeric.on_host,
                tiny=lu.numeric.tiny_pivots, timings=out["timings"],
                shard=shard_record(lu.numeric, grid.nproc, grid.rank),
                sharded=lu.numeric.shard is not None,
@@ -167,7 +169,8 @@ def gssvx_grid(tc, grid, spec, opts_kw):
     except CheckpointError as e:
         saved = f"refused: {e}"
     return dict(x=x, x2=x2, info=info, berr=st.solve_report.berr, saved=saved,
-                executor=st.executor,
+                executor=st.executor, on_host=lu.numeric.on_host,
+                solve_route=st.solve_report.solve_route,
                 shard=shard_record(lu.numeric, grid.nproc, grid.rank))
 
 
@@ -445,3 +448,176 @@ def subgrids(tc, grid, specs):
         rec["x_alone"] = x1
         rec["seq_alone"] = {k: v - seq0.get(k, 0) for k, v in sub.seq.items()}
     return rec
+
+
+#: the runs of ``runs_vs_stream``: label -> numeric_factorize's keywords
+GRID_RUNS = {
+    "offload": dict(executor="stream", pool_partition=True),
+    "offload_replicated": dict(executor="stream"),
+    "offload_spmd": dict(executor="spmd"),
+    "fused": dict(executor="fused", pool_partition=True),
+    "mega": dict(executor="mega", pool_partition=True),
+    "mega_replicated": dict(executor="mega")}
+
+
+def runs_vs_stream(tc, grid, cases, labels):
+    """Per case (name, plan, vals, anorm, dtype name): on the grid, the
+    runs ``labels`` of GRID_RUNS — the "offload*" ones with
+    ``front_bytes_limit=0`` — each one's gathered fronts against the 2-D
+    stream's with the partitioned pool (bit for bit), its tiny count,
+    whether its factors are host-resident and its report; for an
+    offloaded run also the SpmdSolver on its factors (built in host
+    memory) against the one on the same executor's device factors, bit
+    for bit.  Rank 0 also returns the "offload" run's gathered
+    fronts."""
+    out = {}
+    for name, plan, vals, anorm, dt in cases:
+        dtype = getattr(torch, dt)
+        ref = numeric_factorize(plan, vals, anorm, dtype=dtype, device="cpu",
+                                executor="stream", grid=grid,
+                                pool_partition=True)
+        gref = gather_fronts(ref)
+        runs = {}
+        for label in labels:
+            kw = GRID_RUNS[label]
+            limit = 0 if label.startswith("offload") else 6e9
+            f = numeric_factorize(plan, vals, anorm, dtype=dtype,
+                                  device="cpu", front_bytes_limit=limit,
+                                  grid=grid, **kw)
+            g = gather_fronts(f)
+            rec = dict(equal=_equal_fronts(g, gref), rel=_max_rel(g, gref),
+                       tiny=f.tiny_pivots, on_host=f.on_host,
+                       offload=f.offload, executor=f.executor,
+                       shard=shard_record(f, grid.nproc, grid.rank),
+                       fronts_on=sorted({str(t.device) for pair in f.fronts
+                                         for t in pair}),
+                       pivots_on=sorted({str(p.device)
+                                         for p in f.shard.pivots}))
+            if label.startswith("offload"):
+                rhs = _rhs(plan.n, 2, dtype.is_complex, 9)
+                base = ref if kw["executor"] == "stream" else \
+                    numeric_factorize(plan, vals, anorm, dtype=dtype,
+                                      device="cpu", grid=grid, **kw)
+                s_host = SpmdSolver(f)
+                rec["solver_device"] = str(s_host.device)
+                rec["x_equal"] = np.array_equal(s_host.solve(rhs),
+                                                SpmdSolver(base).solve(rhs))
+                if grid.rank == 0 and label == "offload":
+                    rec["fronts"] = [(lp.numpy(), up.numpy())
+                                     for lp, up in g]
+            runs[label] = rec
+        out[name] = dict(runs=runs, tiny=ref.tiny_pivots)
+    return out
+
+
+def grid_executor_fronts(tc, grid, plan, vals, anorm, executor, partition,
+                         front_bytes_limit=6e9):
+    """One float64 factorization on the grid with ``executor``: the
+    gathered fronts (rank 0), the tiny count, what ran and whether its
+    factors are host-resident."""
+    f = numeric_factorize(plan, vals, anorm, dtype=torch.float64,
+                          device="cpu", executor=executor, grid=grid,
+                          pool_partition=partition,
+                          front_bytes_limit=front_bytes_limit)
+    full = gather_fronts(f)
+    return dict(tiny=f.tiny_pivots, executor=f.executor["executor"],
+                on_host=f.on_host,
+                fronts=[(lp.numpy(), up.numpy()) for lp, up in full]
+                if grid.rank == 0 else None)
+
+
+def grid_fused_deadline(tc, grid):
+    """executor="fused" on the grid with and without a deadline: what
+    ran each time."""
+    from superlu_dist_tpu_torch.utils.deadline import Deadline
+    lu, bvals, _ = slt.analyze(slt.Options(), gallery.poisson2d(8),
+                               device="cpu")
+    ran = []
+    for deadline in (Deadline(3600.0, comm=grid), None):
+        f = numeric_factorize(lu.plan, bvals, lu.anorm, dtype=torch.float64,
+                              device="cpu", executor="fused", grid=grid,
+                              deadline=deadline)
+        ran.append(f.executor["executor"])
+    return tuple(ran)
+
+
+def grid_graphs_on_the_card(tc, grid, spec, executor):
+    """On the card (float32, the default tier): ``executor`` ("fused" or
+    "mega") on the grid with the partitioned pool — the first call
+    captures, two more on the same values replay — against the 2-D
+    stream on the same card: the gathered fronts of the two replays bit
+    for bit, the first call's against the stream's (bit for bit or the
+    normwise drift), the tiny counts, the launches of each call and the
+    executor's report."""
+    from superlu_dist_tpu_torch.numeric import kernels
+    a, _ = _system(spec)
+    lu, bvals, _ = slt.analyze(slt.Options(), a, device=grid.device)
+    ref = numeric_factorize(lu.plan, bvals, lu.anorm, dtype=torch.float32,
+                            device=grid.device, grid=grid, executor="stream",
+                            pool_partition=True)
+    gref = gather_fronts(ref)
+    runs, launches = [], []
+    for _ in range(3):
+        kernels.reset_launches()
+        f = numeric_factorize(lu.plan, bvals, lu.anorm, dtype=torch.float32,
+                              device=grid.device, grid=grid,
+                              executor=executor, pool_partition=True)
+        torch.cuda.synchronize()
+        launches.append(kernels.LAUNCHES["front_assemble"])
+        runs.append((gather_fronts(f), f.tiny_pivots))
+        if len(runs) == 1:
+            warm = f.executor["warm_up_launches"]
+    num = den = 0.0
+    for (l1, u1), (l2, u2) in zip(runs[0][0], gref):
+        for x, y in ((l1, l2), (u1, u2)):
+            if x.numel():
+                num = max(num, float((x.double() - y.double()).abs().max()))
+                den = max(den, float(y.double().abs().max()))
+    return dict(replays_equal=_equal_fronts(runs[1][0], runs[2][0]),
+                first_equals_replay=_equal_fronts(runs[0][0], runs[1][0]),
+                equal=_equal_fronts(runs[0][0], gref),
+                drift=num / max(den, 1e-300),
+                tiny=[t for _, t in runs] + [ref.tiny_pivots],
+                launches=launches, warm_up_launches=warm,
+                owned_groups=shard_record(f, grid.nproc,
+                                          grid.rank)["owned_groups"],
+                executor=f.executor)
+
+
+def grid_offload_on_the_card(tc, grid, spec):
+    """On the card: the 2-D stream with the partitioned pool and
+    ``front_bytes_limit=0`` — where each front and pivot stack lies
+    (pinned host memory), the device peak during the factorization
+    against the non-offloaded run's, and the collective solve in host
+    memory against the device factors' solve."""
+    a, b = _system(spec)
+    lu, bvals, _ = slt.analyze(slt.Options(), a, device=grid.device)
+    peaks, facts = [], []
+    for limit in (6e9, 0):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        f = numeric_factorize(lu.plan, bvals, lu.anorm, dtype=torch.float32,
+                              device=grid.device, grid=grid,
+                              executor="stream", pool_partition=True,
+                              front_bytes_limit=limit)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        facts.append(f)
+    dev_f, host_f = facts
+    rhs = np.random.default_rng(5).standard_normal((lu.n, 2))
+    s_host, s_dev = SpmdSolver(host_f), SpmdSolver(dev_f)
+    x_host, x_dev = s_host.solve(rhs), s_dev.solve(rhs)
+    return dict(on_host=host_f.on_host,
+                pinned=all(t.device.type == "cpu" and t.is_pinned()
+                           for pair in host_f.fronts for t in pair
+                           if t.numel()),
+                pivots_pinned=all(p.device.type == "cpu" and p.is_pinned()
+                                  for p in host_f.shard.pivots if p.numel()),
+                equal=_equal_fronts(gather_fronts(host_f),
+                                    [(lp.cpu(), up.cpu())
+                                     for lp, up in gather_fronts(dev_f)]),
+                peaks=peaks, solver_device=str(s_host.device),
+                x_rel=float(np.abs(x_host - x_dev).max()
+                            / np.abs(x_dev).max()),
+                executor=host_f.executor)
