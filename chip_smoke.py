@@ -30,7 +30,12 @@ drives the port are reset just before it and checked just after):
                 and the time of one library call as a yardstick; the
                 residual SpMV kernel (csr_spmv) against its plain twin at
                 the main path's operator in all four types (torch.equal),
-                timed beside torch.sparse.mm;
+                timed beside torch.sparse.mm; the panel LU kernel
+                (panel_lu) against its plain column loop bit for bit at the
+                plan's largest group's first panel in all four types,
+                timed beside lu_factor_ex(pivot=False) + solve_triangular,
+                and on a sentinel panel (tiny and zero pivots, zeros of
+                both signs, inf and NaN);
   4. gssvx    — the main path: gssvx(Options()) on poisson3d(48)
                 (n=110,592): float32 factors at the default GEMM tier
                 (TF32) on the card, the dataflow solve schedule fused in
@@ -39,11 +44,14 @@ drives the port are reset just before it and checked just after):
      persist  — on that handle: save_lu, load_lu onto the card (fronts
                 torch.equal) and a FACTORED solve from the loaded handle;
                 then a gssvx handle of poisson3d(25) and its skeleton
-                factored under Options(deadline_s about half its FACT,
-                ckpt_dir), stopped at a group boundary 0 < k < groups with
-                its frontier on disk, and gssvx(resume_from=) from it,
-                whose fronts must be torch.equal to that handle's: bundle
-                bytes, save / load / flush seconds, k, the resumed FACT;
+                factored under Options(deadline_s, ckpt_dir), the
+                deadline aimed at the middle group boundary's poll of the
+                run before, stopped at a group boundary 0 < k < groups
+                with its frontier on disk, and gssvx(resume_from=) from
+                it, whose fronts must be torch.equal to that handle's:
+                bundle bytes, save / load / flush seconds, k, the resumed
+                FACT (``python3 chip_smoke.py persist``: the build, gssvx
+                and this phase alone);
      cli      — poisson3d(25) written as a .mtx file and solved by
                 ``python -m superlu_dist_tpu_torch -f <file> --stats``
                 (``__main__.main`` in-process): rc 0, the reader's seconds,
@@ -160,17 +168,22 @@ drives the port are reset just before it and checked just after):
                 phase);
   5. factor_stages — the main path's factorization synchronized at every
                 stage boundary of every group;
+     factor_profile — one more under torch.profiler: device ms and
+                launches per kind of kernel, busy time and idle share;
   6. kernels_factor — one more factorization with CUDA events around every
-                front-assembly launch (no stage synchronize), then every
-                group of the plan replayed alone for the kernel / plain /
-                library / bound sums;
+                front-assembly launch and panel LU call (no stage
+                synchronize), then every group (float32) and every panel
+                of the plan (in all four types) replayed alone for the
+                kernel / plain / library / bound sums (each panel bit for
+                bit its plain loop);
   7. complex_dofact — gssvx from scratch on helmholtz_2d(250) (n=62,500);
   8. ladder   — the escalation ladder (its gemm-precision rung live) on a
                 near-singular arrowhead and on hilbert(8), float32 factors;
      orderings — DOFACT gssvx on random_sparse(2000) with ColPerm COLAMD,
                 ColPerm MMD_ATA and RowPerm LargeDiag_AWPM;
-  9. check    — a small poisson3d factored through the kernel and through
-                the plain version (identical fronts required), and small
+  9. check    — a small poisson3d factored through both kernels and
+                through both plain versions (identical fronts required),
+                and small
                 NOTRANS / TRANS / CONJ solves against scipy's sparse direct
                 solver in float64.
 
@@ -209,6 +222,11 @@ NX = 48                  # poisson3d grid edge of the main path: n = 110,592
 #: and the mesh phase's ParSymbFact at NX_TINY (32, then 24 before)
 NX_SMALL = 25
 NX_TINY = 16
+#: kernels_factor holds every panel against the plain loop in float32 (the
+#: main path's type) and every PANEL_PLAIN_STRIDE-th panel in the three
+#: other types (every panel in all four until the script needed the time;
+#: the kernel is timed on every panel in each; PERF.md §4)
+PANEL_PLAIN_STRIDE = 4
 SEED = 0
 SERVE_RESOLVE = 8        # cold serve batches re-solved and timed in stages
 SERVE_REQUESTS = 64      # requests of each serve round (PERF.md §4)
@@ -636,35 +654,43 @@ def kernel_phase(plan, maps, torch, kernels, gen):
 
 def factor_sums(plan, maps, bvals, anorm, torch, factor, kernels, gen):
     """Phase 6: (a) one factorization with CUDA events around every
-    front-assembly launch and no stage synchronize; (b) every group of the
-    plan replayed alone — the kernel in a CUDA graph (ms) and call by call
-    (call_ms, the wrapper's host time included), the plain version and the
-    library call with CUDA events — summed with the bounds (float32).  (The
-    sums of the standalone K1 / K2 wrappers over every child set and
-    assembly, and of the front assembly in complex64, are timing only and
-    left the script in PR 7, for the benchmark; those wrappers and types
-    are still held against their plain versions in the kernels phase.)"""
+    front-assembly launch and every panel LU call and no stage
+    synchronize; (b) every group of the plan replayed alone — the kernel
+    in a CUDA graph (ms) and call by call (call_ms, the wrapper's host
+    time included), the plain version and the library call with CUDA
+    events — summed with the bounds (float32), and every panel of the
+    plan likewise in all four types (``panel_sums``), held bit for bit
+    against the plain loop on the way (every panel in float32, every
+    PANEL_PLAIN_STRIDE-th in the others).  (The sums of the standalone
+    K1 / K2 wrappers over every child set and assembly, and of the front
+    assembly in complex64, are timing only and left the script in PR 7,
+    for the benchmark; those wrappers and types are still held against
+    their plain versions in the kernels phase.)"""
     dev = torch.device("cuda")
-    events = []
+    events = {"front_assemble": [], "panel_lu": []}
 
-    def timed(avals, pool, m, w, gm):
+    def timed(name, fn, *args):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        f = kernels.front_assemble_(avals, pool, m, w, gm)
+        out = fn(*args)
         e1.record()
-        events.append((e0, e1))
-        return f
+        events[name].append((e0, e1))
+        return out
 
     kernels.reset_launches()
     t0 = time.perf_counter()
-    factor.numeric_factorize(plan, bvals, anorm, dtype=torch.float32,
-                             device="cuda", scatter=timed)
+    factor.numeric_factorize(
+        plan, bvals, anorm, dtype=torch.float32, device="cuda",
+        scatter=lambda *a: timed("front_assemble", kernels.front_assemble_,
+                                 *a),
+        panel=lambda *a: timed("panel_lu", kernels.panel_lu_, *a))
     torch.cuda.synchronize()
     fact_s = time.perf_counter() - t0
-    in_factor = dict(ms=sum(a.elapsed_time(b) for a, b in events),
-                     launches=kernels.LAUNCHES["front_assemble"],
-                     fact_s=fact_s)
+    in_factor = {k: dict(ms=sum(a.elapsed_time(b) for a, b in ev),
+                         launches=kernels.LAUNCHES[k])
+                 for k, ev in events.items()}
+    in_factor["fact_s"] = fact_s
 
     f32 = torch.float32
     avals = torch.randn(len(plan.pattern_indices), generator=gen, device=dev,
@@ -677,9 +703,101 @@ def factor_sums(plan, maps, bvals, anorm, torch, factor, kernels, gen):
                          plain_reps=1, lib_reps=2)
         for k in keys:
             sums[k] += rec[k]
-    in_factor["bound_ms"] = sums["bound_ms"]
+    in_factor["front_assemble"]["bound_ms"] = sums["bound_ms"]
+    del avals, pool
+    psums = {str(dt).split(".")[-1]: panel_sums(plan, torch, kernels, gen,
+                                                 dt)
+             for dt in (f32, torch.float64, torch.complex64,
+                        torch.complex128)}
+    in_factor["panel_lu"]["bound_ms"] = psums["float32"]["bound_ms"]
     return in_factor, {"front_assemble": dict(units=len(plan.groups),
-                                              **sums)}
+                                              **sums),
+                       "panel_lu": psums}
+
+
+def panel_sums(plan, torch, kernels, gen, dtype) -> dict:
+    """Every panel of one factorization of ``plan`` replayed alone in
+    ``dtype`` on seeded fronts of its group's shape (``time_panel``): the
+    kernel / library / bound times summed over every panel, the plain
+    loop's over the panels held bit for bit against it (``plain_units``:
+    every panel in float32, every PANEL_PLAIN_STRIDE-th in the other
+    types)."""
+    keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
+    out = dict.fromkeys(keys, 0.0)
+    real = torch.empty((), dtype=dtype).real.dtype
+    thresh = torch.tensor(1e-3, dtype=real, device="cuda")
+    stride = 1 if dtype == torch.float32 else PANEL_PLAIN_STRIDE
+    panels = plan_panels(plan)
+    a, at = None, None
+    for i, (gi, g, m_ext, pb, j0, pa) in enumerate(panels):
+        if at != gi:
+            a, at = None, gi
+            a = panel_fronts(torch, gen, g.batch, m_ext, 0, g.w, dtype)
+        rec = time_panel(torch, kernels, a, j0, pa, pb, thresh, reps=3,
+                         lib_reps=2, plain=i % stride == 0)
+        for k in keys:
+            out[k] += rec[k] or 0.0
+    return dict(units=len(panels), plain_units=len(range(0, len(panels),
+                                                         stride)), **out)
+
+
+#: device-kernel name fragments -> the work they do, in match order
+KERNEL_KINDS = (("pivot_rows", "panel_lu launch 1 (pivot rows)"),
+                ("other_rows", "panel_lu launch 2 (other rows)"),
+                ("front_assemble", "front_assemble"),
+                ("trsm", "TRSM (cuBLAS)"),
+                ("gemm", "GEMM (cuBLAS)"), ("sm90_", "GEMM (cuBLAS)"),
+                ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"))
+
+
+def factor_profile(plan, bvals, anorm, torch, factor) -> dict:
+    """One more factorization of the main path (stream, float32, default
+    tier) under torch.profiler: device time per kind of kernel
+    (``KERNEL_KINDS``, the rest "other"), the device's busy time (the
+    union of kernel spans) and its idle share of the wall between the
+    first and the last kernel, and the wall with the profiler on.  A
+    profiler that records no kernel gives {"error": ...}; the script goes
+    on (the measurement is unavailable, the path unchanged)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            factor.numeric_factorize(plan, bvals, anorm, dtype=torch.float32,
+                                     device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels_ = [e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA]
+    except RuntimeError as e:
+        return {"error": f"torch.profiler: {e}"}
+    if not kernels_:
+        return {"error": "torch.profiler recorded no device kernel"}
+    kinds, counts, spans = {}, {}, []
+    for e in kernels_:
+        kind = next((k for frag, k in KERNEL_KINDS if frag in e.name),
+                    "other")
+        rng = e.time_range
+        kinds[kind] = kinds.get(kind, 0.0) + rng.elapsed_us() / 1e3
+        counts[kind] = counts.get(kind, 0) + 1
+        spans.append((rng.start, rng.end))
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    window = max(b for _, b in spans) - spans[0][0]
+    return dict(wall_s=wall, kernels=len(kernels_), busy_ms=busy / 1e3,
+                window_ms=window / 1e3,
+                idle_share=1.0 - busy / window if window else None,
+                ms_by_kind=dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+                launches_by_kind=counts)
 
 
 def expect_native(phase, native, *names):
@@ -792,16 +910,20 @@ def factorizations(report) -> int:
                    and "info=" not in r.detail for r in report.rungs)
 
 
-def expect_launches(phase, kernels, front_assemble, spmv):
+def expect_launches(phase, kernels, front_assemble, spmv, panels=None):
     """The launch counts of the phase just driven (reset just before it):
     ``front_assemble`` launches of the fused kernel (None: at least one),
-    none of the standalone wrappers, and residual SpMV launches when
-    ``spmv`` (refinement on the card: nnz >= 100,000), none otherwise; or
-    raise."""
+    ``panels`` panel_lu launches (None: at least one where the phase
+    assembled a front, none otherwise), none of the standalone wrappers,
+    and residual SpMV launches when ``spmv`` (refinement on the card: nnz
+    >= 100,000), none otherwise; or raise."""
     got = dict(kernels.LAUNCHES)
     want = {"front_assemble": front_assemble, "extend_add": 0, "assemble": 0}
     if front_assemble is None:
         want["front_assemble"] = max(got["front_assemble"], 1)
+    if panels is None:
+        panels = max(got["panel_lu"], 1) if want["front_assemble"] else 0
+    want["panel_lu"] = panels
     if ({k: got[k] for k in want} != want
             or bool(got["csr_spmv"]) != bool(spmv)):
         raise AssertionError(f"launches in {phase}: {got}, expected {want} "
@@ -1322,6 +1444,7 @@ def _mesh_rank(rec) -> dict:
                 local_flops=sh.get("local_flops"),
                 own_slots_only=sh.get("own_slots_only"),
                 front_assemble=rec.get("launches"),
+                panel_lu=rec.get("panel_launches"),
                 csr_spmv=rec.get("spmv_launches"))
 
 
@@ -1359,6 +1482,12 @@ def _mesh_check(name, rec0, peer, target, tols, x_ref=None):
         if rec["launches"] != want:
             raise AssertionError(f"mesh {name} rank {r}: {rec['launches']} "
                                  f"front_assemble launches, expected {want}")
+        # a rank that assembles factors its panels (all of a group's on
+        # the spmd tier, its process column's on the 2-D tier)
+        if bool(rec["panel_launches"]) != bool(want):
+            raise AssertionError(f"mesh {name} rank {r}: "
+                                 f"{rec['panel_launches']} panel_lu launches "
+                                 f"beside {want} front_assemble")
         got = rec["spmv_launches"]
         if got < spmv if hiprec else got != spmv:
             raise AssertionError(f"mesh {name} rank {r}: {got} csr_spmv "
@@ -2001,6 +2130,177 @@ def spmv_phase(a, torch, kernels, dist, gen):
     return record
 
 
+PANEL_SOURCE = "superlu_dist_tpu_torch/csrc/panel_lu.cu"
+PANEL_REPLACES = ("superlu_dist_tpu/ops/dense.py:299 (the column step of "
+                  "_blocked_partial_factor :253, an XLA fori_loop; no "
+                  "Pallas kernel)")
+
+
+def plan_panels(plan) -> list:
+    """Every panel of one factorization of ``plan``, in order: (group
+    index, group, m_ext, pb, j0, pa) — one panel_lu launch each."""
+    from superlu_dist_tpu_torch.ops.dense import panel_width
+    out = []
+    for gi, g in enumerate(plan.groups):
+        pb, nsteps = panel_width(g.w)
+        m_ext = max(g.m, nsteps * pb)
+        out += [(gi, g, m_ext, pb, p * pb, min(pb, g.w - p * pb))
+                for p in range(nsteps)]
+    return out
+
+
+def panel_bound(batch, m_ext, pb, j0, pa, dtype):
+    """(ms, "bytes" | "operations") of one panel's column loop: the panel
+    read and written once and the snapshot (pa rows of pb + 2 values)
+    written and read once; Σ_jj 2·(rows below j)·(pb − jj − 1) flops a
+    front (a complex multiply-subtract is 8 real flops: × 4)."""
+    import torch
+    isz = torch.empty((), dtype=dtype).element_size()
+    nbytes = batch * (2 * m_ext * pb + 2 * pa * (pb + 2)) * isz
+    jj = np.arange(pa)
+    flops = batch * float(np.sum(2.0 * (m_ext - (j0 + jj) - 1)
+                                 * (pb - jj - 1)))
+    if dtype.is_complex:
+        flops *= 4
+    comp = str(torch.empty((), dtype=dtype).real.dtype).split(".")[-1]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[comp] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def same_bits(torch, x, y) -> bool:
+    """Equal bit for bit (signed zeros and infinities), NaNs as NaNs."""
+    xs, ys = (torch.view_as_real(t) if t.is_complex() else t
+              for t in (x, y))
+    nx, ny = torch.isnan(xs), torch.isnan(ys)
+    if xs.shape != ys.shape or not torch.equal(nx, ny):
+        return False
+    ib = {torch.float32: torch.int32, torch.float64: torch.int64}[xs.dtype]
+    return torch.equal(torch.where(nx, 0, xs).contiguous().view(ib),
+                       torch.where(ny, 0, ys).contiguous().view(ib))
+
+
+def panel_fronts(torch, gen, batch, m_ext, j0, pa, dtype, ncols=None):
+    """A seeded (batch, m_ext, ncols or m_ext) front batch on the card with
+    dominant pivots on the panel's pa pivot rows: a panel of it is what
+    the main path hands the kernel (row stride m_ext)."""
+    a = torch.randn((batch, m_ext, ncols or m_ext), generator=gen,
+                    device="cuda", dtype=dtype)
+    r = torch.arange(j0, j0 + pa, device="cuda")
+    a[:, r, r] += 2.0 * float(np.sqrt(m_ext))
+    return a
+
+
+def time_panel(torch, kernels, a, j0, pa, pb, thresh, reps=10,
+               lib_reps=10, plain=True):
+    """panel_lu_ on the panel a[:, :, j0:j0+pb] of the front batch ``a``:
+    bit for bit the plain loop on a copy (tiny flags too), then the
+    kernel's time in a CUDA graph (ms; in place, again and again) and call
+    by call (call_ms), the plain loop's (the comparison's call, CUDA
+    events), the library yardstick's and the bound.  ``plain=False``
+    leaves the plain loop out (max_abs_err and plain_ms None)."""
+    batch, m_ext = a.shape[0], a.shape[1]
+    dev = a.device
+
+    def flags():
+        return torch.zeros((batch, j0 + pa), dtype=torch.int32, device=dev)
+    k, fk = a.clone(), flags()
+    kernels.panel_lu_(k[:, :, j0:j0 + pb], j0, pa, thresh, fk)
+    err = plain_ms = None
+    if plain:
+        p, fp = a.clone(), flags()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        kernels.panel_lu_plain(p[:, :, j0:j0 + pb], j0, pa, thresh, fp)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        fin = torch.isfinite(p)
+        err = float((k - p)[fin].abs().max()) if bool(fin.any()) else 0.0
+        if not (same_bits(torch, k, p) and torch.equal(fk, fp)):
+            raise AssertionError(
+                f"panel_lu kernel != plain at batch {batch}, m_ext {m_ext}, "
+                f"pb {pb}, j0 {j0}, pa {pa}, {a.dtype} (max |d| {err})")
+        del p
+    b_ms, b_by = panel_bound(batch, m_ext, pb, j0, pa, a.dtype)
+    work = flags()
+
+    def call():
+        kernels.panel_lu_(k[:, :, j0:j0 + pb], j0, pa, thresh, work)
+    # the yardstick: LU of the pa x pa pivot blocks without pivoting (and
+    # without GESP's tiny-pivot replacement), then L21 = A21 U11^-1
+    blk = a[:, j0:j0 + pa, j0:j0 + pa].clone()
+    low = a[:, j0 + pa:, j0:j0 + pa].clone()
+
+    def library():
+        lu, _, _ = torch.linalg.lu_factor_ex(blk, pivot=False)
+        torch.linalg.solve_triangular(lu, low, upper=True, left=False)
+    return dict(
+        max_abs_err=err, tiny=int(fk.sum()), ms=graph_ms(call, n=reps),
+        call_ms=cuda_ms(call, reps), plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(library, lib_reps, warm=1),
+        shape=dict(batch=batch, m_ext=m_ext, pb=pb, j0=j0, pa=pa))
+
+
+def panel_phase(plan, torch, kernels, gen):
+    """The panel LU kernel against its plain loop on the card at the main
+    path's largest group (most front elements), its first (widest)
+    panel, in float32, float64, complex64 and complex128 (timed as
+    ``time_panel``), and on a sentinel panel in every type — tiny pivots
+    replaced, one a zero row, a zero pivot without replacement (inf and
+    NaN), zeros of both signs: bit for bit, NaNs as NaNs.  Returns the
+    float32 record of the final JSON line."""
+    big = max(plan_panels(plan), key=lambda r: r[1].batch * r[2] * r[2])
+    _, g, m_ext, pb, j0, pa = big
+    record = None
+    for dt in (torch.float32, torch.float64, torch.complex64,
+               torch.complex128):
+        real = torch.empty((), dtype=dt).real.dtype
+        thresh = torch.tensor(1e-3, dtype=real, device="cuda")
+        a = panel_fronts(torch, gen, g.batch, m_ext, j0, pa, dt,
+                         ncols=j0 + pb)
+        rec = time_panel(torch, kernels, a, j0, pa, pb, thresh)
+        del a
+        name = str(dt).split(".")[-1]
+        if dt == torch.float32:
+            record = dict(name="panel_lu", route="cuda", source=PANEL_SOURCE,
+                          replaces=PANEL_REPLACES, **rec)
+        else:
+            say("kernels_extra", case=f"panel_lu largest {name}", **rec)
+        # sentinels: a zero row and column at pivot 1 (replaced), a tiny
+        # pivot 5, zeros of both signs, then without replacement a zero
+        # first pivot (inf, then NaN below it)
+        s = panel_fronts(torch, gen, 3, 300, 0, 128, dt, ncols=160)
+        s[torch.rand(s.shape, generator=gen, device="cuda") < 0.5] = 0.0
+        s[(s == 0) & (torch.rand(s.shape, generator=gen, device="cuda")
+                      < 0.5)] = -0.0
+        s[0, 1, :] = 0.0
+        s[0, :, 1] = 0.0
+        s[1, 5, 5] = -1e-6
+        ok = []
+        for th in (1e-3, 0.0):
+            if th == 0.0:
+                s[2, 0, 0] = 0.0
+            k, p = s.clone(), s.clone()
+            fk = torch.zeros((3, 128), dtype=torch.int32, device="cuda")
+            fp = fk.clone()
+            t = torch.tensor(th, dtype=real, device="cuda")
+            kernels.panel_lu_(k[:, :, :128], 0, 128, t, fk)
+            kernels.panel_lu_plain(p[:, :, :128], 0, 128, t, fp)
+            torch.cuda.synchronize()
+            ok.append(same_bits(torch, k, p) and torch.equal(fk, fp))
+            if th == 0.0:
+                ok.append(not bool(torch.isfinite(p).all()))
+        if not all(ok):
+            raise AssertionError(f"panel_lu {name} != plain on the sentinel "
+                                 f"panel: {ok}")
+        say("kernels_extra", case=f"panel_lu sentinel {name}", equal=True)
+    say("kernels", **record)
+    return record
+
+
 def solve_phase(lu, torch):
     """The device solve on the main path's handle (refactored by the reuse
     phase: its factors are those of ``lu.a``): the three schedules' plans
@@ -2181,9 +2481,10 @@ def persist_phase(slt, a, b, lu, kernels, tols, torch, workdir):
     phase.  Then, on poisson3d(NX_SMALL) (the main path's 48 until the
     serve phase needed the time, 32 until the pgssvx phase did), a gssvx
     handle and the factorization of its
-    skeleton under Options(deadline_s ≈ half its FACT, ckpt_dir), which
-    must stop at a group boundary 0 < k < groups with its frontier on
-    disk (one retry with the deadline moved if k lands at an end), and
+    skeleton under Options(deadline_s, ckpt_dir), which must stop at a
+    group boundary 0 < k < groups with its frontier on disk (a first run
+    the deadline cannot stop, then up to eight attempts, each aimed at
+    the middle group boundary's poll as the run before saw it), and
     gssvx(resume_from=) from that frontier, whose every front must be
     torch.equal to the handle's (same plan, values and tier) with
     stats.resume["groups"] == k.  Bundle bytes, save / load / flush
@@ -2192,6 +2493,7 @@ def persist_phase(slt, a, b, lu, kernels, tols, torch, workdir):
     import dataclasses
     import shutil
     from superlu_dist_tpu_torch.persist import checkpoint, serial
+    from superlu_dist_tpu_torch.utils import deadline as deadline_mod
     groups = len(lu.plan.groups)
     out = {}
 
@@ -2247,12 +2549,29 @@ def persist_phase(slt, a, b, lu, kernels, tols, torch, workdir):
             flushes.append(time.perf_counter() - t)
 
     ck = os.path.join(workdir, "ck")
-    deadline_s, attempts = 0.5 * fact_s, []
+    # each group boundary's poll is recorded on the deadline's own clock.
+    # The host issues a FACT's groups within some milliseconds, a window
+    # narrower than the set-up before the first poll varies from run to
+    # run, so each attempt aims at the middle poll of the run before it:
+    # a first run under a deadline it cannot reach, then after a run that
+    # beat its deadline that run's middle poll, after one stopped at the
+    # first poll (k = 0) that poll plus the last whole run's span from
+    # its first poll to its middle one
+    polls = []
+    poll = deadline_mod.Deadline.poll
+
+    def timed_poll(self, *args, **kw):
+        polls.append(self.elapsed())
+        return poll(self, *args, **kw)
+
+    deadline_s, attempts, span = 1e6, [], 0.0
     checkpoint.FactorCheckpointer.flush = timed_flush
+    deadline_mod.Deadline.poll = timed_poll
     try:
-        for _ in range(2):
+        for _ in range(9):
             shutil.rmtree(ck, ignore_errors=True)
             flushes.clear()
+            polls.clear()
             opts = slt.Options(deadline_s=deadline_s, ckpt_dir=ck)
             kernels.reset_launches()
             t0 = time.perf_counter()
@@ -2267,13 +2586,20 @@ def persist_phase(slt, a, b, lu, kernels, tols, torch, workdir):
             attempts.append(dict(
                 deadline_s=deadline_s, k=k, s=time.perf_counter() - t0,
                 elapsed_s=err.elapsed_s if err else None,
+                polls=len(polls), first_poll_s=polls[0] if polls else None,
+                last_poll_s=polls[-1] if polls else None,
                 flush_s=list(flushes),
                 launches=dict(kernels.LAUNCHES)))
-            if 0 < k < groups:
+            if 0 < k < groups or not polls:
                 break
-            deadline_s *= 0.5 if k == groups else 2.0
+            if k == groups:
+                mid = polls[len(polls) // 2]
+                span, deadline_s = mid - polls[0], mid
+            else:
+                deadline_s = polls[0] + span
     finally:
         checkpoint.FactorCheckpointer.flush = flush
+        deadline_mod.Deadline.poll = poll
     if not 0 < k < groups or attempts[-1]["launches"]["front_assemble"] != k:
         raise AssertionError(f"the deadline left no inner frontier: "
                              f"{attempts}")
@@ -2808,11 +3134,17 @@ def _timed_factor(torch, kernels, factor, plan, vals, anorm, dtype=None,
             dict(kernels.LAUNCHES))
 
 
-def _expect_front_launches(phase, launches, want):
+def _expect_front_launches(phase, launches, want, panels=None):
+    """``want`` front_assemble launches, ``panels`` panel_lu launches
+    (None: some where ``want`` is not 0) and nothing else, or raise."""
+    if panels is None:
+        panels = max(launches["panel_lu"], 1) if want else 0
     if launches["front_assemble"] != want or any(
-            launches[k] for k in ("extend_add", "assemble", "csr_spmv")):
+            launches[k] for k in ("extend_add", "assemble", "csr_spmv")) \
+            or launches["panel_lu"] != panels:
         raise AssertionError(f"launches in {phase}: {launches}, expected "
-                             f"{want} front_assemble and nothing else")
+                             f"{want} front_assemble, {panels} panel_lu "
+                             "and nothing else")
     return launches["front_assemble"]
 
 
@@ -2963,8 +3295,9 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor, a_sm, lu_sm):
     num, sec, peak, launches = _timed_factor(
         torch, kernels, factor, plan, bv, skel.anorm, executor="stream")
     out["stream"] = dict(fact_s=sec, peak_above_resident=peak,
-                         launches=_expect_front_launches("stream", launches,
-                                                         groups))
+                         launches=_expect_front_launches(
+                             "stream", launches, groups,
+                             len(plan_panels(plan))))
     del num
 
     say("executors", n=a.n_rows, groups=groups, shape_keys=keys, **out)
@@ -3412,6 +3745,35 @@ def serve_only() -> int:
     return 0
 
 
+def persist_only() -> int:
+    """``python3 chip_smoke.py persist``: the build, gssvx on poisson3d(48)
+    and the persist phase only (a quicker check of save / load and of
+    the deadline and resume; the full script runs every phase)."""
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.utils import tols
+    card = card_line()
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    kernels.library()
+    a = poisson3d(NX)
+    b = a.matvec(np.random.default_rng(SEED).standard_normal(a.n_rows))
+    x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+    say("gssvx", n=a.n_rows, fact_s=stats.utime["FACT"],
+        berr=stats.solve_report.berr)
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        persist_phase(slt, a, b, lu, kernels, tols, torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(card)
+    return 0
+
+
 def pgssvx_only() -> int:
     """``python3 chip_smoke.py pgssvx``: the build, gssvx on poisson3d(48)
     and the pgssvx phase only (a quicker check of the distributed
@@ -3504,6 +3866,8 @@ def main():
         return mesh_only()
     if sys.argv[1:2] == ["entry"]:
         return entry_only()
+    if sys.argv[1:2] == ["persist"]:
+        return persist_only()
     if sys.argv[1:2] == ["first_solve"]:
         return first_solve_only(sys.argv[2] if len(sys.argv) > 2 else "")
     import superlu_dist_tpu_torch as slt
@@ -3588,6 +3952,7 @@ def main():
     for rec in records:
         say("kernels", **rec)
     records.append(spmv_phase(a, torch, kernels, dist, gen))
+    records.append(panel_phase(plan, torch, kernels, gen))
 
     # 4. the main path: gssvx on poisson3d(48), f32 factors, f64 refine
     rng = np.random.default_rng(SEED)
@@ -3608,8 +3973,9 @@ def main():
     # step; its analysis runs in the native library
     rep = stats.solve_report
     rungs = rep.rungs
+    panels = len(plan_panels(lu.plan))
     launches = expect_launches("gssvx", kernels, groups * factorizations(rep),
-                               True)
+                               True, panels * factorizations(rep))
     calls = expect_native("gssvx", native, "amalgamate", "mlnd")
     peak = torch.cuda.max_memory_allocated()
     if info != 0 or x is None or x.shape != b.shape:
@@ -3633,6 +3999,7 @@ def main():
         gemm_prec=lu.numeric.gemm_prec,
         answer_tier=rep.gemm_precision,
         rungs=[(r.name, r.detail, r.seconds) for r in rungs],
+        panels=panels,
         solve_schedule=lu.dev_solver.splan.schedule,
         solve_batches=len(lu.dev_solver.splan.groups),
         solve_fused=lu.dev_solver.fused,
@@ -3703,15 +4070,24 @@ def main():
                              device="cuda", timings=timings)
     say("factor_stages", seconds=timings,
         total_s=time.perf_counter() - t0)
+    say("factor_profile", **factor_profile(plan, bvals0, lu0.anorm, torch,
+                                           factor))
 
     # 6. the scatter work of one whole factorization
     in_factor, sums = factor_sums(plan, maps, bvals0, lu0.anorm, torch,
                                   factor, kernels, gen)
     say("kernels_factor", in_factorization=in_factor, replayed=sums,
         groups=len(plan.groups))
-    if in_factor["launches"] != len(plan.groups):
-        raise AssertionError(f"{in_factor['launches']} front_assemble "
-                             f"launches for {len(plan.groups)} groups")
+    for name, want in (("front_assemble", len(plan.groups)),
+                       ("panel_lu", len(plan_panels(plan)))):
+        if in_factor[name]["launches"] != want:
+            raise AssertionError(f"{in_factor[name]['launches']} {name} "
+                                 f"launches in one factorization, expected "
+                                 f"{want}")
+    # the panel LU's time summed over one FACT, beside the largest panel's
+    next(r for r in records if r["name"] == "panel_lu")["summed"] = {
+        k: sums["panel_lu"]["float32"][k] for k in ("ms", "plain_ms",
+                                                    "bound_ms", "library_ms")}
     del lu0, plan, bvals0, maps
 
     # 7. complex analysis from scratch, 8. the escalation ladder, 8b. the
@@ -3728,11 +4104,13 @@ def main():
                                   dtype=torch.float32, device="cuda")
     fp = factor.numeric_factorize(lus.plan, bvals, lus.anorm,
                                   dtype=torch.float32, device="cuda",
-                                  scatter=factor.PLAIN)
+                                  scatter=factor.PLAIN,
+                                  panel=factor.PANEL_PLAIN)
     same = all(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
                for k, p in zip(fk.fronts, fp.fronts))
     if not same:
-        raise AssertionError("fronts through the kernel != plain version")
+        raise AssertionError("fronts through the kernels != through the "
+                             "plain versions")
     scipy_checks = {}
     for case, mat, trans, cplx in (
             ("poisson3d_12", poisson3d(12), "NOTRANS", False),
@@ -3747,7 +4125,7 @@ def main():
                              f"{scipy_checks}")
 
     print(json.dumps({"kernels": [
-        {k: r[k] for k in KEYS + ("grid_graph_launches",) if k in r}
+        {k: r[k] for k in KEYS + ("grid_graph_launches", "summed") if k in r}
         for r in records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -50,6 +50,11 @@ from superlu_dist_tpu_torch.utils.options import EXECUTORS, resolve_device
 #: version instead to hold the kernel against it on the card
 KERNELS = kernels.front_assemble_
 PLAIN = kernels.front_assemble_plain
+#: the panel LU's column loop the main path runs (``ops/dense.
+#: _panel_columns``: the kernel on the card, the plain loop on the CPU);
+#: a caller may pass the plain version to run it on the card too
+PANEL = kernels.panel_lu_
+PANEL_PLAIN = kernels.panel_lu_plain
 #: the executors whose callables hold captured CUDA graphs on the card
 GRAPH_EXECUTORS = ("fused", "mega")
 #: the executors of a grid of several ranks (one is kept per device)
@@ -111,13 +116,15 @@ def _sync(device: torch.device) -> None:
 
 def group_step(dims, avals, pool, thresh, maps: GroupMaps,
                gemm_prec="default", scatter=KERNELS, timings=None,
-               write_back=True):
+               write_back=True, panel=PANEL):
     """One (level, bucket) group: assemble + factor + write back.
 
     dims = (batch, m, w, u).  ``scatter(avals, pool, m, w, maps)`` returns
-    the group's assembled (batch, m²) front batch.  Writes the group's
-    Schur blocks into ``pool`` in place (slots with off == pool size have
-    none; ``maps.keep`` lists the others, None when every slot has one)
+    the group's assembled (batch, m²) front batch; ``panel`` is the
+    partial LU's column loop (``PANEL`` or ``PANEL_PLAIN``).  Writes the
+    group's Schur blocks into ``pool`` in place (slots with off == pool
+    size have none; ``maps.keep`` lists the others, None when every slot
+    has one)
     and returns ((lpanel, upanel), tiny count as a 0-d device tensor).
     With ``write_back=False`` the pool is left as it is and the Schur
     blocks come back instead: ((lpanel, upanel), schur (batch, u²) or
@@ -144,7 +151,7 @@ def group_step(dims, avals, pool, thresh, maps: GroupMaps,
     f = scatter(avals, pool, m, w, maps)
     lap("front_assemble")
     lpanel, upanel, schur, flags = group_partial_factor(
-        f.view(batch, m, m), thresh, w, gemm_prec=gemm_prec)
+        f.view(batch, m, m), thresh, w, gemm_prec=gemm_prec, panel=panel)
     # identity-padding columns (col >= ws) are unit pivots — a thresh > 1
     # must not count them as tiny
     real = torch.arange(w, device=dev)[None, :] < maps.ws[:, None]
@@ -165,7 +172,8 @@ def group_step(dims, avals, pool, thresh, maps: GroupMaps,
 
 
 def run_groups(plan: FactorPlan, lo: int, hi: int, maps, avals, pool,
-               thresh, gemm_prec="default", scatter=KERNELS, timings=None):
+               thresh, gemm_prec="default", scatter=KERNELS, timings=None,
+               panel=PANEL):
     """Groups ``lo..hi-1`` of the plan, in order, on ``pool`` in place:
     returns (their (lpanel, upanel) pairs, their tiny count as a 0-d
     tensor).  The body of the fused executor (its graph holds all the
@@ -177,7 +185,8 @@ def run_groups(plan: FactorPlan, lo: int, hi: int, maps, avals, pool,
         grp = plan.groups[gi]
         packed, t = group_step((grp.batch, grp.m, grp.w, grp.u), avals,
                                pool, thresh, maps[gi], gemm_prec=gemm_prec,
-                               scatter=scatter, timings=timings)
+                               scatter=scatter, timings=timings,
+                               panel=panel)
         fronts.append(packed)
         tiny += t
     return fronts, tiny
@@ -285,7 +294,8 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
                  executor: str = "auto", gemm_prec: str | None = None,
                  device="cuda", *, host_flops: float = 0.0,
                  front_bytes_limit: float = 6e9, offload_lag: int = 8,
-                 scatter=KERNELS, grid=None, pool_partition: bool = False):
+                 scatter=KERNELS, grid=None, pool_partition: bool = False,
+                 panel=PANEL):
     """The executor of a plan, cached on the plan: refactor's shadow
     handle and the SamePattern tiers share the plan, so they reuse the
     executor — and a fused executor's captured graph.
@@ -300,8 +310,8 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
     (parallel/mesh_graphs.py).  The key holds the dtype, the executor,
     the GEMM tier, the host-share threshold and the offload knobs (for
     every executor that offloads: the grid's too), the device, the front
-    assembly (the kernel or its plain version), the grid, its shape and
-    the pool partition.  The cache keeps one fused
+    assembly and the panel LU (each the kernel or its plain version), the
+    grid, its shape and the pool partition.  The cache keeps one fused
     or mega executor per device: a new one (another dtype, tier or front
     assembly) drops the one before it, whose captured graphs hold
     gigabytes — the fused graph of poisson3d(48) 2.94 GB of device memory
@@ -320,7 +330,7 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
            stream_knobs if executor in OFFLOAD_EXECUTORS else None,
            str(device), scatter,
            (id(grid), grid.nprow, grid.npcol, bool(pool_partition))
-           if mesh else None)
+           if mesh else None, panel)
     cache = plan.__dict__.setdefault("_factor_fns", {})
     fn = cache.get(key)
     if fn is None:
@@ -336,39 +346,43 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
                 MeshStreamExecutor)
             fn = MeshStreamExecutor(plan, dtype, device, grid,
                                     gemm_prec=gemm_prec, scatter=scatter,
-                                    pool_partition=pool_partition, **offload)
+                                    pool_partition=pool_partition,
+                                    panel=panel, **offload)
         elif executor in ("mesh-fused", "mesh-mega"):
             from superlu_dist_tpu_torch.parallel import mesh_graphs
             if executor == "mesh-fused":
                 fn = mesh_graphs.MeshFusedExecutor(
                     plan, dtype, device, grid, gemm_prec=gemm_prec,
-                    scatter=scatter, pool_partition=pool_partition)
+                    scatter=scatter, pool_partition=pool_partition,
+                    panel=panel)
             else:
                 fn = mesh_graphs.MeshMegaExecutor(
                     plan, dtype, device, grid, gemm_prec=gemm_prec,
                     scatter=scatter, pool_partition=pool_partition,
-                    **offload)
+                    panel=panel, **offload)
         elif executor == "spmd":
             from superlu_dist_tpu_torch.parallel.spmd import (
                 SpmdFactorExecutor)
             fn = SpmdFactorExecutor(plan, dtype, device, grid,
                                     gemm_prec=gemm_prec, scatter=scatter,
-                                    **offload)
+                                    panel=panel, **offload)
         elif executor == "stream":
             from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
             fn = StreamExecutor(plan, dtype, device, gemm_prec=gemm_prec,
                                 host_flops=host_flops,
                                 front_bytes_limit=front_bytes_limit,
-                                offload_lag=offload_lag, scatter=scatter)
+                                offload_lag=offload_lag, scatter=scatter,
+                                panel=panel)
         elif executor == "mega":
             from superlu_dist_tpu_torch.numeric.mega import MegaExecutor
             fn = MegaExecutor(plan, dtype, device, gemm_prec=gemm_prec,
                               front_bytes_limit=front_bytes_limit,
-                              offload_lag=offload_lag, scatter=scatter)
+                              offload_lag=offload_lag, scatter=scatter,
+                              panel=panel)
         else:
             from superlu_dist_tpu_torch.numeric.fused import FusedExecutor
             fn = FusedExecutor(plan, dtype, device, gemm_prec=gemm_prec,
-                               scatter=scatter)
+                               scatter=scatter, panel=panel)
         cache[key] = fn
     return fn
 
@@ -384,7 +398,8 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       front_bytes_limit: float = 6e9,
                       offload_lag: int = 8,
                       grid=None,
-                      pool_partition: bool = False) -> NumericFactorization:
+                      pool_partition: bool = False,
+                      panel=PANEL) -> NumericFactorization:
     """Factor with values aligned to plan.pattern_indices, on ``device``
     (the card unless the caller asks for the CPU; CUDA without a card
     raises), in ``dtype``: float32, float64, complex64 or complex128.
@@ -413,8 +428,9 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
     of them turns "auto" and "fused" into "stream" (the JAX package's
     rule, numeric/factor.py:509-510, which there leaves a deadline to one
     poll before the fused program).  ``scatter`` is the front assembly of
-    every group; ``timings`` (stream and spmd) accumulates per-stage
-    seconds.
+    every group and ``panel`` its partial LU's column loop (``PANEL``, or
+    ``PANEL_PLAIN`` to run the plain loop on the card); ``timings`` (stream
+    and spmd) accumulates per-stage seconds.
 
     ``grid`` (parallel/grid.ProcessGrid) of several ranks runs the spmd
     executor (parallel/spmd.py) or, for "stream" or ``pool_partition``,
@@ -470,7 +486,7 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       host_flops=host_flops,
                       front_bytes_limit=front_bytes_limit,
                       offload_lag=offload_lag, scatter=scatter, grid=grid,
-                      pool_partition=pool_partition)
+                      pool_partition=pool_partition, panel=panel)
     if spmd:
         return _spmd_factorize(ex, plan, pattern_values, dtype, thresh,
                                replace_tiny, check_finite, deadline, chaos,

@@ -5,7 +5,7 @@ The counterpart of the JAX package's ``make_factor_fn``
 XLA program.  On the card the same loop is captured once into one
 ``torch.cuda.CUDAGraph`` per (plan, dtype, GEMM tier) and replayed for
 each new set of values, so refactor and the SamePattern_SameRowPerm tier
-pay one graph launch instead of the host-issued column loop.  It is the
+pay one graph launch instead of the host-issued group loop.  It is the
 streamed executor at level granularity with a single wave of every
 group, so it shares the level waves' capture (numeric/stream.py):
 
@@ -35,7 +35,7 @@ import time
 import torch
 
 from superlu_dist_tpu_torch.numeric import kernels
-from superlu_dist_tpu_torch.numeric.factor import KERNELS
+from superlu_dist_tpu_torch.numeric.factor import KERNELS, PANEL
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan
 from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
 from superlu_dist_tpu_torch.ops.dense import MATH_LOCK
@@ -178,10 +178,11 @@ class FusedExecutor(StreamExecutor):
     progress_waves = False
 
     def __init__(self, plan: FactorPlan, dtype=torch.float64, device="cuda",
-                 gemm_prec: str | None = None, scatter=KERNELS):
+                 gemm_prec: str | None = None, scatter=KERNELS,
+                 panel=PANEL):
         super().__init__(plan, dtype, device, gemm_prec=gemm_prec,
                          offload="none", granularity="level",
-                         scatter=scatter)
+                         scatter=scatter, panel=panel)
 
     def waves(self) -> list:
         n = len(self.plan.groups)

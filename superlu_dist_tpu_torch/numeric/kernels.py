@@ -1,4 +1,4 @@
-"""The front assembly of the factor path, hand-written for Hopper.
+"""The hand-written CUDA kernels of the factor path, for Hopper.
 
 The JAX package assembles each dispatch group's fronts with two Pallas
 kernels on the TPU (superlu_dist_tpu/numeric/pallas_kernels.py): the
@@ -17,15 +17,23 @@ group, on maps built once per plan on the host (``build_front_maps``):
   their JAX signatures, in place on ``f``: the same kernel in accumulate
   mode, on maps built from their arguments at each call.
 
-The kernel is built for float32, float64, complex64 and complex128; a
+The panel LU's column loop — the column step the JAX package runs inside
+each group's compiled program (superlu_dist_tpu/ops/dense.py
+``_blocked_partial_factor``) — is ``csrc/panel_lu.cu``, two launches per
+panel (``panel_lu_``; plain version ``panel_lu_plain``).
+
+The kernels are built for float32, float64, complex64 and complex128; a
 complex add is two real adds, one per component, in the kernel as in
-torch.  Beside each sits its plain PyTorch version.  A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises — there is
-no fallback between the two.  Each launch adds one to ``LAUNCHES[name]``, so
-a run can show that it went through the kernel.  The kernel equals the
-plain versions bit for bit: every front position receives the same adds
-in the same order (identity, A entry, then the children in set order and
-child order), and one block owns each position.
+torch, and the panel LU spells its complex products and quotients out by
+parts in both versions.  Beside each kernel sits its plain PyTorch
+version.  A CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises — there is no fallback between the two.  Each launch adds
+one to ``LAUNCHES[name]``, so a run can show that it went through the
+kernel.  The kernels equal the plain versions bit for bit: every front
+position receives the same adds in the same order (identity, A entry,
+then the children in set order and child order), and one block owns each
+position; every panel element the same rounded operations in the same
+order.
 """
 
 from __future__ import annotations
@@ -43,9 +51,10 @@ import numpy as np
 import torch
 
 #: kernel launches since the last reset, per wrapper (``csr_spmv`` is the
-#: refinement residual's kernel, parallel/dist.py)
+#: refinement residual's kernel, parallel/dist.py; ``panel_lu`` counts one
+#: per panel, its two launches together)
 LAUNCHES = {"front_assemble": 0, "extend_add": 0, "assemble": 0,
-            "csr_spmv": 0}
+            "csr_spmv": 0, "panel_lu": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: build outputs, keyed by a hash of the sources and flags (kept out of git)
@@ -59,6 +68,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 
 _lib = None
 _fns = {}              # dtype -> the library's launch function
+_panel_fns = {}        # dtype -> csrc/panel_lu.cu's launch function
 
 
 def reset_launches() -> None:
@@ -136,6 +146,10 @@ def library():
             fn.argtypes = [ptr] * 10 + [i64] * 10 + [ptr]
             fn.restype = ctypes.c_int
             _fns[dtype] = fn
+            fn = getattr(lib, f"slu_panel_lu_{sfx}")
+            fn.argtypes = [ptr] * 4 + [i64] * 8 + [ptr]
+            fn.restype = ctypes.c_int
+            _panel_fns[dtype] = fn
         _lib = lib
     return _lib
 
@@ -652,3 +666,201 @@ def assemble_(f, avals, a_slot, a_flat, a_src):
                             kind="assemble",
                             a=(_host(a_slot), _host(a_flat), _host(a_src)))
     return launch_(f, maps, avals=avals)
+
+
+# ---------------------------------------------------------------------------
+# the panel LU's column loop, in place
+# ---------------------------------------------------------------------------
+
+#: the widest panel the kernel takes (ops/dense.py ``_PANEL_BLOCK``)
+PANEL_MAX = 128
+
+
+def _fix_pivot(piv: torch.Tensor, thresh: torch.Tensor):
+    """GESP tiny-pivot replacement of real pivots: piv -> sign(piv)·thresh
+    if |piv| < thresh (a zero one becomes +thresh).  Returns (pivots,
+    int32 tiny flags)."""
+    ap = piv.abs()
+    safe = torch.where(ap == 0, torch.ones_like(ap), ap)
+    unit = torch.where(ap == 0, torch.ones_like(piv), piv / safe)
+    tiny = ap < thresh
+    return torch.where(tiny, unit * thresh, piv), tiny.to(torch.int32)
+
+
+def _fix_pivot_parts(pr, pi, thresh):
+    """``_fix_pivot`` of complex pivots given by parts: |piv| is
+    hypot(re, im), a replaced pivot keeps its phase (re/|piv|, im/|piv|)
+    times thresh, a zero one becomes +thresh.  Returns (re, im, int32 tiny
+    flags)."""
+    ap = torch.hypot(pr, pi)
+    z = ap == 0
+    safe = torch.where(z, torch.ones_like(ap), ap)
+    ur = torch.where(z, torch.ones_like(pr), pr / safe)
+    ui = torch.where(z, torch.zeros_like(pi), pi / safe)
+    tiny = ap < thresh
+    return (torch.where(tiny, ur * thresh, pr),
+            torch.where(tiny, ui * thresh, pi), tiny.to(torch.int32))
+
+
+def _cdiv_parts(ar, ai, cr, ci):
+    """(ar + i·ai) / (cr + i·ci) by parts, every operation rounded on its
+    own, in c10::complex's order (Smith's method, as numpy divides):
+    |cr| >= |ci|: rat = ci/cr, scl = 1/(cr + ci·rat), ((ar + ai·rat)·scl,
+    (ai − ar·rat)·scl), and a zero divisor gives (ar/|cr|, ai/|ci|); else
+    rat = cr/ci, scl = 1/(ci + cr·rat), ((ar·rat + ai)·scl, (ai·rat −
+    ar)·scl)."""
+    acr, aci = cr.abs(), ci.abs()
+    big = acr >= aci
+    rat = torch.where(big, ci / cr, cr / ci)
+    scl = torch.reciprocal(torch.where(big, cr + ci * rat, ci + cr * rat))
+    re = torch.where(big, ar + ai * rat, ar * rat + ai) * scl
+    im = torch.where(big, ai - ar * rat, ai * rat - ar) * scl
+    both0 = (acr == 0) & (aci == 0)
+    return (torch.where(both0, ar / acr, re), torch.where(both0, ai / aci, im))
+
+
+def panel_lu_plain(panel, j0, pa, thresh, flags):
+    """Plain PyTorch column loop of one panel, in place: masked rank-1
+    steps over the panel's pb columns for its pa active pivots j0 ..
+    j0+pa-1 (``panel`` a (B, M, pb) view of every row of the fronts;
+    rows and pivots are front rows).  Tiny pivots are replaced (GESP) and
+    flagged in ``flags`` (B, w) int32.  A complex panel runs the same
+    steps by parts (``_panel_lu_parts``)."""
+    dev = panel.device
+    rows = torch.arange(panel.shape[1], device=dev)
+    cols_pb = torch.arange(panel.shape[2], device=dev)
+    if panel.dtype.is_complex:
+        return _panel_lu_parts(panel, rows, cols_pb, j0, pa, thresh, flags)
+    zero = torch.zeros((), dtype=panel.dtype, device=dev)
+    for jj in range(pa):
+        j = j0 + jj
+        col = panel[:, :, jj].clone()
+        rowj = panel[:, j, :].clone()
+        piv_raw = rowj[:, jj]
+        piv, tiny = _fix_pivot(piv_raw, thresh)
+        below = rows > j
+        l = torch.where(below, col / piv[:, None], zero)
+        urow = torch.where(cols_pb > jj, rowj, zero)
+        panel -= l[:, :, None] * urow[:, None, :]
+        # write the multipliers + fixed pivot into column jj as
+        # computed: the JAX version's cur + (new − cur) keeps only
+        # eps·|pivot| of a multiplier's relative accuracy (ROADMAP.md)
+        panel[:, :, jj] = (torch.where(below, l, col)
+                           + (piv - piv_raw)[:, None]
+                           * (rows == j).to(panel.dtype))
+        flags[:, j] += tiny
+    return panel
+
+
+def _panel_lu_parts(panel, rows, cols_pb, j0, pa, thresh, flags):
+    """``panel_lu_plain``'s steps on a complex panel, on its real and
+    imaginary parts (views into it): the pivot's modulus is hypot, the
+    quotient ``_cdiv_parts``, the product (lr·ur − li·ui, lr·ui + li·ur)
+    subtracted by parts, the pivot's correction times the real 0/1 row
+    mask by parts — the kernel's order (csrc/panel_lu.cu), every operation
+    rounded on its own."""
+    parts = torch.view_as_real(panel)
+    re, im = parts[..., 0], parts[..., 1]
+    zero = torch.zeros((), dtype=re.dtype, device=re.device)
+    for jj in range(pa):
+        j = j0 + jj
+        cr, ci = re[:, :, jj].clone(), im[:, :, jj].clone()
+        rr, ri = re[:, j, :].clone(), im[:, j, :].clone()
+        raw_r, raw_i = rr[:, jj], ri[:, jj]
+        pr, pi, tiny = _fix_pivot_parts(raw_r, raw_i, thresh)
+        below = rows > j
+        qr, qi = _cdiv_parts(cr, ci, pr[:, None], pi[:, None])
+        lr = torch.where(below, qr, zero)[:, :, None]
+        li = torch.where(below, qi, zero)[:, :, None]
+        keep = cols_pb > jj
+        ur = torch.where(keep, rr, zero)[:, None, :]
+        ui = torch.where(keep, ri, zero)[:, None, :]
+        re -= lr * ur - li * ui
+        im -= lr * ui + li * ur
+        e = (rows == j).to(re.dtype)
+        re[:, :, jj] = torch.where(below, lr[:, :, 0], cr) \
+            + (pr - raw_r)[:, None] * e
+        im[:, :, jj] = torch.where(below, li[:, :, 0], ci) \
+            + (pi - raw_i)[:, None] * e
+        flags[:, j] += tiny
+    return panel
+
+
+def _check_panel(panel, j0, pa, thresh, flags):
+    """Raise on arguments neither version takes."""
+    if panel.dim() != 3 or panel.dtype not in _SUFFIX:
+        raise TypeError(f"panel must be (B, M, pb) in one of "
+                        f"{sorted(map(str, _SUFFIX))}, got "
+                        f"{tuple(panel.shape)} {panel.dtype}")
+    b, m, pb = panel.shape
+    if not (0 <= j0 and 1 <= pa <= pb and j0 + pa <= m):
+        raise ValueError(f"pivots j0={j0}, pa={pa} outside a panel of "
+                         f"{m} rows and {pb} columns")
+    if (flags.dtype != torch.int32 or flags.dim() != 2
+            or flags.shape[0] != b or flags.shape[1] < j0 + pa):
+        raise TypeError(f"flags must be int32 (B, >= {j0 + pa}), got "
+                        f"{tuple(flags.shape)} {flags.dtype}")
+    if thresh.dim() != 0 or thresh.dtype.is_complex:
+        raise TypeError("thresh must be a real 0-d tensor")
+
+
+def panel_lu_(panel, j0, pa, thresh, flags):
+    """The column loop of one panel of the blocked partial LU, in place:
+    ``panel_lu_plain``'s function (the column step of
+    superlu_dist_tpu/ops/dense.py:_blocked_partial_factor, :299-323).
+
+    ``panel`` is a (B, M, pb) view — a[:, :, j0:j0+pb] of a front batch,
+    or a[:, :, k0:k0+pb] of a rank's column share on the 2-D mesh — whose
+    columns have unit stride; ``thresh`` a 0-d tensor of the real
+    component type on the panel's device (another real type is cast
+    there; it is read by pointer, no host sync); ``flags`` (B, w) int32.
+    A CPU panel runs ``panel_lu_plain``.  A CUDA panel launches
+    ``csrc/panel_lu.cu`` (the pivot rows, then every other row replayed
+    from a snapshot of each step; scratch from ``torch.empty`` on the
+    current stream, so a CUDA graph can hold it) and counts one launch
+    under ``LAUNCHES["panel_lu"]``, or raises: a column stride other than
+    1, pb > 128, a failed build or a refused launch.  Bound: the pivot
+    rows' chain of pa dependent steps at small batch, else bytes (the
+    panel read and written once)."""
+    _check_panel(panel, j0, pa, thresh, flags)
+    devs = {t.device for t in (panel, thresh, flags)}
+    if len(devs) != 1:
+        raise ValueError(f"panel, thresh and flags lie on several devices: "
+                         f"{sorted(map(str, devs))}")
+    if panel.device.type != "cuda":
+        return panel_lu_plain(panel, j0, pa, thresh, flags)
+    return panel_launch_(panel, j0, pa, thresh, flags)
+
+
+def panel_launch_(panel, j0, pa, thresh, flags):
+    """Launch ``csrc/panel_lu.cu`` on a CUDA panel (``panel_lu_``'s
+    kernel path), or raise."""
+    _check_panel(panel, j0, pa, thresh, flags)
+    b, m, pb = panel.shape
+    dev = panel.device
+    if panel.stride(2) != 1 or flags.stride(1) != 1:
+        raise ValueError(f"the panel's and the flags' columns must have "
+                         f"unit stride, got {panel.stride()} and "
+                         f"{flags.stride()}")
+    if dev.type != "cuda" or thresh.device != dev or flags.device != dev:
+        raise ValueError("the panel LU kernel takes CUDA tensors on one "
+                         "device")
+    if pb > PANEL_MAX:
+        raise ValueError(f"panels of at most {PANEL_MAX} columns, got {pb}")
+    if b == 0:
+        return panel
+    real = panel.real.dtype if panel.dtype.is_complex else panel.dtype
+    if thresh.dtype != real:
+        thresh = thresh.to(real)
+    snap = torch.empty((b, pa, pb + 2), dtype=panel.dtype, device=dev)
+    if _lib is None:
+        library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _panel_fns[panel.dtype](
+        panel.data_ptr(), thresh.data_ptr(), flags.data_ptr(),
+        snap.data_ptr(), b, m, pb, panel.stride(0), panel.stride(1), j0, pa,
+        flags.stride(0), stream)
+    if rc != 0:
+        raise RuntimeError(f"panel_lu kernel launch failed: CUDA error {rc}")
+    LAUNCHES["panel_lu"] += 1
+    return panel

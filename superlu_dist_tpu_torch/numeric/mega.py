@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from superlu_dist_tpu_torch.numeric import factor, kernels
-from superlu_dist_tpu_torch.numeric.factor import KERNELS
+from superlu_dist_tpu_torch.numeric.factor import KERNELS, PANEL
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, bucket_rung
 from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
 
@@ -55,11 +55,12 @@ class MegaExecutor(StreamExecutor):
     def __init__(self, plan: FactorPlan, dtype=torch.float64, device="cuda",
                  gemm_prec: str | None = None, offload: str = "auto",
                  front_bytes_limit: float = 6e9, offload_lag: int = 8,
-                 scatter=KERNELS):
+                 scatter=KERNELS, panel=PANEL):
         super().__init__(plan, dtype, device, gemm_prec=gemm_prec,
                          offload=offload, granularity="group",
                          host_flops=0.0, front_bytes_limit=front_bytes_limit,
-                         offload_lag=offload_lag, scatter=scatter)
+                         offload_lag=offload_lag, scatter=scatter,
+                         panel=panel)
         n_avals = len(plan.pattern_indices)
         self._P = bucket_rung(max(plan.pool_size, 1), lo=8,
                               growth=_STORE_GROWTH)
@@ -175,7 +176,7 @@ class MegaExecutor(StreamExecutor):
             (lp, up), t = factor.group_step(
                 (b, grp.m, grp.w, grp.u), avals, pool, thresh, maps[gi],
                 gemm_prec=self.gemm_prec, scatter=self.scatter,
-                timings=timings)
+                timings=timings, panel=self.panel)
             return (lp[:grp.batch], up[:grp.batch]), t
         if timings is not None:
             raise ValueError("timings synchronize the device: the mega "
@@ -248,7 +249,7 @@ class MegaExecutor(StreamExecutor):
                 factor.group_step((smaps.ws.shape[0], m, *key), s_avals,
                                   scratch, s_thresh, smaps,
                                   gemm_prec=self.gemm_prec,
-                                  scatter=self.scatter)
+                                  scatter=self.scatter, panel=self.panel)
         stream.synchronize()
         del scratch
         self._buckets = {}
@@ -258,7 +259,8 @@ class MegaExecutor(StreamExecutor):
             self._buckets[key] = (smaps, Graph(
                 lambda smaps=smaps, dims=dims: factor.group_step(
                     dims, s_avals, s_pool, s_thresh, smaps,
-                    gemm_prec=self.gemm_prec, scatter=self.scatter),
+                    gemm_prec=self.gemm_prec, scatter=self.scatter,
+                    panel=self.panel),
                 dev, stream))
 
     def report(self) -> dict:

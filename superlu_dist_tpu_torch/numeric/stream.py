@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from superlu_dist_tpu_torch.numeric import factor
-from superlu_dist_tpu_torch.numeric.factor import KERNELS, run_groups
+from superlu_dist_tpu_torch.numeric.factor import KERNELS, PANEL, run_groups
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, bucket_rung
 from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.ops.dense import gemm_precision
@@ -196,12 +196,12 @@ class StreamExecutor:
                  gemm_prec: str | None = None, offload: str = "auto",
                  granularity: str = "group", host_flops: float = 0.0,
                  front_bytes_limit: float = 6e9, offload_lag: int = 8,
-                 scatter=KERNELS):
+                 scatter=KERNELS, panel=PANEL):
         plan.check_index_width()
         self.plan, self.dtype = plan, dtype
         self.device = resolve_device(device)
         self.gemm_prec = gemm_precision(gemm_prec)
-        self.scatter = scatter
+        self.scatter, self.panel = scatter, panel
         if granularity not in ("group", "level"):
             raise ValueError(f"granularity must be 'group' or 'level', "
                              f"got {granularity!r}")
@@ -251,7 +251,8 @@ class StreamExecutor:
         return factor.group_step((grp.batch, grp.m, grp.w, grp.u), avals,
                                  pool, thresh, maps[gi],
                                  gemm_prec=self.gemm_prec,
-                                 scatter=self.scatter, timings=timings)
+                                 scatter=self.scatter, timings=timings,
+                                 panel=self.panel)
 
     # ---- the call ---------------------------------------------------------
 
@@ -415,7 +416,7 @@ class StreamExecutor:
                 packed, t = run_groups(plan, lo, hi,
                                        hmaps if lo < n_host else maps, av,
                                        pool, th, self.gemm_prec, self.scatter,
-                                       timings)
+                                       timings, self.panel)
             else:
                 packed, t = graph.replay()
                 # the next call's replay rewrites the graph's fronts
@@ -452,7 +453,7 @@ class StreamExecutor:
 
         def step(gi):
             run_groups(plan, gi, gi + 1, maps, s_avals, s_pool, s_thresh,
-                       self.gemm_prec, self.scatter)
+                       self.gemm_prec, self.scatter, panel=self.panel)
 
         n_host = self._n_host_groups
         self.graph_stats["warm_up_s"] = warm_up(
@@ -468,7 +469,7 @@ class StreamExecutor:
             waves.append(Graph(
                 lambda lo=lo, hi=hi: run_groups(
                     plan, lo, hi, maps, s_avals, s_pool, s_thresh,
-                    self.gemm_prec, self.scatter),
+                    self.gemm_prec, self.scatter, panel=self.panel),
                 dev, stream, pool=pool_handle))
         self._waves = waves
 

@@ -16,10 +16,14 @@ u ≤ M−W):
     F[W:, W:]   Schur complement S = A22 − L21·U12 (scattered to the pool)
 
 The JAX package ``vmap``s a ``fori_loop`` over one front; here the batch
-is an explicit leading dimension and the column loop is a Python loop over
-tensors that lie on the device.  The triangular solves and GEMMs go to
-``torch.linalg.solve_triangular`` and ``torch.matmul``, as the JAX package
-leaves them to XLA; neither is a Pallas kernel there.
+is an explicit leading dimension.  Each panel's column loop is one call of
+``panel`` (``_panel_columns``): on the card the hand-written kernel
+``csrc/panel_lu.cu`` (``numeric/kernels.panel_lu_``, two launches a
+panel), on the CPU — or when a caller passes ``kernels.panel_lu_plain`` —
+its plain PyTorch version, the loop of masked rank-1 steps.  The
+triangular solves and GEMMs go to ``torch.linalg.solve_triangular`` and
+``torch.matmul``, as the JAX package leaves them to XLA; neither is a
+Pallas kernel there.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import threading
 
 import numpy as np
 import torch
+
+from superlu_dist_tpu_torch.numeric import kernels
 
 _PANEL_BLOCK = 128   # outer panel width of the blocked right-looking LU
 
@@ -177,65 +183,41 @@ def gemm(a: torch.Tensor, b: torch.Tensor, prec: str = "highest"):
         return torch.matmul(a, b)
 
 
-def _fix_pivot(piv: torch.Tensor, thresh: torch.Tensor):
-    """GESP tiny-pivot replacement: piv -> phase(piv)·thresh if
-    |piv| < thresh (thresh is of piv's real component type; a complex
-    pivot keeps its phase, a zero one becomes +thresh).  Returns
-    (pivots, int32 tiny flags)."""
-    ap = piv.abs()
-    safe = torch.where(ap == 0, torch.ones_like(ap), ap)
-    unit = torch.where(ap == 0, torch.ones_like(piv), piv / safe)
-    tiny = ap < thresh
-    return torch.where(tiny, unit * thresh, piv), tiny.to(torch.int32)
-
-
 _UNROLL = 16         # panel width factored by the unrolled column loop
 
 
-def _lu_masked(a: torch.Tensor, thresh: torch.Tensor):
+def _lu_masked(a: torch.Tensor, thresh: torch.Tensor,
+               panel=kernels.panel_lu_):
     """Unpivoted LU of a batch of small blocks (B, k, k) with tiny-pivot
     replacement, one rank-1 step per column (the JAX package's
-    ``_lu_masked``; the multipliers are written directly).  Returns
-    (packed LU, tiny (B, k) int32 per-column flags)."""
+    ``_lu_masked``): the column loop of one panel with j0 = 0 and pa = k,
+    so the recursive path runs the same body (``_panel_columns``) as the
+    blocked one.  Returns (packed LU, tiny (B, k) int32 per-column
+    flags)."""
     b, k, _ = a.shape
-    idx = torch.arange(k, device=a.device)
-    zero = torch.zeros((), dtype=a.dtype, device=a.device)
     flags = torch.zeros((b, k), dtype=torch.int32, device=a.device)
-    a = a.clone()
-    for i in range(k):
-        row_i = a[:, i, :].clone()
-        col_i = a[:, :, i].clone()
-        piv_raw = row_i[:, i]
-        piv, tiny = _fix_pivot(piv_raw, thresh)
-        below = idx > i
-        l = torch.where(below, col_i / piv[:, None], zero)
-        u = torch.where(below, row_i, zero)
-        a -= l[:, :, None] * u[:, None, :]
-        # the multipliers are stored as computed (the JAX package's
-        # cur + (new − cur) loses eps·|pivot| of them, ROADMAP.md)
-        a[:, :, i] = (torch.where(below, l, col_i)
-                      + (piv - piv_raw)[:, None] * (idx == i).to(a.dtype))
-        flags[:, i] += tiny
+    a = a.clone(memory_format=torch.contiguous_format)
+    _panel_columns(a, 0, k, thresh, flags, panel)
     return a, flags
 
 
 def lu_nopivot(a: torch.Tensor, thresh: torch.Tensor,
-               gemm_prec: str = "highest"):
+               gemm_prec: str = "highest", panel=kernels.panel_lu_):
     """Blocked-recursive unpivoted LU of a batch (B, n, n) with tiny-pivot
     replacement; the trailing update is one batched GEMM per recursion
     level.  Returns (packed LU, tiny (B, n) int32 per-column flags)."""
     n = a.shape[-1]
     if n <= _UNROLL:
-        return _lu_masked(a, thresh)
+        return _lu_masked(a, thresh, panel)
     h = max(_UNROLL, (n // 2 + _UNROLL - 1) // _UNROLL * _UNROLL)
     h = min(h, n - 1)
-    f11, c1 = lu_nopivot(a[:, :h, :h], thresh, gemm_prec)
+    f11, c1 = lu_nopivot(a[:, :h, :h], thresh, gemm_prec, panel)
     u12 = torch.linalg.solve_triangular(f11, a[:, :h, h:], upper=False,
                                         unitriangular=True)
     l21 = torch.linalg.solve_triangular(f11, a[:, h:, :h], upper=True,
                                         left=False)
     s = a[:, h:, h:] - gemm(l21, u12, gemm_prec)
-    f22, c2 = lu_nopivot(s, thresh, gemm_prec)
+    f22, c2 = lu_nopivot(s, thresh, gemm_prec, panel)
     return (torch.cat([torch.cat([f11, u12], dim=2),
                        torch.cat([l21, f22], dim=2)], dim=1),
             torch.cat([c1, c2], dim=1))
@@ -252,34 +234,21 @@ def panel_width(w: int):
     return pb, -(-w // pb)
 
 
-def _panel_columns(panel, rows, cols_pb, j0, pa, thresh, flags, zero):
-    """The column loop of one panel, in place: masked rank-1 steps over the
-    panel's pb columns for its pa active pivots j0 .. j0+pa-1 (``panel``
-    is a (B, M_ext, pb) view; ``rows`` the M_ext row indices, ``cols_pb``
-    the pb panel column indices).  Tiny pivots are replaced and flagged in
-    ``flags`` (B, w).  The one body of the single-process blocked LU and
-    of the mesh tier's panel owner (``panel_partial_factor``)."""
-    for jj in range(pa):
-        j = j0 + jj
-        col = panel[:, :, jj].clone()
-        rowj = panel[:, j, :].clone()
-        piv_raw = rowj[:, jj]
-        piv, tiny = _fix_pivot(piv_raw, thresh)
-        below = rows > j
-        l = torch.where(below, col / piv[:, None], zero)
-        urow = torch.where(cols_pb > jj, rowj, zero)
-        panel -= l[:, :, None] * urow[:, None, :]
-        # write the multipliers + fixed pivot into column jj as
-        # computed: the JAX version's cur + (new − cur) keeps only
-        # eps·|pivot| of a multiplier's relative accuracy (ROADMAP.md)
-        panel[:, :, jj] = (torch.where(below, l, col)
-                           + (piv - piv_raw)[:, None]
-                           * (rows == j).to(panel.dtype))
-        flags[:, j] += tiny
+def _panel_columns(a, j0, pa, thresh, flags, panel=kernels.panel_lu_):
+    """The column loop of one panel, in place: masked rank-1 steps over
+    the pb columns of ``a`` (a (B, M_ext, pb) view of every row of the
+    fronts) for its pa active pivots j0 .. j0+pa-1, tiny pivots replaced
+    and flagged in ``flags`` (B, w).  ``panel`` is ``kernels.panel_lu_``
+    (the kernel on the card, the plain loop on the CPU) or
+    ``kernels.panel_lu_plain``.  The one body of the single-process
+    blocked LU, of the mesh tier's panel owner (``panel_steps``) and of
+    the recursive path's small blocks (``_lu_masked``)."""
+    panel(a, j0, pa, thresh, flags)
 
 
 def _blocked_partial_factor(f: torch.Tensor, thresh: torch.Tensor, w: int,
-                            gemm_prec: str = "highest"):
+                            gemm_prec: str = "highest",
+                            panel=kernels.panel_lu_):
     """Right-looking blocked partial LU of a batch of fronts, in place.
 
     f is (B, M, M); the leading w columns are eliminated.  Each PB-wide
@@ -304,16 +273,12 @@ def _blocked_partial_factor(f: torch.Tensor, thresh: torch.Tensor, w: int,
         # zero padding; padded columns are never eliminated (j >= w) and
         # padded rows stay zero throughout
         a = torch.nn.functional.pad(f, (0, m_ext - m, 0, m_ext - m))
-    rows = torch.arange(m_ext, device=f.device)
-    cols_pb = torch.arange(pb, device=f.device)
     flags = torch.zeros((b, w), dtype=torch.int32, device=f.device)
-    zero = torch.zeros((), dtype=f.dtype, device=f.device)
     for p in range(nsteps):
         j0 = p * pb
         pa = min(pb, w - j0)                  # active pivots in this panel
         # a view: updates land in a
-        _panel_columns(a[:, :, j0:j0 + pb], rows, cols_pb, j0, pa, thresh,
-                       flags, zero)
+        _panel_columns(a[:, :, j0:j0 + pb], j0, pa, thresh, flags, panel)
         c1 = j0 + pb
         if c1 < m_ext:
             # U rows: solve unit-L11 against the columns right of the panel
@@ -329,7 +294,8 @@ def _blocked_partial_factor(f: torch.Tensor, thresh: torch.Tensor, w: int,
 
 def panel_partial_factor(a: torch.Tensor, thresh: torch.Tensor, w: int,
                          gcol: torch.Tensor, npcol: int, pcol: int,
-                         bcast=None, gemm_prec: str = "highest"):
+                         bcast=None, gemm_prec: str = "highest",
+                         panel=kernels.panel_lu_):
     """The blocked partial LU of ``_blocked_partial_factor`` over one
     rank's column share of a batch of fronts, in place — the "panel" axis
     of the mesh tier (parallel/mesh_stream.py).
@@ -350,7 +316,7 @@ def panel_partial_factor(a: torch.Tensor, thresh: torch.Tensor, w: int,
     Returns the tiny flags (B, w) int32 of the pivots this rank owns
     (zero elsewhere)."""
     steps = panel_steps(a, thresh, w, gcol, npcol, pcol, gemm_prec,
-                        bcast is not None)
+                        bcast is not None, panel)
     try:
         req = next(steps)
         while True:
@@ -361,7 +327,8 @@ def panel_partial_factor(a: torch.Tensor, thresh: torch.Tensor, w: int,
 
 def panel_steps(a: torch.Tensor, thresh: torch.Tensor, w: int,
                 gcol: torch.Tensor, npcol: int, pcol: int,
-                gemm_prec: str = "highest", broadcast: bool = True):
+                gemm_prec: str = "highest", broadcast: bool = True,
+                panel=kernels.panel_lu_):
     """``panel_partial_factor`` as a generator: where the function calls
     ``bcast(t, owner, shape)``, this yields ``(t, owner, shape)`` and
     takes the broadcast panel back through ``send`` (``broadcast=False``:
@@ -371,11 +338,7 @@ def panel_steps(a: torch.Tensor, thresh: torch.Tensor, w: int,
     rank-local.  Returns (``StopIteration.value``) the tiny flags."""
     b, m_ext, _ = a.shape
     pb, nsteps = panel_width(w)
-    dev = a.device
-    rows = torch.arange(m_ext, device=dev)
-    cols_pb = torch.arange(pb, device=dev)
-    flags = torch.zeros((b, w), dtype=torch.int32, device=dev)
-    zero = torch.zeros((), dtype=a.dtype, device=dev)
+    flags = torch.zeros((b, w), dtype=torch.int32, device=a.device)
     for p in range(nsteps):
         j0 = p * pb
         pa = min(pb, w - j0)
@@ -383,9 +346,9 @@ def panel_steps(a: torch.Tensor, thresh: torch.Tensor, w: int,
         mine = None
         if owner == pcol:
             k0 = (p // npcol) * pb
-            panel = a[:, :, k0:k0 + pb]
-            _panel_columns(panel, rows, cols_pb, j0, pa, thresh, flags, zero)
-            mine = panel[:, j0:, :pa]
+            own = a[:, :, k0:k0 + pb]
+            _panel_columns(own, j0, pa, thresh, flags, panel)
+            mine = own[:, j0:, :pa]
         lpan = (yield (mine, owner, (b, m_ext - j0, pa))) if broadcast \
             else mine
         k1 = int(np.searchsorted(gcol, j0 + pb))
@@ -400,7 +363,8 @@ def panel_steps(a: torch.Tensor, thresh: torch.Tensor, w: int,
 
 
 def group_partial_factor(fronts: torch.Tensor, thresh: torch.Tensor, w: int,
-                         pivot: str = "blocked", gemm_prec: str = "highest"):
+                         pivot: str = "blocked", gemm_prec: str = "highest",
+                         panel=kernels.panel_lu_):
     """Partial factorization of a batch of fronts (B, m, m).
 
     pivot="blocked" (the main path) runs ``_blocked_partial_factor`` in
@@ -413,16 +377,18 @@ def group_partial_factor(fronts: torch.Tensor, thresh: torch.Tensor, w: int,
     lpanel stacks the packed diagonal block (L11 unit-lower + U11) over
     L21; upanel is U12.  The caller scatters the Schur block into the
     update pool and keeps copies of the panels, so the eliminated A22 is
-    never stored (superlu_ddefs.h:97-183).
+    never stored (superlu_ddefs.h:97-183).  ``panel`` is the column loop
+    of both paths (``_panel_columns``).
     """
     if pivot == "blocked":
-        packed, tiny = _blocked_partial_factor(fronts, thresh, w, gemm_prec)
+        packed, tiny = _blocked_partial_factor(fronts, thresh, w, gemm_prec,
+                                               panel)
         return (packed[:, :, :w], packed[:, :w, w:], packed[:, w:, w:],
                 tiny)
     if pivot != "recursive":
         raise ValueError(f"pivot must be 'blocked' or 'recursive', "
                          f"got {pivot!r}")
-    f11, tiny = lu_nopivot(fronts[:, :w, :w], thresh, gemm_prec)
+    f11, tiny = lu_nopivot(fronts[:, :w, :w], thresh, gemm_prec, panel)
     u12 = torch.linalg.solve_triangular(f11, fronts[:, :w, w:], upper=False,
                                         unitriangular=True)
     l21 = torch.linalg.solve_triangular(f11, fronts[:, w:, :w], upper=True,

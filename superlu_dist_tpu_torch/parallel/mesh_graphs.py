@@ -267,10 +267,10 @@ class MeshFusedExecutor(_GridGraphs):
     name = "mesh-fused"
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
-                 scatter=None, pool_partition=False):
+                 scatter=None, pool_partition=False, panel=None):
         super().__init__(plan, dtype, device, grid, gemm_prec=gemm_prec,
                          scatter=scatter, pool_partition=pool_partition,
-                         offload="none")
+                         offload="none", panel=panel)
         self._segs = {}            # group -> its segments
 
     def _run_group(self, gi, bufs):
@@ -316,11 +316,11 @@ class MeshMegaExecutor(_GridGraphs):
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
                  scatter=None, pool_partition=False, offload="auto",
-                 front_bytes_limit=6e9, offload_lag=8):
+                 front_bytes_limit=6e9, offload_lag=8, panel=None):
         super().__init__(plan, dtype, device, grid, gemm_prec=gemm_prec,
                          scatter=scatter, pool_partition=pool_partition,
                          offload=offload, front_bytes_limit=front_bytes_limit,
-                         offload_lag=offload_lag)
+                         offload_lag=offload_lag, panel=panel)
         self.key_of = [(g.w, g.u, bool(len(gl.slots)))
                        for g, gl in zip(plan.groups, self.layout.groups)]
         self.spec = {}

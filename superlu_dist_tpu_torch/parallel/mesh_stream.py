@@ -184,7 +184,7 @@ class MeshStreamExecutor:
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
                  scatter=None, pool_partition=False, offload="none",
-                 front_bytes_limit=6e9, offload_lag=8):
+                 front_bytes_limit=6e9, offload_lag=8, panel=None):
         from superlu_dist_tpu_torch.numeric import factor
         from superlu_dist_tpu_torch.numeric.stream import (auto_offload,
                                                            check_offload)
@@ -202,6 +202,7 @@ class MeshStreamExecutor:
         self.pool_partition = bool(pool_partition)
         self.gemm_prec = gemm_precision(gemm_prec)
         self.scatter = factor.KERNELS if scatter is None else scatter
+        self.panel = factor.PANEL if panel is None else panel
         self.layout = layout(plan, grid.nprow, grid.npcol, grid.rank,
                              self.pool_partition)
         # the operations of panel_partial_factor, counted exactly: this
@@ -301,7 +302,7 @@ class MeshStreamExecutor:
         if c:
             flags = yield from panel_steps(
                 a, bufs.thresh, w, gl.gcol, grid.npcol, grid.pcol,
-                self.gemm_prec, grid.npcol > 1)
+                self.gemm_prec, grid.npcol > 1, self.panel)
             # identity-padding columns are unit pivots (group_step)
             real = torch.arange(w, device=dev)[None, :] < st["ws"][:, None]
             bufs.tiny += torch.where(real, flags, 0).sum()

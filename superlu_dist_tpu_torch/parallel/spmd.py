@@ -202,7 +202,7 @@ class SpmdFactorExecutor:
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
                  scatter=None, offload="none", front_bytes_limit=6e9,
-                 offload_lag=8):
+                 offload_lag=8, panel=None):
         from superlu_dist_tpu_torch.numeric import factor
         from superlu_dist_tpu_torch.numeric.stream import (auto_offload,
                                                            check_offload)
@@ -217,6 +217,7 @@ class SpmdFactorExecutor:
         self.nd, self.rank = grid.nproc, grid.rank
         self.gemm_prec = gemm_precision(gemm_prec)
         self.scatter = factor.KERNELS if scatter is None else scatter
+        self.panel = factor.PANEL if panel is None else panel
         deals = [_cyclic_counts(g.batch, self.nd) for g in plan.groups]
         self._counts = [c for c, _ in deals]
         self._unperm = [torch.as_tensor(g, device=device) for _, g in deals]
@@ -302,7 +303,7 @@ class SpmdFactorExecutor:
                 (lp, up), schur, t = factor.group_step(
                     (count, m, w, u), avals, pool, thresh, maps[gi],
                     gemm_prec=self.gemm_prec, scatter=self.scatter,
-                    timings=timings, write_back=False)
+                    timings=timings, write_back=False, panel=self.panel)
                 tiny += t
                 payload = lp[:, :w, :w].reshape(count, w * w)
                 if u:

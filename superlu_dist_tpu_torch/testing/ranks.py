@@ -201,7 +201,7 @@ def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
     """One ``pgssvx(grid=)`` call as ``rank`` (run_job's "mesh" kind):
     the rank's share of the sharded factors (``shard``: groups, owned
     slots, front bytes, whether every group holds exactly the rank's own
-    slots), its front_assemble and csr_spmv launches and, with
+    slots), its front_assemble, panel_lu and csr_spmv launches and, with
     ``job.gather``, its kernels against their plain versions at its own
     shapes land on ``rec``."""
     import torch
@@ -250,6 +250,8 @@ def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
                            - launches["front_assemble"])
         rec["spmv_launches"] = (kernels.LAUNCHES["csr_spmv"]
                                 - launches["csr_spmv"])
+        rec["panel_launches"] = (kernels.LAUNCHES["panel_lu"]
+                                 - launches["panel_lu"])
         num = lu_out["lu"].numeric
         rec["shard"] = shard_record(num, grid.nproc, grid.rank)
         if job.gather:

@@ -170,13 +170,26 @@ def test_front_assemble_kernel_equals_plain(cuda, dtype):
                                              dtype=np.complex128)),
 ])
 def test_factor_through_kernels_equals_plain(cuda, dtype, make):
+    """Both kernels (front assembly, panel LU) against both plain
+    versions, one panel_lu launch per panel of the plan."""
     lu, bvals, _ = slt.analyze(slt.Options(), make(), device=cuda)
+    kernels.reset_launches()
     fk = factor.numeric_factorize(lu.plan, bvals, lu.anorm, dtype=dtype,
                                   device=cuda)
+    assert kernels.LAUNCHES["panel_lu"] == _panels(lu.plan)
     fp = factor.numeric_factorize(lu.plan, bvals, lu.anorm, dtype=dtype,
-                                  device=cuda, scatter=factor.PLAIN)
+                                  device=cuda, scatter=factor.PLAIN,
+                                  panel=factor.PANEL_PLAIN)
+    assert kernels.LAUNCHES["panel_lu"] == _panels(lu.plan)
     for (lk, uk), (lp, up) in zip(fk.fronts, fp.fronts):
         assert torch.equal(lk, lp) and torch.equal(uk, up)
+
+
+def _panels(plan) -> int:
+    """The panels of one factorization of ``plan`` (one panel_lu launch
+    each)."""
+    from superlu_dist_tpu_torch.ops.dense import panel_width
+    return sum(panel_width(g.w)[1] for g in plan.groups)
 
 
 def test_gssvx_on_the_card(cuda):
@@ -188,8 +201,108 @@ def test_gssvx_on_the_card(cuda):
     assert lu.numeric.device.type == "cuda"
     assert kernels.LAUNCHES == {"front_assemble": len(lu.plan.groups),
                                 "extend_add": 0, "assemble": 0,
-                                "csr_spmv": 0}
+                                "csr_spmv": 0,
+                                "panel_lu": _panels(lu.plan)}
     assert lu.berrs[-1] <= tols.berr_target(np.float64)
+
+
+def _panel_case(kind, dtype, shape, device):
+    """The CPU tests' seeded panels (tests/test_torch_panel_lu.py) on the
+    card: the batch, its panel columns, j0, pa, thresh, fresh flags."""
+    from test_torch_panel_lu import _panel
+    a, cols, j0, pa, thresh = _panel(kind, dtype, shape)
+    flags = torch.zeros((a.shape[0], j0 + pa + 3), dtype=torch.int32,
+                        device=device)
+    return a.to(device), cols, j0, pa, thresh.to(device), flags
+
+
+@pytest.mark.parametrize("kind", ["random", "tiny", "zero_pivot",
+                                  "negzero"])
+@pytest.mark.parametrize("shape", ["pb16", "pb16_rows_above", "pb128",
+                                   "pb128_rows_above", "column_share"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_panel_lu_kernel_equals_plain(cuda, dtype, shape, kind):
+    """csrc/panel_lu.cu against the plain column loop bit for bit (signed
+    zeros, infinities; NaNs as NaNs) on the CPU tests' cases: pb 16 and
+    128, pa < pb with rows above j0, a strided column share, tiny pivots,
+    a zero pivot without replacement, -0.0 seeds."""
+    from test_torch_panel_lu import SHAPES, same_bits
+    a, (k0, pb), j0, pa, thresh, flags = _panel_case(kind, dtype,
+                                                     SHAPES[shape], cuda)
+    b, fb = a.clone(), flags.clone()
+    kernels.reset_launches()
+    kernels.panel_lu_(a[:, :, k0:k0 + pb], j0, pa, thresh, flags)
+    kernels.panel_lu_plain(b[:, :, k0:k0 + pb], j0, pa, thresh, fb)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["panel_lu"] == 1
+    assert same_bits(a, b) and torch.equal(flags, fb)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_panel_lu_in_a_cuda_graph(cuda, dtype):
+    """The kernel captured in a CUDA graph (its snapshot from the graph's
+    pool, thresh read by pointer) and replayed on new values equals the
+    plain loop on those values."""
+    from test_torch_panel_lu import SHAPES, same_bits
+    a, (k0, pb), j0, pa, thresh, flags = _panel_case(
+        "random", dtype, SHAPES["pb128_rows_above"], cuda)
+    s_a, s_flags = a.clone(), flags.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up outside the capture
+        kernels.panel_lu_(s_a[:, :, k0:k0 + pb], j0, pa, thresh, s_flags)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kernels.panel_lu_(s_a[:, :, k0:k0 + pb], j0, pa, thresh, s_flags)
+    for scale in (1.0, -2.5):
+        s_a.copy_(a * scale)
+        s_flags.zero_()
+        graph.replay()
+        b, fb = a * scale, flags.clone()
+        kernels.panel_lu_plain(b[:, :, k0:k0 + pb], j0, pa, thresh, fb)
+        torch.cuda.synchronize()
+        assert same_bits(s_a, b) and torch.equal(s_flags, fb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex128],
+                         ids=str)
+def test_panel_lu_on_a_2d_column_share(cuda, dtype):
+    """The owned panels of one rank's column share (process column 1 of
+    2, the 2-D mesh tier's layout: panel p on column p % 2, its pb
+    columns contiguous in the share) factored in turn, kernel against
+    plain, as ``ops.dense.panel_steps`` runs them."""
+    from superlu_dist_tpu_torch.ops.dense import panel_width
+    from test_torch_panel_lu import same_bits
+    w, m_ext, batch, npcol, pcol = 200, 260, 3, 2, 1
+    pb, nsteps = panel_width(w)
+    owned = [p for p in range(nsteps) if p % npcol == pcol]
+    rng = np.random.default_rng(7)
+    a = _rand(rng, (batch, m_ext, len(owned) * pb + 24), dtype, cuda)
+    for i, p in enumerate(owned):
+        r = np.arange(min(pb, w - p * pb))
+        a[:, p * pb + r, i * pb + r] += 4.0 * np.sqrt(m_ext)
+    b = a.clone()
+    thresh = torch.tensor(1e-3, device=cuda,
+                          dtype=a.real.dtype if dtype.is_complex else dtype)
+    flags = torch.zeros((batch, w), dtype=torch.int32, device=cuda)
+    fb = flags.clone()
+    for i, p in enumerate(owned):
+        j0, pa = p * pb, min(pb, w - p * pb)
+        kernels.panel_lu_(a[:, :, i * pb:(i + 1) * pb], j0, pa, thresh,
+                          flags)
+        kernels.panel_lu_plain(b[:, :, i * pb:(i + 1) * pb], j0, pa,
+                               thresh, fb)
+    torch.cuda.synchronize()
+    assert same_bits(a, b) and torch.equal(flags, fb)
+
+
+def test_panel_lu_refuses_strided_columns_on_the_card(cuda):
+    a = torch.randn(2, 40, 40, device=cuda)
+    flags = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unit stride"):
+        kernels.panel_lu_(a.mT[:, :, :16], 0, 16,
+                          torch.tensor(1e-3, device=cuda), flags)
 
 
 @pytest.mark.parametrize("dtype,m", [("float32", 112), ("complex128", 52),

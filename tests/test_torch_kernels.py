@@ -156,8 +156,12 @@ def test_cpu_wrappers_take_plain_and_count_nothing():
     y = csr_spmv(torch.tensor([0, 1]), torch.tensor([3]), torch.ones(1),
                  f.view(4, 1))
     assert y.tolist() == [[2.0]]
+    panel = torch.tensor([[[4.0, 2.0], [2.0, 3.0]]])
+    flags = torch.zeros((1, 2), dtype=torch.int32)
+    kernels.panel_lu_(panel, 0, 2, torch.tensor(0.0), flags)
+    assert panel.tolist() == [[[4.0, 2.0], [0.5, 2.0]]]
     assert kernels.LAUNCHES == {"front_assemble": 0, "extend_add": 0,
-                                "assemble": 0, "csr_spmv": 0}
+                                "assemble": 0, "csr_spmv": 0, "panel_lu": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "index", "shape"])
