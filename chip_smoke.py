@@ -169,7 +169,9 @@ drives the port are reset just before it and checked just after):
   5. factor_stages — the main path's factorization synchronized at every
                 stage boundary of every group;
      factor_profile — one more under torch.profiler: device ms and
-                launches per kind of kernel, busy time and idle share;
+                launches per kind of kernel, busy time and idle share, the
+                FACT's pivot steps (Σ pa over its panels) and the panel
+                LU's launch 1 µs a step;
   6. kernels_factor — one more factorization with CUDA events around every
                 front-assembly launch and panel LU call (no stage
                 synchronize), then every group (float32) and every panel
@@ -194,7 +196,9 @@ line again, and the last line {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA device it exits
 non-zero before any result.  ``python3 chip_smoke.py first_solve
 [LABEL]`` times the main path's gssvx and its first solve alone
-(``first_solve_only``).
+(``first_solve_only``); ``python3 chip_smoke.py panel`` runs the build,
+the main path's analysis and the panel LU kernel's checks and times alone
+(``panel_only``).
 """
 
 import dataclasses
@@ -742,8 +746,8 @@ def panel_sums(plan, torch, kernels, gen, dtype) -> dict:
 
 
 #: device-kernel name fragments -> the work they do, in match order
-KERNEL_KINDS = (("pivot_rows", "panel_lu launch 1 (pivot rows)"),
-                ("other_rows", "panel_lu launch 2 (other rows)"),
+KERNEL_KINDS = (("pivot_chunk", "panel_lu launch 1 (pivot rows)"),
+                ("replay_chunk", "panel_lu launch 2 (other rows)"),
                 ("front_assemble", "front_assemble"),
                 ("trsm", "TRSM (cuBLAS)"),
                 ("gemm", "GEMM (cuBLAS)"), ("sm90_", "GEMM (cuBLAS)"),
@@ -793,11 +797,15 @@ def factor_profile(plan, bvals, anorm, torch, factor) -> dict:
             busy += b - end
             end = b
     window = max(b for _, b in spans) - spans[0][0]
+    # launch 1 runs the pivot steps one after another: its time a step
+    steps = sum(r[5] for r in plan_panels(plan))
+    launch1 = kinds.get(KERNEL_KINDS[0][1], 0.0)
     return dict(wall_s=wall, kernels=len(kernels_), busy_ms=busy / 1e3,
                 window_ms=window / 1e3,
                 idle_share=1.0 - busy / window if window else None,
                 ms_by_kind=dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
-                launches_by_kind=counts)
+                launches_by_kind=counts, panel_steps=steps,
+                launch1_us_per_step=launch1 * 1e3 / steps)
 
 
 def expect_native(phase, native, *names):
@@ -3745,6 +3753,45 @@ def serve_only() -> int:
     return 0
 
 
+def panel_only() -> int:
+    """``python3 chip_smoke.py panel``: the build, the main path's analysis
+    (poisson3d(48)) and the panel LU kernel alone: against the plain loop
+    at the largest panel in every type and on the sentinel panels
+    (``panel_phase``), the FACT's device profile (``factor_profile``,
+    after one FACT to warm up) and every panel of one FACT replayed in
+    float32 (``panel_sums``).  A quicker check of csrc/panel_lu.cu than
+    the whole script."""
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import factor, kernels
+    card = card_line()
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    lib = kernels.build()
+    kernels.library()
+    say("build", seconds=time.perf_counter() - t0, library=str(lib))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lu0, bvals0, _ = slt.analyze(slt.Options(), poisson3d(NX), device="cuda")
+    plan = lu0.plan
+    panel_phase(plan, torch, kernels, gen)
+    kernels.reset_launches()
+    factor.numeric_factorize(plan, bvals0, lu0.anorm, dtype=torch.float32,
+                             device="cuda")
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["panel_lu"] != len(plan_panels(plan)):
+        raise AssertionError(f"{kernels.LAUNCHES['panel_lu']} panel_lu "
+                             f"launches in one factorization, expected "
+                             f"{len(plan_panels(plan))}")
+    say("factor_profile", **factor_profile(plan, bvals0, lu0.anorm, torch,
+                                           factor))
+    say("panel_sums", float32=panel_sums(plan, torch, kernels, gen,
+                                         torch.float32))
+    print(card)
+    return 0
+
+
 def persist_only() -> int:
     """``python3 chip_smoke.py persist``: the build, gssvx on poisson3d(48)
     and the persist phase only (a quicker check of save / load and of
@@ -3868,6 +3915,8 @@ def main():
         return entry_only()
     if sys.argv[1:2] == ["persist"]:
         return persist_only()
+    if sys.argv[1:2] == ["panel"]:
+        return panel_only()
     if sys.argv[1:2] == ["first_solve"]:
         return first_solve_only(sys.argv[2] if len(sys.argv) > 2 else "")
     import superlu_dist_tpu_torch as slt

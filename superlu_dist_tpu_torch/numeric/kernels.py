@@ -20,7 +20,9 @@ group, on maps built once per plan on the host (``build_front_maps``):
 The panel LU's column loop — the column step the JAX package runs inside
 each group's compiled program (superlu_dist_tpu/ops/dense.py
 ``_blocked_partial_factor``) — is ``csrc/panel_lu.cu``, two launches per
-panel (``panel_lu_``; plain version ``panel_lu_plain``).
+PANEL_CHUNK pivot steps of a panel (the chunk's pivot rows in one
+block's registers, then every other row replayed from their snapshot;
+``panel_lu_``; plain version ``panel_lu_plain``).
 
 The kernels are built for float32, float64, complex64 and complex128; a
 complex add is two real adds, one per component, in the kernel as in
@@ -52,7 +54,7 @@ import torch
 
 #: kernel launches since the last reset, per wrapper (``csr_spmv`` is the
 #: refinement residual's kernel, parallel/dist.py; ``panel_lu`` counts one
-#: per panel, its two launches together)
+#: per panel, its launches together: two per PANEL_CHUNK pivot steps)
 LAUNCHES = {"front_assemble": 0, "extend_add": 0, "assemble": 0,
             "csr_spmv": 0, "panel_lu": 0}
 
@@ -69,6 +71,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 _lib = None
 _fns = {}              # dtype -> the library's launch function
 _panel_fns = {}        # dtype -> csrc/panel_lu.cu's launch function
+_panel_ready = set()   # devices whose panel_lu shared-memory limit is set
 
 
 def reset_launches() -> None:
@@ -88,10 +91,11 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile ``csrc/*.cu`` into one shared library (one ``nvcc`` per
     source, all started together, then one link) unless a library for
-    these exact sources and flags exists.  Raises on any failure."""
+    these exact sources, the headers beside them (``csrc/*.cuh``) and
+    flags exists.  Raises on any failure."""
     srcs = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
@@ -152,6 +156,21 @@ def library():
             _panel_fns[dtype] = fn
         _lib = lib
     return _lib
+
+
+def _panel_init(index: int) -> None:
+    """csrc/panel_lu.cu's shared-memory limit on device ``index`` (a kernel
+    attribute is the device's), once, before the device's first panel —
+    which the executors run in a warm-up, outside any CUDA graph
+    capture."""
+    if index in _panel_ready:
+        return
+    with torch.cuda.device(index):
+        rc = _lib.slu_panel_lu_init()
+    if rc != 0:
+        raise RuntimeError(f"slu_panel_lu_init failed on cuda:{index}: "
+                           f"CUDA error {rc}")
+    _panel_ready.add(index)
 
 
 def _on_cuda(values, index) -> bool:
@@ -674,6 +693,9 @@ def assemble_(f, avals, a_slot, a_flat, a_src):
 
 #: the widest panel the kernel takes (ops/dense.py ``_PANEL_BLOCK``)
 PANEL_MAX = 128
+#: pivot steps a launch pair of csrc/panel_lu.cu runs (its ``kChunk``): the
+#: pivot rows of a chunk are what one block holds in registers
+PANEL_CHUNK = 32
 
 
 def _fix_pivot(piv: torch.Tensor, thresh: torch.Tensor):
@@ -815,13 +837,16 @@ def panel_lu_(panel, j0, pa, thresh, flags):
     component type on the panel's device (another real type is cast
     there; it is read by pointer, no host sync); ``flags`` (B, w) int32.
     A CPU panel runs ``panel_lu_plain``.  A CUDA panel launches
-    ``csrc/panel_lu.cu`` (the pivot rows, then every other row replayed
-    from a snapshot of each step; scratch from ``torch.empty`` on the
-    current stream, so a CUDA graph can hold it) and counts one launch
-    under ``LAUNCHES["panel_lu"]``, or raises: a column stride other than
-    1, pb > 128, a failed build or a refused launch.  Bound: the pivot
-    rows' chain of pa dependent steps at small batch, else bytes (the
-    panel read and written once)."""
+    ``csrc/panel_lu.cu`` and counts one launch under
+    ``LAUNCHES["panel_lu"]``, or raises: a column stride other than 1,
+    pb > 128, a failed build or a refused launch.  The kernel runs the
+    pivot steps PANEL_CHUNK at a time, two launches a chunk: the chunk's
+    pivot rows in one block's registers per front, each step's pivot row
+    published behind its own barrier and kept in a snapshot; then every
+    other row replayed from that snapshot, a row on 4 or 8 lanes (scratch
+    from ``torch.empty`` on the current stream, so a CUDA graph can hold
+    it).  Bound: the pivot rows' chain of dependent steps on one SM a
+    front at small batch, else the operations of the other rows' steps."""
     _check_panel(panel, j0, pa, thresh, flags)
     devs = {t.device for t in (panel, thresh, flags)}
     if len(devs) != 1:
@@ -855,6 +880,8 @@ def panel_launch_(panel, j0, pa, thresh, flags):
     snap = torch.empty((b, pa, pb + 2), dtype=panel.dtype, device=dev)
     if _lib is None:
         library()
+    _panel_init(dev.index if dev.index is not None
+                else torch.cuda.current_device())
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _panel_fns[panel.dtype](
         panel.data_ptr(), thresh.data_ptr(), flags.data_ptr(),

@@ -18,8 +18,8 @@ u ≤ M−W):
 The JAX package ``vmap``s a ``fori_loop`` over one front; here the batch
 is an explicit leading dimension.  Each panel's column loop is one call of
 ``panel`` (``_panel_columns``): on the card the hand-written kernel
-``csrc/panel_lu.cu`` (``numeric/kernels.panel_lu_``, two launches a
-panel), on the CPU — or when a caller passes ``kernels.panel_lu_plain`` —
+``csrc/panel_lu.cu`` (``numeric/kernels.panel_lu_``, two launches per
+32 pivot steps), on the CPU — or when a caller passes ``kernels.panel_lu_plain`` —
 its plain PyTorch version, the loop of masked rank-1 steps.  The
 triangular solves and GEMMs go to ``torch.linalg.solve_triangular`` and
 ``torch.matmul``, as the JAX package leaves them to XLA; neither is a

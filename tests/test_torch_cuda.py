@@ -219,7 +219,9 @@ def _panel_case(kind, dtype, shape, device):
 @pytest.mark.parametrize("kind", ["random", "tiny", "zero_pivot",
                                   "negzero"])
 @pytest.mark.parametrize("shape", ["pb16", "pb16_rows_above", "pb128",
-                                   "pb128_rows_above", "column_share"])
+                                   "pb128_rows_above", "column_share",
+                                   "pb48_pa40", "pb112_rows_above", "root",
+                                   "batch147"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_panel_lu_kernel_equals_plain(cuda, dtype, shape, kind):
     """csrc/panel_lu.cu against the plain column loop bit for bit (signed
@@ -294,6 +296,32 @@ def test_panel_lu_on_a_2d_column_share(cuda, dtype):
         kernels.panel_lu_plain(b[:, :, i * pb:(i + 1) * pb], j0, pa,
                                thresh, fb)
     torch.cuda.synchronize()
+    assert same_bits(a, b) and torch.equal(flags, fb)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_panel_lu_at_the_main_paths_largest_panel(cuda, dtype):
+    """The largest panel of poisson3d(48)'s FACT (batch 4, m_ext 3,848,
+    pb = pa = 128: four chunks of 32 pivot steps, complex128's 256 KB
+    pivot block among them) bit for bit the plain loop, tiny flags too."""
+    from test_torch_panel_lu import same_bits
+    batch, m_ext, pb = 4, 3848, 128
+    rng = np.random.default_rng(11)
+    a = _rand(rng, (batch, m_ext, pb), dtype, cuda)
+    r = torch.arange(pb, device=cuda)
+    a[:, r, r] += 2.0 * float(np.sqrt(m_ext))
+    a[0, 0, 0] = 1e-6                       # a tiny first pivot, replaced
+    b = a.clone()
+    thresh = torch.tensor(1e-3, device=cuda,
+                          dtype=a.real.dtype if dtype.is_complex else dtype)
+    flags = torch.zeros((batch, pb), dtype=torch.int32, device=cuda)
+    fb = flags.clone()
+    kernels.reset_launches()
+    kernels.panel_lu_(a, 0, pb, thresh, flags)
+    assert kernels.LAUNCHES["panel_lu"] == 1
+    kernels.panel_lu_plain(b, 0, pb, thresh, fb)
+    torch.cuda.synchronize()
+    assert int(fb.sum()) >= 1
     assert same_bits(a, b) and torch.equal(flags, fb)
 
 

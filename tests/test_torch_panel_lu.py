@@ -4,17 +4,20 @@ plain column loop (``ops.dense._panel_columns`` with the plain version,
 ``numeric.kernels.panel_lu_plain``) bit for bit: signed zeros, infinities
 and NaNs included (NaNs compared as NaNs).
 
-The decomposition is the kernel's: launch 1 runs the pa steps on the pa
+The decomposition is the kernel's: the pa steps run in chunks of
+``kernels.PANEL_CHUNK``; for each chunk launch 1 runs its steps on its
 pivot rows only and keeps a snapshot of each step (pivot row j as it
-stands at the step, the raw and the fixed pivot); launch 2 replays the pa
-steps on every other row — rows above j0 too — from that snapshot.  The
-elementwise arithmetic is the kernel's: each operation rounded on its own,
-complex values by parts.  Cases: the four dtypes, pb 16 and 128, pa < pb,
-a strided column share of a wider front batch, tiny pivots replaced (a
-zero one and a complex one that keeps its phase), a zero pivot without
-replacement (infinities and NaNs), and panels seeded with -0.0.  The
-kernel itself runs only on the card (tests/test_torch_cuda.py); here its
-launch path refuses a CPU tensor and a non-unit column stride.
+stands at the step, the raw and the fixed pivot); launch 2 replays the
+chunk's steps on every other row — rows above j0 and the other chunks'
+pivot rows too — from that snapshot.  The elementwise arithmetic is the
+kernel's: each operation rounded on its own, complex values by parts.
+Cases: the four dtypes, pb 16, 48, 112 and 128, pa < pb, a strided column
+share of a wider front batch, a root panel with no other rows, batch 147,
+tiny pivots replaced (a zero one and a complex one that keeps its phase),
+a zero pivot without replacement (infinities and NaNs), and panels seeded
+with -0.0.  The kernel itself runs only on the card
+(tests/test_torch_cuda.py); here its launch path refuses a CPU tensor and
+a non-unit column stride.
 """
 
 import numpy as np
@@ -33,6 +36,11 @@ SHAPES = {
     "pb128": (2, 150, 128, 128, 0, 0, 128),
     "pb128_rows_above": (1, 300, 256, 128, 128, 128, 100),
     "column_share": (2, 64, 48, 16, 16, 32, 16),
+    # the main path's own widths and the chunks' edges
+    "pb48_pa40": (3, 96, 48, 48, 0, 0, 40),
+    "pb112_rows_above": (1, 280, 224, 112, 112, 112, 104),
+    "root": (2, 64, 64, 64, 0, 0, 64),          # m == pa: no other rows
+    "batch147": (147, 24, 16, 16, 0, 0, 8),     # more fronts than SMs
 }
 KINDS = ("random", "tiny", "zero_pivot", "negzero")
 
@@ -124,38 +132,44 @@ def _step(vals, rows, j, jj, u, raw, piv, zero, cols):
     return new
 
 
-def two_launches(panel, j0, pa, thresh, flags, snapshot=True):
-    """The kernel's two launches in PyTorch, in place on ``panel``.
-    ``snapshot=False`` lets launch 2 read the pivot rows as launch 1 left
-    them instead (the control that shows the snapshot is needed)."""
+def two_launches(panel, j0, pa, thresh, flags, snapshot=True,
+                 chunk=kernels.PANEL_CHUNK):
+    """The kernel's launches in PyTorch, in place on ``panel``: per chunk
+    of ``chunk`` steps, launch 1 on the chunk's pivot rows, then launch 2
+    on every other row.  ``snapshot=False`` lets launch 2 read the pivot
+    rows as launch 1 left them instead (the control that shows the
+    snapshot is needed)."""
     b, m, pb = panel.shape
     parts = _parts(panel)
     zero = torch.zeros((), dtype=parts[0].dtype)
     cols = torch.arange(pb)
-    # launch 1: the pivot rows, a snapshot of every step
-    prow = torch.arange(j0, j0 + pa)
-    snap = []
-    for jj in range(pa):
-        j = j0 + jj
-        u = tuple(p[:, j, :].clone() for p in parts)
-        raw = tuple(c[:, jj] for c in u)
-        piv, tiny = _fix(raw, thresh)
-        snap.append((u, raw, piv))
-        new = _step(tuple(p[:, j0:j0 + pa, :] for p in parts), prow, j, jj,
-                    u, raw, piv, zero, cols)
-        for p, n in zip(parts, new):
-            p[:, j0:j0 + pa, :] = n
-        flags[:, j] += tiny
-    if not snapshot:
-        snap = [(tuple(p[:, j0 + jj, :].clone() for p in parts), raw, piv)
-                for jj, (_, raw, piv) in enumerate(snap)]
-    # launch 2: every other row, each replaying the pa steps
-    other = torch.cat([torch.arange(0, j0), torch.arange(j0 + pa, m)])
-    vals = tuple(p[:, other, :].clone() for p in parts)
-    for jj, (u, raw, piv) in enumerate(snap):
-        vals = _step(vals, other, j0 + jj, jj, u, raw, piv, zero, cols)
-    for p, v in zip(parts, vals):
-        p[:, other, :] = v
+    for s0 in range(0, pa, chunk):
+        kc = min(chunk, pa - s0)
+        jc = j0 + s0
+        # launch 1: the chunk's pivot rows, a snapshot of every step
+        prow = torch.arange(jc, jc + kc)
+        snap = []
+        for jj in range(s0, s0 + kc):
+            j = j0 + jj
+            u = tuple(p[:, j, :].clone() for p in parts)
+            raw = tuple(c[:, jj] for c in u)
+            piv, tiny = _fix(raw, thresh)
+            snap.append((jj, u, raw, piv))
+            new = _step(tuple(p[:, jc:jc + kc, :] for p in parts), prow, j,
+                        jj, u, raw, piv, zero, cols)
+            for p, n in zip(parts, new):
+                p[:, jc:jc + kc, :] = n
+            flags[:, j] += tiny
+        if not snapshot:
+            snap = [(jj, tuple(p[:, j0 + jj, :].clone() for p in parts), raw,
+                     piv) for jj, _, raw, piv in snap]
+        # launch 2: every other row, each replaying the chunk's steps
+        other = torch.cat([torch.arange(0, jc), torch.arange(jc + kc, m)])
+        vals = tuple(p[:, other, :].clone() for p in parts)
+        for jj, u, raw, piv in snap:
+            vals = _step(vals, other, j0 + jj, jj, u, raw, piv, zero, cols)
+        for p, v in zip(parts, vals):
+            p[:, other, :] = v
     return panel
 
 
@@ -200,6 +214,19 @@ def test_two_launches_equal_the_column_loop(dtype, shape, kind):
     # the default dispatch on a CPU panel is the plain loop
     dflt, dflt_flags = _run(_panel_columns, a, cols, j0, pa, thresh)
     assert same_bits(dflt, want) and torch.equal(dflt_flags, want_flags)
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 48])
+def test_chunks_of_any_size_equal_the_column_loop(chunk):
+    """The chunking of the steps does not change the bits: a chunk's
+    later rows (the next chunks' pivot rows) take its steps in launch 2,
+    its earlier ones (the last chunks' pivot rows) too."""
+    a, cols, j0, pa, thresh = _panel("negzero", torch.complex64,
+                                     SHAPES["pb112_rows_above"], seed=3)
+    want, want_flags = _run(_plain, a, cols, j0, pa, thresh)
+    got, got_flags = _run(two_launches, a, cols, j0, pa, thresh,
+                          chunk=chunk)
+    assert same_bits(got, want) and torch.equal(got_flags, want_flags)
 
 
 def test_launch_2_needs_the_snapshot():
