@@ -166,6 +166,23 @@ drives the port are reset just before it and checked just after):
                 gssvx and these two phases alone (``python3 chip_smoke.py
                 serve``: the build, gssvx, its bundle and the serve
                 phase);
+     trace    — the factor executors' kernel spans (obs/kernelspans.py):
+                on the main path's plan one untraced FACT and one under a
+                file Tracer, their torch.cuda.synchronize calls counted
+                (the traced one may make no more) and their walls; a span
+                a group, each with a positive device time and the JAX
+                args, their sum within the traced wall, the five largest,
+                last_profile and last_dispatch_seconds; then traced level
+                waves and fused at poisson3d(25), mega at (16); its grid
+                leg (trace_mesh, run at the end of the mesh phase on its
+                two processes): a traced 2-D FACT of poisson3d(16) with a
+                span a group on both ranks, and granularity="level" — its
+                fronts bit for bit the FACT's, a span a wave, fewer
+                segment graphs than the grid's fused executor, x from
+                pgssvx FACTORED on its factors within DEVICE_VS_HOST of
+                gssvx's, BERR at the target (``python3 chip_smoke.py
+                trace``: the build, the analysis, gssvx at 25 and this
+                phase with a mesh peer of its own);
   5. factor_stages — the main path's factorization synchronized at every
                 stage boundary of every group;
      factor_profile — one more under torch.profiler: device ms and
@@ -232,6 +249,9 @@ NX_TINY = 16
 #: the kernel is timed on every panel in each; PERF.md §4)
 PANEL_PLAIN_STRIDE = 4
 SEED = 0
+#: the trace phase's trace files (removed once read)
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_trace")
 SERVE_RESOLVE = 8        # cold serve batches re-solved and timed in stages
 SERVE_REQUESTS = 64      # requests of each serve round (PERF.md §4)
 FIRST_SOLVE_REPS = 6     # first solves (new solver, two captures) timed
@@ -1352,7 +1372,7 @@ MESH_FUSED = dict(executor="fused", pool_partition=True)
 MESH_MEGA = dict(executor="mega")
 
 
-def start_mesh_peer(slt):
+def start_mesh_peer(slt, trace_only=False):
     """The mesh phase's rank 1, spawned early (its ``import torch`` and
     its CUDA context overlap the phases before it): a process of its own
     on the same card, running thirteen ``pgssvx(grid=)`` jobs of a 1x2 grid
@@ -1363,12 +1383,27 @@ def start_mesh_peer(slt):
     poisson3d(NX_TINY); then on the 2-D mesh executor (MESH_2D) the
     same DOFACT, FACTORED and SamePattern_SameRowPerm; then the grid legs:
     MESH_OFFLOAD DOFACT and FACTORED at nrhs 4, MESH_FUSED and MESH_MEGA
-    each DOFACT and SamePattern_SameRowPerm.  It joins the process group
-    at its first job and waits there for rank 0 (this process).  Returns
+    each DOFACT and SamePattern_SameRowPerm; then the trace phase's grid
+    leg (a "mesh_trace" job, ``trace_mesh_leg``) on poisson3d(NX_TINY) —
+    that job alone with ``trace_only``.  It joins the process group at
+    its first job and waits there for rank 0 (this process).  Returns
     the phase's state."""
     from superlu_dist_tpu_torch.testing.ranks import (GallerySystem, RankJob,
                                                       free_port, spawn_peers)
     tag = f"/slt_mesh_{os.getpid()}"
+    trace_sys = GallerySystem("poisson3d", (NX_TINY,), seed=SEED + 90)
+    trace2d = RankJob("mesh_trace", f"{tag}_trace", MESH_RANKS,
+                      slt.Options(**MESH_2D), trace_sys.a_rows,
+                      trace_sys.b_rows, max_len=PG_MAX_LEN, attach_s=1200.0,
+                      port=free_port(), device="cuda",
+                      timeout_s=MESH_TIMEOUT_S,
+                      trace=os.path.join(TRACE_DIR, "mesh_r%r.json"))
+    if trace_only:
+        t0 = time.perf_counter()
+        procs, results, spawned_at = spawn_peers({1: [trace2d]})
+        return dict(procs=procs, results=results, spawned_at=spawned_at,
+                    spawn_s=time.perf_counter() - t0, tag=tag,
+                    trace2d=trace2d, systems=dict(trace2d=trace_sys))
     main_sys = GallerySystem("poisson3d", (NX,), seed=SEED)   # gssvx's b
     fact_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 60)
     fact4_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 60, nrhs=4)
@@ -1414,14 +1449,18 @@ def start_mesh_peer(slt):
                                 options=slt.Options(fact=second.options.fact,
                                                     **kw))
     t0 = time.perf_counter()
+    # the trace leg joins the process group booted by the first job
+    trace2d = dataclasses.replace(trace2d, port=main.port)
     procs, results, spawned_at = spawn_peers(
-        {1: [main, fact, ref, psf, main2, fact2, ref2, *legs.values()]})
+        {1: [main, fact, ref, psf, main2, fact2, ref2, *legs.values(),
+             trace2d]})
     return dict(procs=procs, results=results, spawned_at=spawned_at,
                 spawn_s=time.perf_counter() - t0, tag=tag, main=main,
                 fact=fact, ref=ref, psf=psf, main2d=main2, fact2d=fact2,
-                ref2d=ref2, **legs, systems=dict(
+                ref2d=ref2, **legs, trace2d=trace2d, systems=dict(
                     fact=fact_sys, ref=ref_sys, psf=psf_sys,
-                    fact2d=fact_sys, ref2d=ref_sys, off2d_fact=fact4_sys))
+                    fact2d=fact_sys, ref2d=ref_sys, off2d_fact=fact4_sys,
+                    trace2d=trace_sys))
 
 
 def _mesh_rank(rec) -> dict:
@@ -1629,6 +1668,7 @@ def mesh_phase(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
         out["mesh2d"] = _mesh2d_legs(slt, a_main, lu_main, x_main,
                                      tiny_main, peer, kernels, tols, torch,
                                      target)
+        out["trace"] = trace_mesh_leg(slt, peer, kernels, tols, torch)
         done = _await(peer, (1,))[1]
     finally:
         codes = stop_peers(procs, timeout=60)
@@ -3421,6 +3461,377 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor, a_sm, lu_sm):
         raise AssertionError(f"level waves: {lev}")
 
 
+#: the args of every per-group kernel span (the JAX stream's
+#: ``_trace_kernel``, superlu_dist_tpu/numeric/stream.py:670-690)
+SPAN_ARGS = ("level", "batch", "padded_batch", "m", "w", "u", "gemm_prec",
+             "host", "aggregate", "executed_flops", "structural_flops",
+             "padding")
+
+
+class SyncCount:
+    """Counts, inside its block, the calls of ``torch.cuda.synchronize``
+    and of the ``synchronize`` methods of ``torch.cuda.Stream`` and
+    ``torch.cuda.Event`` (each wrapped, then restored)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = {"torch.cuda.synchronize": 0, "Stream.synchronize": 0,
+                      "Event.synchronize": 0}
+
+    def _counted(self, key, fn):
+        def call(*a, **k):
+            self.calls[key] += 1
+            return fn(*a, **k)
+        return call
+
+    def __enter__(self):
+        cuda = self.torch.cuda
+        self._saved = (cuda.synchronize, cuda.Stream.synchronize,
+                       cuda.Event.synchronize)
+        cuda.synchronize = self._counted("torch.cuda.synchronize",
+                                         self._saved[0])
+        cuda.Stream.synchronize = self._counted("Stream.synchronize",
+                                                self._saved[1])
+        cuda.Event.synchronize = self._counted("Event.synchronize",
+                                               self._saved[2])
+        return self
+
+    def __exit__(self, *exc):
+        cuda = self.torch.cuda
+        (cuda.synchronize, cuda.Stream.synchronize,
+         cuda.Event.synchronize) = self._saved
+        return False
+
+
+def _traced_call(torch, kernels, fn, path=None):
+    """``fn()`` on the card with the launch counts reset just before it
+    and the synchronize calls counted inside it, under a file ``Tracer``
+    at ``path`` (None: untraced): (its result, the wall to a synchronized
+    end, the launches, the sync calls, the trace's events — the file
+    removed once read)."""
+    from superlu_dist_tpu_torch.obs import trace
+    tracer = trace.Tracer(path) if path else None
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    prev = trace.install(tracer) if tracer else None
+    t0 = time.perf_counter()
+    try:
+        with SyncCount(torch) as sc:
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if tracer:
+            trace.install(prev)
+            tracer.close()
+    events = None
+    if tracer:
+        events = json.load(open(path))["traceEvents"]
+        for f in (tracer.path, tracer.jsonl_path):
+            os.remove(f)
+    return out, wall, dict(kernels.LAUNCHES), sc.calls, events
+
+
+def _check_spans(phase, events, want, aggregate, name=None):
+    """The kernel spans of a traced call: ``want`` of them, named ``lu
+    b.. m.. w.. u..`` (``name``: that one name), each with a positive
+    device time and the JAX args (``aggregate`` each); returns (their
+    ms, in order, and their args)."""
+    spans = [e for e in events if e["cat"] == "kernel"
+             and (e["name"] == name if name else e["name"].startswith("lu "))]
+    bad = [e for e in spans if not e["dur"] > 0 or not name and (
+        set(SPAN_ARGS) - set(e["args"])
+        or e["args"]["aggregate"] is not aggregate
+        or e["args"]["padded_batch"] < e["args"]["batch"])]
+    if len(spans) != want or bad:
+        raise AssertionError(f"trace {phase}: {len(spans)} kernel spans, "
+                             f"expected {want}; wrong: {bad[:3]}")
+    return [e["dur"] / 1e3 for e in spans], [e.get("args", {}) for e in spans]
+
+
+def trace_costs(torch, kernels, n=1000) -> dict:
+    """The host µs of what a traced group adds, each timed ``n`` times
+    on an idle card: a KernelClock mark (two timing events created and
+    recorded) and one span record to a file tracer (the JSONL line
+    written as the span closes), dispatch-sized and kernel-sized; and
+    after the sync, reading one mark's device time."""
+    from superlu_dist_tpu_torch.obs import trace
+    from superlu_dist_tpu_torch.obs.kernelspans import KernelClock
+    torch.cuda.synchronize()
+    clock = KernelClock("cuda")
+    t0 = time.perf_counter()
+    for i in range(n):
+        clock.stop(clock.start(), i)
+    mark = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in clock.read():
+        pass
+    read = (time.perf_counter() - t0) / n * 1e6
+    path = os.path.join(TRACE_DIR, "costs.json")
+    tracer = trace.Tracer(path)
+    t0 = time.perf_counter()
+    for i in range(n):
+        tracer.complete(f"issue g{i}", "dispatch", t0, 1e-4, group=i,
+                        level=3)
+    issue = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for i in range(n):
+        tracer.complete("lu b4 m3848 w256 u3592", "kernel", t0, 1e-4,
+                        level=9, batch=4, padded_batch=4, m=3848, w=256,
+                        u=3592, gemm_prec="default", host=False,
+                        aggregate=False, executed_flops=1.0,
+                        structural_flops=1.0, padding=1.0)
+    span = (time.perf_counter() - t0) / n * 1e6
+    tracer.close()
+    for f in (tracer.path, tracer.jsonl_path):
+        os.remove(f)
+    return dict(mark=mark, read=read, issue_span=issue, kernel_span=span)
+
+
+def trace_phase(slt, kernels, torch, factor, plan, bvals, anorm, lu_sm):
+    """The factor executors' kernel spans on the card (obs/kernelspans.py).
+    On the main path (``plan``: poisson3d(NX), float32, the default TF32
+    tier, the stream at group granularity), after a first FACT that
+    uploads the plan's maps: untraced and traced FACTs in turns
+    (untraced, traced, traced, untraced; traced under a file ``Tracer``),
+    each with its ``torch.cuda.synchronize`` calls (and ``Stream`` /
+    ``Event.synchronize``) counted — no traced one may make more than an
+    untraced one — and its launches (the same in all): a span a group,
+    each with a positive device time and the JAX args, their sum no
+    greater than the traced FACT's wall, ``last_profile`` a group,
+    ``last_dispatch_seconds`` set.  Then at the depth cuts, each traced
+    after an untraced call (the capture): level waves and fused on
+    ``lu_sm``'s plan (poisson3d(NX_SMALL)) — a span a wave, one
+    ``factor-fused`` — and mega on a closed plan of poisson3d(NX_TINY), a
+    span a group at its rung; every traced call's launches those of a
+    replay.  Prints the walls, the summed span ms, the five spans with
+    the most ms, ``last_dispatch_seconds`` and ``trace_costs``."""
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "fact.json")
+    groups, panels = len(plan.groups), len(plan_panels(plan))
+
+    def fact():
+        return factor.numeric_factorize(plan, bvals, anorm,
+                                        dtype=torch.float32, device="cuda",
+                                        executor="stream")
+    # a first FACT uploads the plan's maps; then untraced and traced in
+    # turns (the FACT is paced by the host, whose speed drifts)
+    _, warm_s, _, _, _ = _traced_call(torch, kernels, fact)
+    walls, syncs = {False: [], True: []}, {False: [], True: []}
+    sums = []
+    for traced in (False, True, True, False):
+        num, wall, launched, synced, events = _traced_call(
+            torch, kernels, fact, path if traced else None)
+        del num
+        _expect_front_launches(f"trace {'traced' if traced else 'untraced'}"
+                               f" FACT", launched, groups, panels)
+        walls[traced].append(wall)
+        syncs[traced].append(synced)
+        if traced:
+            ms, args = _check_spans("main", events, groups, False)
+            sums.append(sum(ms))
+            issued = [e for e in events if e["cat"] == "dispatch"]
+            if sum(ms) > wall * 1e3 or len(issued) != groups:
+                raise AssertionError(f"trace main: span sum {sum(ms)} ms "
+                                     f"against a {wall} s wall, "
+                                     f"{len(issued)} dispatch spans")
+            names = [e["name"] for e in events if e["cat"] == "kernel"
+                     and e["name"].startswith("lu ")]
+    most = max(sum(c.values()) for c in syncs[True])
+    if most > min(sum(c.values()) for c in syncs[False]):
+        raise AssertionError(f"trace: a traced FACT synchronized more "
+                             f"({syncs[True]}) than an untraced one "
+                             f"({syncs[False]})")
+    ex = factor.get_executor(plan, torch.float32, "stream", None, "cuda")
+    if len(ex.last_profile or []) != groups \
+            or not ex.last_dispatch_seconds \
+            or {a["gemm_prec"] for a in args} != {"default"} \
+            or any(a["host"] or a["padding"] != 1.0 for a in args):
+        raise AssertionError(
+            f"trace main: {len(ex.last_profile or [])} profile entries, "
+            f"dispatch {ex.last_dispatch_seconds} s, args {args[:2]}")
+    top = sorted(zip(ms, names), reverse=True)[:5]
+    cost = trace_costs(torch, kernels)
+    out = dict(n=plan.n, groups=groups, warm_fact_s=warm_s,
+               untraced_fact_s=walls[False], traced_fact_s=walls[True],
+               untraced_syncs=syncs[False][0], traced_syncs=syncs[True][0],
+               spans=len(ms), span_sum_ms=sums, span_min_ms=min(ms),
+               top5_ms=[(n, t) for t, n in top],
+               dispatch_s=ex.last_dispatch_seconds, launches=launched,
+               host_us=cost)
+
+    # the depth cuts: level waves and fused at NX_SMALL, mega at NX_TINY
+    same_rows = slt.Options(fact=slt.Fact.SamePattern_SameRowPerm)
+    skel, bv, _ = slt.analyze(same_rows, lu_sm.a, device="cuda", lu=lu_sm)
+    p25 = lu_sm.plan
+    real = torch.float32
+    thresh = torch.tensor(np.sqrt(torch.finfo(real).eps)
+                          * max(skel.anorm, 1e-300), dtype=real)
+    level = StreamExecutor(p25, real, "cuda", granularity="level")
+    a25 = torch.as_tensor(bv)
+    _, cap_s, _, _, _ = _traced_call(torch, kernels,
+                                     lambda: level(a25, thresh))
+    _, lev_s, lev_l, lev_sync, events = _traced_call(
+        torch, kernels, lambda: level(a25, thresh), path)
+    _expect_front_launches("trace level", lev_l, len(p25.groups))
+    lev_ms, _ = _check_spans("level", events, len(level.waves()), True)
+    out["level"] = dict(n=lu_sm.n, groups=len(p25.groups),
+                        waves=len(level.waves()), capture_call_s=cap_s,
+                        traced_s=lev_s, span_sum_ms=sum(lev_ms),
+                        syncs=lev_sync,
+                        graphs=level.report().get("graphs"))
+    del level
+
+    def fused():
+        return factor.numeric_factorize(p25, bv, skel.anorm, dtype=real,
+                                        device="cuda", executor="fused")
+    _, first_s, _, _, _ = _traced_call(torch, kernels, fused)
+    _, fus_s, fus_l, fus_sync, events = _traced_call(torch, kernels, fused,
+                                                     path)
+    _expect_front_launches("trace fused", fus_l, len(p25.groups))
+    fus_ms, fus_args = _check_spans("fused", events, 1, True, "factor-fused")
+    if fus_args[0]["structural_flops"] != p25.flops or not any(
+            e["name"] == "issue fused" for e in events):
+        raise AssertionError(f"trace fused: {fus_args}")
+    out["fused"] = dict(first_call_s=first_s, traced_s=fus_s,
+                        span_ms=fus_ms[0], syncs=fus_sync)
+
+    lu_c, bv_c, _ = slt.analyze(slt.Options(bucket_closed=True),
+                                poisson3d(NX_TINY), device="cuda")
+    pc = lu_c.plan
+
+    def mega():
+        return factor.numeric_factorize(pc, bv_c, lu_c.anorm, dtype=real,
+                                        device="cuda", executor="mega")
+    _, first_s, _, _, _ = _traced_call(torch, kernels, mega)
+    _, meg_s, meg_l, meg_sync, events = _traced_call(torch, kernels, mega,
+                                                     path)
+    _expect_front_launches("trace mega", meg_l, len(pc.groups))
+    meg_ms, meg_args = _check_spans("mega", events, len(pc.groups), False)
+    out["mega"] = dict(n=lu_c.n, groups=len(pc.groups), first_call_s=first_s,
+                       traced_s=meg_s, span_sum_ms=sum(meg_ms),
+                       padded_slots=sum(a["padded_batch"] - a["batch"]
+                                        for a in meg_args), syncs=meg_sync)
+    del lu_c, bv_c, pc
+    say("trace", **out)
+    return out
+
+
+def trace_mesh_leg(slt, peer, kernels, tols, torch):
+    """The trace phase's grid leg on the mesh phase's 1x2 grid (the
+    peer's "mesh_trace" job, ``testing.ranks.run_mesh_trace``) on
+    poisson3d(NX_TINY), MESH_2D: on both ranks a traced 2-D FACT — a span
+    a group and the aggregate ``factor-mesh-stream``, each with a
+    positive device time — with the untraced FACT's launches (the groups
+    where the rank assembles); then ``granularity="level"``: its replay's
+    fronts, pivot stacks and tiny count bit for bit the FACT's, a span a
+    wave, its launches the FACT's, fewer segment graphs than the grid's
+    fused executor at the same size; then pgssvx FACTORED on its factors:
+    info 0, x the same on both ranks, within DEVICE_VS_HOST of gssvx's on
+    the card, BERR at the target."""
+    from superlu_dist_tpu_torch.testing.ranks import run_job
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    target = float(tols.berr_target(np.float64))
+    job = peer["trace2d"]
+    t0 = time.perf_counter()
+    rec0 = run_job(job, 0, "cuda")
+    wall = time.perf_counter() - t0
+    if "error" in rec0:
+        raise AssertionError(f"trace mesh rank 0: {rec0['error']}")
+    p1 = _await(peer, (1,), job.name, timeout=600)[1]
+    ranks = {}
+    for r, rec in ((0, rec0), (1, p1)):
+        if "error" in rec or rec["info"] != 0:
+            raise AssertionError(f"trace mesh rank {r}: "
+                                 f"{rec.get('error', rec.get('info'))}")
+        tr, lv = rec["traced"], rec["level_spans"]
+        graphs = (rec["level_report"].get("graphs"),
+                  rec["fused_report"].get("graphs"))
+        owned = rec["owned_groups"]
+        ok = (tr["spans"] == rec["groups"] and tr["min_ms"] > 0
+              and set(SPAN_ARGS) | {"owned", "columns", "local_flops"}
+              <= set(tr["fields"]) and not any(tr["aggregate"])
+              and tr["aggregates"] == ["factor-mesh-stream"]
+              and lv["spans"] == rec["level_waves"] and lv["min_ms"] > 0
+              and all(lv["aggregate"]) and rec["level_equal"]
+              and rec["untraced_launches"] == rec["traced_launches"] == owned
+              and rec["level_launches"] == owned
+              and graphs[0] is not None and graphs[1] is not None
+              and graphs[0] < graphs[1]
+              and rec["level_report"]["granularity"] == "level")
+        ranks[r] = dict(
+            untraced_fact_s=rec["untraced_s"], traced_fact_s=rec["traced_s"],
+            spans=tr["spans"], span_sum_ms=tr["sum_ms"],
+            level_capture_s=rec["level_capture_s"],
+            level_replay_s=rec["level_s"], level_waves=rec["level_waves"],
+            level_span_sum_ms=lv["sum_ms"], level_graphs=graphs[0],
+            fused_graphs=graphs[1], fused_capture_s=rec["fused_s"],
+            owned_groups=owned, launches=(rec["untraced_launches"],
+                                          rec["traced_launches"],
+                                          rec["level_launches"]),
+            level_equal=rec["level_equal"])
+        if not ok:
+            raise AssertionError(f"trace mesh rank {r}: {ranks[r]}, "
+                                 f"traced {tr}, level {lv}")
+    if not np.array_equal(rec0["x"], p1["x"]):
+        raise AssertionError("trace mesh: rank 1's x != rank 0's")
+    sysm = peer["systems"]["trace2d"]
+    x_ref, _, _, _ = slt.gssvx(slt.Options(), sysm.matrix(), sysm.rhs(),
+                               device="cuda")
+    err = np.abs(rec0["x"] - x_ref)
+    rep = rec0["lu_out"]["solve_report"]
+    check_berr("trace mesh level", rep.berr, target)
+    if not np.all(err <= tols.DEVICE_VS_HOST_ATOL
+                  + tols.DEVICE_VS_HOST_RTOL * np.abs(x_ref)):
+        raise AssertionError(f"trace mesh level: x vs gssvx's: max "
+                             f"{err.max()}")
+    out = dict(n=sysm.matrix().n_rows, groups=rec0["groups"], wall_s=wall,
+               berr=rep.berr, refine_steps=rep.refine_steps,
+               max_abs_vs_gssvx=float(err.max()), ranks=ranks)
+    say("trace_mesh", **out)
+    return out
+
+
+def trace_only() -> int:
+    """``python3 chip_smoke.py trace``: the build, the main path's
+    analysis, gssvx on poisson3d(NX_SMALL) and the trace phase — the
+    single-card part and the grid leg, with a mesh peer of its own."""
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import factor, kernels
+    from superlu_dist_tpu_torch.parallel import mhboot
+    from superlu_dist_tpu_torch.testing.ranks import stop_peers
+    from superlu_dist_tpu_torch.utils import tols
+    card = card_line()
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    kernels.library()
+    peer = start_mesh_peer(slt, trace_only=True)
+    try:
+        lu0, bvals0, _ = slt.analyze(slt.Options(), poisson3d(NX),
+                                     device="cuda")
+        a_sm = poisson3d(NX_SMALL)
+        _, lu_sm, _, _ = slt.gssvx(slt.Options(), a_sm,
+                                   np.ones(a_sm.n_rows), device="cuda")
+        trace_phase(slt, kernels, torch, factor, lu0.plan, bvals0,
+                    lu0.anorm, lu_sm)
+        trace_mesh_leg(slt, peer, kernels, tols, torch)
+        _await(peer, (1,))
+    finally:
+        codes = stop_peers(peer["procs"], timeout=60)
+        mhboot.shutdown()
+        shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    if codes != {1: 0}:
+        raise AssertionError(f"trace mesh peer exit code {codes}")
+    print(card)
+    return 0
+
+
+
 #: the examples the entry phase runs in-process on the card, and the
 #: residual line each prints (pddrive4 / pzdrive4 as one process)
 EXAMPLES = {
@@ -3919,6 +4330,8 @@ def main():
         return panel_only()
     if sys.argv[1:2] == ["first_solve"]:
         return first_solve_only(sys.argv[2] if len(sys.argv) > 2 else "")
+    if sys.argv[1:2] == ["trace"]:
+        return trace_only()
     import superlu_dist_tpu_torch as slt
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (convection_diffusion_2d,
@@ -4107,6 +4520,13 @@ def main():
     # 4h. Options.executor: fused and mega CUDA graphs, host offload, the
     # host-share split, level waves
     executors_phase(slt, a, lu, kernels, tols, torch, factor, a_sm, lu_sm)
+    # 4i. the executors' kernel spans under a file tracer (its grid leg
+    # ran in the mesh phase)
+    try:
+        trace_phase(slt, kernels, torch, factor, plan, bvals0, lu0.anorm,
+                    lu_sm)
+    finally:
+        shutil.rmtree(TRACE_DIR, ignore_errors=True)
     del lu_sm
 
     # where the factor time goes: the same factorization (phase 3's

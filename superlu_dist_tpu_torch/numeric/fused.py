@@ -22,7 +22,10 @@ group, so it shares the level waves' capture (numeric/stream.py):
 
 A failed capture or replay raises; nothing falls back to the eager loop.
 On the CPU, ``fused`` is the same loop run eagerly, bit for bit the
-streamed executor's.  :class:`Graph` and :func:`warm_up` serve the level
+streamed executor's.  Under a file tracer a call records the JAX fused
+program's spans (numeric/factor.py:373-385): one ``issue fused``
+dispatch span and, under a profiling tracer, one ``factor-fused``
+aggregate kernel span timed by CUDA events around the replay.  :class:`Graph` and :func:`warm_up` serve the level
 waves and the mega executor's buckets too.
 """
 
@@ -35,6 +38,7 @@ import time
 import torch
 
 from superlu_dist_tpu_torch.numeric import kernels
+from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
 from superlu_dist_tpu_torch.numeric.factor import KERNELS, PANEL
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan
 from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
@@ -187,3 +191,31 @@ class FusedExecutor(StreamExecutor):
     def waves(self) -> list:
         n = len(self.plan.groups)
         return [(0, n)] if n else []
+
+    def _issue_span(self, tracer, t0, lo, hi) -> None:
+        tracer.complete("issue fused", "dispatch", t0,
+                        time.perf_counter() - t0, groups=hi - lo)
+
+    def _kernel_spans(self, tracer, clock) -> list:
+        """The JAX ``factor-fused`` span: the whole factorization as one
+        aggregate (its ``last_profile`` entry has level -1, batch the
+        fronts, m, w and u the maxima)."""
+        groups = self.plan.groups
+        executed = float(sum(g.batch * _front_flops(g.w, g.u)
+                             for g in groups))
+        structural = float(self.plan.flops)
+        prof = []
+        for t0, dt, _ in clock.read():
+            tracer.complete("factor-fused", "kernel", t0, dt,
+                            n_groups=len(groups), aggregate=True,
+                            executed_flops=executed,
+                            structural_flops=structural,
+                            padding=round(executed / max(structural, 1.0),
+                                          4))
+            prof.append({"level": -1, "aggregate": True, "host": False,
+                         "batch": sum(g.batch for g in groups),
+                         "m": max(g.m for g in groups),
+                         "w": max(g.w for g in groups),
+                         "u": max(g.u for g in groups),
+                         "seconds": dt, "gflop": structural / 1e9})
+        return prof

@@ -78,6 +78,12 @@ class MegaExecutor(StreamExecutor):
         self._buckets = None       # per bucket: (static GroupMaps, Graph)
         self._static = None        # (avals, thresh, pool) on the card
 
+    def _padded_batch(self, gi) -> int:
+        """A group runs at its bucket's rung: its kernel span's
+        ``padded_batch``."""
+        g = self.plan.groups[gi]
+        return self.spec[(g.w, g.u)]
+
     @property
     def n_graphs(self) -> int:
         """Graphs this executor captures on the card: one per bucket."""

@@ -24,6 +24,13 @@ the plain loop it has the JAX executor's three options:
 Checkpoints, resume, the deadline and the finite sentinel work as the
 loop of numeric/factor.py always had them: a frontier is noted at every
 group boundary (every wave boundary under "level").
+
+Under a file tracer each call records the JAX stream's spans: an
+``issue g{gi}`` (``issue lvl{level}``) dispatch span a group (wave), and
+under a profiling one a ``lu b{b} m{m} w{w} u{u}`` kernel span a group
+(an aggregate one a wave) timed by CUDA events (obs/kernelspans.py),
+with ``last_profile``; ``last_dispatch_seconds`` is the host's issue
+time of every call's group loop.
 """
 
 from __future__ import annotations
@@ -37,8 +44,10 @@ import torch
 from superlu_dist_tpu_torch.numeric import factor
 from superlu_dist_tpu_torch.numeric.factor import KERNELS, PANEL, run_groups
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, bucket_rung
+from superlu_dist_tpu_torch.obs.kernelspans import (KernelClock, kernel_span,
+                                                    wave_span)
 from superlu_dist_tpu_torch.obs.trace import get_tracer
-from superlu_dist_tpu_torch.ops.dense import gemm_precision
+from superlu_dist_tpu_torch.ops.dense import gemm_precision, resolve_gemm_tier
 from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
 from superlu_dist_tpu_torch.utils.errors import (CheckpointMismatchError,
                                                  SuperLUError)
@@ -57,6 +66,12 @@ def progress_line(gi: int, n: int, t0: float) -> None:
     """The JAX stream's progress line (stream.py:571-574)."""
     print(f"[stream] issuing group {gi}/{n} "
           f"(+{time.perf_counter() - t0:.1f}s)", file=sys.stderr, flush=True)
+
+
+def progress_wave(level: int, n: int) -> None:
+    """The JAX stream's progress line of a wave at level granularity."""
+    print(f"[stream] issuing level {level} ({n} groups)", file=sys.stderr,
+          flush=True)
 
 
 def padded_front_bytes(plan: FactorPlan, dtype) -> int:
@@ -201,6 +216,8 @@ class StreamExecutor:
         self.plan, self.dtype = plan, dtype
         self.device = resolve_device(device)
         self.gemm_prec = gemm_precision(gemm_prec)
+        # the tier the arithmetic runs for this dtype: the kernel spans'
+        self.gemm_prec_resolved = resolve_gemm_tier(self.gemm_prec, dtype)
         self.scatter, self.panel = scatter, panel
         if granularity not in ("group", "level"):
             raise ValueError(f"granularity must be 'group' or 'level', "
@@ -222,6 +239,8 @@ class StreamExecutor:
         # the chaos harness's injector (testing/chaos.py), per call
         self.chaos = None
         self.last_offload_wait_seconds = 0.0
+        self.last_profile = None   # a profiling tracer's spans, per call
+        self.last_dispatch_seconds = None   # host issue time, per call
         self._waves = None         # level graphs: a Graph (None for a host
                                    # wave) per entry of waves()
         self._static = None        # their static avals, thresh and pool
@@ -240,6 +259,10 @@ class StreamExecutor:
 
     def _prep_avals(self, avals: torch.Tensor, device) -> torch.Tensor:
         return avals.to(device=device, dtype=self.dtype)
+
+    def _padded_batch(self, gi) -> int:
+        """The batch group ``gi`` runs at (the real one; mega pads it)."""
+        return self.plan.groups[gi].batch
 
     def _ckpt_pool(self, pool):
         """The pool a checkpoint stores (mega strips its padding, so a
@@ -286,13 +309,14 @@ class StreamExecutor:
             start = resume.k
             tiny = torch.zeros((), dtype=torch.int64, device=dev)
         progress = progress_every()
+        tracer = get_tracer()
+        clock = KernelClock(dev) if tracer.profiling else None
+        t_issue0 = time.perf_counter()
         if self.granularity == "level":
             tiny = self._call_waves(av, avals_dev, th, thresh, pool, maps,
                                     hmaps, fronts, tiny, out, timings,
-                                    progress)
+                                    progress, tracer, clock, t_issue0)
         else:
-            tracer = get_tracer()
-            t_issue0 = time.perf_counter()
             for gi in range(start, len(plan.groups)):
                 self._poll()
                 if progress and gi % progress == 0:
@@ -303,9 +327,13 @@ class StreamExecutor:
                     av, th = avals_dev, thresh.to(dev)
                 if tracer.enabled:
                     t0 = time.perf_counter()
+                if clock is not None:
+                    mark = clock.start(host=gi < n_host)
                 (lp, up), t = self._step(gi, av, pool, th,
                                          hmaps if gi < n_host else maps,
                                          timings)
+                if clock is not None:
+                    clock.stop(mark, (gi, gi + 1))
                 if tracer.enabled:
                     # how long the group's launches took to issue (host
                     # time; the launches run on asynchronously)
@@ -319,11 +347,43 @@ class StreamExecutor:
                 self._note(gi, fronts, pool, tiny)
                 if self.chaos is not None:
                     self.chaos.on_group(gi)
+            self.last_dispatch_seconds = time.perf_counter() - t_issue0
         if out is not None:
             out.drain()
             self.last_offload_wait_seconds = out.wait_s
         tiny_total = int(tiny) + (resume.tiny if resume is not None else 0)
+        if clock is not None:
+            # after the int(): every event of the call has completed
+            self.last_profile = self._kernel_spans(tracer, clock)
         return fronts, tiny_total
+
+    def _kernel_spans(self, tracer, clock) -> list:
+        """The call's kernel spans, one a group (a wave at "level"), and
+        their ``last_profile`` entries."""
+        plan, prof = self.plan, []
+        for t0, dt, (lo, hi) in clock.read():
+            host = lo < self._n_host_groups
+            if self.granularity == "level":
+                prof.append(wave_span(
+                    tracer, t0, dt, plan.groups[lo:hi],
+                    self.gemm_prec_resolved,
+                    padded=[self._padded_batch(gi) for gi in range(lo, hi)],
+                    host=host))
+                continue
+            g = plan.groups[lo]
+            prof.append(kernel_span(
+                tracer, t0, dt, level=g.level, b=self._padded_batch(lo),
+                m=g.m, w=g.w, u=g.u, nreal=g.batch, host=host,
+                gemm_prec=self.gemm_prec_resolved))
+        return prof
+
+    def _issue_span(self, tracer, t0, lo, hi) -> None:
+        """A wave's dispatch span: how long its replay (or its eager
+        groups) took to issue."""
+        tracer.complete(f"issue lvl{self.plan.groups[lo].level}", "dispatch",
+                        t0, time.perf_counter() - t0,
+                        level=int(self.plan.groups[lo].level),
+                        groups=hi - lo)
 
     def _poll(self) -> None:
         """A group (or wave) boundary: the deadline, whose expiry first
@@ -375,13 +435,15 @@ class StreamExecutor:
         return out
 
     def _call_waves(self, av, avals_dev, th, thresh, pool, maps, hmaps,
-                    fronts, tiny, out, timings, progress=0):
+                    fronts, tiny, out, timings, progress, tracer, clock,
+                    t_issue0):
         """Level granularity: the host share's waves eagerly on the CPU,
         then every device wave — on the card, its CUDA graph replayed on
         the executor's static inputs and pool.  ``graph_stats`` gets the
         synchronized seconds of the call's wave loop (``replay_s``) and
         the bytes of the fronts cloned out of the graphs
-        (``clone_bytes``)."""
+        (``clone_bytes``); ``clock`` (a profiling tracer's) marks each
+        wave's replay or eager groups."""
         plan, dev = self.plan, self.device
         n_host = self._n_host_groups
         graphs = dev.type == "cuda"
@@ -402,8 +464,7 @@ class StreamExecutor:
                                    or [None] * len(self.waves())):
             self._poll()
             if progress and self.progress_waves:
-                print(f"[stream] issuing level {plan.groups[lo].level} "
-                      f"({hi - lo} groups)", file=sys.stderr, flush=True)
+                progress_wave(plan.groups[lo].level, hi - lo)
             if lo == n_host and n_host:
                 if graphs:
                     s_pool.copy_(pool)
@@ -412,6 +473,10 @@ class StreamExecutor:
                     pool = pool.to(dev)
                 tiny = tiny.to(dev)
                 av, th = avals_dev, thresh.to(dev)
+            if tracer.enabled:
+                t_wave = time.perf_counter()
+            if clock is not None:
+                mark = clock.start(host=lo < n_host)
             if graph is None:
                 packed, t = run_groups(plan, lo, hi,
                                        hmaps if lo < n_host else maps, av,
@@ -419,6 +484,11 @@ class StreamExecutor:
                                        timings, self.panel)
             else:
                 packed, t = graph.replay()
+            if clock is not None:
+                clock.stop(mark, (lo, hi))
+            if tracer.enabled:
+                self._issue_span(tracer, t_wave, lo, hi)
+            if graph is not None:
                 # the next call's replay rewrites the graph's fronts
                 packed = [(lp.clone(), up.clone()) for lp, up in packed]
                 clone_bytes += sum(lp.numel() * lp.element_size()
@@ -430,6 +500,7 @@ class StreamExecutor:
                 fronts.append((lp, up))
             tiny += t
             self._note(hi - 1, fronts, pool, tiny)
+        self.last_dispatch_seconds = time.perf_counter() - t_issue0
         if graphs:
             torch.cuda.current_stream(dev).synchronize()
             self.graph_stats.update(replay_s=time.perf_counter() - t0,

@@ -11,11 +11,14 @@
 * ``obs.metrics``   — serving-grade labeled counters/gauges/histograms
   (``SLU_TPU_METRICS``) with JSON + Prometheus exports;
 * ``obs.slo``       — per-ticket request tracing (``TicketContext``), the
-  always-on latency accounter and the SLO evaluator.
+  always-on latency accounter and the SLO evaluator;
+* ``obs.kernelspans`` — the factor executors' kernel spans and profile
+  record, timed by CUDA events.
 
-Every span is a host timestamp around a call that already synchronizes:
-with tracing and metrics off nothing is recorded, and with them on the
-factorization and the solve issue no extra device work and no extra
+Every span is a host timestamp around a call that already synchronizes,
+or (a kernel span) the device time between two CUDA events read after
+it: with tracing and metrics off nothing is recorded, and with them on
+the factorization and the solve issue no extra device work and no extra
 sync.  The JAX package's compile census (``obs/compilestats.py``) is not
 ported: it measures JAX compile caches.
 """

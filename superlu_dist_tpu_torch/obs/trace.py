@@ -24,8 +24,11 @@ Artifacts (env-gated by ``SLU_TPU_TRACE=<path>``):
 callers (the fleet's process replicas, serve/fleet.py) can share one env
 var without clobbering each other's artifacts.  Port of the JAX
 package's ``obs/trace.py``: the same events, the same artifact formats.
-Spans are host timestamps around calls that already synchronize — an
-enabled tracer adds no device work and no device sync.
+Spans are host timestamps around calls that already synchronize, and
+the factor executors' kernel spans are device times between CUDA events
+read after the synchronization each call makes anyway
+(obs/kernelspans.py) — an enabled tracer adds no device work and no
+device sync.
 
 Disabled path (env unset): ``get_tracer()`` returns the module-level
 ``NULL_TRACER`` singleton whose ``span()`` hands back one reused no-op
@@ -98,6 +101,21 @@ class NullTracer:
 
 NULL_TRACER = NullTracer()
 
+#: this process's id, stamped on every record: read once (and again in a
+#: forked child), not by a system call a record — a factor executor
+#: records several spans a group, and a virtualized host can take tens of
+#: microseconds a call
+_PID = os.getpid()
+
+
+def _refresh_pid():
+    global _PID
+    _PID = os.getpid()
+
+
+if hasattr(os, "register_at_fork"):
+    os.register_at_fork(after_in_child=_refresh_pid)
+
 
 class _Span:
     """One open span; records itself on ``__exit__``."""
@@ -132,8 +150,10 @@ class Tracer:
     artifact) and stream to the JSONL sidecar as they close."""
 
     enabled = True
-    profiling = True     # the JAX package blocks per kernel under it; the
-                         # port reads it nowhere (no extra device sync)
+    profiling = True     # the factor executors' kernel spans: the JAX
+                         # package blocks per kernel under it, the port
+                         # times them by CUDA events (obs/kernelspans.py)
+                         # and adds no device sync
 
     def __init__(self, path: str):
         path = path.replace("%p", str(os.getpid()))
@@ -172,7 +192,7 @@ class Tracer:
             "name": str(name), "cat": str(cat), "ph": "X",
             "ts": round((t0_ns - self._epoch_ns) / 1e3, 3),   # microseconds
             "dur": round(dur_ns / 1e3, 3),
-            "pid": os.getpid(), "tid": self._tid(),
+            "pid": _PID, "tid": self._tid(),
             "depth": getattr(self._tls, "depth", 0),
         }
         if args:

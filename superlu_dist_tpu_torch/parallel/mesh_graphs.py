@@ -28,6 +28,11 @@ between two collectives as one graph (a *segment*):
   at the end.
 
 :class:`MeshFusedExecutor` keeps one graph per (group, segment).
+:class:`MeshLevelExecutor` (``MeshStreamExecutor(granularity="level")``)
+keeps one per (schedule wave, segment): a wave's group programs run as
+one program, so the launches after a group's exchange and those of the
+next group up to its first collective are one graph, and a wave of k
+groups has k − 1 graphs fewer than the fused executor has for them.
 :class:`MeshMegaExecutor` keeps one per (closed key, segment position):
 a closed key is a group shape (w, u) and whether this rank's process row
 has slots in it; the row's slots are padded to the key's rung (identity
@@ -230,15 +235,15 @@ class _GridGraphs(MeshStreamExecutor):
             reply = run(req)
 
     def _replay(self, segs, gl, bufs):
-        """One group's segments replayed, the collectives between them
-        run eagerly on group layout ``gl``'s counts; returns the
-        program's outputs."""
+        """One program's segments replayed, the collectives between them
+        run eagerly — an exchange on group layout ``gl``'s counts (None:
+        the captured request's own); returns the program's outputs."""
         run = self._static_collective(bufs)
         for graph, req in segs:
             graph.replay()
             if isinstance(req, _Done):
                 return req.value
-            if isinstance(req, Exchange):
+            if isinstance(req, Exchange) and gl is not None:
                 req = Exchange(req.send, gl)
             run(req)
         raise RuntimeError("a segment list without its end")
@@ -293,6 +298,51 @@ class MeshFusedExecutor(_GridGraphs):
         return [g for segs in self._segs.values() for g, _ in segs]
 
 
+class MeshLevelExecutor(_GridGraphs):
+    """``MeshStreamExecutor(granularity="level")``: the 2-D executor run
+    wave by wave.  On the card each schedule wave's group programs run as
+    one program whose segments are captured at the first call and
+    replayed by the later ones, the collectives eagerly between them —
+    one graph per (wave, segment), kept in one private pool; on the CPU
+    the groups' programs run eagerly, bit for bit the "group"
+    granularity's.  Offload as on the 2-D executor: a wave's groups go to
+    host memory after its last segment."""
+
+    name = "mesh-stream"
+
+    def __init__(self, *args, granularity="level", **kw):
+        super().__init__(*args, granularity=granularity, **kw)
+        self._segs = {}            # wave (its first group) -> its segments
+
+    def _wave(self, lo, hi, states, bufs):
+        """Groups lo..hi-1's programs as one program: the outputs of
+        each, in order."""
+        outs = []
+        for gi in range(lo, hi):
+            outs.append((yield from self._group(gi, states[gi], bufs)))
+        return outs
+
+    def _run_unit(self, lo, hi, bufs) -> list:
+        if self.device.type != "cuda":
+            return super()._run_unit(lo, hi, bufs)
+        states = self._device_state()
+        if not self._warmed:
+            self._warm(lambda g: states[g], bufs)
+            self._pool = torch.cuda.graph_pool_handle()
+        segs = self._segs.get(lo)
+        if segs is None:
+            segs = self._segs[lo] = self._capture(
+                self._wave(lo, hi, states, bufs), bufs, self._pool)
+            outs = segs[-1][1].value
+        else:
+            outs = self._replay(segs, None, bufs)
+        return [self._finish(gi, *o, clone=True)
+                for gi, o in zip(range(lo, hi), outs)]
+
+    def _graphs(self) -> list:
+        return [g for segs in self._segs.values() for g, _ in segs]
+
+
 def _pad_segments(seg, rows: int, total: int, dump: int) -> Segments:
     """``seg`` padded to ``rows`` segments covering ``total`` elements: a
     zero-length tail, then one last segment of the missing elements at
@@ -336,6 +386,9 @@ class MeshMegaExecutor(_GridGraphs):
     @property
     def closed_keys(self) -> int:
         return len(self.spec)
+
+    def _padded_batch(self, gi) -> int:
+        return self.spec[self.key_of[gi]][1]
 
     def _pool_len(self) -> int:
         return self.layout.pool_len + 1          # the dump element

@@ -33,7 +33,16 @@ there (parallel/spmd.SpmdSolver).
 Each group is a program (``MeshStreamExecutor._group``, a generator)
 that yields at its collectives; this module runs it eagerly, and
 parallel/mesh_graphs.py captures the launches between its yields as
-CUDA graphs (the grid's fused and mega executors).
+CUDA graphs (the grid's fused and mega executors, and
+``granularity="level"``: the schedule waves' programs on the card).
+
+Under a file tracer each call records an ``issue g{gi}`` dispatch span a
+group (``issue lvl{level}`` a wave) and an ``issue {name}`` span; under a
+profiling one also a ``lu b{b} m{m} w{w} u{u}`` kernel span a group (an
+aggregate one a wave) with the rank's ``owned`` slots, ``columns`` and
+``local_flops``, and the aggregate ``factor-{name}`` span — all timed by
+CUDA events read after the tiny count's all-reduce (obs/kernelspans.py),
+as the JAX GSPMD stream records them, with ``last_profile``.
 
 Bits: every front position receives the same adds in the same order
 with either pool, so the partitioned and replicated pools give the same
@@ -53,6 +62,8 @@ import time
 import numpy as np
 import torch
 
+from superlu_dist_tpu_torch.obs.kernelspans import (KernelClock, kernel_span,
+                                                    wave_span)
 from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.ops.dense import panel_width
 from superlu_dist_tpu_torch.parallel.layout2d import (expand, front_cols,
@@ -178,17 +189,38 @@ class MeshStreamExecutor:
     yields at its collectives — every panel broadcast of
     ``ops.dense.panel_steps`` and the exchange — and :func:`drive` runs
     them eagerly here; the graph executors (parallel/mesh_graphs.py)
-    capture the rank-local launches between two yields as CUDA graphs."""
+    capture the rank-local launches between two yields as CUDA graphs.
+
+    ``granularity`` (the JAX stream's, stream.py:213-215): "group" runs
+    group by group; "level" runs each schedule wave (consecutive groups
+    of one ``Group.level``) as one unit — on the card the wave's programs
+    as segment graphs, the launches between two collectives one graph
+    across the wave's group boundaries (``mesh_graphs.MeshLevelExecutor``,
+    which this constructor returns for it), on the CPU the same eager
+    programs as "group", bit for bit.  The deadline polls at every unit
+    boundary."""
 
     name = "mesh-stream"
 
+    def __new__(cls, *args, granularity="group", **kw):
+        if cls is MeshStreamExecutor and granularity == "level":
+            from superlu_dist_tpu_torch.parallel.mesh_graphs import (
+                MeshLevelExecutor)
+            cls = MeshLevelExecutor
+        return super().__new__(cls)
+
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
                  scatter=None, pool_partition=False, offload="none",
-                 front_bytes_limit=6e9, offload_lag=8, panel=None):
+                 front_bytes_limit=6e9, offload_lag=8, panel=None,
+                 granularity="group"):
         from superlu_dist_tpu_torch.numeric import factor
         from superlu_dist_tpu_torch.numeric.stream import (auto_offload,
                                                            check_offload)
-        from superlu_dist_tpu_torch.ops.dense import gemm_precision
+        from superlu_dist_tpu_torch.ops.dense import (gemm_precision,
+                                                      resolve_gemm_tier)
+        if granularity not in ("group", "level"):
+            raise ValueError(f"granularity must be 'group' or 'level', "
+                             f"got {granularity!r}")
         plan.check_index_width()
         if grid.device != device:
             raise ValueError(f"the grid's rank runs on {grid.device}, not "
@@ -200,17 +232,21 @@ class MeshStreamExecutor:
                                                          grid)
         self.nd, self.rank = grid.nproc, grid.rank
         self.pool_partition = bool(pool_partition)
+        self.granularity = granularity
         self.gemm_prec = gemm_precision(gemm_prec)
+        self.gemm_prec_resolved = resolve_gemm_tier(self.gemm_prec, dtype)
         self.scatter = factor.KERNELS if scatter is None else scatter
         self.panel = factor.PANEL if panel is None else panel
         self.layout = layout(plan, grid.nprow, grid.npcol, grid.rank,
                              self.pool_partition)
         # the operations of panel_partial_factor, counted exactly: this
-        # rank's (its slots, its panels, its columns) and the grid's
-        self.local_flops = float(sum(
-            len(gl.slots) * share_ops(g.w, gl.m_ext, gl.gcol, grid.npcol,
-                                      grid.pcol)
-            for g, gl in zip(plan.groups, self.layout.groups)))
+        # rank's (its slots, its panels, its columns; per group and in
+        # all) and the grid's
+        self.group_local_flops = [
+            float(len(gl.slots) * share_ops(g.w, gl.m_ext, gl.gcol,
+                                            grid.npcol, grid.pcol))
+            for g, gl in zip(plan.groups, self.layout.groups)]
+        self.local_flops = float(sum(self.group_local_flops))
         self.executed_flops = float(sum(
             g.batch * share_ops(g.w, *front_cols(g.m, g.w, grid.npcol,
                                                  pc)[1:3], grid.npcol, pc)
@@ -223,6 +259,7 @@ class MeshStreamExecutor:
         self.deadline = self.chaos = None
         self.checkpoint = self.resume = None
         self.host_levels = 0
+        self.last_profile = None   # a profiling tracer's spans, per call
         self.last_dispatch_seconds = 0.0
         self.last_offload_wait_seconds = 0.0
         self.host_bytes = 0
@@ -352,6 +389,29 @@ class MeshStreamExecutor:
             self._group(gi, self._device_state()[gi], bufs),
             self._collective))
 
+    def units(self) -> list:
+        """The (lo, hi) group ranges a call runs one after another: each
+        group at "group", each schedule wave at "level"."""
+        groups = self.plan.groups
+        if self.granularity == "group":
+            return [(gi, gi + 1) for gi in range(len(groups))]
+        out, lo = [], 0
+        for gi in range(1, len(groups) + 1):
+            if gi == len(groups) or groups[gi].level != groups[lo].level:
+                out.append((lo, gi))
+                lo = gi
+        return out
+
+    def _run_unit(self, lo, hi, bufs) -> list:
+        """Groups lo..hi-1 of this call: their outputs (``_finish``'s),
+        one after another."""
+        return [self._run_group(gi, bufs) for gi in range(lo, hi)]
+
+    def _padded_batch(self, gi) -> int:
+        """The batch group ``gi``'s kernel span reports (the grid's mega
+        pads it to its key's rung)."""
+        return self.plan.groups[gi].batch
+
     def _finish(self, gi, lp, up, piv, clone=False):
         """A group program's outputs cut to group ``gi``'s own slots and
         pivot stack (B, w, w) — cloned out of a graph's static outputs
@@ -370,7 +430,8 @@ class MeshStreamExecutor:
     def __call__(self, avals, thresh, timings=None):
         from superlu_dist_tpu_torch.numeric.stream import (_Offload,
                                                            progress_every,
-                                                           progress_line)
+                                                           progress_line,
+                                                           progress_wave)
         from superlu_dist_tpu_torch.parallel.spmd import Shard
         if self.checkpoint is not None or self.resume is not None:
             raise ValueError(f"the {self.name} executor takes no checkpoint "
@@ -384,30 +445,37 @@ class MeshStreamExecutor:
         fronts, pivots = [], []
         comm0 = {op: dict(rec) for op, rec in grid.comm.items()}
         tracer = get_tracer()
+        clock = KernelClock(dev) if tracer.profiling else None
         progress = progress_every()
         t_start = time.perf_counter()
+        if clock is not None:
+            whole = clock.start()
         try:
-            for gi, (grp, gl) in enumerate(zip(plan.groups,
-                                               self.layout.groups)):
+            for lo, hi in self.units():
                 if self.deadline is not None:
                     self.deadline.poll(where="numeric factorization (mesh)")
-                if progress and gi % progress == 0:
-                    progress_line(gi, len(plan.groups), t_start)
+                if progress and self.granularity == "level":
+                    progress_wave(plan.groups[lo].level, hi - lo)
+                elif progress and lo % progress == 0:
+                    progress_line(lo, len(plan.groups), t_start)
                 if tracer.enabled:
                     t0 = time.perf_counter()
-                lp, up, piv = self._run_group(gi, bufs)
-                if out is not None:
-                    lp, up, piv = out.emit(gi, lp, up, piv)
-                fronts.append((lp, up))
-                pivots.append(piv)
+                if clock is not None:
+                    mark = clock.start()
+                outs = self._run_unit(lo, hi, bufs)
+                if clock is not None:
+                    clock.stop(mark, (lo, hi))
+                for gi, (lp, up, piv) in zip(range(lo, hi), outs):
+                    if out is not None:
+                        lp, up, piv = out.emit(gi, lp, up, piv)
+                    fronts.append((lp, up))
+                    pivots.append(piv)
                 if tracer.enabled:
-                    tracer.complete(f"issue g{gi}", "dispatch", t0,
-                                    time.perf_counter() - t0, group=gi,
-                                    level=int(grp.level),
-                                    owned=int(len(gl.slots)),
-                                    columns=int(gl.mc))
+                    self._issue_span(tracer, t0, lo, hi)
                 if self.chaos is not None:
-                    self.chaos.on_group(gi)
+                    self.chaos.on_group(hi - 1)
+            if clock is not None:
+                clock.stop(whole, None)
             if out is not None:
                 out.drain()
         finally:
@@ -425,15 +493,9 @@ class MeshStreamExecutor:
                             self.last_dispatch_seconds,
                             groups=len(plan.groups), n_devices=self.nd,
                             rank=self.rank)
-            if tracer.profiling:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                tracer.complete(f"factor-{self.name}", "kernel", t_start,
-                                time.perf_counter() - t_start,
-                                n_groups=len(plan.groups), aggregate=True,
-                                executed_flops=self.executed_flops,
-                                local_flops=self.local_flops,
-                                structural_flops=float(plan.flops))
+        if clock is not None:
+            # after the all-reduce: every event of the call has completed
+            self.last_profile = self._kernel_spans(tracer, clock)
         cols = [(gl.gcol[:gl.kw], gl.gcol[gl.kw:gl.mc] - grp.w)
                 for grp, gl in zip(plan.groups, self.layout.groups)]
         return fronts, tiny_total, Shard(
@@ -441,10 +503,56 @@ class MeshStreamExecutor:
             nprow=grid.nprow, npcol=grid.npcol, cols=cols,
             pool_bytes=self.pool_bytes)
 
+    def _issue_span(self, tracer, t0, lo, hi) -> None:
+        """A unit's dispatch span: the host time its group (its wave)
+        took, its collectives included."""
+        grp, gl = self.plan.groups[lo], self.layout.groups[lo]
+        if self.granularity == "group":
+            tracer.complete(f"issue g{lo}", "dispatch", t0,
+                            time.perf_counter() - t0, group=lo,
+                            level=int(grp.level), owned=int(len(gl.slots)),
+                            columns=int(gl.mc))
+        else:
+            tracer.complete(f"issue lvl{grp.level}", "dispatch", t0,
+                            time.perf_counter() - t0, level=int(grp.level),
+                            groups=hi - lo)
+
+    def _kernel_spans(self, tracer, clock) -> list:
+        """The call's kernel spans — one a group (a wave at "level") with
+        this rank's ``owned`` slots, ``columns`` and ``local_flops``, then
+        the aggregate ``factor-{name}`` — and their ``last_profile``
+        entries."""
+        plan, lay, prof = self.plan, self.layout.groups, []
+        for t0, dt, unit in clock.read():
+            if unit is None:
+                tracer.complete(f"factor-{self.name}", "kernel", t0, dt,
+                                n_groups=len(plan.groups), aggregate=True,
+                                executed_flops=self.executed_flops,
+                                local_flops=self.local_flops,
+                                structural_flops=float(plan.flops))
+                continue
+            lo, hi = unit
+            mine = dict(owned=sum(len(gl.slots) for gl in lay[lo:hi]),
+                        columns=max(gl.mc for gl in lay[lo:hi]),
+                        local_flops=sum(self.group_local_flops[lo:hi]))
+            if self.granularity == "level":
+                prof.append(wave_span(
+                    tracer, t0, dt, plan.groups[lo:hi],
+                    self.gemm_prec_resolved,
+                    padded=[self._padded_batch(gi) for gi in range(lo, hi)],
+                    **mine))
+                continue
+            g = plan.groups[lo]
+            prof.append(kernel_span(
+                tracer, t0, dt, level=g.level, b=self._padded_batch(lo),
+                m=g.m, w=g.w, u=g.u, nreal=g.batch, host=False,
+                gemm_prec=self.gemm_prec_resolved, **mine))
+        return prof
+
     def report(self) -> dict:
         ex = self.last_comm.get("exchange", {})
         bc = self.last_comm.get("bcast_row", {})
-        return {"executor": self.name, "granularity": "group",
+        return {"executor": self.name, "granularity": self.granularity,
                 "offload": self.offload,
                 "offload_wait_s": self.last_offload_wait_seconds,
                 "host_bytes": self.host_bytes,

@@ -51,6 +51,7 @@ import types
 import numpy as np
 import torch
 
+from superlu_dist_tpu_torch.obs.kernelspans import KernelClock
 from superlu_dist_tpu_torch.obs.trace import get_tracer
 
 
@@ -289,7 +290,12 @@ class SpmdFactorExecutor:
                         self.offload_lag)
                if self.offload == "host" else None)
         progress = progress_every()
+        # a profiling tracer's one aggregate span, timed by CUDA events
+        # read after the tiny count's all-reduce (obs/kernelspans.py)
+        clock = KernelClock(dev) if tracer.profiling else None
         t_start = time.perf_counter()
+        if clock is not None:
+            whole = clock.start()
         for gi, grp in enumerate(plan.groups):
             if self.deadline is not None:
                 self.deadline.poll(where="numeric factorization (spmd)")
@@ -336,6 +342,8 @@ class SpmdFactorExecutor:
                                 level=int(grp.level), owned=int(count))
             if self.chaos is not None:
                 self.chaos.on_group(gi)
+        if clock is not None:
+            clock.stop(whole, None)
         if out is not None:
             out.drain()
             self.last_offload_wait_seconds = out.wait_s
@@ -349,11 +357,10 @@ class SpmdFactorExecutor:
             tracer.complete("issue spmd", "dispatch", t_start,
                             self.last_dispatch_seconds,
                             groups=len(plan.groups), n_devices=nd, rank=rank)
-            if tracer.profiling:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                tracer.complete("factor-spmd", "kernel", t_start,
-                                time.perf_counter() - t_start,
+        if clock is not None:
+            # after the all-reduce: the events have completed
+            for t0, dt, _ in clock.read():
+                tracer.complete("factor-spmd", "kernel", t0, dt,
                                 n_groups=len(plan.groups), aggregate=True,
                                 executed_flops=self.executed_flops,
                                 local_flops=self.local_flops,

@@ -40,7 +40,9 @@ class RankJob:
     with ``timeout_s``; ``gather`` all-gathers the fronts to slot order
     afterwards and holds the kernel against its plain version at the
     rank's shapes), "pgssvx_ft" (the
-    recovery epoch loop, which forms its own domains) or "allreduce"
+    recovery epoch loop, which forms its own domains), "mesh_trace" (the
+    traced 2-D FACT and ``granularity="level"`` leg of a mesh rank,
+    ``run_mesh_trace``, its trace at ``trace``) or "allreduce"
     (``ops`` allreduces of ``np.ones(4)`` on a joined domain: the failure
     detector's own scenarios).  ``a_source`` / ``b_source`` deal this
     rank's block rows (``parallel/recover.RowBlockSource`` /
@@ -68,6 +70,7 @@ class RankJob:
     gather: bool = False
     timeout_s: float = 600.0
     nprow: int = 1             # a mesh job's grid: nprow × n_ranks/nprow
+    trace: str = ""            # a mesh_trace job's trace path ("%r": rank)
 
 
 class GallerySystem:
@@ -169,6 +172,8 @@ def run_job(job: RankJob, rank: int, device, lu=None) -> dict:
                 tc.close()
         elif job.kind == "mesh":
             x, info = _run_mesh(job, rank, device, lu, rec, lu_out)
+        elif job.kind == "mesh_trace":
+            x, info = run_mesh_trace(job, rank, device, rec, lu_out)
         elif job.kind == "pgssvx_ft":
             x, info = pgssvx_ft(job.name, job.n_ranks, rank, job.options,
                                 job.a_source, job.b_source,
@@ -196,21 +201,14 @@ def run_job(job: RankJob, rank: int, device, lu=None) -> dict:
 _GRIDS = {}
 
 
-def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
-              lu_out: dict):
-    """One ``pgssvx(grid=)`` call as ``rank`` (run_job's "mesh" kind):
-    the rank's share of the sharded factors (``shard``: groups, owned
-    slots, front bytes, whether every group holds exactly the rank's own
-    slots), its front_assemble, panel_lu and csr_spmv launches and, with
-    ``job.gather``, its kernels against their plain versions at its own
-    shapes land on ``rec``."""
+def _mesh_grid(job: RankJob, rank: int, device, rec: dict):
+    """(TreeComm, ProcessGrid) of a mesh job's rank: the tree domain
+    joined, the process group booted once per process (``backend`` and
+    ``attached_at`` land on ``rec``), the grid of the job's shape."""
     import torch
-    from superlu_dist_tpu_torch.numeric import kernels
     from superlu_dist_tpu_torch.parallel.grid import gridinit
     from superlu_dist_tpu_torch.parallel.mhboot import (attach_tree, boot,
                                                         rank_devices)
-    from superlu_dist_tpu_torch.parallel.pgssvx import pgssvx
-    from superlu_dist_tpu_torch.parallel.spmd import gather_fronts
     mine = rank_devices(job.n_ranks, device)[rank]
     if mine.type == "cuda":           # the context, before any wait
         torch.cuda.set_device(mine)
@@ -238,6 +236,26 @@ def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
             raise ValueError(f"TreeComm rank {tc.rank}/{tc.n_ranks} differs "
                              f"from grid rank {grid.rank}/{grid.nproc}")
         grid.comm.clear()
+    except BaseException:
+        tc.close()
+        raise
+    return tc, grid
+
+
+def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
+              lu_out: dict):
+    """One ``pgssvx(grid=)`` call as ``rank`` (run_job's "mesh" kind):
+    the rank's share of the sharded factors (``shard``: groups, owned
+    slots, front bytes, whether every group holds exactly the rank's own
+    slots), its front_assemble, panel_lu and csr_spmv launches and, with
+    ``job.gather``, its kernels against their plain versions at its own
+    shapes land on ``rec``."""
+    import torch
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.parallel.pgssvx import pgssvx
+    from superlu_dist_tpu_torch.parallel.spmd import gather_fronts
+    tc, grid = _mesh_grid(job, rank, device, rec)
+    try:
         a_loc = job.a_source(job.n_ranks, rank)
         launches = dict(kernels.LAUNCHES)
         x, info = pgssvx(tc, job.options, a_loc,
@@ -262,6 +280,151 @@ def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
                 two_d=num.shard.cols is not None)
             rec["spmv_vs_plain"] = local_spmv_check(a_loc, grid)
         rec["comm"] = grid.comm_summary()
+    finally:
+        tc.close()
+    return x, info
+
+
+def _trace_summary(path: str) -> dict:
+    """The kernel spans of a trace file: the per-step ``lu`` spans'
+    count, device ms (each and summed), the fields every one carries,
+    and the aggregates' names."""
+    import json
+    events = json.load(open(path))["traceEvents"]
+    lu = [e for e in events
+          if e["cat"] == "kernel" and e["name"].startswith("lu ")]
+    keys = set.intersection(*[set(e.get("args", {})) for e in lu]) \
+        if lu else set()
+    return dict(spans=len(lu), ms=[e["dur"] / 1e3 for e in lu],
+                sum_ms=sum(e["dur"] for e in lu) / 1e3,
+                min_ms=min((e["dur"] for e in lu), default=0.0) / 1e3,
+                fields=sorted(keys),
+                aggregate=[e["args"]["aggregate"] for e in lu],
+                owned=sum(e["args"].get("owned", 0) for e in lu),
+                aggregates=[e["name"] for e in events
+                            if e["cat"] == "kernel"
+                            and not e["name"].startswith("lu ")])
+
+
+def run_mesh_trace(job: RankJob, rank: int, device, rec: dict,
+                   lu_out: dict):
+    """One rank of a traced 2-D FACT and of ``granularity="level"`` on
+    the grid (run_job's "mesh_trace" kind), on the job's system with
+    ``job.options`` (the 2-D executor's): the analysis pgssvx runs
+    (``root_analyze_bcast``), then
+
+    1. ``numeric_factorize`` on the 2-D executor, untraced, then under a
+       file ``Tracer`` at ``job.trace`` (``%r`` the rank): the walls, the
+       kernel spans (``traced``), the launches;
+    2. ``MeshStreamExecutor(granularity="level")`` called twice — its
+       segments captured, then replayed under a tracer: its wave spans
+       (``level_spans``), its fronts, pivot stacks and tiny count bit
+       for bit the FACT's (``level_equal``), its report and launches;
+    3. ``executor="fused"`` at the same size: its report (graphs);
+    4. pgssvx FACTORED on the handle holding the level factors: x, info
+       and the solve report (``lu_out``).
+
+    Every trace file is removed once read."""
+    import torch
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.numeric.factor import (NumericFactorization,
+                                                       numeric_factorize)
+    from superlu_dist_tpu_torch.obs import trace
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    from superlu_dist_tpu_torch.parallel.pgssvx import (pgssvx,
+                                                        root_analyze_bcast)
+    from superlu_dist_tpu_torch.utils.options import (Fact, IterRefine,
+                                                      resolve_factor_dtype)
+    from superlu_dist_tpu_torch.utils.stats import Stats
+    opts = job.options
+    tc, grid = _mesh_grid(job, rank, device, rec)
+    dev = grid.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def timed(fn, path=None):
+        """fn() (under a file tracer at ``path``): its result, wall s,
+        front_assemble launches and, traced, its kernel spans."""
+        sync()
+        before = kernels.LAUNCHES["front_assemble"]
+        tracer = trace.Tracer(path) if path else None
+        prev = trace.install(tracer) if tracer else None
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            sync()
+        finally:
+            wall = time.perf_counter() - t0
+            if tracer:
+                trace.install(prev)
+                tracer.close()
+        spans = None
+        if tracer:
+            spans = _trace_summary(path)
+            for f in (tracer.path, tracer.jsonl_path):
+                os.remove(f)
+        return out, wall, kernels.LAUNCHES["front_assemble"] - before, spans
+
+    path = job.trace.replace("%r", str(rank))
+    try:
+        a_loc = job.a_source(job.n_ranks, rank)
+        lu, bvals = root_analyze_bcast(
+            tc, dataclasses.replace(opts, iter_refine=IterRefine.NOREFINE),
+            a_loc, Stats(), device=dev)
+        lu.grid, lu.device = grid, dev
+        dtype = resolve_factor_dtype(opts.factor_dtype, dev,
+                                     np.iscomplexobj(bvals))
+        kw = dict(dtype=dtype, grid=grid, gemm_prec=opts.gemm_prec,
+                  pool_partition=opts.pool_partition)
+
+        def fact(executor):
+            return numeric_factorize(lu.plan, bvals, lu.anorm,
+                                     executor=executor, **kw)
+        _, rec["untraced_s"], rec["untraced_launches"], _ = timed(
+            lambda: fact("stream"))
+        ng, rec["traced_s"], rec["traced_launches"], rec["traced"] = timed(
+            lambda: fact("stream"), path)
+        rec["groups"] = len(lu.plan.groups)
+        rec["owned_groups"] = ng.executor["owned_groups"]
+        # the level leg: the capture, then the traced replay
+        ex = MeshStreamExecutor(lu.plan, dtype, dev, grid,
+                                gemm_prec=opts.gemm_prec,
+                                pool_partition=opts.pool_partition,
+                                granularity="level")
+        real = torch.empty((), dtype=dtype).real.dtype
+        thresh = torch.tensor(np.sqrt(torch.finfo(dtype).eps)
+                              * max(lu.anorm, 1e-300), dtype=real)
+        avals = torch.as_tensor(np.asarray(bvals)).to(dtype)
+        _, rec["level_capture_s"], rec["level_capture_launches"], _ = timed(
+            lambda: ex(avals, thresh))
+        (fronts, tiny, shard), rec["level_s"], rec["level_launches"], \
+            rec["level_spans"] = timed(lambda: ex(avals, thresh), path)
+        rec["level_waves"] = len(ex.units())
+        rec["level_equal"] = (
+            len(fronts) == len(ng.fronts)
+            and all(torch.equal(a, b) and torch.equal(c, d)
+                    for (a, c), (b, d) in zip(fronts, ng.fronts))
+            and all(torch.equal(p, q) for p, q in zip(shard.pivots,
+                                                      ng.shard.pivots))
+            and int(tiny) == ng.tiny_pivots)
+        rec["level_report"] = ex.report()
+        rec["level_profile"] = len(ex.last_profile or [])
+        nf, rec["fused_s"], rec["fused_launches"], _ = timed(
+            lambda: fact("fused"))
+        rec["fused_report"] = nf.executor
+        del nf, ng
+        # the level factors solved and refined through pgssvx FACTORED
+        lu.numeric = NumericFactorization(
+            plan=lu.plan, fronts=fronts, tiny_pivots=int(tiny), dtype=dtype,
+            gemm_prec=ex.gemm_prec, executor=ex.report(), shard=shard)
+        lu.dev_solver = None
+        x, info = pgssvx(tc, dataclasses.replace(opts, fact=Fact.FACTORED),
+                         a_loc, job.b_source(job.n_ranks, rank), lu=lu,
+                         lu_out=lu_out, grid=grid)
     finally:
         tc.close()
     return x, info
@@ -402,8 +565,8 @@ def peer_main(rank: int, jobs: list, results) -> None:
     lu = None
     try:
         for i, job in enumerate(jobs):
-            rec = run_job(job, rank,
-                          job.device if job.kind == "mesh" else "cpu", lu=lu)
+            rec = run_job(job, rank, job.device if job.kind in (
+                "mesh", "mesh_trace") else "cpu", lu=lu)
             lu = rec["lu_out"].get("lu", lu)
             rec["job"] = i
             results.put(_shippable(rec))

@@ -1305,3 +1305,95 @@ def test_df64_on_the_card_is_float64_bit_for_bit(cuda, cplx):
         torch.complex128 if cplx else torch.float64)
     assert got["df64"][2] == got["float64"][2]
     np.testing.assert_array_equal(got["df64"][0], got["float64"][0])
+
+
+# ---------------------------------------------------------------------------
+# kernel spans and granularity="level" on the grid, on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("executor", ["stream", "level", "fused", "mega"])
+def test_kernel_spans_on_the_card(cuda, tmp_path, executor):
+    """A FACT of poisson3d(12) (float32, the default tier) under a file
+    Tracer against an untraced one: the fronts bit for bit, no more
+    synchronize calls, the same launches, a kernel span a group (a wave
+    at "level", one factor-fused), each with a positive device time,
+    last_profile one entry a span."""
+    import json
+    from superlu_dist_tpu_torch.numeric.fused import FusedExecutor
+    from superlu_dist_tpu_torch.numeric.mega import MegaExecutor
+    from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+    from superlu_dist_tpu_torch.obs import trace
+    lu, bvals, _ = slt.analyze(slt.Options(), poisson3d(12), device=cuda)
+    plan = lu.plan
+    ex = {"stream": lambda: StreamExecutor(plan, torch.float32, cuda),
+          "level": lambda: StreamExecutor(plan, torch.float32, cuda,
+                                          granularity="level"),
+          "fused": lambda: FusedExecutor(plan, torch.float32, cuda),
+          "mega": lambda: MegaExecutor(plan, torch.float32, cuda)}[executor]()
+    thresh = torch.tensor(np.sqrt(np.finfo(np.float32).eps) * lu.anorm,
+                          dtype=torch.float32)
+    avals = torch.as_tensor(bvals)
+    ex(avals, thresh)                      # the graphs' capture
+    calls = []
+    real_sync = torch.cuda.synchronize
+
+    def run(path=None):
+        tracer = trace.Tracer(path) if path else None
+        prev = trace.install(tracer) if tracer else None
+        torch.cuda.synchronize = lambda *a: (calls.append(path),
+                                             real_sync(*a))[1]
+        kernels.reset_launches()
+        try:
+            out = ex(avals, thresh)
+        finally:
+            torch.cuda.synchronize = real_sync
+            if tracer:
+                trace.install(prev)
+                tracer.close()
+        real_sync()
+        return out, dict(kernels.LAUNCHES)
+    (plain, _), plain_l = run()
+    (traced, _), traced_l = run(str(tmp_path / "t.json"))
+    assert _equal(traced, plain) and traced_l == plain_l
+    untraced_syncs = calls.count(None)
+    assert len(calls) - untraced_syncs <= untraced_syncs
+    events = json.load(open(tmp_path / "t.json"))["traceEvents"]
+    spans = [e for e in events if e["cat"] == "kernel"]
+    want = {"stream": len(plan.groups), "mega": len(plan.groups),
+            "level": len(ex.waves()), "fused": 1}[executor]
+    assert len(spans) == want == len(ex.last_profile)
+    assert all(e["dur"] > 0 for e in spans)
+    if executor == "fused":
+        assert spans[0]["name"] == "factor-fused"
+    else:
+        assert all(e["args"]["aggregate"] == (executor == "level")
+                   for e in spans)
+
+
+def test_grid_level_and_spans_on_one_card(cuda, tmp_path):
+    """MeshStreamExecutor(granularity="level") on a 1×2 grid, both ranks
+    on the one card over gloo (float64): each rank's fronts and pivot
+    stacks bit for bit those of "group"; and every grid executor traced
+    on the card: a span a group (a wave at "level") with a positive
+    device time, the traced fronts bit for bit the untraced ones."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    lu, bvals, _ = slt.analyze(slt.Options(), poisson3d(10), device="cpu")
+    thresh = float(np.sqrt(np.finfo(np.float64).eps) * lu.anorm)
+    out = run_mesh_ranks(2, cases.level_vs_group, lu.plan, bvals, thresh,
+                         True, device="cuda", timeout=900)
+    for r in range(2):
+        assert out[r]["equal"] and out[r]["pivots_equal"], out[r]
+        assert out[r]["units"] < out[r]["groups"]
+    spans = run_mesh_ranks(2, cases.traced_grid_spans, lu.plan, bvals,
+                           thresh, str(tmp_path / "g"), device="cuda",
+                           timeout=900)
+    for r in range(2):
+        for name, rec in spans[r].items():
+            lu_spans = [d for n, d, _ in rec["kernel"] if n.startswith("lu ")]
+            assert rec["equal"], (r, name)
+            assert all(d > 0 for _, d, _ in rec["kernel"]), (r, name)
+            if name == "spmd":
+                continue
+            want = rec["units"]
+            assert len(lu_spans) == want == len(rec["profile"]), (r, name)

@@ -621,3 +621,95 @@ def grid_offload_on_the_card(tc, grid, spec):
                 x_rel=float(np.abs(x_host - x_dev).max()
                             / np.abs(x_dev).max()),
                 executor=host_f.executor)
+
+
+def _grid_numeric(ex, vals, thresh, dtype=torch.float64):
+    """One call of a grid executor ``ex`` on pattern values ``vals`` at
+    tiny-pivot threshold ``thresh``, as a NumericFactorization (what
+    ``gather_fronts`` takes)."""
+    from superlu_dist_tpu_torch.numeric.factor import NumericFactorization
+    real = torch.empty((), dtype=dtype).real.dtype
+    fronts, tiny, shard = ex(torch.as_tensor(np.asarray(vals)).to(dtype),
+                             torch.tensor(thresh, dtype=real))
+    return NumericFactorization(plan=ex.plan, fronts=fronts,
+                                tiny_pivots=int(tiny), dtype=dtype,
+                                gemm_prec=ex.gemm_prec,
+                                offload=ex.offload, executor=ex.report(),
+                                shard=shard)
+
+
+def level_vs_group(tc, grid, plan, vals, thresh, partition, offload="none"):
+    """``MeshStreamExecutor`` at "level" and at "group" on the grid (float64,
+    ``offload``): this rank's fronts and pivot stacks bit for bit, the
+    tiny counts, the reports' granularity and the level executor's units;
+    rank 0 also returns the level run's fronts gathered to slot order."""
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    runs = {}
+    for gran in ("group", "level"):
+        ex = MeshStreamExecutor(plan, torch.float64, grid.device, grid,
+                                pool_partition=partition, offload=offload,
+                                granularity=gran)
+        runs[gran] = (ex, _grid_numeric(ex, vals, thresh))
+    (eg, ng), (el, nl) = runs["group"], runs["level"]
+    full = gather_fronts(nl)
+    return dict(
+        equal=_equal_fronts(nl.fronts, ng.fronts),
+        pivots_equal=all(torch.equal(a, b) for a, b in
+                         zip(nl.shard.pivots, ng.shard.pivots)),
+        tiny=(nl.tiny_pivots, ng.tiny_pivots),
+        granularity=(nl.executor["granularity"], ng.executor["granularity"]),
+        executor=(nl.executor["executor"], type(el).__name__),
+        units=len(el.units()), groups=len(plan.groups),
+        on_host=sorted({str(t.device) for pair in nl.fronts for t in pair}),
+        fronts=[(lp.cpu().numpy(), up.cpu().numpy()) for lp, up in full]
+        if grid.rank == 0 else None)
+
+
+#: the grid executors whose spans ``traced_grid_spans`` reads
+TRACED = ("group", "level", "fused", "mega", "spmd")
+
+
+def traced_grid_spans(tc, grid, plan, vals, thresh, path):
+    """Per executor of TRACED, one untraced and one traced call on this
+    rank under a file ``Tracer`` at ``path`` + the executor + rank: its
+    kernel and dispatch spans (name, args), ``last_profile`` before and
+    after, and whether the traced call's fronts equal the untraced one's
+    bit for bit."""
+    import json
+    from superlu_dist_tpu_torch.obs import trace
+    from superlu_dist_tpu_torch.parallel.mesh_graphs import (
+        MeshFusedExecutor, MeshMegaExecutor)
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    from superlu_dist_tpu_torch.parallel.spmd import SpmdFactorExecutor
+    args = (plan, torch.float64, grid.device, grid)
+    make = {"group": lambda: MeshStreamExecutor(*args, pool_partition=True),
+            "level": lambda: MeshStreamExecutor(*args, pool_partition=True,
+                                                granularity="level"),
+            "fused": lambda: MeshFusedExecutor(*args, pool_partition=True),
+            "mega": lambda: MeshMegaExecutor(*args, pool_partition=True),
+            "spmd": lambda: SpmdFactorExecutor(*args)}
+    out = {}
+    for name in TRACED:
+        ex = make[name]()
+        plain = _grid_numeric(ex, vals, thresh)
+        before = getattr(ex, "last_profile", None)
+        file = f"{path}_{name}_r{grid.rank}.json"
+        t = trace.Tracer(file)
+        prev = trace.install(t)
+        try:
+            traced = _grid_numeric(ex, vals, thresh)
+        finally:
+            trace.install(prev)
+            t.close()
+        events = json.load(open(file))["traceEvents"]
+        out[name] = dict(
+            kernel=[(e["name"], e["dur"], e.get("args", {}))
+                    for e in events if e["cat"] == "kernel"],
+            dispatch=[e["name"] for e in events if e["cat"] == "dispatch"],
+            profile_before=before,
+            profile=getattr(ex, "last_profile", None),
+            equal=_equal_fronts(traced.fronts, plain.fronts),
+            units=len(ex.units()) if hasattr(ex, "units") else None)
+    return out
