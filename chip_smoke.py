@@ -6,6 +6,10 @@
 Phases, one result line each (the launch counts of every phase that
 drives the port are reset just before it and checked just after):
   1. card     — the card's name and power limit (nvidia-smi);
+     lint     — the port's static analyser over its default scope
+                (``python -m superlu_dist_tpu_torch.analysis --no-cache``
+                in a subprocess, on a host without jax): files, findings,
+                rules and seconds; any finding fails the script;
   2. build    — compile the CUDA kernels from csrc/ with nvcc (sm_90a);
      native   — compile the native host-analysis library (native/
                 slu_host.cpp, g++) and hold each of its functions against
@@ -853,6 +857,29 @@ def diag_log_product(a, row_order):
     return float(np.log(np.abs(csc.data[hit])).sum())
 
 
+def lint_phase():
+    """slulint for the port over its default scope, as a user runs it: a
+    subprocess of its own (the analysis imports no jax, and this host has
+    none), no cache.  Raises on any finding."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-m", "superlu_dist_tpu_torch.analysis",
+         "--no-cache", "--format", "json"],
+        capture_output=True, text=True, cwd=root, timeout=300)
+    seconds = time.perf_counter() - t0
+    if out.returncode not in (0, 1):
+        raise AssertionError(f"slulint exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    doc = json.loads(out.stdout)
+    say("lint", files=doc["files"], findings=len(doc["findings"]),
+        rules=doc["rules"], s=seconds, baselined=doc["baselined"])
+    if doc["findings"] or out.returncode:
+        raise AssertionError("slulint findings: " + "; ".join(
+            f"{f['path']}:{f['line']} {f['rule']} {f['message']}"
+            for f in doc["findings"]))
+
+
 def native_phase():
     """Phase 2b: the native host library on the card's host — its build
     from the checkout's source (timed; a failure raises with the
@@ -923,7 +950,9 @@ def native_phase():
         pair("mc64_product", lambda nat: diag_log_product(
             a, maximum_product_matching(a, want_scalings=False,
                                         native=nat)[0]),
-             same=lambda g, w: abs(g - w) <= 1e-12 * scale)
+             # a float64 sum of n logs, native against Python
+             same=lambda g, w:
+             abs(g - w) <= 1e-12 * scale)  # slulint: disable=SLU118
         cases[name] = dict(n=n, nnz=a.nnz, **out)
     say("native", library=str(lib), build_s=build_s, cases=cases)
 
@@ -2151,7 +2180,8 @@ def spmv_phase(a, torch, kernels, dist, gen):
                       + a.n_cols * k * isz + a.n_rows * k * isz)
             b_ms, b_by = bound(nbytes, 2 * a.nnz * k, dt)
             csr = torch.sparse_csr_tensor(ip, ix, v, size=(a.n_rows, a.n_cols))
-            lib = torch.sparse.mm(csr, x)
+            # the yardstick library call of the kernels line (library_ms)
+            lib = torch.sparse.mm(csr, x)  # slulint: disable=SLU116
             record = dict(
                 name="csr_spmv", route="cuda", source=SPMV_SOURCE,
                 replaces=SPMV_REPLACES, max_abs_err=err,
@@ -2160,7 +2190,9 @@ def spmv_phase(a, torch, kernels, dist, gen):
                 plain_ms=cuda_ms(lambda: dist.csr_spmv_plain(ip, ix, v, x,
                                                              max_row), 5),
                 bound_ms=b_ms, bound_by=b_by,
-                library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x), 20),
+                library_ms=cuda_ms(
+                    lambda: torch.sparse.mm(  # slulint: disable=SLU116
+                        csr, x), 20),
                 library_max_abs_diff=float((lib - y).abs().max()),
                 shape=dict(n=a.n_rows, nnz=a.nnz, k=k, bytes=nbytes))
     # a small matrix: an empty first and last row, a row of length 1
@@ -2171,7 +2203,9 @@ def spmv_phase(a, torch, kernels, dist, gen):
         v = torch.randn(9, generator=gen, device=dev, dtype=dt)
         x = torch.randn((5, 3), generator=gen, device=dev, dtype=dt)
         y = dist.csr_spmv(small_ip, small_ix, v, x)
-        if not (torch.equal(y, dist.csr_spmv_plain(small_ip, small_ix, v, x))
+        # the check reads its answer on the host, as it must
+        if not (torch.equal(  # slulint: disable=SLU113
+                y, dist.csr_spmv_plain(small_ip, small_ix, v, x))
                 and not y[0].any() and not y[4].any()):
             raise AssertionError(f"csr_spmv {dt} on the small matrix")
     say("kernels", **record)
@@ -3879,10 +3913,11 @@ def start_capi_client():
               log=os.path.join(wd, "client.log"),
               metrics=os.path.join(wd, "metrics.json"))
     root = os.path.dirname(os.path.abspath(__file__))
+    # the interpreter's search path, handed on to the client: not a knob
+    paths = os.environ.get("PYTHONPATH", "")  # slulint: disable=SLU104
     env = dict(os.environ, SLU_TPU_METRICS=st["metrics"],
                PYTHONPATH=os.pathsep.join(
-                   [root] + [p for p in os.environ.get(
-                       "PYTHONPATH", "").split(os.pathsep) if p]))
+                   [root] + [p for p in paths.split(os.pathsep) if p]))
     st["log_fh"] = open(st["log"], "w")
     st["started"] = time.perf_counter()
     st["proc"] = subprocess.Popen(
@@ -4345,6 +4380,7 @@ def main():
     card = card_line()
     say("card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda)
+    lint_phase()
 
     # 2. build: the host library's g++ beside the kernels' nvcc
     t0 = time.perf_counter()

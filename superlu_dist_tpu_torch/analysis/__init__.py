@@ -1,0 +1,46 @@
+"""slulint for the port — project-native static analysis.
+
+Port of the JAX package's ``analysis/`` package: its framework-neutral
+engine and rules, with the two device rules retargeted at torch.
+
+Rules:
+  SLU101 collective-consistency   (rules_collective.py, interprocedural;
+                                   TreeComm and ProcessGrid collectives)
+  SLU103 index-width discipline   (rules_index.py, flow-based)
+  SLU104 env-knob registry        (rules_env.py, utils/options.py)
+  SLU108 shared-mutable access    (rules_shared.py)
+  SLU109 lock-order discipline    (rules_lockorder.py; runtime twin
+                                   utils/lockwatch.py under
+                                   SLU_TPU_VERIFY_LOCKS=1)
+  SLU110 thread lifecycle         (rules_lifecycle.py)
+  SLU113 dispatch-loop host sync  (rules_program.py, device lattice)
+  SLU115 implicit downcast        (rules_precision.py, width lattice)
+  SLU116 unpinned GEMM tier       (rules_precision.py, source half)
+  SLU118 tolerance literals       (rules_precision.py, lexical)
+  SLU122 dispatch-loop copies     (rules_sharding.py, device lattice)
+
+Not ported: SLU102/SLU105/SLU107 (jit bodies and jit cache keys — the
+port has no jit), the jaxpr rules SLU111/SLU112/SLU114/SLU119/SLU121 and
+the jaxpr halves of SLU115/SLU116 (they audit traced XLA programs),
+SLU117 (df64 pair components — the port runs df64 as float64) and
+SLU120 (the JAX package's mesh-axis registry).
+
+Engine: every scan first builds a package-wide call graph
+(callgraph.py) and per-function dataflow summaries over the
+{i32, rank, env, device, f64/f32} taint lattice (dataflow.py); rules
+consume both.  Scan results are cached content-hash-keyed (cache.py,
+.slulint-torch-cache.json) so an unchanged tree rescans sub-second; the
+CLI emits text, JSON or SARIF 2.1.0 (sarif.py).  Nothing here imports
+torch except SLU104's registry read.
+
+CLI: ``python -m superlu_dist_tpu_torch.analysis [paths]`` (default: the
+package, chip_smoke.py and the port's scripts).
+"""
+
+from superlu_dist_tpu_torch.analysis.core import (Finding, Rule, analyze_paths,
+                                                  analyze_source,
+                                                  analyze_sources,
+                                                  default_rules, read_sources)
+
+__all__ = ["Finding", "Rule", "analyze_paths", "analyze_source",
+           "analyze_sources", "default_rules", "read_sources"]

@@ -164,9 +164,11 @@ def main(argv=None):
         wf = os.path.join(td, "worker.py")
         with open(wf, "w") as fh:
             fh.write(_WORKER)
+        # the interpreter's search path, handed on to the workers: not a
+        # knob of this package
+        paths = os.environ.get("PYTHONPATH", "")  # slulint: disable=SLU104
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
-                os.pathsep) if p]))
+            [root] + [p for p in paths.split(os.pathsep) if p]))
         procs = [subprocess.Popen(
             [sys.executable, wf, str(i), str(ns.nproc), str(port), shm, path,
              ns.device, "1" if ns.parsymb else "0",

@@ -144,9 +144,11 @@ def load():
     global _lib
     if _lib is not None:
         return _lib
+    # the build serializes itself on its own file lock, so it runs outside
+    # _load_lock: a thread waiting for the load never waits on the compiler
+    path = build()
     with _load_lock:
         if _lib is None:
-            path = build()
             try:
                 lib = ctypes.CDLL(str(path))
             except OSError as e:

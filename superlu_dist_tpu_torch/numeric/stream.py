@@ -323,7 +323,10 @@ class StreamExecutor:
                     progress_line(gi, len(plan.groups), t_issue0)
                 if gi == n_host and n_host:
                     # the end of the host share: the one move to the card
-                    pool, tiny = pool.to(dev), tiny.to(dev)
+                    # (once a call: the linter's device taint comes from
+                    # the loop's next pass, when they already lie there)
+                    pool = pool.to(dev)  # slulint: disable=SLU122
+                    tiny = tiny.to(dev)  # slulint: disable=SLU122
                     av, th = avals_dev, thresh.to(dev)
                 if tracer.enabled:
                     t0 = time.perf_counter()
@@ -471,7 +474,8 @@ class StreamExecutor:
                     pool = s_pool
                 else:
                     pool = pool.to(dev)
-                tiny = tiny.to(dev)
+                # the end of the host share, once a call (as in __call__)
+                tiny = tiny.to(dev)  # slulint: disable=SLU122
                 av, th = avals_dev, thresh.to(dev)
             if tracer.enabled:
                 t_wave = time.perf_counter()

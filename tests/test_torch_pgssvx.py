@@ -233,9 +233,10 @@ def test_root_analyze_bcast_strips_the_matrix():
                                 {"options": slt.Options(par_symb_fact=True)}],
                          ids=["grid", "replicate_analysis", "par_symb_fact"])
 def test_mesh_tier_arguments_raise(kw):
-    # the mesh tier runs (tests/test_torch_mesh.py); what it refuses,
-    # before any collective: a grid whose ranks are not the TreeComm's,
-    # and its analysis choices without a grid
+    # the mesh tier runs (tests/test_torch_mesh.py); what it refuses: a
+    # grid whose ranks are not the TreeComm's, in one all-reduce (the
+    # check is collective, so a mismatch on one rank raises on all), and
+    # its analysis choices without a grid, before any collective
     from superlu_dist_tpu_torch.parallel.grid import ProcessGrid
     a = gallery.poisson2d(4)
     part = distribute_rows(a, 1)[0]
@@ -246,7 +247,7 @@ def test_mesh_tier_arguments_raise(kw):
         with pytest.raises(SuperLUError, match="grid"):
             pg.pgssvx(tc, opts, part, np.ones(part.m_loc), device="cpu",
                       **kw)
-        assert tc.seq == 0                 # refused before any collective
+        assert tc.seq == (1 if "grid" in kw else 0)
 
 
 def test_options_ft_is_validated_like_jax():

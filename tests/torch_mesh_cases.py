@@ -153,6 +153,21 @@ def factored_without_handle(tc, grid, spec, opts_kw=None):
     return "no error"
 
 
+def mesh_entry_mismatch(tc, grid, spec):
+    """pgssvx(grid=) where rank 1 asks for a device that is not its grid
+    rank's (the card, on a CPU grid): the mesh tier's entry check is
+    collective, so every rank raises instead of rank 0 waiting in the
+    tier's first collective for a rank that left."""
+    a, b = _system(spec)
+    part, b_loc = _mine(a, b, grid)
+    try:
+        pgssvx(tc, slt.Options(), part, b_loc, grid=grid,
+               device="cuda" if grid.rank == 1 else None)
+    except SuperLUError as e:
+        return f"raised: {e}"
+    return "no error"
+
+
 def gssvx_grid(tc, grid, spec, opts_kw):
     """gssvx(grid=) with the whole matrix on every rank (collective), and
     FACTORED on its handle."""
