@@ -45,6 +45,25 @@ drives the port are reset just before it and checked just after):
                 (TF32) on the card, the dataflow solve schedule fused in
                 CUDA graphs, float64 refinement with its residual through
                 csr_spmv, the ladder when refinement misses;
+     audit    — the runtime program audits (utils/programaudit.py) on the
+                main path's handle: gssvx SamePattern_SameRowPerm with
+                every audit off, then with SLU_TPU_VERIFY_PROGRAMS /
+                _DTYPES / _SHARDING on and SLU_TPU_MEM_BUDGET_BYTES at the
+                card's 80e9 on a fresh executor: every group and solve
+                program walked on fake tensors before it runs, 0 findings,
+                programs per site, in-place coverage, baked bytes, the
+                audits' host seconds, the launches, sync calls and BERR
+                the un-audited run's; the largest program's peak estimate
+                beside the run's measured peak above what was resident;
+                then a budget of half the largest estimate:
+                MemoryBudgetError naming the first program above it, no
+                launch and no memory allocated; its
+                grid leg (audit_mesh, at the end of the mesh phase on its
+                two processes): a 2-D FACT of poisson3d(16) audited on both
+                ranks, every group program clean, the ranks' collective
+                digests equal, fronts bit for bit the un-audited FACT's
+                (``python3 chip_smoke.py audit``: the build, gssvx and
+                this phase with a mesh peer of its own);
      persist  — on that handle: save_lu, load_lu onto the card (fronts
                 torch.equal) and a FACTORED solve from the loaded handle;
                 then a gssvx handle of poisson3d(25) and its skeleton
@@ -1401,7 +1420,7 @@ MESH_FUSED = dict(executor="fused", pool_partition=True)
 MESH_MEGA = dict(executor="mega")
 
 
-def start_mesh_peer(slt, trace_only=False):
+def start_mesh_peer(slt, only=None):
     """The mesh phase's rank 1, spawned early (its ``import torch`` and
     its CUDA context overlap the phases before it): a process of its own
     on the same card, running thirteen ``pgssvx(grid=)`` jobs of a 1x2 grid
@@ -1413,10 +1432,11 @@ def start_mesh_peer(slt, trace_only=False):
     same DOFACT, FACTORED and SamePattern_SameRowPerm; then the grid legs:
     MESH_OFFLOAD DOFACT and FACTORED at nrhs 4, MESH_FUSED and MESH_MEGA
     each DOFACT and SamePattern_SameRowPerm; then the trace phase's grid
-    leg (a "mesh_trace" job, ``trace_mesh_leg``) on poisson3d(NX_TINY) —
-    that job alone with ``trace_only``.  It joins the process group at
-    its first job and waits there for rank 0 (this process).  Returns
-    the phase's state."""
+    leg (a "mesh_trace" job, ``trace_mesh_leg``) and the audit phase's
+    (a "mesh_audit" job, ``audit_mesh_leg``) on poisson3d(NX_TINY) — the
+    one named by ``only`` ("trace" or "audit") alone with it.  It joins
+    the process group at its first job and waits there for rank 0 (this
+    process).  Returns the phase's state."""
     from superlu_dist_tpu_torch.testing.ranks import (GallerySystem, RankJob,
                                                       free_port, spawn_peers)
     tag = f"/slt_mesh_{os.getpid()}"
@@ -1427,12 +1447,15 @@ def start_mesh_peer(slt, trace_only=False):
                       port=free_port(), device="cuda",
                       timeout_s=MESH_TIMEOUT_S,
                       trace=os.path.join(TRACE_DIR, "mesh_r%r.json"))
-    if trace_only:
+    audit2d = dataclasses.replace(trace2d, kind="mesh_audit",
+                                  name=f"{tag}_audit", trace="")
+    if only is not None:
+        job = {"trace": trace2d, "audit": audit2d}[only]
         t0 = time.perf_counter()
-        procs, results, spawned_at = spawn_peers({1: [trace2d]})
-        return dict(procs=procs, results=results, spawned_at=spawned_at,
-                    spawn_s=time.perf_counter() - t0, tag=tag,
-                    trace2d=trace2d, systems=dict(trace2d=trace_sys))
+        procs, results, spawned_at = spawn_peers({1: [job]})
+        return {"procs": procs, "results": results, "spawned_at": spawned_at,
+                "spawn_s": time.perf_counter() - t0, "tag": tag,
+                f"{only}2d": job, "systems": {f"{only}2d": trace_sys}}
     main_sys = GallerySystem("poisson3d", (NX,), seed=SEED)   # gssvx's b
     fact_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 60)
     fact4_sys = GallerySystem("poisson3d", (NX,), seed=SEED + 60, nrhs=4)
@@ -1478,18 +1501,21 @@ def start_mesh_peer(slt, trace_only=False):
                                 options=slt.Options(fact=second.options.fact,
                                                     **kw))
     t0 = time.perf_counter()
-    # the trace leg joins the process group booted by the first job
+    # the trace and audit legs join the process group booted by the first
+    # job
     trace2d = dataclasses.replace(trace2d, port=main.port)
+    audit2d = dataclasses.replace(audit2d, port=main.port)
     procs, results, spawned_at = spawn_peers(
         {1: [main, fact, ref, psf, main2, fact2, ref2, *legs.values(),
-             trace2d]})
+             trace2d, audit2d]})
     return dict(procs=procs, results=results, spawned_at=spawned_at,
                 spawn_s=time.perf_counter() - t0, tag=tag, main=main,
                 fact=fact, ref=ref, psf=psf, main2d=main2, fact2d=fact2,
-                ref2d=ref2, **legs, trace2d=trace2d, systems=dict(
+                ref2d=ref2, **legs, trace2d=trace2d, audit2d=audit2d,
+                systems=dict(
                     fact=fact_sys, ref=ref_sys, psf=psf_sys,
                     fact2d=fact_sys, ref2d=ref_sys, off2d_fact=fact4_sys,
-                    trace2d=trace_sys))
+                    trace2d=trace_sys, audit2d=trace_sys))
 
 
 def _mesh_rank(rec) -> dict:
@@ -1698,6 +1724,7 @@ def mesh_phase(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
                                      tiny_main, peer, kernels, tols, torch,
                                      target)
         out["trace"] = trace_mesh_leg(slt, peer, kernels, tols, torch)
+        out["audit"] = audit_mesh_leg(peer)
         done = _await(peer, (1,))[1]
     finally:
         codes = stop_peers(procs, timeout=60)
@@ -3829,6 +3856,202 @@ def trace_mesh_leg(slt, peer, kernels, tols, torch):
     return out
 
 
+#: the audit phase's budget: the card's memory
+CARD_BUDGET = int(80e9)
+
+
+def audit_phase(slt, a, b, lu, berr_main, kernels, torch, factor, plan,
+                bvals, anorm):
+    """The runtime program audits on the card (module docstring): on
+    ``lu`` (the main path's handle) gssvx SamePattern_SameRowPerm, un-
+    audited, then audited on a fresh executor (its cached executors
+    dropped, so every program is cold) under every audit with the budget
+    ``CARD_BUDGET``; then the half-estimate budget on a fresh executor
+    of ``plan`` (the phase-3 analysis, ``bvals`` / ``anorm``; the main
+    handle stays as the audited run left it)."""
+    from superlu_dist_tpu_torch.testing.ranks import audit_knobs
+    from superlu_dist_tpu_torch.utils.errors import MemoryBudgetError
+    hplan = lu.plan
+    groups, panels = len(hplan.groups), len(plan_panels(hplan))
+    same = slt.Options(fact=slt.Fact.SamePattern_SameRowPerm)
+
+    def run(label):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with SyncCount(torch) as sc:
+            _, _, st, info = slt.gssvx(same, a, b, lu=lu)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = expect_launches(label, kernels, groups, True, panels)
+        rep = st.solve_report
+        return dict(wall_s=wall, fact_s=st.utime["FACT"],
+                    solve_s=st.utime["SOLVE"], info=info, berr=rep.berr,
+                    refine_steps=rep.refine_steps, launches=launched,
+                    syncs=sc.calls,
+                    peak_above_resident=torch.cuda.max_memory_allocated()
+                    - base)
+
+    plain = run("audit un-audited")
+    hplan.__dict__.pop("_factor_fns", None)
+    with audit_knobs(SLU_TPU_MEM_BUDGET_BYTES=str(CARD_BUDGET)) as pa:
+        audited = run("audit audited")
+        blk = pa.audit_block()
+        peaks = {lbl: st["peak_bytes_est"] for (site, lbl), st
+                 in pa.get_sharding_auditor().audited.items()
+                 if site == "stream.group_step"}
+    if not (plain["info"] == audited["info"] == 0
+            and plain["berr"] == audited["berr"] == berr_main
+            and plain["launches"] == audited["launches"]
+            and plain["syncs"] == audited["syncs"]
+            and blk["findings"] == 0 and blk["inplace_coverage_pct"] == 100.0
+            and blk["baked_const_bytes"] == 0
+            and blk["sites"].get("stream.group_step") == len(
+                {(g.batch, g.m, g.w, g.u) for g in hplan.groups})
+            and blk["sites"].get("device._sweep", 0) >= 2):
+        raise AssertionError(f"audit: un-audited {plain}, audited "
+                             f"{audited}, block {blk}, main BERR "
+                             f"{berr_main}")
+    est = blk["peak_bytes_est"]
+
+    # a budget of half the largest estimate: the first program above it
+    # raises before anything of the call runs
+    budget = est // 2
+    first = next(f"lu b{g.batch} m{g.m} w{g.w} u{g.u} float32 default"
+                 for g in hplan.groups
+                 if peaks[f"lu b{g.batch} m{g.m} w{g.w} u{g.u} float32 "
+                          "default"] > budget)
+    plan.__dict__.pop("_factor_fns", None)
+    # the plan's maps resident before, as on the main path (cached on the
+    # plan): the raised call may add nothing
+    factor.upload_maps(plan, torch.device("cuda"))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    before = torch.cuda.memory_allocated()
+    err = None
+    with audit_knobs(SLU_TPU_MEM_BUDGET_BYTES=str(budget)):
+        t0 = time.perf_counter()
+        try:
+            factor.numeric_factorize(plan, bvals, anorm, dtype=torch.float32,
+                                     device="cuda", executor="stream")
+        except MemoryBudgetError as e:
+            err = dict(site=e.site, program=e.program, peak=e.peak_bytes,
+                       budget=e.budget_bytes, rules=e.rules)
+        raised_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    launched = dict(kernels.LAUNCHES)
+    if (err is None or err["site"] != "stream.group_step"
+            or err["program"] != first or err["rules"] != ["SLU121"]
+            or any(launched.values()) or after != before):
+        raise AssertionError(f"audit budget {budget}: error {err} (the "
+                             f"first program above it: {first}), "
+                             f"launches {launched}, memory {before} -> "
+                             f"{after}")
+    out = dict(groups=groups, programs=blk["programs"], sites=blk["sites"],
+               findings=blk["findings"],
+               inplace_coverage_pct=blk["inplace_coverage_pct"],
+               dead_bytes=blk["dead_bytes"],
+               baked_const_bytes=blk["baked_const_bytes"],
+               audit_host_s=blk["seconds"],
+               peak_bytes_est=est, peak_program=blk["peak_program"],
+               measured_peak_above_resident=audited["peak_above_resident"],
+               est_over_measured=est / max(audited["peak_above_resident"], 1),
+               un_audited=plain, audited=audited,
+               budget=dict(budget_bytes=budget, error=err, seconds=raised_s,
+                           launches=launched, memory_before=before,
+                           memory_after=after))
+    say("audit", **out)
+    return out
+
+
+def audit_mesh_leg(peer):
+    """The audit phase's grid leg on the mesh phase's 1x2 grid (the
+    peer's "mesh_audit" job, ``testing.ranks.run_mesh_audit``) on
+    poisson3d(NX_TINY), MESH_2D: on both ranks an un-audited 2-D FACT,
+    then one under every audit on a fresh executor — every group program
+    walked and clean, the same digests on both ranks (the audits' own
+    exchange compared them), fronts, pivot stacks and tiny count bit for
+    bit the un-audited FACT's, the same launches."""
+    from superlu_dist_tpu_torch.testing.ranks import run_job
+    job = peer["audit2d"]
+    t0 = time.perf_counter()
+    rec0 = run_job(job, 0, "cuda")
+    wall = time.perf_counter() - t0
+    if "error" in rec0:
+        raise AssertionError(f"audit mesh rank 0: {rec0['error']}")
+    p1 = _await(peer, (1,), job.name, timeout=600)[1]
+    ranks = {}
+    for r, rec in ((0, rec0), (1, p1)):
+        if "error" in rec:
+            raise AssertionError(f"audit mesh rank {r}: {rec['error']}")
+        blk = rec["audit"]
+        ranks[r] = dict(programs=blk["programs"], sites=blk["sites"],
+                        findings=blk["findings"], audit_host_s=blk["seconds"],
+                        audited_fact_s=rec["audited_s"],
+                        peak_bytes_est=blk["peak_bytes_est"],
+                        launches=rec["launches"],
+                        audited_launches=rec["audited_launches"],
+                        audit_equal=rec["audit_equal"])
+        if not (blk["findings"] == 0 and blk["programs"] == rec["groups"]
+                and rec["audit_equal"]
+                and rec["launches"] == rec["audited_launches"]):
+            raise AssertionError(f"audit mesh rank {r}: {ranks[r]}")
+    if rec0["digests"] != p1["digests"]:
+        raise AssertionError("audit mesh: the ranks' collective digests "
+                             "differ")
+    out = dict(n=peer["systems"]["audit2d"].matrix().n_rows,
+               groups=rec0["groups"], wall_s=wall, digests_equal=True,
+               programs_compared=len(rec0["digests"]), ranks=ranks)
+    say("audit_mesh", **out)
+    return out
+
+
+def audit_only() -> int:
+    """``python3 chip_smoke.py audit``: the build, the main path's
+    analysis and gssvx, the audit phase and its grid leg with a mesh peer
+    of its own."""
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import factor, kernels
+    from superlu_dist_tpu_torch.parallel import mhboot
+    from superlu_dist_tpu_torch.testing.ranks import stop_peers
+    card = card_line()
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    kernels.library()
+    say("build", seconds=time.perf_counter() - t0)
+    peer = start_mesh_peer(slt, only="audit")
+    try:
+        a = poisson3d(NX)
+        lu0, bvals0, _ = slt.analyze(slt.Options(), a, device="cuda")
+        rng = np.random.default_rng(SEED)
+        b = a.matvec(rng.standard_normal(a.n_rows))
+        kernels.reset_launches()
+        _, lu, st, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+        torch.cuda.synchronize()
+        expect_launches("gssvx", kernels, len(lu.plan.groups), True,
+                        len(plan_panels(lu.plan)))
+        say("gssvx", info=info, berr=st.solve_report.berr,
+            fact_s=st.utime["FACT"])
+        check_berr("gssvx", st.solve_report.berr)
+        audit_phase(slt, a, b, lu, st.solve_report.berr, kernels, torch,
+                    factor, lu0.plan, bvals0, lu0.anorm)
+        audit_mesh_leg(peer)
+        _await(peer, (1,))
+    finally:
+        codes = stop_peers(peer["procs"], timeout=60)
+        mhboot.shutdown()
+    if codes != {1: 0}:
+        raise AssertionError(f"audit mesh peer exit code {codes}")
+    print(card)
+    return 0
+
+
 def trace_only() -> int:
     """``python3 chip_smoke.py trace``: the build, the main path's
     analysis, gssvx on poisson3d(NX_SMALL) and the trace phase — the
@@ -3844,7 +4067,7 @@ def trace_only() -> int:
     say("card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda)
     kernels.library()
-    peer = start_mesh_peer(slt, trace_only=True)
+    peer = start_mesh_peer(slt, only="trace")
     try:
         lu0, bvals0, _ = slt.analyze(slt.Options(), poisson3d(NX),
                                      device="cuda")
@@ -4367,6 +4590,8 @@ def main():
         return first_solve_only(sys.argv[2] if len(sys.argv) > 2 else "")
     if sys.argv[1:2] == ["trace"]:
         return trace_only()
+    if sys.argv[1:2] == ["audit"]:
+        return audit_only()
     import superlu_dist_tpu_torch as slt
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (convection_diffusion_2d,
@@ -4510,6 +4735,10 @@ def main():
                              "schedule")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+    # the runtime program audits on the main path's handle, before any
+    # later phase refactors it (their grid leg runs in the mesh phase)
+    audit_phase(slt, a, b, lu, berr, kernels, torch, factor, plan, bvals0,
+                lu0.anorm)
 
     # 4a. the handle saved, loaded and solved; a deadline-stopped
     # factorization resumed; 4b. the file-driven CLI on the same matrix —

@@ -13,17 +13,28 @@ Rules:
                                    utils/lockwatch.py under
                                    SLU_TPU_VERIFY_LOCKS=1)
   SLU110 thread lifecycle         (rules_lifecycle.py)
+  SLU111 dead argument copied     (rules_program.py, program walk)
+  SLU112 baked tensors            (rules_program.py, program walk)
   SLU113 dispatch-loop host sync  (rules_program.py, device lattice)
-  SLU115 implicit downcast        (rules_precision.py, width lattice)
-  SLU116 unpinned GEMM tier       (rules_precision.py, source half)
+  SLU114 collective lockstep      (rules_program.py, program walk and
+                                   the ranks' digest exchange)
+  SLU115 implicit downcast        (rules_precision.py, width lattice;
+                                   and its program half)
+  SLU116 unpinned GEMM tier       (rules_precision.py, source and
+                                   program halves)
   SLU118 tolerance literals       (rules_precision.py, lexical)
+  SLU119 implicit replication     (rules_sharding.py, program walk)
+  SLU121 peak memory              (rules_sharding.py, program walk)
   SLU122 dispatch-loop copies     (rules_sharding.py, device lattice)
 
+The program rules run over recorded programs (program.py: each program
+run once on fake tensors under a recording dispatch mode) when the
+runtime audits are on (utils/programaudit.py); in a source scan they
+are catalog entries with nothing to check.
+
 Not ported: SLU102/SLU105/SLU107 (jit bodies and jit cache keys — the
-port has no jit), the jaxpr rules SLU111/SLU112/SLU114/SLU119/SLU121 and
-the jaxpr halves of SLU115/SLU116 (they audit traced XLA programs),
-SLU117 (df64 pair components — the port runs df64 as float64) and
-SLU120 (the JAX package's mesh-axis registry).
+port has no jit), SLU117 (df64 pair components — the port runs df64 as
+float64) and SLU120 (the JAX package's mesh-axis registry).
 
 Engine: every scan first builds a package-wide call graph
 (callgraph.py) and per-function dataflow summaries over the

@@ -201,17 +201,19 @@ def default_rules() -> list:
         LockOrderRule
     from superlu_dist_tpu_torch.analysis.rules_lifecycle import \
         ThreadLifecycleRule
-    from superlu_dist_tpu_torch.analysis.rules_program import \
-        HostRoundTripRule
+    from superlu_dist_tpu_torch.analysis.rules_program import (
+        BakedConstRule, CollectiveLockstepRule, HostRoundTripRule,
+        InPlaceRule)
     from superlu_dist_tpu_torch.analysis.rules_precision import (
         AccumulationDtypeRule, ImplicitDowncastRule, ToleranceLiteralRule)
-    from superlu_dist_tpu_torch.analysis.rules_sharding import \
-        CrossDeviceCopyRule
+    from superlu_dist_tpu_torch.analysis.rules_sharding import (
+        CrossDeviceCopyRule, ImplicitReshardRule, PeakMemoryRule)
     return [CollectiveRule(), IndexWidthRule(), EnvKnobRule(),
             SharedMutableRule(), LockOrderRule(), ThreadLifecycleRule(),
-            HostRoundTripRule(), ImplicitDowncastRule(),
+            InPlaceRule(), BakedConstRule(), HostRoundTripRule(),
+            CollectiveLockstepRule(), ImplicitDowncastRule(),
             AccumulationDtypeRule(), ToleranceLiteralRule(),
-            CrossDeviceCopyRule()]
+            ImplicitReshardRule(), PeakMemoryRule(), CrossDeviceCopyRule()]
 
 
 def analyze_source(source: str, path: str, rules, project=None) -> list:

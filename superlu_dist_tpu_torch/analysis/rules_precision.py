@@ -31,10 +31,18 @@ SLU118 — tolerance hygiene (lexical).  Float comparison literals in the
 tolerance band (1e-18, 1e-5] — ``berr < 1e-6`` style, and ``rtol=`` /
 ``atol=`` kwargs — encode a dtype assumption no reader can audit.
 
+The program halves of SLU115 / SLU116 run over RECORDED PROGRAMS
+(``analysis/program.py``, under ``SLU_TPU_VERIFY_DTYPES=1``): a
+non-scalar ``_to_copy`` / ``copy_`` to a narrower float dtype is
+sanctioned only when it feeds, through shape-only ops (and widening
+copies: the bf16 tier's rounded-float32 route), matmul-family ops
+producing at least float32 — ``ops/dense._bf16_gemm``'s shape; a
+matmul-family op must produce at least its widest float operand's width,
+and at least float32 on 16-bit operands.
+
 Port of the JAX package's ``analysis/rules_precision.py``.  Not ported:
 SLU117 (df64 error-free-transform purity — the port runs df64 as
-float64 and has no pair components) and the jaxpr halves of SLU115 /
-SLU116 (they audit traced XLA programs).
+float64 and has no pair components).
 """
 
 from __future__ import annotations
@@ -302,3 +310,132 @@ class ToleranceLiteralRule(Rule):
                     if v is not None and _in_band(v):
                         flag(kw.value, v, f"an {kw.arg}= keyword")
         return out
+
+
+# --------------------------------------------------------------------------
+# the program halves (SLU115 / SLU116 over recorded programs)
+# --------------------------------------------------------------------------
+
+#: ops that only re-shape, re-stride or copy a value: a narrowed value may
+#: pass through them on its way to the GEMM that consumes it
+_SHAPE_ONLY_OPS = frozenset({
+    "view", "_unsafe_view", "reshape", "transpose", "t", "permute",
+    "expand", "slice", "select", "unsqueeze", "squeeze", "alias",
+    "detach", "clone", "contiguous", "as_strided", "_reshape_alias",
+    "unflatten", "flatten", "split", "chunk", "cat", "constant_pad_nd",
+    "narrow", "lift_fresh"})
+
+#: the matmul family: their accumulator is what SLU116 pins
+MATMUL_OPS = frozenset({"mm", "bmm", "addmm", "baddbmm", "addbmm",
+                        "matmul", "linear", "_scaled_mm"})
+
+_NARROWING_OPS = frozenset({"_to_copy", "copy_", "copy"})
+
+
+def _width(t):
+    from superlu_dist_tpu_torch.analysis.program import dtype_width
+    return dtype_width(t.dtype)
+
+
+def _narrowing(op):
+    """(source, narrowed output) of a narrowing convert, or None."""
+    if op.name not in _NARROWING_OPS or not op.inputs:
+        return None
+    if op.name == "_to_copy":
+        src, dst = op.inputs[0], op.outputs[0] if op.outputs else None
+    elif len(op.inputs) >= 2:           # copy_(self, src): self is written
+        src, dst = op.inputs[1], op.inputs[0]
+    else:
+        return None
+    if dst is None:
+        return None
+    w_in, w_out = _width(src), _width(dst)
+    if w_in is None or w_out is None or w_out >= w_in:
+        return None
+    if not src.shape:
+        return None                     # scalars carry no values
+    return src, dst
+
+
+def _sanctioned_narrow(ops, start, dst) -> bool:
+    """True when every later consumer of the narrowed storage — through
+    shape-only ops and widening copies — is a matmul-family op producing
+    at least float32 (no consumer: the value escapes; passes)."""
+    narrowed = {dst.storage}
+    for op in ops[start + 1:]:
+        hit = [t for i, t in enumerate(op.inputs) if t.storage in narrowed
+               and i not in op.writes]
+        if not hit:
+            continue
+        if op.name in MATMUL_OPS:
+            w = _width(op.outputs[0]) if op.outputs else None
+            if w is None or w < 32:
+                return False
+            continue
+        widening = op.name == "_to_copy" and op.outputs and all(
+            (_width(op.outputs[0]) or 0) >= (_width(t) or 0) for t in hit)
+        if op.name in _SHAPE_ONLY_OPS or widening:
+            narrowed.update(t.storage for t in op.outputs)
+            continue
+        return False
+    return True
+
+
+def audit_narrowing(spec):
+    """SLU115 over a recorded program: narrowing converts on non-scalar
+    values outside the sanctioned GEMM-input pattern.  Returns
+    ``(findings, {n_converts, n_narrowing})``."""
+    from superlu_dist_tpu_torch.analysis.rules_program import program_finding
+    findings = []
+    n_converts = n_narrow = 0
+    for k, op in enumerate(spec.ops):
+        if op.name in _NARROWING_OPS:
+            n_converts += 1
+        pair = _narrowing(op)
+        if pair is None:
+            continue
+        n_narrow += 1
+        src, dst = pair
+        if _sanctioned_narrow(spec.ops, k, dst):
+            continue
+        findings.append(program_finding(
+            RULE_IMPLICIT_DOWNCAST, spec,
+            f"narrowing `{op.op}` f{_width(src)}->f{_width(dst)} on "
+            f"{src.short()} whose consumers are not matmuls accumulating "
+            "at float32 or wider — the program silently discards "
+            "mantissa bits the ladder never sanctioned",
+            "narrow only as GEMM INPUT with the product at float32 or "
+            "wider (ops/dense._bf16_gemm's shape), or keep the value at "
+            "its compute width"))
+    return findings, {"n_converts": n_converts, "n_narrowing": n_narrow}
+
+
+def audit_accumulation(spec):
+    """SLU116 over a recorded program: every matmul-family op must
+    produce a float width at least its widest float operand's, and at
+    least 32 when any operand is narrower than 32 bits.  Returns
+    ``(findings, {n_matmuls})``."""
+    from superlu_dist_tpu_torch.analysis.rules_program import program_finding
+    findings = []
+    n = 0
+    for op in spec.ops:
+        if op.name not in MATMUL_OPS or not op.outputs:
+            continue
+        n += 1
+        ws = [w for w in (_width(t) for t in op.inputs) if w is not None]
+        if not ws:
+            continue
+        need = max(ws)
+        if min(ws) < 32:
+            need = max(need, 32)
+        w_out = _width(op.outputs[0])
+        if w_out is not None and w_out < need:
+            findings.append(program_finding(
+                RULE_ACCUM_DTYPE, spec,
+                f"`{op.op}` produces f{w_out} from operand widths "
+                f"{sorted(set(ws))} — required f{need} or wider: the "
+                "bf16-GEMM-without-float32-accumulation bug, caught "
+                "before the program runs instead of by a BERR gate",
+                "route the product through ops/dense.gemm (the bf16 tier "
+                "multiplies with out_dtype=torch.float32)"))
+    return findings, {"n_matmuls": n}

@@ -36,6 +36,12 @@ position receives the same adds in the same order (identity, A entry,
 then the children in set order and child order), and one block owns each
 position; every panel element the same rounded operations in the same
 order.
+
+Each kernel is also a registered op (``slu::front_assemble``,
+``extend_add``, ``assemble``, ``panel_lu``; ``csr_spmv`` in
+parallel/dist.py) with a fake implementation, so a program walk on fake
+tensors (analysis/program.py, the runtime audits) sees a launch as one
+op; real tensors reach the launches directly.
 """
 
 from __future__ import annotations
@@ -173,6 +179,16 @@ def _panel_init(index: int) -> None:
     _panel_ready.add(index)
 
 
+def _fake(t) -> bool:
+    """True for a tensor of a program walk (a FakeTensor, analysis/
+    program.py — a torch.Tensor subclass): it holds no memory, so it
+    takes the kernel op's fake implementation, which allocates what the
+    kernel allocates and launches nothing.  A real tensor reaches the
+    launch directly: the op's dispatch would be host time on a
+    host-paced FACT (PERF.md §6)."""
+    return type(t) is not torch.Tensor
+
+
 def _on_cuda(values, index) -> bool:
     """True for the kernel path, False for the plain version; raises on
     mixed devices or on inputs the kernel does not take.  ``values`` are
@@ -226,9 +242,16 @@ class FrontMaps:
     def __post_init__(self):
         if self.mc is None:
             self.mc = self.m
-        # the launch passes these on every call: take them once
         self.device = self.a_bkt.device
-        self.ptrs = tuple(t.data_ptr() for t in self.tensors())
+        self._ptrs = None
+
+    @property
+    def ptrs(self) -> tuple:
+        """The maps' addresses, which every launch passes: read once, at
+        the first launch (a program walk's fake maps have none)."""
+        if self._ptrs is None:
+            self._ptrs = tuple(t.data_ptr() for t in self.tensors())
+        return self._ptrs
 
     def tensors(self):
         return (self.a_bkt, self.a_ent, self.ch_ptr, self.ch_rec, self.rel,
@@ -556,11 +579,21 @@ def front_assemble_(avals, pool, m, w, maps: GroupMaps):
     fm = maps.front
     if fm.m != m:
         raise ValueError(f"the maps were built for m={fm.m}, not {m}")
-    if not _on_cuda((pool, avals), (maps.ws,)):
+    cuda = _on_cuda((pool, avals), (maps.ws,))
+    if _fake(pool):
+        return torch.ops.slu.front_assemble(
+            pool, avals, maps.ws, list(fm.tensors()),
+            [fm.batch, m, fm.mc, w, fm.pool_len, fm.pairs, *fm.cols],
+            fm.kind)
+    if not cuda:
         return front_assemble_plain(avals, pool, m, w, maps)
-    f = torch.empty((fm.batch, m * fm.mc), dtype=pool.dtype,
+    return _front_assemble_kernel(avals, pool, w, maps.ws, fm)
+
+
+def _front_assemble_kernel(avals, pool, w, ws, fm: FrontMaps):
+    f = torch.empty((fm.batch, fm.m * fm.mc), dtype=pool.dtype,
                     device=pool.device)
-    return launch_(f, fm, pool=pool, avals=avals, ws=maps.ws, w=w)
+    return launch_(f, fm, pool=pool, avals=avals, ws=ws, w=w)
 
 
 # ---------------------------------------------------------------------------
@@ -636,8 +669,16 @@ def extend_add_(f, pool, m, ub, child_off, child_slot, rel):
             or rel.shape != (nc, ub) or pool.dim() != 1):
         raise ValueError("child_off/child_slot must be (C,), rel (C, ub) "
                          "and pool 1-D")
-    if not _on_cuda((f, pool), (child_off, child_slot, rel)):
+    cuda = _on_cuda((f, pool), (child_off, child_slot, rel))
+    if _fake(f):
+        torch.ops.slu.extend_add(f, pool, m, ub, child_off, child_slot, rel)
+        return f
+    if not cuda:
         return extend_add_plain(f, pool, m, ub, child_off, child_slot, rel)
+    return _extend_add_kernel(f, pool, m, ub, child_off, child_slot, rel)
+
+
+def _extend_add_kernel(f, pool, m, ub, child_off, child_slot, rel):
     maps = build_front_maps(
         f.shape[0], m, pool.shape[0], device=f.device, kind="extend_add",
         children=[(ub, _host(child_off), _host(child_slot), _host(rel))])
@@ -676,11 +717,20 @@ def assemble_(f, avals, a_slot, a_flat, a_src):
             or a_src.shape != (n,) or a_slot.dim() != 1:
         raise ValueError("f must be (batch, m*m), avals and the maps 1-D "
                          "of one length")
-    if not _on_cuda((f, avals), (a_slot, a_flat, a_src)):
-        return assemble_plain(f, avals, a_slot, a_flat, a_src)
+    cuda = _on_cuda((f, avals), (a_slot, a_flat, a_src))
     m = int(round(f.shape[1] ** 0.5))
-    if m * m != f.shape[1]:
+    if cuda and m * m != f.shape[1]:
         raise ValueError(f"f's rows must hold square fronts, got {f.shape[1]}")
+    if _fake(f):
+        torch.ops.slu.assemble(f, avals, a_slot, a_flat, a_src)
+        return f
+    if not cuda:
+        return assemble_plain(f, avals, a_slot, a_flat, a_src)
+    return _assemble_kernel(f, avals, a_slot, a_flat, a_src)
+
+
+def _assemble_kernel(f, avals, a_slot, a_flat, a_src):
+    m = int(round(f.shape[1] ** 0.5))
     maps = build_front_maps(f.shape[0], m, 0, device=f.device,
                             kind="assemble",
                             a=(_host(a_slot), _host(a_flat), _host(a_src)))
@@ -852,7 +902,11 @@ def panel_lu_(panel, j0, pa, thresh, flags):
     if len(devs) != 1:
         raise ValueError(f"panel, thresh and flags lie on several devices: "
                          f"{sorted(map(str, devs))}")
-    if panel.device.type != "cuda":
+    cuda = panel.device.type == "cuda"
+    if _fake(panel):
+        torch.ops.slu.panel_lu(panel, thresh, flags, j0, pa)
+        return panel
+    if not cuda:
         return panel_lu_plain(panel, j0, pa, thresh, flags)
     return panel_launch_(panel, j0, pa, thresh, flags)
 
@@ -860,6 +914,13 @@ def panel_lu_(panel, j0, pa, thresh, flags):
 def panel_launch_(panel, j0, pa, thresh, flags):
     """Launch ``csrc/panel_lu.cu`` on a CUDA panel (``panel_lu_``'s
     kernel path), or raise."""
+    _panel_kernel(panel, j0, pa, thresh, flags)
+    return panel
+
+
+def _panel_kernel(panel, j0, pa, thresh, flags):
+    """``panel_launch_``'s launch; returns the kernel's snapshot scratch
+    (B, pa, pb + 2), which the launch pair writes and reads."""
     _check_panel(panel, j0, pa, thresh, flags)
     b, m, pb = panel.shape
     dev = panel.device
@@ -872,12 +933,12 @@ def panel_launch_(panel, j0, pa, thresh, flags):
                          "device")
     if pb > PANEL_MAX:
         raise ValueError(f"panels of at most {PANEL_MAX} columns, got {pb}")
+    snap = torch.empty((b, pa, pb + 2), dtype=panel.dtype, device=dev)
     if b == 0:
-        return panel
+        return snap
     real = panel.real.dtype if panel.dtype.is_complex else panel.dtype
     if thresh.dtype != real:
         thresh = thresh.to(real)
-    snap = torch.empty((b, pa, pb + 2), dtype=panel.dtype, device=dev)
     if _lib is None:
         library()
     _panel_init(dev.index if dev.index is not None
@@ -890,4 +951,64 @@ def panel_launch_(panel, j0, pa, thresh, flags):
     if rc != 0:
         raise RuntimeError(f"panel_lu kernel launch failed: CUDA error {rc}")
     LAUNCHES["panel_lu"] += 1
-    return panel
+    return snap
+
+
+# ---------------------------------------------------------------------------
+# the kernels as registered ops: what a program walk sees
+# ---------------------------------------------------------------------------
+#
+# Each kernel is one ``slu::`` op whose implementation is its launch and
+# whose fake implementation allocates what the kernel allocates (the
+# front batch, the panel's snapshot scratch, y) and launches nothing; the
+# schema declares what it writes in place (f, the panel and its flags).
+# A program walk (analysis/program.py, on FakeTensors) sees each launch
+# as one op.  Real tensors reach the launches directly.
+
+@torch.library.custom_op("slu::front_assemble", mutates_args=())
+def _front_assemble_op(pool: torch.Tensor, avals: torch.Tensor | None,
+                       ws: torch.Tensor, maps: list[torch.Tensor],
+                       dims: list[int], kind: str) -> torch.Tensor:
+    batch, m, mc, w, pool_len, pairs, *cols = dims
+    fm = FrontMaps(kind, batch, m, pool_len, *maps, pairs=pairs, mc=mc,
+                   cols=tuple(cols))
+    return _front_assemble_kernel(avals, pool, w, ws, fm)
+
+
+@_front_assemble_op.register_fake
+def _(pool, avals, ws, maps, dims, kind):
+    return pool.new_empty((dims[0], dims[1] * dims[2]))
+
+
+@torch.library.custom_op("slu::extend_add", mutates_args=("f",))
+def _extend_add_op(f: torch.Tensor, pool: torch.Tensor, m: int, ub: int,
+                   child_off: torch.Tensor, child_slot: torch.Tensor,
+                   rel: torch.Tensor) -> None:
+    _extend_add_kernel(f, pool, m, ub, child_off, child_slot, rel)
+
+
+@_extend_add_op.register_fake
+def _(f, pool, m, ub, child_off, child_slot, rel):
+    return None
+
+
+@torch.library.custom_op("slu::assemble", mutates_args=("f",))
+def _assemble_op(f: torch.Tensor, avals: torch.Tensor, a_slot: torch.Tensor,
+                 a_flat: torch.Tensor, a_src: torch.Tensor) -> None:
+    _assemble_kernel(f, avals, a_slot, a_flat, a_src)
+
+
+@_assemble_op.register_fake
+def _(f, avals, a_slot, a_flat, a_src):
+    return None
+
+
+@torch.library.custom_op("slu::panel_lu", mutates_args=("panel", "flags"))
+def _panel_lu_op(panel: torch.Tensor, thresh: torch.Tensor,
+                 flags: torch.Tensor, j0: int, pa: int) -> torch.Tensor:
+    return _panel_kernel(panel, j0, pa, thresh, flags)
+
+
+@_panel_lu_op.register_fake
+def _(panel, thresh, flags, j0, pa):
+    return panel.new_empty((panel.shape[0], pa, panel.shape[2] + 2))

@@ -173,6 +173,18 @@ class MegaExecutor(StreamExecutor):
                 torch.zeros(self._pool_len(), dtype=self.dtype, device=dev))
         return self._static
 
+    # ---- the runtime program audits ----------------------------------------
+
+    def _audit_step(self, gi, avals, pool, thresh, maps, device=None) -> None:
+        """A bucket's program on the CPU, at its first group (on the card
+        ``_capture`` submits every bucket before its warm-up); the label
+        carries the pool rung, which dominates the bucket's peak."""
+        if self.device.type == "cuda":
+            return
+        g = self.plan.groups[gi]
+        self._submit_step((self.spec[(g.w, g.u)], g.m, g.w, g.u), avals,
+                          pool, thresh, maps[gi], rung=f" P{self._P}")
+
     # ---- one group ----------------------------------------------------------
 
     def _step(self, gi, avals, pool, thresh, maps, timings):
@@ -246,6 +258,9 @@ class MegaExecutor(StreamExecutor):
                 a_slot=torch.zeros(0, **i64), a_flat=torch.zeros(0, **i64),
                 a_src=torch.zeros(0, **i64), children=[], front=fm)
             buckets[key] = (smaps, m)
+        for key, (smaps, m) in buckets.items():
+            self._submit_step((smaps.ws.shape[0], m, *key), s_avals, s_pool,
+                              s_thresh, smaps, rung=f" P{self._P}")
         stream = torch.cuda.Stream(dev)
         scratch = torch.zeros_like(s_pool)
         stream.wait_stream(torch.cuda.current_stream(dev))

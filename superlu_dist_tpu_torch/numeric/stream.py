@@ -35,6 +35,7 @@ time of every call's group loop.
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 
@@ -52,6 +53,7 @@ from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
 from superlu_dist_tpu_torch.utils.errors import (CheckpointMismatchError,
                                                  SuperLUError)
 from superlu_dist_tpu_torch.utils.options import env_int, resolve_device
+from superlu_dist_tpu_torch.utils.programaudit import maybe_audit
 
 CPU = torch.device("cpu")
 
@@ -245,6 +247,8 @@ class StreamExecutor:
                                    # wave) per entry of waves()
         self._static = None        # their static avals, thresh and pool
         self.graph_stats = {}
+        self._submitted = set()    # programs submitted to the audits
+        self._all_submitted = False
 
     # ---- what the call loop reads (the mega executor overrides) --------
 
@@ -276,6 +280,52 @@ class StreamExecutor:
                                  gemm_prec=self.gemm_prec,
                                  scatter=self.scatter, timings=timings,
                                  panel=self.panel)
+
+    # ---- the runtime program audits (utils/programaudit.py) ---------------
+
+    def _tag(self) -> str:
+        """The dtype and GEMM tier a program label ends with."""
+        return f"{str(self.dtype).replace('torch.', '')} {self.gemm_prec}"
+
+    def _submit_step(self, dims, avals, pool, thresh, maps, rung="",
+                     device=None) -> None:
+        """Submit ``group_step`` at ``dims`` to the runtime audits, once
+        per shape key, with the pool declared dead (it is updated in
+        place); with every knob off a few env reads a key.  ``device``:
+        walk on fakes of that device (``trace_spec``)."""
+        if dims in self._submitted:
+            return
+        self._submitted.add(dims)
+        maybe_audit(f"{self.name}.group_step",
+                    "lu b{} m{} w{} u{}".format(*dims) + rung
+                    + f" {self._tag()}",
+                    functools.partial(factor.group_step, dims,
+                                      gemm_prec=self.gemm_prec,
+                                      scatter=self.scatter,
+                                      panel=self.panel),
+                    (avals, pool, thresh, maps), dead=(1,), device=device)
+
+    def _audit_step(self, gi, avals, pool, thresh, maps, device=None) -> None:
+        """Group ``gi``'s program, before the call runs any group."""
+        grp = self.plan.groups[gi]
+        self._submit_step((grp.batch, grp.m, grp.w, grp.u), avals, pool,
+                          thresh, maps[gi], device=device)
+
+    def _audit_wave(self, lo, hi, maps, avals, pool, thresh) -> None:
+        """Wave lo..hi's program (``run_groups``), before its warm-up or
+        first eager run, the pool declared dead."""
+        if (lo, hi) in self._submitted:
+            return
+        self._submitted.add((lo, hi))
+        n = len(self.plan.groups)
+        label = (f"fused g{n}" if (lo, hi) == (0, n) and self.name == "fused"
+                 else f"level{self.plan.groups[lo].level} g{hi - lo}")
+        maybe_audit(f"{self.name}.run_groups", f"{label} {self._tag()}",
+                    functools.partial(run_groups, self.plan, lo, hi,
+                                      gemm_prec=self.gemm_prec,
+                                      scatter=self.scatter,
+                                      panel=self.panel),
+                    (maps, avals, pool, thresh), dead=(2,))
 
     # ---- the call ---------------------------------------------------------
 
@@ -311,6 +361,15 @@ class StreamExecutor:
         progress = progress_every()
         tracer = get_tracer()
         clock = KernelClock(dev) if tracer.profiling else None
+        if self.granularity == "group" and not self._all_submitted:
+            # every group's program audited before any of the call runs
+            # (a card group after a host share: on fakes of the card)
+            for gi in range(start, len(plan.groups)):
+                host = gi < n_host
+                self._audit_step(gi, av if host else avals_dev, pool, th,
+                                 hmaps if host else maps,
+                                 None if host or not n_host else dev)
+            self._all_submitted = start == 0
         t_issue0 = time.perf_counter()
         if self.granularity == "level":
             tiny = self._call_waves(av, avals_dev, th, thresh, pool, maps,
@@ -482,10 +541,11 @@ class StreamExecutor:
             if clock is not None:
                 mark = clock.start(host=lo < n_host)
             if graph is None:
-                packed, t = run_groups(plan, lo, hi,
-                                       hmaps if lo < n_host else maps, av,
-                                       pool, th, self.gemm_prec, self.scatter,
-                                       timings, self.panel)
+                wmaps = hmaps if lo < n_host else maps
+                self._audit_wave(lo, hi, wmaps, av, pool, th)
+                packed, t = run_groups(plan, lo, hi, wmaps, av, pool, th,
+                                       self.gemm_prec, self.scatter, timings,
+                                       self.panel)
             else:
                 packed, t = graph.replay()
             if clock is not None:
@@ -531,6 +591,10 @@ class StreamExecutor:
                        self.gemm_prec, self.scatter, panel=self.panel)
 
         n_host = self._n_host_groups
+        # the waves' programs, audited before anything of them runs
+        for lo, hi in self.waves():
+            if lo >= n_host:
+                self._audit_wave(lo, hi, maps, s_avals, s_pool, s_thresh)
         self.graph_stats["warm_up_s"] = warm_up(
             step, ((gi, (g.batch, g.m, g.w, g.u))
                    for gi, g in enumerate(plan.groups) if gi >= n_host),

@@ -108,8 +108,15 @@ def csr_spmv(indptr, indices, vals, x, max_row=None):
     ``kernels.LAUNCHES["csr_spmv"]``; on the CPU it runs
     ``csr_spmv_plain``.  Bound: bytes.  Raises on a refused launch."""
     _check(indptr, indices, vals, x)
-    if x.device.type != "cuda":
+    cuda = x.device.type == "cuda"
+    if kernels._fake(x):
+        return torch.ops.slu.csr_spmv(indptr, indices, vals, x)
+    if not cuda:
         return csr_spmv_plain(indptr, indices, vals, x, max_row)
+    return _csr_spmv_kernel(indptr, indices, vals, x)
+
+
+def _csr_spmv_kernel(indptr, indices, vals, x):
     n_rows, k = indptr.shape[0] - 1, x.shape[1]
     y = torch.empty((n_rows, k), dtype=x.dtype, device=x.device)
     if n_rows * k == 0:
@@ -122,6 +129,19 @@ def csr_spmv(indptr, indices, vals, x, max_row=None):
         raise RuntimeError(f"csr_spmv kernel launch failed: CUDA error {rc}")
     kernels.LAUNCHES["csr_spmv"] += 1
     return y
+
+
+# the kernel as a registered op (numeric/kernels.py: what a program walk
+# sees — y allocated, nothing launched)
+@torch.library.custom_op("slu::csr_spmv", mutates_args=())
+def _csr_spmv_op(indptr: torch.Tensor, indices: torch.Tensor,
+                 vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return _csr_spmv_kernel(indptr, indices, vals, x)
+
+
+@_csr_spmv_op.register_fake
+def _(indptr, indices, vals, x):
+    return x.new_empty((indptr.shape[0] - 1, x.shape[1]))
 
 
 def _torch_dtype(dtype) -> torch.dtype:

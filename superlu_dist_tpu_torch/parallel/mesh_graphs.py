@@ -202,6 +202,9 @@ class _GridGraphs(MeshStreamExecutor):
             drive(self._group(gi, states(gi), scratch), local)
 
         from superlu_dist_tpu_torch.numeric import kernels
+        # every group's program audited before anything of it runs
+        for gi in range(len(self.plan.groups)):
+            self._audit_group(gi, states(gi), bufs)
         keys = ((gi, (self._rows()[gi], grp.m, grp.w))
                 for gi, grp in enumerate(self.plan.groups))
         before = dict(kernels.LAUNCHES)
@@ -515,6 +518,7 @@ class MeshMegaExecutor(_GridGraphs):
     def _run_group(self, gi, bufs):
         tables = self._padded_tables()
         if self.device.type != "cuda":
+            self._audit_group(gi, tables[gi], bufs)
             return self._finish(gi, *drive(
                 self._group(gi, tables[gi], bufs),
                 self._static_collective(bufs)))

@@ -57,6 +57,7 @@ too), and cuBLAS may not: on the card fronts are held to
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -68,6 +69,7 @@ from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.ops.dense import panel_width
 from superlu_dist_tpu_torch.parallel.layout2d import (expand, front_cols,
                                                       layout)
+from superlu_dist_tpu_torch.utils.programaudit import maybe_audit
 
 
 def share_maps(gl, device, batch=None) -> object:
@@ -154,6 +156,17 @@ class Exchange:
 
     def __init__(self, send, gl):
         self.send, self.gl = send, gl
+
+
+def run_request(grid, dtype, req, out=None):
+    """One request of a group program, run on ``grid``: a panel broadcast
+    over the process row or the exchange (into ``out`` when given)."""
+    if isinstance(req, Exchange):
+        gl = req.gl
+        return grid.exchange(req.send[:gl.send.total], gl.send_counts,
+                             gl.recv_counts, out=out)
+    t, owner, shape = req
+    return grid.bcast_row(t, owner, shape, dtype, out=out)
 
 
 def drive(program, collective):
@@ -266,6 +279,7 @@ class MeshStreamExecutor:
         self.last_comm = {}
         self._timings = None
         self._dev = None
+        self._submitted = set()    # group programs submitted to the audits
 
     def _device_state(self):
         """Per group on the device, built at the first call: the share's
@@ -357,15 +371,30 @@ class MeshStreamExecutor:
         return out
 
     def _collective(self, req, out=None):
-        """One request of a group program, run now: a panel broadcast
-        over the process row or the exchange (into ``out`` when given)."""
-        if isinstance(req, Exchange):
-            gl = req.gl
-            return self.grid.exchange(req.send[:gl.send.total],
-                                      gl.send_counts, gl.recv_counts,
-                                      out=out)
-        t, owner, shape = req
-        return self.grid.bcast_row(t, owner, shape, self.dtype, out=out)
+        """One request of a group program, run now (``run_request``)."""
+        return run_request(self.grid, self.dtype, req, out)
+
+    def _program(self, gi, st, bufs, grid):
+        """Group ``gi``'s program driven to its end on ``grid`` — what the
+        runtime audits walk (a recording stand-in for the grid there)."""
+        return drive(self._group(gi, st, bufs),
+                     functools.partial(run_request, grid, self.dtype))
+
+    def _audit_group(self, gi, st, bufs) -> None:
+        """Submit group ``gi``'s program on state ``st`` to the runtime
+        audits (utils/programaudit.py) before it first runs — once per
+        group, every rank in the same order (an audited grid program
+        ends with one exchange over the grid)."""
+        if gi in self._submitted:
+            return
+        self._submitted.add(gi)
+        grp = self.plan.groups[gi]
+        maybe_audit(f"{self.name}._group",
+                    f"g{gi} lu b{st['rows']} m{grp.m} w{grp.w} u{grp.u} "
+                    f"{str(self.dtype).replace('torch.', '')} "
+                    f"{self.gemm_prec}",
+                    functools.partial(self._program, gi),
+                    (st, bufs, self.grid))
 
     def _pool_len(self) -> int:
         """The pool's elements (the mega executor's has a dump element
@@ -385,9 +414,10 @@ class MeshStreamExecutor:
 
     def _run_group(self, gi, bufs):
         """Group ``gi`` of this call: its program driven eagerly."""
-        return self._finish(gi, *drive(
-            self._group(gi, self._device_state()[gi], bufs),
-            self._collective))
+        st = self._device_state()[gi]
+        self._audit_group(gi, st, bufs)
+        return self._finish(gi, *drive(self._group(gi, st, bufs),
+                                       self._collective))
 
     def units(self) -> list:
         """The (lo, hi) group ranges a call runs one after another: each

@@ -53,6 +53,7 @@ import torch
 
 from superlu_dist_tpu_torch.obs.kernelspans import KernelClock
 from superlu_dist_tpu_torch.obs.trace import get_tracer
+from superlu_dist_tpu_torch.utils.programaudit import maybe_audit
 
 
 def _cyclic_layout(batch: int, nd: int):
@@ -242,6 +243,7 @@ class SpmdFactorExecutor:
         self.host_bytes = 0
         self.last_gather = {"bytes": 0, "seconds": 0.0, "calls": 0}
         self._write = None
+        self._submitted = False    # the program submitted to the audits
 
     def offload_sizes(self) -> list:
         """Elements this rank offloads per group: its own slots' panels
@@ -294,6 +296,14 @@ class SpmdFactorExecutor:
         # read after the tiny count's all-reduce (obs/kernelspans.py)
         clock = KernelClock(dev) if tracer.profiling else None
         t_start = time.perf_counter()
+        if not self._submitted:
+            self._submitted = True
+            maybe_audit("spmd._program",
+                        f"spmd g{len(plan.groups)} nd{nd} "
+                        f"{str(self.dtype).replace('torch.', '')} "
+                        f"{self.gemm_prec}", self._program,
+                        (avals, pool, thresh, maps, writes, self._unperm,
+                         grid), dead=(1,))
         if clock is not None:
             whole = clock.start()
         for gi, grp in enumerate(plan.groups):
@@ -301,37 +311,13 @@ class SpmdFactorExecutor:
                 self.deadline.poll(where="numeric factorization (spmd)")
             if progress and gi % progress == 0:
                 progress_line(gi, len(plan.groups), t_start)
-            w, u, m = grp.w, grp.u, grp.m
-            count = maps[gi].ws.shape[0]
             if tracer.enabled:
                 t0 = time.perf_counter()
-            if count:
-                (lp, up), schur, t = factor.group_step(
-                    (count, m, w, u), avals, pool, thresh, maps[gi],
-                    gemm_prec=self.gemm_prec, scatter=self.scatter,
-                    timings=timings, write_back=False, panel=self.panel)
+            lp, up, piv, t = self._group(gi, avals, pool, thresh, maps,
+                                         writes, self._unperm, grid, timings)
+            if t is not None:
                 tiny += t
-                payload = lp[:, :w, :w].reshape(count, w * w)
-                if u:
-                    payload = torch.cat([payload, schur], dim=1)
-            else:
-                lp = torch.empty((0, m, w), dtype=self.dtype, device=dev)
-                up = torch.empty((0, w, u), dtype=self.dtype, device=dev)
-                payload = torch.empty((0, w * w + (u * u if u else 0)),
-                                      dtype=self.dtype, device=dev)
-            t1 = time.perf_counter()
-            full = grid.gather_rows(payload, self._counts[gi])
-            full = full[self._unperm[gi]]
-            piv = full[:, :w * w].reshape(grp.batch, w, w).contiguous()
-            if writes[gi] is not None:
-                keep, off = writes[gi]
-                pool[off[:, None] + torch.arange(u * u, device=dev)] = \
-                    full[keep, w * w:]
-            if timings is not None:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                timings["gather"] = (timings.get("gather", 0.0)
-                                     + time.perf_counter() - t1)
+            count = lp.shape[0]
             if out is not None:
                 lp, up, piv = out.emit(gi, lp, up, piv)
             fronts.append((lp, up))
@@ -367,6 +353,51 @@ class SpmdFactorExecutor:
                                 structural_flops=float(plan.flops))
         return fronts, tiny_total, Shard(grid=grid, nd=nd, rank=rank,
                                          pivots=pivots)
+
+    def _group(self, gi, avals, pool, thresh, maps, writes, unperm, grid,
+               timings=None):
+        """Group ``gi`` on this rank: its own slots through
+        ``group_step(write_back=False)``, the gather of every rank's
+        pivot and Schur blocks (``grid.gather_rows``), the pool written in
+        full slot order.  Returns (lp, up, the group's pivot stack, the
+        tiny count, None without own slots)."""
+        from superlu_dist_tpu_torch.numeric import factor
+        grp, dev, t = self.plan.groups[gi], pool.device, None
+        w, u, m = grp.w, grp.u, grp.m
+        count = maps[gi].ws.shape[0]
+        if count:
+            (lp, up), schur, t = factor.group_step(
+                (count, m, w, u), avals, pool, thresh, maps[gi],
+                gemm_prec=self.gemm_prec, scatter=self.scatter,
+                timings=timings, write_back=False, panel=self.panel)
+            payload = lp[:, :w, :w].reshape(count, w * w)
+            if u:
+                payload = torch.cat([payload, schur], dim=1)
+        else:
+            lp = torch.empty((0, m, w), dtype=self.dtype, device=dev)
+            up = torch.empty((0, w, u), dtype=self.dtype, device=dev)
+            payload = torch.empty((0, w * w + (u * u if u else 0)),
+                                  dtype=self.dtype, device=dev)
+        t1 = time.perf_counter()
+        full = grid.gather_rows(payload, self._counts[gi])
+        full = full[unperm[gi]]
+        piv = full[:, :w * w].reshape(grp.batch, w, w).contiguous()
+        if writes[gi] is not None:
+            keep, off = writes[gi]
+            pool[off[:, None] + torch.arange(u * u, device=dev)] = \
+                full[keep, w * w:]
+        if timings is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timings["gather"] = (timings.get("gather", 0.0)
+                                 + time.perf_counter() - t1)
+        return lp, up, piv, t
+
+    def _program(self, avals, pool, thresh, maps, writes, unperm, grid):
+        """Every group in order (``_group``): the factor program the
+        runtime audits walk (utils/programaudit.py)."""
+        for gi in range(len(self.plan.groups)):
+            self._group(gi, avals, pool, thresh, maps, writes, unperm, grid)
 
     def report(self) -> dict:
         return {"executor": self.name, "granularity": "group",
@@ -586,6 +617,7 @@ class SpmdSolver(DeviceSolver):
         self._invs_cached = [(None, None)] * len(self._groups)
         self._buffers, self._graphs, self._pool = {}, {}, None
         self.graph_pool_bytes = 0
+        self._submitted = set()
         self._lock = threading.Lock()
 
     def _add_batch_2d(self, sg, fact, shard):
@@ -644,14 +676,24 @@ class SpmdSolver(DeviceSolver):
         self.gathered_bytes += sum(t.numel() * t.element_size()
                                    for t in (piv, l21, u12))
 
-    def _products_2d(self, i, kind, v, conj):
+    #: the build site the sweep programs are audited under
+    audit_site = "spmd._sweep"
+
+    def _state(self, mode) -> tuple:
+        """What a sweep reads besides x and lsum: the batches' maps, the
+        pivot stacks, this rank's panels and the grid (a ProcessGrid
+        among a program's arguments is what the audit's walk records
+        collectives on)."""
+        return (self._groups, self.fronts, self._spmd, self.grid)
+
+    def _products_2d(self, i, kind, v, conj, spmd, grid):
         """The 2-D tier's products of sweep batch i, in member order: this
         rank's share of its members' ``L21 @ v`` ("L"), ``U12 @ v`` ("U"),
         ``U12ᵀ @ v`` ("Ut") or ``L21ᵀ @ v`` ("Lt") over its own columns,
         summed over its process row in process-column order
         (``ProcessGrid.all_reduce_row``), then gathered over the process
         rows (``all_gather(axis="snode")``)."""
-        sp = self._spmd[i]
+        sp = spmd[i]
         vs = v[sp["sel"]]
         c, _, k = vs.shape
         rows = torch.arange(c, device=vs.device)[:, None]
@@ -671,44 +713,46 @@ class SpmdSolver(DeviceSolver):
             prod = vs.new_zeros((c, r_out + 1, k))
             prod[rows, idx] = part
             prod = prod[:, :r_out]
-        prod = self.grid.all_reduce_row(prod)
-        return self.grid.all_gather(_padded(prod, sp["c_max"]),
-                                    axis="snode")[sp["perm"]]
+        prod = grid.all_reduce_row(prod)
+        return grid.all_gather(_padded(prod, sp["c_max"]),
+                               axis="snode")[sp["perm"]]
 
-    def _products(self, i, mat, v):
+    def _products(self, i, mat, v, spmd, grid):
         """``mat @ v`` over this rank's c members of sweep batch i,
         gathered from every rank in member order (B, r, k).  A batch of
         one multiplies as two (the second a zero slot) when the sweep
         batch has more: torch's CPU matmul takes another kernel for a
         single matrix-vector product, and the slot's bits must not depend
         on how the batch was dealt."""
-        sp = self._spmd[i]
+        sp = spmd[i]
         c = mat.shape[0]
         if c == 1 and self._groups[i][0].batch > 1:
             prod = torch.matmul(_padded(mat, 2), _padded(v, 2))[:1]
         else:
             prod = torch.matmul(mat, v)
-        return self.grid.all_gather(_padded(prod, sp["c_max"]))[sp["perm"]]
+        return grid.all_gather(_padded(prod, sp["c_max"]))[sp["perm"]]
 
-    def _product(self, i, kind, v, conj):
+    def _product(self, i, kind, v, conj, spmd, grid):
         """Sweep batch i's contribution product over the grid, in member
         order: ``L21 @ v`` ("L"), ``U12 @ v`` ("U"), ``U12ᵀ @ v`` ("Ut")
         or ``L21ᵀ @ v`` ("Lt"), the panel conjugated under ``conj``; ``v``
-        holds every member's operand."""
+        holds every member's operand; ``spmd`` and ``grid`` are the
+        sweep state's (``_state``)."""
         if self.two_d:
-            return self._products_2d(i, kind, v, conj)
-        sp = self._spmd[i]
+            return self._products_2d(i, kind, v, conj, spmd, grid)
+        sp = spmd[i]
         mat = sp["l21"] if kind in ("L", "Lt") else sp["u12"]
         if conj:
             mat = mat.conj()
         if kind in ("Ut", "Lt"):
             mat = mat.mT
-        return self._products(i, mat, v[sp["sel"]])
+        return self._products(i, mat, v[sp["sel"]], spmd, grid)
 
-    def _sweep(self, direction, mode, x, lsum):
+    def _sweep(self, direction, mode, x, lsum, state=None):
         leaf, prec = self.trsm_leaf, self.gemm_prec
-        batches = list(zip(range(len(self._groups)), self._groups,
-                           self.fronts))
+        groups, fronts, spmd, grid = (self._state(mode) if state is None
+                                      else state)
+        batches = list(zip(range(len(groups)), groups, fronts))
         conj = mode == "C"
         if direction == "fwd":
             lsum.zero_()
@@ -722,13 +766,15 @@ class SpmdSolver(DeviceSolver):
                 x[cols] = y
                 if sg.u:
                     _scatter_add(lsum, rows, self._product(
-                        i, "L" if mode == "N" else "Ut", y, conj), lay)
+                        i, "L" if mode == "N" else "Ut", y, conj, spmd,
+                        grid), lay)
             return
         for i, (sg, cols, rows, _), (piv, _) in reversed(batches):
             rhs = x[cols]
             if sg.u:
                 rhs = rhs - self._product(
-                    i, "U" if mode == "N" else "Lt", x[rows], conj)
+                    i, "U" if mode == "N" else "Lt", x[rows], conj, spmd,
+                    grid)
             if mode == "N":
                 y = _trsm(piv, rhs, False, False, False, leaf, prec)
             else:

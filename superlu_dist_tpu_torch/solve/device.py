@@ -47,6 +47,7 @@ synchronizes.
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 
@@ -58,6 +59,7 @@ from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.ops.dense import gemm, gemm_precision, matmul_tf32
 from superlu_dist_tpu_torch.solve.plan import (SolvePlan, build_solve_plan,
                                                chunk_nrhs)
+from superlu_dist_tpu_torch.utils.programaudit import maybe_audit
 
 #: plans with at most this many sweep batches solve fused (the JAX rule)
 FUSE_MAX_BATCHES = 256
@@ -331,6 +333,7 @@ class DeviceSolver:
         self._graphs = {}
         self._pool = None
         self.graph_pool_bytes = 0
+        self._submitted = set()   # sweep programs submitted to the audits
         # one solve at a time on the static buffers
         self._lock = threading.Lock()
 
@@ -402,12 +405,39 @@ class DeviceSolver:
 
     # -- sweeps --------------------------------------------------------------
 
-    def _sweep(self, direction, mode, x, lsum):
-        """One whole sweep over the batches, in place on x (and lsum)."""
+    #: the build site the sweep programs are audited under
+    audit_site = "device._sweep"
+
+    def _state(self, mode) -> tuple:
+        """What a sweep reads besides x and lsum — the batches' maps, the
+        panels and (plain solves) the DiagInv blocks: the arguments of
+        the sweep program (a captured graph holds their addresses)."""
+        return (self._groups, self.fronts,
+                self._invs if mode == "N" else None)
+
+    def _audit_sweep(self, direction, mode, kb, x, lsum) -> None:
+        """Submit one sweep to the runtime audits (utils/programaudit.py)
+        before it first runs, x and lsum declared dead (updated in
+        place); once per (direction, mode, bucket, fused)."""
+        key = (direction, mode, kb, self.fused)
+        if key in self._submitted:
+            return
+        self._submitted.add(key)
+        t = "" if mode == "N" else mode
+        maybe_audit(self.audit_site,
+                    f"{'fused-' if self.fused else ''}{direction}{t} "
+                    f"n{self.n} k{kb} "
+                    f"{str(self.fact.dtype).replace('torch.', '')}",
+                    functools.partial(self._sweep, direction, mode),
+                    (x, lsum, self._state(mode)), dead=(0, 1))
+
+    def _sweep(self, direction, mode, x, lsum, state=None):
+        """One whole sweep over the batches, in place on x (and lsum);
+        ``state`` is ``_state(mode)`` (the solver's own when None)."""
         leaf, prec = self.trsm_leaf, self.gemm_prec
-        batches = list(zip(self._groups, self.fronts))
+        groups, fronts, invs = self._state(mode) if state is None else state
+        batches = list(zip(groups, fronts))
         if mode == "N":
-            invs = self._invs
             if direction == "fwd":
                 lsum.zero_()
                 for ((sg, cols, rows, lay), (lp, _)), (linv, _) in zip(
@@ -439,6 +469,7 @@ class DeviceSolver:
         dev = self.device
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        self._audit_sweep(direction, mode, kb, x, lsum)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -508,6 +539,8 @@ class DeviceSolver:
                                         device=self.device)
                         x[:self.n, :hi - lo] = src
                         lsum = torch.zeros_like(x)
+                        for direction in ("fwd", "bwd"):
+                            self._audit_sweep(direction, mode, kb, x, lsum)
                         self._sweep("fwd", mode, x, lsum)
                         self._sweep("bwd", mode, x, lsum)
                 t0 = time.perf_counter()

@@ -20,6 +20,7 @@ terminates) them and reports what is left.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import queue as queue_mod
@@ -42,7 +43,9 @@ class RankJob:
     rank's shapes), "pgssvx_ft" (the
     recovery epoch loop, which forms its own domains), "mesh_trace" (the
     traced 2-D FACT and ``granularity="level"`` leg of a mesh rank,
-    ``run_mesh_trace``, its trace at ``trace``) or "allreduce"
+    ``run_mesh_trace``, its trace at ``trace``), "mesh_audit" (the
+    runtime program audits of a mesh rank's FACT, ``run_mesh_audit``) or
+    "allreduce"
     (``ops`` allreduces of ``np.ones(4)`` on a joined domain: the failure
     detector's own scenarios).  ``a_source`` / ``b_source`` deal this
     rank's block rows (``parallel/recover.RowBlockSource`` /
@@ -174,6 +177,8 @@ def run_job(job: RankJob, rank: int, device, lu=None) -> dict:
             x, info = _run_mesh(job, rank, device, lu, rec, lu_out)
         elif job.kind == "mesh_trace":
             x, info = run_mesh_trace(job, rank, device, rec, lu_out)
+        elif job.kind == "mesh_audit":
+            x, info = run_mesh_audit(job, rank, device, rec)
         elif job.kind == "pgssvx_ft":
             x, info = pgssvx_ft(job.name, job.n_ranks, rank, job.options,
                                 job.a_source, job.b_source,
@@ -553,6 +558,90 @@ def _shippable(rec: dict) -> dict:
     return out
 
 
+#: every runtime program audit on (``audit_knobs``)
+AUDIT_KNOBS = {"SLU_TPU_VERIFY_PROGRAMS": "1", "SLU_TPU_VERIFY_DTYPES": "1",
+               "SLU_TPU_VERIFY_SHARDING": "1"}
+
+
+@contextlib.contextmanager
+def audit_knobs(**extra):
+    """``AUDIT_KNOBS`` and ``extra`` (e.g. ``SLU_TPU_MEM_BUDGET_BYTES``)
+    set, with fresh auditors, inside the block; the knobs unset and the
+    auditors dropped after it (``programaudit._reset``: the next block
+    latches anew).  Yields the ``programaudit`` module."""
+    from superlu_dist_tpu_torch.utils import programaudit
+    env = dict(AUDIT_KNOBS, **extra)
+    os.environ.update(env)
+    programaudit._reset()
+    try:
+        yield programaudit
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        programaudit._reset()
+
+
+def run_mesh_audit(job: RankJob, rank: int, device, rec: dict):
+    """One rank of the runtime program audits on the grid (run_job's
+    "mesh_audit" kind), on the job's system with ``job.options``: the
+    analysis pgssvx runs (``root_analyze_bcast``), a FACT with every
+    audit off, then one under ``audit_knobs`` on a fresh executor, whose
+    every group program is walked (and its collective sequence compared
+    between the ranks) before it runs: ``audit`` (``programaudit.
+    audit_block``), ``digests`` (each program's collective digest, which
+    the ranks compare), ``audit_equal`` (its fronts, pivot stacks and
+    tiny count bit for bit the un-audited FACT's) and the launches of
+    both.  Returns (None, 0): no solve."""
+    import torch
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.numeric.factor import numeric_factorize
+    from superlu_dist_tpu_torch.parallel.pgssvx import root_analyze_bcast
+    from superlu_dist_tpu_torch.utils.options import (IterRefine,
+                                                      resolve_factor_dtype)
+    from superlu_dist_tpu_torch.utils.stats import Stats
+    opts = job.options
+    tc, grid = _mesh_grid(job, rank, device, rec)
+    dev = grid.device
+    try:
+        a_loc = job.a_source(job.n_ranks, rank)
+        lu, bvals = root_analyze_bcast(
+            tc, dataclasses.replace(opts, iter_refine=IterRefine.NOREFINE),
+            a_loc, Stats(), device=dev)
+        dtype = resolve_factor_dtype(opts.factor_dtype, dev,
+                                     np.iscomplexobj(bvals))
+
+        def fact():
+            before = dict(kernels.LAUNCHES)
+            num = numeric_factorize(lu.plan, bvals, lu.anorm,
+                                    executor=opts.executor, dtype=dtype,
+                                    grid=grid, gemm_prec=opts.gemm_prec,
+                                    pool_partition=opts.pool_partition)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return num, {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                         if v != before[k]}
+        ng0, rec["launches"] = fact()
+        # a fresh executor: every group program cold
+        lu.plan.__dict__.pop("_factor_fns", None)
+        with audit_knobs() as programaudit:
+            t0 = time.perf_counter()
+            ng1, rec["audited_launches"] = fact()
+            rec["audited_s"] = time.perf_counter() - t0
+            rec["audit"] = programaudit.audit_block()
+            rec["digests"] = {label: st["digest"] for (_, label), st
+                              in programaudit.get_auditor().audited.items()}
+        rec["groups"] = len(lu.plan.groups)
+        rec["audit_equal"] = (
+            all(torch.equal(a, b) and torch.equal(c, d)
+                for (a, c), (b, d) in zip(ng0.fronts, ng1.fronts))
+            and all(torch.equal(p, q) for p, q in zip(ng0.shard.pivots,
+                                                      ng1.shard.pivots))
+            and ng0.tiny_pivots == ng1.tiny_pivots)
+    finally:
+        tc.close()
+    return None, 0
+
+
 def peer_main(rank: int, jobs: list, results) -> None:
     """A spawned peer's entry point: run ``jobs`` in order as ``rank`` —
     on the CPU, a mesh job on its ``device`` — putting one record per job
@@ -566,7 +655,7 @@ def peer_main(rank: int, jobs: list, results) -> None:
     try:
         for i, job in enumerate(jobs):
             rec = run_job(job, rank, job.device if job.kind in (
-                "mesh", "mesh_trace") else "cpu", lu=lu)
+                "mesh", "mesh_trace", "mesh_audit") else "cpu", lu=lu)
             lu = rec["lu_out"].get("lu", lu)
             rec["job"] = i
             results.put(_shippable(rec))

@@ -451,6 +451,78 @@ class RankFailureError(SuperLUError):
         _flight_dump(self)
 
 
+class _AuditError(SuperLUError):
+    """A runtime program audit (utils/programaudit.py) rejected a program
+    before it first ran.  ``site`` and ``program`` name it, ``findings``
+    holds the slulint Finding records and ``rules`` their ids; dumps a
+    flight-recorder postmortem at construction."""
+
+    flag = ""
+    what = ""
+
+    def __init__(self, site: str, program: str, findings):
+        self.site = site
+        self.program = program
+        self.findings = list(findings)
+        self.rules = sorted({f.rule for f in self.findings})
+        lines = "; ".join(f"{f.rule}: {f.message}" for f in self.findings)
+        super().__init__(
+            f"{self.what} failed for {site}[{program}] "
+            f"({', '.join(self.rules)}): {lines} ({self.flag})")
+        _flight_dump(self)
+
+
+class ProgramAuditError(_AuditError):
+    """Program-audit mode (``SLU_TPU_VERIFY_PROGRAMS=1``) rejected a
+    program: a declared-dead large argument copied out of place (SLU111),
+    a large tensor read from outside the program's arguments, which a
+    CUDA graph bakes by address (SLU112), or grid collectives off the
+    grid's axes or differing between ranks (SLU114; raised on every
+    rank)."""
+
+    flag = "SLU_TPU_VERIFY_PROGRAMS=1"
+    what = "program audit"
+
+
+class PrecisionAuditError(_AuditError):
+    """Precision-audit mode (``SLU_TPU_VERIFY_DTYPES=1``) rejected a
+    program before it first ran: a narrowing copy outside the bf16
+    GEMM-input pattern (SLU115), or a matmul producing narrower than its
+    widest operand, or than float32 on 16-bit operands (SLU116) — the
+    arithmetic at a precision the ladder never sanctioned, caught before
+    the BERR gate would."""
+
+    flag = "SLU_TPU_VERIFY_DTYPES=1"
+    what = "precision audit"
+
+
+class ShardingAuditError(_AuditError):
+    """Sharding-audit mode (``SLU_TPU_VERIFY_SHARDING=1``) rejected a
+    program before it first ran: a grid collective delivering a gathered
+    buffer of at least 1 MiB to every rank (SLU119)."""
+
+    flag = "SLU_TPU_VERIFY_SHARDING=1"
+    what = "sharding audit"
+
+
+class MemoryBudgetError(ShardingAuditError):
+    """The SLU121 walk priced a program above
+    ``SLU_TPU_MEM_BUDGET_BYTES``: its peak live bytes do not fit the
+    budget, so the submit raises here — naming the program (for the mega
+    executor, its bucket's pool rung) and the largest buffers live at the
+    peak — instead of the card running out of memory mid-program.
+    ``peak_bytes`` / ``budget_bytes`` carry the verdict."""
+
+    flag = "SLU_TPU_MEM_BUDGET_BYTES"
+    what = "memory budget audit"
+
+    def __init__(self, site: str, program: str, findings,
+                 peak_bytes: int = 0, budget_bytes: int = 0):
+        self.peak_bytes = int(peak_bytes)
+        self.budget_bytes = int(budget_bytes)
+        super().__init__(site=site, program=program, findings=findings)
+
+
 class CollectiveMismatchError(SuperLUError):
     """Lockstep-verify mode (SLU_TPU_VERIFY_COLLECTIVES=1, the run-time
     form of the JAX package's lint rule SLU106) detected ranks entering DIFFERENT collectives:

@@ -13,6 +13,8 @@ serving tier (``SLU_TPU_SERVE_*``, ``SLU_TPU_FLEET_*``), observability
 ``SLU_TPU_SLO_*``, ``SLU_TPU_STATS``), the chaos harness, the lock-order
 verifier and the distributed tier (``SLU_TPU_FAULTS``,
 ``SLU_TPU_VERIFY_COLLECTIVES``, ``SLU_TPU_COMM_*``,
+the runtime program audits (``SLU_TPU_VERIFY_PROGRAMS`` / ``_DTYPES`` /
+``_SHARDING``, ``SLU_TPU_MEM_BUDGET_BYTES``),
 ``SLU_TPU_HEARTBEAT_S``, ``SLU_TPU_FT``, ``SLU_TPU_DEADLINE_POLL``),
 the stream's progress lines (``SLU_TPU_PROGRESS``) and the MFU
 denominator (``SLU_TPU_PEAK_GFLOPS``, utils/peaks.py).
@@ -168,6 +170,43 @@ def _register_all() -> None:
       "(one exchange per N dispatch groups)", group="persist")
     r("SLU_TPU_STATS", "flag", False,
       "print the PStatPrint-analog report from any driver run", group="obs")
+    r("SLU_TPU_VERIFY_PROGRAMS", "flag", False,
+      "program-audit mode (utils/programaudit.py): every program the "
+      "executors run — a group's group_step, a fused or level wave, a "
+      "mega bucket, a solve sweep, a grid's group — is run once before "
+      "its first real run on FakeTensors (torch's FakeTensorMode: no "
+      "memory, no device work) under a recording TorchDispatchMode and "
+      "walked against SLU111 (a dead argument copied out of place), "
+      "SLU112 (a large tensor read from outside the arguments, which a "
+      "CUDA graph bakes) and SLU114 (grid collectives off the grid's "
+      "axes, or sequences that differ between ranks), raising "
+      "ProgramAuditError first; feeds slu_program_audit_total and "
+      "programaudit.audit_block()", group="parallel")
+    r("SLU_TPU_VERIFY_DTYPES", "flag", False,
+      "precision-audit mode (utils/programaudit.py): every submitted "
+      "program's recorded ops are also walked against SLU115 (a "
+      "narrowing _to_copy / copy_ outside the bf16 GEMM-input pattern) "
+      "and SLU116 (a matmul producing narrower than its widest operand, "
+      "or than float32 on 16-bit operands), raising PrecisionAuditError "
+      "before the program runs; feeds slu_precision_audit_total.  "
+      "Independent of SLU_TPU_VERIFY_PROGRAMS", group="parallel")
+    r("SLU_TPU_VERIFY_SHARDING", "flag", False,
+      "sharding-audit mode (utils/programaudit.py): every submitted "
+      "program's walk is also checked against SLU119 (a ProcessGrid "
+      "all_gather / gather_rows delivering >= 1 MiB to every rank) and "
+      "priced by SLU121 (the walk's peak live bytes: arguments, outside "
+      "tensors, each op output until Python drops it, the kernels' "
+      "scratch) against SLU_TPU_MEM_BUDGET_BYTES, raising "
+      "ShardingAuditError / MemoryBudgetError before the program runs; "
+      "feeds slu_sharding_audit_total.  Independent of "
+      "SLU_TPU_VERIFY_PROGRAMS / SLU_TPU_VERIFY_DTYPES", group="parallel")
+    r("SLU_TPU_MEM_BUDGET_BYTES", "int", 0,
+      "per-program peak-memory budget in bytes (0 = off): the SLU121 "
+      "walk's peak live bytes must fit it or the submit raises "
+      "MemoryBudgetError naming the program (for the mega executor, its "
+      "bucket's pool rung) before anything runs.  A positive value "
+      "implies the sharding audit without SLU_TPU_VERIFY_SHARDING=1",
+      group="parallel")
     r("SLU_TPU_VERIFY_LOCKS", "flag", False,
       "lock-order verify mode (utils/lockwatch.py): instrument every "
       "make_lock/make_condition lock, record per-thread acquisition "

@@ -1397,3 +1397,116 @@ def test_grid_level_and_spans_on_one_card(cuda, tmp_path):
                 continue
             want = rec["units"]
             assert len(lu_spans) == want == len(rec["profile"]), (r, name)
+
+
+# ---------------------------------------------------------------------------
+# the runtime program audits: the kernels' fake implementations against
+# their launches, and a FACT audited against one not
+# ---------------------------------------------------------------------------
+
+def _walk_one(fn, args):
+    """The one kernel op of ``fn(*args)`` walked on fakes of ``args``
+    (analysis/program.trace_spec)."""
+    from superlu_dist_tpu_torch.analysis.program import trace_spec
+    spec = trace_spec(fn, args, label="kernel", site="test")
+    ops = [op for op in spec.ops if op.op.startswith("slu.")]
+    assert len(ops) == 1, [op.op for op in spec.ops]
+    return ops[0]
+
+
+def test_kernel_fake_implementations_match_their_launches(cuda):
+    """Each kernel op's fake implementation gives what its launch gives:
+    the output's shape and dtype (the front batch, the panel's snapshot
+    scratch, y), and the arguments it writes (f, the panel and its
+    flags) — the launch changes those and no other."""
+    from superlu_dist_tpu_torch.parallel import dist
+    rng = np.random.default_rng(3)
+    lu, bvals, _ = slt.analyze(slt.Options(), poisson3d(12), device=cuda)
+    plan = lu.plan
+    maps = factor.upload_maps(plan, cuda)
+    gi = max(range(len(plan.groups)), key=lambda g: plan.groups[g].w)
+    g = plan.groups[gi]
+    avals = torch.as_tensor(bvals, device=cuda, dtype=torch.float32)
+    pool = _rand(rng, plan.pool_size, torch.float32, cuda)
+    kernels.reset_launches()
+    f = kernels.front_assemble_(avals, pool, g.m, g.w, maps[gi])
+    op = _walk_one(lambda p, a, mp: kernels.front_assemble_(a, p, g.m, g.w,
+                                                            mp),
+                   (pool, avals, maps[gi]))
+    assert op.outputs[0].shape == tuple(f.shape) and \
+        op.outputs[0].dtype == f.dtype and op.writes == ()
+    # the panel LU: its snapshot, and the panel and flags written
+    panel = f.view(g.batch, g.m, g.m)[:, :, :min(g.w, 128)]
+    pa = min(g.w, 32)
+    flags = torch.zeros((g.batch, g.w), dtype=torch.int32, device=cuda)
+    thresh = torch.tensor(1e30, dtype=torch.float32, device=cuda)
+    before = (panel.clone(), flags.clone(), thresh.clone())
+    snap = kernels._panel_kernel(panel, 0, pa, thresh, flags)
+    op = _walk_one(lambda p, t, fl: kernels.panel_lu_(p, 0, pa, t, fl),
+                   (before[0].clone(), thresh, flags.clone()))
+    assert op.outputs[0].shape == tuple(snap.shape) == \
+        (g.batch, pa, panel.shape[2] + 2)
+    assert op.outputs[0].dtype == snap.dtype
+    assert [op.inputs[i].shape for i in op.writes] == [
+        tuple(panel.shape), tuple(flags.shape)]
+    assert not torch.equal(panel, before[0])
+    assert not torch.equal(flags, before[1])       # every pivot tiny
+    assert torch.equal(thresh, before[2])
+    # the standalone wrappers write f
+    for wrap, args in (
+            (kernels.extend_add_, (pool, g.m, g.children[0].ub,
+                                   maps[gi].children[0][1],
+                                   maps[gi].children[0][2],
+                                   maps[gi].children[0][3]))
+            if g.children else (None, None),
+            (kernels.assemble_, (avals, maps[gi].a_slot, maps[gi].a_flat,
+                                 maps[gi].a_src))):
+        if wrap is None:
+            continue
+        f2 = f.clone()
+        wrap(f2, *args)
+        assert not torch.equal(f2, f)
+        op = _walk_one(lambda x, *r: wrap(x, *r), (f.clone(), *args))
+        assert op.writes == (0,) and op.outputs == ()
+    # the residual SpMV: y
+    a = poisson3d(12)
+    ip = torch.as_tensor(a.indptr, dtype=torch.int64, device=cuda)
+    ix = torch.as_tensor(a.indices, dtype=torch.int64, device=cuda)
+    v = torch.as_tensor(a.data, dtype=torch.float64, device=cuda)
+    x = _rand(rng, (a.n_rows, 3), torch.float64, cuda)
+    y = dist.csr_spmv(ip, ix, v, x)
+    op = _walk_one(dist.csr_spmv, (ip, ix, v, x))
+    assert op.outputs[0].shape == tuple(y.shape) and op.writes == ()
+    assert op.outputs[0].dtype == y.dtype
+
+
+def test_audited_fact_launches_as_an_unaudited_one(cuda):
+    """A FACT with every audit on (a fresh executor: every program walked
+    before it runs) launches what one with them off does, with the same
+    fronts bit for bit; the walks launch nothing."""
+    from superlu_dist_tpu_torch.testing.ranks import audit_knobs
+    lu, bvals, _ = slt.analyze(slt.Options(), poisson3d(16), device=cuda)
+
+    def fact():
+        kernels.reset_launches()
+        num = factor.numeric_factorize(lu.plan, bvals, lu.anorm,
+                                       dtype=torch.float32, device=cuda,
+                                       executor="stream")
+        torch.cuda.synchronize()
+        return num, dict(kernels.LAUNCHES)
+    fact()                        # the plan's maps, uploaded once
+    base = torch.cuda.memory_allocated()
+    off, l_off = fact()
+    lu.plan.__dict__.pop("_factor_fns", None)
+    with audit_knobs() as programaudit:
+        on, l_on = fact()
+        blk = programaudit.audit_block()
+    assert l_on == l_off and l_on["front_assemble"] == len(lu.plan.groups)
+    assert blk["findings"] == 0 and blk["programs"] == len(
+        {(g.batch, g.m, g.w, g.u) for g in lu.plan.groups})
+    assert all(torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
+               for p, q in zip(off.fronts, on.fronts))
+    # nothing an audited call made (its pool, the walks' arguments)
+    # outlives it: freed when dropped, not at a later collection
+    del off, on
+    assert torch.cuda.memory_allocated() == base

@@ -728,3 +728,92 @@ def traced_grid_spans(tc, grid, plan, vals, thresh, path):
             equal=_equal_fronts(traced.fronts, plain.fronts),
             units=len(ex.units()) if hasattr(ex, "units") else None)
     return out
+
+
+def audit_divergence(tc, grid, diverge):
+    """A program submitted to the program audit on every rank, its
+    collectives rank-dependent with ``diverge`` (rank 0 all-gathers, the
+    others sum), the same on every rank without: the audit's digest
+    exchange raises ProgramAuditError on every rank, or passes on every
+    rank."""
+    from superlu_dist_tpu_torch.utils import programaudit
+    from superlu_dist_tpu_torch.utils.errors import ProgramAuditError
+
+    def prog(t, g):
+        if diverge and g.rank == 0:
+            return g.all_gather(t)
+        return g.all_reduce_sum(t)
+    programaudit._reset()
+    try:
+        stats = programaudit.maybe_audit("test.divergence", "prog", prog,
+                                         (torch.ones(4), grid))
+    except ProgramAuditError as e:
+        return {"error": type(e).__name__, "rules": e.rules,
+                "message": str(e)}
+    return {"error": None, "stats": stats}
+
+
+def audit_peer_finding(tc, grid):
+    """A grid program under every audit whose narrowing copy (SLU115)
+    only rank 0 makes, its collectives the same on every rank: the
+    error each rank raises and its rules."""
+    from superlu_dist_tpu_torch.testing.ranks import audit_knobs
+    from superlu_dist_tpu_torch.utils.errors import PrecisionAuditError
+
+    def prog(t, g):
+        x = t.to(torch.float32) + 1 if g.rank == 0 else t + 1
+        return g.all_reduce_sum(x)
+    try:
+        with audit_knobs() as programaudit:
+            programaudit.maybe_audit("test.peer", "prog", prog,
+                                     (torch.ones(4, dtype=torch.float64),
+                                      grid))
+    except PrecisionAuditError as e:
+        return {"error": type(e).__name__, "rules": e.rules}
+    return {"error": None}
+
+
+def audited_grid_fact(tc, grid, nx):
+    """The 2-D executor (MESH_2D: stream, pool_partition) on poisson2d(nx):
+    a FACT with the audits off, then one with every audit on, on a fresh
+    executor: its audit block, each program's collective digest, and
+    whether its fronts, pivot stacks and tiny count equal the first's."""
+    from superlu_dist_tpu_torch.testing.ranks import audit_knobs
+    a = gallery.poisson2d(nx)
+    lu, bvals, _ = slt.analyze(slt.Options(), a, device="cpu")
+    kw = dict(device="cpu", executor="stream", grid=grid,
+              pool_partition=True)
+    f0 = numeric_factorize(lu.plan, bvals, lu.anorm, **kw)
+    lu.plan.__dict__.pop("_factor_fns", None)
+    with audit_knobs() as programaudit:
+        f1 = numeric_factorize(lu.plan, bvals, lu.anorm, **kw)
+        blk = programaudit.audit_block()
+        digests = {lbl: st["digest"] for (_, lbl), st
+                   in programaudit.get_auditor().audited.items()}
+    equal = (all(torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
+                 for p, q in zip(f0.fronts, f1.fronts))
+             and all(torch.equal(p, q) for p, q in zip(f0.shard.pivots,
+                                                       f1.shard.pivots))
+             and f0.tiny_pivots == f1.tiny_pivots)
+    return {"findings": blk["findings"], "sites": blk["sites"],
+            "digests": digests, "equal": equal}
+
+
+def spmd_sharding_verdict(tc, grid, nx):
+    """The spmd factorization of poisson3d(nx) under the sharding audit:
+    "clean", or the rules of the ShardingAuditError every rank raises
+    (its gathers deliver each group's pivot and Schur blocks to every
+    rank)."""
+    from superlu_dist_tpu_torch.utils import programaudit
+    from superlu_dist_tpu_torch.utils.errors import ShardingAuditError
+    lu, bvals, _ = slt.analyze(slt.Options(), gallery.poisson3d(nx),
+                               device="cpu")
+    programaudit._reset()
+    try:
+        numeric_factorize(lu.plan, bvals, lu.anorm, device="cpu",
+                          executor="spmd", grid=grid)
+    except ShardingAuditError as e:
+        return e.rules
+    finally:
+        programaudit._reset()
+    return "clean"
