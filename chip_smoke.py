@@ -231,7 +231,21 @@ drives the port are reset just before it and checked just after):
 
 Every DOFACT analysis runs in the native library; its calls are counted
 (native.CALLS, reset just before each such phase) and printed on the
-phase's line.  Then a JSON line with one record per kernel, the card
+phase's line.  The build census (obs/compilestats.py) and the retrace
+sentinel are read on the existing lines, windows taken just before and
+after what they count: gssvx — its FACT's ``stats.compile`` (no build,
+no retrace) and the process's census so far (the kernel and host-library
+builds, the first solve's captures); solve — each case's captures at the
+first solve (two a new bucket when fused) and at the replay (none);
+executors_small — every fused, mega and level call's captures (the
+capturing call's census seconds within 10 % of its graph_totals capture
++ instantiate: one record a graph, the same seconds; none and no
+retrace at a replay, mega's announced keys
+all captured), and one forced recapture (``drop_graphs`` on the plan's
+fused executor, then a refactor): exactly one retrace, in
+``Stats.retraces`` too; serve — the cold and warm rounds' captures;
+mesh_grid_leg — each rank's segment captures at the DOFACT (the
+segments reported) and at the replay (none).  Then a JSON line with one record per kernel, the card
 line again, and the last line {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA device it exits
 non-zero before any result.  ``python3 chip_smoke.py first_solve
@@ -297,6 +311,48 @@ def say(phase, **fields):
     """One result line; ``at_s`` is the script's elapsed seconds."""
     fields["at_s"] = round(time.perf_counter() - START, 3)
     print(f"{phase}: " + json.dumps(fields), flush=True)
+
+
+def census_mark() -> tuple:
+    """A window start of the build census (obs/compilestats.py) and the
+    retrace sentinel (numeric/stream.py)."""
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    return COMPILE_STATS.marker(), RETRACE_SENTINEL.total
+
+
+def census_since(mark, site=None) -> dict:
+    """The builds since ``mark`` (of ``site`` alone when given): count,
+    seconds, fresh seconds, the sentinel's retraces, the top three
+    keys."""
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    recs = [r for r in COMPILE_STATS.records[mark[0]:]
+            if site is None or r.site == site]
+    rows = [r for r in COMPILE_STATS.census(since=mark[0])
+            if site is None or r["site"] == site]
+    return dict(builds=sum(r.builds for r in recs),
+                seconds=sum(r.seconds for r in recs),
+                fresh_seconds=sum(r.seconds for r in recs
+                                  if not r.persistent_hit),
+                retraces=RETRACE_SENTINEL.total - mark[1],
+                top=[[r["site"], r["key"], r["n"], r["seconds"]]
+                     for r in rows[:3]])
+
+
+def within_census(phase, census_s, rep) -> float:
+    """A capturing call's census seconds against its executor's
+    graph_totals capture + instantiate sum: their ratio, or raise when
+    it is off by more than 10 %.  A census record's seconds are its
+    graph's ``capture_s + instantiate_s``, so this checks that the call
+    recorded each of its graphs exactly once (a graph missed or recorded
+    twice moves the ratio), not the timing itself."""
+    graphs_s = rep["capture_s"] + rep["instantiate_s"]
+    ratio = census_s / graphs_s if graphs_s else float("inf")
+    if abs(ratio - 1.0) > 0.1:
+        raise AssertionError(f"{phase}: census {census_s} s against the "
+                             f"graphs' {graphs_s} s")
+    return ratio
 
 
 def card_line():
@@ -1547,7 +1603,8 @@ def _mesh_rank(rec) -> dict:
                 own_slots_only=sh.get("own_slots_only"),
                 front_assemble=rec.get("launches"),
                 panel_lu=rec.get("panel_launches"),
-                csr_spmv=rec.get("spmv_launches"))
+                csr_spmv=rec.get("spmv_launches"),
+                census=rec.get("census"))
 
 
 def _mesh_check(name, rec0, peer, target, tols, x_ref=None):
@@ -1946,6 +2003,16 @@ def _grid_legs(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
         del lu
         e = _mesh_check(f"2d {leg} ref", rec, pr, target, tols, x_ref_ref)
         second = {0: _mesh_rank(rec), 1: _mesh_rank(pr)}
+        for r in (0, 1):
+            # every segment captured in the census on each rank at the
+            # DOFACT, none at the replay; no retrace; the spmd solver runs
+            # its sweeps eagerly (their collectives), so no solve capture
+            c1, c2 = first[r]["census"], second[r]["census"]
+            if (c1["segments"], c2["segments"], c1["retraces"],
+                    c2["retraces"], c1["solve"], c2["solve"]) != (
+                    first[r].get("segments"), 0, 0, 0, 0, 0):
+                raise AssertionError(f"mesh 2d {leg} rank {r}: census "
+                                     f"{c1} then {c2}")
         ex2 = rec["lu_out"]["lu"].numeric.executor
         if ex2.get("replays", 0) < 2 * ex2.get("segments", 1) \
                 or ex2.get("capture_s") != ex.get("capture_s"):
@@ -1955,6 +2022,8 @@ def _grid_legs(slt, a_main, lu_main, x_main, tiny_main, peer, kernels, tols,
             wall_s=wall, berr=rep.berr, refine_steps=rep.refine_steps,
             max_abs_vs_main=err, fronts=drift, kernel_vs_plain=checks,
             ranks={r: dict(segments=first[r].get("segments"),
+                           census_capture=first[r]["census"],
+                           census_replay=second[r]["census"],
                            closed_keys=first[r].get("closed_keys"),
                            capture_s=first[r].get("capture_s"),
                            graph_device_bytes=first[r].get(
@@ -2463,12 +2532,23 @@ def solve_phase(lu, torch):
                                   gemm_prec=lu.numeric.gemm_prec)
             cases = {}
             for k, d in rhs.items():
+                mark = census_mark()
                 t0 = time.perf_counter()
                 z1 = solver.solve(d)
                 first = time.perf_counter() - t0
+                c1 = census_since(mark, "solve.device")
+                mark = census_mark()
                 t0 = time.perf_counter()
                 z = solver.solve(d)
                 steady = time.perf_counter() - t0
+                c2 = census_since(mark, "solve.device")
+                # a new bucket's first solve captures its two sweeps, the
+                # replay none; the eager solver never captures
+                want = 2 if fused else 0
+                if (c1["builds"], c2["builds"], c1["retraces"],
+                        c2["retraces"]) != (want, 0, 0, 0):
+                    raise AssertionError(f"solve {name} k={k}: census "
+                                         f"{c1} then {c2}")
                 # the lsum scatter sums in a fixed order: a solve repeats
                 # bit for bit, and an eager one equals the fused one
                 if not np.array_equal(z1, z):
@@ -2479,6 +2559,8 @@ def solve_phase(lu, torch):
                     raise AssertionError(f"solve {name} k={k}: non-finite "
                                          f"columns {st['nonfinite_cols']}")
                 case = dict(first_s=first, s=steady,
+                            captures=[c1["builds"], c2["builds"]],
+                            capture_s=c1["seconds"],
                             stats={key: st[key] for key in (
                                 "nrhs", "padded_nrhs", "chunks",
                                 "padding_factor", "fused",
@@ -2857,7 +2939,9 @@ def serve_phase(slt, a, lu, bundle, a_sm, lu_sm, kernels, tols, torch,
                 h.solve_factored(np.zeros((n, kb)))
             warm_s = time.perf_counter() - t0
         st0, g0 = srv.stats(), len(h._solver()._graphs)
+        mark = census_mark()
         xs, lat, wall = _serve_round(srv, reqs)
+        census = census_since(mark, "solve.device")
         served_x[name] = xs
         st1 = srv.stats()
         batches = st1["batches"] - st0["batches"]
@@ -2868,7 +2952,15 @@ def serve_phase(slt, a, lu, bundle, a_sm, lu_sm, kernels, tols, torch,
             p50_ms=1e3 * _pct(lat, 50), p99_ms=1e3 * _pct(lat, 99),
             max_ms=1e3 * max(lat), batches=batches,
             mean_batch_columns=cols / batches,
-            graph_captures=len(h._solver()._graphs) - g0)
+            graph_captures=len(h._solver()._graphs) - g0,
+            census_captures=census["builds"],
+            census_capture_s=census["seconds"])
+        if census["builds"] != rounds[name]["graph_captures"] \
+                or census["retraces"] or (name == "warm"
+                                          and census["builds"]):
+            raise AssertionError(f"serve {name}: census {census}, "
+                                 f"{rounds[name]['graph_captures']} new "
+                                 "graphs")
         if name == "warm":
             rounds[name]["warm_up_s"] = warm_s
     rounds["launches"] = expect_launches("serve traffic", kernels, 0, False)
@@ -3288,8 +3380,10 @@ def fused_block(slt, a, lu, kernels, torch, factor, rng):
     # fused: capture at the first call, then replays
     calls, fused_eq = [], []
     for i in (0, 0, 1):
+        mark = census_mark()
         num, sec, peak, launches = _timed_factor(
             torch, kernels, factor, plan, *vals[i], executor="fused")
+        census = census_since(mark, "make_factor_fn")
         calls.append(num)
         fused_eq.append(_fronts_equal(torch, num.fronts, ref[i]))
         rep = num.executor
@@ -3297,11 +3391,16 @@ def fused_block(slt, a, lu, kernels, torch, factor, rng):
         want = groups + (keys if first else 0)
         rec = dict(s=sec, replay_s=rep["replay_s"],
                    peak_above_resident=peak, equal_to_stream=fused_eq[-1],
-                   launches=_expect_front_launches("fused", launches, want))
+                   launches=_expect_front_launches("fused", launches, want),
+                   census=census)
         if first:
             rec.update({k: rep[k] for k in (
                 "warm_up_s", "capture_s", "instantiate_s", "nodes",
                 "graph_device_bytes", "graph_host_bytes", "clone_bytes")})
+            rec["census_vs_graphs"] = within_census(
+                "fused capture", census["seconds"], rep)
+        if (census["builds"], census["retraces"]) != (int(first), 0):
+            raise AssertionError(f"fused call {len(calls)}: census {census}")
         out[f"call{len(calls)}"] = rec
     replays_equal = _fronts_equal(torch, calls[0].fronts, calls[1].fronts)
     old_untouched = _fronts_equal(torch, calls[0].fronts, ref[0])
@@ -3327,9 +3426,24 @@ def fused_block(slt, a, lu, kernels, torch, factor, rng):
     out["refactor"] = dict(s=sec, fact_s=st.utime["FACT"],
                            executor=hf.numeric.executor["executor"],
                            launches=rlaunch, solve_s=sec2,
-                           berr=st2.solve_report.berr)
+                           berr=st2.solve_report.berr,
+                           retraces=st.retraces)
     check_berr("fused refactor", st2.solve_report.berr)
-    del hf
+    # one forced recapture through the executor's own graph cache: the
+    # sentinel must count exactly it, in Stats.retraces too
+    ex = next(e for e in factor.cached_executors(plan) if e.name == "fused")
+    ex.drop_graphs()
+    mark = census_mark()
+    st3 = slt.refactor(hf, mats[1].data)
+    torch.cuda.synchronize()
+    forced = census_since(mark, "make_factor_fn")
+    out["forced_recapture"] = dict(stats_retraces=st3.retraces,
+                                   last_retraces=ex.last_retraces, **forced)
+    if (st.retraces, st3.retraces, forced["retraces"], forced["builds"],
+            ex.last_retraces) != (0, 1, 1, 1, 1):
+        raise AssertionError(f"forced recapture: {out['forced_recapture']}"
+                             f", the refactor before it {st.retraces}")
+    del hf, ex
     if not (all(fused_eq) and replays_equal and old_untouched):
         raise AssertionError(f"fused replays differ from the stream or "
                              f"touched an earlier handle: {out}")
@@ -3437,15 +3551,27 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor, a_sm, lu_sm):
         s_num, s_sec, _, _ = _timed_factor(torch, kernels, factor, pc, bv_c,
                                            lu_c.anorm, executor="stream",
                                            dtype=dt)
+        from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
         megas = []
         for i in (0, 1):
+            mark = census_mark()
             num, sec, _, launches = _timed_factor(
                 torch, kernels, factor, pc, bv_c, lu_c.anorm,
                 executor="mega", dtype=dt)
+            census = census_since(mark, "mega._kernel")
+            pending = [p for p in COMPILE_STATS.pending()
+                       if p["site"] == "mega._kernel"]
             megas.append(dict(s=sec, launches=launches["front_assemble"],
+                              census=census, pending=len(pending),
                               **_drift(torch, tols, num.fronts,
                                        s_num.fronts)))
+            if (census["builds"], census["retraces"], len(pending)) != (
+                    nkeys if i == 0 else 0, 0, 0):
+                raise AssertionError(f"mega call {i}: census {census}, "
+                                     f"pending {pending}")
         rep = num.executor
+        megas[0]["census_vs_graphs"] = within_census(
+            "mega capture", megas[0]["census"]["seconds"], rep)
         small["mega"][str(dt)[6:]] = dict(
             stream_fact_s=s_sec, first=megas[0], replayed=megas[1],
             **{k: rep[k] for k in ("graphs", "capture_s", "instantiate_s",
@@ -3503,13 +3629,18 @@ def executors_phase(slt, a, lu, kernels, tols, torch, factor, a_sm, lu_sm):
     for i in (0, 1):
         kernels.reset_launches()
         torch.cuda.synchronize()
+        mark = census_mark()
         t0 = time.perf_counter()
         fr, tiny = ex(torch.as_tensor(bv_d), thresh)
         torch.cuda.synchronize()
         lev.append(dict(s=time.perf_counter() - t0,
                         launches=kernels.LAUNCHES["front_assemble"],
+                        census=census_since(mark, "stream._level_fn"),
                         equal_to_stream=_fronts_equal(torch, fr,
                                                       s_num.fronts)))
+    if (lev[0]["census"]["builds"], lev[1]["census"]["builds"],
+            lev[1]["census"]["retraces"]) != (len(ex.waves()), 0, 0):
+        raise AssertionError(f"level waves' census: {lev}")
     rep = ex.report()
     small["level"] = dict(waves=len(ex.waves()), graphs=rep["graphs"],
                           stream_fact_s=s_sec, first=lev[0], replayed=lev[1],
@@ -4708,7 +4839,19 @@ def main():
     berr = rep.berr
     relres = float(np.linalg.norm(b - a.matvec(x)) / np.linalg.norm(b))
     analysis = sum(stats.utime[p] for p in ANALYSIS)
+    # the build census: the FACT's own block (the card's default stream
+    # executor builds nothing per key), and the process's so far — the
+    # kernel and host-library builds and the first solve's captures
+    comp = stats.compile
+    if stats.retraces or comp["builds"]:
+        raise AssertionError(f"gssvx FACT: {comp['builds']} builds, "
+                             f"{stats.retraces} retraces")
     say("gssvx", n=a.n_rows, nnz=a.nnz, info=info, wall_s=wall,
+        compile={k: comp[k] for k in ("builds", "seconds", "fresh_seconds",
+                                      "persistent_hits")},
+        compile_top=[[r["site"], r["key"], r["n"], r["seconds"]]
+                     for r in comp["census"][:3]],
+        retraces=stats.retraces, census_process=census_since((0, 0)),
         analysis_backend="native" if lu.options.native else "python",
         analysis_s=analysis, phase_s=stats.utime, native_calls=calls,
         supernodes=lu.sf.n_supernodes,

@@ -6,8 +6,14 @@ engine and rules, with the two device rules retargeted at torch.
 Rules:
   SLU101 collective-consistency   (rules_collective.py, interprocedural;
                                    TreeComm and ProcessGrid collectives)
+  SLU102 capture purity           (rules_trace.py, CUDA-graph capture
+                                   bodies through the call graph)
   SLU103 index-width discipline   (rules_index.py, flow-based)
   SLU104 env-knob registry        (rules_env.py, utils/options.py)
+  SLU105 graph-cache-key hygiene  (rules_trace.py, interprocedural;
+                                   runtime twin: numeric/stream.py's
+                                   retrace sentinel)
+  SLU107 graph-key shape diversity (rules_trace.py)
   SLU108 shared-mutable access    (rules_shared.py)
   SLU109 lock-order discipline    (rules_lockorder.py; runtime twin
                                    utils/lockwatch.py under
@@ -32,9 +38,11 @@ run once on fake tensors under a recording dispatch mode) when the
 runtime audits are on (utils/programaudit.py); in a source scan they
 are catalog entries with nothing to check.
 
-Not ported: SLU102/SLU105/SLU107 (jit bodies and jit cache keys — the
-port has no jit), SLU117 (df64 pair components — the port runs df64 as
-float64) and SLU120 (the JAX package's mesh-axis registry).
+SLU102/SLU105/SLU107 are the JAX package's jit rules moved from jitted
+bodies and jit cache keys to CUDA-graph capture bodies and graph-cache
+keys.  Not ported: SLU117 (df64 pair components — the port runs df64 as
+float64) and SLU120 (the JAX package's mesh-axis registry; the grid
+keeps ``parallel/grid.AXES``).
 
 Engine: every scan first builds a package-wide call graph
 (callgraph.py) and per-function dataflow summaries over the

@@ -8,7 +8,7 @@ knob registry.
 The scan is two-pass: pass one builds the package-wide call graph +
 dataflow summaries (analysis/callgraph.py, analysis/dataflow.py) over
 every scanned file, pass two runs the rules with that project in hand so
-SLU101/SLU103/SLU113 resolve cross-module indirection.
+SLU101/SLU102/SLU103/SLU105/SLU113 resolve cross-module indirection.
 
 Port of the JAX package's ``analysis/__main__.py``, with its flags and
 exit codes.
@@ -39,7 +39,9 @@ def _build_parser():
         prog="python -m superlu_dist_tpu_torch.analysis",
         description="slulint for superlu_dist_tpu_torch: project-native "
                     "static analysis (collective-safety SLU101, "
-                    "index-width SLU103, env-knob registry SLU104, "
+                    "capture purity SLU102, index-width SLU103, "
+                    "env-knob registry SLU104, graph-cache keys SLU105, "
+                    "graph-key shape diversity SLU107, "
                     "shared-mutable access SLU108, lock-order/"
                     "hold-discipline SLU109, thread lifecycle SLU110, "
                     "dispatch-loop host round-trips SLU113, implicit "
@@ -119,8 +121,11 @@ def main(argv=None) -> int:
             CollectiveRule
         from superlu_dist_tpu_torch.analysis.rules_index import \
             IndexWidthRule
+        from superlu_dist_tpu_torch.analysis.rules_trace import \
+            GraphCacheKeyRule
         for r in rules:
-            if isinstance(r, (CollectiveRule, IndexWidthRule)):
+            if isinstance(r, (CollectiveRule, IndexWidthRule,
+                              GraphCacheKeyRule)):
                 r.interprocedural = False
     if args.list_rules:
         for r in rules:

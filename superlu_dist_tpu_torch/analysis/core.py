@@ -41,7 +41,7 @@ import re
 #: bumped whenever the rule set / engine semantics change — part of the
 #: result-cache key (analysis/cache.py), so a stale cache can never
 #: serve findings computed by an older rule set
-ANALYSIS_VERSION = "torch-1"
+ANALYSIS_VERSION = "torch-2"
 
 #: the package directory whose subpackages ``Rule.package_dirs`` name
 PACKAGE = "superlu_dist_tpu_torch"
@@ -208,7 +208,10 @@ def default_rules() -> list:
         AccumulationDtypeRule, ImplicitDowncastRule, ToleranceLiteralRule)
     from superlu_dist_tpu_torch.analysis.rules_sharding import (
         CrossDeviceCopyRule, ImplicitReshardRule, PeakMemoryRule)
-    return [CollectiveRule(), IndexWidthRule(), EnvKnobRule(),
+    from superlu_dist_tpu_torch.analysis.rules_trace import (
+        CapturePurityRule, GraphCacheKeyRule, GraphKeyShapeDiversityRule)
+    return [CollectiveRule(), CapturePurityRule(), IndexWidthRule(),
+            EnvKnobRule(), GraphCacheKeyRule(), GraphKeyShapeDiversityRule(),
             SharedMutableRule(), LockOrderRule(), ThreadLifecycleRule(),
             InPlaceRule(), BakedConstRule(), HostRoundTripRule(),
             CollectiveLockstepRule(), ImplicitDowncastRule(),

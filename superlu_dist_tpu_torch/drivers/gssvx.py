@@ -42,6 +42,8 @@ from superlu_dist_tpu_torch.numeric.factor import (NumericFactorization,
                                                    numeric_factorize,
                                                    query_space)
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, build_plan
+from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
 from superlu_dist_tpu_torch.obs.flightrec import get_flightrec
 from superlu_dist_tpu_torch.obs.metrics import get_metrics
 from superlu_dist_tpu_torch.ops.dense import next_gemm_precision
@@ -393,6 +395,8 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
     deadline = (Deadline(options.deadline_s, comm=deadline_comm,
                          poll_every=env_int("SLU_TPU_DEADLINE_POLL"))
                 if options.deadline_s else None)
+    retr0 = RETRACE_SENTINEL.total
+    comp0 = COMPILE_STATS.marker()
     with stats.timer("FACT"):
         numeric = numeric_factorize(
             lu.plan, bvals, lu.anorm, dtype=dtype, device=lu.device,
@@ -413,6 +417,12 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
     stats.tiny_pivots += numeric.tiny_pivots
     stats.sched = lu.plan.schedule_stats(
         itemsize=torch.empty((), dtype=dtype).element_size())
+    # the retrace sentinel (runtime SLU106): graphs a warmed executor
+    # captured again during THIS factorization
+    stats.retraces += RETRACE_SENTINEL.total - retr0
+    # the build census (obs/compilestats.py): the builds and captures
+    # THIS factorization paid, and the program audits' notes summed
+    stats.compile = COMPILE_STATS.block(since=comp0)
     m = get_metrics()
     if m.enabled:
         sched = stats.sched
@@ -424,6 +434,10 @@ def factorize_numeric(lu: LUFactorization, bvals: np.ndarray,
         m.set("slu_schedule_groups", sched.get("n_groups", 0))
         m.set("slu_schedule_occupancy", sched.get("occupancy", 0.0))
         m.set("slu_schedule_critical_path", sched.get("critical_path", 0))
+        m.inc("slu_compile_builds_total",
+              float(stats.compile.get("builds", 0)))
+        m.inc("slu_compile_seconds_total",
+              float(stats.compile.get("seconds", 0.0)))
     # memory (the dQuerySpace_dist analog); on the card the peak is the
     # allocator's own
     space = query_space(numeric)
@@ -595,7 +609,9 @@ def refactor(lu: LUFactorization, new_values, stats: Stats | None = None,
         m.inc("slu_refactor_adopted_total", 1.0)
     get_flightrec().event(
         "refactor-adopted", cat="refactor", step=step,
-        pattern=expected_digest[:12] if expected_digest else "")
+        pattern=expected_digest[:12] if expected_digest else "",
+        fresh_compile_s=float(stats.compile.get("fresh_seconds", 0.0))
+        if stats.compile else 0.0)
     return stats
 
 

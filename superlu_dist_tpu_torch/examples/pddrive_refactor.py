@@ -6,15 +6,17 @@ Jacobian's sparsity is fixed by the mesh, only its values move with the
 state).  The port's counterpart of the JAX package's
 ``examples/pddrive_refactor.py``.
 
-The JAX driver asserts ``symbolic_seconds == 0`` and
-``compile_fresh_seconds == 0.0`` (no XLA compile) on every step after the
-first.  Here the second stands for what a new step could build again:
-the step's ``Stats.utime["SYMBFACT"]`` is 0, the handle keeps its symbolic
-structure and plan (object identity), and the plan's cached factor
+The driver asserts, as the JAX driver does, ``symbolic_seconds == 0``
+and ``compile_fresh_seconds == 0.0`` on every step after the first: the
+step's ``Stats.utime["SYMBFACT"]`` is 0, and its ``stats.compile``
+(the build census of the refactor's factorization, obs/compilestats.py)
+has no fresh seconds — no kernel was built and no executor's graph was
+captured again.  It also asserts that the handle keeps its symbolic
+structure and plan (object identity) and that the plan's cached factor
 executors (``numeric.factor.cached_executors``) are the same objects
-before and after the step, so no executor is built and no fused
-executor's graph is captured again.  (The solve's CUDA graphs belong to
-the solver of the factors, which each new set of factors replaces.)  One
+before and after the step.  (The solve's CUDA graphs belong to the
+solver of the factors, which each new set of factors replaces; they
+are captured in the solve, outside the factorization's census.)  One
 bench-style JSON row records the per-step numeric cost next to the
 one-time analysis cost.
 
@@ -71,12 +73,15 @@ def run_sequence(slt, name, a, device, n_steps=N_STEPS):
                 "refactor replaced the symbolic structure or the plan")
         require(executors and not new_executors,
                 f"refactor built {len(new_executors)} new executor(s)")
+        fresh_s = float(st.compile["fresh_seconds"])
+        require(fresh_s == 0.0, f"refactor built or captured for {fresh_s} s")
         resid = report(f"{name} step {step} (refactor)", a_k, b_k, x_k,
                        xtrue_k, st2)
         require(resid < 1e-8, f"step {step}: residual {resid}")
         steps.append({"step": step, "refactor_seconds": round(refactor_s, 4),
                       "symbolic_seconds": symbolic_s,
-                      "new_executors": len(new_executors)})
+                      "new_executors": len(new_executors),
+                      "compile_fresh_seconds": fresh_s})
     return {"matrix": name, "n": a.n_rows, "nnz": a.nnz,
             "factor_seconds": round(factor_s, 4), "steps": steps}
 

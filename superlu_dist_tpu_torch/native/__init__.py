@@ -28,9 +28,12 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
+
+from superlu_dist_tpu_torch.obs.compilestats import record_build
 
 SRC = Path(__file__).resolve().with_name("slu_host.cpp")
 #: build outputs, keyed by a hash of the source, compiler and flags (kept
@@ -106,36 +109,44 @@ def build() -> Path:
     """Compile ``SRC`` with ``CXX`` into ``BUILD_ROOT`` unless a library
     for this exact source, compiler and flags exists; return its path.
     Raises ``RuntimeError`` with the compiler's output when the build
-    fails."""
+    fails.  The build, or the hit, is one record of the build census."""
+    t0 = time.perf_counter()
     digest = hashlib.sha256(repr((CXX, CXX_FLAGS, LD_LIBS)).encode())
     digest.update(SRC.read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    key = digest.hexdigest()[:16]
+    out_dir = BUILD_ROOT / key
     lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    # the lock is the open file's: it is released when the holder exits,
-    # so a build cut short leaves nothing to wait on
-    with open(out_dir / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if lib.exists():            # built while this process waited
-            return lib
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), str(SRC), *LD_LIBS]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=600)
-        except (OSError, subprocess.TimeoutExpired) as e:
-            raise RuntimeError(f"cannot build the native host library: "
-                               f"{' '.join(cmd)}: {e}") from e
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"building the native host library failed "
-                f"({' '.join(cmd)}, exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
+    hit = lib.exists()
+    if not hit:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # the lock is the open file's: it is released when the holder
+        # exits, so a build cut short leaves nothing to wait on
+        with open(out_dir / "lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            hit = lib.exists()      # built while this process waited
+            if not hit:
+                _compile(lib)
+    record_build("native.build", key, t0, time.perf_counter() - t0,
+                 persistent_hit=hit)
     return lib
+
+
+def _compile(lib) -> None:
+    tmp = lib.parent / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), str(SRC), *LD_LIBS]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"cannot build the native host library: "
+                           f"{' '.join(cmd)}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building the native host library failed "
+            f"({' '.join(cmd)}, exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
 
 
 def load():

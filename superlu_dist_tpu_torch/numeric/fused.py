@@ -31,7 +31,9 @@ waves and the mega executor's buckets too.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
 import resource
 import time
 
@@ -42,6 +44,7 @@ from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
 from superlu_dist_tpu_torch.numeric.factor import KERNELS, PANEL
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan
 from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
 from superlu_dist_tpu_torch.ops.dense import MATH_LOCK
 
 
@@ -52,6 +55,24 @@ def _rss_bytes() -> int:
             return int(fh.read().split()[1]) * resource.getpagesize()
     except OSError:
         return 0
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """No cyclic garbage collection inside the block: a collection during
+    a capture may destroy an unreachable CUDA graph, whose reset is not
+    permitted while a stream captures and so invalidates the capture
+    (``torch.cuda.graph`` collects before every capture instead, which
+    costs a full collection a graph).  The port's executors hold their
+    plan weakly (numeric/plan.PlanRef), so no cycle of the port's keeps a
+    graph; this guards the capture against a caller's cycles."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def _node_count(graph) -> int | None:
@@ -78,9 +99,13 @@ class Graph:
     memory's growth).  ``outputs`` is what the captured function
     returned; a replay rewrites it in place.  The kernel launches the
     capture recorded (``launches``) count in ``kernels.LAUNCHES`` at each
-    replay, where the card runs them, and not at the capture."""
+    replay, where the card runs them, and not at the capture.
 
-    def __init__(self, fn, device, stream, pool=None):
+    ``site`` and ``key`` name the graph in the build census
+    (obs/compilestats.py): its capture plus instantiation is recorded
+    once, as one build with no disk cache; a replay records nothing."""
+
+    def __init__(self, fn, device, stream, pool=None, *, site, key):
         dev = torch.device(device)
         self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
         try:
@@ -96,7 +121,7 @@ class Graph:
         # serialized with every other capture and math-switch block
         # (ops/dense.MATH_LOCK); thread-local mode leaves other threads
         # free to use the card meanwhile
-        with MATH_LOCK, torch.cuda.stream(stream):
+        with MATH_LOCK, gc_paused(), torch.cuda.stream(stream):
             graph.capture_begin(pool=self.pool,
                                 capture_error_mode="thread_local")
             try:
@@ -124,6 +149,9 @@ class Graph:
         self.device_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.host_bytes = _rss_bytes() - rss
         self.replays = 0
+        self.site, self.key = site, key
+        COMPILE_STATS.record(site, key, t0,
+                             self.capture_s + self.instantiate_s)
 
     def replay(self):
         self.graph.replay()

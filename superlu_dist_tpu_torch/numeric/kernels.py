@@ -53,10 +53,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from superlu_dist_tpu_torch.obs.compilestats import record_build
 
 #: kernel launches since the last reset, per wrapper (``csr_spmv`` is the
 #: refinement residual's kernel, parallel/dist.py; ``panel_lu`` counts one
@@ -98,26 +101,32 @@ def build() -> Path:
     """Compile ``csrc/*.cu`` into one shared library (one ``nvcc`` per
     source, all started together, then one link) unless a library for
     these exact sources, the headers beside them (``csrc/*.cuh``) and
-    flags exists.  Raises on any failure."""
+    flags exists.  Raises on any failure.  The build, or the hit, is one
+    record of the build census (site ``kernels.build``, key the hash)."""
+    t0 = time.perf_counter()
     srcs = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
     for src in srcs + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    key = digest.hexdigest()[:16]
+    out_dir = BUILD_ROOT / key
     lib = out_dir / "libslu_torch_kernels.so"
-    if lib.exists():
-        return lib
-    nvcc = _nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    # one build per directory at a time (the ranks of a grid on one host
-    # start together); the lock is the open file's, released when its
-    # holder exits
-    with open(out_dir / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if lib.exists():            # built while this process waited
-            return lib
-        return _compile(nvcc, srcs, out_dir, lib)
+    hit = lib.exists()
+    if not hit:
+        nvcc = _nvcc()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # one build per directory at a time (the ranks of a grid on one
+        # host start together); the lock is the open file's, released
+        # when its holder exits
+        with open(out_dir / "lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            hit = lib.exists()      # built while this process waited
+            if not hit:
+                _compile(nvcc, srcs, out_dir, lib)
+    record_build("kernels.build", key, t0, time.perf_counter() - t0,
+                 persistent_hit=hit)
+    return lib
 
 
 def _compile(nvcc, srcs, out_dir, lib) -> Path:

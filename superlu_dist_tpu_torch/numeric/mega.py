@@ -33,9 +33,14 @@ from superlu_dist_tpu_torch.numeric import factor, kernels
 from superlu_dist_tpu_torch.numeric.factor import KERNELS, PANEL
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, bucket_rung
 from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
 
 #: ladder growth of the pool and pattern-value stores (JAX mega.py:70)
 _STORE_GROWTH = 1.25
+#: the buckets' build site in the census (JAX mega.py:127); the key is
+#: the bucket program's audit label, ``lu b{b} m{m} w{w} u{u} P{P}`` and
+#: the dtype and GEMM tier
+CENSUS_SITE = "mega._kernel"
 
 
 def _pad_to(arr, length: int, fill) -> np.ndarray:
@@ -258,9 +263,16 @@ class MegaExecutor(StreamExecutor):
                 a_slot=torch.zeros(0, **i64), a_flat=torch.zeros(0, **i64),
                 a_src=torch.zeros(0, **i64), children=[], front=fm)
             buckets[key] = (smaps, m)
+        labels = {key: self._step_label((smaps.ws.shape[0], m, *key),
+                                        f" P{self._P}")
+                  for key, (smaps, m) in buckets.items()}
+        # the closed key set, announced before the first capture: the
+        # census's pending() names the buckets not captured yet
+        COMPILE_STATS.announce(CENSUS_SITE, sorted(labels.values()))
         for key, (smaps, m) in buckets.items():
             self._submit_step((smaps.ws.shape[0], m, *key), s_avals, s_pool,
-                              s_thresh, smaps, rung=f" P{self._P}")
+                              s_thresh, smaps, rung=f" P{self._P}",
+                              build=(CENSUS_SITE, labels[key]))
         stream = torch.cuda.Stream(dev)
         scratch = torch.zeros_like(s_pool)
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -282,7 +294,8 @@ class MegaExecutor(StreamExecutor):
                     dims, s_avals, s_pool, s_thresh, smaps,
                     gemm_prec=self.gemm_prec, scatter=self.scatter,
                     panel=self.panel),
-                dev, stream))
+                dev, stream, site=CENSUS_SITE, key=labels[key]))
+            self.captures += 1
 
     def report(self) -> dict:
         from superlu_dist_tpu_torch.numeric.fused import graph_totals

@@ -39,6 +39,7 @@ refactorizations with the same sparsity pattern.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 
@@ -79,6 +80,31 @@ class Group:
     a_flat: np.ndarray
     a_src: np.ndarray
     children: list          # list[ChildSet]
+
+
+class PlanRef:
+    """An executor's ``plan`` attribute, held weakly.  The plan owns its
+    executors (``factor.get_executor`` caches them on the plan), so a
+    strong reference back would make every plan and its executors a
+    reference cycle: their device memory (pools, static buffers, CUDA
+    graphs and their private pools) would be freed only by the cyclic
+    collector, at a moment no one chose — in the middle of another
+    capture, where a graph's destruction invalidates it.  Held weakly,
+    the executors go with their plan when its last reference drops."""
+
+    def __set_name__(self, owner, name):
+        self.attr = f"_{name}_ref"
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        plan = obj.__dict__[self.attr]()
+        if plan is None:
+            raise ReferenceError("the executor outlived its plan")
+        return plan
+
+    def __set__(self, obj, plan) -> None:
+        obj.__dict__[self.attr] = weakref.ref(plan)
 
 
 @dataclasses.dataclass

@@ -44,18 +44,76 @@ import torch
 
 from superlu_dist_tpu_torch.numeric import factor
 from superlu_dist_tpu_torch.numeric.factor import KERNELS, PANEL, run_groups
-from superlu_dist_tpu_torch.numeric.plan import FactorPlan, bucket_rung
+from superlu_dist_tpu_torch.numeric.plan import (FactorPlan, PlanRef,
+                                                 bucket_rung)
 from superlu_dist_tpu_torch.obs.kernelspans import (KernelClock, kernel_span,
                                                     wave_span)
+from superlu_dist_tpu_torch.obs.metrics import get_metrics
 from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.ops.dense import gemm_precision, resolve_gemm_tier
 from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
 from superlu_dist_tpu_torch.utils.errors import (CheckpointMismatchError,
                                                  SuperLUError)
+from superlu_dist_tpu_torch.utils.lockwatch import make_lock
 from superlu_dist_tpu_torch.utils.options import env_int, resolve_device
 from superlu_dist_tpu_torch.utils.programaudit import maybe_audit
 
 CPU = torch.device("cpu")
+
+
+class RetraceSentinel:
+    """The runtime recapture watchdog — the dynamic counterpart of
+    slulint's SLU105 graph-cache-key rule (part of the SLU106 runtime
+    tier), port of the JAX package's (stream.py:56-95).
+
+    An executor captures its graphs at its first call; a warmed executor
+    that runs the same plan again must capture none.  A capture after
+    the warm-up means the executor's graph cache lost a graph or a
+    cache-key input changed under it.  Such captures are counted
+    process-wide, reported to stderr, emitted as a ``verify`` trace span
+    and the ``slu_retraces_total`` counter, and summed into
+    ``Stats.retraces`` by drivers/gssvx.factorize_numeric."""
+
+    def __init__(self):
+        self.total = 0            # unexpected captures, process-wide
+        self.events = []          # (factory, builds), the last 32
+        # bumped from whichever thread ran the executor (a serving
+        # dispatcher, a user thread): the totals must not tear
+        self._lock = make_lock("stream.RetraceSentinel._lock")
+
+    def record(self, factory: str, builds: int, tracer=None) -> None:
+        with self._lock:
+            self.total += builds
+            self.events = (self.events + [(factory, int(builds))])[-32:]
+        print(f"[SLU106] retrace sentinel: {builds} unexpected CUDA graph "
+              f"capture(s) in {factory} after warmup — a cache-key input "
+              "(env knob, grid identity, dtype) changed mid-run or the "
+              "graph cache lost a graph; a warmed executor expects 0 "
+              "captures", file=sys.stderr, flush=True)
+        if tracer is not None and tracer.enabled:
+            tracer.complete("retrace-sentinel", "verify",
+                            time.perf_counter(), 0.0,
+                            factory=factory, builds=int(builds))
+        m = get_metrics()
+        if m.enabled:
+            m.inc("slu_retraces_total", float(builds), factory=factory)
+
+
+RETRACE_SENTINEL = RetraceSentinel()
+
+
+def retrace_end(ex, before: int, factory: str) -> None:
+    """The end of an executor's call (JAX stream.py:652-666): the graphs
+    it captured since ``before`` (a value of ``ex.captures``) are its
+    ``last_kernel_builds``; on a warmed executor they are retraces, and
+    the sentinel records them.  The first call that ends warms it."""
+    built = ex.captures - before
+    ex.last_kernel_builds = built
+    ex.last_retraces = 0
+    if ex.sentinel_warm and built:
+        ex.last_retraces = built
+        RETRACE_SENTINEL.record(factory, built, get_tracer())
+    ex.sentinel_warm = True
 
 
 def progress_every() -> int:
@@ -204,6 +262,8 @@ class StreamExecutor:
     "level" replays one CUDA graph per schedule wave on the card (eager
     on the CPU, where it equals "group" bit for bit)."""
 
+    plan = PlanRef()     # the plan owns its executors (plan.PlanRef)
+
     name = "stream"
     #: level waves print a progress line each (the fused executor's one
     #: wave does not: the JAX fused program prints none)
@@ -249,6 +309,11 @@ class StreamExecutor:
         self.graph_stats = {}
         self._submitted = set()    # programs submitted to the audits
         self._all_submitted = False
+        # the retrace sentinel's state: graphs captured (ever), whether a
+        # call has ended, and the last call's captures and retraces
+        self.captures = 0
+        self.sentinel_warm = False
+        self.last_kernel_builds = self.last_retraces = 0
 
     # ---- what the call loop reads (the mega executor overrides) --------
 
@@ -287,23 +352,28 @@ class StreamExecutor:
         """The dtype and GEMM tier a program label ends with."""
         return f"{str(self.dtype).replace('torch.', '')} {self.gemm_prec}"
 
+    def _step_label(self, dims, rung="") -> str:
+        """A group program's label: ``lu b{b} m{m} w{w} u{u}``, the rung
+        (mega's pool rung), the dtype and GEMM tier."""
+        return "lu b{} m{} w{} u{}".format(*dims) + rung + f" {self._tag()}"
+
     def _submit_step(self, dims, avals, pool, thresh, maps, rung="",
-                     device=None) -> None:
+                     device=None, build=None) -> None:
         """Submit ``group_step`` at ``dims`` to the runtime audits, once
         per shape key, with the pool declared dead (it is updated in
         place); with every knob off a few env reads a key.  ``device``:
-        walk on fakes of that device (``trace_spec``)."""
+        walk on fakes of that device (``trace_spec``); ``build``: the
+        census (site, key) of the graph the program is captured into."""
         if dims in self._submitted:
             return
         self._submitted.add(dims)
-        maybe_audit(f"{self.name}.group_step",
-                    "lu b{} m{} w{} u{}".format(*dims) + rung
-                    + f" {self._tag()}",
+        maybe_audit(f"{self.name}.group_step", self._step_label(dims, rung),
                     functools.partial(factor.group_step, dims,
                                       gemm_prec=self.gemm_prec,
                                       scatter=self.scatter,
                                       panel=self.panel),
-                    (avals, pool, thresh, maps), dead=(1,), device=device)
+                    (avals, pool, thresh, maps), dead=(1,), device=device,
+                    build=build)
 
     def _audit_step(self, gi, avals, pool, thresh, maps, device=None) -> None:
         """Group ``gi``'s program, before the call runs any group."""
@@ -311,21 +381,34 @@ class StreamExecutor:
         self._submit_step((grp.batch, grp.m, grp.w, grp.u), avals, pool,
                           thresh, maps[gi], device=device)
 
+    def _wave_build(self, lo, hi) -> tuple:
+        """(census site, census key, audit label) of wave lo..hi's
+        program; the census's are the JAX package's: the fused
+        program's (factor.py:369-372), a level wave's
+        (stream.py:833-835)."""
+        n = len(self.plan.groups)
+        if (lo, hi) == (0, n) and self.name == "fused":
+            label = f"fused g{n} {self._tag()}"
+            return "make_factor_fn", label, label
+        label = f"level{self.plan.groups[lo].level} g{hi - lo}"
+        return "stream._level_fn", label, f"{label} {self._tag()}"
+
     def _audit_wave(self, lo, hi, maps, avals, pool, thresh) -> None:
         """Wave lo..hi's program (``run_groups``), before its warm-up or
-        first eager run, the pool declared dead."""
+        first eager run, the pool declared dead (on the card its audit
+        notes land on the census key of the wave's graph)."""
         if (lo, hi) in self._submitted:
             return
         self._submitted.add((lo, hi))
-        n = len(self.plan.groups)
-        label = (f"fused g{n}" if (lo, hi) == (0, n) and self.name == "fused"
-                 else f"level{self.plan.groups[lo].level} g{hi - lo}")
-        maybe_audit(f"{self.name}.run_groups", f"{label} {self._tag()}",
+        site, key, label = self._wave_build(lo, hi)
+        graph = self.device.type == "cuda" and lo >= self._n_host_groups
+        maybe_audit(f"{self.name}.run_groups", label,
                     functools.partial(run_groups, self.plan, lo, hi,
                                       gemm_prec=self.gemm_prec,
                                       scatter=self.scatter,
                                       panel=self.panel),
-                    (maps, avals, pool, thresh), dead=(2,))
+                    (maps, avals, pool, thresh), dead=(2,),
+                    build=(site, key) if graph else None)
 
     # ---- the call ---------------------------------------------------------
 
@@ -370,6 +453,7 @@ class StreamExecutor:
                                  hmaps if host else maps,
                                  None if host or not n_host else dev)
             self._all_submitted = start == 0
+        builds0 = self.captures
         t_issue0 = time.perf_counter()
         if self.granularity == "level":
             tiny = self._call_waves(av, avals_dev, th, thresh, pool, maps,
@@ -417,6 +501,8 @@ class StreamExecutor:
         if clock is not None:
             # after the int(): every event of the call has completed
             self.last_profile = self._kernel_spans(tracer, clock)
+        retrace_end(self, builds0,
+                    f"{type(self).__name__}[{self.granularity}]")
         return fronts, tiny_total
 
     def _kernel_spans(self, tracer, clock) -> list:
@@ -605,12 +691,19 @@ class StreamExecutor:
             if lo < n_host:
                 waves.append(None)
                 continue
+            site, key, _ = self._wave_build(lo, hi)
             waves.append(Graph(
                 lambda lo=lo, hi=hi: run_groups(
                     plan, lo, hi, maps, s_avals, s_pool, s_thresh,
                     self.gemm_prec, self.scatter, panel=self.panel),
-                dev, stream, pool=pool_handle))
+                dev, stream, pool=pool_handle, site=site, key=key))
+            self.captures += 1
         self._waves = waves
+
+    def drop_graphs(self) -> None:
+        """Release the captured graphs: the next call captures them
+        again — on a warmed executor, retraces the sentinel counts."""
+        self._waves = None
 
     def report(self) -> dict:
         """What ran: executor, granularity, offload and its wait, host

@@ -13,14 +13,17 @@
 * ``obs.slo``       — per-ticket request tracing (``TicketContext``), the
   always-on latency accounter and the SLO evaluator;
 * ``obs.kernelspans`` — the factor executors' kernel spans and profile
-  record, timed by CUDA events.
+  record, timed by CUDA events;
+* ``obs.compilestats`` — the build census: one record per kernel or
+  host-library build and per CUDA-graph capture (site, key, seconds,
+  disk hit), the ``stats.compile`` block and the flight recorder's
+  ``compile`` key.
 
 Every span is a host timestamp around a call that already synchronizes,
 or (a kernel span) the device time between two CUDA events read after
 it: with tracing and metrics off nothing is recorded, and with them on
 the factorization and the solve issue no extra device work and no extra
-sync.  The JAX package's compile census (``obs/compilestats.py``) is not
-ported: it measures JAX compile caches.
+sync.
 """
 
 from superlu_dist_tpu_torch.obs.trace import (      # noqa: F401

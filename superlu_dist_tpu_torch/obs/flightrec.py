@@ -6,8 +6,8 @@ when the postmortem starts.  This is that device: a fixed-size
 ``collections.deque`` of span tuples — no I/O, no formatting, bounded
 memory — that dumps ONE JSON artifact (the last N events, the active
 phase stack per thread, a wall-clock anchor for cross-process
-alignment, the last checkpoint flushed, and the metrics snapshot when
-enabled) on:
+alignment, the last checkpoint flushed, the build census, and the
+metrics snapshot when enabled) on:
 
 * the construction of a structured error that carries evidence
   (``NumericBreakdownError``, ``ServePoisonedError``,
@@ -16,9 +16,9 @@ enabled) on:
 * ``SIGTERM`` (armed by the env path / ``install(..., arm_signals=True)``);
 * any explicit ``dump(reason)`` call.
 
-Port of the JAX package's ``obs/flightrec.py``.  The JAX dump also
-carries its compile census (``compile``), which the port does not have
-(a CUDA graph or kernel build is not a JAX compile cache).
+Port of the JAX package's ``obs/flightrec.py``.  The dump also carries
+the build census (``compile``, obs/compilestats.py — kernel builds and
+graph captures, the top 16 keys).
 
 Integration: the recorder implements the tracer protocol (``span`` /
 ``complete`` / ``flush`` / ``close``), so ``obs.trace.get_tracer``
@@ -209,6 +209,12 @@ class FlightRecorder:
                 "phase_stack": stacks,
                 "events": events,
             }
+            try:
+                from superlu_dist_tpu_torch.obs.compilestats import (
+                    COMPILE_STATS)
+                doc["compile"] = COMPILE_STATS.block(top=16)
+            except Exception:
+                pass
             try:
                 from superlu_dist_tpu_torch.obs.metrics import get_metrics
                 m = get_metrics()

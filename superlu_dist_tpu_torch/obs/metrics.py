@@ -11,10 +11,11 @@ histograms with JSON and Prometheus-text exports, and
 ``obs/metrics.py``.
 
 Wired producers: the driver (``drivers/gssvx.py`` — factorizations,
-GEMM tiers, schedule shape, ladder rung transitions, refactors), the
-serving tier (``serve/server.py``, ``serve/fleet.py``,
-``serve/handlecache.py``) and the lock-order verifier
-(``utils/lockwatch.py`` — lock hold times).
+GEMM tiers, schedule shape, the build census's builds and seconds,
+ladder rung transitions, refactors), the retrace sentinel
+(``numeric/stream.py``), the serving tier (``serve/server.py``,
+``serve/fleet.py``, ``serve/handlecache.py``) and the lock-order
+verifier (``utils/lockwatch.py`` — lock hold times).
 
 Disabled path (the NULL_TRACER discipline): with ``SLU_TPU_METRICS``
 unset, ``get_metrics()`` returns the module-level ``NULL_METRICS``

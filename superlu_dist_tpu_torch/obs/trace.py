@@ -49,8 +49,9 @@ import time
 
 #: Span categories (the ``cat`` field of every record), the JAX
 #: package's set.  "verify" spans mark the device solve's non-finite
-#: probe (solve/device.py); the "compile" category is the JAX package's
-#: compile census, which the port does not have.  "request" spans come
+#: probe (solve/device.py) and the retrace sentinel (numeric/stream.py);
+#: "compile" spans are the build census's, one a kernel or host-library
+#: build or a graph capture (obs/compilestats.py).  "request" spans come
 #: from the serving tier's TicketContext (obs/slo.py, emitted by
 #: serve/server.py and serve/fleet.py): one enclosing span per ticket
 #: with nested per-stage children (queue_wait / coalesce / dispatch /

@@ -67,6 +67,10 @@ from superlu_dist_tpu_torch.parallel.mesh_stream import (Exchange,
                                                          share_maps)
 
 
+#: the segment graphs' build site in the census (obs/compilestats.py)
+SEGMENT_SITE = "mesh_graphs.segment"
+
+
 class _Done:
     """A group program's end, captured as the last segment's output."""
 
@@ -214,12 +218,13 @@ class _GridGraphs(MeshStreamExecutor):
                                       - before["front_assemble"])
         self._warmed = True
 
-    def _capture(self, program, bufs, pool) -> list:
+    def _capture(self, program, bufs, pool, label) -> list:
         """A group program's segments: each captured on the capture
         stream into ``pool`` (a graph pool handle), replayed, then the
         collective that ends it run into the static buffers.  Returns
         [(Graph, request or _Done)] — the last entry's ``_Done`` holds
-        the program's outputs."""
+        the program's outputs.  Each segment is one build in the census,
+        site ``mesh_graphs.segment``, key ``{label} s{index}``."""
         from superlu_dist_tpu_torch.numeric.fused import Graph
         run = self._static_collective(bufs)
         segs, reply = [], None
@@ -229,7 +234,9 @@ class _GridGraphs(MeshStreamExecutor):
                 # before an exchange) is an empty graph: valid, a no-op
                 warnings.filterwarnings("ignore", "The CUDA Graph is empty")
                 graph = Graph(lambda: _advance(program, reply), self.device,
-                              self._stream, pool=pool)
+                              self._stream, pool=pool, site=SEGMENT_SITE,
+                              key=f"{label} s{len(segs)}")
+            self.captures += 1
             graph.replay()
             req = graph.outputs
             segs.append((graph, req))
@@ -290,8 +297,11 @@ class MeshFusedExecutor(_GridGraphs):
             self._pool = torch.cuda.graph_pool_handle()
         segs = self._segs.get(gi)
         if segs is None:
-            segs = self._segs[gi] = self._capture(
-                self._group(gi, states[gi], bufs), bufs, self._pool)
+            # bufs: on the card, the executor's static buffers (_buffers),
+            # the same tensors every call — not a key input
+            segs = self._capture(self._group(gi, states[gi], bufs), bufs,
+                                 self._pool, f"g{gi}")
+            self._segs[gi] = segs  # slulint: disable=SLU105
             out = segs[-1][1].value
         else:
             out = self._replay(segs, self.layout.groups[gi], bufs)
@@ -315,7 +325,7 @@ class MeshLevelExecutor(_GridGraphs):
 
     def __init__(self, *args, granularity="level", **kw):
         super().__init__(*args, granularity=granularity, **kw)
-        self._segs = {}            # wave (its first group) -> its segments
+        self._segs = {}            # wave (lo, hi) -> its segments
 
     def _wave(self, lo, hi, states, bufs):
         """Groups lo..hi-1's programs as one program: the outputs of
@@ -332,10 +342,13 @@ class MeshLevelExecutor(_GridGraphs):
         if not self._warmed:
             self._warm(lambda g: states[g], bufs)
             self._pool = torch.cuda.graph_pool_handle()
-        segs = self._segs.get(lo)
+        segs = self._segs.get((lo, hi))
         if segs is None:
-            segs = self._segs[lo] = self._capture(
-                self._wave(lo, hi, states, bufs), bufs, self._pool)
+            # bufs: the executor's static buffers (see MeshFusedExecutor)
+            segs = self._capture(
+                self._wave(lo, hi, states, bufs), bufs, self._pool,
+                f"level{self.plan.groups[lo].level} g{lo}-{hi - 1}")
+            self._segs[(lo, hi)] = segs  # slulint: disable=SLU105
             outs = segs[-1][1].value
         else:
             outs = self._replay(segs, None, bufs)
@@ -536,8 +549,9 @@ class MeshMegaExecutor(_GridGraphs):
         segs = self._keys[key][1]
         if segs is None:
             segs = self._capture(self._group(gi, state, bufs), bufs,
-                                 self._pool)
-            self._keys[key] = (state, segs)
+                                 self._pool, "w{} u{} r{:d}".format(*key))
+            # bufs: the executor's static buffers (see MeshFusedExecutor)
+            self._keys[key] = (state, segs)  # slulint: disable=SLU105
             out = segs[-1][1].value
         else:
             out = self._replay(segs, self.layout.groups[gi], bufs)

@@ -63,6 +63,7 @@ import time
 import numpy as np
 import torch
 
+from superlu_dist_tpu_torch.numeric.plan import PlanRef
 from superlu_dist_tpu_torch.obs.kernelspans import (KernelClock, kernel_span,
                                                     wave_span)
 from superlu_dist_tpu_torch.obs.trace import get_tracer
@@ -213,6 +214,8 @@ class MeshStreamExecutor:
     programs as "group", bit for bit.  The deadline polls at every unit
     boundary."""
 
+    plan = PlanRef()     # the plan owns its executors (plan.PlanRef)
+
     name = "mesh-stream"
 
     def __new__(cls, *args, granularity="group", **kw):
@@ -280,6 +283,11 @@ class MeshStreamExecutor:
         self._timings = None
         self._dev = None
         self._submitted = set()    # group programs submitted to the audits
+        # the retrace sentinel's state (numeric/stream.retrace_end): the
+        # segment graphs captured (the graph executors), a call ended
+        self.captures = 0
+        self.sentinel_warm = False
+        self.last_kernel_builds = self.last_retraces = 0
 
     def _device_state(self):
         """Per group on the device, built at the first call: the share's
@@ -461,13 +469,15 @@ class MeshStreamExecutor:
         from superlu_dist_tpu_torch.numeric.stream import (_Offload,
                                                            progress_every,
                                                            progress_line,
-                                                           progress_wave)
+                                                           progress_wave,
+                                                           retrace_end)
         from superlu_dist_tpu_torch.parallel.spmd import Shard
         if self.checkpoint is not None or self.resume is not None:
             raise ValueError(f"the {self.name} executor takes no checkpoint "
                              f"or resume: the pool is the ranks' joint state")
         plan, dev, grid = self.plan, self.device, self.grid
         self._begin(timings)
+        builds0 = self.captures
         bufs = self._buffers(avals, thresh)
         out = (_Offload(self.offload_sizes(), self.dtype, dev,
                         self.offload_lag)
@@ -526,6 +536,8 @@ class MeshStreamExecutor:
         if clock is not None:
             # after the all-reduce: every event of the call has completed
             self.last_profile = self._kernel_spans(tracer, clock)
+        retrace_end(self, builds0,
+                    f"{type(self).__name__}[{self.granularity}]")
         cols = [(gl.gcol[:gl.kw], gl.gcol[gl.kw:gl.mc] - grp.w)
                 for grp, gl in zip(plan.groups, self.layout.groups)]
         return fronts, tiny_total, Shard(

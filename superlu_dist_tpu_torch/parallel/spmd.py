@@ -51,6 +51,7 @@ import types
 import numpy as np
 import torch
 
+from superlu_dist_tpu_torch.numeric.plan import PlanRef
 from superlu_dist_tpu_torch.obs.kernelspans import KernelClock
 from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.utils.programaudit import maybe_audit
@@ -199,6 +200,8 @@ class SpmdFactorExecutor:
     ``offload`` as on the 2-D executor (parallel/mesh_stream.py): "host"
     copies each group's own panels and its pivot stack to pinned host
     memory as the group completes."""
+
+    plan = PlanRef()     # the plan owns its executors (plan.PlanRef)
 
     name = "spmd"
 

@@ -55,6 +55,8 @@ import numpy as np
 import torch
 
 from superlu_dist_tpu_torch.numeric.factor import NumericFactorization
+from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
 from superlu_dist_tpu_torch.obs.trace import get_tracer
 from superlu_dist_tpu_torch.ops.dense import gemm, gemm_precision, matmul_tf32
 from superlu_dist_tpu_torch.solve.plan import (SolvePlan, build_solve_plan,
@@ -331,6 +333,7 @@ class DeviceSolver:
         # per (direction, bucket, mode), all in one private memory pool
         self._buffers = {}
         self._graphs = {}
+        self._captured = set()    # every (direction, mode, kb) captured
         self._pool = None
         self.graph_pool_bytes = 0
         self._submitted = set()   # sweep programs submitted to the audits
@@ -464,7 +467,10 @@ class DeviceSolver:
     def _capture(self, direction, mode, kb):
         """Capture the CUDA graph of one sweep on bucket kb's static
         buffers, after one eager warm-up run on the capture stream (the
-        buffers' contents are overwritten; the caller loads them after)."""
+        buffers' contents are overwritten; the caller loads them after).
+        The capture is one build in the census, under the JAX package's
+        label (solve/device.py:593-600); a bucket captured again is a
+        retrace for the sentinel."""
         x, lsum = self._buffers[kb]
         dev = self.device
         if self._pool is None:
@@ -479,8 +485,10 @@ class DeviceSolver:
         # capture_begin/_end rather than torch.cuda.graph, which empties the
         # allocator's whole cache before every capture; the private pool's
         # segments are new, so the reserved bytes' growth is the graph's
+        from superlu_dist_tpu_torch.numeric.fused import gc_paused
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
+        with gc_paused(), torch.cuda.stream(stream):
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
             try:
@@ -488,8 +496,16 @@ class DeviceSolver:
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(stream)
+        COMPILE_STATS.record(
+            "solve.device",
+            f"solve n{self.n} nrhs{kb} {'fused' if self.fused else 'stream'}",
+            t0, time.perf_counter() - t0, n_args=3)
         self.graph_pool_bytes += torch.cuda.memory_reserved(dev) - reserved
-        self._graphs[(direction, mode, kb)] = graph
+        key = (direction, mode, kb)
+        if key in self._captured:
+            RETRACE_SENTINEL.record(type(self).__name__, 1, get_tracer())
+        self._captured.add(key)
+        self._graphs[key] = graph
 
     def _run_sweeps(self, rhs: np.ndarray, mode: str) -> np.ndarray:
         """Shared scaffolding of the plain and transposed solves: map the
@@ -527,7 +543,10 @@ class DeviceSolver:
                 src = torch.as_tensor(np.ascontiguousarray(r2[:, lo:hi])).to(
                     device=self.device, dtype=dt)
                 if self.fused:
-                    self._ensure_graphs(mode, kb)
+                    # the file I/O the call graph reaches is the flight
+                    # recorder's deferred SIGTERM dump, armed at
+                    # get_tracer's first use — made above, before the lock
+                    self._ensure_graphs(mode, kb)  # slulint: disable=SLU109
                     x = self._buffers[kb][0]
                     x.zero_()
                     x[:self.n, :hi - lo] = src

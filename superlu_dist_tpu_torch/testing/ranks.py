@@ -252,23 +252,41 @@ def _run_mesh(job: RankJob, rank: int, device, lu, rec: dict,
     """One ``pgssvx(grid=)`` call as ``rank`` (run_job's "mesh" kind):
     the rank's share of the sharded factors (``shard``: groups, owned
     slots, front bytes, whether every group holds exactly the rank's own
-    slots), its front_assemble, panel_lu and csr_spmv launches and, with
+    slots), its front_assemble, panel_lu and csr_spmv launches, the
+    call's build census (``census``: segment and solve captures, their
+    seconds, the retrace sentinel's count) and, with
     ``job.gather``, its kernels against their plain versions at its own
     shapes land on ``rec``."""
+    import gc
+
     import torch
     from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
     from superlu_dist_tpu_torch.parallel.pgssvx import pgssvx
     from superlu_dist_tpu_torch.parallel.spmd import gather_fronts
     tc, grid = _mesh_grid(job, rank, device, rec)
     try:
         a_loc = job.a_source(job.n_ranks, rank)
         launches = dict(kernels.LAUNCHES)
+        mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total)
+        # measurement hygiene: the call's peak is read above this base
+        # (lu_out["timings"]), so no garbage may be freed inside it.  The
+        # port's executors are no longer such garbage (their plan held
+        # weakly, numeric/plan.PlanRef); a caller's cycles still may be
+        gc.collect()
         x, info = pgssvx(tc, job.options, a_loc,
                          job.b_source(job.n_ranks, rank),
                          lu=lu if job.reuse_lu else None, lu_out=lu_out,
                          grid=grid)
         if grid.device.type == "cuda":
             torch.cuda.synchronize(grid.device)
+        recs = COMPILE_STATS.records[mark[0]:]
+        rec["census"] = {
+            "segments": sum(r.site == "mesh_graphs.segment" for r in recs),
+            "solve": sum(r.site == "solve.device" for r in recs),
+            "seconds": sum(r.seconds for r in recs),
+            "retraces": RETRACE_SENTINEL.total - mark[1]}
         rec["launches"] = (kernels.LAUNCHES["front_assemble"]
                            - launches["front_assemble"])
         rec["spmv_launches"] = (kernels.LAUNCHES["csr_spmv"]

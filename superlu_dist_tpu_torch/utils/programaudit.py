@@ -28,7 +28,12 @@ knobs.
 Off path (every knob unset): ``get_auditor`` / ``get_dtype_auditor`` /
 ``get_sharding_auditor`` return None and allocate nothing — a few env
 reads per build site.  The census of clean programs is
-:func:`audit_block` (the port has no compile census).
+:func:`audit_block`.  Each audit also notes its stats in the build
+census (obs/compilestats.py) under the program's own tagged label,
+``audit_note(site, label[#dtypes|#sharding])`` as the JAX package does;
+the census sums the notes into ``stats.compile["program_audit"]``, and
+the census row of the graph the program is captured into (``build=``)
+carries the sharding audit's ``peak_bytes_est``.
 """
 
 from __future__ import annotations
@@ -164,6 +169,8 @@ class _Auditor:
     so a lazy build site pays one walk per distinct program, ever."""
 
     metric = ""
+    #: the suffix of this auditor's notes in the build census
+    note = ""
 
     def __init__(self):
         self.audited: dict = {}     # (site, label) -> stats
@@ -175,17 +182,22 @@ class _Auditor:
     def _raise(self, site, label, findings, stats):
         raise NotImplementedError
 
-    def check(self, spec) -> dict:
+    def check(self, spec, build=None) -> dict:
         """Audit one recorded program (``analysis/program.trace_spec``;
         the auditors of one ``maybe_audit`` share its walk): raises on any
         finding (on every rank of a grid program), returns the stats when
-        clean."""
+        clean.  The stats are noted in the build census under the
+        program's own (site, label); ``build`` is the census (site, key)
+        of the graph it is captured into, if any."""
         site, label = spec.site, spec.label
         findings, stats = self._audit(spec)
         digests, peers = _agree(spec, findings)
         findings += self._diverged(spec, digests)
         findings += peers
         stats["findings"] = len(findings)
+        from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+        COMPILE_STATS.audit_note(site, label + self.note, stats,
+                                 build=build)
         from superlu_dist_tpu_torch.obs.metrics import get_metrics
         m = get_metrics()
         if m.enabled:
@@ -245,6 +257,7 @@ class DtypeAuditor(_Auditor):
     (with both on, ``maybe_audit`` walks each program once for both)."""
 
     metric = "slu_precision_audit_total"
+    note = "#dtypes"
 
     def _audit(self, spec):
         from superlu_dist_tpu_torch.analysis.program import audit_dtypes
@@ -261,6 +274,7 @@ class ShardingAuditor(_Auditor):
     MemoryBudgetError, any other finding ShardingAuditError."""
 
     metric = "slu_sharding_audit_total"
+    note = "#sharding"
 
     def __init__(self, reshard_min_bytes: int = RESHARD_MIN_BYTES,
                  budget_bytes: int = 0):
@@ -286,12 +300,13 @@ class ShardingAuditor(_Auditor):
 
 
 def maybe_audit(site: str, label: str, fn, args, *, dead=(), mesh_axes=(),
-                device=None) -> dict | None:
+                device=None, build=None) -> dict | None:
     """The one-line build-site hook: nothing (and no state) when every
     knob is off; else the program auditor, then the precision auditor,
     then the sharding auditor, each memoizing on its own — sharing one
-    walk of the program among those that have not seen it.  Returns the
-    first active auditor's stats."""
+    walk of the program among those that have not seen it.  ``build``:
+    the census (site, key) of the graph the program is captured into.
+    Returns the first active auditor's stats."""
     global _SECONDS
     out = spec = None
     for aud in (get_auditor(), get_dtype_auditor(), get_sharding_auditor()):
@@ -307,7 +322,7 @@ def maybe_audit(site: str, label: str, fn, args, *, dead=(), mesh_axes=(),
                     spec = trace_spec(fn, args, label=label, site=site,
                                       dead=dead, mesh_axes=mesh_axes,
                                       device=device)
-                stats = aud.check(spec)
+                stats = aud.check(spec, build)
             finally:
                 _SECONDS += time.perf_counter() - t0
         out = stats if out is None else out

@@ -143,6 +143,9 @@ class Stats:
     ops: dict = field(default_factory=lambda: {p: 0.0 for p in PHASES})
     tiny_pivots: int = 0          # reference: stat->TinyPivots (pdgstrf2.c:226)
     refine_steps: int = 0         # reference: stat->RefineSteps
+    retraces: int = 0             # CUDA graphs a warmed executor or solver
+                                  # captured again, flagged by the retrace
+                                  # sentinel (runtime SLU106)
     solve_report: object = None   # SolveReport of the last driver solve
     sched: dict = field(default_factory=dict)   # FactorPlan.schedule_stats
                                   # of the last factorization
@@ -159,6 +162,11 @@ class Stats:
     comm: dict = field(default_factory=dict)   # CommStats.totals()
                                   # snapshot (attach_comm; the distributed
                                   # driver's collectives)
+    compile: dict = field(default_factory=dict)   # build-census block of
+                                  # the last factorization (obs/
+                                  # compilestats.COMPILE_STATS.block:
+                                  # builds, seconds, fresh seconds, disk
+                                  # hits, top keys; program_audit)
 
     @contextlib.contextmanager
     def timer(self, phase: str):
@@ -235,7 +243,8 @@ class Stats:
 
     def report(self) -> str:
         """PStatPrint analog (SRC/util.c:484-534): phase times + Mflops,
-        the dispatch schedule, resume, memory and solve-health blocks."""
+        the dispatch schedule, the executor, the build census, resume,
+        retraces, memory and solve-health blocks."""
         lines = ["**************************************************",
                  "**** Time (seconds) ****"]
         for p in PHASES:
@@ -268,6 +277,19 @@ class Stats:
                 line += (f"  graphs {e['graphs']}"
                          f" (capture {e.get('capture_s', 0.0):.3f} s)")
             lines.append(line)
+        if self.compile and self.compile.get("builds"):
+            # the build census (obs/compilestats.py): what the kernel
+            # builds and graph captures of the last factorization cost,
+            # and which keys dominated
+            c = self.compile
+            lines.append(
+                f"    compile  builds {c['builds']:4d}  "
+                f"{c.get('seconds', 0.0):10.4f} s  "
+                f"persistent hits {c.get('persistent_hits', 0)}")
+            for row in c.get("census", [])[:3]:
+                lines.append(
+                    f"      {row['site']:<18s} {row['key']:<26s} "
+                    f"x{row['n']:<3d} {row['seconds']:9.4f} s")
         if self.resume:
             lines.append(
                 f"    resumed  {self.resume.get('groups', 0)}/"
@@ -275,6 +297,9 @@ class Stats:
                 f"{self.resume.get('path', '?')}")
         if self.tiny_pivots:
             lines.append(f"    tiny pivots replaced: {self.tiny_pivots}")
+        if self.retraces:
+            lines.append(f"    UNEXPECTED graph recaptures: {self.retraces} "
+                         "(cache-key input changed mid-run — SLU106)")
         if self.refine_steps:
             lines.append(f"    refinement steps: {self.refine_steps}")
         if self.solve_report is not None:

@@ -289,6 +289,298 @@ def test_slu113_messages_name_the_device_source():
 
 
 # --------------------------------------------------------------------------
+# SLU102 / SLU105 / SLU107: the JAX jit fixtures as capture bodies and
+# graph caches, line for line
+# --------------------------------------------------------------------------
+
+TRACE_RULES = {"SLU102", "SLU105", "SLU107"}
+_GRAPH = 'Graph(body, "cuda", torch.cuda.Stream(), site="t", key="k")'
+
+#: JAX snippet (tests/test_analysis.py) or fixture -> its torch form: a
+#: jitted body becomes a body captured by numeric/fused.Graph, an
+#: lru_cached jit factory an lru_cached graph factory
+TRACE_PAIRS = {
+    "SLU102_POSITIVE": f"""
+import os
+import torch
+from superlu_dist_tpu_torch.numeric.fused import Graph
+
+# captured by capture() below
+def kernel(x):
+    scale = float(os.environ.get("SLU_TPU_TRACE", "1"))
+    return x.cpu() * scale
+
+def capture(x, dev, stream):
+    return Graph(lambda: kernel(x), dev, stream, site="t", key="k")
+""",
+    "SLU102_WRAPPED": """
+import torch
+
+def make(w, dev, stream):
+    def step():
+        return w * int(w.sum())
+    return Graph(step, dev, stream, site="t", key="k")
+""",
+    "SLU102_CLEAN": """
+import torch
+from superlu_dist_tpu_torch.numeric.fused import Graph
+
+# captured by capture() below
+def kernel(x):
+    return torch.as_tensor(x) * 2.0
+
+def host_helper(x):
+    return float(x.sum())
+
+def capture(x, dev, stream):
+    return Graph(lambda: kernel(x), dev, stream, site="t", key="k")
+""",
+    "SLU105_ENV": f"""
+import functools
+import os
+import torch
+
+@functools.lru_cache(maxsize=None)
+def make_graph(m, w):
+    passes = os.environ.get("SLU_TPU_PRECISION", "highest")
+    def body():
+        return torch.ones(m) * len(passes)
+    return {_GRAPH}
+""",
+    "SLU105_CLOSURE": f"""
+import functools
+import torch
+
+def build(plan, pad_width):
+    @functools.lru_cache(maxsize=None)
+    def make_graph(m):
+        def body():
+            return torch.zeros(64)[:m + pad_width]
+        return {_GRAPH}
+    return make_graph
+""",
+    "SLU105_CLEAN": f"""
+import functools
+import torch
+
+from superlu_dist_tpu_torch.utils.options import env_str
+
+def make_graph(m, w):
+    # env resolved OUTSIDE the cached factory and passed as a key arg,
+    # the ops/dense.make_front_kernel discipline
+    return _make_graph(m, w, env_str("SLU_TPU_PRECISION"))
+
+@functools.lru_cache(maxsize=None)
+def _make_graph(m, w, precision):
+    def body():
+        return torch.zeros(m) * w if precision else None
+    return {_GRAPH}
+""",
+    "SLU105_ENV_HELPER": f"""
+import functools
+import os
+import torch
+
+def _resolve():
+    return os.environ.get("SLU_TPU_PRECISION", "highest")
+
+@functools.lru_cache(maxsize=None)
+def make_graph(m):
+    passes = _resolve()
+    def body():
+        return torch.ones(m) * len(passes)
+    return {_GRAPH}
+""",
+    "SLU105_LATCHED": f"""
+import functools
+import os
+import torch
+
+@functools.lru_cache(maxsize=None)
+def _precision():
+    return os.environ.get("SLU_TPU_PRECISION", "highest")
+
+@functools.lru_cache(maxsize=None)
+def make_graph(m):
+    p = _precision()
+    def body():
+        return torch.ones(m) * len(p)
+    return {_GRAPH}
+""",
+    "SLU107_INLINE": """
+import functools, torch
+
+@functools.lru_cache(maxsize=None)
+def make(n):
+    return Graph(lambda: torch.zeros(n), "cuda", None, site="t", key="k")
+
+def a(x):
+    return make(x.numel()).replay()   # raw .numel() -> flagged
+
+def b(x):
+    return make(_bucket_len(x.numel())).replay()   # rung-rounded -> clean
+""",
+}
+
+
+def _torch_fixture(name) -> str:
+    """A JAX slulint fixture file rewritten line for line: jax.jit of
+    the body becomes a fused.Graph capture of it."""
+    src = open(os.path.join(FIXDIR, name)).read()
+    src = src.replace("import jax\nimport jax.numpy as jnp",
+                      "import torch\nfrom superlu_dist_tpu_torch.numeric."
+                      "fused import Graph")
+    src = src.replace("return jax.jit(step)",
+                      'return Graph(step, "cuda", None, site="t", key="k")')
+    return src.replace("jnp.", "torch.")
+
+
+for _name in ("raw_dim_key.py", "bucketed_dim_key.py"):
+    TRACE_PAIRS[_name] = _torch_fixture(_name)
+
+
+def _jax_trace_source(name) -> str:
+    if name.endswith(".py"):
+        return open(os.path.join(FIXDIR, name)).read()
+    return _snippets()[name]
+
+
+def _line_keys(findings) -> set:
+    return {(f.rule, f.line) for f in findings if f.rule in TRACE_RULES}
+
+
+@pytest.mark.parametrize("name", sorted(TRACE_PAIRS))
+def test_trace_rules_match_jax_on_translated_fixtures(name):
+    """The JAX linter on the jit original and the port's on the capture
+    form give the same rules on the same lines (the JAX tests'
+    SLU102 / SLU105 / SLU107 cases)."""
+    want = _line_keys(janalysis.analyze_source(
+        _jax_trace_source(name), name, janalysis.default_rules()))
+    got = _line_keys(tanalysis.analyze_source(
+        TRACE_PAIRS[name], name, tanalysis.default_rules()))
+    assert got == want
+    # positives and clean twins both (the agreement is not vacuous)
+    assert bool(want) == ("CLEAN" not in name and "LATCHED" not in name
+                          and "bucketed" not in name)
+
+
+def test_trace_pairs_cover_every_trace_rule():
+    fired = set()
+    for name, src in TRACE_PAIRS.items():
+        fired |= {r for r, _ in _line_keys(tanalysis.analyze_source(
+            src, name, tanalysis.default_rules()))}
+    assert fired == TRACE_RULES
+
+
+def test_slu102_messages_name_the_capture():
+    fs = [f for f in _run(TRACE_PAIRS["SLU102_POSITIVE"])
+          if f.rule == "SLU102"]
+    msgs = " ".join(f.message for f in fs)
+    assert "os.environ read inside a capture body" in msgs
+    assert "`.cpu()`" in msgs and "the capture at fixture.py:12" in msgs
+    fs = [f for f in _run(TRACE_PAIRS["SLU102_WRAPPED"])
+          if f.rule == "SLU102"]
+    assert [(f.line, "`int()` of a tensor" in f.message) for f in fs] == \
+        [(6, True)]
+
+
+def test_slu102_scoped_to_hot_subpackages_in_tree():
+    src = TRACE_PAIRS["SLU102_POSITIVE"]
+    for sub, hot in (("numeric", True), ("parallel", True), ("io", False)):
+        path = os.path.join("superlu_dist_tpu_torch", sub, "x.py")
+        assert ("SLU102" in {f.rule for f in _run(src, path)}) == hot
+
+
+SLU102_CAPTURE_BEGIN = """
+import torch
+
+def capture(graph, pool, x):
+    graph.capture_begin(pool=pool)
+    try:
+        y = x * 2
+        n = int(y.sum())
+    finally:
+        graph.capture_end()
+    return float(x.sum()) + n
+"""
+
+
+def test_slu102_capture_begin_region():
+    """Between capture_begin and capture_end (a try's body included) —
+    after it, a coercion is host code again."""
+    fs = [f for f in _run(SLU102_CAPTURE_BEGIN) if f.rule == "SLU102"]
+    assert [f.line for f in fs] == [8]
+
+
+GRAPH_DICT_CACHE = """
+import torch
+from superlu_dist_tpu_torch.numeric.fused import Graph
+
+class Solver:
+    def capture(self, direction, kb, scale):
+        key = (direction, kb)
+        x = self._buffers[kb]
+        graph = Graph(lambda: self._sweep(direction, x, scale), "cuda",
+                      torch.cuda.Stream(), site="t", key="k")
+        self._graphs[key] = graph
+        return graph
+"""
+
+
+def test_slu105_dict_cache_input_missing_from_the_key():
+    """A DeviceSolver._graphs-style cache: ``scale`` shapes the graph
+    but the key misses it (anchored at the store); with it in the key,
+    clean; an env read that feeds the construction is flagged."""
+    fs = [f for f in _run(GRAPH_DICT_CACHE) if f.rule == "SLU105"]
+    assert [f.line for f in fs] == [11]
+    assert "`scale`" in fs[0].message and "self._graphs" in fs[0].message
+    fixed = GRAPH_DICT_CACHE.replace("key = (direction, kb)",
+                                     "key = (direction, kb, scale)")
+    assert [f for f in _run(fixed) if f.rule == "SLU105"] == []
+    env = fixed.replace("self._sweep(direction, x, scale)",
+                        "self._sweep(direction, x, os.environ['K'])")
+    assert [f.line for f in _run(env) if f.rule == "SLU105"] == [9]
+
+
+EXECUTOR_CACHE = """
+from superlu_dist_tpu_torch.numeric.fused import Graph
+
+class Executor:
+    def run(self):
+        self.g = Graph(lambda: None, "cuda", None, site="t", key="k")
+
+def get_executor(plan, dtype, device, lag):
+    key = (str(dtype), str(device))
+    cache = plan.__dict__.setdefault("_fns", {})
+    fn = cache.get(key)
+    if fn is None:
+        fn = Executor(plan, dtype, device, lag)
+        cache[key] = fn
+    return fn
+"""
+
+
+def test_slu105_executor_cache_of_a_capturing_class():
+    """get_executor's shape: the constructor of a class that captures
+    builds the cached value; ``lag`` is missing from the key, ``plan``
+    owns the cache."""
+    fs = [f for f in _run(EXECUTOR_CACHE) if f.rule == "SLU105"]
+    assert [(f.line, "`lag`" in f.message) for f in fs] == [(14, True)]
+    fixed = EXECUTOR_CACHE.replace("key = (str(dtype), str(device))",
+                                   "key = (str(dtype), str(device), lag)")
+    assert [f for f in _run(fixed) if f.rule == "SLU105"] == []
+
+
+def test_slu107_raw_size_in_a_dict_cache_key():
+    src = GRAPH_DICT_CACHE.replace("key = (direction, kb)",
+                                   "key = (direction, x.shape[0], scale)")
+    fs = [f for f in _run(src) if f.rule == "SLU107"]
+    assert [f.line for f in fs] == [7] and ".shape" in fs[0].message
+    rung = src.replace("x.shape[0]", "bucket_rung(x.shape[0])")
+    assert [f for f in _run(rung) if f.rule == "SLU107"] == []
+
+
+# --------------------------------------------------------------------------
 # port-only cases
 # --------------------------------------------------------------------------
 
@@ -517,7 +809,7 @@ def test_cli_exit_codes_json_and_sarif(tmp_path):
         ("run", [str(clean), "--no-baseline"]),
         ("run", [str(dirty), "--no-baseline", "--json"]),
         ("run", [str(dirty), "--no-baseline", "--format", "sarif"]),
-        ("run", ["--rules", "SLU102", str(clean)]),
+        ("run", ["--rules", "SLU117", str(clean)]),
         ("run", [str(tmp_path / "missing.py")]),
         ("run", ["--list-rules"]),
         ("run", ["--bogus-flag"])])
@@ -539,8 +831,8 @@ def test_cli_exit_codes_json_and_sarif(tmp_path):
     assert [(f.rule, f.path, f.line, f.col, f.message) for f in back] == [
         (f["rule"], f["path"], f["line"], f["col"], f["message"])
         for f in doc["findings"]]
-    # unknown rule (SLU102 is the JAX package's), missing path, bad flag
-    assert runs[3].rc == 2 and "SLU102" in runs[3].err
+    # unknown rule (SLU117 is the JAX package's), missing path, bad flag
+    assert runs[3].rc == 2 and "SLU117" in runs[3].err
     assert runs[4].rc == 2 and "no such path" in runs[4].err
     assert runs[6].rc == 2
     r = runs[5]

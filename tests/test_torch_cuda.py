@@ -7,8 +7,9 @@ against the same solves on the CPU, refactor on the card, solves that are
 bit for bit reproducible (fused and eager), save_lu / load_lu and a
 deadline-stopped factorization resumed, and the executors (the fused and
 mega CUDA graphs, level waves, host offload, the host-share split), on
-the card; the grid's segment graphs (fused, mega) and its host offload
-with two ranks on the card; and the reference's user entry points there: the C client and
+the card, with their build census and retrace sentinel; the grid's
+segment graphs (fused, mega) and its host offload with two ranks on the
+card; and the reference's user entry points there: the C client and
 the Fortran driver (where gfortran exists) over libslu_tpu_torch.so,
 every example driver, gridmap's two sub-grids with four ranks sharing the
 card, pdtest --quick, and factor_dtype="df64" bit for bit "float64".
@@ -715,6 +716,145 @@ def test_mega_graphs_are_the_closed_keys(cuda):
         assert kernels.LAUNCHES["front_assemble"] == want
         assert _within_drift(num.fronts, ref.fronts)
     assert num.executor["graphs"] == len(plan.bucket_set)
+
+
+def _census(mark, site):
+    """Census records of ``site`` since ``mark`` (obs/compilestats.py)."""
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    return [r for r in COMPILE_STATS.records[mark:] if r.site == site]
+
+
+def test_fused_census_records_one_capture_then_none(cuda):
+    """The fused executor's first call records one build in the census —
+    its capture plus instantiation, no disk cache — and a replay none; no
+    retrace."""
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    a = poisson3d(12)
+    lu, bvals, _ = slt.analyze(slt.Options(), a, device=cuda)
+    retr0 = RETRACE_SENTINEL.total
+    recs = []
+    for _ in range(2):
+        mark = COMPILE_STATS.marker()
+        num = factor.numeric_factorize(lu.plan, bvals, lu.anorm,
+                                       dtype=torch.float32, device=cuda,
+                                       executor="fused")
+        recs.append(_census(mark, "make_factor_fn"))
+    (rec,), second = recs
+    rep = num.executor
+    assert second == [] and RETRACE_SENTINEL.total == retr0
+    assert rec.key == f"fused g{len(lu.plan.groups)} float32 default"
+    assert rec.persistent_hit is None
+    assert rec.seconds == pytest.approx(rep["capture_s"]
+                                        + rep["instantiate_s"])
+
+
+def test_mega_census_leaves_nothing_pending(cuda):
+    """mega announces its closed keys before the first capture; after its
+    warm-up and captures none is pending, one record a bucket."""
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    a = poisson3d(12)
+    lu, bvals, _ = slt.analyze(slt.Options(bucket_closed=True), a,
+                               device=cuda)
+    mark = COMPILE_STATS.marker()
+    factor.numeric_factorize(lu.plan, bvals, lu.anorm, dtype=torch.float64,
+                             device=cuda, executor="mega")
+    recs = _census(mark, "mega._kernel")
+    assert len(recs) == len(lu.plan.bucket_set)
+    assert all(r.key.endswith(" float64 default") for r in recs)
+    assert [p for p in COMPILE_STATS.pending()
+            if p["site"] == "mega._kernel"] == []
+
+
+def test_solve_census_two_captures_per_new_bucket(cuda):
+    """The device solve records its two sweep captures at a bucket's
+    first solve (label ``solve n{n} nrhs{kb} fused``) and none at a
+    replay; a bucket captured again is a retrace."""
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.solve.device import DeviceSolver
+    a = poisson3d(10)
+    b = a.matvec(np.ones(a.n_rows))
+    _, lu, _, _ = slt.gssvx(slt.Options(), a, b, device=cuda)
+    solver = DeviceSolver(lu.numeric, fused=True)
+    rng = np.random.default_rng(3)
+    retr0 = RETRACE_SENTINEL.total
+    seen = set()
+    for k in (1, 4, 1):
+        mark = COMPILE_STATS.marker()
+        solver.solve(rng.standard_normal((a.n_rows, k)))
+        recs = _census(mark, "solve.device")
+        kb = solver.last_solve_stats["padded_nrhs"]
+        assert len(recs) == (0 if kb in seen else 2)
+        seen.add(kb)
+        assert all(r.key == f"solve n{a.n_rows} nrhs{kb} fused"
+                   for r in recs)
+    assert RETRACE_SENTINEL.total == retr0
+    # the graph cache loses its graphs (and with them their private
+    # pool): the next solve of a bucket captures its two sweeps again
+    solver._graphs.clear()
+    solver._pool = None
+    mark = COMPILE_STATS.marker()
+    solver.solve(rng.standard_normal((a.n_rows, 1)))
+    assert len(_census(mark, "solve.device")) == 2
+    assert RETRACE_SENTINEL.total == retr0 + 2
+
+
+@pytest.mark.parametrize("executor", ["fused", "mega"])
+def test_dropping_an_lu_frees_its_graphs_without_a_collection(cuda,
+                                                             executor):
+    """The plan owns its executors, which hold it weakly
+    (numeric/plan.PlanRef): dropping the LU frees the executor, its
+    graphs and their private pools at once, with the cyclic collector
+    off — nothing waits for a collection that could fall inside another
+    capture.  torch keeps a cuBLAS workspace for every stream that ran a
+    GEMM, a capture's side stream too, in a process-wide map that no
+    executor owns: the test empties that map before each reading."""
+    import weakref
+    a = poisson3d(12)
+    b = a.matvec(np.ones(a.n_rows))
+    # the process-wide state a first factorization sets up before the base
+    slt.gssvx(slt.Options(executor="stream"), a, b, device=cuda)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated(cuda)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        x, lu, st, info = slt.gssvx(slt.Options(executor=executor), a, b,
+                                    device=cuda)
+        assert info == 0 and st.compile["builds"] > 0
+        (ex,) = factor.cached_executors(lu.plan)
+        ref = weakref.ref(ex)
+        held = torch.cuda.memory_allocated(cuda) - base
+        del ex, x, lu, st
+        torch.cuda.synchronize()
+        assert ref() is None
+        torch._C._cuda_clearCublasWorkspaces()
+        freed = held - (torch.cuda.memory_allocated(cuda) - base)
+        assert held > 0 and freed >= 0.9 * held, (held, freed)
+    finally:
+        if was:
+            gc.enable()
+
+
+def test_forced_recapture_counts_one_retrace(cuda):
+    """A warmed fused executor whose graph cache is dropped captures its
+    graph again at the next FACT: Stats.retraces counts exactly 1."""
+    a = poisson3d(12)
+    b = a.matvec(np.ones(a.n_rows))
+    _, lu, st, info = slt.gssvx(slt.Options(executor="fused"), a, b,
+                                device=cuda)
+    assert info == 0 and st.retraces == 0
+    (ex,) = factor.cached_executors(lu.plan)
+    st2 = slt.refactor(lu, a.data * 1.01)
+    assert st2.retraces == 0
+    ex.drop_graphs()
+    st3 = slt.refactor(lu, a.data * 1.02)
+    assert st3.retraces == 1 and ex.last_retraces == 1
+    assert st3.compile["builds"] == 1
+    assert "UNEXPECTED graph recaptures: 1" in st3.report()
 
 
 def _normwise(f1, f2):

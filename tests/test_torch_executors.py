@@ -476,3 +476,43 @@ def test_the_plan_pickles_without_its_executors():
     assert plan.__dict__.get("_factor_fns")
     state = plan.__getstate__()
     assert "_factor_fns" not in state and "_device_maps" not in state
+
+
+@pytest.mark.parametrize("executor", ["stream", "fused", "mega", "level"])
+def test_dropping_the_plan_frees_its_executors_without_a_collection(
+        executor):
+    """The plan owns its executors and they hold it weakly (plan.PlanRef):
+    no reference cycle, so the executors (on the card, their pools and
+    graphs) go with the plan's last reference, and no cyclic collection
+    is needed to free them."""
+    import gc
+    import weakref
+    _, plan, vals, anorm = _jax_plan("poisson3d_8")
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        if executor == "level":
+            ex = StreamExecutor(plan, torch.float64, "cpu",
+                                granularity="level")
+            ex(torch.as_tensor(vals), torch.tensor(1e-300))
+            plan.__dict__.setdefault("_factor_fns", {})["level"] = ex
+            del ex
+        else:
+            _port(plan, vals, anorm, executor)
+        (ex,) = factor.cached_executors(plan)
+        refs = (weakref.ref(plan), weakref.ref(ex))
+        del ex
+        assert refs[1]() is not None       # the plan keeps it
+        del plan
+        assert [r() for r in refs] == [None, None]
+    finally:
+        if was:
+            gc.enable()
+
+
+def test_an_executor_that_outlives_its_plan_says_so():
+    _, plan, vals, anorm = _jax_plan("poisson3d_8")
+    ex = StreamExecutor(plan, torch.float64, "cpu")
+    del plan
+    with pytest.raises(ReferenceError, match="outlived its plan"):
+        ex(torch.as_tensor(vals), torch.tensor(1e-300))

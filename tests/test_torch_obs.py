@@ -3,7 +3,7 @@ harness on the CPU, held against the JAX package's on the same inputs:
 every knob the port registers has the JAX kind and default; the same
 span sequence gives the same chrome-trace events; the same metric
 operations give an equal snapshot and equal Prometheus text; a flight
-recorder dump has the same keys (the JAX compile census aside); the same
+recorder dump has the same keys (the build census included); the same
 inverted lock acquisition raises LockOrderError; chaos specs parse to
 equal plans; the serving errors carry the same messages.  A traced port
 solve shows its ``device-solve`` / ``solve-d2h`` spans, a traced
@@ -310,8 +310,8 @@ def _dump(mod, path):
 def test_flightrec_dump_has_the_jax_keys(tmp_path):
     mine = _dump(flightrec, tmp_path / "port.json")
     ref = _dump(jflightrec, tmp_path / "jax.json")
-    # the JAX dump also carries its compile census, which is not ported
-    assert set(mine) == set(ref) - {"compile"}
+    # both carry their build census under "compile"
+    assert set(mine) == set(ref)
     assert mine["total_events"] == ref["total_events"] == 21
     assert mine["dropped_events"] == ref["dropped_events"] == 5
     assert [e["name"] for e in mine["events"]] == \

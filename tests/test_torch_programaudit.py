@@ -38,6 +38,7 @@ from superlu_dist_tpu.numeric import stream as jstream
 from superlu_dist_tpu.numeric.factor import (
     numeric_factorize as jax_numeric_factorize)
 from superlu_dist_tpu.numeric.plan import build_plan as jax_build_plan
+from superlu_dist_tpu.obs import flightrec as jflightrec
 from superlu_dist_tpu.obs.compilestats import COMPILE_STATS
 from superlu_dist_tpu.ordering.dispatch import get_perm_c as jax_get_perm_c
 from superlu_dist_tpu.solve.device import DeviceSolver as JaxDeviceSolver
@@ -144,6 +145,9 @@ def test_errors_carry_the_jax_fields(name, tmp_path, monkeypatch):
                                      **kw)
     finally:
         flightrec._reset()
+        # the JAX error latched the JAX recorder on this test's path:
+        # later tests in the process must not dump into it
+        jflightrec._reset()
     for k in ("site", "program", "rules") + tuple(kw):
         assert getattr(err, k) == getattr(ref, k)
     assert err.flightrec_dump and os.path.exists(err.flightrec_dump)
