@@ -16,6 +16,22 @@ drives the port are reset just before it and checked just after):
                 its Python twin on poisson3d(12) and random_sparse(1000):
                 etree, postorder, symbolic, mmd, colamd, the AᵀA pattern
                 equal, and the MC64 matching's diagonal product;
+     config4  — the main path at the reference's own size, in a child
+                process on an empty card (``config4_only``; alone:
+                ``python3 chip_smoke.py config4``): gssvx(Options()) on
+                poisson3d(100) (n = 1,000,000), float32 factors kept on
+                the card by the offload rule (its estimate, budget and
+                choice; the float64 choice beside it, not run), solves on
+                the card, BERR at the float64 target, every kernel
+                launched, the peak device memory above what was resident
+                within the rule's estimate, a FACTORED gssvx at nrhs 16;
+                then front_assemble bit for bit its plain version at two
+                groups reading pool offsets above 2**31 and panel_lu at
+                the widest front's panel (m = 16,176), with ms and
+                bounds; what the rule chooses for mega on that plan
+                (its own estimate); and the graph executors' device
+                memory (mega, level waves: poisson3d(32), closed plan,
+                float64) at or below the estimate the rule reads;
   3. plan     — the default analysis of poisson3d(48) (n=110,592): its
                 backend, phase seconds and native calls, and its plan,
                 which must be the JAX package's default plan;
@@ -466,9 +482,13 @@ def front_targets(avals, pool, m, w, gm):
 
 
 def time_front(avals, pool, m, w, gm, kernels, reps=20, plain_reps=3,
-               lib_reps=10):
+               lib_reps=10, targets=True):
     """front_assemble_ on one group: equality with the plain version and
-    kernel / plain / library times and the bound."""
+    kernel / plain / library times and the bound.  ``targets=False``
+    takes the bound's counts from the maps (the pairs and A entries the
+    kernel adds: at most what it reads) and times no library call, whose
+    target list at poisson3d(100)'s largest group would take tens of
+    GB beside the pool (library_ms None)."""
     import torch
     out_k = kernels.front_assemble_(avals, pool, m, w, gm)
     out_p = kernels.front_assemble_plain(avals, pool, m, w, gm)
@@ -476,14 +496,19 @@ def time_front(avals, pool, m, w, gm, kernels, reps=20, plain_reps=3,
     err = float((out_k - out_p).abs().max()) if out_k.numel() else 0.0
     if not torch.equal(out_k, out_p):
         raise AssertionError(f"front_assemble kernel != plain (max |d| {err})")
-    dst, vals, n_a, n_pool = front_targets(avals, pool, m, w, gm)
+    del out_k, out_p
     fm = gm.front
     isz = pool.element_size()
     batch = fm.batch
+    if targets:
+        dst, vals, n_a, n_pool = front_targets(avals, pool, m, w, gm)
+        adds = dst.numel()
+    else:
+        n_a, n_pool = fm.n_a, fm.pairs
+        adds = n_a + n_pool
     nbytes = (batch * m * m * isz + (n_pool + n_a) * isz + fm.nbytes
               + gm.ws.numel() * 8)
-    b_ms, b_by = bound(nbytes, dst.numel(), pool.dtype)
-    del out_k, out_p
+    b_ms, b_by = bound(nbytes, adds, pool.dtype)
 
     def library():
         torch.zeros((batch, m * m), dtype=pool.dtype,
@@ -497,7 +522,7 @@ def time_front(avals, pool, m, w, gm, kernels, reps=20, plain_reps=3,
         plain_ms=cuda_ms(lambda: kernels.front_assemble_plain(
             avals, pool, m, w, gm), plain_reps, warm=1),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(library, lib_reps, warm=1),
+        library_ms=cuda_ms(library, lib_reps, warm=1) if targets else None,
         shape=dict(batch=batch, m=m, w=w, sets=len(gm.children),
                    children=[len(c[1]) for c in gm.children],
                    max_children_at_a_slot=int(fm.ch_ptr.diff().max())
@@ -4425,6 +4450,283 @@ def entry_only() -> int:
     return 0
 
 
+CONFIG4_NX = 100          # the reference's headline configuration
+                          # (BASELINE.json configs[3]): n = 1,000,000
+CONFIG4_TIMEOUT_S = 900   # the child's limit inside the full run
+CONFIG4_NRHS = 16         # the FACTORED solve's columns
+
+
+def group_reach(plan, g) -> int:
+    """The highest pool offset group ``g``'s child records read (one past
+    its last live child block), 0 without one."""
+    top = 0
+    for c in g.children:
+        off = np.asarray(c.child_off, dtype=np.int64)
+        live = off[off < plan.pool_size]
+        if len(live):
+            top = max(top, int(live.max()) + c.ub * c.ub)
+    return top
+
+
+def config4_kernels(plan, torch, kernels, factor, gen) -> dict:
+    """The kernels at poisson3d(100)'s shapes, on a seeded float32 pool of
+    the plan's size (more than 2**31 values): front_assemble bit for bit
+    its plain version at the group that reads the highest pool offsets
+    and at the group with the most front elements, panel_lu bit for bit
+    its plain loop at the widest front's first panel; each with its ms
+    and bound (``time_front`` without the library's target list,
+    ``time_panel``)."""
+    dev = torch.device("cuda")
+    maps = factor.upload_maps(plan, dev)
+    reach = [group_reach(plan, g) for g in plan.groups]
+    high = int(np.argmax(reach))
+    big = max(range(len(plan.groups)), key=lambda i: plan.groups[i].batch
+              * plan.groups[i].m ** 2)
+    avals = torch.randn(len(plan.pattern_indices), generator=gen,
+                        device=dev, dtype=torch.float32)
+    pool = torch.randn(plan.pool_size, generator=gen, device=dev,
+                       dtype=torch.float32)
+    out = {}
+    for which, gi in (("highest_offsets", high), ("most_elements", big)):
+        g = plan.groups[gi]
+        rec = time_front(avals, pool, g.m, g.w, maps[gi], kernels, reps=3,
+                         plain_reps=1, targets=False)
+        rec.update(group=gi, reach=reach[gi],
+                   max_child_offset=int(maps[gi].front.ch_rec[:, 0].max()))
+        if rec["max_child_offset"] <= 2 ** 31:
+            raise AssertionError(f"config4: group {gi} reads no pool offset "
+                                 f"above 2**31")
+        out[f"front_assemble {which}"] = rec
+        torch.cuda.empty_cache()
+    del pool, avals
+    torch.cuda.empty_cache()
+    gi, g, m_ext, pb, j0, pa = max(plan_panels(plan),
+                                   key=lambda r: (r[1].m, r[1].batch))
+    a = panel_fronts(torch, gen, g.batch, m_ext, j0, pa, torch.float32,
+                     ncols=j0 + pb)
+    rec = time_panel(torch, kernels, a, j0, pa, pb,
+                     torch.tensor(1e-3, device="cuda"))
+    rec["group"] = gi
+    out["panel_lu widest"] = rec
+    return out
+
+
+def config4_only() -> int:
+    """``python3 chip_smoke.py config4``: the main path at the reference's
+    own size — gssvx(Options()) on poisson3d(100), n = 1,000,000, float32
+    factors at the default (TF32) tier, b = A·x_true from the seed — in
+    its own process (the full run starts it as a child right after the
+    native phase, on an empty card, and fails with it).  The offload
+    rule must keep the factors on the card (``stats.executor``'s
+    ``offload_rule``: the estimate against the budget) and the solves
+    must run there; BERR at the float64 target, ‖x − x_true‖∞ / ‖x_true‖∞
+    within DEVICE_VS_HOST_RTOL, every kernel launched (front_assemble a
+    group, panel_lu a panel, csr_spmv two a refinement step), the peak
+    device memory above what was resident at or below the estimate; one
+    FACTORED gssvx at nrhs 16 on the handle (its sweeps replayed in
+    refinement, no front_assemble launch).  Then, the handle gone, what
+    the rule chooses for float64 factors (not run), the kernels against
+    their plain versions at the plan's shapes (``config4_kernels``),
+    what mega's own estimate makes the rule choose on this plan, and the
+    graph executors' memory against their estimates
+    (``graph_estimates``).  A config4 line, a config4_kernels line, a
+    config4_graph_estimates line, then the card line."""
+    import gc
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch import native
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import factor, kernels
+    from superlu_dist_tpu_torch.numeric.stream import (device_budget,
+                                                       offload_estimate,
+                                                       offload_rule,
+                                                       padded_front_bytes)
+    from superlu_dist_tpu_torch.utils import tols
+    from superlu_dist_tpu_torch.utils.peaks import mfu_pct
+    card = card_line()
+    t0 = time.perf_counter()
+    kernels.build()
+    kernels.library()
+    build_s = time.perf_counter() - t0
+    a = poisson3d(CONFIG4_NX)
+    rng = np.random.default_rng(SEED)
+    x_true = rng.standard_normal(a.n_rows)
+    b = a.matvec(x_true)
+    dev = torch.device("cuda")
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    native.reset_calls()
+    t0 = time.perf_counter()
+    x, lu, stats, info = slt.gssvx(slt.Options(), a, b, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if info != 0 or x is None or x.shape != b.shape \
+            or not np.all(np.isfinite(x)):
+        raise AssertionError(f"config4: gssvx failed: info={info}")
+    plan = lu.plan
+    rep = stats.solve_report
+    groups, panels = len(plan.groups), len(plan_panels(plan))
+    launches = expect_launches("config4", kernels,
+                               groups * factorizations(rep), True,
+                               panels * factorizations(rep))
+    if launches["csr_spmv"] != 2 * stats.refine_steps:
+        raise AssertionError(f"config4: {launches['csr_spmv']} csr_spmv "
+                             f"launches in {stats.refine_steps} refinement "
+                             f"steps, expected two a step")
+    peak = torch.cuda.max_memory_allocated() - resident
+    fact_peak = stats.current_memory_bytes - resident
+    held = torch.cuda.memory_allocated() - resident
+    rule = stats.executor.get("offload_rule", {})
+    est = offload_estimate(plan, lu.numeric.dtype)
+    factor_bytes = sum(t.numel() * t.element_size()
+                       for pair in lu.numeric.fronts for t in pair)
+    solver_bytes = lu.dev_solver.memory_stats()
+    solve_batches = len(lu.dev_solver.splan.groups)
+    solve_fused = lu.dev_solver.fused
+    rel_err = float(np.abs(x - x_true).max() / np.abs(x_true).max())
+    if stats.executor["offload"] != "none" or lu.numeric.on_host:
+        raise AssertionError(f"config4: the factors were offloaded: {rule}")
+    if rep.solve_route != "device" or lu.solve_route != "device":
+        raise AssertionError(f"config4: solve route {rep.solve_route}")
+    check_berr("config4", rep.berr)
+    if not rel_err <= float(tols.DEVICE_VS_HOST_RTOL):
+        raise AssertionError(f"config4: |x - x_true| / |x_true| = {rel_err}")
+    if not peak <= rule["bytes"]:
+        raise AssertionError(f"config4: peak {peak} B above the rule's "
+                             f"estimate {rule['bytes']} B")
+    fact_s = stats.utime["FACT"]
+    gflops = plan.flops / fact_s / 1e9
+    mfu, peak_gflops, mfu_source = mfu_pct(gflops, lu.numeric.gemm_prec)
+    # one FACTORED solve at nrhs 16: the bucket's sweeps at its first
+    # solve, replayed by every refinement step after it
+    b16 = rng.standard_normal((a.n_rows, CONFIG4_NRHS))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    x16, lu16, st16, info16 = slt.gssvx(
+        slt.Options(fact=slt.Fact.FACTORED), a, b16, lu=lu)
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    launches16 = expect_launches("config4 FACTORED", kernels, 0, True)
+    if launches16["csr_spmv"] != 2 * st16.refine_steps:
+        raise AssertionError(f"config4 FACTORED: {launches16['csr_spmv']} "
+                             f"csr_spmv launches in {st16.refine_steps} "
+                             f"refinement steps")
+    if info16 != 0 or not np.all(np.isfinite(x16)):
+        raise AssertionError(f"config4: FACTORED nrhs {CONFIG4_NRHS} "
+                             f"failed: info={info16}")
+    check_berr("config4 FACTORED", st16.solve_report.berr)
+    peak_reserved = torch.cuda.max_memory_reserved()
+    del x, x16, lu, lu16
+    gc.collect()
+    torch.cuda.empty_cache()
+    # float64 factors on this card, the handle gone: the rule's choice,
+    # not run
+    f64, f64_rule = offload_rule(plan, torch.float64, dev, None)
+    say("config4", n=a.n_rows, nnz=a.nnz, groups=groups, panels=panels,
+        flops=plan.flops, pool_bytes=est["pool_bytes"],
+        padded_front_bytes=padded_front_bytes(plan, torch.float32),
+        estimate=est, budget=rule["limit"], offload=stats.executor["offload"],
+        offload_rule=rule, float64_offload=f64, float64_rule=f64_rule,
+        float64_estimate=offload_estimate(plan, torch.float64),
+        budget_now=device_budget(dev), build_s=build_s,
+        analysis_s=sum(stats.utime[p] for p in ANALYSIS),
+        phase_s=stats.utime, wall_s=wall,
+        refine_steps=stats.refine_steps, berr=rep.berr,
+        berr_history=rep.berr_history, rel_error_inf=rel_err,
+        tiny_pivots=stats.tiny_pivots, rungs=[(r.name, r.detail, r.seconds)
+                                              for r in rep.rungs],
+        solve_route=rep.solve_route, solve_batches=solve_batches,
+        solve_fused=solve_fused,
+        resident_bytes=resident, peak_above_resident=peak,
+        fact_peak_above_resident=fact_peak, held_after=held,
+        factor_bytes=factor_bytes, solver_memory=solver_bytes,
+        max_memory_reserved=peak_reserved,
+        factor_gflops=gflops, mfu_pct=mfu, peak_gflops=peak_gflops,
+        mfu_source=mfu_source, launches=launches,
+        factored=dict(nrhs=CONFIG4_NRHS, wall_s=wall16,
+                      phase_s=st16.utime, refine_steps=st16.refine_steps,
+                      berr=st16.solve_report.berr, launches=launches16),
+        held_at_end=torch.cuda.memory_allocated() - resident,
+        nvidia_smi=card)
+    say("config4_kernels", **config4_kernels(
+        plan, torch, kernels, factor,
+        torch.Generator(device="cuda").manual_seed(SEED)))
+    # mega on this plan: what its own estimate makes the rule choose
+    from superlu_dist_tpu_torch.numeric.mega import MegaExecutor
+    mega = MegaExecutor(plan, torch.float32, "cuda")
+    mega_rule = dict(offload=mega.offload, rule=mega.offload_rule,
+                     buckets=len(mega.spec),
+                     estimate=mega.device_estimate())
+    del mega
+    say("config4_graph_estimates", mega_n1000000_float32=mega_rule,
+        **graph_estimates(slt, torch))
+    print(card)
+    return 0
+
+
+ESTIMATE_NX = 32          # the graph executors' memory check: estimates of
+                          # gigabytes in float64 on the closed plan, far
+                          # above the process's fixed costs
+
+
+def graph_estimates(slt, torch) -> dict:
+    """The graph executors' device memory against the estimate the card's
+    rule reads for each (``device_estimate``): mega and level waves on
+    poisson3d(ESTIMATE_NX)'s closed plan in float64 (whose device solve
+    aliases the factors, copying nothing), each called once on a card
+    with nothing of the other left.  The peak allocated bytes, and the
+    reserved bytes held after the call (the static pool, the graphs'
+    private pools and the factors; the cache emptied), at or below the
+    estimate; the graphs' pool growth at or below its graph part; the
+    most reserved at any time beside them."""
+    import gc
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric.mega import MegaExecutor
+    from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+    lu, bvals, _ = slt.analyze(slt.Options(bucket_closed=True),
+                               poisson3d(ESTIMATE_NX), device="cuda")
+    plan, dt = lu.plan, torch.float64
+    avals = torch.as_tensor(bvals)
+    thresh = torch.tensor(np.sqrt(torch.finfo(dt).eps)
+                          * max(lu.anorm, 1e-300), dtype=dt)
+    out = {"n": plan.n, "groups": len(plan.groups), "dtype": "float64"}
+    for name in ("mega", "level"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_a = torch.cuda.memory_allocated()
+        base_r = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        ex = (MegaExecutor(plan, dt, "cuda") if name == "mega" else
+              StreamExecutor(plan, dt, "cuda", granularity="level"))
+        fronts, _ = ex(avals, thresh)
+        torch.cuda.synchronize()
+        peak_a = torch.cuda.max_memory_allocated() - base_a
+        peak_r = torch.cuda.max_memory_reserved() - base_r
+        torch.cuda.empty_cache()
+        held_r = torch.cuda.memory_reserved() - base_r
+        rep, est = ex.report(), ex.device_estimate()
+        rec = dict(offload=ex.offload, rule=rep["offload_rule"],
+                   estimate=est, peak_allocated=peak_a,
+                   held_reserved=held_r, peak_reserved=peak_r,
+                   graphs=rep["graphs"],
+                   graph_device_bytes=rep["graph_device_bytes"])
+        out[name] = rec
+        if ex.offload != "none" or rep["offload_rule"]["bytes"] \
+                != est["bytes"]:
+            raise AssertionError(f"{name}: the rule did not read the "
+                                 f"executor's estimate: {rec}")
+        if not max(peak_a, held_r) <= est["bytes"] \
+                or not rep["graph_device_bytes"] <= est["graph_bytes"]:
+            raise AssertionError(f"{name}: device memory above the rule's "
+                                 f"estimate: {rec}")
+        del ex, fronts
+    return out
+
+
 def first_solve_only(label: str) -> int:
     """``python3 chip_smoke.py first_solve [LABEL]``: the build, then gssvx
     on poisson3d(48) twice (phase seconds and wall; the first in the
@@ -4723,6 +5025,8 @@ def main():
         return trace_only()
     if sys.argv[1:2] == ["audit"]:
         return audit_only()
+    if sys.argv[1:2] == ["config4"]:
+        return config4_only()
     import superlu_dist_tpu_torch as slt
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (convection_diffusion_2d,
@@ -4757,6 +5061,14 @@ def main():
     say("build", seconds=time.perf_counter() - t0, library=str(lib),
         host_library_s=host_build["s"])
     native_phase()
+    # the main path at the reference's own size, in a process of its own
+    # on an empty card (this one has touched no tensor on it yet)
+    t0 = time.perf_counter()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         "config4"], timeout=CONFIG4_TIMEOUT_S).returncode
+    if rc != 0:
+        raise AssertionError(f"the config4 phase exited {rc}")
+    say("config4_child", seconds=time.perf_counter() - t0)
 
     # 3. kernels, at the shapes of the main path's plan
     gen = torch.Generator(device="cuda").manual_seed(SEED)

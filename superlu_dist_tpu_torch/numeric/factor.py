@@ -293,8 +293,9 @@ def cached_executors(plan: FactorPlan) -> list:
 def get_executor(plan: FactorPlan, dtype=torch.float64,
                  executor: str = "auto", gemm_prec: str | None = None,
                  device="cuda", *, host_flops: float = 0.0,
-                 front_bytes_limit: float = 6e9, offload_lag: int = 8,
-                 scatter=KERNELS, grid=None, pool_partition: bool = False,
+                 front_bytes_limit: float | None = None,
+                 offload_lag: int = 8, scatter=KERNELS, grid=None,
+                 pool_partition: bool = False,
                  panel=PANEL):
     """The executor of a plan, cached on the plan: refactor's shadow
     handle and the SamePattern tiers share the plan, so they reuse the
@@ -309,9 +310,11 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
     (parallel/mesh_stream.py), "fused" and "mega" its segment graphs
     (parallel/mesh_graphs.py).  The key holds the dtype, the executor,
     the GEMM tier, the host-share threshold and the offload knobs (for
-    every executor that offloads: the grid's too), the device, the front
-    assembly and the panel LU (each the kernel or its plain version), the
-    grid, its shape and the pool partition.  The cache keeps one fused
+    every executor that offloads: the grid's too; a ``front_bytes_limit``
+    of None, the card's own rule, is resolved once, when the executor is
+    built), the device, the front assembly and the panel LU (each the
+    kernel or its plain version), the grid, its shape and the pool
+    partition.  The cache keeps one fused
     or mega executor per device: a new one (another dtype, tier or front
     assembly) drops the one before it, whose captured graphs hold
     gigabytes — the fused graph of poisson3d(48) 2.94 GB of device memory
@@ -323,8 +326,8 @@ def get_executor(plan: FactorPlan, dtype=torch.float64,
     device = resolve_device(device)
     executor = resolve_executor(executor, device, grid, pool_partition)
     gemm_prec = gemm_precision(gemm_prec)
-    stream_knobs = (float(host_flops), float(front_bytes_limit),
-                    int(offload_lag))
+    stream_knobs = (float(host_flops), None if front_bytes_limit is None
+                    else float(front_bytes_limit), int(offload_lag))
     mesh = executor in MESH_EXECUTORS
     key = (str(dtype), executor, gemm_prec,
            stream_knobs if executor in OFFLOAD_EXECUTORS else None,
@@ -395,7 +398,7 @@ def numeric_factorize(plan: FactorPlan, pattern_values: np.ndarray,
                       resume_from: str | None = None, deadline=None,
                       scatter=KERNELS, timings=None, executor: str = "auto",
                       host_flops: float = 0.0,
-                      front_bytes_limit: float = 6e9,
+                      front_bytes_limit: float | None = None,
                       offload_lag: int = 8,
                       grid=None,
                       pool_partition: bool = False,

@@ -32,7 +32,9 @@ import torch
 from superlu_dist_tpu_torch.numeric import factor, kernels
 from superlu_dist_tpu_torch.numeric.factor import KERNELS, PANEL
 from superlu_dist_tpu_torch.numeric.plan import FactorPlan, bucket_rung
-from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+from superlu_dist_tpu_torch.numeric.stream import (StreamExecutor,
+                                                   group_work_bytes,
+                                                   offload_estimate)
 from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
 
 #: ladder growth of the pool and pattern-value stores (JAX mega.py:70)
@@ -41,6 +43,15 @@ _STORE_GROWTH = 1.25
 #: the bucket program's audit label, ``lu b{b} m{m} w{w} u{u} P{P}`` and
 #: the dtype and GEMM tier
 CENSUS_SITE = "mega._kernel"
+
+
+def bucket_batches(plan: FactorPlan) -> dict:
+    """The mega buckets: per (w, u) the pow-2 rung of its groups' largest
+    batch, at which each of them runs."""
+    spec = {}
+    for g in plan.groups:
+        spec[(g.w, g.u)] = max(spec.get((g.w, g.u), 0), g.batch)
+    return {k: bucket_rung(b, lo=1, growth=2.0) for k, b in spec.items()}
 
 
 def _pad_to(arr, length: int, fill) -> np.ndarray:
@@ -59,29 +70,51 @@ class MegaExecutor(StreamExecutor):
 
     def __init__(self, plan: FactorPlan, dtype=torch.float64, device="cuda",
                  gemm_prec: str | None = None, offload: str = "auto",
-                 front_bytes_limit: float = 6e9, offload_lag: int = 8,
-                 scatter=KERNELS, panel=PANEL):
-        super().__init__(plan, dtype, device, gemm_prec=gemm_prec,
-                         offload=offload, granularity="group",
-                         host_flops=0.0, front_bytes_limit=front_bytes_limit,
-                         offload_lag=offload_lag, scatter=scatter,
-                         panel=panel)
+                 front_bytes_limit: float | None = None,
+                 offload_lag: int = 8, scatter=KERNELS, panel=PANEL):
+        # the padded shapes first: the offload rule reads them
+        # (device_estimate) when the streamed executor is built
         n_avals = len(plan.pattern_indices)
         self._P = bucket_rung(max(plan.pool_size, 1), lo=8,
                               growth=_STORE_GROWTH)
         self._AV = bucket_rung(max(n_avals, 1), lo=8, growth=_STORE_GROWTH)
         # the dump region takes the Schur blocks of padded and root slots
         self._dump = max([g.u * g.u for g in plan.groups] + [1])
-        self.spec = {}
-        for g in plan.groups:
-            b = self.spec.get((g.w, g.u), 0)
-            self.spec[(g.w, g.u)] = max(b, g.batch)
-        self.spec = {k: bucket_rung(b, lo=1, growth=2.0)
-                     for k, b in self.spec.items()}
+        self.spec = bucket_batches(plan)
         self._host_maps = None     # per group: padded numpy maps
         self._dev = None           # per group: padded maps on the card
         self._buckets = None       # per bucket: (static GroupMaps, Graph)
+        super().__init__(plan, dtype, device, gemm_prec=gemm_prec,
+                         offload=offload, granularity="group",
+                         host_flops=0.0, front_bytes_limit=front_bytes_limit,
+                         offload_lag=offload_lag, scatter=scatter,
+                         panel=panel)
         self._static = None        # (avals, thresh, pool) on the card
+
+    def device_estimate(self) -> dict:
+        """:func:`stream.offload_estimate` for the bucket graphs: the
+        static pool of :meth:`_pool_len` entries, held for the executor's
+        life; while the buckets warm up a scratch pool as large and a
+        bucket step's working set beside it; after the captures every
+        bucket's private pool — its step's working set and outputs at the
+        bucket's rung (:func:`stream.group_work_bytes`); the padded
+        device tables — each group's (``_group_arrays``) and the bucket
+        buffers they are loaded into, counted as much again — and the
+        padded avals."""
+        plan = self.plan
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        first = {}
+        for g in plan.groups:
+            first.setdefault((g.w, g.u), g)
+        graphs = [group_work_bytes(g, itemsize, self.spec[k])
+                  + self.spec[k] * (g.m * g.w + g.w * g.u) * itemsize
+                  for k, g in first.items()]
+        tables = sum(x.nbytes for _, ws, off, front, _ in self._group_arrays()
+                     for x in (ws, off, *front))
+        return offload_estimate(
+            plan, self.dtype, pool_len=self._pool_len(), graphs=sum(graphs),
+            warm=self._pool_len() * itemsize + max(graphs, default=0),
+            maps=2 * tables + self._AV * itemsize)
 
     def _padded_batch(self, gi) -> int:
         """A group runs at its bucket's rung: its kernel span's

@@ -10,8 +10,10 @@ the plain loop it has the JAX executor's three options:
   they exist (the reference's GPU path keeps the factors in host memory,
   dSchCompUdt-cuda.c:194-241): a copy on a side stream into one pinned
   arena sized from the plan, at most ``offload_lag`` groups of device
-  panels in flight.  "auto" offloads on the card when the padded front
-  bytes exceed ``front_bytes_limit`` (JAX stream.py:218-226).
+  panels in flight.  "auto" offloads when the main path would not fit
+  on the card (``offload_rule``: its estimate against the card's free
+  memory), or with an explicit ``front_bytes_limit`` when the padded
+  front bytes exceed it (the JAX rule, stream.py:218-226).
 * ``host_flops`` — the host-share split (the reference's
   gemm_division_cpu_gpu, SRC/util.c:1271-1360): leading levels whose
   every group runs fewer flops than the threshold are factored on the CPU
@@ -36,8 +38,10 @@ time of every call's group loop.
 from __future__ import annotations
 
 import functools
+import socket
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -50,7 +54,8 @@ from superlu_dist_tpu_torch.obs.kernelspans import (KernelClock, kernel_span,
                                                     wave_span)
 from superlu_dist_tpu_torch.obs.metrics import get_metrics
 from superlu_dist_tpu_torch.obs.trace import get_tracer
-from superlu_dist_tpu_torch.ops.dense import gemm_precision, resolve_gemm_tier
+from superlu_dist_tpu_torch.ops.dense import (gemm_precision, panel_width,
+                                              resolve_gemm_tier)
 from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
 from superlu_dist_tpu_torch.utils.errors import (CheckpointMismatchError,
                                                  SuperLUError)
@@ -148,15 +153,181 @@ def offload_sizes(plan: FactorPlan) -> list:
     return [g.batch * g.m * g.w + g.batch * g.w * g.u for g in plan.groups]
 
 
-def auto_offload(plan: FactorPlan, dtype, device, front_bytes_limit: float,
-                 grid: bool = False) -> str:
-    """What ``offload="auto"`` resolves to: "host" when the plan's
-    :func:`padded_front_bytes` exceed ``front_bytes_limit`` — on the card
-    (the JAX rule, stream.py:218-226), and on a grid of several ranks on
-    any device (the grid's rule: one Options offloads alike on the card
-    and on the CPU ranks its tests run), else "none"."""
-    big = padded_front_bytes(plan, dtype) > front_bytes_limit
-    return "host" if big and (grid or device.type == "cuda") else "none"
+#: device bytes the card's offload rule keeps out of its budget: what its
+#: estimate does not count — the caching allocator's split blocks, the
+#: solve's graph pool and buffers, the refinement's operator, the CUDA
+#: runtime's own — as a share of the card's memory (PERF.md §5 gives the
+#: measured peaks it was chosen from)
+OFFLOAD_RESERVE_SHARE = 0.08
+
+
+def _rung(batch: int) -> int:
+    return bucket_rung(batch, lo=1, growth=2.0)
+
+
+def group_work_bytes(g, itemsize: int, batch: int | None = None) -> int:
+    """Device bytes one group step (``factor.group_step``) holds beyond
+    the pool and the factors kept, at ``batch`` slots (by default its
+    pow-2 padded batch): the assembled front batch, its zero-padded copy
+    when the panels overrun it, and the larger of the first trailing
+    update's GEMM product and the write-back's temporaries (the Schur
+    blocks copied out, once more for a subset of slots, their int64 pool
+    indices and the index ramp)."""
+    b = _rung(g.batch) if batch is None else batch
+    pb, nsteps = panel_width(g.w)
+    m_ext = max(g.m, nsteps * pb)
+    front = b * g.m * g.m * itemsize
+    pad = b * m_ext * m_ext * itemsize if m_ext > g.m else 0
+    write_back = b * g.u * g.u * (2 * itemsize + 8) + 8 * g.u * g.u
+    return front + pad + max(front, write_back)
+
+
+def factor_parts(plan: FactorPlan, itemsize: int) -> tuple:
+    """(the factors kept, at pow-2 padded batches; the most the streamed
+    FACT holds beside its pool — the factors kept so far and one group's
+    working set; the largest working set), in bytes."""
+    kept = fact = work = 0
+    for g in plan.groups:
+        kept += _rung(g.batch) * (g.m * g.w + g.w * g.u) * itemsize
+        step = group_work_bytes(g, itemsize)
+        fact, work = max(fact, kept + step), max(work, step)
+    return kept, fact, work
+
+
+def map_bytes(plan: FactorPlan) -> int:
+    """A bound of the device index maps ``factor.upload_maps`` holds: the
+    plan's own int64 maps, and the kernel's (``kernels.front_map_arrays``)
+    counted as twice as many bytes plus each child's bucket rows."""
+    own = kern = 0
+    for g in plan.groups:
+        own += 8 * sum(np.size(x) for x in (g.ws, g.off, g.a_slot, g.a_flat,
+                                            g.a_src))
+        nb = -(-g.m // 64) + 1
+        for c in g.children:
+            own += 8 * (np.size(c.child_off) + np.size(c.child_slot)
+                        + np.size(c.rel))
+            kern += 4 * len(c.child_off) * nb
+    return 3 * own + kern
+
+
+def offload_estimate(plan: FactorPlan, dtype, *, pool_len: int | None = None,
+                     graphs: int | None = None, warm: int = 0,
+                     maps: int | None = None) -> dict:
+    """Device bytes an executor and the device solve after it hold at
+    their peak when the factors stay on the card, and the parts: the
+    pool (``pool_len`` entries, the plan's by default), the factors at
+    pow-2 padded batches and the working sets (:func:`factor_parts`),
+    the device solve's copy of the factors
+    (``solve/device.solve_copy_bytes``) and the index maps (``maps``
+    bytes, by default :func:`map_bytes`).
+
+    The streamed loop (``graphs`` None) holds during FACT its pool, the
+    factors kept so far and one group's working set; after it — the pool
+    is the call's own and is gone — the factors beside the solve's copy.
+    A graph executor owns its pool for its life, and beside it
+    ``graphs`` bytes of its graphs' private pools (the captured steps'
+    working sets and outputs), the factors and the solve's copy; before
+    its captures its warm-up holds ``warm`` bytes beside the pool.  The
+    executors pass their own parts (``device_estimate``)."""
+    from superlu_dist_tpu_torch.solve.device import solve_copy_bytes
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    pool = (plan.pool_size if pool_len is None else pool_len) * itemsize
+    kept, fact, work = factor_parts(plan, itemsize)
+    solve = solve_copy_bytes(plan, itemsize)
+    maps = map_bytes(plan) if maps is None else maps
+    if graphs is None:
+        peak = max(pool + fact, kept + solve)
+    else:
+        peak = pool + max(warm, graphs + kept + solve)
+    return {"bytes": maps + peak, "pool_bytes": pool, "factor_bytes": kept,
+            "work_bytes": work, "graph_bytes": graphs or 0,
+            "warm_bytes": warm, "solve_copy_bytes": solve,
+            "map_bytes": maps}
+
+
+def device_budget(device) -> int | None:
+    """The bytes the offload rule lets the main path take on ``device``
+    (None off the card): free device memory, plus the blocks torch's
+    caching allocator holds unused (``mem_get_info`` counts them as used,
+    but torch hands them out again), less :data:`OFFLOAD_RESERVE_SHARE`
+    of the card."""
+    if device.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(device)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return int(free + cached - OFFLOAD_RESERVE_SHARE * total)
+
+
+def card_key(device) -> int:
+    """Which physical card ``device`` is, as a number a grid can
+    all-reduce: a hash of the host's name and the card's UUID (off the
+    card the device's name: the CPU ranks of one host share it)."""
+    ident = str(device)
+    if device.type == "cuda":
+        ident = str(getattr(torch.cuda.get_device_properties(device), "uuid",
+                            ident))
+    return zlib.crc32(f"{socket.gethostname()} {ident}".encode())
+
+
+def _cards_over(grid, used: int, limit: int, card: int, rec: dict) -> bool:
+    """The grid's choice under the card's rule: every rank's (bytes,
+    budget, card) in one all-reduce; True on every rank when the ranks
+    on any one card hold more than the least budget among them.  ``rec``
+    gets this rank's card: its ranks, their bytes and that budget."""
+    vec = np.zeros(3 * grid.nproc)
+    vec[3 * grid.rank:3 * grid.rank + 3] = used, limit, card
+    rows = grid.allreduce_sum_any(vec).reshape(grid.nproc, 3)
+    over = False
+    for key in np.unique(rows[:, 2]):
+        on = rows[rows[:, 2] == key]
+        held, least = on[:, 0].sum(), on[:, 1].min()
+        over = over or bool(held > least)
+        if key == card:
+            rec.update(card_ranks=len(on), card_bytes=int(held),
+                       card_limit=int(least))
+    return over
+
+
+def offload_rule(plan: FactorPlan, dtype, device, front_bytes_limit,
+                 grid=None, estimate=None) -> tuple:
+    """What ``offload="auto"`` resolves to, and why: ("host" | "none", a
+    record for the executor's report: the rule, the bytes it compared
+    with its limit, and whether they exceed it).  Every executor that
+    offloads resolves "auto" here, once, when it is built.
+
+    A number is the JAX package's rule (stream.py:218-226): the plan's
+    :func:`padded_front_bytes` against it.  None is the card's rule: the
+    executor's estimate (``estimate()``, by default
+    :func:`offload_estimate`'s dict) against :func:`device_budget`, the
+    estimate made only where there is a budget.  "host" when the bytes
+    exceed the limit — on the card, and on a ``grid`` on any device (one
+    Options offloads alike on the card and on the CPU ranks its tests
+    run); off the card the card's rule has no budget and no offload.
+
+    On a grid of several ranks the card's rule decides for the grid
+    (:func:`_cards_over`): ranks that share a card each hold their own
+    pool and factors there, so their estimates are summed against the
+    least budget any of them read, and every rank offloads when any card
+    is over.  A number needs no exchange: it gives every rank the same
+    choice."""
+    if front_bytes_limit is not None:
+        rule, limit = "front_bytes_limit", front_bytes_limit
+    else:
+        rule, limit = "card", device_budget(device)
+    applies = limit is not None and (grid is not None
+                                     or device.type == "cuda")
+    used = None
+    if rule == "front_bytes_limit":
+        used = padded_front_bytes(plan, dtype)
+    elif applies:
+        used = (estimate() if estimate is not None
+                else offload_estimate(plan, dtype))["bytes"]
+    over = bool(applies and used > limit)
+    rec = {"rule": rule, "bytes": used, "limit": limit, "over": over}
+    if rule == "card" and applies and grid is not None and grid.nproc > 1:
+        over = _cards_over(grid, used, limit, card_key(device), rec)
+    return ("host" if over else "none"), rec
 
 
 def check_offload(offload: str) -> str:
@@ -255,12 +426,12 @@ class StreamExecutor:
 
     ``offload``: "none" keeps every factored panel on the device; "host"
     moves each group's panels to host memory as they are produced, so the
-    device holds the pool and the panels in flight only; "auto" is "host"
-    on the card when :func:`padded_front_bytes` exceeds
-    ``front_bytes_limit``.  ``host_flops`` > 0 runs the cheap leading
-    levels on the CPU (:func:`host_share_levels`).  ``granularity``
-    "level" replays one CUDA graph per schedule wave on the card (eager
-    on the CPU, where it equals "group" bit for bit)."""
+    device holds the pool and the panels in flight only; "auto" is
+    :func:`offload_rule`'s choice (``front_bytes_limit`` None: the
+    card's own rule; a number: the JAX package's).  ``host_flops`` > 0
+    runs the cheap leading levels on the CPU (:func:`host_share_levels`).
+    ``granularity`` "level" replays one CUDA graph per schedule wave on
+    the card (eager on the CPU, where it equals "group" bit for bit)."""
 
     plan = PlanRef()     # the plan owns its executors (plan.PlanRef)
 
@@ -272,8 +443,8 @@ class StreamExecutor:
     def __init__(self, plan: FactorPlan, dtype=torch.float64, device="cuda",
                  gemm_prec: str | None = None, offload: str = "auto",
                  granularity: str = "group", host_flops: float = 0.0,
-                 front_bytes_limit: float = 6e9, offload_lag: int = 8,
-                 scatter=KERNELS, panel=PANEL):
+                 front_bytes_limit: float | None = None,
+                 offload_lag: int = 8, scatter=KERNELS, panel=PANEL):
         plan.check_index_width()
         self.plan, self.dtype = plan, dtype
         self.device = resolve_device(device)
@@ -285,9 +456,11 @@ class StreamExecutor:
             raise ValueError(f"granularity must be 'group' or 'level', "
                              f"got {granularity!r}")
         self.granularity = granularity
+        self.offload_rule = {"rule": "given"}
         if offload == "auto":
-            offload = auto_offload(plan, dtype, self.device,
-                                   front_bytes_limit)
+            offload, self.offload_rule = offload_rule(
+                plan, dtype, self.device, front_bytes_limit,
+                estimate=self.device_estimate)
         self.offload = check_offload(offload)
         self.offload_lag = int(offload_lag)
         levels = host_share_levels(plan, host_flops)
@@ -314,6 +487,18 @@ class StreamExecutor:
         self.captures = 0
         self.sentinel_warm = False
         self.last_kernel_builds = self.last_retraces = 0
+
+    def device_estimate(self) -> dict:
+        """This executor's :func:`offload_estimate`: the streamed loop's;
+        at level granularity the waves' static pool, and their one
+        private pool, which keeps every wave's packed factors (a replay
+        rewrites them, the call clones them out) and the largest step's
+        working set (its warm-up runs on the static pool)."""
+        if self.granularity != "level":
+            return offload_estimate(self.plan, self.dtype)
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        kept, _, work = factor_parts(self.plan, itemsize)
+        return offload_estimate(self.plan, self.dtype, graphs=kept + work)
 
     # ---- what the call loop reads (the mega executor overrides) --------
 
@@ -712,6 +897,7 @@ class StreamExecutor:
         rep = {"executor": self.name, "granularity": self.granularity,
                "offload": self.offload,
                "offload_wait_s": self.last_offload_wait_seconds,
+               "offload_rule": dict(self.offload_rule),
                "host_levels": self.host_levels,
                "host_groups": self._n_host_groups}
         graphs = [g for g in self._waves or [] if g is not None]

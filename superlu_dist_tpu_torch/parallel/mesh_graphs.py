@@ -101,6 +101,32 @@ class _GridGraphs(MeshStreamExecutor):
         self.graph_stats = {}
         self.last_warm_up_launches = 0
 
+    def device_estimate(self) -> dict:
+        """``numeric/stream.offload_estimate`` for the segment graphs,
+        bounded by the whole plan's parts: the static pool of
+        :meth:`_pool_len` elements, held for the executor's life; while
+        the graphs warm up (:meth:`_warm`) a scratch pool as large and a
+        step's working set beside it; after the captures the one private
+        pool the graphs share, which keeps the programs' outputs (at most
+        the plan's factors) and the largest step's working set, at the
+        batches of :meth:`_work_batches`."""
+        from superlu_dist_tpu_torch.numeric.stream import (factor_parts,
+                                                           group_work_bytes,
+                                                           offload_estimate)
+        plan = self.plan
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        work = max([group_work_bytes(g, itemsize, b) for g, b in
+                    zip(plan.groups, self._work_batches())], default=0)
+        pool = self._pool_len() * itemsize
+        return offload_estimate(
+            plan, self.dtype, pool_len=self._pool_len(),
+            graphs=factor_parts(plan, itemsize)[0] + work, warm=pool + work)
+
+    def _work_batches(self) -> list:
+        """Per group the batch its step's working set is counted at (None:
+        the pow-2 padded one)."""
+        return [None] * len(self.plan.groups)
+
     # ---- what every call reads --------------------------------------------
 
     def _begin(self, timings):
@@ -382,7 +408,7 @@ class MeshMegaExecutor(_GridGraphs):
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
                  scatter=None, pool_partition=False, offload="auto",
-                 front_bytes_limit=6e9, offload_lag=8, panel=None):
+                 front_bytes_limit=None, offload_lag=8, panel=None):
         super().__init__(plan, dtype, device, grid, gemm_prec=gemm_prec,
                          scatter=scatter, pool_partition=pool_partition,
                          offload=offload, front_bytes_limit=front_bytes_limit,
@@ -402,6 +428,13 @@ class MeshMegaExecutor(_GridGraphs):
     @property
     def closed_keys(self) -> int:
         return len(self.spec)
+
+    def _work_batches(self) -> list:
+        # a key's slots are padded to the rung of its largest batch at
+        # most: the single card's buckets bound them
+        from superlu_dist_tpu_torch.numeric.mega import bucket_batches
+        spec = bucket_batches(self.plan)
+        return [spec[(g.w, g.u)] for g in self.plan.groups]
 
     def _padded_batch(self, gi) -> int:
         return self.spec[self.key_of[gi]][1]

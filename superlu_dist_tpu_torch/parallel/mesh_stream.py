@@ -195,9 +195,13 @@ class MeshStreamExecutor:
     group's own L and U12 columns and its pivot stack to pinned host
     memory as the group completes, on a side stream, at most
     ``offload_lag`` groups in flight (``numeric/stream._Offload``, sized
-    from this rank's share); "auto" does so when the plan's padded front
-    bytes exceed ``front_bytes_limit`` (``numeric/stream.auto_offload``,
-    on any device on a grid); "none" keeps them on the device.
+    from this rank's share); "auto" does so when
+    ``numeric/stream.offload_rule`` says so — with ``front_bytes_limit``
+    None when the ranks on any one card would hold more than it has room
+    for (:meth:`device_estimate`, summed over the ranks that share it;
+    decided by the grid together), with a number when the plan's padded
+    front bytes exceed it, on any device on a grid; "none" keeps them on
+    the device.
 
     Each group runs as a program (:meth:`_group`, a generator) that
     yields at its collectives — every panel broadcast of
@@ -227,11 +231,11 @@ class MeshStreamExecutor:
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
                  scatter=None, pool_partition=False, offload="none",
-                 front_bytes_limit=6e9, offload_lag=8, panel=None,
+                 front_bytes_limit=None, offload_lag=8, panel=None,
                  granularity="group"):
         from superlu_dist_tpu_torch.numeric import factor
-        from superlu_dist_tpu_torch.numeric.stream import (auto_offload,
-                                                           check_offload)
+        from superlu_dist_tpu_torch.numeric.stream import (check_offload,
+                                                           offload_rule)
         from superlu_dist_tpu_torch.ops.dense import (gemm_precision,
                                                       resolve_gemm_tier)
         if granularity not in ("group", "level"):
@@ -267,9 +271,11 @@ class MeshStreamExecutor:
             g.batch * share_ops(g.w, *front_cols(g.m, g.w, grid.npcol,
                                                  pc)[1:3], grid.npcol, pc)
             for g in plan.groups for pc in range(grid.npcol)))
+        self.offload_rule = {"rule": "given"}
         if offload == "auto":
-            offload = auto_offload(plan, dtype, device, front_bytes_limit,
-                                   grid=True)
+            offload, self.offload_rule = offload_rule(
+                plan, dtype, device, front_bytes_limit, grid=grid,
+                estimate=self.device_estimate)
         self.offload = check_offload(offload)
         self.offload_lag = int(offload_lag)
         self.deadline = self.chaos = None
@@ -403,6 +409,14 @@ class MeshStreamExecutor:
                     f"{self.gemm_prec}",
                     functools.partial(self._program, gi),
                     (st, bufs, self.grid))
+
+    def device_estimate(self) -> dict:
+        """``numeric/stream.offload_estimate`` for this rank: its pool of
+        :meth:`_pool_len` elements, and the whole plan's factors, working
+        sets, solve copy and maps, which bound its shares of them."""
+        from superlu_dist_tpu_torch.numeric.stream import offload_estimate
+        return offload_estimate(self.plan, self.dtype,
+                                pool_len=self._pool_len())
 
     def _pool_len(self) -> int:
         """The pool's elements (the mega executor's has a dump element
@@ -597,6 +611,7 @@ class MeshStreamExecutor:
         return {"executor": self.name, "granularity": self.granularity,
                 "offload": self.offload,
                 "offload_wait_s": self.last_offload_wait_seconds,
+                "offload_rule": dict(self.offload_rule),
                 "host_bytes": self.host_bytes,
                 "host_levels": 0, "host_groups": 0,
                 "nd": self.nd, "rank": self.rank,

@@ -206,11 +206,11 @@ class SpmdFactorExecutor:
     name = "spmd"
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
-                 scatter=None, offload="none", front_bytes_limit=6e9,
+                 scatter=None, offload="none", front_bytes_limit=None,
                  offload_lag=8, panel=None):
         from superlu_dist_tpu_torch.numeric import factor
-        from superlu_dist_tpu_torch.numeric.stream import (auto_offload,
-                                                           check_offload)
+        from superlu_dist_tpu_torch.numeric.stream import (check_offload,
+                                                           offload_rule)
         from superlu_dist_tpu_torch.ops.dense import gemm_precision
         from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
         plan.check_index_width()
@@ -233,9 +233,11 @@ class SpmdFactorExecutor:
         self.local_flops = float(sum(
             len(range(self.rank, g.batch, self.nd)) * _front_flops(g.w, g.u)
             for g in plan.groups))
+        self.offload_rule = {"rule": "given"}
         if offload == "auto":
-            offload = auto_offload(plan, dtype, device, front_bytes_limit,
-                                   grid=True)
+            offload, self.offload_rule = offload_rule(
+                plan, dtype, device, front_bytes_limit, grid=grid,
+                estimate=self.device_estimate)
         self.offload = check_offload(offload)
         self.offload_lag = int(offload_lag)
         self.deadline = self.chaos = None
@@ -402,10 +404,19 @@ class SpmdFactorExecutor:
         for gi in range(len(self.plan.groups)):
             self._group(gi, avals, pool, thresh, maps, writes, unperm, grid)
 
+    def device_estimate(self) -> dict:
+        """``numeric/stream.offload_estimate`` for this rank: the whole
+        pool (every rank allocates it), and the whole plan's factors,
+        working sets, solve copy and maps, which bound its shares of
+        them."""
+        from superlu_dist_tpu_torch.numeric.stream import offload_estimate
+        return offload_estimate(self.plan, self.dtype)
+
     def report(self) -> dict:
         return {"executor": self.name, "granularity": "group",
                 "offload": self.offload,
                 "offload_wait_s": self.last_offload_wait_seconds,
+                "offload_rule": dict(self.offload_rule),
                 "host_bytes": self.host_bytes,
                 "host_levels": 0, "host_groups": 0,
                 "nd": self.nd, "rank": self.rank,

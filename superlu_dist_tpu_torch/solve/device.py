@@ -260,6 +260,17 @@ def sweep_maps(solve_plan: SolvePlan, sf, device) -> list:
     return out
 
 
+def solve_copy_bytes(plan, itemsize: int) -> int:
+    """Device bytes of :class:`DeviceSolver`'s own copy of the factors of
+    ``plan`` at the default solve plan: the panel stacks of the merged
+    sweep batches (an aliased batch copies nothing), and the largest such
+    stack once more — the gather's parts before their concatenation (the
+    card's offload rule, numeric/stream.offload_estimate, counts it)."""
+    sizes = [sg.batch * ((sg.w + sg.u) * sg.w + sg.w * sg.u) * itemsize
+             for sg in build_solve_plan(plan).groups if sg.reuse < 0]
+    return sum(sizes) + max(sizes, default=0)
+
+
 class DeviceSolver:
     """Solve (L·U)x = d on the factors' device, in the factor's permuted
     labeling.

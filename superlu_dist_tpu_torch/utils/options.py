@@ -509,9 +509,14 @@ class Options:
                                       # plan's shape keys (mega's plans)
     bucket_keys: int = 6              # SLU_TPU_BUCKET_KEYS: the closed
                                       # key budget
-    front_bytes_limit: float = 6e9    # SLU_TPU_FRONT_BYTES_LIMIT: padded
-                                      # front bytes above which the stream
-                                      # executor offloads factors to host
+    # the factors' offload to host memory ("auto" in the executors,
+    # numeric/stream.offload_rule): None is the card's own rule — offload
+    # when the main path's estimated peak exceeds the free memory of the
+    # card, read when the executor is built; a number is the JAX rule —
+    # offload when the padded front bytes exceed it (0 always offloads).
+    # The JAX package's SLU_TPU_FRONT_BYTES_LIMIT defaults to 6e9, a size
+    # chosen for its own device
+    front_bytes_limit: float | None = None
     offload_lag: int = 8              # SLU_TPU_OFFLOAD_LAG: groups of
                                       # device panels in flight to host
     host_flops: float = 0.0           # SLU_TPU_HOST_FLOPS: leading levels

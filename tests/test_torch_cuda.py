@@ -651,6 +651,38 @@ def test_refactor_through_the_replay_leaves_the_old_handle(cuda):
     assert _equal(lu.numeric.fronts, fresh.fronts)
 
 
+def test_the_card_rule_reads_this_card(cuda):
+    """Options() on the card: the executor reads the card's budget when
+    it is built (at most the card's memory), keeps factors that fit, and
+    with a budget below the estimate (the card's free memory made to
+    look full) offloads them, their solves on the host.  The peak
+    against the estimate is ``chip_smoke.py config4``'s check: at this
+    size the process's fixed costs (cuBLAS workspaces, graph pools),
+    which the rule's reserve covers, outweigh the plan's bytes."""
+    from superlu_dist_tpu_torch.numeric import stream
+    a = poisson3d(16)
+    b = a.matvec(np.random.default_rng(5).standard_normal(a.n_rows))
+    x, lu, st, info = slt.gssvx(slt.Options(executor="stream"), a, b,
+                                device=cuda)
+    rule = st.executor["offload_rule"]
+    assert info == 0 and st.executor["offload"] == "none"
+    assert rule["rule"] == "card" and rule["bytes"] <= rule["limit"]
+    assert rule["limit"] < torch.cuda.mem_get_info(cuda)[1]
+    assert st.solve_report.solve_route == "device"
+    lu.plan.__dict__.pop("_factor_fns", None)
+    real = stream.device_budget
+    stream.device_budget = lambda device: rule["bytes"] - 1
+    try:
+        x2, lu2, st2, info2 = slt.gssvx(
+            slt.Options(executor="stream",
+                        fact=slt.Fact.SamePattern_SameRowPerm), a, b, lu=lu)
+    finally:
+        stream.device_budget = real
+    assert info2 == 0 and st2.executor["offload"] == "host"
+    assert lu2.numeric.on_host and st2.solve_report.solve_route == "host"
+    assert st2.solve_report.berr <= tols.berr_target(np.float64)
+
+
 def test_offload_lowers_the_peak_and_solves_on_the_host(cuda):
     """Options(front_bytes_limit=0): every front is copied to pinned host
     memory as it is produced, the peak device memory of the factorization

@@ -429,7 +429,7 @@ def test_options_validate_the_executor():
     assert slt.Options(executor="spmd").executor == "spmd"
     o = slt.Options()
     assert (o.executor, o.bucket_closed, o.bucket_keys, o.front_bytes_limit,
-            o.offload_lag, o.host_flops) == ("auto", False, 6, 6e9, 8, 0.0)
+            o.offload_lag, o.host_flops) == ("auto", False, 6, None, 8, 0.0)
 
 
 @pytest.mark.parametrize("arm", ["ckpt_dir", "ckpt_every", "deadline",

@@ -219,5 +219,5 @@ def test_mesh_executor_cache_keys_the_offload_knobs(executor, partition,
     assert factor.resolve_executor(executor, grid.device, grid,
                                    partition) == want
     assert e1 is e2 and e3 is not e1 and e4 is not e3
-    assert [b["front_bytes_limit"] for b in built] == [6e9, 0, 0]
+    assert [b["front_bytes_limit"] for b in built] == [None, 0, 0]
     assert built[-1]["offload_lag"] == 2

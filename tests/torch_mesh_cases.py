@@ -817,3 +817,53 @@ def spmd_sharding_verdict(tc, grid, nx):
     finally:
         programaudit._reset()
     return "clean"
+
+
+def offload_rule_ranks(tc, grid, plan, dt, budgets, cards):
+    """The card's offload rule (``front_bytes_limit=None``) on a grid of
+    CPU ranks, rank r reading the fake budget ``budgets[r]`` on the fake
+    card ``cards[r]`` (``numeric/stream.device_budget`` and ``card_key``
+    replaced here): per executor the grid resolves through
+    ``get_executor`` (spmd, the 2-D stream, mesh mega), its offload, its
+    rule record, its own estimate and its pool's elements (spmd's is the
+    plan's: every rank allocates the whole pool)."""
+    from superlu_dist_tpu_torch.numeric import factor, stream
+    dtype = getattr(torch, dt)
+    stream.device_budget = lambda device: budgets[grid.rank]
+    stream.card_key = lambda device: cards[grid.rank]
+    out = {}
+    for executor, partition in (("auto", False), ("stream", True),
+                                ("mega", False)):
+        ex = factor.get_executor(plan, dtype, executor, None, "cpu",
+                                 grid=grid, pool_partition=partition)
+        out[ex.name] = (ex.offload, ex.report()["offload_rule"],
+                        ex.device_estimate(),
+                        plan.pool_size if ex.name == "spmd"
+                        else ex._pool_len())
+    plan.__dict__.pop("_factor_fns", None)
+    return out
+
+
+def shared_card_ranks(tc, grid, plan, dt, ratio, cards):
+    """Per grid executor (spmd, the 2-D stream, mesh mega) built with
+    offload="none": the card's rule over the grid when each rank's
+    budget is ``ratio`` times that executor's estimate on this rank,
+    rank r on the fake card ``cards[r]``."""
+    from superlu_dist_tpu_torch.numeric import stream
+    from superlu_dist_tpu_torch.parallel.mesh_graphs import MeshMegaExecutor
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    from superlu_dist_tpu_torch.parallel.spmd import SpmdFactorExecutor
+    dtype = getattr(torch, dt)
+    stream.card_key = lambda device: cards[grid.rank]
+    out = {}
+    for cls, kw in ((SpmdFactorExecutor, {}),
+                    (MeshStreamExecutor, {"pool_partition": True}),
+                    (MeshMegaExecutor, {})):
+        ex = cls(plan, dtype, grid.device, grid, offload="none", **kw)
+        budget = int(ratio * ex.device_estimate()["bytes"])
+        stream.device_budget = lambda device: budget
+        out[ex.name] = stream.offload_rule(plan, dtype, grid.device, None,
+                                           grid=grid,
+                                           estimate=ex.device_estimate)
+    return out
