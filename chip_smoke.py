@@ -21,17 +21,21 @@ drives the port are reset just before it and checked just after):
                 ``python3 chip_smoke.py config4``): gssvx(Options()) on
                 poisson3d(100) (n = 1,000,000), float32 factors kept on
                 the card by the offload rule (its estimate, budget and
-                choice; the float64 choice beside it, not run), solves on
-                the card, BERR at the float64 target, every kernel
-                launched, the peak device memory above what was resident
-                within the rule's estimate, a FACTORED gssvx at nrhs 16;
-                then front_assemble bit for bit its plain version at two
-                groups reading pool offsets above 2**31 and panel_lu at
-                the widest front's panel (m = 16,176), with ms and
-                bounds; what the rule chooses for mega on that plan
-                (its own estimate); and the graph executors' device
-                memory (mega, level waves: poisson3d(32), closed plan,
-                float64) at or below the estimate the rule reads;
+                choice), solves on the card, BERR at the float64 target,
+                every kernel launched, the peak device memory above what
+                was resident within the rule's estimate, a FACTORED gssvx
+                at nrhs 16; then front_assemble bit for bit its plain
+                version at two groups reading pool offsets above 2**31
+                and panel_lu at the widest front's panel (m = 16,176),
+                with ms and bounds; then the other executors on the same
+                analysis under the rule (``config4_executors``): level
+                waves in float32 (offloaded, fronts within TF32_DRIFT of
+                the stream's, peak within the estimate, BERR), fused and
+                mega in float32 refused by name with nothing allocated,
+                and the stream in float64 (offloaded: FACT, host SOLVE,
+                REFINE, BERR; or refused); and the graph executors'
+                device memory (mega, level waves: poisson3d(32), closed
+                plan, float64) at or below the estimate the rule reads;
   3. plan     — the default analysis of poisson3d(48) (n=110,592): its
                 backend, phase seconds and native calls, and its plan,
                 which must be the JAX package's default plan;
@@ -1060,11 +1064,14 @@ def native_phase():
 def factorizations(report) -> int:
     """The factorizations a gssvx call ran on its plan: one, plus one per
     ladder rung that refactored the same skeleton (gemm-precision,
-    hiprec-factors).  A refactor-rescale rung re-analyses: raise."""
+    hiprec-factors; not one the card's rule refused).  A refactor-rescale
+    rung re-analyses: raise."""
     if any(r.name == "refactor-rescale" for r in report.rungs):
         raise AssertionError(f"the ladder re-analysed: {report.summary()}")
     return 1 + sum(r.name in ("gemm-precision", "hiprec-factors")
-                   and "info=" not in r.detail for r in report.rungs)
+                   and "info=" not in r.detail
+                   and "DeviceMemoryError" not in r.detail
+                   for r in report.rungs)
 
 
 def expect_launches(phase, kernels, front_assemble, spmv, panels=None):
@@ -1519,13 +1526,13 @@ def start_mesh_peer(slt, only=None):
     the process group at its first job and waits there for rank 0 (this
     process).  Returns the phase's state."""
     from superlu_dist_tpu_torch.testing.ranks import (GallerySystem, RankJob,
-                                                      free_port, spawn_peers)
+                                                      rendezvous, spawn_peers)
     tag = f"/slt_mesh_{os.getpid()}"
     trace_sys = GallerySystem("poisson3d", (NX_TINY,), seed=SEED + 90)
     trace2d = RankJob("mesh_trace", f"{tag}_trace", MESH_RANKS,
                       slt.Options(**MESH_2D), trace_sys.a_rows,
                       trace_sys.b_rows, max_len=PG_MAX_LEN, attach_s=1200.0,
-                      port=free_port(), device="cuda",
+                      port=rendezvous(), device="cuda",
                       timeout_s=MESH_TIMEOUT_S,
                       trace=os.path.join(TRACE_DIR, "mesh_r%r.json"))
     audit2d = dataclasses.replace(trace2d, kind="mesh_audit",
@@ -1545,7 +1552,7 @@ def start_mesh_peer(slt, only=None):
     psf_sys = GallerySystem("poisson3d", (NX_TINY,), seed=SEED + 80)
     main = RankJob("mesh", f"{tag}_main", MESH_RANKS, slt.Options(),
                    main_sys.a_rows, main_sys.b_rows, max_len=PG_MAX_LEN,
-                   attach_s=1200.0, port=free_port(), device="cuda",
+                   attach_s=1200.0, port=rendezvous(), device="cuda",
                    gather=True, timeout_s=MESH_TIMEOUT_S)
     fact = dataclasses.replace(
         main, name=f"{tag}_fact", options=slt.Options(
@@ -4524,12 +4531,12 @@ def config4_only() -> int:
     group, panel_lu a panel, csr_spmv two a refinement step), the peak
     device memory above what was resident at or below the estimate; one
     FACTORED gssvx at nrhs 16 on the handle (its sweeps replayed in
-    refinement, no front_assemble launch).  Then, the handle gone, what
-    the rule chooses for float64 factors (not run), the kernels against
-    their plain versions at the plan's shapes (``config4_kernels``),
-    what mega's own estimate makes the rule choose on this plan, and the
-    graph executors' memory against their estimates
-    (``graph_estimates``).  A config4 line, a config4_kernels line, a
+    refinement, no front_assemble launch).  Then, the handle gone, the
+    kernels against their plain versions at the plan's shapes
+    (``config4_kernels``), the other executors on the same analysis
+    under the card's rule (``config4_executors``), and the graph
+    executors' memory against their estimates (``graph_estimates``).  A
+    config4 line, a config4_kernels line, a config4_executors line, a
     config4_graph_estimates line, then the card line."""
     import gc
     import torch
@@ -4539,7 +4546,6 @@ def config4_only() -> int:
     from superlu_dist_tpu_torch.numeric import factor, kernels
     from superlu_dist_tpu_torch.numeric.stream import (device_budget,
                                                        offload_estimate,
-                                                       offload_rule,
                                                        padded_front_bytes)
     from superlu_dist_tpu_torch.utils import tols
     from superlu_dist_tpu_torch.utils.peaks import mfu_pct
@@ -4619,17 +4625,19 @@ def config4_only() -> int:
                              f"failed: info={info16}")
     check_berr("config4 FACTORED", st16.solve_report.berr)
     peak_reserved = torch.cuda.max_memory_reserved()
+    # the other executors' legs reuse this analysis: the stream's fronts
+    # on the host (the level waves' drift) and the skeleton
+    stream_fronts = [(lp.cpu(), up.cpu()) for lp, up in lu.numeric.fronts]
+    skeleton = dataclasses.replace(lu, numeric=None, dev_solver=None,
+                                   dev_spmv=None, berrs=None)
     del x, x16, lu, lu16
     gc.collect()
     torch.cuda.empty_cache()
-    # float64 factors on this card, the handle gone: the rule's choice,
-    # not run
-    f64, f64_rule = offload_rule(plan, torch.float64, dev, None)
     say("config4", n=a.n_rows, nnz=a.nnz, groups=groups, panels=panels,
         flops=plan.flops, pool_bytes=est["pool_bytes"],
         padded_front_bytes=padded_front_bytes(plan, torch.float32),
         estimate=est, budget=rule["limit"], offload=stats.executor["offload"],
-        offload_rule=rule, float64_offload=f64, float64_rule=f64_rule,
+        offload_rule=rule,
         float64_estimate=offload_estimate(plan, torch.float64),
         budget_now=device_budget(dev), build_s=build_s,
         analysis_s=sum(stats.utime[p] for p in ANALYSIS),
@@ -4654,17 +4662,211 @@ def config4_only() -> int:
     say("config4_kernels", **config4_kernels(
         plan, torch, kernels, factor,
         torch.Generator(device="cuda").manual_seed(SEED)))
-    # mega on this plan: what its own estimate makes the rule choose
-    from superlu_dist_tpu_torch.numeric.mega import MegaExecutor
-    mega = MegaExecutor(plan, torch.float32, "cuda")
-    mega_rule = dict(offload=mega.offload, rule=mega.offload_rule,
-                     buckets=len(mega.spec),
-                     estimate=mega.device_estimate())
-    del mega
-    say("config4_graph_estimates", mega_n1000000_float32=mega_rule,
-        **graph_estimates(slt, torch))
+    say("config4_executors", **config4_executors(
+        slt, torch, kernels, a, b, skeleton, stream_fronts))
+    del skeleton, stream_fronts
+    say("config4_graph_estimates", **graph_estimates(slt, torch))
     print(card)
     return 0
+
+
+def _drift_moved(torch, f1, f2) -> dict:
+    """``_drift_card`` of two front lists wherever they lie, each pair
+    moved to the card for its comparison (two n = 1M front sets do not
+    fit the card beside each other)."""
+    diff, big, same = [], [], []
+    for (l1, u1), (l2, u2) in zip(f1, f2):
+        for x, y in ((l1, l2), (u1, u2)):
+            if x.shape != y.shape:
+                same.append(torch.zeros((), dtype=torch.bool, device="cuda"))
+            elif x.numel():
+                dx, dy = x.to("cuda"), y.to("cuda")
+                same.append((dx == dy).all())
+                diff.append((dx.double() - dy.double()).abs().max())
+                big.append(dy.abs().max().double())
+    # read once, after the loop
+    num = float(torch.stack(diff).max()) if diff else 0.0
+    den = float(torch.stack(big).max()) if big else 0.0
+    equal = len(f1) == len(f2) and bool(torch.stack(same).all()) \
+        if same else len(f1) == len(f2)
+    return dict(equal_to_stream=equal,
+                max_rel_diff_vs_stream=num / max(den, 1e-300))
+
+
+def _settled(torch) -> int:
+    """The card's allocated bytes with nothing of the process's garbage
+    and no unused cached block left."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def config4_executors(slt, torch, kernels, a, b, skeleton,
+                      stream_fronts) -> dict:
+    """The other executors at n = 1,000,000 on the main path's analysis
+    (each refactor reuses its skeleton through SamePattern_SameRowPerm:
+    no second analysis), each under the card's offload rule:
+
+    * level waves in float32 (``StreamExecutor(granularity="level")``):
+      the rule's choice ("host" where the waves' graph pool and the
+      factors do not fit together), the fronts within TF32_DRIFT of the
+      stream's, the peak at or below the estimate of the chosen mode,
+      front_assemble a group plus one a warm-up shape, and BERR at the
+      float64 target from their factors solved on the card;
+    * fused and mega in float32 through gssvx: refused by name
+      (``DeviceMemoryError``) before anything runs — no launch, no census
+      record, ``memory_allocated`` the same to the byte;
+    * the stream in float64 through gssvx(factor_dtype="float64"):
+      offloaded, with its FACT, host SOLVE and REFINE seconds, BERR at the
+      float64 target and the peak at or below its offloaded estimate — or
+      refused with its parts."""
+    import dataclasses
+    from superlu_dist_tpu_torch.numeric.factor import NumericFactorization
+    from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.utils import tols
+    from superlu_dist_tpu_torch.utils.errors import DeviceMemoryError
+    plan = skeleton.plan
+    groups, panels = len(plan.groups), len(plan_panels(plan))
+    reuse = slt.Fact.SamePattern_SameRowPerm
+    out = {}
+    # level waves, float32, on the values the main path factored
+    lu2, bvals, _ = slt.analyze(slt.Options(fact=reuse), a, device="cuda",
+                                lu=skeleton)
+    dt = torch.float32
+    avals = torch.as_tensor(bvals)
+    thresh = torch.tensor(np.sqrt(torch.finfo(dt).eps)
+                          * max(lu2.anorm, 1e-300), dtype=dt)
+    base = _settled(torch)
+    base_r = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ex = StreamExecutor(plan, dt, "cuda", granularity="level")
+    fronts, tiny = ex(avals, thresh)
+    torch.cuda.synchronize()
+    level_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    peak_r = torch.cuda.max_memory_reserved() - base_r
+    warm = len({(g.batch, g.m, g.w, g.u) for g in plan.groups})
+    launches = expect_launches("config4 level", kernels, groups + warm,
+                               False)
+    rep, est = ex.report(), ex.device_estimate()
+    mode = "offload_bytes" if ex.offload == "host" else "bytes"
+    gemm_prec = ex.gemm_prec
+    del ex
+    _settled(torch)
+    drift = _drift_moved(torch, fronts, stream_fronts)
+    stream_fronts.clear()            # 12.5 GB of host memory
+    level = dict(offload=rep["offload"], rule=rep["offload_rule"],
+                 estimate=est, peak_allocated=peak, peak_reserved=peak_r,
+                 limit_of_mode=est[mode], seconds=level_s,
+                 graphs=rep["graphs"], capture_s=rep["capture_s"],
+                 warm_up_s=rep["warm_up_s"], replay_s=rep["replay_s"],
+                 offload_wait_s=rep["offload_wait_s"], tiny_pivots=tiny,
+                 launches=launches, drift=drift,
+                 drift_gate=float(tols.TF32_DRIFT))
+    if rep["offload_rule"]["bytes"] != est["bytes"]:
+        raise AssertionError(f"config4 level: the rule did not read the "
+                             f"executor's estimate: {level}")
+    if not peak <= est[mode]:
+        raise AssertionError(f"config4 level: peak {peak} B above its "
+                             f"{mode} {est[mode]} B")
+    if not (drift["equal_to_stream"]
+            or drift["max_rel_diff_vs_stream"] <= tols.TF32_DRIFT):
+        raise AssertionError(f"config4 level: fronts vs the stream's: "
+                             f"{drift}")
+    # their factors solved on the card: the BERR of the level waves' run
+    numeric = NumericFactorization(
+        plan=plan, fronts=[(lp.to("cuda"), up.to("cuda"))
+                           for lp, up in fronts],
+        tiny_pivots=tiny, dtype=dt, gemm_prec=gemm_prec, executor=rep)
+    del fronts
+    kernels.reset_launches()
+    xl, lul, stl, infol = slt.gssvx(slt.Options(fact=slt.Fact.FACTORED), a,
+                                    b, lu=dataclasses.replace(lu2,
+                                                              numeric=numeric))
+    torch.cuda.synchronize()
+    if infol != 0 or not np.all(np.isfinite(xl)):
+        raise AssertionError(f"config4 level: solve failed: info={infol}")
+    check_berr("config4 level", stl.solve_report.berr)
+    level.update(berr=stl.solve_report.berr, refine_steps=stl.refine_steps,
+                 solve_phase_s=stl.utime,
+                 solve_launches=expect_launches("config4 level solve",
+                                                kernels, 0, True))
+    out["level_float32"] = level
+    del numeric, xl, lul, lu2
+    # fused and mega, float32: refused by name before anything runs
+    for name in ("fused", "mega"):
+        before = _settled(torch)
+        mark = COMPILE_STATS.marker()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            slt.gssvx(slt.Options(fact=reuse, executor=name), a, b,
+                      lu=skeleton)
+        except DeviceMemoryError as e:
+            err = e
+        else:
+            raise AssertionError(f"config4: {name} ran at n = 1,000,000")
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        census = COMPILE_STATS.records[mark:]
+        rec = dict(error=type(err).__name__, executor=err.executor,
+                   dtype=err.dtype, budget=err.budget, parts=err.parts,
+                   offloads=err.offloads, remedies=err.remedies,
+                   allocated_before=before, allocated_after=after,
+                   census_records=len(census),
+                   seconds=time.perf_counter() - t0,
+                   launches=expect_launches(f"config4 {name}", kernels, 0,
+                                            False))
+        out[f"{name}_float32"] = rec
+        if after != before or census:
+            raise AssertionError(f"config4 {name}: the refusal allocated or "
+                                 f"captured: {rec}")
+    # the stream, float64: offloaded by the rule, or refused with its parts
+    base = _settled(torch)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        x64, lu64, st64, info64 = slt.gssvx(
+            slt.Options(fact=reuse, factor_dtype="float64"), a, b,
+            lu=skeleton)
+    except DeviceMemoryError as err:
+        out["stream_float64"] = dict(
+            outcome="refused", executor=err.executor, budget=err.budget,
+            parts=err.parts, remedies=err.remedies,
+            seconds=time.perf_counter() - t0)
+        return out
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    rule = st64.executor["offload_rule"]
+    rep = st64.solve_report
+    route = lu64.solve_route
+    if info64 != 0 or not np.all(np.isfinite(x64)):
+        raise AssertionError(f"config4 float64: gssvx failed: info={info64}")
+    check_berr("config4 float64", rep.berr)
+    mode = "offload_bytes" if st64.executor["offload"] == "host" else "bytes"
+    f64 = dict(outcome=st64.executor["offload"], rule=rule,
+               solve_route=route, residual_route=rep.residual_route,
+               peak_allocated=peak, limit_of_mode=rule[mode], wall_s=wall,
+               fact_s=st64.utime["FACT"], solve_s=st64.utime["SOLVE"],
+               refine_s=st64.utime["REFINE"], phase_s=st64.utime,
+               offload_wait_s=st64.executor.get("offload_wait_s"),
+               refine_steps=st64.refine_steps, berr=rep.berr,
+               berr_history=rep.berr_history,
+               rungs=[(r.name, r.detail) for r in rep.rungs],
+               launches=expect_launches("config4 float64", kernels, groups,
+                                        route == "device", panels))
+    out["stream_float64"] = f64
+    if not peak <= rule[mode]:
+        raise AssertionError(f"config4 float64: peak {peak} B above its "
+                             f"{mode} {rule[mode]} B")
+    return out
 
 
 ESTIMATE_NX = 32          # the graph executors' memory check: estimates of

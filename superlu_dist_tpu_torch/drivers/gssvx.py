@@ -67,6 +67,7 @@ from superlu_dist_tpu_torch.symbolic.symbfact import (SymbolicFact,
 from superlu_dist_tpu_torch.testing.chaos import get_refactor_chaos
 from superlu_dist_tpu_torch.utils import tols
 from superlu_dist_tpu_torch.utils.errors import (DeadlineExceededError,
+                                                 DeviceMemoryError,
                                                  NumericBreakdownError,
                                                  PatternMismatchError,
                                                  RefactorRollbackError,
@@ -867,8 +868,16 @@ def _escalate(options: Options, a: SparseCSR, op, b: np.ndarray,
                 lu, numeric=None, dev_solver=None, dev_spmv=None, berrs=None,
                 options=dataclasses.replace(options, factor_dtype=esc,
                                             gemm_prec="highest"))
+            t0 = time.perf_counter()
             try:
                 info2 = factorize_numeric(lu_esc, bvals, stats)
+            except DeviceMemoryError:
+                # the card's offload rule refused the escalated factors
+                # before anything ran: a recorded rung, not a failed solve
+                info2 = -1
+                report.rungs.append(RungRecord(
+                    name="hiprec-factors", detail=f"{esc}: DeviceMemoryError",
+                    berr_before=cur_berr, seconds=time.perf_counter() - t0))
             except SuperLUError:
                 info2 = -1
             if info2 == 0:

@@ -35,7 +35,6 @@ solves poisson2d(20).
 
 import glob
 import os
-import socket
 import subprocess
 import sys
 
@@ -152,9 +151,6 @@ def main(argv=None):
     if two_d:
         ns.nproc = nprow * (ns.npcol or 1)
     path = ns.matrix or "@poisson2d"
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     import tempfile
     shm = f"/slt_exgrid_{os.getpid()}"
     rc = 0
@@ -162,6 +158,9 @@ def main(argv=None):
         os.path.abspath(__file__))))
     with tempfile.TemporaryDirectory() as td:
         wf = os.path.join(td, "worker.py")
+        # the process group's rendezvous: a FileStore's file here, which
+        # no other run can take (a TCP port chosen free can be)
+        port = "file://" + os.path.join(td, "store")
         with open(wf, "w") as fh:
             fh.write(_WORKER)
         # the interpreter's search path, handed on to the workers: not a
@@ -170,7 +169,7 @@ def main(argv=None):
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [root] + [p for p in paths.split(os.pathsep) if p]))
         procs = [subprocess.Popen(
-            [sys.executable, wf, str(i), str(ns.nproc), str(port), shm, path,
+            [sys.executable, wf, str(i), str(ns.nproc), port, shm, path,
              ns.device, "1" if ns.parsymb else "0",
              "1" if ns.resolve else "0", str(nprow),
              "1" if ns.pool_partition else "0", "1" if two_d else "0"],

@@ -114,25 +114,28 @@ class Graph:
         except TypeError:
             graph = torch.cuda.CUDAGraph()
             kept = False
-        stream.wait_stream(torch.cuda.current_stream(dev))
         reserved, rss = torch.cuda.memory_reserved(dev), _rss_bytes()
         counted = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
-        # serialized with every other capture and math-switch block
-        # (ops/dense.MATH_LOCK); thread-local mode leaves other threads
-        # free to use the card meanwhile
-        with MATH_LOCK, gc_paused(), torch.cuda.stream(stream):
-            graph.capture_begin(pool=self.pool,
-                                capture_error_mode="thread_local")
-            try:
-                self.outputs = fn()
-            except BaseException:
+        # serialized with every other capture and math-switch block, and
+        # the only user of the card's capture stream meanwhile
+        # (ops/dense.MATH_LOCK, capture_stream); thread-local mode leaves
+        # other threads free to use the card
+        with MATH_LOCK:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with gc_paused(), torch.cuda.stream(stream):
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass        # the capture is invalid: keep fn's error
-                raise
-            graph.capture_end()
+                    self.outputs = fn()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass    # the capture is invalid: keep fn's error
+                    raise
+                graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(stream)
         t1 = time.perf_counter()
         # a kernel captured is launched by each replay, not by the capture
         self.launches = {k: v - counted[k] for k, v in kernels.LAUNCHES.items()
@@ -143,7 +146,6 @@ class Graph:
         if kept:
             graph.instantiate()
         t2 = time.perf_counter()
-        torch.cuda.current_stream(dev).wait_stream(stream)
         self.graph = graph
         self.capture_s, self.instantiate_s = t1 - t0, t2 - t1
         self.device_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -176,18 +178,21 @@ def graph_totals(graphs) -> dict:
 
 def warm_up(step, keys, stream) -> float:
     """Run ``step(i)`` for one index of every distinct shape key on
-    ``stream`` before a capture (cuBLAS handles, workspaces and the
-    kernel's launch attributes come into being outside the graph); waits
-    for it and returns the seconds taken.  ``keys`` maps an index to its
-    shape key."""
+    ``stream`` (the card's capture stream) before a capture, holding
+    ``MATH_LOCK`` (cuBLAS handles, workspaces and the kernel's launch
+    attributes come into being outside the graph); waits for it and
+    returns the seconds taken.  ``keys`` maps an index to its shape
+    key."""
     t0 = time.perf_counter()
     seen = {}
     for i, key in keys:
         seen.setdefault(key, i)
-    with torch.cuda.stream(stream):
-        for i in seen.values():
-            step(i)
-    stream.synchronize()
+    with MATH_LOCK:
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            for i in seen.values():
+                step(i)
+        stream.synchronize()
     return time.perf_counter() - t0
 
 
@@ -204,16 +209,21 @@ class FusedExecutor(StreamExecutor):
     level-granularity streamed executor with one wave of every group — one
     CUDA graph on the card, captured at the first call and replayed by
     the later ones; the eager group loop on the CPU.  No offload and no
-    host share: the JAX package's fused program has neither."""
+    host share: the JAX package's fused program has neither, so on the
+    card the card's rule refuses it where it does not fit
+    (``stream.offload_rule``)."""
 
     name = "fused"
     progress_waves = False
+    offloads = False
 
     def __init__(self, plan: FactorPlan, dtype=torch.float64, device="cuda",
                  gemm_prec: str | None = None, scatter=KERNELS,
                  panel=PANEL):
+        # "auto" under the card's rule: "none", or refused where the graph
+        # does not fit
         super().__init__(plan, dtype, device, gemm_prec=gemm_prec,
-                         offload="none", granularity="level",
+                         offload="auto", granularity="level",
                          scatter=scatter, panel=panel)
 
     def waves(self) -> list:

@@ -36,6 +36,7 @@ from superlu_dist_tpu_torch.numeric.stream import (StreamExecutor,
                                                    group_work_bytes,
                                                    offload_estimate)
 from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+from superlu_dist_tpu_torch.ops.dense import capture_stream
 
 #: ladder growth of the pool and pattern-value stores (JAX mega.py:70)
 _STORE_GROWTH = 1.25
@@ -114,7 +115,7 @@ class MegaExecutor(StreamExecutor):
         return offload_estimate(
             plan, self.dtype, pool_len=self._pool_len(), graphs=sum(graphs),
             warm=self._pool_len() * itemsize + max(graphs, default=0),
-            maps=2 * tables + self._AV * itemsize)
+            maps=2 * tables + self._AV * itemsize, lag=self.offload_lag)
 
     def _padded_batch(self, gi) -> int:
         """A group runs at its bucket's rung: its kernel span's
@@ -263,7 +264,7 @@ class MegaExecutor(StreamExecutor):
         every bucket on a scratch pool (the static pool holds the
         factorization in progress)."""
         from superlu_dist_tpu_torch.numeric.fused import (
-            Graph, check_graph_scatter)
+            Graph, check_graph_scatter, warm_up)
         check_graph_scatter(self.scatter)
         plan, dev = self.plan, self.device
         s_avals, s_thresh, s_pool = self._statics()
@@ -306,17 +307,17 @@ class MegaExecutor(StreamExecutor):
             self._submit_step((smaps.ws.shape[0], m, *key), s_avals, s_pool,
                               s_thresh, smaps, rung=f" P{self._P}",
                               build=(CENSUS_SITE, labels[key]))
-        stream = torch.cuda.Stream(dev)
+        stream = capture_stream(dev)
         scratch = torch.zeros_like(s_pool)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            for key, (smaps, m) in buckets.items():
-                self._load(smaps, maps[first[key]])
-                factor.group_step((smaps.ws.shape[0], m, *key), s_avals,
-                                  scratch, s_thresh, smaps,
-                                  gemm_prec=self.gemm_prec,
-                                  scatter=self.scatter, panel=self.panel)
-        stream.synchronize()
+
+        def step(key):
+            smaps, m = buckets[key]
+            self._load(smaps, maps[first[key]])
+            factor.group_step((smaps.ws.shape[0], m, *key), s_avals,
+                              scratch, s_thresh, smaps,
+                              gemm_prec=self.gemm_prec,
+                              scatter=self.scatter, panel=self.panel)
+        warm_up(step, ((key, key) for key in buckets), stream)
         del scratch
         self._buckets = {}
         for key, (smaps, m) in buckets.items():

@@ -54,10 +54,11 @@ from superlu_dist_tpu_torch.obs.kernelspans import (KernelClock, kernel_span,
                                                     wave_span)
 from superlu_dist_tpu_torch.obs.metrics import get_metrics
 from superlu_dist_tpu_torch.obs.trace import get_tracer
-from superlu_dist_tpu_torch.ops.dense import (gemm_precision, panel_width,
-                                              resolve_gemm_tier)
+from superlu_dist_tpu_torch.ops.dense import (capture_stream, gemm_precision,
+                                              panel_width, resolve_gemm_tier)
 from superlu_dist_tpu_torch.symbolic.symbfact import _front_flops
 from superlu_dist_tpu_torch.utils.errors import (CheckpointMismatchError,
+                                                 DeviceMemoryError,
                                                  SuperLUError)
 from superlu_dist_tpu_torch.utils.lockwatch import make_lock
 from superlu_dist_tpu_torch.utils.options import env_int, resolve_device
@@ -210,16 +211,29 @@ def map_bytes(plan: FactorPlan) -> int:
     return 3 * own + kern
 
 
+def _inflight(plan: FactorPlan, itemsize: int, lag: int, units) -> list:
+    """Per unit of ``units`` ((lo, hi) group ranges, each cloned out or
+    produced at once): the factor bytes on the card while it is emitted
+    to the host — its own panels beside those of the ``lag`` groups
+    before it whose copies may still run (``_Offload``), at the real
+    batches the copies move."""
+    panels = np.zeros(len(plan.groups) + 1, dtype=np.int64)
+    panels[1:] = np.cumsum([g.batch * (g.m * g.w + g.w * g.u) * itemsize
+                            for g in plan.groups])
+    return [int(panels[hi] - panels[max(lo - lag, 0)]) for lo, hi in units]
+
+
 def offload_estimate(plan: FactorPlan, dtype, *, pool_len: int | None = None,
                      graphs: int | None = None, warm: int = 0,
-                     maps: int | None = None) -> dict:
+                     maps: int | None = None, lag: int = 8,
+                     units=None) -> dict:
     """Device bytes an executor and the device solve after it hold at
-    their peak when the factors stay on the card, and the parts: the
-    pool (``pool_len`` entries, the plan's by default), the factors at
-    pow-2 padded batches and the working sets (:func:`factor_parts`),
-    the device solve's copy of the factors
-    (``solve/device.solve_copy_bytes``) and the index maps (``maps``
-    bytes, by default :func:`map_bytes`).
+    their peak when the factors stay on the card (``bytes``), and when
+    they go to host memory (``offload_bytes``), with the parts: the pool
+    (``pool_len`` entries, the plan's by default), the factors at pow-2
+    padded batches and the working sets (:func:`factor_parts`), the
+    device solve's copy of the factors (``solve/device.solve_copy_bytes``)
+    and the index maps (``maps`` bytes, by default :func:`map_bytes`).
 
     The streamed loop (``graphs`` None) holds during FACT its pool, the
     factors kept so far and one group's working set; after it — the pool
@@ -228,21 +242,41 @@ def offload_estimate(plan: FactorPlan, dtype, *, pool_len: int | None = None,
     ``graphs`` bytes of its graphs' private pools (the captured steps'
     working sets and outputs), the factors and the solve's copy; before
     its captures its warm-up holds ``warm`` bytes beside the pool.  The
-    executors pass their own parts (``device_estimate``)."""
+    executors pass their own parts (``device_estimate``).
+
+    Offloaded, the factors and the solve's copy stay off the card (the
+    solve runs on the host); what stays is the pool, the maps and the
+    panels whose copies are in flight (``inflight_bytes``: a unit of
+    ``units`` — a group each by default — beside the ``lag`` groups
+    before it).  The streamed loop runs each group at its real batch, so
+    its working set is counted there (``offload_work_bytes``) beside the
+    copies in flight before it; a graph executor keeps its graph pools
+    and its warm-up as counted above."""
     from superlu_dist_tpu_torch.solve.device import solve_copy_bytes
     itemsize = torch.empty((), dtype=dtype).element_size()
     pool = (plan.pool_size if pool_len is None else pool_len) * itemsize
     kept, fact, work = factor_parts(plan, itemsize)
     solve = solve_copy_bytes(plan, itemsize)
     maps = map_bytes(plan) if maps is None else maps
+    groups = [(gi, gi + 1) for gi in range(len(plan.groups))]
+    flight = _inflight(plan, itemsize, lag, groups if units is None
+                       else units)
     if graphs is None:
         peak = max(pool + fact, kept + solve)
+        steps = [group_work_bytes(g, itemsize, g.batch) for g in plan.groups]
+        offloaded = pool + max([f + s for f, s in zip(flight, steps)],
+                               default=0)
+        real_work = max(steps, default=0)
     else:
         peak = pool + max(warm, graphs + kept + solve)
-    return {"bytes": maps + peak, "pool_bytes": pool, "factor_bytes": kept,
+        offloaded = pool + max(warm, graphs + max(flight, default=0))
+        real_work = work
+    return {"bytes": maps + peak, "offload_bytes": maps + offloaded,
+            "pool_bytes": pool, "factor_bytes": kept,
             "work_bytes": work, "graph_bytes": graphs or 0,
             "warm_bytes": warm, "solve_copy_bytes": solve,
-            "map_bytes": maps}
+            "map_bytes": maps, "inflight_bytes": max(flight, default=0),
+            "offload_work_bytes": real_work}
 
 
 def device_budget(device) -> int | None:
@@ -270,31 +304,57 @@ def card_key(device) -> int:
     return zlib.crc32(f"{socket.gethostname()} {ident}".encode())
 
 
-def _cards_over(grid, used: int, limit: int, card: int, rec: dict) -> bool:
+def _cards_over(grid, used: int, offloaded: int, limit: int, card: int,
+                rec: dict) -> tuple:
     """The grid's choice under the card's rule: every rank's (bytes,
-    budget, card) in one all-reduce; True on every rank when the ranks
-    on any one card hold more than the least budget among them.  ``rec``
-    gets this rank's card: its ranks, their bytes and that budget."""
-    vec = np.zeros(3 * grid.nproc)
-    vec[3 * grid.rank:3 * grid.rank + 3] = used, limit, card
-    rows = grid.allreduce_sum_any(vec).reshape(grid.nproc, 3)
-    over = False
-    for key in np.unique(rows[:, 2]):
-        on = rows[rows[:, 2] == key]
-        held, least = on[:, 0].sum(), on[:, 1].min()
+    offloaded bytes, budget, card) in one all-reduce.  Returns (whether
+    the ranks on any one card hold more than the least budget among them
+    — then every rank offloads —, whether offloaded they fit on every
+    card), the same on every rank.  ``rec`` gets this rank's card: its
+    ranks, their bytes, their offloaded bytes and that budget, and the
+    number of cards that do not fit even offloaded."""
+    vec = np.zeros(4 * grid.nproc)
+    vec[4 * grid.rank:4 * grid.rank + 4] = used, offloaded, limit, card
+    rows = grid.allreduce_sum_any(vec).reshape(grid.nproc, 4)
+    over, refused = False, 0
+    for key in np.unique(rows[:, 3]):
+        on = rows[rows[:, 3] == key]
+        held, held_off, least = on[:, 0].sum(), on[:, 1].sum(), on[:, 2].min()
         over = over or bool(held > least)
+        refused += bool(held_off > least)
         if key == card:
             rec.update(card_ranks=len(on), card_bytes=int(held),
+                       card_offload_bytes=int(held_off),
                        card_limit=int(least))
-    return over
+    rec["cards_refused"] = refused
+    return over, not refused
+
+
+def _remedies(plan: FactorPlan, dtype, executor: str) -> list:
+    """What would fit where ``executor`` does not: the streamed loop (no
+    graph pools; its own offloaded estimate named), the unclosed plan (a
+    closed one pads every group to its key's rung), a grid whose pool is
+    partitioned over several cards."""
+    out = []
+    if executor not in ("stream", "spmd", "mesh-stream"):
+        off = offload_estimate(plan, dtype)["offload_bytes"]
+        out.append(f"Options(executor='stream'), which needs {off:,} B "
+                   "offloaded")
+    if plan.closed:
+        out.append("the unclosed plan, Options(bucket_closed=False)")
+    out.append("a grid over several cards with Options(pool_partition="
+               "True), each card holding its share of the pool")
+    return out
 
 
 def offload_rule(plan: FactorPlan, dtype, device, front_bytes_limit,
-                 grid=None, estimate=None) -> tuple:
+                 grid=None, estimate=None, *, executor: str = "stream",
+                 offloads: bool = True) -> tuple:
     """What ``offload="auto"`` resolves to, and why: ("host" | "none", a
     record for the executor's report: the rule, the bytes it compared
-    with its limit, and whether they exceed it).  Every executor that
-    offloads resolves "auto" here, once, when it is built.
+    with its limit, whether they exceed it, and under the card's rule the
+    bytes offloaded).  Every executor resolves "auto" here, once, when it
+    is built, before it allocates anything.
 
     A number is the JAX package's rule (stream.py:218-226): the plan's
     :func:`padded_front_bytes` against it.  None is the card's rule: the
@@ -304,29 +364,48 @@ def offload_rule(plan: FactorPlan, dtype, device, front_bytes_limit,
     exceed the limit — on the card, and on a ``grid`` on any device (one
     Options offloads alike on the card and on the CPU ranks its tests
     run); off the card the card's rule has no budget and no offload.
+    Under the card's rule an executor over its budget whose estimate
+    with the factors in host memory (``offload_bytes``) is over it too,
+    or that cannot offload (``offloads`` False: the fused graph), raises
+    :class:`~superlu_dist_tpu_torch.utils.errors.DeviceMemoryError`
+    naming ``executor``, the parts and what would fit.
 
     On a grid of several ranks the card's rule decides for the grid
     (:func:`_cards_over`): ranks that share a card each hold their own
     pool and factors there, so their estimates are summed against the
-    least budget any of them read, and every rank offloads when any card
-    is over.  A number needs no exchange: it gives every rank the same
-    choice."""
+    least budget any of them read, every rank offloads when any card is
+    over, and every rank raises when any card does not fit offloaded.  A
+    number needs no exchange: it gives every rank the same choice."""
     if front_bytes_limit is not None:
         rule, limit = "front_bytes_limit", front_bytes_limit
     else:
         rule, limit = "card", device_budget(device)
     applies = limit is not None and (grid is not None
                                      or device.type == "cuda")
-    used = None
+    used = offloaded = None
     if rule == "front_bytes_limit":
         used = padded_front_bytes(plan, dtype)
     elif applies:
-        used = (estimate() if estimate is not None
-                else offload_estimate(plan, dtype))["bytes"]
+        est = (estimate() if estimate is not None
+               else offload_estimate(plan, dtype))
+        used, offloaded = est["bytes"], est["offload_bytes"]
     over = bool(applies and used > limit)
     rec = {"rule": rule, "bytes": used, "limit": limit, "over": over}
+    if rule == "card":
+        rec["offload_bytes"] = offloaded
+    fits = offloaded is not None and offloaded <= limit
     if rule == "card" and applies and grid is not None and grid.nproc > 1:
-        over = _cards_over(grid, used, limit, card_key(device), rec)
+        over, fits = _cards_over(grid, used, offloaded, limit,
+                                 card_key(device), rec)
+    if rule == "card" and over and not (offloads and fits):
+        parts = {k: v for k, v in est.items() if isinstance(v, int)}
+        parts.update({k: rec[k] for k in ("card_ranks", "card_bytes",
+                                          "card_offload_bytes",
+                                          "cards_refused") if k in rec})
+        raise DeviceMemoryError(
+            executor, str(dtype).replace("torch.", ""),
+            rec.get("card_limit", limit), parts,
+            _remedies(plan, dtype, executor), offloads=offloads)
     return ("host" if over else "none"), rec
 
 
@@ -439,6 +518,9 @@ class StreamExecutor:
     #: level waves print a progress line each (the fused executor's one
     #: wave does not: the JAX fused program prints none)
     progress_waves = True
+    #: whether the factors can go to host memory (the fused graph's
+    #: cannot: the card's rule refuses it where they do not fit)
+    offloads = True
 
     def __init__(self, plan: FactorPlan, dtype=torch.float64, device="cuda",
                  gemm_prec: str | None = None, offload: str = "auto",
@@ -456,12 +538,6 @@ class StreamExecutor:
             raise ValueError(f"granularity must be 'group' or 'level', "
                              f"got {granularity!r}")
         self.granularity = granularity
-        self.offload_rule = {"rule": "given"}
-        if offload == "auto":
-            offload, self.offload_rule = offload_rule(
-                plan, dtype, self.device, front_bytes_limit,
-                estimate=self.device_estimate)
-        self.offload = check_offload(offload)
         self.offload_lag = int(offload_lag)
         levels = host_share_levels(plan, host_flops)
         # the host share is the leading run of groups on those levels
@@ -470,6 +546,15 @@ class StreamExecutor:
             n += 1
         self._n_host_groups = n
         self.host_levels = len({g.level for g in plan.groups[:n]})
+        self.offload_rule = {"rule": "given"}
+        if offload == "auto":
+            # before anything is allocated: a refusal leaves the card as
+            # it was
+            offload, self.offload_rule = offload_rule(
+                plan, dtype, self.device, front_bytes_limit,
+                estimate=self.device_estimate, executor=self.label,
+                offloads=self.offloads)
+        self.offload = check_offload(offload)
         self.checkpoint = self.resume = self.deadline = None
         # the chaos harness's injector (testing/chaos.py), per call
         self.chaos = None
@@ -488,17 +573,28 @@ class StreamExecutor:
         self.sentinel_warm = False
         self.last_kernel_builds = self.last_retraces = 0
 
+    @property
+    def label(self) -> str:
+        """The executor as the card's rule names it: ``stream[level]``
+        for level waves."""
+        if self.name == "stream" and self.granularity == "level":
+            return "stream[level]"
+        return self.name
+
     def device_estimate(self) -> dict:
         """This executor's :func:`offload_estimate`: the streamed loop's;
         at level granularity the waves' static pool, and their one
         private pool, which keeps every wave's packed factors (a replay
-        rewrites them, the call clones them out) and the largest step's
-        working set (its warm-up runs on the static pool)."""
+        rewrites them, the call clones them out, a wave at once) and the
+        largest step's working set (its warm-up runs on the static
+        pool)."""
         if self.granularity != "level":
-            return offload_estimate(self.plan, self.dtype)
+            return offload_estimate(self.plan, self.dtype,
+                                    lag=self.offload_lag)
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         kept, _, work = factor_parts(self.plan, itemsize)
-        return offload_estimate(self.plan, self.dtype, graphs=kept + work)
+        return offload_estimate(self.plan, self.dtype, graphs=kept + work,
+                                lag=self.offload_lag, units=self.waves())
 
     # ---- what the call loop reads (the mega executor overrides) --------
 
@@ -855,7 +951,7 @@ class StreamExecutor:
         s_thresh = torch.ones((), dtype=thresh.dtype, device=dev)
         s_pool = torch.zeros(plan.pool_size, dtype=self.dtype, device=dev)
         self._static = (s_avals, s_thresh, s_pool)
-        stream = torch.cuda.Stream(dev)
+        stream = capture_stream(dev)
 
         def step(gi):
             run_groups(plan, gi, gi + 1, maps, s_avals, s_pool, s_thresh,

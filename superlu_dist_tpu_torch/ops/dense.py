@@ -108,6 +108,26 @@ def resolve_gemm_tier(prec: str, dtype) -> str:
 #: the switches cannot move while cuBLAS records its kernels.
 MATH_LOCK = threading.RLock()
 
+_CAPTURE_STREAMS = {}
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """The side stream every CUDA-graph capture and its warm-up run on:
+    one per card for the process.  torch keeps a cuBLAS workspace for
+    every (handle, stream) pair that ran a cuBLAS call until the process
+    ends (32 MiB each on the H100), so a new stream per capture would
+    leave one behind each.  Its users hold :data:`MATH_LOCK` while they
+    issue work on it: two threads' captures or warm-ups on one stream
+    would interleave."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    with MATH_LOCK:
+        stream = _CAPTURE_STREAMS.get(index)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(
+                torch.device("cuda", index))
+    return stream
+
 
 @contextlib.contextmanager
 def matmul_tf32(enabled: bool):

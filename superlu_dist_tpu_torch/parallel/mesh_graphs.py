@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from superlu_dist_tpu_torch.numeric.plan import bucket_rung
+from superlu_dist_tpu_torch.ops.dense import capture_stream
 from superlu_dist_tpu_torch.parallel.layout2d import Segments
 from superlu_dist_tpu_torch.parallel.mesh_stream import (Exchange,
                                                          MeshStreamExecutor,
@@ -120,7 +121,8 @@ class _GridGraphs(MeshStreamExecutor):
         pool = self._pool_len() * itemsize
         return offload_estimate(
             plan, self.dtype, pool_len=self._pool_len(),
-            graphs=factor_parts(plan, itemsize)[0] + work, warm=pool + work)
+            graphs=factor_parts(plan, itemsize)[0] + work, warm=pool + work,
+            lag=self.offload_lag, units=self.units())
 
     def _work_batches(self) -> list:
         """Per group the batch its step's working set is counted at (None:
@@ -174,7 +176,7 @@ class _GridGraphs(MeshStreamExecutor):
                 bcast=torch.empty(max(bcast, 1), dtype=self.dtype,
                                   device=dev),
                 got=self._got_buffer(dev))
-            self._stream = torch.cuda.Stream(dev)
+            self._stream = capture_stream(dev)
         st = self._static
         st.avals.copy_(avals.to(dtype=self.dtype))
         st.thresh.copy_(thresh)
@@ -303,15 +305,19 @@ class MeshFusedExecutor(_GridGraphs):
     group's segments captured at the first call and replayed by the later
     ones — one graph per (group, segment), kept per (plan, dtype, tier,
     grid) in ``numeric/factor.get_executor``'s cache.  No offload: the
-    JAX fused program has none."""
+    JAX fused program has none, so on the card the card's rule refuses
+    it on every rank where it does not fit."""
 
     name = "mesh-fused"
+    offloads = False
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
                  scatter=None, pool_partition=False, panel=None):
+        # "auto" under the card's rule: "none", or refused on every rank
+        # where the graphs do not fit
         super().__init__(plan, dtype, device, grid, gemm_prec=gemm_prec,
                          scatter=scatter, pool_partition=pool_partition,
-                         offload="none", panel=panel)
+                         offload="auto", panel=panel)
         self._segs = {}            # group -> its segments
 
     def _run_group(self, gi, bufs):

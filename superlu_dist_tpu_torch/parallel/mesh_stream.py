@@ -199,9 +199,10 @@ class MeshStreamExecutor:
     ``numeric/stream.offload_rule`` says so — with ``front_bytes_limit``
     None when the ranks on any one card would hold more than it has room
     for (:meth:`device_estimate`, summed over the ranks that share it;
-    decided by the grid together), with a number when the plan's padded
-    front bytes exceed it, on any device on a grid; "none" keeps them on
-    the device.
+    decided by the grid together; where offloaded they would not fit
+    either, every rank raises ``DeviceMemoryError``), with a number when
+    the plan's padded front bytes exceed it, on any device on a grid;
+    "none" keeps them on the device.
 
     Each group runs as a program (:meth:`_group`, a generator) that
     yields at its collectives — every panel broadcast of
@@ -221,6 +222,9 @@ class MeshStreamExecutor:
     plan = PlanRef()     # the plan owns its executors (plan.PlanRef)
 
     name = "mesh-stream"
+    #: whether the shares can go to host memory (the grid's fused graphs'
+    #: cannot: the card's rule refuses them where they do not fit)
+    offloads = True
 
     def __new__(cls, *args, granularity="group", **kw):
         if cls is MeshStreamExecutor and granularity == "level":
@@ -271,13 +275,14 @@ class MeshStreamExecutor:
             g.batch * share_ops(g.w, *front_cols(g.m, g.w, grid.npcol,
                                                  pc)[1:3], grid.npcol, pc)
             for g in plan.groups for pc in range(grid.npcol)))
+        self.offload_lag = int(offload_lag)
         self.offload_rule = {"rule": "given"}
         if offload == "auto":
             offload, self.offload_rule = offload_rule(
                 plan, dtype, device, front_bytes_limit, grid=grid,
-                estimate=self.device_estimate)
+                estimate=self.device_estimate, executor=self.name,
+                offloads=self.offloads)
         self.offload = check_offload(offload)
-        self.offload_lag = int(offload_lag)
         self.deadline = self.chaos = None
         self.checkpoint = self.resume = None
         self.host_levels = 0
@@ -416,7 +421,8 @@ class MeshStreamExecutor:
         sets, solve copy and maps, which bound its shares of them."""
         from superlu_dist_tpu_torch.numeric.stream import offload_estimate
         return offload_estimate(self.plan, self.dtype,
-                                pool_len=self._pool_len())
+                                pool_len=self._pool_len(),
+                                lag=self.offload_lag)
 
     def _pool_len(self) -> int:
         """The pool's elements (the mega executor's has a dump element

@@ -66,7 +66,11 @@ def boot(nproc: int, process_id: int, port: int | str,
          coordinator: str = "localhost", device=None,
          timeout_s: float | None = None) -> Booted:
     """Join this rank to an ``nproc``-rank ``torch.distributed`` process
-    group at ``tcp://coordinator:port``.
+    group at ``tcp://coordinator:port``, or at ``port`` itself when it is
+    a ``file://`` rendezvous (a FileStore's file every rank of one host
+    can open: ``testing/ranks.rendezvous`` makes one that no other group
+    can take, where a TCP port chosen free may be taken before rank 0
+    binds it).
 
     ``device`` is the rank→device map (``rank_devices``: None = the
     cards of this host); the backend follows from it (``choose_backend``)
@@ -87,8 +91,10 @@ def boot(nproc: int, process_id: int, port: int | str,
     if timeout_s is None:
         timeout_s = env_float("SLU_TPU_COMM_TIMEOUT_S") or DEFAULT_TIMEOUT_S
     if not dist.is_initialized():
+        at = str(port)
         dist.init_process_group(
-            backend, init_method=f"tcp://{coordinator}:{port}",
+            backend, init_method=at if at.startswith("file://")
+            else f"tcp://{coordinator}:{at}",
             world_size=nproc, rank=rank,
             timeout=datetime.timedelta(seconds=float(timeout_s)))
     elif (dist.get_world_size(), dist.get_rank()) != (nproc, rank):

@@ -233,13 +233,13 @@ class SpmdFactorExecutor:
         self.local_flops = float(sum(
             len(range(self.rank, g.batch, self.nd)) * _front_flops(g.w, g.u)
             for g in plan.groups))
+        self.offload_lag = int(offload_lag)
         self.offload_rule = {"rule": "given"}
         if offload == "auto":
             offload, self.offload_rule = offload_rule(
                 plan, dtype, device, front_bytes_limit, grid=grid,
-                estimate=self.device_estimate)
+                estimate=self.device_estimate, executor=self.name)
         self.offload = check_offload(offload)
-        self.offload_lag = int(offload_lag)
         self.deadline = self.chaos = None
         self.checkpoint = self.resume = None
         self.host_levels = 0
@@ -410,7 +410,7 @@ class SpmdFactorExecutor:
         working sets, solve copy and maps, which bound its shares of
         them."""
         from superlu_dist_tpu_torch.numeric.stream import offload_estimate
-        return offload_estimate(self.plan, self.dtype)
+        return offload_estimate(self.plan, self.dtype, lag=self.offload_lag)
 
     def report(self) -> dict:
         return {"executor": self.name, "granularity": "group",

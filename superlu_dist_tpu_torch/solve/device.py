@@ -58,7 +58,8 @@ from superlu_dist_tpu_torch.numeric.factor import NumericFactorization
 from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
 from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
 from superlu_dist_tpu_torch.obs.trace import get_tracer
-from superlu_dist_tpu_torch.ops.dense import gemm, gemm_precision, matmul_tf32
+from superlu_dist_tpu_torch.ops.dense import (capture_stream, gemm,
+                                              gemm_precision, matmul_tf32)
 from superlu_dist_tpu_torch.solve.plan import (SolvePlan, build_solve_plan,
                                                chunk_nrhs)
 from superlu_dist_tpu_torch.utils.programaudit import maybe_audit
@@ -487,7 +488,7 @@ class DeviceSolver:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         self._audit_sweep(direction, mode, kb, x, lsum)
-        stream = torch.cuda.Stream(dev)
+        stream = capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             self._sweep(direction, mode, x, lsum)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import queue as queue_mod
 import time
@@ -36,8 +37,8 @@ class RankJob:
     ``kind`` is "pgssvx" (one call on a domain the rank joins with
     ``parallel/mhboot.attach_tree``), "mesh" (one ``pgssvx(grid=)`` call
     on an nprow × (n_ranks/nprow) grid on ``device``: the rank also joins
-    the ``port``'s
-    process group once — it stays up for the peer's later mesh jobs —
+    the process group at ``port`` (a :func:`rendezvous`) once — it stays
+    up for the peer's later mesh jobs —
     with ``timeout_s``; ``gather`` all-gathers the fronts to slot order
     afterwards and holds the kernel against its plain version at the
     rank's shapes), "pgssvx_ft" (the
@@ -68,7 +69,7 @@ class RankJob:
     reuse_lu: bool = False
     ops: int = 0
     hold_s: float = 0.0
-    port: int = 0
+    port: int | str = 0        # a mesh job's rendezvous (``rendezvous()``)
     device: str = "cpu"
     gather: bool = False
     timeout_s: float = 600.0
@@ -771,7 +772,7 @@ def stop_peers(procs: dict, timeout: float = 30.0) -> dict:
     return {r: p.exitcode for r, p in procs.items()}
 
 
-def mesh_main(rank: int, nd: int, port: int, shm: str, fn, args,
+def mesh_main(rank: int, nd: int, port: str, shm: str, fn, args,
               device, results, max_len: int, timeout_s: float,
               env: dict, nprow: int = 1) -> None:
     """A spawned mesh rank's entry point (``run_mesh_ranks``): join the
@@ -802,12 +803,26 @@ def mesh_main(rank: int, nd: int, port: int, shm: str, fn, args,
     results.put(rec)
 
 
-def free_port() -> int:
-    """A free TCP port on localhost for a process group's rendezvous."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+@functools.cache
+def _rendezvous_dir() -> str:
+    """This process's directory of rendezvous files, removed at its
+    exit."""
+    import atexit
+    import shutil
+    import tempfile
+    path = tempfile.mkdtemp(prefix="slt_rendezvous_")
+    atexit.register(shutil.rmtree, path, True)
+    return path
+
+
+def rendezvous() -> str:
+    """A new rendezvous for one process group on this host: a ``file://``
+    path (``parallel/mhboot.boot`` joins a FileStore there) that no other
+    group can hold, a new file in a directory of this process's own.
+    Nothing is chosen free and bound later, as a TCP port must be, so
+    concurrent groups cannot take each other's."""
+    import uuid
+    return "file://" + os.path.join(_rendezvous_dir(), uuid.uuid4().hex)
 
 
 def run_mesh_ranks(nd: int, fn, *args, device="cpu", timeout: float = 300.0,
@@ -824,8 +839,8 @@ def run_mesh_ranks(nd: int, fn, *args, device="cpu", timeout: float = 300.0,
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = free_port()
-    shm = f"/slt_mesh_{os.getpid()}_{port}"
+    port = rendezvous()
+    shm = f"/slt_mesh_{os.getpid()}_{os.path.basename(port)[:12]}"
     procs = {r: ctx.Process(target=mesh_main,
                             args=(r, nd, port, shm, fn, args, device,
                                   results, max_len, timeout_s, env, nprow),

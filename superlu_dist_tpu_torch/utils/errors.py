@@ -387,6 +387,37 @@ class LockOrderError(SuperLUError):
         _flight_dump(self)
 
 
+class DeviceMemoryError(SuperLUError):
+    """The card's offload rule (``numeric/stream.offload_rule``) refused
+    an executor before it allocated, captured or uploaded anything: its
+    estimate with the factors kept on the card (``bytes``) is over the
+    card's ``budget``, and so is its estimate with the factors sent to
+    host memory (``offload_bytes``) — or the executor cannot offload
+    (the fused graph).  ``parts`` holds the estimate's parts in bytes
+    (pool, factors, working set, graph pools, warm-up, copies in flight,
+    maps; on a grid the card's ranks and their summed bytes);
+    ``remedies`` what would fit instead.  The escalation ladder records
+    a rung refused so and goes on (``drivers/gssvx._escalate``)."""
+
+    def __init__(self, executor: str, dtype: str, budget: int, parts: dict,
+                 remedies, offloads: bool = True):
+        self.executor = executor
+        self.dtype = dtype
+        self.budget = int(budget)
+        self.parts = dict(parts)
+        self.remedies = list(remedies)
+        self.offloads = bool(offloads)
+        held = ", ".join(f"{k} {v:,}" for k, v in self.parts.items()
+                         if isinstance(v, int))
+        why = (f"offloaded it still needs {self.parts['offload_bytes']:,} B"
+               if offloads else "it cannot offload its factors")
+        super().__init__(
+            f"executor {executor!r} ({dtype}) does not fit the card: it "
+            f"needs {self.parts['bytes']:,} B with the factors on the card "
+            f"and {why}, against a budget of {self.budget:,} B "
+            f"(parts: {held}); instead: " + "; ".join(self.remedies))
+
+
 class CommTimeoutError(SuperLUError):
     """A bounded-wait collective leg (``SLU_TPU_COMM_TIMEOUT_S``) kept
     timing out on a peer whose process is still ALIVE, and the retry

@@ -840,8 +840,10 @@ def test_dropping_an_lu_frees_its_graphs_without_a_collection(cuda,
     graphs and their private pools at once, with the cyclic collector
     off — nothing waits for a collection that could fall inside another
     capture.  torch keeps a cuBLAS workspace for every stream that ran a
-    GEMM, a capture's side stream too, in a process-wide map that no
-    executor owns: the test empties that map before each reading."""
+    GEMM until the process ends; every capture runs on the card's one
+    capture stream (ops/dense.capture_stream), whose workspace the first
+    gssvx's solve captures made before the base, so the executor's
+    captures add none."""
     import weakref
     a = poisson3d(12)
     b = a.matvec(np.ones(a.n_rows))
@@ -849,7 +851,6 @@ def test_dropping_an_lu_frees_its_graphs_without_a_collection(cuda,
     slt.gssvx(slt.Options(executor="stream"), a, b, device=cuda)
     gc.collect()
     torch.cuda.synchronize()
-    torch._C._cuda_clearCublasWorkspaces()
     base = torch.cuda.memory_allocated(cuda)
     was = gc.isenabled()
     gc.disable()
@@ -863,12 +864,96 @@ def test_dropping_an_lu_frees_its_graphs_without_a_collection(cuda,
         del ex, x, lu, st
         torch.cuda.synchronize()
         assert ref() is None
-        torch._C._cuda_clearCublasWorkspaces()
         freed = held - (torch.cuda.memory_allocated(cuda) - base)
         assert held > 0 and freed >= 0.9 * held, (held, freed)
     finally:
         if was:
             gc.enable()
+
+
+def _workspace_bytes(cuda) -> int:
+    """The bytes torch's cuBLAS workspaces hold on the card: what emptying
+    them frees (it empties them)."""
+    torch.cuda.synchronize(cuda)
+    held = torch.cuda.memory_allocated(cuda)
+    torch._C._cuda_clearCublasWorkspaces()
+    return held - torch.cuda.memory_allocated(cuda)
+
+
+def test_captures_share_one_cublas_workspace(cuda):
+    """Every capture and warm-up of the process runs on one capture stream
+    per card (ops/dense.capture_stream): eight or more DeviceSolver
+    bucket captures, a level executor's waves and a mega executor's
+    buckets leave at most one cuBLAS workspace (33,554,432 B) more than
+    the current stream's own, where a stream per capture kept one each
+    (three captures held 100,663,296 B more at poisson3d(12))."""
+    from superlu_dist_tpu_torch.numeric.mega import MegaExecutor
+    from superlu_dist_tpu_torch.numeric.stream import StreamExecutor
+    from superlu_dist_tpu_torch.solve.device import DeviceSolver
+    a = poisson3d(12)
+    lu, bvals, _ = slt.analyze(slt.Options(), a, device=cuda)
+    num = factor.numeric_factorize(lu.plan, bvals, lu.anorm,
+                                   dtype=torch.float64, device=cuda,
+                                   executor="stream")
+    _workspace_bytes(cuda)
+    x = torch.ones(64, 64, device=cuda, dtype=torch.float64)
+    (x @ x).sum().item()              # the current stream's own, again
+    del x
+    before = _workspace_bytes(cuda)
+    x = torch.ones(64, 64, device=cuda, dtype=torch.float64)
+    (x @ x).sum().item()
+    del x
+    solver = DeviceSolver(num)
+    assert solver.fused
+    rng = np.random.default_rng(7)
+    for k in (1, 2, 3, 5, 9, 17):
+        solver.solve(rng.standard_normal((a.n_rows, k)))
+    solver.solve_trans(rng.standard_normal(a.n_rows))
+    assert len(solver._graphs) >= 8
+    avals = torch.as_tensor(bvals)
+    thresh = torch.tensor(1e-8 * lu.anorm, dtype=torch.float64)
+    for ex in (StreamExecutor(lu.plan, torch.float64, cuda,
+                              granularity="level"),
+               MegaExecutor(lu.plan, torch.float64, cuda)):
+        ex(avals, thresh)
+        assert ex.captures > 0
+    del solver, ex, num
+    gc.collect()
+    after = _workspace_bytes(cuda)
+    assert 0 < before and after - before <= 33_554_432, (before, after)
+
+
+def test_a_refusal_allocates_nothing(cuda):
+    """Under the card's rule with no room, gssvx on each single-card
+    executor is refused by name (DeviceMemoryError) before anything is
+    allocated, uploaded, launched or captured: memory_allocated is the
+    same to the byte and the census holds no new record."""
+    from superlu_dist_tpu_torch.numeric import stream
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.utils.errors import DeviceMemoryError
+    a = poisson3d(12)
+    b = a.matvec(np.ones(a.n_rows))
+    lu, _, _ = slt.analyze(slt.Options(), a, device=cuda)
+    real = stream.device_budget
+    stream.device_budget = lambda device: 0
+    try:
+        for name in ("stream", "fused", "mega"):
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(cuda)
+            mark = COMPILE_STATS.marker()
+            kernels.reset_launches()
+            with pytest.raises(DeviceMemoryError) as refused:
+                slt.gssvx(slt.Options(
+                    executor=name, fact=slt.Fact.SamePattern_SameRowPerm),
+                    a, b, lu=lu)
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated(cuda) == before, name
+            assert COMPILE_STATS.marker() == mark
+            assert not any(kernels.LAUNCHES.values())
+            assert (refused.value.executor, refused.value.budget) == (name, 0)
+    finally:
+        stream.device_budget = real
 
 
 def test_forced_recapture_counts_one_retrace(cuda):

@@ -8,9 +8,14 @@ the plan's padded front bytes against it (superlu_dist_tpu/numeric/
 stream.py:218-226).  Here ``torch.cuda.mem_get_info`` and the caching
 allocator's counters are replaced by fake readings, the grid's ranks
 read fake budgets, and the parts of the estimate are held against what
-a CPU factorization and its device solve really hold.  Last, the
-front-assembly kernel's maps at pool offsets above 2**31 (poisson3d(100)
-reads pool values up to 5.2e9), built without such a pool.
+a CPU factorization and its device solve really hold.  Each executor
+either fits, offloads, or — where even its offloaded estimate is over
+the budget, or it cannot offload — is refused by name
+(``DeviceMemoryError``) before it uploads anything, on a grid on every
+rank; the escalation ladder records such a refusal as a rung.  Then the
+rendezvous of concurrent spawned grids.  Last, the front-assembly
+kernel's maps at pool offsets above 2**31 (poisson3d(100) reads pool
+values up to 5.2e9), built without such a pool.
 """
 
 import numpy as np
@@ -29,14 +34,17 @@ import superlu_dist_tpu_torch as slt
 from superlu_dist_tpu_torch.interop import plan_from_reference
 from superlu_dist_tpu_torch.models import gallery
 from superlu_dist_tpu_torch.numeric import factor, kernels, stream
+from superlu_dist_tpu_torch.numeric.fused import FusedExecutor
 from superlu_dist_tpu_torch.numeric.mega import MegaExecutor
+from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
 from superlu_dist_tpu_torch.numeric.plan import bucket_rung
 from superlu_dist_tpu_torch.numeric.stream import (StreamExecutor,
                                                    offload_estimate,
                                                    offload_rule,
                                                    padded_front_bytes)
 from superlu_dist_tpu_torch.solve.device import DeviceSolver
-from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+from superlu_dist_tpu_torch.testing.ranks import rendezvous, run_mesh_ranks
+from superlu_dist_tpu_torch.utils.errors import DeviceMemoryError
 
 CARD = torch.device("cuda", 0)
 TOTAL = 80 * 10 ** 9
@@ -74,11 +82,13 @@ def test_a_card_with_room_keeps_the_factors(monkeypatch, dtype):
     """The boundary lies at the estimate: a budget of exactly the
     estimate keeps the factors on the card, one byte less offloads."""
     plan = _plan()[0]
-    est = offload_estimate(plan, dtype)["bytes"]
+    full = offload_estimate(plan, dtype)
+    est = full["bytes"]
     _fake_card(monkeypatch, _free_for(est))
     choice, rec = offload_rule(plan, dtype, CARD, None)
     assert choice == "none"
-    assert rec == {"rule": "card", "bytes": est, "limit": est, "over": False}
+    assert rec == {"rule": "card", "bytes": est, "limit": est, "over": False,
+                   "offload_bytes": full["offload_bytes"]}
     _fake_card(monkeypatch, _free_for(est - 1))
     choice, rec = offload_rule(plan, dtype, CARD, None)
     assert choice == "host" and rec["limit"] == est - 1 and rec["over"]
@@ -111,7 +121,7 @@ def test_the_default_on_the_cpu_keeps_the_factors():
     assert offload_rule(plan, torch.float32, torch.device("cpu"), None,
                         estimate=_no_estimate) == (
         "none", {"rule": "card", "bytes": None, "limit": None,
-                 "over": False})
+                 "over": False, "offload_bytes": None})
     ex = StreamExecutor(plan, torch.float32, "cpu")
     assert ex.offload == "none"
     assert ex.report()["offload_rule"]["limit"] is None
@@ -205,7 +215,8 @@ def test_a_level_executor_counts_its_graphs(monkeypatch):
     ex = StreamExecutor(plan, torch.float64, "cpu", granularity="level")
     est = ex.device_estimate()
     kept, _, work = stream.factor_parts(plan, 8)
-    assert est == offload_estimate(plan, torch.float64, graphs=kept + work)
+    assert est == offload_estimate(plan, torch.float64, graphs=kept + work,
+                                   units=ex.waves())
     assert est["bytes"] == (est["map_bytes"] + est["pool_bytes"] + 2 * kept
                             + work + est["solve_copy_bytes"])
     _fake_card(monkeypatch, _free_for(est["bytes"] - 1))
@@ -218,8 +229,8 @@ def _built_as_on_the_card(monkeypatch):
     """Executors built on the CPU resolve "auto" as on the card."""
     real = stream.offload_rule
 
-    def on_card(plan, dtype, device, limit, grid=None, estimate=None):
-        return real(plan, dtype, CARD, limit, grid, estimate)
+    def on_card(plan, dtype, device, limit, grid=None, estimate=None, **kw):
+        return real(plan, dtype, CARD, limit, grid, estimate, **kw)
     monkeypatch.setattr(stream, "offload_rule", on_card)
 
 
@@ -231,7 +242,9 @@ def test_the_mega_estimate_holds_its_pool_graphs_and_tables(monkeypatch,
     a scratch pool beside the static one while the buckets warm up, and
     its padded tables: its estimate is those, by hand.  A card whose
     budget fits the streamed loop's estimate keeps the streamed
-    executor's factors and offloads mega's."""
+    executor's factors and refuses mega, whose graph pools do not fit
+    even with the factors offloaded; a budget of mega's offloaded
+    estimate offloads it."""
     lu, _, _ = slt.analyze(slt.Options(bucket_closed=closed),
                            gallery.poisson3d(10), device="cpu")
     plan, dt, s = lu.plan, torch.float64, 8
@@ -261,15 +274,23 @@ def test_the_mega_estimate_holds_its_pool_graphs_and_tables(monkeypatch,
         est["warm_bytes"], sum(per.values()) + kept
         + est["solve_copy_bytes"])
     streamed = offload_estimate(plan, dt)["bytes"]
-    assert est["bytes"] > streamed
+    assert est["bytes"] > est["offload_bytes"] > streamed
     _built_as_on_the_card(monkeypatch)
     _fake_card(monkeypatch, _free_for(streamed))
     assert StreamExecutor(plan, dt, "cpu").offload == "none"
+    # offloaded, mega's graph pools alone are over the streamed loop's
+    # budget: refused by name
+    with pytest.raises(DeviceMemoryError) as refused:
+        MegaExecutor(plan, dt, "cpu")
+    assert refused.value.executor == "mega"
+    assert refused.value.parts["offload_bytes"] == est["offload_bytes"]
+    _fake_card(monkeypatch, _free_for(est["offload_bytes"]))
     mega = MegaExecutor(plan, dt, "cpu")
     assert mega.offload == "host"
     assert mega.report()["offload_rule"] == {
-        "rule": "card", "bytes": est["bytes"], "limit": streamed,
-        "over": True}
+        "rule": "card", "bytes": est["bytes"],
+        "limit": est["offload_bytes"], "over": True,
+        "offload_bytes": est["offload_bytes"]}
 
 
 GRID_EXECUTORS = ("spmd", "mesh-stream", "mesh-mega")
@@ -277,15 +298,15 @@ GRID_EXECUTORS = ("spmd", "mesh-stream", "mesh-mega")
 
 def test_ranks_with_different_budgets_offload_alike():
     """A 1×2 gloo grid of CPU ranks on two fake cards, rank 0 with room
-    and rank 1 with none: each rank's record says so of itself, and
-    every grid executor, built through ``get_executor``, resolves "host"
-    on both ranks after one all-reduce.  Each rank's estimate is its
+    and rank 1 with room only for its offloaded run: each rank's record
+    says so of itself, and every grid executor, built through
+    ``get_executor``, resolves "host" on both ranks after one all-reduce.  Each rank's estimate is its
     executor's own: spmd's holds the whole pool (every rank allocates
     it), mesh mega's its pool with the dump element, a scratch pool
     beside it while the graphs warm up, and the graphs' shared pool."""
     plan = _plan()[0]
     out = run_mesh_ranks(2, cases.offload_rule_ranks, plan, "float32",
-                         [10 ** 15, 0], [1, 2], timeout=240)
+                         [10 ** 15, "offloaded"], [1, 2], timeout=240)
     for r in (0, 1):
         for name in GRID_EXECUTORS:
             choice, rec, est, pool_len = out[r][name]
@@ -301,11 +322,12 @@ def test_ranks_with_different_budgets_offload_alike():
 @pytest.mark.parametrize("cards,want", [([7, 7], "host"), ([7, 8], "none")],
                          ids=["one card", "two cards"])
 def test_ranks_that_share_a_card_count_their_pools_together(cards, want):
-    """Each rank's budget is 1.5 times its own estimate: alone each
-    fits, but two ranks on one card hold two pools and two shares of
-    the factors there, so the grid offloads; on two cards it does not."""
+    """Each rank's budget is its own estimate plus its offloaded one:
+    alone each fits, but two ranks on one card hold two pools and two
+    shares of the factors there, so the grid offloads (offloaded, the
+    two fit); on two cards it does not."""
     plan = _plan()[0]
-    out = run_mesh_ranks(2, cases.shared_card_ranks, plan, "float32", 1.5,
+    out = run_mesh_ranks(2, cases.shared_card_ranks, plan, "float32",
                          cards, timeout=240)
     for r in (0, 1):
         for name in GRID_EXECUTORS:
@@ -324,6 +346,179 @@ def test_ranks_of_a_cpu_grid_keep_the_factors():
         for name in GRID_EXECUTORS:
             choice, rec, _, _ = out[r][name]
             assert choice == "none" and rec["bytes"] is None
+
+
+def test_ranks_refuse_together_where_a_card_cannot_hold_them():
+    """A 1×2 gloo grid on two fake cards, rank 1's with no room: every
+    grid executor is refused by name on both ranks (one all-reduce
+    carries each rank's offloaded bytes), rank 0's card fitting or not.
+    With room for rank 1's offloaded run, the executors that offload
+    resolve "host", and mesh fused, which cannot, is refused on both."""
+    plan = _plan()[0]
+    names = ("spmd", "mesh-stream", "mesh-mega", "mesh-fused")
+    out = run_mesh_ranks(2, cases.refused_rule_ranks, plan, "float32",
+                         [10 ** 15, 0], [1, 2], timeout=240)
+    for r in (0, 1):
+        for name in names:
+            kind, executor, budget, ranks, refused, offloads = out[r][name]
+            assert kind == "refused" and executor == name, (r, name)
+            assert refused == 1 and ranks == 1
+            assert budget == (10 ** 15 if r == 0 else 0)
+            assert offloads == (name != "mesh-fused")
+    out = run_mesh_ranks(2, cases.refused_rule_ranks, plan, "float32",
+                         [10 ** 15, "offloaded"], [1, 2], timeout=240)
+    for r in (0, 1):
+        for name in names[:3]:
+            assert out[r][name] == ("built", name, "host"), (r, name)
+        assert out[r]["mesh-fused"][:2] == ("refused", "mesh-fused")
+
+
+EXECUTORS = {
+    "stream": lambda plan, dt: StreamExecutor(plan, dt, "cpu"),
+    "stream[level]": lambda plan, dt: StreamExecutor(plan, dt, "cpu",
+                                                     granularity="level"),
+    "fused": lambda plan, dt: FusedExecutor(plan, dt, "cpu"),
+    "mega": lambda plan, dt: MegaExecutor(plan, dt, "cpu"),
+}
+
+
+def _uploads_fail(monkeypatch):
+    """Anything uploaded from here fails the test: a refusal comes before
+    the executor's maps, pools and graphs."""
+    def upload(*args, **kw):
+        raise AssertionError("the executor uploaded before the rule")
+    monkeypatch.setattr(factor, "upload_maps", upload)
+    monkeypatch.setattr(kernels, "upload", upload)
+
+
+def _refused(monkeypatch, build):
+    """``build()``'s DeviceMemoryError, with nothing uploaded and no
+    census record made on the way."""
+    mark = COMPILE_STATS.marker()
+    with monkeypatch.context() as m:
+        _uploads_fail(m)
+        with pytest.raises(DeviceMemoryError) as refused:
+            build()
+    assert COMPILE_STATS.marker() == mark
+    return refused.value
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("name", list(EXECUTORS))
+def test_each_executor_fits_offloads_or_is_refused(monkeypatch, name,
+                                                   dtype):
+    """Every single-card executor under the card's rule: a budget of its
+    estimate keeps the factors ("none"); one byte less offloads them
+    ("host"), where the executor can — the fused graph cannot and is
+    refused; one byte below its offloaded estimate refuses it by name,
+    before it uploads anything, with its parts, budget and remedies."""
+    plan = _plan()[0]
+    est = EXECUTORS[name](plan, dtype).device_estimate()
+    assert est["offload_bytes"] < est["bytes"]
+    _built_as_on_the_card(monkeypatch)
+    _fake_card(monkeypatch, _free_for(est["bytes"]))
+    ex = EXECUTORS[name](plan, dtype)
+    assert ex.offload == "none" and ex.report()["offload_rule"] == {
+        "rule": "card", "bytes": est["bytes"], "limit": est["bytes"],
+        "over": False, "offload_bytes": est["offload_bytes"]}
+    _fake_card(monkeypatch, _free_for(est["bytes"] - 1))
+    if name == "fused":
+        err = _refused(monkeypatch, lambda: EXECUTORS[name](plan, dtype))
+        assert not err.offloads and "cannot offload" in str(err)
+    else:
+        assert EXECUTORS[name](plan, dtype).offload == "host"
+    _fake_card(monkeypatch, _free_for(est["offload_bytes"] - 1))
+    err = _refused(monkeypatch, lambda: EXECUTORS[name](plan, dtype))
+    assert (err.executor, err.dtype) == (name, str(dtype)[6:])
+    assert err.budget == est["offload_bytes"] - 1
+    assert {k: err.parts[k] for k in est} == est
+    assert any("pool_partition" in r for r in err.remedies)
+    assert (name == "stream") == (not any("executor='stream'" in r
+                                          for r in err.remedies))
+    assert f"{est['bytes']:,}" in str(err) and name in str(err)
+
+
+def test_the_closed_plan_is_refused_where_the_unclosed_one_fits(
+        monkeypatch):
+    """A closed plan pads every group to its key's rung: on a card whose
+    budget holds the unclosed plan's streamed factors, every executor of
+    the closed plan of the same matrix is refused, even offloaded, and
+    the error names the unclosed plan as a remedy."""
+    a = gallery.poisson3d(10)
+    open_plan = slt.analyze(slt.Options(), a, device="cpu")[0].plan
+    closed = slt.analyze(slt.Options(bucket_closed=True), a,
+                         device="cpu")[0].plan
+    assert closed.closed and not open_plan.closed
+    dt = torch.float64
+    budget = offload_estimate(open_plan, dt)["bytes"]
+    _built_as_on_the_card(monkeypatch)
+    _fake_card(monkeypatch, _free_for(budget))
+    assert StreamExecutor(open_plan, dt, "cpu").offload == "none"
+    for name, build in EXECUTORS.items():
+        err = _refused(monkeypatch, lambda: build(closed, dt))
+        assert err.executor == name and err.parts["offload_bytes"] > budget
+        assert any("bucket_closed=False" in r for r in err.remedies)
+
+
+def test_the_streamed_loop_offloads_at_its_real_batches(monkeypatch):
+    """The streamed loop runs each group at its real batch: offloaded, its
+    estimate counts the working sets there, not at the pow-2 rungs its
+    kept-factor estimate keeps, so float64 factors whose offloaded run
+    fits at their real batches are offloaded, not refused."""
+    plan = slt.analyze(slt.Options(bucket_closed=True), gallery.poisson3d(10),
+                       device="cpu")[0].plan
+    dt = torch.float64
+    est = offload_estimate(plan, dt)
+    real = max(stream.group_work_bytes(g, 8, g.batch) for g in plan.groups)
+    assert est["offload_work_bytes"] == real < est["work_bytes"]
+    rung = (est["pool_bytes"] + est["map_bytes"] + est["inflight_bytes"]
+            + est["work_bytes"])
+    assert est["offload_bytes"] < rung
+    _fake_card(monkeypatch, _free_for(est["offload_bytes"]))
+    assert offload_rule(plan, dt, CARD, None)[0] == "host"
+    _fake_card(monkeypatch, _free_for(est["offload_bytes"] - 1))
+    with pytest.raises(DeviceMemoryError):
+        offload_rule(plan, dt, CARD, None)
+
+
+def test_the_ladder_records_a_refused_hiprec_rung(monkeypatch):
+    """float32 factors that fit, whose refinement stalls, and float64
+    factors the card cannot hold even offloaded: the ladder's
+    hiprec-factors rung is refused by the card's rule and recorded as a
+    rung, the refactor-rescale rung (float64 again) fails and is
+    recorded, and gssvx returns the float32 answer instead of raising."""
+    a = gallery.rank_deficient_arrowhead(n=60, delta=1e-6, seed=0)
+    b = a.matvec(np.random.default_rng(1).standard_normal(a.n_rows))
+    plan = slt.analyze(slt.Options(), a, device="cpu")[0].plan
+    fits = offload_estimate(plan, torch.float32)["bytes"]
+    assert offload_estimate(plan, torch.float64)["offload_bytes"] > fits
+    _built_as_on_the_card(monkeypatch)
+    _fake_card(monkeypatch, _free_for(fits))
+    x, lu, stats, info = slt.gssvx(
+        slt.Options(factor_dtype="float32", executor="stream"), a, b,
+        device="cpu")
+    assert info == 0 and np.all(np.isfinite(x))
+    rungs = {r.name: r.detail for r in stats.solve_report.rungs}
+    assert rungs["hiprec-factors"] == "float64: DeviceMemoryError"
+    assert "DeviceMemoryError" in rungs["refactor-rescale"]
+    assert lu.numeric.dtype == torch.float32
+    assert stats.solve_report.factor_dtype == "float32"
+
+
+def test_concurrent_grids_each_get_their_own_rendezvous():
+    """Four 2-rank gloo grids spawned at once, each joining its process
+    group at its own ``rendezvous()`` (a FileStore's file, no TCP port
+    chosen free beforehand): every rank of every grid joins its own
+    group and all-reduces with its own peer only."""
+    import concurrent.futures as cf
+    assert len({rendezvous() for _ in range(64)}) == 64
+    with cf.ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(
+            lambda k: run_mesh_ranks(2, cases.rank_sum, k, timeout=240),
+            range(4)))
+    for k, out in enumerate(outs):
+        assert out == {0: (2, 2 * k + 1), 1: (2, 2 * k + 1)}
 
 
 def _shifted(arrays, shift):

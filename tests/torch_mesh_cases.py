@@ -819,21 +819,38 @@ def spmd_sharding_verdict(tc, grid, nx):
     return "clean"
 
 
+def _budget(grid, plan, dtype, executor, partition, budget):
+    """A rank's fake budget: ``budget`` itself, or for "offloaded" the
+    executor's own offloaded estimate on this rank (read from a probe
+    built with no budget, so with no exchange; every rank probes)."""
+    from superlu_dist_tpu_torch.numeric import factor, stream
+    if budget != "offloaded":
+        return budget
+    stream.device_budget = lambda device: None
+    probe = factor.get_executor(plan, dtype, executor, None, "cpu",
+                                grid=grid, pool_partition=partition)
+    plan.__dict__.pop("_factor_fns", None)
+    return probe.device_estimate()["offload_bytes"]
+
+
 def offload_rule_ranks(tc, grid, plan, dt, budgets, cards):
     """The card's offload rule (``front_bytes_limit=None``) on a grid of
-    CPU ranks, rank r reading the fake budget ``budgets[r]`` on the fake
-    card ``cards[r]`` (``numeric/stream.device_budget`` and ``card_key``
-    replaced here): per executor the grid resolves through
+    CPU ranks, rank r reading the fake budget ``budgets[r]`` (a number,
+    None, or "offloaded": the executor's own offloaded estimate) on the
+    fake card ``cards[r]`` (``numeric/stream.device_budget`` and
+    ``card_key`` replaced here): per executor the grid resolves through
     ``get_executor`` (spmd, the 2-D stream, mesh mega), its offload, its
     rule record, its own estimate and its pool's elements (spmd's is the
     plan's: every rank allocates the whole pool)."""
     from superlu_dist_tpu_torch.numeric import factor, stream
     dtype = getattr(torch, dt)
-    stream.device_budget = lambda device: budgets[grid.rank]
     stream.card_key = lambda device: cards[grid.rank]
     out = {}
     for executor, partition in (("auto", False), ("stream", True),
                                 ("mega", False)):
+        budget = _budget(grid, plan, dtype, executor, partition,
+                         budgets[grid.rank])
+        stream.device_budget = lambda device: budget
         ex = factor.get_executor(plan, dtype, executor, None, "cpu",
                                  grid=grid, pool_partition=partition)
         out[ex.name] = (ex.offload, ex.report()["offload_rule"],
@@ -844,11 +861,41 @@ def offload_rule_ranks(tc, grid, plan, dt, budgets, cards):
     return out
 
 
-def shared_card_ranks(tc, grid, plan, dt, ratio, cards):
+def refused_rule_ranks(tc, grid, plan, dt, budgets, cards):
+    """The card's rule on a grid of CPU ranks (as ``offload_rule_ranks``)
+    for every grid executor — spmd, the 2-D stream, mesh mega and mesh
+    fused, which cannot offload: per executor the choice, or the
+    ``DeviceMemoryError`` this rank raised (its executor, budget, its
+    card's ranks and the cards that do not fit offloaded)."""
+    from superlu_dist_tpu_torch.numeric import factor, stream
+    from superlu_dist_tpu_torch.utils.errors import DeviceMemoryError
+    dtype = getattr(torch, dt)
+    stream.card_key = lambda device: cards[grid.rank]
+    out = {}
+    for name, executor, partition in (("spmd", "auto", False),
+                                      ("mesh-stream", "stream", True),
+                                      ("mesh-mega", "mega", False),
+                                      ("mesh-fused", "fused", True)):
+        budget = _budget(grid, plan, dtype, executor, partition,
+                         budgets[grid.rank])
+        stream.device_budget = lambda device: budget
+        try:
+            ex = factor.get_executor(plan, dtype, executor, None, "cpu",
+                                     grid=grid, pool_partition=partition)
+            out[name] = ("built", ex.name, ex.offload)
+        except DeviceMemoryError as e:
+            out[name] = ("refused", e.executor, e.budget,
+                         e.parts["card_ranks"], e.parts["cards_refused"],
+                         e.offloads)
+        plan.__dict__.pop("_factor_fns", None)
+    return out
+
+
+def shared_card_ranks(tc, grid, plan, dt, cards):
     """Per grid executor (spmd, the 2-D stream, mesh mega) built with
     offload="none": the card's rule over the grid when each rank's
-    budget is ``ratio`` times that executor's estimate on this rank,
-    rank r on the fake card ``cards[r]``."""
+    budget is that executor's estimate on this rank plus its offloaded
+    estimate, rank r on the fake card ``cards[r]``."""
     from superlu_dist_tpu_torch.numeric import stream
     from superlu_dist_tpu_torch.parallel.mesh_graphs import MeshMegaExecutor
     from superlu_dist_tpu_torch.parallel.mesh_stream import (
@@ -861,9 +908,17 @@ def shared_card_ranks(tc, grid, plan, dt, ratio, cards):
                     (MeshStreamExecutor, {"pool_partition": True}),
                     (MeshMegaExecutor, {})):
         ex = cls(plan, dtype, grid.device, grid, offload="none", **kw)
-        budget = int(ratio * ex.device_estimate()["bytes"])
+        est = ex.device_estimate()
+        budget = est["bytes"] + est["offload_bytes"]
         stream.device_budget = lambda device: budget
         out[ex.name] = stream.offload_rule(plan, dtype, grid.device, None,
                                            grid=grid,
                                            estimate=ex.device_estimate)
     return out
+
+
+def rank_sum(tc, grid, k):
+    """(the grid's size, the sum over its ranks of ``k + rank``): one
+    all-reduce, which reaches only this grid's ranks."""
+    vec = np.array([float(k + grid.rank)])
+    return grid.nproc, int(grid.allreduce_sum_any(vec)[0])
