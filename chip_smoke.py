@@ -36,6 +36,19 @@ drives the port are reset just before it and checked just after):
                 REFINE, BERR; or refused); and the graph executors'
                 device memory (mega, level waves: poisson3d(32), closed
                 plan, float64) at or below the estimate the rule reads;
+     grid4    — the grid on distinct cards, in a child process where four
+                cards are visible (``grid4_only``; alone: ``python3
+                chip_smoke.py grid4``, which exits 2 naming the count on
+                fewer; with fewer the full run prints a grid4 line saying
+                it did not run): one spawned rank a card over NCCL; fused,
+                level and mega as one graph a unit with their collectives
+                inside at poisson3d(16) and (25) on 1x2 and 2x2 against
+                the eager 2-D executor; then poisson3d(100) on 2x2 with
+                pool_partition: the one-card stream, the 2-D stream and
+                the captured fused in float32 with a x1.5 replay, float64,
+                and the closed plan with the stream and mega — each rank's
+                estimate, budget, choice and peak, FACT, SOLVE, REFINE,
+                graphs, collectives and BERR on a grid4_leg line a leg;
   3. plan     — the default analysis of poisson3d(48) (n=110,592): its
                 backend, phase seconds and native calls, and its plan,
                 which must be the JAX package's default plan;
@@ -4929,6 +4942,551 @@ def graph_estimates(slt, torch) -> dict:
     return out
 
 
+#: the grid4 phase: a 2×2 grid of distinct cards (NCCL), one rank a card
+GRID4_CARDS = 4
+GRID4_TIMEOUT_S = 400    # the phase's limit inside the full run
+GRID4_SMALL = (16, 25)   # the small captured legs' poisson3d edges
+GRID4_GRAPHS = ("fused", "level", "mega")
+GRID4_STALL_S = 150      # a rank still in one n = 1M leg after this long
+                         # prints its threads' stacks (faulthandler)
+
+
+def _grid4_executor(name, plan, dtype, grid):
+    """Graph executor ``name`` of GRID4_GRAPHS on ``plan`` over ``grid``
+    with the partitioned pool (level: ``MeshStreamExecutor(granularity=
+    "level")``)."""
+    from superlu_dist_tpu_torch.parallel.mesh_graphs import (
+        MeshFusedExecutor, MeshMegaExecutor)
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    if name == "fused":
+        return MeshFusedExecutor(plan, dtype, grid.device, grid,
+                                 pool_partition=True)
+    if name == "mega":
+        return MeshMegaExecutor(plan, dtype, grid.device, grid,
+                                pool_partition=True, offload="none")
+    return MeshStreamExecutor(plan, dtype, grid.device, grid,
+                              pool_partition=True, offload="none",
+                              granularity=name if name == "level"
+                              else "group")
+
+
+def _grid4_units(name, ex) -> int:
+    """The unit graphs graph executor ``ex`` (of GRID4_GRAPHS ``name``)
+    captures on NCCL: a group each (fused), a schedule wave (level), a
+    closed key (mega)."""
+    if name == "fused":
+        return len(ex.plan.groups)
+    if name == "level":
+        return len(ex.units())
+    return ex.closed_keys
+
+
+def _grid4_call(ex, vals, thresh, dtype):
+    """One call of grid executor ``ex``: (fronts, tiny count, seconds to
+    the card's end)."""
+    import torch
+    real = torch.empty((), dtype=dtype).real.dtype
+    torch.cuda.synchronize(ex.device)
+    t0 = time.perf_counter()
+    fronts, tiny, _ = ex(torch.as_tensor(np.asarray(vals)).to(dtype),
+                         torch.tensor(thresh, dtype=real))
+    torch.cuda.synchronize(ex.device)
+    return fronts, int(tiny), time.perf_counter() - t0
+
+
+def grid4_small(tc, grid, nxs):
+    """A rank of the grid4 phase's small legs (spawned, one card each):
+    per poisson3d(nx) of ``nxs`` the eager 2-D executor (float32, the
+    default tier, the partitioned pool), then each graph executor of
+    GRID4_GRAPHS — its capturing call and a replay — against it bit for
+    bit, with the graphs (census site mesh_graphs.unit) captured and
+    replayed, the collectives the replay issued from the host, the
+    retraces, the launches and the seconds."""
+    import torch
+    import torch.distributed as dist
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.parallel.mesh_graphs import UNIT_SITE
+    issued = [0]
+    real = {k: getattr(dist, k) for k in ("broadcast", "all_to_all_single",
+                                          "all_gather")}
+
+    def counting(fn):
+        def run(*a, **kw):
+            issued[0] += 1
+            return fn(*a, **kw)
+        return run
+    for k, fn in real.items():
+        setattr(dist, k, counting(fn))
+    out = {}
+    try:
+        for nx in nxs:
+            lu, bvals, _ = slt.analyze(slt.Options(), poisson3d(nx),
+                                       device=grid.device)
+            plan, dt = lu.plan, torch.float32
+            thresh = float(np.sqrt(np.finfo(np.float32).eps) * lu.anorm)
+            eager = _grid4_executor("stream", plan, dt, grid)
+            want, tiny, eager_s = _grid4_call(eager, bvals, thresh, dt)
+            recs = {"eager": dict(s=eager_s, tiny=tiny,
+                                  comm=eager.report())}
+            for name in GRID4_GRAPHS:
+                ex = _grid4_executor(name, plan, dt, grid)
+                calls = []
+                for _ in range(2):
+                    mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total,
+                            dict(kernels.LAUNCHES))
+                    issued[0] = 0
+                    fronts, t, s = _grid4_call(ex, bvals, thresh, dt)
+                    census = COMPILE_STATS.records[mark[0]:]
+                    drift = _drift_moved(torch, fronts, want)
+                    calls.append(dict(
+                        s=s, tiny=t, issued=issued[0],
+                        equal=drift["equal_to_stream"],
+                        drift=drift["max_rel_diff_vs_stream"],
+                        graphs=sum(r.site == UNIT_SITE for r in census),
+                        census_s=sum(r.seconds for r in census
+                                     if r.site == UNIT_SITE),
+                        retraces=RETRACE_SENTINEL.total - mark[1],
+                        launches={k: v - mark[2][k]
+                                  for k, v in kernels.LAUNCHES.items()}))
+                rep = ex.report()
+                recs[name] = dict(
+                    calls=calls, units=_grid4_units(name, ex),
+                    graph_kind=rep["graph_kind"], graphs=rep.get("graphs"),
+                    warm_up_s=rep.get("warm_up_s"),
+                    capture_s=rep.get("capture_s"),
+                    instantiate_s=rep.get("instantiate_s"),
+                    exchange_bytes=rep["exchange_bytes"],
+                    bcast_bytes=rep["bcast_bytes"])
+                del ex
+                plan.__dict__.pop("_factor_fns", None)
+            out[nx] = dict(groups=len(plan.groups), runs=recs)
+    finally:
+        for k, fn in real.items():
+            setattr(dist, k, fn)
+    return dict(backend=grid.backend, device=str(grid.device),
+                capturable=grid.capturable, legs=out)
+
+
+def _grid4_comm(grid, before) -> dict:
+    """The grid's collectives since ``before`` (a ``comm_summary``), per
+    op: calls, bytes, seconds."""
+    now = grid.comm_summary()
+    return {op: {k: rec[k] - before.get(op, {}).get(k, 0)
+                 for k in ("calls", "bytes", "seconds")}
+            for op, rec in now.items()}
+
+
+def grid4_big(tc, grid, nx, legs, small=()):
+    """A rank of the grid4 phase at the reference's own size (spawned,
+    one card each; rank 0 the root): poisson3d(nx) and b = A·x_true from
+    the seed, this rank's block rows.  With "one_card" in ``legs`` rank 0
+    first runs gssvx(Options()) on its card alone — the one-card stream,
+    whose x every leg is held against (else x_true is), and the analysis
+    every leg shares (SamePattern_SameRowPerm on its skeleton: the root
+    reuses it and broadcasts it, as ``_pgssvx_mesh`` does; else the
+    first leg of each plan analyzes).  Then the legs of ``legs``, each one
+    ``pgssvx(grid=)`` call with Options(pool_partition=True): "stream"
+    (the 2-D stream, float32), "fused" (the capturing call) and "replay"
+    (values × 1.5) — the fused fronts held bit for bit against the
+    stream's on this rank —, "float64" (the stream), "closed" (the
+    stream on the closed plan, built on the root from the same symbolic
+    factorization) and "closed_mega".  A leg the card's rule refuses
+    records its DeviceMemoryError and the bytes allocated before and
+    after.  Per leg and rank: FACT, SOLVE, REFINE, the graphs, capture
+    and replay seconds, the collectives per op, the rule's numbers
+    (estimate, offloaded estimate, budget, choice), the peak, BERR, the
+    launches; rank 0 also x's error against the one-card x.  With
+    "small" in ``legs``, first the small legs of ``small`` on this grid
+    (``grid4_small``), in ``out``'s "small"."""
+    import dataclasses
+    import faulthandler
+    import gc
+    import traceback
+    import torch
+    import superlu_dist_tpu_torch as slt
+    from superlu_dist_tpu_torch.models.gallery import poisson3d
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.numeric.plan import build_plan
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.parallel.dist import distribute_rows
+    from superlu_dist_tpu_torch.parallel.mesh_graphs import UNIT_SITE
+    from superlu_dist_tpu_torch.parallel.pgssvx import pgssvx
+    from superlu_dist_tpu_torch.utils import tols
+    from superlu_dist_tpu_torch.utils.errors import DeviceMemoryError
+    dev, root = grid.device, grid.rank == 0
+    t_start = time.perf_counter()
+    first_small = grid4_small(tc, grid, small) if "small" in legs \
+        else None
+    a = poisson3d(nx)
+    rng = np.random.default_rng(SEED)
+    x_true = rng.standard_normal(a.n_rows)
+    b = a.matvec(x_true)
+    part = distribute_rows(a, grid.nproc)[grid.rank]
+    b_loc = b[part.fst_row:part.fst_row + part.m_loc]
+    out = {"legs": [], "setup_s": time.perf_counter() - t_start,
+           "small": first_small}
+    skeleton = None
+    x_ref = x_true       # without the one-card run, x against x_true
+    if root and "one_card" in legs:
+        t0 = time.perf_counter()
+        x_ref, lu0, st0, info0 = slt.gssvx(slt.Options(), a, b, device=dev)
+        torch.cuda.synchronize(dev)
+        out["one_card"] = dict(
+            wall_s=time.perf_counter() - t0, info=info0,
+            analysis_s=sum(st0.utime[p] for p in ANALYSIS),
+            fact_s=st0.utime["FACT"], solve_s=st0.utime.get("SOLVE"),
+            refine_s=st0.utime.get("REFINE"),
+            berr=st0.solve_report.berr, offload=st0.executor["offload"],
+            rule=st0.executor.get("offload_rule"),
+            rel_error_inf=float(np.abs(x_ref - x_true).max()
+                                / np.abs(x_true).max()))
+        skeleton = dataclasses.replace(lu0, numeric=None, dev_solver=None,
+                                       dev_spmv=None, berrs=None)
+        del lu0
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = slt.Fact.SamePattern_SameRowPerm
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(dev)
+
+    def leg(name, opts, a_loc, lu, scale=1.0, may_refuse=False):
+        held = settle()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total,
+                dict(kernels.LAUNCHES), grid.comm_summary())
+        lu_out = {}
+        rec = {"leg": name, "held_bytes": held}
+        t0 = time.perf_counter()
+        # a rank that stalls in a leg prints where every thread of it is
+        faulthandler.dump_traceback_later(GRID4_STALL_S)
+        try:
+            x, info = pgssvx(tc, opts, a_loc, b_loc, grid=grid, lu=lu,
+                             lu_out=lu_out)
+        except DeviceMemoryError as e:
+            faulthandler.cancel_dump_traceback_later()
+            rec.update(refused=dict(
+                executor=e.executor, dtype=e.dtype, budget=e.budget,
+                parts=e.parts, remedies=e.remedies, offloads=e.offloads),
+                after_bytes=settle(), seconds=time.perf_counter() - t0,
+                launches={k: v - mark[2][k]
+                          for k, v in kernels.LAUNCHES.items()})
+            out["legs"].append(rec)
+            if not may_refuse:
+                raise AssertionError(f"grid4 {name}: refused: {e}")
+            return None
+        except BaseException:
+            # the peers may wait for this rank in a collective: say why now
+            traceback.print_exc()
+            sys.stderr.flush()
+            raise
+        torch.cuda.synchronize(dev)
+        faulthandler.cancel_dump_traceback_later()
+        lu2, st = lu_out["lu"], lu_out["stats"]
+        t, rep = lu_out["timings"], lu_out["solve_report"]
+        ex = lu2.numeric.executor
+        census = COMPILE_STATS.records[mark[0]:]
+        rec.update(
+            wall_s=time.perf_counter() - t0, info=info,
+            executor=ex["executor"], dtype=str(lu2.numeric.dtype)[6:],
+            offload=ex["offload"], rule=ex.get("offload_rule"),
+            on_host=lu2.numeric.on_host, solve_route=rep.solve_route,
+            residual_route=rep.residual_route,
+            analysis_s=t.get("analysis_s"), fact_s=t.get("fact_s"),
+            solve_s=t.get("solve_s"), refine_s=t.get("refine_s"),
+            refine_steps=rep.refine_steps, berr=rep.berr,
+            rungs=[(r.name, r.detail) for r in rep.rungs],
+            peak_bytes=t.get("peak_bytes"), base_bytes=t.get("base_bytes"),
+            fact_peak_bytes=t.get("fact_peak_bytes"),
+            pool_bytes=ex.get("pool_bytes"), graphs=ex.get("graphs"),
+            graph_kind=ex.get("graph_kind"),
+            warm_up_s=ex.get("warm_up_s"), capture_s=ex.get("capture_s"),
+            instantiate_s=ex.get("instantiate_s"),
+            graph_device_bytes=ex.get("graph_device_bytes"),
+            closed_keys=ex.get("closed_keys"),
+            units=sum(r.site == UNIT_SITE for r in census),
+            retraces=RETRACE_SENTINEL.total - mark[1],
+            launches={k: v - mark[2][k] for k, v in kernels.LAUNCHES.items()},
+            comm=_grid4_comm(grid, mark[3]),
+            groups=len(lu2.plan.groups), closed=bool(lu2.plan.closed))
+        rule = rec["rule"] or {}
+        if rule.get("bytes") and rec["peak_bytes"] is not None:
+            # what the leg took beyond what it found, against the rule
+            rec["peak_vs_estimate"] = ((rec["peak_bytes"] - rec["base_bytes"])
+                                       / rule["bytes"])
+        if root:
+            err = np.abs(x * scale - x_ref)
+            rec["x_against"] = "one card" if skeleton is not None \
+                else "x_true"
+            rec.update(max_abs_err_vs_one_card=float(err.max()),
+                       within_device_vs_host=bool(np.all(
+                           err <= tols.DEVICE_VS_HOST_ATOL
+                           + tols.DEVICE_VS_HOST_RTOL * np.abs(x_ref))))
+        out["legs"].append(rec)
+        if root:
+            say("grid4_rank0", **{k: v for k, v in rec.items()
+                                  if k != "comm"})
+        return lu2
+
+    opts = dict(executor="stream", pool_partition=True)
+    # without the one-card run the first leg of each plan analyzes
+    first = same if "one_card" in legs else slt.Fact.DOFACT
+
+    def skeleton_of(lu):
+        """A leg's handle without its factors, solver and the plan's
+        executors (the grid's graphs and pools): what the next leg
+        reuses, all else off the card."""
+        lu.plan.__dict__.pop("_factor_fns", None)
+        return dataclasses.replace(lu, numeric=None, dev_solver=None,
+                                   dev_spmv=None, berrs=None)
+
+    lu, base = skeleton, None
+    if "stream" in legs:
+        done = leg("stream float32", slt.Options(fact=first, **opts), part,
+                   lu)
+        # its fronts wait in host memory for the fused ones
+        base = [(lp.cpu(), up.cpu()) for lp, up in done.numeric.fronts]
+        lu = skeleton_of(done)
+        del done
+    if "fused" in legs:
+        done = leg("fused float32 capture", slt.Options(
+            fact=same if lu is not None else first, executor="fused",
+            pool_partition=True), part, lu)
+        if base is not None:
+            drift = _drift_moved(torch, done.numeric.fronts, base)
+            out["legs"][-1].update(
+                fronts_equal_stream=drift["equal_to_stream"],
+                drift_vs_stream=drift["max_rel_diff_vs_stream"])
+        if "replay" in legs:
+            # the same plan: its cached fused executor replays
+            p15 = dataclasses.replace(part, data=part.data * 1.5)
+            done = leg("fused float32 replay x1.5", slt.Options(
+                fact=same, executor="fused", pool_partition=True), p15,
+                done, scale=1.5)
+        lu = skeleton_of(done)
+        del done
+    del base
+    if "float64" in legs:
+        done = leg("stream float64", slt.Options(
+            fact=same if lu is not None else first, factor_dtype="float64",
+            **opts), part, lu)
+        lu = skeleton_of(done)
+        del done
+    closed, fact = None, first
+    if root and lu is not None and ("closed" in legs
+                                    or "closed_mega" in legs):
+        # the closed plan from the same symbolic factorization
+        o = dataclasses.replace(lu.options, bucket_closed=True)
+        t0 = time.perf_counter()
+        plan = build_plan(lu.sf, min_bucket=o.min_bucket,
+                          growth=o.bucket_growth, schedule=o.schedule,
+                          window=o.sched_window, align=o.sched_align,
+                          closed=True, max_keys=o.bucket_keys,
+                          native=o.native)
+        out["closed_plan_s"] = time.perf_counter() - t0
+        closed = dataclasses.replace(lu, plan=plan, options=o)
+    if lu is not None:
+        fact = same
+    del lu
+    if "closed" in legs:
+        done = leg("closed stream float32", slt.Options(
+            fact=fact, bucket_closed=True, **opts), part, closed)
+        closed, fact = skeleton_of(done), same
+        del done
+    if "closed_mega" in legs:
+        done = leg("closed mega float32", slt.Options(
+            fact=fact, bucket_closed=True, executor="mega",
+            pool_partition=True), part, closed, may_refuse=True)
+        del done
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def _grid4_check_small(shape, out, drift) -> None:
+    """The small legs' checks on every rank: NCCL, one graph a unit —
+    fused a group, level a wave, mega a closed key — recorded once at the
+    capture and never at the replay, no retrace, no collective issued
+    from the host at the replay, fronts and tiny counts bit for bit the
+    eager 2-D executor's (mega's within ``drift``, TF32_DRIFT: it runs a
+    group at its key's padded rows, where cuBLAS takes another kernel)."""
+    for r, rank in out.items():
+        if rank["backend"] != "nccl" or not rank["capturable"]:
+            raise AssertionError(f"grid4 {shape} rank {r}: backend "
+                                 f"{rank['backend']}")
+        for nx, legs in rank["legs"].items():
+            tiny = legs["runs"]["eager"]["tiny"]
+            for name in GRID4_GRAPHS:
+                rec = legs["runs"][name]
+                cap, rep = rec["calls"]
+                where = f"grid4 {shape} poisson3d({nx}) {name} rank {r}"
+                if rec["graph_kind"] != "unit" or rec["graphs"] != rec["units"]:
+                    raise AssertionError(f"{where}: {rec['graphs']} graphs "
+                                         f"of kind {rec['graph_kind']} for "
+                                         f"{rec['units']} units")
+                if name == "fused" and rec["units"] != legs["groups"]:
+                    raise AssertionError(f"{where}: {rec['units']} units "
+                                         f"for {legs['groups']} groups")
+                if (cap["graphs"], rep["graphs"]) != (rec["units"], 0) \
+                        or cap["retraces"] or rep["retraces"]:
+                    raise AssertionError(f"{where}: census {cap} / {rep}")
+                if rep["issued"]:
+                    raise AssertionError(f"{where}: the replay issued "
+                                         f"{rep['issued']} collectives")
+                near = all(c["equal"] or (name == "mega"
+                                          and c["drift"] <= drift)
+                           for c in (cap, rep))
+                if not near or (cap["tiny"], rep["tiny"]) != (tiny, tiny):
+                    raise AssertionError(f"{where}: fronts or tiny count "
+                                         f"differ from the eager 2-D run")
+
+
+def _grid4_check_big(out, target) -> None:
+    """The n = 1M legs' checks: every leg ran or was refused by name
+    before it allocated anything; a leg that ran has info 0 on every
+    rank, the same x, BERR at the target, x within DEVICE_VS_HOST of the
+    one-card x, the factors and solves on the cards (no offload), its
+    residuals through csr_spmv, and on every rank the bytes it took at
+    its peak at or below the card's rule's estimate; the captured fused
+    fronts are the stream's bit for bit; the replay captures nothing."""
+    ranks = sorted(out)
+    for i, rec0 in enumerate(out[0]["legs"]):
+        name = rec0["leg"]
+        recs = [out[r]["legs"][i] for r in ranks]
+        refused = [("refused" in rec) for rec in recs]
+        if any(refused):
+            if not all(refused) or name != "closed mega float32":
+                raise AssertionError(f"grid4 {name}: refused on ranks "
+                                     f"{[r for r, f in zip(ranks, refused) if f]}")
+            for rec in recs:
+                if rec["after_bytes"] != rec["held_bytes"] \
+                        or any(rec["launches"].values()):
+                    raise AssertionError(f"grid4 {name}: the refusal "
+                                         f"allocated or launched: {rec}")
+            continue
+        for r, rec in zip(ranks, recs):
+            if rec["info"] != 0:
+                raise AssertionError(f"grid4 {name} rank {r}: info "
+                                     f"{rec['info']}")
+            if rec["offload"] != "none" or rec["on_host"] \
+                    or rec["solve_route"] != "device" \
+                    or rec["residual_route"] != "device":
+                raise AssertionError(f"grid4 {name} rank {r}: offload "
+                                     f"{rec['offload']}, solve "
+                                     f"{rec['solve_route']}, residual "
+                                     f"{rec['residual_route']}")
+            if rec["retraces"]:
+                raise AssertionError(f"grid4 {name} rank {r}: "
+                                     f"{rec['retraces']} retraces")
+            if rec.get("peak_vs_estimate", 0.0) > 1.0:
+                raise AssertionError(f"grid4 {name} rank {r}: peak "
+                                     f"{rec['peak_bytes']:,} B from "
+                                     f"{rec['base_bytes']:,} B over the "
+                                     f"estimate {rec['rule']['bytes']:,} B")
+            if rec["launches"]["csr_spmv"] < 2 * rec["refine_steps"]:
+                raise AssertionError(f"grid4 {name} rank {r}: "
+                                     f"{rec['launches']['csr_spmv']} "
+                                     f"csr_spmv launches")
+        check_berr(f"grid4 {name}", rec0["berr"], target)
+        if not rec0["within_device_vs_host"]:
+            raise AssertionError(f"grid4 {name}: x vs the one-card x: max "
+                                 f"{rec0['max_abs_err_vs_one_card']}")
+        if name.startswith("fused") and name.endswith("capture"):
+            for r, rec in zip(ranks, recs):
+                if rec["graph_kind"] != "unit" or not rec["units"]:
+                    raise AssertionError(f"grid4 {name} rank {r}: "
+                                         f"{rec['units']} unit graphs")
+                if not rec.get("fronts_equal_stream", False):
+                    raise AssertionError(f"grid4 {name} rank {r}: fronts "
+                                         f"differ from the stream's: "
+                                         f"{rec.get('drift_vs_stream')}")
+        if "replay" in name:
+            for r, rec in zip(ranks, recs):
+                if rec["units"]:
+                    raise AssertionError(f"grid4 {name} rank {r}: "
+                                         f"{rec['units']} captures")
+
+
+def grid4_only() -> int:
+    """``python3 chip_smoke.py grid4``: the grid on distinct cards, one
+    spawned rank a card over NCCL (the full run starts it as a child
+    right after config4 where four cards are visible).  Fewer than four
+    cards: exits 2 naming the count, nothing run.  First the small legs
+    (``grid4_small``: poisson3d(16) and (25) on a 1×2 and a 2×2 grid,
+    fused, level and mega with their collectives captured, one graph a
+    unit, against the eager 2-D executor), then the reference's own size
+    (``grid4_big``: poisson3d(100), n = 1,000,000, on the 2×2 grid with
+    the partitioned pool: the one-card stream, the 2-D stream and the
+    captured fused in float32 with a SamePattern × 1.5 replay, float64,
+    the closed plan with the stream and mega); a grid4_leg line a leg, a
+    grid4 line, the card line.  ``python3 chip_smoke.py grid4 LEGS
+    SECONDS`` runs the legs named (of "small", "one_card", "stream",
+    "fused", "replay", "float64", "closed", "closed_mega") within
+    SECONDS."""
+    import torch
+    from superlu_dist_tpu_torch import native
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    from superlu_dist_tpu_torch.utils import tols
+    count = torch.cuda.device_count()
+    if count < GRID4_CARDS:
+        print(f"chip_smoke grid4: needs {GRID4_CARDS} cards, {count} "
+              f"visible", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card = card_line()
+    kernels.build()
+    native.build()
+    legs = sys.argv[2].split(",") if len(sys.argv) > 2 else [
+        "small", "one_card", "stream", "fused", "replay", "float64",
+        "closed", "closed_mega"]
+    limit = float(sys.argv[3]) if len(sys.argv) > 3 else GRID4_TIMEOUT_S
+    target = float(tols.berr_target(np.float64))
+
+    def small_lines(shape, out, seconds):
+        _grid4_check_small(shape, out, tols.TF32_DRIFT)
+        for nx in GRID4_SMALL:
+            say("grid4_leg", leg=f"{shape[0]}x{shape[1]} poisson3d({nx})",
+                seconds=seconds, ranks={
+                    r: dict(device=rank["device"],
+                            **rank["legs"][nx]["runs"])
+                    for r, rank in out.items()})
+    if "small" in legs:
+        t0 = time.perf_counter()
+        small_lines((1, 2), run_mesh_ranks(2, grid4_small, GRID4_SMALL,
+                                           device="cuda", timeout=300),
+                    time.perf_counter() - t0)
+    # the 2×2 small legs run first on the n = 1M legs' grid
+    t0 = time.perf_counter()
+    out = run_mesh_ranks(GRID4_CARDS, grid4_big, CONFIG4_NX, legs,
+                         GRID4_SMALL, device="cuda", nprow=2, timeout=limit,
+                         max_len=1 << 20, timeout_s=limit)
+    if "small" in legs:
+        small_lines((2, 2), {r: rec["small"] for r, rec in out.items()},
+                    out[0]["setup_s"])
+    if "one_card" in out[0]:
+        say("grid4_leg", leg="one card (rank 0)", **out[0]["one_card"])
+    for i, rec0 in enumerate(out[0]["legs"]):
+        say("grid4_leg", leg=rec0["leg"], ranks={
+            r: {k: v for k, v in out[r]["legs"][i].items() if k != "leg"}
+            for r in sorted(out)})
+    _grid4_check_big(out, target)
+    say("grid4", seconds=time.perf_counter() - t_start, cards=count,
+        big_s=time.perf_counter() - t0,
+        rank_seconds={r: rec["seconds"] for r, rec in out.items()},
+        closed_plan_s=out[0].get("closed_plan_s"), nvidia_smi=card)
+    print(card)
+    return 0
+
+
 def first_solve_only(label: str) -> int:
     """``python3 chip_smoke.py first_solve [LABEL]``: the build, then gssvx
     on poisson3d(48) twice (phase seconds and wall; the first in the
@@ -5229,6 +5787,8 @@ def main():
         return audit_only()
     if sys.argv[1:2] == ["config4"]:
         return config4_only()
+    if sys.argv[1:2] == ["grid4"]:
+        return grid4_only()
     import superlu_dist_tpu_torch as slt
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.models.gallery import (convection_diffusion_2d,
@@ -5271,6 +5831,19 @@ def main():
     if rc != 0:
         raise AssertionError(f"the config4 phase exited {rc}")
     say("config4_child", seconds=time.perf_counter() - t0)
+    # the grid on distinct cards, in a process of its own, where there
+    # are four cards; with fewer, it does not run (nothing is checked)
+    count = torch.cuda.device_count()
+    if count >= GRID4_CARDS:
+        t0 = time.perf_counter()
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "grid4"], timeout=GRID4_TIMEOUT_S + 60).returncode
+        if rc != 0:
+            raise AssertionError(f"the grid4 phase exited {rc}")
+        say("grid4_child", seconds=time.perf_counter() - t0)
+    else:
+        say("grid4", ran=False, cards=count,
+            reason=f"needs {GRID4_CARDS} cards, {count} visible: not run")
 
     # 3. kernels, at the shapes of the main path's plan
     gen = torch.Generator(device="cuda").manual_seed(SEED)

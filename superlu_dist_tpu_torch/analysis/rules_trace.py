@@ -19,7 +19,11 @@ passed to ``fused.Graph(...)``, the statements between
 torch.cuda.graph(...)``; the rule follows the call graph from there
 into every function the body reaches, within numeric/, solve/, ops/ and
 parallel/ of the package tree (everywhere outside it), and flags the
-coercion where it is written.
+coercion where it is written.  A capture written inside ``with
+grid.recording()`` stops at ``ProcessGrid``'s collectives
+(parallel/grid.py): a capture on an NCCL grid holds them, and while the
+grid records they do no host work; outside ``recording`` the rule
+follows them into their verify checks and host reads.
 
 SLU105 — inputs of a cached graph's construction that its key misses.
 A graph cache is an ``lru_cache``d factory that captures a graph (the JAX rule:
@@ -59,6 +63,15 @@ _TENSOR_METHODS = frozenset({"sum", "max", "min", "amax", "amin", "any",
                              "all", "abs", "norm", "mean", "prod",
                              "count_nonzero", "isfinite", "isnan"})
 _HOT_DIRS = ("numeric", "solve", "ops", "parallel")
+#: ProcessGrid's collectives (parallel/grid.py), which a capture may hold
+#: on an NCCL grid: inside ``ProcessGrid.recording`` each does no host
+#: work (verify mode's checks wait for ``check_tape``, outside the
+#: capture), so the reach of a capture written in that block stops at
+#: them
+_CAPTURED_COLLECTIVES = frozenset(
+    f"{PACKAGE}.parallel.grid.ProcessGrid.{m}"
+    for m in ("all_gather", "bcast_row", "all_reduce_row", "exchange",
+              "gather_rows", "all_reduce_sum"))
 _BUCKETIZER_HINTS = ("bucket", "rung", "ladder")
 
 
@@ -177,6 +190,21 @@ def _hot(path: str) -> bool:
     return any(d in inner for d in _HOT_DIRS)
 
 
+def _recorded(fn) -> set:
+    """ids of the nodes of ``fn`` (nested defs excluded) written inside a
+    ``with <grid>.recording()`` block."""
+    out = set()
+    for node in _walk_no_defs(fn):
+        if isinstance(node, (ast.With, ast.AsyncWith)) and any(
+                isinstance(it.context_expr, ast.Call)
+                and _last(dotted_name(it.context_expr.func)) == "recording"
+                for it in node.items):
+            for st in node.body:
+                out.add(id(st))
+                out.update(id(n) for n in _walk_no_defs(st))
+    return out
+
+
 def _region_nodes(region):
     for st in region:
         yield st
@@ -193,15 +221,17 @@ def capture_reach(project) -> tuple:
     regions, reached, todo = {}, {}, []
     for q, fi in project.functions.items():
         mod = project.by_path.get(fi.path)
+        recorded = _recorded(fi.node)
         for anchor, region in capture_regions(fi.node):
             witness = (f"the capture at {fi.path}:"
                        f"{getattr(anchor, 'lineno', 0)}")
             regions.setdefault(fi.path, []).append((witness, region))
+            rec = id(anchor) in recorded
             for node in _region_nodes(region):
                 if isinstance(node, ast.Call):
                     t = project.call_target(fi.path, node)
                     if t in project.functions:
-                        todo.append((t, witness))
+                        todo.append((t, witness, rec))
         for node in _walk_no_defs(fi.node):
             if isinstance(node, ast.Call) \
                     and _last(dotted_name(node.func)) == "Graph":
@@ -216,14 +246,21 @@ def capture_reach(project) -> tuple:
                         mod.functions.get(name) if mod else None)
                     if t in project.functions:
                         todo.append((t, f"the capture at {fi.path}:"
-                                        f"{node.lineno}"))
+                                        f"{node.lineno}",
+                                     id(node) in recorded))
+    # a function reached from a recording capture and from one that does
+    # not record is walked for each: only the latter follows it into the
+    # grid's collectives
+    walked = set()
     while todo:
-        q, witness = todo.pop()
-        if q in reached or not _hot(project.functions[q].path):
+        q, witness, rec = todo.pop()
+        if (q, rec) in walked or (rec and q in _CAPTURED_COLLECTIVES) \
+                or not _hot(project.functions[q].path):
             continue
-        reached[q] = witness
-        todo.extend((c, witness) for c in project.functions[q].calls
-                    if c in project.functions and c not in reached)
+        walked.add((q, rec))
+        reached.setdefault(q, witness)
+        todo.extend((c, witness, rec) for c in project.functions[q].calls
+                    if c in project.functions and (c, rec) not in walked)
     project._capture_reach = (reached, regions)
     return reached, regions
 

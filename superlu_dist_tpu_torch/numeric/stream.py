@@ -211,22 +211,21 @@ def map_bytes(plan: FactorPlan) -> int:
     return 3 * own + kern
 
 
-def _inflight(plan: FactorPlan, itemsize: int, lag: int, units) -> list:
+def _inflight(sizes, lag: int, units) -> list:
     """Per unit of ``units`` ((lo, hi) group ranges, each cloned out or
     produced at once): the factor bytes on the card while it is emitted
     to the host — its own panels beside those of the ``lag`` groups
-    before it whose copies may still run (``_Offload``), at the real
-    batches the copies move."""
-    panels = np.zeros(len(plan.groups) + 1, dtype=np.int64)
-    panels[1:] = np.cumsum([g.batch * (g.m * g.w + g.w * g.u) * itemsize
-                            for g in plan.groups])
+    before it whose copies may still run (``_Offload``), each group's
+    ``sizes[gi]`` bytes (at the real batches the copies move)."""
+    panels = np.zeros(len(sizes) + 1, dtype=np.int64)
+    panels[1:] = np.cumsum(sizes)
     return [int(panels[hi] - panels[max(lo - lag, 0)]) for lo, hi in units]
 
 
 def offload_estimate(plan: FactorPlan, dtype, *, pool_len: int | None = None,
                      graphs: int | None = None, warm: int = 0,
                      maps: int | None = None, lag: int = 8,
-                     units=None) -> dict:
+                     units=None, share=None) -> dict:
     """Device bytes an executor and the device solve after it hold at
     their peak when the factors stay on the card (``bytes``), and when
     they go to host memory (``offload_bytes``), with the parts: the pool
@@ -251,19 +250,32 @@ def offload_estimate(plan: FactorPlan, dtype, *, pool_len: int | None = None,
     before it).  The streamed loop runs each group at its real batch, so
     its working set is counted there (``offload_work_bytes``) beside the
     copies in flight before it; a graph executor keeps its graph pools
-    and its warm-up as counted above."""
+    and its warm-up as counted above.
+
+    ``share`` (a grid rank's: parallel/mesh_stream.py) replaces the
+    plan's parts by one rank's: (per group the bytes it keeps — its own
+    columns and the pivot stack —, per group its program's working set,
+    its solver's copy); the rank keeps and works on its share only."""
     from superlu_dist_tpu_torch.solve.device import solve_copy_bytes
     itemsize = torch.empty((), dtype=dtype).element_size()
     pool = (plan.pool_size if pool_len is None else pool_len) * itemsize
-    kept, fact, work = factor_parts(plan, itemsize)
-    solve = solve_copy_bytes(plan, itemsize)
+    if share is None:
+        kept, fact, work = factor_parts(plan, itemsize)
+        solve = solve_copy_bytes(plan, itemsize)
+        sizes = [g.batch * (g.m * g.w + g.w * g.u) * itemsize
+                 for g in plan.groups]
+        steps = [group_work_bytes(g, itemsize, g.batch) for g in plan.groups]
+    else:
+        sizes, steps, solve = share
+        held = np.cumsum(sizes, dtype=np.int64)
+        kept = int(held[-1]) if len(sizes) else 0
+        fact = max([int(h) + s for h, s in zip(held, steps)], default=0)
+        work = max(steps, default=0)
     maps = map_bytes(plan) if maps is None else maps
     groups = [(gi, gi + 1) for gi in range(len(plan.groups))]
-    flight = _inflight(plan, itemsize, lag, groups if units is None
-                       else units)
+    flight = _inflight(sizes, lag, groups if units is None else units)
     if graphs is None:
         peak = max(pool + fact, kept + solve)
-        steps = [group_work_bytes(g, itemsize, g.batch) for g in plan.groups]
         offloaded = pool + max([f + s for f, s in zip(flight, steps)],
                                default=0)
         real_work = max(steps, default=0)

@@ -43,10 +43,23 @@ first — and an exchange's counts against its peers' — and raises
 :class:`~superlu_dist_tpu_torch.utils.errors.CollectiveMismatchError` on
 every rank instead of hanging.  A failed collective raises; nothing is
 retried on another backend.
+
+On an NCCL grid (each rank on a card of its own,
+:attr:`ProcessGrid.capturable`) the collectives can run inside a CUDA
+graph (parallel/mesh_graphs.py captures a group program with them).
+Inside :meth:`ProcessGrid.recording` a collective does no host work — no
+clock, no verify check, no host read — and leaves a record of its op,
+shape, bytes and counts; :meth:`ProcessGrid.check_tape` runs verify
+mode's checks over those records once, before the graph first runs, and
+:meth:`ProcessGrid.replayed` counts the graph's calls and bytes in
+``comm`` at each replay.  Each NCCL communicator of a grid makes its
+first calls when the grid is made (``_warm_nccl``), never inside a
+capture.  A gloo grid's collectives cannot be captured.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -86,6 +99,8 @@ class ProcessGrid:
                                  # an NCCL grid's gloo twins of its groups
                                  # (None: the grid's, "panel", "snode"),
                                  # for host tensors (:meth:`host`)
+    tape: list = None            # the collectives of a capture in progress
+                                 # (:meth:`recording`), one record each
 
     @property
     def nproc(self) -> int:
@@ -139,12 +154,97 @@ class ProcessGrid:
         """Card tensors cross through host memory (gloo)."""
         return self.backend == "gloo" and self.device.type == "cuda"
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this grid's collectives: NCCL,
+        each rank on a card of its own (gloo's run through host memory)."""
+        return self.backend == "nccl" and self.device.type == "cuda"
+
     def _note(self, op, nbytes, seconds):
         rec = self.comm.setdefault(op, {"calls": 0, "bytes": 0,
                                         "seconds": 0.0})
         rec["calls"] += 1
         rec["bytes"] += int(nbytes)
         rec["seconds"] += seconds
+
+    def _start(self, op, shape, dtype, axis=None, counts=None):
+        """A collective's start: verify mode's checks, then the clock.
+        While a capture records (:meth:`recording`) nothing of that runs
+        on the host: the collective's record goes on the tape, for
+        :meth:`check_tape` and :meth:`replayed`.  ``counts`` are an
+        exchange's send then receive counts."""
+        if self.tape is not None:
+            self.tape.append({"op": op, "shape": tuple(int(s) for s in shape),
+                              "dtype": dtype, "axis": axis, "bytes": 0,
+                              "counts": counts})
+            return None
+        if self.verify:
+            self._check(op, shape, dtype, axis)
+            if counts is not None:
+                self._check_counts(counts, dtype)
+        return time.perf_counter()
+
+    def _done(self, op, nbytes, t0):
+        """A collective's end: its bytes and seconds in ``comm`` — or,
+        captured, its bytes on its record (``comm`` counts them at each
+        replay)."""
+        if t0 is None:
+            self.tape[-1]["bytes"] = int(nbytes)
+        else:
+            self._note(op, nbytes, time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """The collectives issued in the block are being captured into a
+        CUDA graph (parallel/mesh_graphs.py on a :attr:`capturable` grid):
+        no clock, no verify check and no host read runs for them; each
+        leaves a record on the list the block gets.  The graph's owner
+        calls :meth:`check_tape` before the graph first runs and
+        :meth:`replayed` after each replay."""
+        if self.tape is not None:
+            raise RuntimeError("a grid records one capture at a time")
+        self.tape = []
+        try:
+            yield self.tape
+        finally:
+            self.tape = None
+
+    def check_tape(self, tape) -> None:
+        """Verify mode's checks of a captured graph's collectives, each
+        against its communicator's peers in the order they were captured
+        — (op, shape, dtype, sequence) records, an exchange's counts
+        against its peers' — run once, outside the capture and before the
+        graph's first replay, so a divergent program raises
+        CollectiveMismatchError on every rank instead of hanging in its
+        replay.  A no-op without verify mode."""
+        if not self.verify:
+            return
+        for rec in tape:
+            self._check(rec["op"], rec["shape"], rec["dtype"], rec["axis"])
+            if rec["counts"] is not None:
+                self._check_counts(rec["counts"], rec["dtype"])
+
+    def replayed(self, tape) -> None:
+        """A captured graph's collectives ran once more: their calls and
+        bytes in ``comm``, from the sizes recorded at the capture (their
+        seconds are the graph's: 0 here)."""
+        for rec in tape:
+            self._note(rec["op"], rec["bytes"], 0.0)
+
+    def _check_counts(self, counts, dtype) -> None:
+        """An exchange's send and receive counts against every rank's:
+        what r sends to d is what d receives from r."""
+        counts = self._gather_host(torch.tensor(counts, dtype=torch.float64))
+        sent, got = counts[:, :self.nproc], counts[:, self.nproc:]
+        if np.array_equal(sent, got.T):
+            return
+        from superlu_dist_tpu_torch.utils.errors import CollectiveMismatchError
+        raise CollectiveMismatchError(
+            [{"rank": r, "seq": self.seq.get(None, 0) - 1, "op": "exchange",
+              "shape": tuple(int(c) for c in counts[r]),
+              "dtype": _DTYPES.get(dtype, 0),
+              "site": "grid:exchange counts"}
+             for r in range(self.nproc)], rank=self.rank)
 
     def _check(self, op, shape, dtype, axis=None):
         """The lockstep record exchange of verify mode: (seq, op, ndim,
@@ -202,9 +302,7 @@ class ProcessGrid:
             return t
         import torch.distributed as dist
         op = "all_gather" if axis is None else "all_gather_col"
-        t0 = time.perf_counter()
-        if self.verify:
-            self._check(op, t.shape, t.dtype, axis)
+        t0 = self._start(op, t.shape, t.dtype, axis)
         src = t.contiguous()
         group = self._group(axis)
         if self.staged:
@@ -217,8 +315,7 @@ class ProcessGrid:
             parts = [torch.empty_like(src) for _ in range(k)]
             dist.all_gather(parts, src, group=group)
             out = torch.cat(parts)
-        self._note(op, out.numel() * out.element_size(),
-                   time.perf_counter() - t0)
+        self._done(op, out.numel() * out.element_size(), t0)
         return out
 
     def bcast_row(self, t, src_pcol: int, shape, dtype,
@@ -233,11 +330,9 @@ class ProcessGrid:
         if self.npcol == 1:
             return t
         import torch.distributed as dist
-        t0 = time.perf_counter()
         shape = tuple(int(x) for x in shape)
-        if self.verify:
-            self._check("bcast_row", shape + (int(src_pcol),), dtype,
-                        "panel")
+        t0 = self._start("bcast_row", shape + (int(src_pcol),), dtype,
+                         "panel")
         src = self.prow * self.npcol + int(src_pcol)
         group = self._group("panel")
         if self.rank == src:
@@ -262,8 +357,7 @@ class ProcessGrid:
                 out = buf.to(self.device, non_blocking=True)
             elif buf is not out:
                 out.copy_(buf, non_blocking=True)
-        self._note("bcast_row", buf.numel() * buf.element_size(),
-                   time.perf_counter() - t0)
+        self._done("bcast_row", buf.numel() * buf.element_size(), t0)
         return out
 
     def all_reduce_row(self, t: torch.Tensor) -> torch.Tensor:
@@ -274,9 +368,7 @@ class ProcessGrid:
         if self.npcol == 1:
             return t
         import torch.distributed as dist
-        t0 = time.perf_counter()
-        if self.verify:
-            self._check("all_reduce_row", t.shape, t.dtype, "panel")
+        t0 = self._start("all_reduce_row", t.shape, t.dtype, "panel")
         src = t.contiguous()
         group = self._group("panel")
         if self.staged:
@@ -291,9 +383,8 @@ class ProcessGrid:
         out = parts[0]
         for p in parts[1:]:
             out = out + p
-        self._note("all_reduce_row",
-                   self.npcol * src.numel() * src.element_size(),
-                   time.perf_counter() - t0)
+        self._done("all_reduce_row",
+                   self.npcol * src.numel() * src.element_size(), t0)
         return out
 
     def exchange(self, send: torch.Tensor, send_counts,
@@ -312,26 +403,12 @@ class ProcessGrid:
         if self.nproc == 1:
             return send
         import torch.distributed as dist
-        t0 = time.perf_counter()
         total = sum(recv_counts)
         if out is not None and out.shape[0] < total:
             raise ValueError(f"exchange: out holds {out.shape[0]} elements, "
                              f"{total} arrive")
-        if self.verify:
-            self._check("exchange", (self.nproc,), send.dtype)
-            counts = self._gather_host(torch.tensor(
-                send_counts + recv_counts, dtype=torch.float64))
-            sent, got = counts[:, :self.nproc], counts[:, self.nproc:]
-            if not np.array_equal(sent, got.T):
-                from superlu_dist_tpu_torch.utils.errors import (
-                    CollectiveMismatchError)
-                raise CollectiveMismatchError(
-                    [{"rank": r, "seq": self.seq.get(None, 0) - 1,
-                      "op": "exchange", "shape": tuple(int(c) for c in
-                                                      counts[r]),
-                      "dtype": _DTYPES.get(send.dtype, 0),
-                      "site": "grid:exchange counts"}
-                     for r in range(self.nproc)], rank=self.rank)
+        t0 = self._start("exchange", (self.nproc,), send.dtype,
+                         counts=send_counts + recv_counts)
         src = send.contiguous()
         if self.staged:
             src = _pinned(src)
@@ -349,8 +426,8 @@ class ProcessGrid:
             else:
                 out[:total].copy_(got, non_blocking=True)
                 got = out[:total]
-        self._note("exchange", (src.numel() + got.numel())
-                   * src.element_size(), time.perf_counter() - t0)
+        self._done("exchange", (src.numel() + got.numel())
+                   * src.element_size(), t0)
         return got
 
     def gather_rows(self, t: torch.Tensor, counts) -> torch.Tensor:
@@ -366,14 +443,12 @@ class ProcessGrid:
         if self.nproc == 1:
             return t
         import torch.distributed as dist
-        t0 = time.perf_counter()
         rest = tuple(t.shape[1:])
-        if self.verify:
-            # the raise above is the caller's contract (its rows against
-            # the counts every rank agreed on), checked before any rank
-            # sends, as torch.distributed's own argument checks are
-            self._check(  # slulint: disable=SLU101
-                "gather_rows", (sum(counts),) + rest, t.dtype)
+        # the raise above is the caller's contract (its rows against the
+        # counts every rank agreed on), checked before any rank sends, as
+        # torch.distributed's own argument checks are
+        t0 = self._start(  # slulint: disable=SLU101
+            "gather_rows", (sum(counts),) + rest, t.dtype)
         out = torch.empty((sum(counts),) + rest, dtype=t.dtype,
                           device=t.device)
         at = 0
@@ -393,8 +468,7 @@ class ProcessGrid:
             if r != self.rank:
                 out[at:at + c].copy_(buf, non_blocking=True)
             at += c
-        self._note("gather_rows", out.numel() * out.element_size(),
-                   time.perf_counter() - t0)
+        self._done("gather_rows", out.numel() * out.element_size(), t0)
         return out
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -402,17 +476,14 @@ class ProcessGrid:
         if self.nproc == 1:
             return t.clone()
         import torch.distributed as dist
-        t0 = time.perf_counter()
-        if self.verify:
-            self._check("all_reduce", t.shape, t.dtype)
+        t0 = self._start("all_reduce", t.shape, t.dtype)
         out = t.detach().clone()
         if self.staged:
             out = out.cpu()
         dist.all_reduce(out, group=self.group)
         if out.device != t.device:
             out = out.to(t.device)
-        self._note("all_reduce", out.numel() * out.element_size(),
-                   time.perf_counter() - t0)
+        self._done("all_reduce", out.numel() * out.element_size(), t0)
         return out
 
     def allreduce_sum_any(self, arr, root: int = 0) -> np.ndarray:
@@ -485,11 +556,45 @@ def _make_grid(ranks: list, nprow: int, npcol: int, device, world: int,
             axes(host_groups, backend="gloo")
     if rank not in ranks:
         return None
-    return ProcessGrid(nprow, npcol, ranks.index(rank), device, backend,
+    grid = ProcessGrid(nprow, npcol, ranks.index(rank), device, backend,
                        group=group, axis_groups=axis_groups,
                        world_ranks=tuple(ranks),
                        verify=env_flag("SLU_TPU_VERIFY_COLLECTIVES"),
                        host_groups=host_groups)
+    if backend == "nccl" and world > 1:
+        # the grid's communicators hold its ranks only: a rank outside
+        # it returned above and takes no part
+        _warm_nccl(grid)  # slulint: disable=SLU101
+    return grid
+
+
+def _warm_nccl(grid: ProcessGrid) -> None:
+    """One eager call of each collective kind the grid issues on each of
+    its NCCL communicators — the grid's (all-reduce, all-gather, the
+    exchange's all-to-all), its process row's (all-reduce, broadcast,
+    all-gather), its process column's (all-reduce, all-gather) — so that
+    no communicator's first call, nor its first use of an operation's
+    connections, falls inside a CUDA graph capture
+    (parallel/mesh_graphs.py).  Every rank of a communicator takes part,
+    in this order on every rank: the grid, the row, the column."""
+    import torch.distributed as dist
+    dev = grid.device
+    for axis in (None, "panel", "snode"):
+        if grid._members(axis) < 2:
+            continue
+        group = grid._group(axis)
+        k = grid._members(axis)
+        one = torch.ones(k, device=dev)
+        dist.all_reduce(one, group=group)
+        dist.all_gather(list(torch.empty(k * k, device=dev).chunk(k)), one,
+                        group=group)
+        if axis is None:
+            dist.all_to_all_single(torch.empty(k, device=dev), one,
+                                   group=group)
+        elif axis == "panel":
+            src = grid.prow * grid.npcol
+            dist.broadcast(one, src=grid._world(src), group=group)
+    torch.cuda.synchronize(dev)
 
 
 def gridinit(nprow: int, npcol: int, device=None, tc=None) -> ProcessGrid:

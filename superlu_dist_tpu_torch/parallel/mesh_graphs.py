@@ -1,54 +1,71 @@
-"""The fused and mega executors on a grid: the 2-D mesh executor's group
-programs captured as segment graphs.
+"""The fused, level and mega executors on a grid: the 2-D mesh
+executor's group programs captured as CUDA graphs.
 
-The JAX package builds both over a mesh — ``make_factor_fn(plan, mesh=,
-pool_partition=)`` traces the whole group loop into one GSPMD program
-(numeric/factor.py:240-388), ``MegaExecutor(mesh=, pool_partition=)``
-one program per closed bucket (numeric/mega.py:75-147).  Here a grid is
-one process per rank, and its collectives — each panel's broadcast over
-the process row (``ProcessGrid.bcast_row``) and each group's exchange
-(``ProcessGrid.exchange``) — run on gloo through host memory, which no
-CUDA graph can hold.  So each rank captures the rank-local launches
-between two collectives as one graph (a *segment*):
+The JAX package builds them over a mesh as single programs —
+``make_factor_fn(plan, mesh=, pool_partition=)`` traces the whole group
+loop into one GSPMD program (numeric/factor.py:240-388),
+``MegaExecutor(mesh=, pool_partition=)`` one program per closed bucket
+(numeric/mega.py:75-147), each with its collectives as in-program ops.
+Here a grid is one process per rank, and a group program
+(``MeshStreamExecutor._group``, a generator) yields at each of its
+collectives: each panel's broadcast over the process row
+(``ProcessGrid.bcast_row``) and the group's exchange
+(``ProcessGrid.exchange``).  What a rank captures depends on whether its
+grid's collectives can be captured (``ProcessGrid.capturable``):
 
-* a group program (``MeshStreamExecutor._group``, a generator) yields at
-  every collective; the launches before the first yield, between two
-  yields and after the last are the group's segments — per group one
-  more than it has broadcasts, plus the one after its exchange;
-* at the first call each segment is captured (``numeric/fused.Graph``,
-  after a warm-up of every group shape on the capture stream with the
-  collectives answered locally — ``warm_up``), replayed at once, and the
-  collective after it runs eagerly and writes its result into a static
-  buffer the next segment's graph reads (``bcast_row(out=)``,
-  ``exchange(out=)``); a later call (refactor, SamePattern, the ladder)
-  replays the segments with the collectives eagerly between them;
-* the pattern values, the threshold, the pool and the tiny count are
-  static buffers; the fronts and pivot stacks are the graphs' outputs,
-  cloned out after each replay; the tiny count's all-reduce stays eager
-  at the end.
+* **NCCL, each rank on a card of its own: one graph a unit.**  The whole
+  program of a unit — a group (fused), a schedule wave (level), a closed
+  key (mega) — is one graph: its collectives are answered inside the
+  capture (``ProcessGrid.recording``: no host work, a record each) into
+  the static buffers the later launches read (``bcast_row(out=)``,
+  ``exchange(out=)``), so a replay launches one graph a unit and no
+  collective runs from the host between two.  Verify mode checks the
+  recorded collectives against the peers' once, before the graph's first
+  replay (``ProcessGrid.check_tape``), and ``comm`` counts a graph's
+  bytes at each replay (``ProcessGrid.replayed``).  Census site
+  ``mesh_graphs.unit``, one record a graph.
+* **gloo (ranks sharing a card): segments.**  gloo's collectives go
+  through host memory, which no graph can hold, so each rank captures
+  the launches between two collectives as one graph (a *segment*: per
+  group one more than it has broadcasts, plus the one after its
+  exchange) and runs each collective eagerly between two segment
+  replays, into the same static buffers.  Census site
+  ``mesh_graphs.segment``, one record a segment.
 
-:class:`MeshFusedExecutor` keeps one graph per (group, segment).
+Either way, at the first call every group shape's program runs once on
+the capture stream with its collectives answered locally (``warm_up``:
+cuBLAS handles, workspaces and the kernel's launch attributes exist
+before any capture, and the runtime audits' digest exchange runs there,
+outside any capture); then each unit is captured, replayed at once, and
+its outputs cloned out; a later call (refactor, SamePattern, the ladder)
+replays.  The pattern values, the threshold, the pool and the tiny count
+are static buffers; the tiny count's all-reduce stays eager at the end.
+
+:class:`MeshFusedExecutor` keeps the graphs of each group,
 :class:`MeshLevelExecutor` (``MeshStreamExecutor(granularity="level")``)
-keeps one per (schedule wave, segment): a wave's group programs run as
-one program, so the launches after a group's exchange and those of the
-next group up to its first collective are one graph, and a wave of k
-groups has k − 1 graphs fewer than the fused executor has for them.
-:class:`MeshMegaExecutor` keeps one per (closed key, segment position):
-a closed key is a group shape (w, u) and whether this rank's process row
-has slots in it; the row's slots are padded to the key's rung (identity
-fronts, ``ws`` 0), the exchange's segment tables to the key's largest
-(a dump segment into a dump element of the pivot stack and of the pool),
+those of each schedule wave (a wave's group programs run as one
+program), :class:`MeshMegaExecutor` those of each closed key — a group
+shape (w, u) and whether this rank's process row has slots in it: the
+row's slots are padded to the key's rung (identity fronts, ``ws`` 0)
 and the group's tables are copied into the key's static buffers before
-its replays, as ``numeric/mega.py`` does on one card.  Both keep their
-graphs in one private pool: a group's segments replay in their capture
-order and its outputs are cloned out before the next group's, so no
-graph's data is live while another's replay reuses its memory.
+its replays, as ``numeric/mega.py`` does on one card.  On NCCL the
+exchange a mega graph holds moves the same counts at every replay, so
+each (rank, peer) leg is padded to the largest of the shape's groups (a
+dump segment a leg: padding read from the front's first element,
+received into a dump element of the pivot stack and of the pool); rank
+r's padded send to d equals d's padded receive from r on every rank
+pair, checked over the grid when the tables are built.  On gloo and on
+the CPU the exchange stays eager and moves each group's own counts
+(``MeshMegaExecutor.pad_legs``).  All graphs of an executor
+share one private pool: the units replay in their capture order and
+each one's outputs are cloned out before the next, so no graph's data
+is live while another's replay reuses its memory, and every collective
+of a graph ends inside it (NCCL's stream joins the capture stream
+before the graph's next launch).
 
-On the CPU both run the same programs eagerly — the fused one bit for
-bit the 2-D executor's, the mega one on its padded tables, also bit for
-bit.  A failed capture or replay raises; nothing falls back.  NCCL
-capture of the collectives inside the graphs is ROADMAP work: the
-segments do not depend on it.
+On the CPU the three run the same programs eagerly — bit for bit the
+2-D executor's.  A failed capture, replay or NCCL call raises; nothing
+falls back to segments, to gloo or to one card.
 """
 
 from __future__ import annotations
@@ -61,24 +78,28 @@ import torch
 
 from superlu_dist_tpu_torch.numeric.plan import bucket_rung
 from superlu_dist_tpu_torch.ops.dense import capture_stream
-from superlu_dist_tpu_torch.parallel.layout2d import Segments
+from superlu_dist_tpu_torch.parallel.layout2d import Segments, layout
 from superlu_dist_tpu_torch.parallel.mesh_stream import (Exchange,
                                                          MeshStreamExecutor,
                                                          _segments, drive,
                                                          share_maps)
 
 
-#: the segment graphs' build site in the census (obs/compilestats.py)
+#: the graphs' build sites in the census (obs/compilestats.py): a
+#: segment between two collectives (gloo), a whole unit (NCCL)
 SEGMENT_SITE = "mesh_graphs.segment"
+UNIT_SITE = "mesh_graphs.unit"
 
 
 class _Done:
-    """A group program's end, captured as the last segment's output."""
+    """A program's end, captured as its last graph's output, with the
+    collectives a unit graph holds (``tape``: their records; None for a
+    segment)."""
 
-    __slots__ = ("value",)
+    __slots__ = ("value", "tape")
 
-    def __init__(self, value):
-        self.value = value
+    def __init__(self, value, tape=None):
+        self.value, self.tape = value, tape
 
 
 def _advance(program, reply):
@@ -90,9 +111,10 @@ def _advance(program, reply):
 
 
 class _GridGraphs(MeshStreamExecutor):
-    """The 2-D mesh executor whose group programs run as segment graphs
-    on the card (module docstring); the subclasses say which program
-    state a group runs on and how its graphs are kept."""
+    """The 2-D mesh executor whose group programs run as CUDA graphs on
+    the card — one a unit on NCCL, segments on gloo (module docstring);
+    the subclasses say which program state a group runs on and how its
+    graphs are kept."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -103,31 +125,32 @@ class _GridGraphs(MeshStreamExecutor):
         self.last_warm_up_launches = 0
 
     def device_estimate(self) -> dict:
-        """``numeric/stream.offload_estimate`` for the segment graphs,
-        bounded by the whole plan's parts: the static pool of
-        :meth:`_pool_len` elements, held for the executor's life; while
-        the graphs warm up (:meth:`_warm`) a scratch pool as large and a
-        step's working set beside it; after the captures the one private
-        pool the graphs share, which keeps the programs' outputs (at most
-        the plan's factors) and the largest step's working set, at the
-        batches of :meth:`_work_batches`."""
-        from superlu_dist_tpu_torch.numeric.stream import (factor_parts,
-                                                           group_work_bytes,
-                                                           offload_estimate)
-        plan = self.plan
+        """``numeric/stream.offload_estimate`` for the graphs, from this
+        rank's share (``share_parts`` at the rows its programs run,
+        :meth:`_rows`): the static pool of :meth:`_pool_len` elements,
+        held for the executor's life; while the graphs warm up
+        (:meth:`_warm`) a scratch pool as large and a step's working set
+        beside it; after the captures the one private pool the graphs
+        share, which keeps the programs' outputs (the rank's share of the
+        factors) and the largest step's working set; the static
+        broadcast and exchange buffers."""
+        from superlu_dist_tpu_torch.numeric.stream import offload_estimate
         itemsize = torch.empty((), dtype=self.dtype).element_size()
-        work = max([group_work_bytes(g, itemsize, b) for g, b in
-                    zip(plan.groups, self._work_batches())], default=0)
+        kept, work = self.share_parts(itemsize)
+        step = max(work, default=0)
         pool = self._pool_len() * itemsize
+        static = sum(self._collective_sizes(self._rows())) * itemsize
         return offload_estimate(
-            plan, self.dtype, pool_len=self._pool_len(),
-            graphs=factor_parts(plan, itemsize)[0] + work, warm=pool + work,
-            lag=self.offload_lag, units=self.units())
+            self.plan, self.dtype, pool_len=self._pool_len(),
+            graphs=self._output_bytes(itemsize) + step + static,
+            warm=pool + step + static, lag=self.offload_lag,
+            units=self.units(),
+            share=(kept, work, self.solve_copy_bytes(itemsize)))
 
-    def _work_batches(self) -> list:
-        """Per group the batch its step's working set is counted at (None:
-        the pow-2 padded one)."""
-        return [None] * len(self.plan.groups)
+    def _output_bytes(self, itemsize: int) -> int:
+        """The graphs' outputs, which their pool keeps: every group's
+        columns and pivot stack once."""
+        return itemsize * sum(self.offload_sizes())
 
     # ---- what every call reads --------------------------------------------
 
@@ -146,14 +169,15 @@ class _GridGraphs(MeshStreamExecutor):
         """(elements of the largest panel broadcast, of the largest
         exchange) this rank receives, with ``rows[gi]`` local slots in
         group gi."""
+        from superlu_dist_tpu_torch.ops.dense import panel_width
         bcast = recv = 0
-        for gi, (grp, gl) in enumerate(zip(self.plan.groups,
-                                           self.layout.groups)):
+        for gi, (grp, gl, (_, got)) in enumerate(zip(
+                self.plan.groups, self.layout.groups,
+                self.exchange_counts())):
             if rows[gi] and self.grid.npcol > 1:
-                from superlu_dist_tpu_torch.ops.dense import panel_width
                 bcast = max(bcast, rows[gi] * gl.m_ext
                             * panel_width(grp.w)[0])
-            recv = max(recv, int(np.sum(gl.recv_counts)))
+            recv = max(recv, int(np.sum(got)))
         return bcast, recv
 
     def _buffers(self, avals, thresh):
@@ -187,10 +211,6 @@ class _GridGraphs(MeshStreamExecutor):
     def _got_buffer(self, device):
         recv = self._collective_sizes(self._rows())[1]
         return torch.empty(max(recv, 1), dtype=self.dtype, device=device)
-
-    def _rows(self) -> list:
-        """Local slots per group in this executor's programs."""
-        return [len(gl.slots) for gl in self.layout.groups]
 
     def _static_collective(self, bufs):
         """``_collective`` writing into the call's static buffers: a
@@ -244,16 +264,25 @@ class _GridGraphs(MeshStreamExecutor):
         # the warm-up's launches are real ones, of the call that captures
         self.last_warm_up_launches = (kernels.LAUNCHES["front_assemble"]
                                       - before["front_assemble"])
+        # the warm-up's blocks back to the card before the captures: the
+        # graphs' private pool cannot take torch's cached blocks, and a
+        # capture cannot free them when it needs the room
+        scratch.__dict__.clear()
+        torch.cuda.empty_cache()
         self._warmed = True
 
     def _capture(self, program, bufs, pool, label) -> list:
-        """A group program's segments: each captured on the capture
-        stream into ``pool`` (a graph pool handle), replayed, then the
-        collective that ends it run into the static buffers.  Returns
-        [(Graph, request or _Done)] — the last entry's ``_Done`` holds
-        the program's outputs.  Each segment is one build in the census,
-        site ``mesh_graphs.segment``, key ``{label} s{index}``."""
+        """A unit's program captured on the capture stream into ``pool``
+        (a graph pool handle) and run once: [(Graph, request or _Done)],
+        the last entry's ``_Done`` holding the program's outputs.  On a
+        capturable grid one graph holds the whole program
+        (:meth:`_capture_unit`); else each segment is captured, replayed,
+        then the collective that ends it run into the static buffers —
+        one build in the census each, site ``mesh_graphs.segment``, key
+        ``{label} s{index}``."""
         from superlu_dist_tpu_torch.numeric.fused import Graph
+        if self.grid.capturable:
+            return [self._capture_unit(program, bufs, pool, label)]
         run = self._static_collective(bufs)
         segs, reply = [], None
         while True:
@@ -272,14 +301,39 @@ class _GridGraphs(MeshStreamExecutor):
                 return segs
             reply = run(req)
 
-    def _replay(self, segs, gl, bufs):
-        """One program's segments replayed, the collectives between them
-        run eagerly — an exchange on group layout ``gl``'s counts (None:
-        the captured request's own); returns the program's outputs."""
+    def _capture_unit(self, program, bufs, pool, label) -> tuple:
+        """A unit's whole program as one graph: its collectives answered
+        inside the capture (``ProcessGrid.recording``) into the static
+        buffers; verify mode's checks of them against the peers' before
+        the graph first runs; then its first replay.  One build in the
+        census, site ``mesh_graphs.unit``, key ``label``.  Returns
+        (Graph, _Done with the outputs and the collectives' records)."""
+        from superlu_dist_tpu_torch.numeric.fused import Graph
+        grid = self.grid
+        run = self._static_collective(bufs)
+        with grid.recording() as tape:
+            graph = Graph(lambda: _Done(drive(program, run)), self.device,
+                          self._stream, pool=pool, site=UNIT_SITE,
+                          key=label)
+        self.captures += 1
+        grid.check_tape(tape)
+        done = graph.outputs
+        done.tape = tape
+        graph.replay()
+        grid.replayed(tape)
+        return graph, done
+
+    def _replay(self, segs, bufs, gl=None):
+        """One program's graphs replayed — a unit graph alone, or the
+        segments with the collectives between them run eagerly, an
+        exchange on group layout ``gl``'s counts (None: the captured
+        request's own); returns the program's outputs."""
         run = self._static_collective(bufs)
         for graph, req in segs:
             graph.replay()
             if isinstance(req, _Done):
+                if req.tape is not None:
+                    self.grid.replayed(req.tape)
                 return req.value
             if isinstance(req, Exchange) and gl is not None:
                 req = Exchange(req.send, gl)
@@ -297,14 +351,17 @@ class _GridGraphs(MeshStreamExecutor):
             rep.update(graph_totals(graphs), segments=len(graphs),
                        **self.graph_stats)
         rep["warm_up_launches"] = self.last_warm_up_launches
+        # one graph a unit, its collectives inside (NCCL), or segments
+        rep["graph_kind"] = "unit" if self.grid.capturable else "segment"
         return rep
 
 
 class MeshFusedExecutor(_GridGraphs):
     """``Options(executor="fused")`` on a grid of several ranks: every
-    group's segments captured at the first call and replayed by the later
-    ones — one graph per (group, segment), kept per (plan, dtype, tier,
-    grid) in ``numeric/factor.get_executor``'s cache.  No offload: the
+    group's program captured at the first call and replayed by the later
+    ones — one graph a group on NCCL, one per (group, segment) on gloo,
+    kept per (plan, dtype, tier, grid) in ``numeric/factor.
+    get_executor``'s cache.  No offload: the
     JAX fused program has none, so on the card the card's rule refuses
     it on every rank where it does not fit."""
 
@@ -318,7 +375,7 @@ class MeshFusedExecutor(_GridGraphs):
         super().__init__(plan, dtype, device, grid, gemm_prec=gemm_prec,
                          scatter=scatter, pool_partition=pool_partition,
                          offload="auto", panel=panel)
-        self._segs = {}            # group -> its segments
+        self._segs = {}            # group -> its graphs
 
     def _run_group(self, gi, bufs):
         if self.device.type != "cuda":
@@ -336,7 +393,7 @@ class MeshFusedExecutor(_GridGraphs):
             self._segs[gi] = segs  # slulint: disable=SLU105
             out = segs[-1][1].value
         else:
-            out = self._replay(segs, self.layout.groups[gi], bufs)
+            out = self._replay(segs, bufs)
         return self._finish(gi, *out, clone=True)
 
     def _graphs(self) -> list:
@@ -346,18 +403,18 @@ class MeshFusedExecutor(_GridGraphs):
 class MeshLevelExecutor(_GridGraphs):
     """``MeshStreamExecutor(granularity="level")``: the 2-D executor run
     wave by wave.  On the card each schedule wave's group programs run as
-    one program whose segments are captured at the first call and
-    replayed by the later ones, the collectives eagerly between them —
-    one graph per (wave, segment), kept in one private pool; on the CPU
-    the groups' programs run eagerly, bit for bit the "group"
-    granularity's.  Offload as on the 2-D executor: a wave's groups go to
-    host memory after its last segment."""
+    one program, captured at the first call and replayed by the later
+    ones — one graph a wave on NCCL, one per (wave, segment) on gloo
+    with the collectives eagerly between them — kept in one private
+    pool; on the CPU the groups' programs run eagerly, bit for bit the
+    "group" granularity's.  Offload as on the 2-D executor: a wave's
+    groups go to host memory after its last graph."""
 
     name = "mesh-stream"
 
     def __init__(self, *args, granularity="level", **kw):
         super().__init__(*args, granularity=granularity, **kw)
-        self._segs = {}            # wave (lo, hi) -> its segments
+        self._segs = {}            # wave (lo, hi) -> its graphs
 
     def _wave(self, lo, hi, states, bufs):
         """Groups lo..hi-1's programs as one program: the outputs of
@@ -383,12 +440,38 @@ class MeshLevelExecutor(_GridGraphs):
             self._segs[(lo, hi)] = segs  # slulint: disable=SLU105
             outs = segs[-1][1].value
         else:
-            outs = self._replay(segs, None, bufs)
+            outs = self._replay(segs, bufs)
         return [self._finish(gi, *o, clone=True)
                 for gi, o in zip(range(lo, hi), outs)]
 
     def _graphs(self) -> list:
         return [g for segs in self._segs.values() for g, _ in segs]
+
+
+def _pad_legs(seg, counts, padded, dump: int = 0) -> Segments:
+    """Send segments ``seg`` (in destination order, ``counts[d]``
+    elements for rank d) with each destination's leg padded to
+    ``padded[d]`` elements: after its segments one of the missing
+    elements, read at ``dump`` (stride 0)."""
+    ends = np.cumsum(counts)
+    dest = np.searchsorted(ends, seg.buf, side="right")
+    parts = []
+    for d in range(len(counts)):
+        mine = dest == d
+        parts.append((seg.start[mine], seg.length[mine], seg.stride[mine]))
+        parts.append(([dump], [int(padded[d] - counts[d])], [0]))
+    return Segments.of(parts)
+
+
+def _rebase_legs(seg, counts, padded) -> Segments:
+    """Receive segments ``seg`` reading a buffer of ``counts[r]``
+    elements from each source r, in rank order, moved to read the buffer
+    of ``padded[r]`` elements a source."""
+    old = np.concatenate([[0], np.cumsum(counts)])
+    new = np.concatenate([[0], np.cumsum(padded)])
+    src = np.searchsorted(old[1:], seg.buf, side="right")
+    return Segments(seg.start, seg.length, seg.stride,
+                    seg.buf - old[src] + new[src])
 
 
 def _pad_segments(seg, rows: int, total: int, dump: int) -> Segments:
@@ -405,42 +488,44 @@ def _pad_segments(seg, rows: int, total: int, dump: int) -> Segments:
 
 class MeshMegaExecutor(_GridGraphs):
     """``Options(executor="mega")`` on a grid of several ranks: one graph
-    per (closed key, segment position) — a closed key is (w, u, this
-    process row has slots) — the group's padded tables copied into the
-    key's static buffers before its replays (module docstring).  Offload
-    as on the 2-D executor (the JAX MegaExecutor streams too)."""
+    a closed key on NCCL, one per (closed key, segment position) on gloo
+    — a closed key is (w, u, this process row has slots) — the group's
+    padded tables copied into the key's static buffers before its
+    replays (module docstring).  ``pad_legs``: the exchange moves its
+    group shape's padded counts, which a captured all-to-all needs (a
+    capturable grid); else each group's own, eagerly between segments.
+    Offload as on the 2-D executor (the JAX MegaExecutor streams too)."""
 
     name = "mesh-mega"
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
                  scatter=None, pool_partition=False, offload="auto",
                  front_bytes_limit=None, offload_lag=8, panel=None):
-        super().__init__(plan, dtype, device, grid, gemm_prec=gemm_prec,
-                         scatter=scatter, pool_partition=pool_partition,
-                         offload=offload, front_bytes_limit=front_bytes_limit,
-                         offload_lag=offload_lag, panel=panel)
+        # the keys and their padded shapes first: the card's rule reads
+        # them (device_estimate) while the base class is built
+        groups = layout(plan, grid.nprow, grid.npcol, grid.rank,
+                        bool(pool_partition)).groups
         self.key_of = [(g.w, g.u, bool(len(gl.slots)))
-                       for g, gl in zip(plan.groups, self.layout.groups)]
+                       for g, gl in zip(plan.groups, groups)]
         self.spec = {}
-        for g, gl, key in zip(plan.groups, self.layout.groups, self.key_of):
+        for g, gl, key in zip(plan.groups, groups, self.key_of):
             rows, batch = self.spec.get(key, (0, 0))
             self.spec[key] = (max(rows, len(gl.slots)), max(batch, g.batch))
         self.spec = {k: (bucket_rung(r, lo=1, growth=2.0) if r else 0,
                          bucket_rung(b, lo=1, growth=2.0))
                      for k, (r, b) in self.spec.items()}
         self._tables = None        # per group: its padded state
-        self._keys = {}            # key -> (static state, segments)
+        self._keys = {}            # key -> (static state, its graphs)
+        self._legs = None          # per group shape: its padded counts
+        self.pad_legs = grid.capturable
+        super().__init__(plan, dtype, device, grid, gemm_prec=gemm_prec,
+                         scatter=scatter, pool_partition=pool_partition,
+                         offload=offload, front_bytes_limit=front_bytes_limit,
+                         offload_lag=offload_lag, panel=panel)
 
     @property
     def closed_keys(self) -> int:
         return len(self.spec)
-
-    def _work_batches(self) -> list:
-        # a key's slots are padded to the rung of its largest batch at
-        # most: the single card's buckets bound them
-        from superlu_dist_tpu_torch.numeric.mega import bucket_batches
-        spec = bucket_batches(self.plan)
-        return [spec[(g.w, g.u)] for g in self.plan.groups]
 
     def _padded_batch(self, gi) -> int:
         return self.spec[self.key_of[gi]][1]
@@ -451,33 +536,98 @@ class MeshMegaExecutor(_GridGraphs):
     def _rows(self) -> list:
         return [self.spec[k][0] for k in self.key_of]
 
+    def _output_bytes(self, itemsize: int) -> int:
+        """Each closed key's graph outputs at its padded rows and pivot
+        stack: the largest of its groups' columns, once a key."""
+        out = {}
+        for g, gl, key in zip(self.plan.groups, self.layout.groups,
+                              self.key_of):
+            rows, b_pad = self.spec[key]
+            n = rows * (g.m * gl.kw + g.w * (gl.mc - gl.kw)) \
+                + b_pad * g.w * g.w + 1
+            out[key] = max(out.get(key, 0), n)
+        return itemsize * sum(out.values())
+
+    def _padded_legs(self) -> dict:
+        """Per group shape (w, u): the exchange's (send, receive) counts
+        by peer rank, each the largest of the shape's groups — the counts
+        every graph of the shape moves, whichever group it replays.
+        Rank r's send to d is d's receive from r: both are the largest of
+        the same groups' counts of that leg."""
+        if self._legs is None:
+            legs = {}
+            for g, gl in zip(self.plan.groups, self.layout.groups):
+                send, recv = legs.get((g.w, g.u), (0, 0))
+                legs[(g.w, g.u)] = (np.maximum(send, gl.send_counts),
+                                    np.maximum(recv, gl.recv_counts))
+            self._legs = legs
+        return self._legs
+
+    def exchange_counts(self) -> list:
+        if not self.pad_legs:
+            return super().exchange_counts()
+        legs = self._padded_legs()
+        return [legs[(g.w, g.u)] for g in self.plan.groups]
+
+    def _check_legs(self) -> None:
+        """The padded counts of every group shape against every rank's,
+        in one gather over the grid: a captured all-to-all whose legs
+        disagree would hang, so a mismatch raises CollectiveMismatchError
+        on every rank before anything runs."""
+        legs = self._padded_legs()
+        shapes = sorted(legs)
+        nd = self.grid.nproc
+        mine = np.concatenate([np.concatenate(legs[k]) for k in shapes])
+        got = self.grid._gather_host(torch.as_tensor(
+            mine, dtype=torch.float64)).reshape(nd, len(shapes), 2, nd)
+        # got[r, k, 0, d]: r's send to d; got[d, k, 1, r]: d's receive
+        if np.array_equal(got[:, :, 0, :], got[:, :, 1, :].transpose(2, 1,
+                                                                     0)):
+            return
+        from superlu_dist_tpu_torch.utils.errors import CollectiveMismatchError
+        raise CollectiveMismatchError(
+            [{"rank": r, "seq": -1, "op": "exchange",
+              "shape": tuple(int(c) for c in got[r].reshape(-1)),
+              "dtype": 0, "site": "mesh-mega padded exchange counts"}
+             for r in range(nd)], rank=self.rank)
+
     def _padded_tables(self):
         """Per group: its program state at the key's padded shapes — the
         share's maps at the key's rung of slots, the pivot stack at the
         key's batch rung plus a dump element, every segment table at the
-        key's largest count and total."""
+        key's largest count and total; with ``pad_legs`` the exchange at
+        its shape's padded counts (``xchg``)."""
         if self._tables is not None:
             return self._tables
         plan, dev = self.plan, self.device
         pool_dump = self.layout.pool_len
-        kinds = ("send", "recv_piv", "recv_pool")
+        counts = self.exchange_counts()
+        if self.pad_legs:
+            self._check_legs()
+            # each group's exchange tables at its shape's padded counts
+            moved = [(_pad_legs(gl.send, gl.send_counts, send),
+                      _rebase_legs(gl.recv_piv, gl.recv_counts, recv),
+                      _rebase_legs(gl.recv_pool, gl.recv_counts, recv))
+                     for gl, (send, recv) in zip(self.layout.groups, counts)]
+        else:
+            moved = [(gl.send, gl.recv_piv, gl.recv_pool)
+                     for gl in self.layout.groups]
         most = {}
-        for key, gl in zip(self.key_of, self.layout.groups):
-            segs = [getattr(gl, k) for k in kinds] + [gl.self_piv[0],
-                                                      gl.self_pool[0]]
+        for key, gl, mv in zip(self.key_of, self.layout.groups, moved):
+            segs = list(mv) + [gl.self_piv[0], gl.self_pool[0]]
             old = most.get(key, [(0, 0)] * len(segs))
             most[key] = [(max(n, len(s.length)), max(t, s.total))
                          for (n, t), s in zip(old, segs)]
         out = []
-        for gi, (grp, gl, key) in enumerate(zip(plan.groups,
-                                                self.layout.groups,
-                                                self.key_of)):
+        for gi, (grp, gl, key, (snd, rpv, rpl)) in enumerate(zip(
+                plan.groups, self.layout.groups, self.key_of, moved)):
             rows, b_pad = self.spec[key]
             piv_dump = b_pad * grp.w * grp.w
             (ns, ts), (npv, tpv), (npl, tpl), (nsp, tsp), (nso, tso) = \
                 [(n + 1, t) for n, t in most[key]]
             frm_p, to_p = gl.self_piv
             frm_o, to_o = gl.self_pool
+            send, recv = counts[gi]
             out.append(dict(
                 maps=share_maps(gl, dev, batch=rows)
                 if rows and gl.mc else None,
@@ -485,11 +635,14 @@ class MeshMegaExecutor(_GridGraphs):
                                           (0, rows - len(gl.slots))),
                                    device=dev),
                 rows=rows, piv_len=piv_dump + 1,
-                send=_segments(_pad_segments(gl.send, ns, ts, 0), dev),
-                piv=_segments(_pad_segments(gl.recv_piv, npv, tpv,
-                                            piv_dump), dev),
-                pool=_segments(_pad_segments(gl.recv_pool, npl, tpl,
-                                             pool_dump), dev),
+                xchg=types.SimpleNamespace(
+                    send=types.SimpleNamespace(total=int(send.sum())),
+                    send_counts=send, recv_counts=recv)
+                if self.pad_legs else None,
+                send=_segments(_pad_segments(snd, ns, ts, 0), dev),
+                piv=_segments(_pad_segments(rpv, npv, tpv, piv_dump), dev),
+                pool=_segments(_pad_segments(rpl, npl, tpl, pool_dump),
+                               dev),
                 self_piv=[_segments(_pad_segments(frm_p, nsp, tsp, 0), dev),
                           _segments(_pad_segments(to_p, nsp, tsp, piv_dump),
                                     dev)],
@@ -541,6 +694,7 @@ class MeshMegaExecutor(_GridGraphs):
                 gcol=fm0.gcol)
         state = dict(maps=maps, ws=like([t["ws"] for t in tables]),
                      rows=first["rows"], piv_len=first["piv_len"],
+                     xchg=first["xchg"],
                      send=seg("send"), piv=seg("piv"), pool=seg("pool"),
                      self_piv=[seg("self_piv", 0), seg("self_piv", 1)],
                      self_pool=[seg("self_pool", 0), seg("self_pool", 1)])
@@ -593,7 +747,10 @@ class MeshMegaExecutor(_GridGraphs):
             self._keys[key] = (state, segs)  # slulint: disable=SLU105
             out = segs[-1][1].value
         else:
-            out = self._replay(segs, self.layout.groups[gi], bufs)
+            # segments (gloo): the exchange between them on the group's
+            # own counts
+            out = self._replay(segs, bufs, None if self.pad_legs
+                               else self.layout.groups[gi])
         return self._finish(gi, *out, clone=True)
 
     def _graphs(self) -> list:

@@ -151,12 +151,26 @@ def _put(target, segs, buf, pairs, local, dev):
 class Exchange:
     """A group's exchange, as a group program (``MeshStreamExecutor.
     _group``) yields it: the send buffer (its first ``gl.send.total``
-    elements go out) and the group's layout, whose counts it takes."""
+    elements go out) and the group's layout, whose counts it takes (or
+    anything with ``send.total``, ``send_counts`` and ``recv_counts``:
+    the grid's mega executor's padded counts)."""
 
     __slots__ = ("send", "gl")
 
     def __init__(self, send, gl):
         self.send, self.gl = send, gl
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """Front columns ``t`` (a slice of the front) in a storage of their
+    own size: ``contiguous()`` returns a slice that already is one — an
+    empty one always, the leading rows of the front at one slot — as a
+    view, which would keep the whole front on the card beside the
+    factors (a rank with none of a group's pivot columns)."""
+    t = t.contiguous()
+    if t.untyped_storage().nbytes() > t.numel() * t.element_size():
+        t = t.clone()
+    return t
 
 
 def run_request(grid, dtype, req, out=None):
@@ -378,14 +392,20 @@ class MeshStreamExecutor:
             bufs.tiny += torch.where(real, flags, 0).sum()
         clock = self._lap("partial_factor", clock)
         flat = a.reshape(-1)
-        send = flat[expand(st["send"], st["send"]["total"], dev)[0]] \
-            if st["send"]["total"] else a.new_empty(0)
-        got = yield Exchange(send, gl)
+        total = st["send"]["total"]
+        if total and flat.numel():
+            send = flat[expand(st["send"], total, dev)[0]]
+        else:
+            # nothing to send, or (the grid's mega executor, a rank with
+            # no slots) only a padded leg's filler
+            send = a.new_zeros(total)
+        # the exchange's counts: the group's own, or the padded ones its
+        # state carries (the grid's mega executor: one per group shape)
+        got = yield Exchange(send, st.get("xchg") or gl)
         piv = torch.empty(st["piv_len"], dtype=self.dtype, device=dev)
         _put(piv, st["piv"], got, st["self_piv"], flat, dev)
         _put(bufs.pool, st["pool"], got, st["self_pool"], flat, dev)
-        out = (a[:, :m, :gl.kw].contiguous(),
-               a[:, :w, gl.kw:gl.mc].contiguous(), piv)
+        out = (_own(a[:, :m, :gl.kw]), _own(a[:, :w, gl.kw:gl.mc]), piv)
         self._lap("exchange", clock)
         return out
 
@@ -416,13 +436,83 @@ class MeshStreamExecutor:
                     (st, bufs, self.grid))
 
     def device_estimate(self) -> dict:
-        """``numeric/stream.offload_estimate`` for this rank: its pool of
-        :meth:`_pool_len` elements, and the whole plan's factors, working
-        sets, solve copy and maps, which bound its shares of them."""
+        """``numeric/stream.offload_estimate`` for this rank's share: its
+        pool of :meth:`_pool_len` elements, and per group what it keeps
+        and its program's working set (:meth:`share_parts`), its
+        solver's copy (:meth:`solve_copy_bytes`) and the plan's maps,
+        which bound its shares of them.  Ranks on cards of their own
+        are each held to their own card's budget (``offload_rule``)."""
         from superlu_dist_tpu_torch.numeric.stream import offload_estimate
         return offload_estimate(self.plan, self.dtype,
                                 pool_len=self._pool_len(),
-                                lag=self.offload_lag)
+                                lag=self.offload_lag,
+                                share=self._share())
+
+    def _share(self) -> tuple:
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        kept, work = self.share_parts(itemsize)
+        return kept, work, self.solve_copy_bytes(itemsize)
+
+    def share_parts(self, itemsize: int) -> tuple:
+        """(per group the bytes this rank keeps — its own L and U12
+        columns and the group's pivot stack —, per group its program's
+        working set: the assembled column share and its padded copy,
+        beside the larger of a trailing update's product with the panel
+        broadcast, and the exchange's legs with the int64 indices that
+        expand them — six an element at most at once — and the pivot
+        stack)."""
+        kept = [n * itemsize for n in self.offload_sizes()]
+        work = []
+        rows = self._rows()
+        for gi, (g, gl, (snd, got)) in enumerate(zip(
+                self.plan.groups, self.layout.groups,
+                self.exchange_counts())):
+            c = rows[gi]
+            front = c * g.m * gl.mc
+            ext = c * gl.m_ext * gl.mc_ext
+            pad = ext if ext > front else 0
+            bcast = c * gl.m_ext * panel_width(g.w)[0]
+            moved = int(np.sum(snd)) + int(np.sum(got))
+            work.append(itemsize * (front + pad) + max(
+                itemsize * (ext + bcast),
+                (itemsize + 48) * moved + itemsize * g.batch * g.w * g.w))
+        return kept, work
+
+    def solve_copy_bytes(self, itemsize: int) -> int:
+        """Device bytes of the grid solver's copy on this rank
+        (parallel/spmd.SpmdSolver on the 2-D tier): per sweep batch of
+        the default solve plan the whole pivot stack and its process
+        row's members' own L21 and U12 columns, padded to the widest;
+        beside them the larger of the largest batch once more (its parts
+        before their concatenation, while the copy is built) and a
+        sweep's padded product: where this rank has one member of a
+        batch of several, its panel is multiplied as two slots
+        (``spmd._matmul``), a copy of two panels beside the zero slot it
+        is made of."""
+        from superlu_dist_tpu_torch.solve.plan import build_solve_plan
+        lay, npr, prow = self.layout.groups, self.grid.nprow, self.grid.prow
+        sizes, padded = [], 0
+        for sg in build_solve_plan(self.plan).groups:
+            src_g = np.asarray(sg.src_group, dtype=np.int64)
+            mine = src_g[np.asarray(sg.src_slot) % npr == prow]
+            kw = max((lay[g].kw for g in mine), default=0)
+            ku = max((lay[g].mc - lay[g].kw for g in mine), default=0)
+            sizes.append(itemsize * (sg.batch * (sg.w * sg.w + 1)
+                                     + len(mine) * (sg.u * kw + sg.w * ku)))
+            if len(mine) == 1 and sg.batch > 1:
+                padded = max(padded,
+                             3 * itemsize * max(sg.u * kw, sg.w * ku))
+        return sum(sizes) + max(max(sizes, default=0), padded)
+
+    def exchange_counts(self) -> list:
+        """Per group, the (send, receive) counts by peer rank of the
+        exchange this rank's programs issue: the group's own (the grid's
+        mega executor pads them)."""
+        return [(gl.send_counts, gl.recv_counts) for gl in self.layout.groups]
+
+    def _rows(self) -> list:
+        """Local slots per group in this executor's programs."""
+        return [len(gl.slots) for gl in self.layout.groups]
 
     def _pool_len(self) -> int:
         """The pool's elements (the mega executor's has a dump element

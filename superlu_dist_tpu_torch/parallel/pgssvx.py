@@ -567,8 +567,9 @@ def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
     ``lu_out["timings"]`` holds this rank's seconds: the analysis and its
     broadcast, FACT, the grid's data collectives (bytes and seconds),
     SOLVE and REFINE, and its device memory: allocated before the
-    factorization (``base_bytes``) and the peak from there
-    (``peak_bytes``); on the 2-D tier also its pool bytes and its
+    factorization (``base_bytes``) and the peak from there, at the end
+    of FACT (``fact_peak_bytes``) and of the call (``peak_bytes``); on
+    the 2-D tier also its pool bytes and its
     exchange and row-broadcast bytes, seconds and counts; the offload's
     mode, wait seconds and this rank's host bytes; and on the segment
     graphs (``Options(executor="fused"/"mega")``) their count, capture
@@ -640,6 +641,8 @@ def _pgssvx_mesh(tc, options, a_loc, b2, grid, one_d, wdtype, lu=None,
         info_r = factorize_numeric(lu, bvals, stats, grid=grid,
                                    deadline_comm=tc)
         timings["fact_s"] = stats.utime["FACT"]
+        if dev.type == "cuda":
+            timings["fact_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         # the 2-D executor's pool and its exchange and broadcast traffic,
         # the offload (its mode, wait and this rank's host bytes) and the
         # segment graphs (their count, capture seconds and device bytes)

@@ -796,11 +796,15 @@ def mesh_main(rank: int, nd: int, port: str, shm: str, fn, args,
         rec["out"] = fn(tc, grid, *args)
     except Exception:
         rec["error"] = traceback.format_exc()
+        # before leaving the group, which may wait for peers that wait
+        # for this rank
+        results.put(rec)
+    else:
+        results.put(rec)
     finally:
         if tc is not None:
             tc.close()
         shutdown()
-    results.put(rec)
 
 
 @functools.cache
@@ -832,8 +836,9 @@ def run_mesh_ranks(nd: int, fn, *args, device="cpu", timeout: float = 300.0,
     nprow × (nd/nprow) grid (a gloo process group on the CPU; ``device``
     as ``parallel/mhboot.boot`` takes it) and return {rank: fn's result}.
     ``fn`` must be importable by name in the children.  Raises
-    RuntimeError naming every rank that raised, TimeoutError when a rank
-    does not report in ``timeout``."""
+    RuntimeError naming the ranks that raised — at the first one's
+    report: its peers may wait for it in a collective and never report —
+    and TimeoutError when a rank does not report in ``timeout``."""
     if nd % nprow:
         raise ValueError(f"{nd} ranks do not fill {nprow} process rows")
     import multiprocessing as mp
@@ -848,8 +853,11 @@ def run_mesh_ranks(nd: int, fn, *args, device="cpu", timeout: float = 300.0,
              for r in range(nd)}
     for p in procs.values():
         p.start()
+    deadline = time.monotonic() + timeout
+    recs = []
     try:
-        recs = collect(results, nd, timeout, procs)
+        while len(recs) < nd and not any("error" in r for r in recs):
+            recs += collect(results, 1, deadline - time.monotonic(), procs)
     finally:
         stop_peers(procs)
     errors = {r["rank"]: r["error"] for r in recs if "error" in r}

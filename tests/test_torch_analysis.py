@@ -924,3 +924,70 @@ def test_mesh_entry_check_raises_on_every_rank():
         assert out[r].startswith("raised: mesh entry check failed on "
                                  "rank(s) [1]"), out[r]
     assert "device 'cuda'" in out[1] or "device cuda" in out[1], out[1]
+
+
+# --------------------------------------------------------------------------
+# a grid's collectives inside a capture (parallel/mesh_graphs.py on NCCL)
+# --------------------------------------------------------------------------
+
+CAPTURED_GRID = """
+import torch
+from superlu_dist_tpu_torch.numeric.fused import Graph
+from superlu_dist_tpu_torch.parallel.grid import ProcessGrid
+
+
+def unit(grid: ProcessGrid, t, counts, dev, stream):
+    with grid.recording() as tape:
+        graph = Graph(lambda: grid.exchange(
+            grid.bcast_row(t, 0, t.shape, t.dtype).reshape(-1), counts,
+            counts), dev, stream, site="t", key="k")
+    grid.check_tape(tape)
+    return graph
+"""
+
+
+def _with_grid(source):
+    """``source`` as a module of the port's parallel/ beside the real
+    parallel/grid.py and numeric/fused.py, so that the capture body's
+    calls resolve into ProcessGrid's collectives."""
+    pkg = os.path.join(REPO, "superlu_dist_tpu_torch")
+    sources = {os.path.join(pkg, "parallel", "unit_fixture.py"): source}
+    for rel in (("parallel", "grid.py"), ("numeric", "fused.py")):
+        path = os.path.join(pkg, *rel)
+        with open(path) as fh:
+            sources[path] = fh.read()
+    return tanalysis.analyze_sources(sources)
+
+
+def test_grid_collectives_inside_a_capture_are_clean():
+    """A broadcast over the row and the exchange inside a capture body
+    (a unit graph on an NCCL grid) reach ProcessGrid's collectives, whose
+    verify checks and host reads wait for check_tape outside the
+    capture: no SLU101 / SLU102 / SLU105 / SLU107 finding anywhere."""
+    assert _with_grid(CAPTURED_GRID) == []
+
+
+def test_a_host_sync_inside_a_grid_capture_is_still_flagged():
+    """The same capture body with a coercion of a tensor in it: SLU102
+    flags the coercion where it is written, and only it."""
+    src = CAPTURED_GRID.replace("t.shape, t.dtype)",
+                                "t.shape, t.dtype) * int(t.sum())")
+    fs = _with_grid(src)
+    assert [(f.rule, os.path.basename(f.path), f.line) for f in fs] == [
+        ("SLU102", "unit_fixture.py", 10)]
+    assert "`int()` of a tensor inside a capture body" in fs[0].message
+
+
+def test_grid_collectives_in_a_capture_outside_recording_are_flagged():
+    """The same capture body outside ``grid.recording()``: the grid's
+    collectives run their verify checks and host reads on the host there,
+    so SLU102 follows the capture into parallel/grid.py and flags them,
+    each reached from the fixture's capture."""
+    src = CAPTURED_GRID.replace(
+        "    with grid.recording() as tape:\n        graph = Graph(",
+        "    tape = []\n    if True:\n        graph = Graph(")
+    assert "recording" not in src
+    fs = _with_grid(src)
+    assert fs and {f.rule for f in fs} == {"SLU102"}, fs
+    assert {os.path.basename(f.path) for f in fs} == {"grid.py"}, fs
+    assert all("unit_fixture.py" in f.message for f in fs), fs

@@ -1405,6 +1405,72 @@ def test_grid_graphs_capture_and_replay_on_one_card(cuda, executor):
                                    rec["owned_groups"]]
 
 
+_DISTINCT = {}
+
+
+def _distinct_cards(shape):
+    """The grid graph executors on an nprow × npcol grid of distinct
+    cards (NCCL), one spawned run a shape (cached): poisson3d(16) and
+    (25), each executor's capturing call and its replay."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    need = shape[0] * shape[1]
+    count = torch.cuda.device_count()
+    if count < need:
+        pytest.skip(f"needs {need} distinct cards, {count} visible")
+    if shape not in _DISTINCT:
+        _DISTINCT[shape] = run_mesh_ranks(
+            need, cases.grid_units_on_distinct_cards,
+            [("poisson3d", (nx,), 0, None) for nx in (16, 25)],
+            cases.GRAPH_EXECUTORS, device="cuda", nprow=shape[0],
+            timeout=1200)
+    return _DISTINCT[shape]
+
+
+@pytest.mark.parametrize("nx", [16, 25])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+@pytest.mark.parametrize("executor", ["fused", "level", "mega"])
+def test_grid_unit_graphs_on_distinct_cards(cuda, executor, shape, nx):
+    """NCCL on a 1×2 and a 2×2 grid of distinct cards, float32 at the
+    default tier: fused captures one graph a group, level one a schedule
+    wave, mega one a closed key, their collectives inside (census site
+    mesh_graphs.unit, one record a graph); each rank's fronts bit for bit
+    the eager 2-D executor's at the capture and at a SamePattern ×1.5
+    replay (mega's within TF32_DRIFT: it runs each group at its key's
+    padded rows, and cuBLAS takes another kernel for the larger batch —
+    the one-card mega's deliberate difference); the replay captures
+    nothing, retraces nothing and issues no
+    collective from the host (the tiny count's all-reduce aside); the
+    grid stages nothing through pinned memory; gssvx(grid=) with fused
+    and mega reaches BERR ≤ 2.22e-15."""
+    out = _distinct_cards(shape)
+    target = float(tols.berr_target(np.float64))
+    for r, rank in out.items():
+        assert rank["backend"] == "nccl" and rank["capturable"], rank
+        assert not rank["staged"] and rank["pinned"] == 0, rank
+        rec = rank["runs"][(nx, executor)]
+        capture, replay = rec["runs"]
+        units = rec["graph_units"]
+        if executor == "fused":
+            assert units == rec["groups"]
+        assert rec["report"]["graph_kind"] == "unit"
+        assert rec["report"]["graphs"] == units, (r, rec["report"])
+        assert capture["units"] == units and replay["units"] == 0, rec
+        assert capture["retraces"] == replay["retraces"] == 0, rec
+        assert replay["issued"] == 0, (r, replay)
+        for run in (capture, replay):
+            if executor == "mega":
+                assert run["equal"] or run["drift"] <= tols.TF32_DRIFT, rec
+            else:
+                assert run["equal"], (r, run["drift"])
+        assert [capture["tiny"], replay["tiny"]] == rec["tiny_eager"]
+        assert replay["comm"]["exchange"]["calls"] == rec["groups"]
+        assert replay["comm"]["exchange"]["bytes"] > 0
+        if executor != "level":
+            assert rec["info"] == 0 and rec["berr"] <= target, rec
+            assert rec["executor"] == "mesh-" + executor
+
+
 def test_offloaded_grid_factors_lie_in_pinned_host_memory(cuda):
     """front_bytes_limit=0 on a 1×2 grid on one card: every rank's fronts
     and pivot stacks in pinned host memory, bit for bit the non-offloaded

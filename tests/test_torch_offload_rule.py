@@ -322,10 +322,10 @@ def test_ranks_with_different_budgets_offload_alike():
 @pytest.mark.parametrize("cards,want", [([7, 7], "host"), ([7, 8], "none")],
                          ids=["one card", "two cards"])
 def test_ranks_that_share_a_card_count_their_pools_together(cards, want):
-    """Each rank's budget is its own estimate plus its offloaded one:
-    alone each fits, but two ranks on one card hold two pools and two
-    shares of the factors there, so the grid offloads (offloaded, the
-    two fit); on two cards it does not."""
+    """Each rank's budget is the ranks' mean of an estimate plus its
+    offloaded one: alone each fits, but two ranks on one card hold two
+    pools and two shares of the factors there, so the grid offloads
+    (offloaded, the two fit); on two cards it does not."""
     plan = _plan()[0]
     out = run_mesh_ranks(2, cases.shared_card_ranks, plan, "float32",
                          cards, timeout=240)

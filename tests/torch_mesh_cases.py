@@ -894,8 +894,9 @@ def refused_rule_ranks(tc, grid, plan, dt, budgets, cards):
 def shared_card_ranks(tc, grid, plan, dt, cards):
     """Per grid executor (spmd, the 2-D stream, mesh mega) built with
     offload="none": the card's rule over the grid when each rank's
-    budget is that executor's estimate on this rank plus its offloaded
-    estimate, rank r on the fake card ``cards[r]``."""
+    budget is the mean over the ranks of that executor's estimate plus
+    its offloaded estimate (each rank's estimate is its own share's, so
+    the ranks' differ), rank r on the fake card ``cards[r]``."""
     from superlu_dist_tpu_torch.numeric import stream
     from superlu_dist_tpu_torch.parallel.mesh_graphs import MeshMegaExecutor
     from superlu_dist_tpu_torch.parallel.mesh_stream import (
@@ -909,7 +910,8 @@ def shared_card_ranks(tc, grid, plan, dt, cards):
                     (MeshMegaExecutor, {})):
         ex = cls(plan, dtype, grid.device, grid, offload="none", **kw)
         est = ex.device_estimate()
-        budget = est["bytes"] + est["offload_bytes"]
+        budget = int(grid.allreduce_sum_any(np.array(
+            [est["bytes"] + est["offload_bytes"]]))[0]) // grid.nproc
         stream.device_budget = lambda device: budget
         out[ex.name] = stream.offload_rule(plan, dtype, grid.device, None,
                                            grid=grid,
@@ -922,3 +924,320 @@ def rank_sum(tc, grid, k):
     all-reduce, which reaches only this grid's ranks."""
     vec = np.array([float(k + grid.rank)])
     return grid.nproc, int(grid.allreduce_sum_any(vec)[0])
+
+
+#: the grid's graph executors, by the name the capture tests give them
+GRAPH_EXECUTORS = ("fused", "level", "mega")
+
+
+def _graph_executor(name, plan, dtype, grid, partition=True):
+    """The grid's graph executor ``name`` of GRAPH_EXECUTORS on ``plan``,
+    its offload "none" (mesh fused has none)."""
+    from superlu_dist_tpu_torch.parallel.mesh_graphs import (
+        MeshFusedExecutor, MeshMegaExecutor)
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    if name == "fused":
+        return MeshFusedExecutor(plan, dtype, grid.device, grid,
+                                 pool_partition=partition)
+    if name == "mega":
+        return MeshMegaExecutor(plan, dtype, grid.device, grid,
+                                pool_partition=partition, offload="none")
+    return MeshStreamExecutor(plan, dtype, grid.device, grid,
+                              pool_partition=partition, offload="none",
+                              granularity="level")
+
+
+def unit_groups(name, ex) -> list:
+    """The groups of each unit graph executor ``ex`` (of GRAPH_EXECUTORS
+    ``name``) captures on an NCCL grid, in call order: a group (fused), a
+    schedule wave (level, ``units()``), a closed key (mega, ``key_of``)."""
+    if name == "fused":
+        return [(gi,) for gi in range(len(ex.plan.groups))]
+    if name == "level":
+        return [tuple(range(lo, hi)) for lo, hi in ex.units()]
+    keys = {}
+    for gi, key in enumerate(ex.key_of):
+        keys.setdefault(key, []).append(gi)
+    return [tuple(g) for g in keys.values()]
+
+
+def _counts(pairs) -> list:
+    return [(np.asarray(s).tolist(), np.asarray(r).tolist())
+            for s, r in pairs]
+
+
+def unit_plans(tc, grid, plan):
+    """Per graph executor of GRAPH_EXECUTORS with the partitioned pool:
+    the groups of each unit its graphs are captured for on NCCL, per
+    group the exchange counts its programs issue here (gloo), (send,
+    receive) by peer rank, and mega's padded to its group shapes (what
+    it issues on NCCL); and the 2-D stream's estimate of this rank's
+    device bytes (float32, the card's rule's)."""
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    out = {"estimate": MeshStreamExecutor(
+        plan, torch.float32, grid.device, grid,
+        pool_partition=True).device_estimate()}
+    for name in GRAPH_EXECUTORS:
+        ex = _graph_executor(name, plan, torch.float64, grid)
+        out[name] = dict(
+            units=unit_groups(name, ex),
+            levels=[g.level for g in plan.groups],
+            keys=getattr(ex, "key_of", None),
+            counts=_counts(ex.exchange_counts()),
+            own=_counts((gl.send_counts, gl.recv_counts)
+                        for gl in ex.layout.groups))
+        if name == "mega":
+            legs = ex._padded_legs()
+            out[name]["padded"] = _counts(legs[(g.w, g.u)]
+                                          for g in plan.groups)
+    return out
+
+
+def recorded_programs(tc, grid, plan, vals, thresh, diverge):
+    """The grid fused executor's group programs driven the way a capture
+    on an NCCL grid drives them — inside ``grid.recording()``, answered
+    into the static buffers — here on gloo CPU ranks with verify mode on:
+    whether any verify check ran while a program recorded, the checks
+    ``grid.check_tape`` ran after each, the records, and the fronts and
+    tiny count against the eager 2-D executor's.  ``diverge``: rank 1's
+    record of group 0's exchange says another shape (a program that
+    diverged), which ``check_tape`` must refuse on every rank."""
+    from superlu_dist_tpu_torch.parallel import grid as grid_mod
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor, drive)
+    from superlu_dist_tpu_torch.utils.errors import CollectiveMismatchError
+    dtype = torch.float64
+    ex = _graph_executor("fused", plan, dtype, grid)
+    bufs = ex._buffers(torch.as_tensor(np.asarray(vals)).to(dtype),
+                       torch.tensor(thresh, dtype=dtype))
+    run, states = ex._static_collective(bufs), ex._device_state()
+    checks = []
+    real_check = grid_mod.ProcessGrid._check
+
+    def counted(self, *a, **kw):
+        checks.append(self.tape is not None)
+        return real_check(self, *a, **kw)
+    grid_mod.ProcessGrid._check = counted
+    fronts, records, ops, nbytes = [], 0, set(), 0
+    try:
+        for gi in range(len(plan.groups)):
+            with grid.recording() as tape:
+                fronts.append(ex._finish(gi, *drive(
+                    ex._group(gi, states[gi], bufs), run), clone=True))
+            if diverge and grid.rank == 1 and gi == 0:
+                tape[-1] = dict(tape[-1], shape=(grid.nproc + 1,))
+            try:
+                grid.check_tape(tape)
+            except CollectiveMismatchError as e:
+                return dict(raised=True, during=any(checks),
+                            message=str(e)[:200])
+            records += len(tape)
+            ops |= {r["op"] for r in tape}
+            nbytes += sum(r["bytes"] for r in tape)
+    finally:
+        grid_mod.ProcessGrid._check = real_check
+    tiny = int(grid.all_reduce_sum(bufs.tiny))
+    want = _grid_numeric(MeshStreamExecutor(plan, dtype, grid.device, grid,
+                                            pool_partition=True),
+                         vals, thresh)
+    return dict(raised=False, during=any(checks), checked=len(checks),
+                records=records, ops=sorted(ops), bytes=nbytes,
+                same=_equal_fronts([f[:2] for f in fronts], want.fronts),
+                tiny=(tiny, want.tiny_pivots))
+
+
+def grid_units_on_distinct_cards(tc, grid, specs, names):
+    """On a grid of distinct cards (NCCL), per (spec, graph executor of
+    ``names``) in float32 at the default tier with the partitioned pool:
+    the eager 2-D executor, then the graph executor's capturing call and
+    a replay on the values × 1.5 (against the eager executor on those),
+    with what crossed the host — the collectives issued from the host
+    during the replay, pinned staging — the unit graphs against the
+    census (records at the capture, none at the replay, no retrace) and,
+    for fused and mega, gssvx(grid=) with the executor: its BERR."""
+    import torch.distributed as dist
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.parallel import grid as grid_mod
+    from superlu_dist_tpu_torch.parallel.mesh_graphs import UNIT_SITE
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    calls = {"issued": 0, "pinned": 0}
+    real = {k: getattr(dist, k) for k in ("broadcast", "all_to_all_single",
+                                          "all_gather")}
+    real_pinned = grid_mod._pinned
+
+    def counting(fn):
+        def run(*a, **kw):
+            calls["issued"] += 1
+            return fn(*a, **kw)
+        return run
+
+    def pinned(t):
+        calls["pinned"] += 1
+        return real_pinned(t)
+    grid_mod._pinned = pinned
+    for k, fn in real.items():
+        setattr(dist, k, counting(fn))
+    out = {}
+    try:
+        for spec in specs:
+            a, b = _system(spec)
+            lu, bvals, _ = slt.analyze(slt.Options(), a, device=grid.device)
+            plan = lu.plan
+            thresh = float(np.sqrt(np.finfo(np.float32).eps) * lu.anorm)
+            ref = MeshStreamExecutor(plan, torch.float32, grid.device, grid,
+                                     pool_partition=True)
+            want = [_grid_numeric(ref, bvals * s, thresh, torch.float32)
+                    for s in (1.0, 1.5)]
+            for name in names:
+                ex = _graph_executor(name, plan, torch.float32, grid)
+                runs = []
+                for s in (1.0, 1.5):
+                    mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total)
+                    calls["issued"] = 0
+                    num = _grid_numeric(ex, bvals * s, thresh, torch.float32)
+                    torch.cuda.synchronize(grid.device)
+                    recs = COMPILE_STATS.records[mark[0]:]
+                    runs.append(dict(
+                        units=sum(r.site == UNIT_SITE for r in recs),
+                        retraces=RETRACE_SENTINEL.total - mark[1],
+                        issued=calls["issued"], tiny=num.tiny_pivots,
+                        equal=_equal_fronts(num.fronts, want[len(runs)].fronts),
+                        drift=_max_rel(num.fronts, want[len(runs)].fronts),
+                        comm=dict(ex.last_comm)))
+                rec = dict(runs=runs, graph_units=len(unit_groups(name, ex)),
+                           report=ex.report(), groups=len(plan.groups),
+                           tiny_eager=[w.tiny_pivots for w in want])
+                if name != "level":
+                    x, lu2, st, info = slt.gssvx(
+                        slt.Options(executor=name, pool_partition=True), a,
+                        b, grid=grid)
+                    rec.update(berr=st.solve_report.berr, info=info,
+                               executor=st.executor["executor"])
+                out[(spec[1][0], name)] = rec
+                plan.__dict__.pop("_factor_fns", None)
+                del ex
+    finally:
+        grid_mod._pinned = real_pinned
+        for k, fn in real.items():
+            setattr(dist, k, fn)
+    return dict(backend=grid.backend, staged=grid.staged,
+                capturable=grid.capturable, pinned=calls["pinned"],
+                device=str(grid.device), runs=out)
+
+
+def graph_executors_vs_2d(tc, grid, plan, vals, thresh):
+    """Per graph executor of GRAPH_EXECUTORS (float64, the partitioned
+    pool; on the CPU their programs run eagerly, mega's on its padded
+    tables), and mega with its exchange legs padded as on NCCL ("mega
+    padded", ``pad_legs``): this rank's fronts and pivot stacks against
+    the eager 2-D executor's, bit for bit, the tiny counts, and on rank
+    0 the fronts gathered to slot order."""
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    want = _grid_numeric(MeshStreamExecutor(plan, torch.float64,
+                                            grid.device, grid,
+                                            pool_partition=True),
+                         vals, thresh)
+    out = {}
+    for name in GRAPH_EXECUTORS + ("mega padded",):
+        ex = _graph_executor(name.split()[0], plan, torch.float64, grid)
+        if name == "mega padded":
+            ex.pad_legs = True
+        num = _grid_numeric(ex, vals, thresh)
+        full = gather_fronts(num)
+        out[name] = dict(
+            equal=_equal_fronts(num.fronts, want.fronts),
+            pivots=all(torch.equal(p, q) for p, q in
+                       zip(num.shard.pivots, want.shard.pivots)),
+            tiny=(num.tiny_pivots, want.tiny_pivots),
+            executor=num.executor["executor"],
+            fronts=[(lp.numpy(), up.numpy()) for lp, up in full]
+            if grid.rank == 0 else None)
+    return out
+
+
+def traced_peak(tc, grid, nx):
+    """The 2-D stream through pgssvx(grid=) over poisson3d(nx)'s closed
+    plan with the partitioned pool, this CPU rank's device memory traced
+    from FACT to the end of the call (``testing/livebytes.py``): the
+    peak, the card's rule's estimate, and whether every kept front slice
+    lies in a storage of its own size."""
+    from superlu_dist_tpu_torch.testing.livebytes import trace_pgssvx
+    a, b = _system(("poisson3d", (nx,), 0, None))
+    _, lu, rec = trace_pgssvx(tc, grid, a, b, slt.Options(
+        executor="stream", pool_partition=True, bucket_closed=True))
+    own = all(t.untyped_storage().nbytes() == t.numel() * t.element_size()
+              for front in lu.numeric.fronts for t in front)
+    return dict(peak=rec["peak"], estimate=rec["estimate"]["bytes"],
+                own=own, slices=2 * len(lu.numeric.fronts))
+
+
+def rule_on_own_cards(tc, grid, plan, dt, budgets):
+    """The card's rule on a grid of CPU ranks, each on a fake card of its
+    own (``card_key`` the grid rank) with the fake budget
+    ``budgets[rank]`` ("own": the executor's estimate on this rank;
+    "offloaded": its offloaded one; "below": one byte below that): per
+    executor — mesh mega, which can offload, and mesh fused, which cannot
+    — the choice or the refusal, this rank's estimate and the rule's
+    record of its card."""
+    from superlu_dist_tpu_torch.numeric import factor, stream
+    from superlu_dist_tpu_torch.utils.errors import DeviceMemoryError
+    dtype = getattr(torch, dt)
+    card_key, device_budget = stream.card_key, stream.device_budget
+    try:
+        return _rule_on_own_cards(grid, plan, dtype, budgets)
+    finally:
+        stream.card_key, stream.device_budget = card_key, device_budget
+
+
+def _rule_on_own_cards(grid, plan, dtype, budgets):
+    from superlu_dist_tpu_torch.numeric import factor, stream
+    from superlu_dist_tpu_torch.utils.errors import DeviceMemoryError
+    stream.card_key = lambda device: 100 + grid.rank
+    out = {}
+    for executor in ("mega", "fused"):
+        stream.device_budget = lambda device: None
+        probe = factor.get_executor(plan, dtype, executor, None, "cpu",
+                                    grid=grid, pool_partition=True)
+        est = probe.device_estimate()
+        plan.__dict__.pop("_factor_fns", None)
+        want = budgets[grid.rank]
+        budget = {"own": est["bytes"], "offloaded": est["offload_bytes"],
+                  "below": est["offload_bytes"] - 1}.get(want, want)
+        stream.device_budget = lambda device: budget
+        try:
+            ex = factor.get_executor(plan, dtype, executor, None, "cpu",
+                                     grid=grid, pool_partition=True)
+            out[executor] = dict(kind="built", offload=ex.offload,
+                                 rule=ex.report()["offload_rule"], est=est,
+                                 budget=budget)
+        except DeviceMemoryError as e:
+            out[executor] = dict(kind="refused", executor=e.executor,
+                                 budget=e.budget, parts=e.parts,
+                                 remedies=e.remedies, est=est)
+        plan.__dict__.pop("_factor_fns", None)
+    return out
+
+
+def suite(tc, grid, items):
+    """Several cases on one spawned grid, in order: ``items`` is a list
+    of (label, the name of a function of this module, its arguments
+    after ``tc, grid``); returns {label: its result}."""
+    return {label: globals()[fn](tc, grid, *args)
+            for label, fn, args in items}
+
+
+def row_suite(tc, grid, items):
+    """``suite`` on this rank's process row of ``grid`` as a 1 × npcol
+    grid of its own (``gridmap``, every rank making every row's in one
+    order): the row grids' cases beside the whole grid's, on one
+    spawned world."""
+    from superlu_dist_tpu_torch.parallel.grid import gridmap
+    rows = [gridmap([r * grid.npcol + c for c in range(grid.npcol)], 1,
+                    grid.npcol, device=grid.device)
+            for r in range(grid.nprow)]
+    return suite(tc, rows[grid.prow], items)
