@@ -4944,7 +4944,7 @@ def graph_estimates(slt, torch) -> dict:
 
 #: the grid4 phase: a 2×2 grid of distinct cards (NCCL), one rank a card
 GRID4_CARDS = 4
-GRID4_TIMEOUT_S = 400    # the phase's limit inside the full run
+GRID4_TIMEOUT_S = 500    # the phase's limit inside the full run
 GRID4_SMALL = (16, 25)   # the small captured legs' poisson3d edges
 GRID4_GRAPHS = ("fused", "level", "mega")
 GRID4_STALL_S = 150      # a rank still in one n = 1M leg after this long
@@ -4984,15 +4984,109 @@ def _grid4_units(name, ex) -> int:
 
 def _grid4_call(ex, vals, thresh, dtype):
     """One call of grid executor ``ex``: (fronts, tiny count, seconds to
-    the card's end)."""
+    the card's end, the shard)."""
     import torch
     real = torch.empty((), dtype=dtype).real.dtype
     torch.cuda.synchronize(ex.device)
     t0 = time.perf_counter()
-    fronts, tiny, _ = ex(torch.as_tensor(np.asarray(vals)).to(dtype),
-                         torch.tensor(thresh, dtype=real))
+    fronts, tiny, shard = ex(torch.as_tensor(np.asarray(vals)).to(dtype),
+                             torch.tensor(thresh, dtype=real))
     torch.cuda.synchronize(ex.device)
-    return fronts, int(tiny), time.perf_counter() - t0
+    return fronts, int(tiny), time.perf_counter() - t0, shard
+
+
+#: the census sites of the grid's group graphs (mesh_graphs.UNIT_SITE,
+#: spmd.UNIT_SITE) and of the grid solver's sweep graphs
+GRID4_UNIT_SITES = ("mesh_graphs.unit", "spmd.unit")
+GRID4_SOLVE_SITE = "solve.spmd"
+
+
+def _grid4_solves(fact, issued):
+    """The grid solver on sharded factors ``fact`` (this rank's): its
+    captured sweeps (``SpmdSolver`` on a capturable grid) against its
+    eager ones (``fused=False``) at nrhs 1 and 4 — each twice, the first
+    solve of a bucket capturing its two sweep graphs (census site
+    solve.spmd) — x bit for bit, with the graphs, the retraces, the
+    collectives each solve issued from the host and the seconds."""
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.parallel.spmd import SpmdSolver
+    rhs = np.random.default_rng(SEED).standard_normal((fact.plan.n, 4))
+    eager, graphs = SpmdSolver(fact, fused=False), SpmdSolver(fact)
+    out = {}
+    for k in (1, 4):
+        want = eager.solve(rhs[:, :k])
+        runs = []
+        for _ in range(2):
+            mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total)
+            issued[0] = 0
+            t0 = time.perf_counter()
+            x = graphs.solve(rhs[:, :k])
+            runs.append(dict(
+                s=time.perf_counter() - t0, issued=issued[0],
+                graphs=sum(r.site == GRID4_SOLVE_SITE
+                           for r in COMPILE_STATS.records[mark[0]:]),
+                retraces=RETRACE_SENTINEL.total - mark[1],
+                equal=bool(np.array_equal(x, want)),
+                max_abs_diff=float(np.abs(x - want).max())))
+        out[k] = runs
+    return dict(fused=graphs.fused, graphs=len(graphs._graphs),
+                graph_pool_bytes=graphs.graph_pool_bytes, nrhs=out)
+
+
+def _grid4_spmd(grid, plan, vals, thresh, dtype, issued, two_d):
+    """A small grid4 case's spmd legs on this rank: the eager spmd
+    executor (``capture=False``), then the captured one's capturing call
+    and a replay against it bit for bit — fronts, pivot stacks, tiny
+    count — with the group graphs (census site spmd.unit), the retraces,
+    the collectives each call issued from the host, the gathers, the
+    launches; then the grid solver (``_grid4_solves``) on those shards and
+    on the 2-D tier's (``two_d``, the eager 2-D executor's factors)."""
+    import torch
+    from superlu_dist_tpu_torch.numeric import kernels
+    from superlu_dist_tpu_torch.numeric.factor import NumericFactorization
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.parallel.spmd import (UNIT_SITE,
+                                                      SpmdFactorExecutor)
+
+    def numeric(out):
+        fronts, tiny, _, shard = out
+        return NumericFactorization(plan=plan, fronts=fronts,
+                                    tiny_pivots=tiny, dtype=dtype,
+                                    shard=shard)
+    eager = SpmdFactorExecutor(plan, dtype, grid.device, grid, capture=False)
+    first = _grid4_call(eager, vals, thresh, dtype)
+    want = numeric(first)
+    ex = SpmdFactorExecutor(plan, dtype, grid.device, grid)
+    calls = []
+    for _ in range(2):
+        mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total,
+                dict(kernels.LAUNCHES))
+        issued[0] = 0
+        call = _grid4_call(ex, vals, thresh, dtype)
+        got = numeric(call)
+        census = [r for r in COMPILE_STATS.records[mark[0]:]
+                  if r.site == UNIT_SITE]
+        calls.append(dict(
+            s=call[2], tiny=got.tiny_pivots, issued=issued[0],
+            equal=all(torch.equal(a, c) and torch.equal(b, d)
+                      for (a, b), (c, d) in zip(got.fronts, want.fronts)),
+            pivots=all(torch.equal(p, q) for p, q in
+                       zip(got.shard.pivots, want.shard.pivots)),
+            graphs=len(census), census_s=sum(r.seconds for r in census),
+            retraces=RETRACE_SENTINEL.total - mark[1],
+            gathers=ex.report()["gathers"],
+            launches={k: v - mark[2][k] for k, v in kernels.LAUNCHES.items()}))
+    rep = ex.report()
+    return dict(eager_s=first[2], eager_tiny=first[1], calls=calls,
+                capture=rep["capture"], graph_kind=rep.get("graph_kind"),
+                graphs=rep.get("graphs"), warm_up_s=rep.get("warm_up_s"),
+                capture_s=rep.get("capture_s"),
+                instantiate_s=rep.get("instantiate_s"),
+                gather_bytes=rep["gather_bytes"],
+                solves={"spmd": _grid4_solves(got, issued),
+                        "2d": _grid4_solves(two_d, issued)})
 
 
 def grid4_small(tc, grid, nxs):
@@ -5002,7 +5096,10 @@ def grid4_small(tc, grid, nxs):
     GRID4_GRAPHS — its capturing call and a replay — against it bit for
     bit, with the graphs (census site mesh_graphs.unit) captured and
     replayed, the collectives the replay issued from the host, the
-    retraces, the launches and the seconds."""
+    retraces, the launches and the seconds; then the spmd tier
+    (``_grid4_spmd``: the group graphs against the eager spmd executor,
+    the grid solver's sweep graphs against its eager sweeps on the spmd
+    and the 2-D shards)."""
     import torch
     import torch.distributed as dist
     import superlu_dist_tpu_torch as slt
@@ -5010,10 +5107,12 @@ def grid4_small(tc, grid, nxs):
     from superlu_dist_tpu_torch.numeric import kernels
     from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
     from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.numeric.factor import NumericFactorization
     from superlu_dist_tpu_torch.parallel.mesh_graphs import UNIT_SITE
     issued = [0]
     real = {k: getattr(dist, k) for k in ("broadcast", "all_to_all_single",
-                                          "all_gather")}
+                                          "all_gather",
+                                          "all_gather_into_tensor")}
 
     def counting(fn):
         def run(*a, **kw):
@@ -5030,9 +5129,13 @@ def grid4_small(tc, grid, nxs):
             plan, dt = lu.plan, torch.float32
             thresh = float(np.sqrt(np.finfo(np.float32).eps) * lu.anorm)
             eager = _grid4_executor("stream", plan, dt, grid)
-            want, tiny, eager_s = _grid4_call(eager, bvals, thresh, dt)
+            want, tiny, eager_s, shard = _grid4_call(eager, bvals, thresh,
+                                                     dt)
             recs = {"eager": dict(s=eager_s, tiny=tiny,
                                   comm=eager.report())}
+            two_d = NumericFactorization(plan=plan, fronts=want,
+                                         tiny_pivots=tiny, dtype=dt,
+                                         shard=shard)
             for name in GRID4_GRAPHS:
                 ex = _grid4_executor(name, plan, dt, grid)
                 calls = []
@@ -5040,7 +5143,7 @@ def grid4_small(tc, grid, nxs):
                     mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total,
                             dict(kernels.LAUNCHES))
                     issued[0] = 0
-                    fronts, t, s = _grid4_call(ex, bvals, thresh, dt)
+                    fronts, t, s, _ = _grid4_call(ex, bvals, thresh, dt)
                     census = COMPILE_STATS.records[mark[0]:]
                     drift = _drift_moved(torch, fronts, want)
                     calls.append(dict(
@@ -5064,6 +5167,9 @@ def grid4_small(tc, grid, nxs):
                     bcast_bytes=rep["bcast_bytes"])
                 del ex
                 plan.__dict__.pop("_factor_fns", None)
+            recs["spmd"] = _grid4_spmd(grid, plan, bvals, thresh, dt, issued,
+                                       two_d)
+            del two_d
             out[nx] = dict(groups=len(plan.groups), runs=recs)
     finally:
         for k, fn in real.items():
@@ -5090,15 +5196,20 @@ def grid4_big(tc, grid, nx, legs, small=()):
     every leg shares (SamePattern_SameRowPerm on its skeleton: the root
     reuses it and broadcasts it, as ``_pgssvx_mesh`` does; else the
     first leg of each plan analyzes).  Then the legs of ``legs``, each one
-    ``pgssvx(grid=)`` call with Options(pool_partition=True): "stream"
-    (the 2-D stream, float32), "fused" (the capturing call) and "replay"
+    ``pgssvx(grid=)`` call: "spmd" (Options(), the grid's default path:
+    the spmd tier, its groups and sweeps captured), "spmd_replay" (values
+    × 1.5) and "spmd_factored" (a FACTORED solve at nrhs 16 on that
+    handle, its first column b); then with Options(pool_partition=True):
+    "stream" (the 2-D stream, float32), "fused" (the capturing call) and
+    "replay"
     (values × 1.5) — the fused fronts held bit for bit against the
     stream's on this rank —, "float64" (the stream), "closed" (the
     stream on the closed plan, built on the root from the same symbolic
     factorization) and "closed_mega".  A leg the card's rule refuses
     records its DeviceMemoryError and the bytes allocated before and
     after.  Per leg and rank: FACT, SOLVE, REFINE, the graphs, capture
-    and replay seconds, the collectives per op, the rule's numbers
+    and replay seconds, the gathers, the solve's sweep graphs and their
+    capture seconds, the collectives per op, the rule's numbers
     (estimate, offloaded estimate, budget, choice), the peak, BERR, the
     launches; rank 0 also x's error against the one-card x.  With
     "small" in ``legs``, first the small legs of ``small`` on this grid
@@ -5115,7 +5226,6 @@ def grid4_big(tc, grid, nx, legs, small=()):
     from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
     from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
     from superlu_dist_tpu_torch.parallel.dist import distribute_rows
-    from superlu_dist_tpu_torch.parallel.mesh_graphs import UNIT_SITE
     from superlu_dist_tpu_torch.parallel.pgssvx import pgssvx
     from superlu_dist_tpu_torch.utils import tols
     from superlu_dist_tpu_torch.utils.errors import DeviceMemoryError
@@ -5159,7 +5269,11 @@ def grid4_big(tc, grid, nx, legs, small=()):
         torch.cuda.empty_cache()
         return torch.cuda.memory_allocated(dev)
 
-    def leg(name, opts, a_loc, lu, scale=1.0, may_refuse=False):
+    def leg(name, opts, a_loc, lu, scale=1.0, may_refuse=False, rhs=None):
+        """One pgssvx(grid=) call and its record; ``rhs`` (this rank's
+        block rows of b, the x it is held against) in place of the one
+        right-hand side and x_ref."""
+        b_leg, x_want = (b_loc, x_ref) if rhs is None else rhs[:2]
         held = settle()
         torch.cuda.reset_peak_memory_stats(dev)
         mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total,
@@ -5170,7 +5284,7 @@ def grid4_big(tc, grid, nx, legs, small=()):
         # a rank that stalls in a leg prints where every thread of it is
         faulthandler.dump_traceback_later(GRID4_STALL_S)
         try:
-            x, info = pgssvx(tc, opts, a_loc, b_loc, grid=grid, lu=lu,
+            x, info = pgssvx(tc, opts, a_loc, b_leg, grid=grid, lu=lu,
                              lu_out=lu_out)
         except DeviceMemoryError as e:
             faulthandler.cancel_dump_traceback_later()
@@ -5195,6 +5309,7 @@ def grid4_big(tc, grid, nx, legs, small=()):
         t, rep = lu_out["timings"], lu_out["solve_report"]
         ex = lu2.numeric.executor
         census = COMPILE_STATS.records[mark[0]:]
+        sweeps = [r for r in census if r.site == GRID4_SOLVE_SITE]
         rec.update(
             wall_s=time.perf_counter() - t0, info=info,
             executor=ex["executor"], dtype=str(lu2.numeric.dtype)[6:],
@@ -5213,7 +5328,13 @@ def grid4_big(tc, grid, nx, legs, small=()):
             instantiate_s=ex.get("instantiate_s"),
             graph_device_bytes=ex.get("graph_device_bytes"),
             closed_keys=ex.get("closed_keys"),
-            units=sum(r.site == UNIT_SITE for r in census),
+            units=sum(r.site in GRID4_UNIT_SITES for r in census),
+            gather_bytes=ex.get("gather_bytes"), gathers=ex.get("gathers"),
+            solve_graphs=len(sweeps),
+            solve_capture_s=sum(r.seconds for r in sweeps),
+            solve_graphs_held=(lu2.dev_solver.memory_stats()["graphs"]
+                               if lu2.dev_solver is not None else None),
+            nrhs=int(np.shape(b_leg)[1]) if np.ndim(b_leg) > 1 else 1,
             retraces=RETRACE_SENTINEL.total - mark[1],
             launches={k: v - mark[2][k] for k, v in kernels.LAUNCHES.items()},
             comm=_grid4_comm(grid, mark[3]),
@@ -5224,13 +5345,13 @@ def grid4_big(tc, grid, nx, legs, small=()):
             rec["peak_vs_estimate"] = ((rec["peak_bytes"] - rec["base_bytes"])
                                        / rule["bytes"])
         if root:
-            err = np.abs(x * scale - x_ref)
-            rec["x_against"] = "one card" if skeleton is not None \
-                else "x_true"
+            err = np.abs(np.reshape(x, np.shape(x_want)) * scale - x_want)
+            rec["x_against"] = ("one card" if skeleton is not None
+                                else "x_true") if rhs is None else rhs[2]
             rec.update(max_abs_err_vs_one_card=float(err.max()),
                        within_device_vs_host=bool(np.all(
                            err <= tols.DEVICE_VS_HOST_ATOL
-                           + tols.DEVICE_VS_HOST_RTOL * np.abs(x_ref))))
+                           + tols.DEVICE_VS_HOST_RTOL * np.abs(x_want))))
         out["legs"].append(rec)
         if root:
             say("grid4_rank0", **{k: v for k, v in rec.items()
@@ -5250,9 +5371,42 @@ def grid4_big(tc, grid, nx, legs, small=()):
                                    dev_spmv=None, berrs=None)
 
     lu, base = skeleton, None
-    if "stream" in legs:
-        done = leg("stream float32", slt.Options(fact=first, **opts), part,
+    if "spmd" in legs:
+        # the grid's default path: Options() is the spmd tier, each
+        # group's program and each solve sweep one graph with its
+        # collectives inside
+        done = leg("spmd float32 capture", slt.Options(fact=first), part,
                    lu)
+        scale, a_spmd = 1.0, part
+        if "spmd_replay" in legs:
+            # the same plan: its cached spmd executor replays
+            a_spmd = dataclasses.replace(part, data=part.data * 1.5)
+            done = leg("spmd float32 replay x1.5", slt.Options(fact=same),
+                       a_spmd, done, scale=1.5)
+            scale = 1.5
+        if "spmd_factored" in legs:
+            # FACTORED at nrhs 16 on that handle: its first column is b
+            # (held against the one-card x), the others A·x_true's
+            import scipy.sparse
+            x16 = np.random.default_rng(SEED + 1).standard_normal(
+                (a.n_rows, 16))
+            # this rank's block rows of A·x16
+            b16 = scipy.sparse.csr_matrix(
+                (part.data, part.indices, part.indptr),
+                shape=(part.m_loc, a.n_rows)) @ x16
+            x16[:, 0] = x_ref
+            b16[:, 0] = b_loc
+            against = ("one card (column 0), x_true (columns 1-15)"
+                       if skeleton is not None else "x_true")
+            done = leg("spmd FACTORED nrhs 16", slt.Options(
+                fact=slt.Fact.FACTORED), a_spmd, done, scale=scale,
+                rhs=(b16, x16, against))
+            del x16, b16
+        lu = skeleton_of(done)
+        del done
+    if "stream" in legs:
+        done = leg("stream float32", slt.Options(
+            fact=same if lu is not None else first, **opts), part, lu)
         # its fronts wait in host memory for the fused ones
         base = [(lp.cpu(), up.cpu()) for lp, up in done.numeric.fronts]
         lu = skeleton_of(done)
@@ -5347,6 +5501,43 @@ def _grid4_check_small(shape, out, drift) -> None:
                 if not near or (cap["tiny"], rep["tiny"]) != (tiny, tiny):
                     raise AssertionError(f"{where}: fronts or tiny count "
                                          f"differ from the eager 2-D run")
+            _grid4_check_spmd(f"grid4 {shape} poisson3d({nx}) spmd rank {r}",
+                              legs["runs"]["spmd"], legs["groups"])
+
+
+def _grid4_check_spmd(where, rec, groups) -> None:
+    """A small leg's spmd checks on one rank: one graph a group, recorded
+    at the capture and never at the replay, no retrace, no collective
+    issued from the host at the replay; fronts, pivot stacks and tiny
+    count bit for bit the eager spmd executor's at both calls; the grid
+    solver's sweeps captured on the spmd and the 2-D shards, two graphs
+    at a bucket's first solve and none at its second, which issues no
+    collective from the host, x bit for bit the eager sweeps'."""
+    cap, rep = rec["calls"]
+    if not rec["capture"] or rec["graph_kind"] != "unit" \
+            or rec["graphs"] != groups:
+        raise AssertionError(f"{where}: {rec['graphs']} graphs of kind "
+                             f"{rec['graph_kind']} for {groups} groups")
+    if (cap["graphs"], rep["graphs"]) != (groups, 0) or cap["retraces"] \
+            or rep["retraces"] or rep["issued"]:
+        raise AssertionError(f"{where}: census, retraces or host "
+                             f"collectives {cap} / {rep}")
+    for c in (cap, rep):
+        if not (c["equal"] and c["pivots"]) or c["tiny"] != rec["eager_tiny"]:
+            raise AssertionError(f"{where}: fronts, pivots or tiny count "
+                                 f"differ from the eager spmd run: {c}")
+    for tier, sol in rec["solves"].items():
+        for k, (first, second) in sol["nrhs"].items():
+            if not sol["fused"] or first["graphs"] != 2 or second["graphs"] \
+                    or second["issued"] or first["retraces"] \
+                    or second["retraces"]:
+                raise AssertionError(f"{where} {tier} solve nrhs {k}: "
+                                     f"{first} / {second}")
+            if not (first["equal"] and second["equal"]):
+                raise AssertionError(f"{where} {tier} solve nrhs {k}: x "
+                                     f"differs from the eager sweeps' by "
+                                     f"{first['max_abs_diff']} / "
+                                     f"{second['max_abs_diff']}")
 
 
 def _grid4_check_big(out, target) -> None:
@@ -5354,9 +5545,12 @@ def _grid4_check_big(out, target) -> None:
     before it allocated anything; a leg that ran has info 0 on every
     rank, the same x, BERR at the target, x within DEVICE_VS_HOST of the
     one-card x, the factors and solves on the cards (no offload), its
-    residuals through csr_spmv, and on every rank the bytes it took at
-    its peak at or below the card's rule's estimate; the captured fused
-    fronts are the stream's bit for bit; the replay captures nothing."""
+    solves through the grid solver's sweep graphs, its residuals through
+    csr_spmv, and on every rank the bytes it took at its peak at or
+    below the card's rule's estimate; the captured fused fronts are the
+    stream's bit for bit; the spmd capture holds one graph a group and
+    its first solve two sweep graphs; a replay or a FACTORED solve
+    captures no group."""
     ranks = sorted(out)
     for i, rec0 in enumerate(out[0]["legs"]):
         name = rec0["leg"]
@@ -5395,6 +5589,9 @@ def _grid4_check_big(out, target) -> None:
                 raise AssertionError(f"grid4 {name} rank {r}: "
                                      f"{rec['launches']['csr_spmv']} "
                                      f"csr_spmv launches")
+            if not rec["solve_graphs_held"]:
+                raise AssertionError(f"grid4 {name} rank {r}: the grid "
+                                     f"solve ran without its sweep graphs")
         check_berr(f"grid4 {name}", rec0["berr"], target)
         if not rec0["within_device_vs_host"]:
             raise AssertionError(f"grid4 {name}: x vs the one-card x: max "
@@ -5408,7 +5605,17 @@ def _grid4_check_big(out, target) -> None:
                     raise AssertionError(f"grid4 {name} rank {r}: fronts "
                                          f"differ from the stream's: "
                                          f"{rec.get('drift_vs_stream')}")
-        if "replay" in name:
+        if name.startswith("spmd") and name.endswith("capture"):
+            for r, rec in zip(ranks, recs):
+                if rec["graph_kind"] != "unit" \
+                        or rec["units"] != rec["groups"] \
+                        or rec["solve_graphs"] != 2:
+                    raise AssertionError(
+                        f"grid4 {name} rank {r}: {rec['units']} group "
+                        f"graphs of kind {rec['graph_kind']} for "
+                        f"{rec['groups']} groups, {rec['solve_graphs']} "
+                        f"sweep graphs")
+        if "replay" in name or "FACTORED" in name:
             for r, rec in zip(ranks, recs):
                 if rec["units"]:
                     raise AssertionError(f"grid4 {name} rank {r}: "
@@ -5422,15 +5629,19 @@ def grid4_only() -> int:
     cards: exits 2 naming the count, nothing run.  First the small legs
     (``grid4_small``: poisson3d(16) and (25) on a 1×2 and a 2×2 grid,
     fused, level and mega with their collectives captured, one graph a
-    unit, against the eager 2-D executor), then the reference's own size
-    (``grid4_big``: poisson3d(100), n = 1,000,000, on the 2×2 grid with
-    the partitioned pool: the one-card stream, the 2-D stream and the
-    captured fused in float32 with a SamePattern × 1.5 replay, float64,
-    the closed plan with the stream and mega); a grid4_leg line a leg, a
-    grid4 line, the card line.  ``python3 chip_smoke.py grid4 LEGS
-    SECONDS`` runs the legs named (of "small", "one_card", "stream",
-    "fused", "replay", "float64", "closed", "closed_mega") within
-    SECONDS."""
+    unit, against the eager 2-D executor; the spmd executor, one graph a
+    group, against the eager spmd executor, and the grid solver's sweep
+    graphs against its eager sweeps), then the reference's own size
+    (``grid4_big``: poisson3d(100), n = 1,000,000, on the 2×2 grid: the
+    one-card stream; the grid's default path, Options() — the spmd tier
+    captured — with a SamePattern × 1.5 replay and a FACTORED solve at
+    nrhs 16 on its handle; with the partitioned pool the 2-D stream and
+    the captured fused in float32 with a SamePattern × 1.5 replay,
+    float64, the closed plan with the stream and mega); a grid4_leg line
+    a leg, a grid4 line, the card line.  ``python3 chip_smoke.py grid4
+    LEGS SECONDS`` runs the legs named (of "small", "one_card", "spmd",
+    "spmd_replay", "spmd_factored", "stream", "fused", "replay",
+    "float64", "closed", "closed_mega") within SECONDS."""
     import torch
     from superlu_dist_tpu_torch import native
     from superlu_dist_tpu_torch.numeric import kernels
@@ -5446,8 +5657,8 @@ def grid4_only() -> int:
     kernels.build()
     native.build()
     legs = sys.argv[2].split(",") if len(sys.argv) > 2 else [
-        "small", "one_card", "stream", "fused", "replay", "float64",
-        "closed", "closed_mega"]
+        "small", "one_card", "spmd", "spmd_replay", "spmd_factored",
+        "stream", "fused", "replay", "float64", "closed", "closed_mega"]
     limit = float(sys.argv[3]) if len(sys.argv) > 3 else GRID4_TIMEOUT_S
     target = float(tols.berr_target(np.float64))
 

@@ -44,6 +44,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import math
 import threading
 import types
 import weakref
@@ -348,12 +349,15 @@ class RecordingGrid:
         res = out[:total] if out is not None else send.new_empty(total)
         return self._note("exchange", None, res)
 
-    def gather_rows(self, t, counts):
+    def gather_rows(self, t, counts, out=None):
         if self._grid.nproc == 1:
             return t
-        out = t.new_empty((int(sum(int(c) for c in counts)),)
-                          + tuple(t.shape[1:]))
-        return self._note("gather_rows", None, out)
+        shape = (int(sum(int(c) for c in counts)),) + tuple(t.shape[1:])
+        if out is None:
+            res = t.new_empty(shape)
+        else:
+            res = out[:math.prod(shape)].view(shape)
+        return self._note("gather_rows", None, res)
 
     def all_reduce_sum(self, t):
         if self._grid.nproc == 1:

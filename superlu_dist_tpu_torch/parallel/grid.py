@@ -311,6 +311,12 @@ class ProcessGrid:
                               dtype=t.dtype, pin_memory=True)
             dist.all_gather(list(out.chunk(k)), src, group=group)
             out = out.to(t.device, non_blocking=True)
+        elif self.backend == "nccl":
+            # one output NCCL writes in place: no staging buffer, no copy
+            # after (what a captured graph holds, parallel/spmd.py)
+            out = torch.empty((k * t.shape[0],) + tuple(t.shape[1:]),
+                              dtype=t.dtype, device=t.device)
+            dist.all_gather_into_tensor(out, src, group=group)
         else:
             parts = [torch.empty_like(src) for _ in range(k)]
             dist.all_gather(parts, src, group=group)
@@ -375,11 +381,16 @@ class ProcessGrid:
             src = _pinned(src)
             parts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for _ in range(self.npcol)]
+            dist.all_gather(parts, src, group=group)
+            parts = [p.to(t.device, non_blocking=True) for p in parts]
+        elif self.backend == "nccl":
+            # the row's parts in one output, as all_gather's
+            parts = torch.empty((self.npcol,) + tuple(t.shape),
+                                dtype=t.dtype, device=t.device)
+            dist.all_gather_into_tensor(parts, src, group=group)
         else:
             parts = [torch.empty_like(src) for _ in range(self.npcol)]
-        dist.all_gather(parts, src, group=group)
-        if self.staged:
-            parts = [p.to(t.device, non_blocking=True) for p in parts]
+            dist.all_gather(parts, src, group=group)
         out = parts[0]
         for p in parts[1:]:
             out = out + p
@@ -430,12 +441,14 @@ class ProcessGrid:
                    * src.element_size(), t0)
         return got
 
-    def gather_rows(self, t: torch.Tensor, counts) -> torch.Tensor:
+    def gather_rows(self, t: torch.Tensor, counts,
+                    out=None) -> torch.Tensor:
         """Every rank's rows in rank order along dim 0, rank r giving
         ``counts[r]`` of them (``counts`` the same on every rank; ``t``
         this rank's), on ``t``'s device: one broadcast from each rank that
         has rows, so nothing is padded and a rank without rows sends
-        nothing."""
+        nothing.  ``out`` (1-D, on that device, at least as many
+        elements): written in its front, as the result's storage."""
         counts = [int(c) for c in counts]
         if t.shape[0] != counts[self.rank]:
             raise ValueError(f"rank {self.rank} has {t.shape[0]} rows, the "
@@ -449,8 +462,12 @@ class ProcessGrid:
         # torch.distributed's own argument checks are
         t0 = self._start(  # slulint: disable=SLU101
             "gather_rows", (sum(counts),) + rest, t.dtype)
-        out = torch.empty((sum(counts),) + rest, dtype=t.dtype,
-                          device=t.device)
+        if out is None:
+            out = torch.empty((sum(counts),) + rest, dtype=t.dtype,
+                              device=t.device)
+        else:
+            out = out[:sum(counts) * int(np.prod(rest, dtype=np.int64))] \
+                .view((sum(counts),) + rest)
         at = 0
         for r, c in enumerate(counts):
             if not c:
@@ -463,9 +480,10 @@ class ProcessGrid:
             elif self.staged:
                 buf = torch.empty((c,) + rest, dtype=t.dtype, pin_memory=True)
             else:
-                buf = torch.empty((c,) + rest, dtype=t.dtype, device=t.device)
+                # received in place: the rows' slice of the output
+                buf = out[at:at + c]
             dist.broadcast(buf, src=self._world(r), group=self.group)
-            if r != self.rank:
+            if r != self.rank and self.staged:
                 out[at:at + c].copy_(buf, non_blocking=True)
             at += c
         self._done("gather_rows", out.numel() * out.element_size(), t0)
@@ -571,12 +589,13 @@ def _make_grid(ranks: list, nprow: int, npcol: int, device, world: int,
 def _warm_nccl(grid: ProcessGrid) -> None:
     """One eager call of each collective kind the grid issues on each of
     its NCCL communicators — the grid's (all-reduce, all-gather, the
-    exchange's all-to-all), its process row's (all-reduce, broadcast,
-    all-gather), its process column's (all-reduce, all-gather) — so that
-    no communicator's first call, nor its first use of an operation's
-    connections, falls inside a CUDA graph capture
-    (parallel/mesh_graphs.py).  Every rank of a communicator takes part,
-    in this order on every rank: the grid, the row, the column."""
+    exchange's all-to-all, ``gather_rows``' broadcast from each rank),
+    its process row's (all-reduce, broadcast, all-gather), its process
+    column's (all-reduce, all-gather) — so that no communicator's first
+    call, nor its first use of an operation's connections, falls inside
+    a CUDA graph capture (parallel/mesh_graphs.py, parallel/spmd.py).
+    Every rank of a communicator takes part, in this order on every
+    rank: the grid, the row, the column."""
     import torch.distributed as dist
     dev = grid.device
     for axis in (None, "panel", "snode"):
@@ -588,9 +607,13 @@ def _warm_nccl(grid: ProcessGrid) -> None:
         dist.all_reduce(one, group=group)
         dist.all_gather(list(torch.empty(k * k, device=dev).chunk(k)), one,
                         group=group)
+        dist.all_gather_into_tensor(torch.empty(k * k, device=dev), one,
+                                    group=group)
         if axis is None:
             dist.all_to_all_single(torch.empty(k, device=dev), one,
                                    group=group)
+            for r in range(k):
+                dist.broadcast(one, src=grid._world(r), group=group)
         elif axis == "panel":
             src = grid.prow * grid.npcol
             dist.broadcast(one, src=grid._world(src), group=group)

@@ -37,14 +37,28 @@ every rank (the gathered pivot stacks; the JAX package's reason: a
 batched triangular solve need not be batch-size invariant) and the
 contribution GEMMs — where the solve's flops are — on each rank's own
 L21 / U12 panels, all-gathering the per-slot products and replaying the
-lsum / x updates in full slot order on every rank.  Its sweeps run eager
-between the collectives: a gloo collective cannot be captured in a CUDA
-graph.
+lsum / x updates in full slot order on every rank.
+
+Where the JAX package runs the factorization as one compiled program
+with its all-gathers inside, and each solve bucket's sweeps as one
+program, a grid whose collectives a CUDA graph can hold
+(``ProcessGrid.capturable``: NCCL, each rank on a card of its own)
+captures each group's program as one graph — its ``gather_rows``
+inside, census site ``spmd.unit`` — and each solve sweep of a (mode,
+nrhs bucket) as one graph with its gathers and row sums, census site
+``solve.spmd`` (``ProcessGrid.recording``: no host work in a collective
+while it records; ``check_tape`` before a graph first runs; ``replayed``
+at each replay).  One graph a group, not one a factorization: the graph
+pool then holds one group's working set beside the outputs.  On gloo
+(ranks sharing a card, staged through host memory) and on the CPU both
+run eagerly between their collectives.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time
 import types
 
@@ -187,6 +201,33 @@ class Shard:
         return np.arange(r // self.npcol, batch, self.nprow)
 
 
+#: the group graphs' build site in the census: one record a group
+UNIT_SITE = "spmd.unit"
+#: a group writes Schur blocks of at least this many elements into the
+#: pool one slice copy a slot, smaller ones in one indexed write
+SLOT_COPY_ELEMS = 1 << 16
+
+
+class _LocalRows:
+    """The grid as the warm-up before the captures sees it: ``gather_rows``
+    answered on this rank alone — its own rows at their place, zeros for
+    the others' — with no collective."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+
+    def gather_rows(self, t: torch.Tensor, counts, out=None) -> torch.Tensor:
+        counts = [int(c) for c in counts]
+        shape = (sum(counts),) + tuple(t.shape[1:])
+        if out is None:
+            out = t.new_zeros(shape)
+        else:
+            out = out[:int(np.prod(shape))].view(shape).zero_()
+        at = sum(counts[:self.rank])
+        out[at:at + counts[self.rank]] = t
+        return out
+
+
 class SpmdFactorExecutor:
     """The factorization of ``plan`` on this rank of ``grid``: per group,
     its own slots through ``group_step(write_back=False)``, then one
@@ -199,7 +240,19 @@ class SpmdFactorExecutor:
     and resume have no place here (the pool is the ranks' joint state).
     ``offload`` as on the 2-D executor (parallel/mesh_stream.py): "host"
     copies each group's own panels and its pivot stack to pinned host
-    memory as the group completes."""
+    memory as the group completes.
+
+    ``capture`` (None: ``grid.capturable``): each group's program — the
+    group step, the gather, the pool write — is one CUDA graph, captured
+    at the first call after a warm-up of each group shape (its gather
+    answered locally) and replayed by the later ones (SamePattern, the
+    ladder, ``refactor``); the pattern values, the threshold, the pool
+    and the tiny count are static buffers, each group's outputs are
+    cloned out of the graphs' one private pool, the tiny count's
+    all-reduce stays eager at the end and the offload's copies run after
+    each replay.  A group captured again on a warmed executor is a
+    retrace for the sentinel.  False runs the eager loop (gloo, the CPU,
+    or a comparison on NCCL)."""
 
     plan = PlanRef()     # the plan owns its executors (plan.PlanRef)
 
@@ -207,7 +260,7 @@ class SpmdFactorExecutor:
 
     def __init__(self, plan, dtype, device, grid, gemm_prec=None,
                  scatter=None, offload="none", front_bytes_limit=None,
-                 offload_lag=8, panel=None):
+                 offload_lag=8, panel=None, capture=None):
         from superlu_dist_tpu_torch.numeric import factor
         from superlu_dist_tpu_torch.numeric.stream import (check_offload,
                                                            offload_rule)
@@ -233,6 +286,12 @@ class SpmdFactorExecutor:
         self.local_flops = float(sum(
             len(range(self.rank, g.batch, self.nd)) * _front_flops(g.w, g.u)
             for g in plan.groups))
+        if capture is None:
+            capture = grid.capturable
+        if capture and not grid.capturable:
+            raise ValueError("a CUDA graph holds the collectives of an NCCL "
+                             "grid only, each rank on a card of its own")
+        self.capture = bool(capture)
         self.offload_lag = int(offload_lag)
         self.offload_rule = {"rule": "given"}
         if offload == "auto":
@@ -249,6 +308,16 @@ class SpmdFactorExecutor:
         self.last_gather = {"bytes": 0, "seconds": 0.0, "calls": 0}
         self._write = None
         self._submitted = False    # the program submitted to the audits
+        # the captured groups: group -> (Graph, its collectives' records)
+        self._graphs = {}
+        self._static = self._stream = self._pool = None
+        self._warmed = False
+        self.graph_stats = {}
+        self.last_warm_up_launches = 0
+        # the retrace sentinel's state (numeric/stream.retrace_end)
+        self.captures = 0
+        self.sentinel_warm = False
+        self.last_kernel_builds = self.last_retraces = 0
 
     def offload_sizes(self) -> list:
         """Elements this rank offloads per group: its own slots' panels
@@ -258,8 +327,12 @@ class SpmdFactorExecutor:
                 + g.batch * g.w * g.w for g in self.plan.groups]
 
     def _write_maps(self):
-        """Per group: (the slots with a Schur block, their pool offsets)
-        on the device, or None for a group without one."""
+        """Per group, where its Schur blocks go — (the rows of the slots
+        with one in the gather's rank order, their pool offsets) — or None
+        for a group without one: on the device for one indexed write; on
+        the host, one slice copy a slot, where a block has at least
+        :data:`SLOT_COPY_ELEMS` elements (an indexed write of such blocks
+        holds int64 indices twice their size)."""
         if self._write is None:
             out = []
             for g in self.plan.groups:
@@ -268,7 +341,11 @@ class SpmdFactorExecutor:
                 if g.u == 0 or not len(keep):
                     out.append(None)
                     continue
-                out.append((torch.as_tensor(keep, device=self.device),
+                rows = _cyclic_counts(g.batch, self.nd)[1][keep]
+                if g.u * g.u >= SLOT_COPY_ELEMS:
+                    out.append((rows.tolist(), off[keep].tolist()))
+                    continue
+                out.append((torch.as_tensor(rows, device=self.device),
                             torch.as_tensor(off[keep], device=self.device)))
             self._write = out
         return self._write
@@ -277,7 +354,8 @@ class SpmdFactorExecutor:
         from superlu_dist_tpu_torch.numeric import factor
         from superlu_dist_tpu_torch.numeric.stream import (_Offload,
                                                            progress_every,
-                                                           progress_line)
+                                                           progress_line,
+                                                           retrace_end)
         if self.checkpoint is not None or self.resume is not None:
             raise ValueError("the spmd executor takes no checkpoint or "
                              "resume: the pool is the ranks' joint state")
@@ -285,10 +363,21 @@ class SpmdFactorExecutor:
         nd, rank = self.nd, self.rank
         maps = factor.upload_maps(local_plan(plan, nd, rank), dev)
         writes = self._write_maps()
-        avals = avals.to(device=dev, dtype=self.dtype)
-        thresh = thresh.to(dev)
-        pool = torch.zeros(plan.pool_size, dtype=self.dtype, device=dev)
-        tiny = torch.zeros((), dtype=torch.int64, device=dev)
+        builds0 = self.captures
+        if self.capture:
+            from superlu_dist_tpu_torch.numeric.fused import (
+                check_graph_scatter)
+            if timings is not None:
+                raise ValueError("timings synchronize the device: the "
+                                 "group graphs cannot hold them")
+            check_graph_scatter(self.scatter)
+            st = self._buffers(avals, thresh)
+            avals, pool, thresh, tiny = st.avals, st.pool, st.thresh, st.tiny
+        else:
+            avals = avals.to(device=dev, dtype=self.dtype)
+            thresh = thresh.to(dev)
+            pool = torch.zeros(plan.pool_size, dtype=self.dtype, device=dev)
+            tiny = torch.zeros((), dtype=torch.int64, device=dev)
         fronts, pivots = [], []
         comm0 = dict(grid.comm.get("gather_rows", {"bytes": 0, "seconds": 0.0,
                                                    "calls": 0}))
@@ -309,6 +398,8 @@ class SpmdFactorExecutor:
                         f"{self.gemm_prec}", self._program,
                         (avals, pool, thresh, maps, writes, self._unperm,
                          grid), dead=(1,))
+        if self.capture and not self._warmed:
+            self._warm(st, maps, writes)
         if clock is not None:
             whole = clock.start()
         for gi, grp in enumerate(plan.groups):
@@ -318,10 +409,14 @@ class SpmdFactorExecutor:
                 progress_line(gi, len(plan.groups), t_start)
             if tracer.enabled:
                 t0 = time.perf_counter()
-            lp, up, piv, t = self._group(gi, avals, pool, thresh, maps,
-                                         writes, self._unperm, grid, timings)
-            if t is not None:
-                tiny += t
+            if self.capture:
+                lp, up, piv = self._run_graph(gi, st, maps, writes)
+            else:
+                lp, up, piv, t = self._group(gi, avals, pool, thresh, maps,
+                                             writes, self._unperm, grid,
+                                             timings)
+                if t is not None:
+                    tiny += t
             count = lp.shape[0]
             if out is not None:
                 lp, up, piv = out.emit(gi, lp, up, piv)
@@ -356,16 +451,119 @@ class SpmdFactorExecutor:
                                 executed_flops=self.executed_flops,
                                 local_flops=self.local_flops,
                                 structural_flops=float(plan.flops))
+        retrace_end(self, builds0, type(self).__name__)
         return fronts, tiny_total, Shard(grid=grid, nd=nd, rank=rank,
                                          pivots=pivots)
 
+    # ---- the group graphs (``capture``) -----------------------------------
+
+    def _gathered_len(self) -> int:
+        """Elements of the largest group's gather: every slot's pivot and
+        Schur blocks."""
+        return max((g.batch * (g.w * g.w + g.u * g.u)
+                    for g in self.plan.groups), default=1)
+
+    def _buffers(self, avals, thresh):
+        """The graphs' static buffers on the card — the pattern values,
+        the threshold, the pool, the tiny count and the gather's output
+        (the largest group's; every group's gather writes its front), the
+        same tensors at every call — loaded with this call's values."""
+        if self._static is None:
+            from superlu_dist_tpu_torch.ops.dense import capture_stream
+            dev = self.device
+            real = torch.empty((), dtype=self.dtype).real.dtype
+            self._static = types.SimpleNamespace(
+                avals=torch.zeros(avals.shape[0], dtype=self.dtype,
+                                  device=dev),
+                thresh=torch.ones((), dtype=real, device=dev),
+                pool=torch.zeros(self.plan.pool_size, dtype=self.dtype,
+                                 device=dev),
+                tiny=torch.zeros((), dtype=torch.int64, device=dev),
+                gathered=torch.empty(self._gathered_len(), dtype=self.dtype,
+                                     device=dev))
+            self._stream = capture_stream(dev)
+        st = self._static
+        st.avals.copy_(avals.to(dtype=self.dtype))
+        st.thresh.copy_(thresh)
+        st.pool.zero_()
+        st.tiny.zero_()
+        return st
+
+    def _warm(self, st, maps, writes) -> None:
+        """Each distinct local group shape's program once on the capture
+        stream, on the static buffers, its gather answered on this rank
+        alone (:class:`_LocalRows`): cuBLAS handles, workspaces and the
+        kernels' launch attributes exist before any capture, and no
+        collective runs here.  The pool is zeroed after; torch's cached
+        blocks go back to the card (the graphs' private pool cannot take
+        them, and a capture cannot free them when it needs the room)."""
+        from superlu_dist_tpu_torch.numeric import kernels
+        from superlu_dist_tpu_torch.numeric.fused import warm_up
+        local = _LocalRows(self.rank)
+
+        def step(gi):
+            self._group(gi, st.avals, st.pool, st.thresh, maps, writes,
+                        self._unperm, local, gathered=st.gathered)
+        keys = ((gi, (maps[gi].ws.shape[0], g.m, g.w, g.u))
+                for gi, g in enumerate(self.plan.groups))
+        before = kernels.LAUNCHES["front_assemble"]
+        self.graph_stats["warm_up_s"] = warm_up(step, keys, self._stream)
+        # the warm-up's launches are real ones, of the call that captures
+        self.last_warm_up_launches = (kernels.LAUNCHES["front_assemble"]
+                                      - before)
+        st.pool.zero_()
+        torch.cuda.empty_cache()
+        self._warmed = True
+
+    def _unit(self, gi, st, maps, writes) -> tuple:
+        """Group ``gi``'s program on the static buffers ``st`` — what its
+        graph holds: (lp, up, the pivot stack), the tiny count added into
+        ``st.tiny``."""
+        lp, up, piv, t = self._group(gi, st.avals, st.pool, st.thresh, maps,
+                                     writes, self._unperm, self.grid,
+                                     gathered=st.gathered)
+        if t is not None:
+            st.tiny += t
+        return lp, up, piv
+
+    def _run_graph(self, gi, st, maps, writes) -> tuple:
+        """Group ``gi`` as one CUDA graph: captured at its first call on
+        the capture stream with its gather inside
+        (``ProcessGrid.recording``), verify mode's checks of the recorded
+        collectives run before its first replay (``check_tape``); replayed
+        at every call, its collectives counted in ``comm``
+        (``ProcessGrid.replayed``).  Returns its outputs cloned out: every
+        group's graph shares one private pool.  One build in the census,
+        site ``spmd.unit``, key ``g{gi}``."""
+        from superlu_dist_tpu_torch.numeric.fused import Graph
+        grid, hit = self.grid, self._graphs.get(gi)
+        if hit is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            with grid.recording() as tape:
+                graph = Graph(lambda: self._unit(gi, st, maps, writes),
+                              self.device, self._stream, pool=self._pool,
+                              site=UNIT_SITE, key=f"g{gi}")
+            self.captures += 1
+            grid.check_tape(tape)
+            # st, maps, writes: the executor's static buffers and the
+            # device maps cached on the plan and the executor, the same
+            # tensors every call — not key inputs
+            hit = self._graphs[gi] = (graph, tape)  # slulint: disable=SLU105
+        graph, tape = hit
+        graph.replay()
+        grid.replayed(tape)
+        return tuple(t.clone() for t in graph.outputs)
+
     def _group(self, gi, avals, pool, thresh, maps, writes, unperm, grid,
-               timings=None):
+               timings=None, gathered=None):
         """Group ``gi`` on this rank: its own slots through
         ``group_step(write_back=False)``, the gather of every rank's
-        pivot and Schur blocks (``grid.gather_rows``), the pool written in
-        full slot order.  Returns (lp, up, the group's pivot stack, the
-        tiny count, None without own slots)."""
+        pivot and Schur blocks (``grid.gather_rows``, into ``gathered``
+        when given), the pool written in full slot order.  Returns (lp,
+        up, the group's pivot stack, the tiny count, None without own
+        slots).  Each temporary is dropped once used: a captured group
+        holds its working set in the graphs' shared pool."""
         from superlu_dist_tpu_torch.numeric import factor
         grp, dev, t = self.plan.groups[gi], pool.device, None
         w, u, m = grp.w, grp.u, grp.m
@@ -378,19 +576,25 @@ class SpmdFactorExecutor:
             payload = lp[:, :w, :w].reshape(count, w * w)
             if u:
                 payload = torch.cat([payload, schur], dim=1)
+            del schur
         else:
             lp = torch.empty((0, m, w), dtype=self.dtype, device=dev)
             up = torch.empty((0, w, u), dtype=self.dtype, device=dev)
             payload = torch.empty((0, w * w + (u * u if u else 0)),
                                   dtype=self.dtype, device=dev)
         t1 = time.perf_counter()
-        full = grid.gather_rows(payload, self._counts[gi])
-        full = full[unperm[gi]]
-        piv = full[:, :w * w].reshape(grp.batch, w, w).contiguous()
+        full = grid.gather_rows(payload, self._counts[gi], out=gathered)
+        del payload
+        # slot j's row is unperm[gi][j] of the rank-order gather
+        piv = full[unperm[gi], :w * w].reshape(grp.batch, w, w).contiguous()
         if writes[gi] is not None:
-            keep, off = writes[gi]
-            pool[off[:, None] + torch.arange(u * u, device=dev)] = \
-                full[keep, w * w:]
+            rows, off = writes[gi]
+            if torch.is_tensor(rows):
+                pool[off[:, None] + torch.arange(u * u, device=dev)] = \
+                    full[rows, w * w:]
+            else:
+                for r, o in zip(rows, off):
+                    pool[o:o + u * u] = full[r, w * w:]
         if timings is not None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -408,27 +612,94 @@ class SpmdFactorExecutor:
         """``numeric/stream.offload_estimate`` for this rank: the whole
         pool (every rank allocates it), and the whole plan's factors,
         working sets, solve copy and maps, which bound its shares of
-        them."""
+        them.  With ``capture`` the rank's own share (``share``): the pool
+        is static for the executor's life, and beside it the graphs' one
+        private pool keeps every group's outputs — this rank's panels and
+        the pivot stacks (:meth:`offload_sizes`) — and the largest group
+        program's working set (:meth:`graph_step_bytes`), with the static
+        pattern values; then the outputs' clones, which the rank keeps,
+        and its solver's copy (:meth:`solve_copy_bytes`); the warm-up holds
+        one program's working set beside the pool."""
         from superlu_dist_tpu_torch.numeric.stream import offload_estimate
-        return offload_estimate(self.plan, self.dtype, lag=self.offload_lag)
+        if not self.capture:
+            return offload_estimate(self.plan, self.dtype,
+                                    lag=self.offload_lag)
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        kept = [itemsize * n for n in self.offload_sizes()]
+        steps = self.graph_step_bytes(itemsize)
+        step = max(steps, default=0)
+        static = itemsize * (len(self.plan.pattern_indices)
+                             + self._gathered_len())
+        return offload_estimate(
+            self.plan, self.dtype, graphs=sum(kept) + step + static,
+            warm=step + static, lag=self.offload_lag,
+            share=(kept, steps, self.solve_copy_bytes(itemsize)))
+
+    def solve_copy_bytes(self, itemsize: int) -> int:
+        """Device bytes of the grid solver's copy on this rank
+        (:class:`SpmdSolver` on these shards): per sweep batch of the
+        default solve plan the whole pivot stack (a spare element a slot:
+        ``_panel_strided``) and this rank's members' panels; beside them
+        the larger of the largest batch once more (its parts before their
+        concatenation) and a sweep's padded product (``_products``: a
+        member alone in a batch of several multiplies as two slots, a copy
+        of two panels beside the zero slot it is made of)."""
+        from superlu_dist_tpu_torch.solve.plan import build_solve_plan
+        sizes, padded = [], 0
+        for sg in build_solve_plan(self.plan).groups:
+            mine = int(np.count_nonzero(np.asarray(sg.src_slot) % self.nd
+                                        == self.rank))
+            sizes.append(itemsize * (sg.batch * (sg.w * sg.w + 1)
+                                     + mine * ((sg.w + sg.u) * sg.w
+                                               + sg.w * sg.u)))
+            if mine == 1 and sg.batch > 1:
+                padded = max(padded, 3 * itemsize * sg.w * sg.u)
+        return sum(sizes) + max(max(sizes, default=0), padded)
+
+    def graph_step_bytes(self, itemsize: int) -> list:
+        """Per group, the device bytes its captured program holds at once
+        beyond the static buffers (its gather's output among them) and its
+        outputs, at this rank's c slots: the group step's
+        (``numeric/stream.group_work_bytes`` at c), its pivot and Schur
+        payload (c rows) beside the pivot stack, and an indexed pool
+        write's values with their int64 indices (``_write_maps``)."""
+        from superlu_dist_tpu_torch.numeric.stream import group_work_bytes
+        out = []
+        for gi, g in enumerate(self.plan.groups):
+            c = int(self._counts[gi][self.rank])
+            row = g.w * g.w + g.u * g.u
+            step = (group_work_bytes(g, itemsize, c)
+                    + itemsize * (c * row + g.batch * g.w * g.w))
+            if 0 < g.u * g.u < SLOT_COPY_ELEMS:
+                step += (itemsize + 8) * g.batch * g.u * g.u
+            out.append(step)
+        return out
 
     def report(self) -> dict:
-        return {"executor": self.name, "granularity": "group",
-                "offload": self.offload,
-                "offload_wait_s": self.last_offload_wait_seconds,
-                "offload_rule": dict(self.offload_rule),
-                "host_bytes": self.host_bytes,
-                "host_levels": 0, "host_groups": 0,
-                "nd": self.nd, "rank": self.rank,
-                "backend": self.grid.backend,
-                "owned_groups": sum(
-                    1 for g in self.plan.groups if self.rank < g.batch),
-                "local_flops": self.local_flops,
-                "executed_flops": self.executed_flops,
-                "dispatch_s": self.last_dispatch_seconds,
-                "gather_bytes": self.last_gather["bytes"],
-                "gather_s": self.last_gather["seconds"],
-                "gathers": self.last_gather["calls"]}
+        rep = {"executor": self.name, "granularity": "group",
+               "offload": self.offload,
+               "offload_wait_s": self.last_offload_wait_seconds,
+               "offload_rule": dict(self.offload_rule),
+               "host_bytes": self.host_bytes,
+               "host_levels": 0, "host_groups": 0,
+               "nd": self.nd, "rank": self.rank,
+               "backend": self.grid.backend,
+               "owned_groups": sum(
+                   1 for g in self.plan.groups if self.rank < g.batch),
+               "local_flops": self.local_flops,
+               "executed_flops": self.executed_flops,
+               "dispatch_s": self.last_dispatch_seconds,
+               "gather_bytes": self.last_gather["bytes"],
+               "gather_s": self.last_gather["seconds"],
+               "gathers": self.last_gather["calls"],
+               "capture": self.capture}
+        if self.capture:
+            from superlu_dist_tpu_torch.numeric.fused import graph_totals
+            rep.update(graph_totals(g for g, _ in self._graphs.values()),
+                       graph_kind="unit",
+                       warm_up_launches=self.last_warm_up_launches,
+                       **self.graph_stats)
+        return rep
 
 
 def _padded(t: torch.Tensor, rows: int) -> torch.Tensor:
@@ -518,6 +789,9 @@ from superlu_dist_tpu_torch.solve.device import (DeviceSolver,  # noqa: E402
                                                  sweep_maps)
 from superlu_dist_tpu_torch.solve.plan import build_solve_plan  # noqa: E402
 
+#: a solve mode's tag in the JAX SpmdSolver's program labels
+_MODE_TAG = {"N": "", "T": "T", "C": "H"}
+
 
 class SpmdSolver(DeviceSolver):
     """Solve (L·U)x = d over the sharded factors of a grid — collective:
@@ -532,11 +806,23 @@ class SpmdSolver(DeviceSolver):
     contribution GEMM on this rank's members only — a member's owner is
     the owner of its factor slot — then one all-gather of the per-member
     products, un-permuted to sweep order, and the replayed scatter.
-    DiagInv and CUDA graphs are off (the sweeps hold collectives).
-    Factors offloaded to host memory (``fact.on_host``) are solved there,
-    collectively, on the grid's host view (``ProcessGrid.host``: its gloo
-    groups) — the JAX driver's rule that offloaded factors solve on the
-    host (drivers/gssvx.py:180-187), without uploading them again.
+    DiagInv is off, as in the JAX package.
+
+    ``fused`` (None: ``grid.capturable``): each sweep of a (mode, nrhs
+    bucket) is one CUDA graph holding its collectives, captured at the
+    bucket's first solve (``DeviceSolver._capture`` inside
+    ``ProcessGrid.recording``; ``check_tape`` before it first runs,
+    ``replayed`` at each replay), whatever the plan's batch count: the
+    JAX ``SpmdSolver`` is one program a bucket always, so
+    ``FUSE_MAX_BATCHES`` does not apply.  Census and audit site
+    ``solve.spmd``, key ``spmd{t}-sweep n{n} k{kb}`` (t "", "T" or "H":
+    the JAX label; the audits walk both sweeps of a bucket as its one
+    program).  On gloo and the CPU the sweeps run eagerly between their
+    collectives.  Factors offloaded to host memory (``fact.on_host``) are
+    solved there, eagerly and collectively, on the grid's host view
+    (``ProcessGrid.host``: its gloo groups) — the JAX driver's rule that
+    offloaded factors solve on the host (drivers/gssvx.py:180-187),
+    without uploading them again.
 
     On the 2-D tier (``Shard.cols``: parallel/mesh_stream.py) a member
     belongs to its slot's process row, and a rank holds only its own
@@ -549,7 +835,7 @@ class SpmdSolver(DeviceSolver):
                  align: float = 1.25, trsm_leaf: int = 64,
                  nrhs_max: int | None = None,
                  nrhs_growth: float | None = None,
-                 gemm_prec: str | None = None):
+                 gemm_prec: str | None = None, fused: bool | None = None):
         import threading
         from superlu_dist_tpu_torch.ops.dense import gemm_precision
         from superlu_dist_tpu_torch.utils.options import env_float, env_int
@@ -575,7 +861,12 @@ class SpmdSolver(DeviceSolver):
                                       nrhs_growth=nrhs_growth)
         self.n = plan.n
         self.device = dev = self.grid.device
-        self.fused = False
+        if fused is None:
+            fused = self.grid.capturable
+        if fused and not self.grid.capturable:
+            raise ValueError("a CUDA graph holds the collectives of an NCCL "
+                             "grid only, each rank on a card of its own")
+        self.fused = bool(fused)
         self.last_solve_stats = None
         self._groups = sweep_maps(self.splan, plan.sf, dev)
         nd, rank = self.nd, self.rank
@@ -630,6 +921,8 @@ class SpmdSolver(DeviceSolver):
         self.uploaded_bytes = 0
         self._invs_cached = [(None, None)] * len(self._groups)
         self._buffers, self._graphs, self._pool = {}, {}, None
+        self._captured = set()
+        self._tapes = {}          # sweep graph -> its collectives' records
         self.graph_pool_bytes = 0
         self._submitted = set()
         self._lock = threading.Lock()
@@ -690,8 +983,46 @@ class SpmdSolver(DeviceSolver):
         self.gathered_bytes += sum(t.numel() * t.element_size()
                                    for t in (piv, l21, u12))
 
-    #: the build site the sweep programs are audited under
-    audit_site = "spmd._sweep"
+    #: the build site the sweep programs are audited and captured under
+    #: (the JAX package's, parallel/spmd.py:447-462)
+    audit_site = "solve.spmd"
+
+    def _label(self, mode, kb) -> str:
+        return f"spmd{_MODE_TAG[mode]}-sweep n{self.n} k{kb}"
+
+    def _census(self, mode, kb) -> tuple:
+        return self.audit_site, self._label(mode, kb)
+
+    def _audit_sweep(self, direction, mode, kb, x, lsum) -> None:
+        """Submit the forward and backward sweeps of (mode, bucket kb) to
+        the runtime audits as one program — the JAX package's one program
+        a bucket — before they first run, x and lsum declared dead."""
+        key = (mode, kb, self.fused)
+        if key in self._submitted:
+            return
+        self._submitted.add(key)
+        maybe_audit(self.audit_site, self._label(mode, kb),
+                    functools.partial(self._sweeps, mode),
+                    (x, lsum, self._state(mode)), dead=(0, 1))
+
+    def _sweeps(self, mode, x, lsum, state) -> None:
+        """Both sweeps of ``mode``, the audited program."""
+        self._sweep("fwd", mode, x, lsum, state)
+        self._sweep("bwd", mode, x, lsum, state)
+
+    @contextlib.contextmanager
+    def _recording(self, key):
+        """The capture of sweep graph ``key`` records its collectives
+        (``ProcessGrid.recording``); verify mode checks them against the
+        peers' before the graph first runs."""
+        with self.grid.recording() as tape:
+            yield
+        self.grid.check_tape(tape)
+        self._tapes[key] = tape
+
+    def _replay(self, key) -> None:
+        super()._replay(key)
+        self.grid.replayed(self._tapes[key])
 
     def _state(self, mode) -> tuple:
         """What a sweep reads besides x and lsum: the batches' maps, the

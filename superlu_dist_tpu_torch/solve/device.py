@@ -47,6 +47,7 @@ synchronizes.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import time
@@ -476,13 +477,29 @@ class DeviceSolver:
                 _bwd_body_trans(lp, x, cols, rows, sg.w, sg.u, conj, leaf,
                                 prec)
 
+    def _census(self, mode, kb) -> tuple:
+        """The census (site, key) of a sweep graph of ``mode`` at bucket
+        kb: the JAX package's label (solve/device.py:593-600)."""
+        return ("solve.device",
+                f"solve n{self.n} nrhs{kb} "
+                f"{'fused' if self.fused else 'stream'}")
+
+    def _recording(self, key):
+        """What the capture of sweep graph ``key`` runs inside, besides
+        the capture itself: nothing here (a grid's solver records its
+        collectives, parallel/spmd.SpmdSolver)."""
+        return contextlib.nullcontext()
+
+    def _replay(self, key) -> None:
+        """One replay of sweep graph ``key`` (direction, mode, bucket)."""
+        self._graphs[key].replay()
+
     def _capture(self, direction, mode, kb):
         """Capture the CUDA graph of one sweep on bucket kb's static
         buffers, after one eager warm-up run on the capture stream (the
         buffers' contents are overwritten; the caller loads them after).
-        The capture is one build in the census, under the JAX package's
-        label (solve/device.py:593-600); a bucket captured again is a
-        retrace for the sentinel."""
+        The capture is one build in the census (``_census``); a bucket
+        captured again is a retrace for the sentinel."""
         x, lsum = self._buffers[kb]
         dev = self.device
         if self._pool is None:
@@ -498,9 +515,10 @@ class DeviceSolver:
         # allocator's whole cache before every capture; the private pool's
         # segments are new, so the reserved bytes' growth is the graph's
         from superlu_dist_tpu_torch.numeric.fused import gc_paused
+        key = (direction, mode, kb)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with gc_paused(), torch.cuda.stream(stream):
+        with gc_paused(), torch.cuda.stream(stream), self._recording(key):
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
             try:
@@ -508,12 +526,9 @@ class DeviceSolver:
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(stream)
-        COMPILE_STATS.record(
-            "solve.device",
-            f"solve n{self.n} nrhs{kb} {'fused' if self.fused else 'stream'}",
-            t0, time.perf_counter() - t0, n_args=3)
+        COMPILE_STATS.record(*self._census(mode, kb), t0,
+                             time.perf_counter() - t0, n_args=3)
         self.graph_pool_bytes += torch.cuda.memory_reserved(dev) - reserved
-        key = (direction, mode, kb)
         if key in self._captured:
             RETRACE_SENTINEL.record(type(self).__name__, 1, get_tracer())
         self._captured.add(key)
@@ -562,8 +577,8 @@ class DeviceSolver:
                     x = self._buffers[kb][0]
                     x.zero_()
                     x[:self.n, :hi - lo] = src
-                    self._graphs[("fwd", mode, kb)].replay()
-                    self._graphs[("bwd", mode, kb)].replay()
+                    self._replay(("fwd", mode, kb))
+                    self._replay(("bwd", mode, kb))
                 else:
                     with matmul_tf32(False):
                         x = torch.zeros((self.n + 1, kb), dtype=dt,

@@ -1471,6 +1471,71 @@ def test_grid_unit_graphs_on_distinct_cards(cuda, executor, shape, nx):
             assert rec["executor"] == "mesh-" + executor
 
 
+_SPMD_DISTINCT = {}
+
+
+def _spmd_distinct_cards(shape):
+    """The spmd tier on an nprow × npcol grid of distinct cards (NCCL),
+    one spawned run a shape (cached): poisson3d(16) and (25), the eager
+    and the captured executor and the grid solver's sweeps."""
+    import torch_mesh_cases as cases
+    from superlu_dist_tpu_torch.testing.ranks import run_mesh_ranks
+    need = shape[0] * shape[1]
+    count = torch.cuda.device_count()
+    if count < need:
+        pytest.skip(f"needs {need} distinct cards, {count} visible")
+    if shape not in _SPMD_DISTINCT:
+        _SPMD_DISTINCT[shape] = run_mesh_ranks(
+            need, cases.spmd_on_distinct_cards,
+            [("poisson3d", (nx,), 0, None) for nx in (16, 25)],
+            device="cuda", nprow=shape[0], timeout=1200)
+    return _SPMD_DISTINCT[shape]
+
+
+@pytest.mark.parametrize("nx", [16, 25])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_spmd_group_graphs_on_distinct_cards(cuda, shape, nx):
+    """NCCL on a 1×2 and a 2×2 grid of distinct cards, float32 at the
+    default tier: the spmd executor captures one graph a group with its
+    gather inside (census site spmd.unit, one record a group) at its
+    first call and replays them at a SamePattern ×1.5 call, 0 captures,
+    0 retraces and no collective issued from the host (the tiny count's
+    all-reduce aside); each rank's fronts and pivot stacks bit for bit
+    the eager spmd executor's on the same values at both calls, the tiny
+    counts equal."""
+    out = _spmd_distinct_cards(shape)
+    for r, rank in out.items():
+        assert rank["backend"] == "nccl" and rank["capturable"], rank
+        rec = rank["runs"][nx]
+        capture, replay = rec["runs"]
+        assert rec["report"]["capture"] and rec["report"]["graph_kind"] \
+            == "unit" and rec["report"]["graphs"] == rec["groups"], rec
+        assert (capture["graphs"], replay["graphs"]) == (rec["groups"], 0)
+        assert capture["retraces"] == replay["retraces"] == 0, rec
+        assert replay["issued"] == 0, (r, replay)
+        for run in (capture, replay):
+            assert run["equal"] and run["pivots"], (r, run["drift"])
+            assert run["tiny"][0] == run["tiny"][1]
+
+
+@pytest.mark.parametrize("nx", [16, 25])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_spmd_solve_graphs_on_distinct_cards(cuda, shape, nx):
+    """The grid solver on the captured spmd shards captures its two sweep
+    graphs at a bucket's first solve (census site solve.spmd) — nrhs 1
+    and 4 — and replays them at the second, which issues no collective
+    from the host; its x bit for bit the eager sweeps' at both."""
+    out = _spmd_distinct_cards(shape)
+    for r, rank in out.items():
+        rec = rank["runs"][nx]
+        assert rec["fused"], rec
+        for k, (first, second) in rec["solves"].items():
+            assert (first["graphs"], second["graphs"]) == (2, 0), (r, k)
+            assert second["issued"] == 0, (r, k, second)
+            assert first["equal"] and second["equal"], (r, k, first["diff"],
+                                                       second["diff"])
+
+
 def test_offloaded_grid_factors_lie_in_pinned_host_memory(cuda):
     """front_bytes_limit=0 on a 1×2 grid on one card: every rank's fronts
     and pivot stacks in pinned host memory, bit for bit the non-offloaded

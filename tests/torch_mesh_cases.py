@@ -1241,3 +1241,410 @@ def row_suite(tc, grid, items):
                     grid.npcol, device=grid.device)
             for r in range(grid.nprow)]
     return suite(tc, rows[grid.prow], items)
+
+
+# ---- the spmd tier captured (parallel/spmd.py on a capturable grid) -----
+
+class _EagerGraph:
+    """``numeric/fused.Graph`` on the CPU, for the spmd executor's capture
+    path on a grid that claims to be capturable (:func:`eager_capture`):
+    the function runs once at the "capture" (inside the executor's
+    recording) — the capture and the replay right after it on the card —
+    and each later replay runs it again inside a recording of its own (no
+    host check runs for its collectives, as for a graph's) and writes its
+    outputs into the first run's, as a graph rewrites its static
+    outputs.  One census record a graph, as ``Graph``."""
+
+    grid = None          # the capturable stand-in the replays record on
+
+    def __init__(self, fn, device, stream, pool=None, *, site, key):
+        import time
+        from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+        self.fn, self.outputs, self.fresh = fn, fn(), True
+        self.capture_s = self.instantiate_s = 0.0
+        self.nodes, self.device_bytes, self.host_bytes = None, 0, 0
+        self.replays, self.launches = 0, {}
+        COMPILE_STATS.record(site, key, time.perf_counter(), 0.0)
+
+    def replay(self):
+        self.replays += 1
+        if self.fresh:
+            self.fresh = False
+            return self.outputs
+        with _EagerGraph.grid.recording():
+            new = self.fn()
+        for out, t in zip(self.outputs, new):
+            out.copy_(t)
+        return self.outputs
+
+
+def _capturable(grid):
+    """``grid`` as a grid whose collectives a CUDA graph could hold: the
+    same groups, ``comm`` and ``seq`` records, ``capturable`` True."""
+    import dataclasses
+    from superlu_dist_tpu_torch.parallel.grid import ProcessGrid
+
+    class CapturableGrid(ProcessGrid):
+        capturable = True
+    return CapturableGrid(**{f.name: getattr(grid, f.name)
+                             for f in dataclasses.fields(grid)})
+
+
+class eager_capture:
+    """Within the block the spmd executor's capture path runs on CPU
+    ranks: ``grid`` as a capturable grid (the block's value),
+    ``fused.Graph`` → :class:`_EagerGraph`, the warm-up run in place, no
+    capture stream and no graph pool."""
+
+    def __init__(self, grid):
+        self.grid = _capturable(grid)
+
+    def __enter__(self):
+        from superlu_dist_tpu_torch.numeric import fused
+        from superlu_dist_tpu_torch.ops import dense
+
+        def warm_up(step, keys, stream):
+            seen = {}
+            for i, key in keys:
+                seen.setdefault(key, i)
+            for i in seen.values():
+                step(i)
+            return 0.0
+        self.saved = (fused.Graph, fused.warm_up, dense.capture_stream,
+                      torch.cuda.graph_pool_handle)
+        _EagerGraph.grid = self.grid
+        fused.Graph, fused.warm_up = _EagerGraph, warm_up
+        dense.capture_stream = lambda device: None
+        torch.cuda.graph_pool_handle = lambda: None
+        return self.grid
+
+    def __exit__(self, *exc):
+        from superlu_dist_tpu_torch.numeric import fused
+        from superlu_dist_tpu_torch.ops import dense
+        (fused.Graph, fused.warm_up, dense.capture_stream,
+         torch.cuda.graph_pool_handle) = self.saved
+        _EagerGraph.grid = None
+        return False
+
+
+class _counted_checks:
+    """Within the block every verify check of a grid collective is noted:
+    ``flags`` holds, per check, whether a capture was recording."""
+
+    def __enter__(self):
+        from superlu_dist_tpu_torch.parallel.grid import ProcessGrid
+        self.real, self.flags = ProcessGrid._check, []
+        flags, real = self.flags, self.real
+
+        def counted(grid, *a, **kw):
+            flags.append(grid.tape is not None)
+            return real(grid, *a, **kw)
+        ProcessGrid._check = counted
+        return self
+
+    def __exit__(self, *exc):
+        from superlu_dist_tpu_torch.parallel.grid import ProcessGrid
+        ProcessGrid._check = self.real
+        return False
+
+
+def _recorded_solve(s, rhs, mode):
+    """``s``'s sweeps of ``mode`` on ``rhs`` (n, k) driven as a capture
+    drives them: each inside the solver's own recording hook (which runs
+    ``check_tape`` after it) on a bucket's (n+1, kb) buffers; x (n, k)."""
+    from superlu_dist_tpu_torch.solve.plan import chunk_nrhs
+    n, k = rhs.shape
+    (_, _, kb), = chunk_nrhs(k, s.splan.nrhs_bucket_set)
+    x = torch.zeros((n + 1, kb), dtype=s.fact.dtype)
+    x[:n, :k] = torch.as_tensor(rhs, dtype=s.fact.dtype)
+    lsum = torch.zeros_like(x)
+    for direction in ("fwd", "bwd"):
+        with s._recording((direction, mode, kb)):
+            s._sweep(direction, mode, x, lsum)
+    return x[:n, :k].numpy()
+
+
+def _solves_recorded_vs_eager(fact, grid, rhs):
+    """SpmdSolver on ``fact``: its sweeps recorded (``_recorded_solve``)
+    against its eager solves at NOTRANS (nrhs 1 and all of ``rhs``'s
+    columns) and TRANS, bit for bit; the verify checks during and after
+    the recordings; the records' ops; x at NOTRANS."""
+    s = SpmdSolver(fact, fused=False)
+    out, xs = {}, {}
+    with _counted_checks() as checks:
+        for name, mode, r in (("N1", "N", rhs[:, :1]), ("N", "N", rhs),
+                              ("T", "T", rhs)):
+            xs[name] = _recorded_solve(s, r, mode)
+    eager = {"N1": s.solve(rhs[:, :1]), "N": s.solve(rhs),
+             "T": s.solve_trans(rhs)}
+    for name, x in xs.items():
+        out[name] = bool(np.array_equal(x, eager[name].reshape(x.shape)))
+    tapes = list(s._tapes.values())
+    return dict(equal=out, during=any(checks.flags),
+                checked=len(checks.flags),
+                records=sum(len(t) for t in tapes),
+                ops=sorted({r["op"] for t in tapes for r in t}),
+                x=xs["N"], label=s._label("N", 4), site=s.audit_site,
+                fused=s.fused)
+
+
+def spmd_captured(tc, grid, plan, vals, anorm, rhs):
+    """The spmd executor (float64) captured as on an NCCL grid — its
+    group programs recorded, one "graph" a group (``eager_capture``) —
+    called twice with SLU_TPU_VERIFY_COLLECTIVES on, against the eager
+    spmd executor on the same grid: fronts, pivot stacks and tiny count
+    bit for bit at both calls; the census records, retraces and verify
+    checks of each call; the gathers counted at the replay; the report;
+    then the recorded solver sweeps against the eager ones on these
+    shards and on the 2-D tier's (the eager 2-D executor's, partitioned
+    pool).  Rank 0 also returns the captured fronts gathered to slot
+    order and x."""
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.parallel import spmd
+    from superlu_dist_tpu_torch.parallel.mesh_stream import (
+        MeshStreamExecutor)
+    from superlu_dist_tpu_torch.parallel.spmd import (UNIT_SITE,
+                                                      SpmdFactorExecutor)
+    dtype = torch.float64
+    thresh = float(np.sqrt(np.finfo(np.float64).eps) * anorm)
+    want = _grid_numeric(SpmdFactorExecutor(plan, dtype, grid.device, grid),
+                         vals, thresh)
+    calls = []
+    with eager_capture(grid) as cgrid:
+        # every Schur block written one slice copy a slot (the card's way
+        # for large blocks), against the eager executor's indexed writes
+        saved, spmd.SLOT_COPY_ELEMS = spmd.SLOT_COPY_ELEMS, 1
+        try:
+            ex = SpmdFactorExecutor(plan, dtype, cgrid.device, cgrid)
+            ex._write_maps()
+        finally:
+            spmd.SLOT_COPY_ELEMS = saved
+        for _ in range(2):
+            mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total,
+                    dict(cgrid.comm.get("gather_rows", {"calls": 0})))
+            with _counted_checks() as checks:
+                num = _grid_numeric(ex, vals, thresh)
+            recs = COMPILE_STATS.records[mark[0]:]
+            calls.append(dict(
+                graphs=sum(r.site == UNIT_SITE for r in recs),
+                retraces=RETRACE_SENTINEL.total - mark[1],
+                during=any(checks.flags), checked=len(checks.flags),
+                gathers=cgrid.comm["gather_rows"]["calls"]
+                - mark[2]["calls"],
+                equal=_equal_fronts(num.fronts, want.fronts),
+                pivots=all(torch.equal(p, q) for p, q in
+                           zip(num.shard.pivots, want.shard.pivots)),
+                tiny=(num.tiny_pivots, want.tiny_pivots)))
+        rep = ex.report()
+        records = [t for _, t in ex._graphs.values()]
+        full = gather_fronts(num)
+    two_d = _grid_numeric(MeshStreamExecutor(plan, dtype, grid.device, grid,
+                                             pool_partition=True),
+                          vals, thresh)
+    out = dict(calls=calls, groups=len(plan.groups),
+               graph_kind=rep.get("graph_kind"), graphs=rep.get("graphs"),
+               capture=rep["capture"], estimate=ex.device_estimate(),
+               slot_writes=sum(w is not None and not torch.is_tensor(w[0])
+                               for w in ex._write_maps()),
+               eager_capture=want.executor["capture"],
+               ops=sorted({r["op"] for t in records for r in t}),
+               gathered=sum(r["op"] == "gather_rows"
+                            for t in records for r in t),
+               solve_1d=_solves_recorded_vs_eager(want, grid, rhs),
+               solve_2d=_solves_recorded_vs_eager(two_d, grid, rhs))
+    if grid.rank == 0:
+        out["fronts"] = [(lp.numpy(), up.numpy()) for lp, up in full]
+    return out
+
+
+def spmd_capture_diverged(tc, grid, plan, vals, anorm):
+    """The captured spmd executor (``eager_capture``, verify mode on) with
+    rank 1's record of group 0's first gather saying another shape (a
+    program that diverged): ``check_tape`` must raise
+    CollectiveMismatchError on every rank before the group's graph would
+    first run, and no check ran while a program recorded."""
+    from superlu_dist_tpu_torch.parallel.grid import ProcessGrid
+    from superlu_dist_tpu_torch.parallel.spmd import SpmdFactorExecutor
+    from superlu_dist_tpu_torch.utils.errors import CollectiveMismatchError
+    real = ProcessGrid.check_tape
+
+    def diverge(self, tape):
+        if self.rank == 1 and tape:
+            tape[0] = dict(tape[0], shape=(tape[0]["shape"][0] + 1,)
+                           + tuple(tape[0]["shape"][1:]))
+        return real(self, tape)
+    thresh = float(np.sqrt(np.finfo(np.float64).eps) * anorm)
+    ProcessGrid.check_tape = diverge
+    try:
+        with eager_capture(grid) as cgrid, _counted_checks() as checks:
+            ex = SpmdFactorExecutor(plan, torch.float64, cgrid.device, cgrid)
+            try:
+                _grid_numeric(ex, vals, thresh)
+            except CollectiveMismatchError as e:
+                return dict(raised=True, during=any(checks.flags),
+                            message=str(e)[:200], graphs=len(ex._graphs))
+    finally:
+        ProcessGrid.check_tape = real
+    return dict(raised=False, during=any(checks.flags))
+
+
+def spmd_graph_decision(tc, grid, plan, vals, anorm):
+    """Which sweeps SpmdSolver captures, with FUSE_MAX_BATCHES at 0 (every
+    plan over it): on a capturable grid (the stand-in) it captures, on
+    this gloo grid it does not, and asking a gloo grid's solver for
+    graphs raises; the capturing spmd executor asked of a gloo grid
+    raises too."""
+    import dataclasses
+    from superlu_dist_tpu_torch.parallel.spmd import SpmdFactorExecutor
+    from superlu_dist_tpu_torch.solve import device
+    fact = numeric_factorize(plan, vals, anorm, dtype=torch.float64,
+                             device="cpu", executor="spmd", grid=grid)
+    saved, device.FUSE_MAX_BATCHES = device.FUSE_MAX_BATCHES, 0
+    refused = []
+    try:
+        with eager_capture(grid) as cgrid:
+            shard = dataclasses.replace(fact.shard, grid=cgrid)
+            capturable = SpmdSolver(dataclasses.replace(fact, shard=shard))
+        gloo = SpmdSolver(fact)
+        for make in (lambda: SpmdSolver(fact, fused=True),
+                     lambda: SpmdFactorExecutor(plan, torch.float64,
+                                                grid.device, grid,
+                                                capture=True)):
+            try:
+                make()
+                refused.append(False)
+            except ValueError:
+                refused.append(True)
+    finally:
+        device.FUSE_MAX_BATCHES = saved
+    return dict(batches=len(gloo.splan.groups), capturable=capturable.fused,
+                gloo=gloo.fused, refused=refused)
+
+
+def spmd_capture_peak(tc, grid, nx):
+    """The captured spmd executor (``eager_capture``, float32, the scatter
+    and the panel LU quiet as ``testing/livebytes.trace_pgssvx`` has them)
+    on poisson3d(nx): this CPU rank's device memory traced over its
+    capturing call, a replay, the grid solver's construction and a
+    solve (``testing/livebytes.LiveBytes``), against its estimate with
+    ``capture`` (the card's rule's bytes) and the eager executor's.  The
+    graph path takes the scatter kernel only (``fused.check_graph_scatter``),
+    which a quiet wrapper is not: that check is off here."""
+    from superlu_dist_tpu_torch.numeric import fused
+    from superlu_dist_tpu_torch.numeric.factor import NumericFactorization
+    from superlu_dist_tpu_torch.parallel.spmd import SpmdFactorExecutor
+    from superlu_dist_tpu_torch.testing.livebytes import LiveBytes
+    lu, bvals, _ = slt.analyze(slt.Options(), gallery.poisson3d(nx),
+                               device="cpu")
+    plan, dtype = lu.plan, torch.float32
+    thresh = torch.tensor(float(np.sqrt(np.finfo(np.float32).eps)
+                                * lu.anorm), dtype=dtype)
+    avals = torch.as_tensor(np.asarray(bvals)).to(dtype)
+    rhs = np.random.default_rng(5).standard_normal((plan.n, 1))
+    mode = LiveBytes()
+    with eager_capture(grid) as cgrid:
+        ex = SpmdFactorExecutor(plan, dtype, cgrid.device, cgrid)
+        eager = SpmdFactorExecutor(plan, dtype, grid.device, grid)
+        est = ex.device_estimate()
+        ex.scatter, ex.panel = mode.quiet(ex.scatter), mode.quiet(ex.panel)
+        check, fused.check_graph_scatter = (fused.check_graph_scatter,
+                                            lambda scatter: None)
+        try:
+            with mode:
+                for _ in range(2):
+                    fronts, tiny, shard = ex(avals, thresh)
+                fact = NumericFactorization(plan=plan, fronts=fronts,
+                                            tiny_pivots=int(tiny),
+                                            dtype=dtype, shard=shard)
+                SpmdSolver(fact, fused=False).solve(rhs)
+        finally:
+            fused.check_graph_scatter = check
+    return dict(peak=mode.peak, estimate=est["bytes"],
+                eager=eager.device_estimate()["bytes"],
+                graph_bytes=est["graph_bytes"])
+
+
+def spmd_on_distinct_cards(tc, grid, specs):
+    """On a grid of distinct cards (NCCL), per spec in float32 at the
+    default tier: the eager spmd executor (``capture=False``) on the
+    values and on the values × 1.5, then the captured one — its capturing
+    call and a replay on the values × 1.5 — each call against the eager
+    run on the same values: this rank's fronts and pivot stacks bit for
+    bit, the tiny counts; the group graphs in the census (spmd.unit) at
+    the capture and none at the replay, the retraces, the collectives the
+    replay issued from the host; then the grid solver on the captured
+    shards, its sweeps captured (``SpmdSolver`` on this grid) against its
+    eager sweeps (``fused=False``) at nrhs 1 and 4: x bit for bit, the
+    sweep graphs (solve.spmd) at a bucket's first solve, and at its
+    second none and no collective issued from the host."""
+    import torch.distributed as dist
+    from superlu_dist_tpu_torch.numeric.stream import RETRACE_SENTINEL
+    from superlu_dist_tpu_torch.obs.compilestats import COMPILE_STATS
+    from superlu_dist_tpu_torch.parallel.spmd import (UNIT_SITE,
+                                                      SpmdFactorExecutor)
+    issued = [0]
+    real = {k: getattr(dist, k) for k in ("broadcast", "all_to_all_single",
+                                          "all_gather",
+                                          "all_gather_into_tensor")}
+
+    def counting(fn):
+        def run(*a, **kw):
+            issued[0] += 1
+            return fn(*a, **kw)
+        return run
+    for k, fn in real.items():
+        setattr(dist, k, counting(fn))
+    out = {}
+    try:
+        for spec in specs:
+            a, _ = _system(spec)
+            lu, bvals, _ = slt.analyze(slt.Options(), a, device=grid.device)
+            plan, dt = lu.plan, torch.float32
+            thresh = float(np.sqrt(np.finfo(np.float32).eps) * lu.anorm)
+            eager = SpmdFactorExecutor(plan, dt, grid.device, grid,
+                                       capture=False)
+            want = [_grid_numeric(eager, bvals * s, thresh, dt)
+                    for s in (1.0, 1.5)]
+            ex = SpmdFactorExecutor(plan, dt, grid.device, grid)
+            runs = []
+            for s, w in zip((1.0, 1.5), want):
+                mark = (COMPILE_STATS.marker(), RETRACE_SENTINEL.total)
+                issued[0] = 0
+                num = _grid_numeric(ex, bvals * s, thresh, dt)
+                torch.cuda.synchronize(grid.device)
+                recs = COMPILE_STATS.records[mark[0]:]
+                runs.append(dict(
+                    graphs=sum(r.site == UNIT_SITE for r in recs),
+                    retraces=RETRACE_SENTINEL.total - mark[1],
+                    issued=issued[0], tiny=(num.tiny_pivots, w.tiny_pivots),
+                    equal=_equal_fronts(num.fronts, w.fronts),
+                    drift=_max_rel(num.fronts, w.fronts),
+                    pivots=all(torch.equal(p, q) for p, q in
+                               zip(num.shard.pivots, w.shard.pivots))))
+            rhs = np.random.default_rng(9).standard_normal((plan.n, 4))
+            s_eager, s_graphs = SpmdSolver(num, fused=False), SpmdSolver(num)
+            solves = {}
+            for k in (1, 4):
+                x0 = s_eager.solve(rhs[:, :k])
+                solves[k] = []
+                for _ in range(2):
+                    mark = COMPILE_STATS.marker()
+                    issued[0] = 0
+                    x = s_graphs.solve(rhs[:, :k])
+                    solves[k].append(dict(
+                        equal=bool(np.array_equal(x, x0)),
+                        diff=float(np.abs(x - x0).max()), issued=issued[0],
+                        graphs=sum(r.site == "solve.spmd" for r in
+                                   COMPILE_STATS.records[mark:])))
+            out[spec[1][0]] = dict(runs=runs, groups=len(plan.groups),
+                                   report=ex.report(), fused=s_graphs.fused,
+                                   solves=solves,
+                                   retraces=RETRACE_SENTINEL.total)
+            plan.__dict__.pop("_factor_fns", None)
+            del ex, eager, s_eager, s_graphs
+    finally:
+        for k, fn in real.items():
+            setattr(dist, k, fn)
+    return dict(backend=grid.backend, capturable=grid.capturable,
+                device=str(grid.device), runs=out)
